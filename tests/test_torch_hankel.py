@@ -1,0 +1,79 @@
+"""Parity of the port's fused randomized Hankel SVD with the JAX package.
+
+One Gaussian sketch, drawn by JAX from ``jax.random.key(0)`` exactly as
+``hankel_randomized_svd_fused`` draws it, goes to both sides (the port's
+core takes omega as a tensor), so the two runs share every iterate.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmd_era5_tpu.ops.hankel import hankel_randomized_svd_fused as hankel_jax
+from dmd_era5_tpu.snapmat.transform import delay_embed_np
+from dmd_era5_tpu_torch.ops.hankel import (
+    hankel_randomized_svd_fused,
+    hankel_randomized_svd_fused_core,
+    stacked_sketch_matrix,
+)
+
+
+def _decaying(rng, s=96, t=64):
+    x = (
+        rng.standard_normal((s, 10))
+        * (np.arange(10, 0, -1) ** 2)
+        @ rng.standard_normal((10, t))
+    ).astype(np.float32)
+    return x + 0.01 * rng.standard_normal((s, t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_hankel_randomized_svd_fused_parity(rng, d):
+    s, t, k, n_over = 96, 64, 6, 28
+    x = _decaying(rng, s, t)
+    t_out = t - d + 1
+    omega = np.array(  # a writable copy for torch.from_numpy
+        jax.random.normal(jax.random.key(0), (t_out, k + n_over), dtype=jnp.float32)
+    )
+    res_j = hankel_jax(jnp.asarray(x), d, k, gemm_dtype=jnp.float32, seed=0)
+    res_t = hankel_randomized_svd_fused_core(
+        torch.from_numpy(x), d, k, torch.from_numpy(omega), gemm_dtype=torch.float32
+    )
+    u, sv, v = (r.numpy() for r in res_t)
+    assert u.shape == (d * s, k) and v.shape == (k, t_out)
+    # test_08_kernels.py:147-153; the v-based flip fixes the signs
+    np.testing.assert_allclose(sv, np.asarray(res_j.s), rtol=1e-4)
+    np.testing.assert_allclose(u, np.asarray(res_j.U), atol=1e-3)
+    np.testing.assert_allclose(v, np.asarray(res_j.V), atol=1e-3)
+    # against the SVD of the materialized delay embedding (test_08:368)
+    s_ref = np.linalg.svd(delay_embed_np(x, d), compute_uv=False)
+    np.testing.assert_allclose(sv, s_ref[:k], rtol=2e-3)
+    np.testing.assert_allclose(u.T @ u, np.eye(k), atol=2e-3)
+
+
+def test_hankel_wrapper_draws_from_generator(rng):
+    """The public wrapper draws omega from the torch generator it is
+    given: the same seed gives the same factors."""
+    x = torch.from_numpy(_decaying(rng, 64, 32))
+    a = hankel_randomized_svd_fused(
+        x, 2, 4, generator=torch.Generator().manual_seed(5), gemm_dtype=torch.float32
+    )
+    b = hankel_randomized_svd_fused(
+        x, 2, 4, generator=torch.Generator().manual_seed(5), gemm_dtype=torch.float32
+    )
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+    s_ref = np.linalg.svd(delay_embed_np(x.numpy(), 2), compute_uv=False)
+    np.testing.assert_allclose(a.s.numpy(), s_ref[:4], rtol=2e-3)
+
+
+def test_stacked_sketch_matrix_parity(rng):
+    from dmd_era5_tpu.ops.hankel import stacked_sketch_matrix as stacked_jax
+
+    omega = rng.standard_normal((30, 5)).astype(np.float32)
+    w_t = stacked_sketch_matrix(torch.from_numpy(omega), 3, 32).numpy()
+    np.testing.assert_array_equal(w_t, np.asarray(stacked_jax(jnp.asarray(omega), 3, 32)))
