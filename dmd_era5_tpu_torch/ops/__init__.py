@@ -1,18 +1,41 @@
-"""Operators over the snapshot matrix: the fused kernel pass and the SVDs on it."""
+"""Operators over the snapshot matrix: the fused kernel pass, the Gram
+kernel, tall-skinny QR and the SVDs on them."""
 
 from dmd_era5_tpu_torch.ops.hankel import (
+    hankel_exact_svd,
     hankel_randomized_svd_fused,
     hankel_randomized_svd_fused_core,
     stacked_sketch_matrix,
 )
 from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
-from dmd_era5_tpu_torch.ops.svd import SVDResult, sklearn_n_iter
+from dmd_era5_tpu_torch.ops.qr_panel import cholqr, cholqr2, cholqr2_split, gram
+from dmd_era5_tpu_torch.ops.svd import (
+    SVDResult,
+    exact_truncated_svd,
+    exact_truncated_svd_gram,
+    randomized_svd,
+    sklearn_n_iter,
+    truncated_svd,
+)
+from dmd_era5_tpu_torch.ops.tsqr import default_qr_method, qr_positive, tsqr
 
 __all__ = [
     "SVDResult",
+    "cholqr",
+    "cholqr2",
+    "cholqr2_split",
+    "default_qr_method",
+    "exact_truncated_svd",
+    "exact_truncated_svd_gram",
+    "gram",
+    "hankel_exact_svd",
     "hankel_randomized_svd_fused",
     "hankel_randomized_svd_fused_core",
+    "qr_positive",
+    "randomized_svd",
     "sketch_center_gram_project",
     "sklearn_n_iter",
     "stacked_sketch_matrix",
+    "truncated_svd",
+    "tsqr",
 ]

@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from dmd_era5_tpu_torch.ops import matmul
+from dmd_era5_tpu_torch.ops import matmul, qr_panel
+from dmd_era5_tpu_torch.ops.tsqr import _local_factor, in_householder_kernel_envelope
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "dmd_era5_tpu_torch"
@@ -72,3 +73,39 @@ def test_kernel_range_and_devices_raise():
         matmul.sketch_center_gram_project(x.to("meta"), torch.zeros(12, 4, device="meta"))
     with pytest.raises(ValueError, match="share one dtype"):
         matmul.sketch_center_gram_project(x, torch.zeros(12, 4, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("precision", qr_panel.PRECISIONS)
+def test_cpu_gram_takes_plain_version_and_counts_no_launch(precision):
+    a = torch.randn(130, 20, generator=torch.Generator().manual_seed(2))
+    before = dict(qr_panel.gram.launches)
+    assert torch.equal(qr_panel.gram(a, precision), qr_panel._gram_plain(a, precision))
+    assert qr_panel.gram.launches == before == {p: 0 for p in qr_panel.PRECISIONS}
+
+
+def test_gram_range_and_devices_raise():
+    a = torch.zeros(10, 12)
+    # no range limit: wider than the JAX kernel's K <= 1024 is taken
+    assert qr_panel.gram(torch.zeros(4, 1030)).shape == (1030, 1030)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qr_panel.gram(a.to("meta"))
+    with pytest.raises(ValueError, match="precision must be one of"):
+        qr_panel.gram(a, "high")
+    with pytest.raises(ValueError, match="takes a of dtype"):
+        qr_panel.gram(a.to(torch.bfloat16), "bf16_split")
+    with pytest.raises(ValueError, match="non-empty"):
+        qr_panel.gram(torch.zeros(0, 12))
+
+
+def test_householder_leaf_raises_inside_k7_envelope_off_cpu():
+    """The JAX package runs its Householder panel kernel (K7) on the
+    accelerator inside a 12 MiB envelope; until K7 is ported the port
+    raises there instead of taking a library QR, and takes the library
+    QR outside it, as the JAX package does."""
+    assert in_householder_kernel_envelope(16_384, 64)
+    assert not in_householder_kernel_envelope(16_384, 257)
+    assert not in_householder_kernel_envelope(15_573_600, 110)
+    with pytest.raises(ValueError, match="K7"):
+        _local_factor(torch.zeros(1000, 32, device="meta"), "householder")
+    with pytest.raises(ValueError, match="qr method must be one of"):
+        _local_factor(torch.zeros(10, 4), "xla")

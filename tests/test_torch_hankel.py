@@ -77,3 +77,34 @@ def test_stacked_sketch_matrix_parity(rng):
     omega = rng.standard_normal((30, 5)).astype(np.float32)
     w_t = stacked_sketch_matrix(torch.from_numpy(omega), 3, 32).numpy()
     np.testing.assert_array_equal(w_t, np.asarray(stacked_jax(jnp.asarray(omega), 3, 32)))
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_hankel_exact_svd_matches_materialized_and_jax(rng, d):
+    """test_08_kernels.py:444-468: against the f64 SVD of the materialized
+    embedding (s rtol 1e-5, subspace > 1 - 1e-8, U^T U atol 1e-5), and
+    against the JAX function (s to rtol 1e-5; U and V up to a sign per
+    component, which neither side fixes, to the same 1e-5 scale)."""
+    from dmd_era5_tpu.ops.hankel import hankel_exact_svd as hankel_exact_jax
+    from dmd_era5_tpu_torch.ops.hankel import hankel_exact_svd
+
+    s, t, k = 300, 64, 8
+    a = rng.standard_normal((s, 16))
+    b = rng.standard_normal((16, t))
+    x = ((a * np.logspace(0, -2, 16)) @ b + 1e-4 * rng.standard_normal((s, t))).astype(
+        np.float32
+    )
+    u0, s0, _ = np.linalg.svd(delay_embed_np(x, d).astype(np.float64), full_matrices=False)
+    res = hankel_exact_svd(torch.from_numpy(x), d, k)
+    u, sv, v = (r.numpy() for r in res)
+    assert u.shape == (d * s, k) and v.shape == (k, t - d + 1)
+    np.testing.assert_allclose(sv, s0[:k], rtol=1e-5)
+    qa, _ = np.linalg.qr(u.astype(np.float64))
+    qb, _ = np.linalg.qr(u0[:, :k])
+    assert np.linalg.svd(qa.T @ qb, compute_uv=False).min() > 1 - 1e-8
+    np.testing.assert_allclose(u.T @ u, np.eye(k), atol=1e-5)
+    ref = hankel_exact_jax(jnp.asarray(x), d, k)
+    np.testing.assert_allclose(sv, np.asarray(ref.s), rtol=1e-5)
+    signs = np.sign(np.sum(u * np.asarray(ref.U), axis=0))
+    np.testing.assert_allclose(u * signs, np.asarray(ref.U), atol=1e-5)
+    np.testing.assert_allclose(v * signs[:, None], np.asarray(ref.V), atol=1e-5)
