@@ -1,5 +1,7 @@
-"""Operators over the snapshot matrix: the fused kernel pass, the Gram
-kernel, tall-skinny QR and the SVDs on them."""
+"""Operators over the snapshot matrix: the fused kernel pass, the tiled
+matmul (``ops.matmul.matmul``; not re-exported here, where its name
+would hide the module), the Gram kernel, the Householder panel,
+tall-skinny QR and the SVDs on them."""
 
 from dmd_era5_tpu_torch.ops.hankel import (
     hankel_exact_svd,
@@ -8,7 +10,7 @@ from dmd_era5_tpu_torch.ops.hankel import (
     stacked_sketch_matrix,
 )
 from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
-from dmd_era5_tpu_torch.ops.qr_panel import cholqr, cholqr2, cholqr2_split, gram
+from dmd_era5_tpu_torch.ops.qr_panel import cholqr, cholqr2, cholqr2_split, gram, householder_panel
 from dmd_era5_tpu_torch.ops.svd import (
     SVDResult,
     exact_truncated_svd,
@@ -31,6 +33,7 @@ __all__ = [
     "hankel_exact_svd",
     "hankel_randomized_svd_fused",
     "hankel_randomized_svd_fused_core",
+    "householder_panel",
     "qr_positive",
     "randomized_svd",
     "sketch_center_gram_project",

@@ -1,4 +1,5 @@
-"""The fused sketch / centre / Gram / projection pass over X.
+"""The fused sketch / centre / Gram / projection pass over X, and the
+tiled matmul of the streamed sketch.
 
 PyTorch counterpart of ``dmd_era5_tpu/ops/matmul.py::
 sketch_center_gram_project``.  From ONE read of the snapshot matrix
@@ -8,10 +9,14 @@ X (M, T) and a sketch W (T, N) it returns
     rowsum, rowsumsq                             (or their two scalar sums)
     G  = Yc^T Yc,   C = Yc^T X                   both from the STORED Yc
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/sketch_center_gram_project.cu``; on a CPU tensor it takes the
-plain PyTorch version beside it, which does the same arithmetic with
-``torch.matmul``.  There is no fallback between the two.
+and of ``dmd_era5_tpu/ops/matmul.py::matmul``: (M, K) @ (K, N) summed
+in f32, the per-block sketch of the out-of-core SVD.
+
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(``csrc/sketch_center_gram_project.cu``, ``csrc/matmul.cu``); on a CPU
+tensor it takes the plain PyTorch version beside it, which does the
+same arithmetic with ``torch.matmul``.  There is no fallback between
+the two.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import ctypes
 
 import torch
 
-__all__ = ["sketch_center_gram_project", "N_MAX"]
+__all__ = ["sketch_center_gram_project", "matmul", "N_MAX"]
 
 # Widest sketch of the Hopper kernel.  Wider ones need the two-pass
 # fallback of the JAX package (kernels K2 sketch_center_gram and K3
@@ -47,9 +52,10 @@ def _prepare(w, t_cols, center, stats_col, t_valid):
     return w.contiguous(), colw, inv_t
 
 
-def _check(x, w, out_dtype, t_valid):
+def _check_operands(x, w, out_dtype):
+    """x (M, K) and w (K, N), non-empty, of one dtype and device."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"need x (M, T) and w (T, N); got {x.shape}, {w.shape}")
+        raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise ValueError(
             f"x and w must share one dtype of {_DTYPES}; got {x.dtype}, {w.dtype}"
@@ -58,10 +64,13 @@ def _check(x, w, out_dtype, t_valid):
         raise ValueError(f"out_dtype must be one of {_DTYPES}, got {out_dtype}")
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
-    m, t_cols = x.shape
-    n = w.shape[1]
-    if m < 1 or n < 1:
+    if min(*x.shape, w.shape[1]) < 1:
         raise ValueError(f"empty operand: x {tuple(x.shape)}, w {tuple(w.shape)}")
+
+
+def _check(x, w, out_dtype, t_valid):
+    _check_operands(x, w, out_dtype)
+    t_cols, n = w.shape
     if n > N_MAX:
         raise ValueError(
             f"sketch width {n} is outside the fused kernel's range (max "
@@ -248,3 +257,76 @@ def sketch_center_gram_project(
 
 
 sketch_center_gram_project.launches = 0
+
+
+# ------------------------------------------------------------ tiled matmul
+
+
+def _matmul_plain(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: bf16 operands are upcast
+    BEFORE the product (a bf16 ``torch.mm`` would return bf16), so both
+    dtypes are f32 products summed in f32 (TF32 off on a card)."""
+    return (x.float() @ w.float()).to(out_dtype)
+
+
+_MM_LIB = None
+
+
+def _matmul_library():
+    global _MM_LIB
+    if _MM_LIB is None:
+        from dmd_era5_tpu_torch.ops._build import load_kernel_library
+
+        lib = load_kernel_library("matmul")
+        ptr, flag = ctypes.c_void_p, ctypes.c_int
+        # x, w, out, m, k, n, x_bf16, out_bf16, stream
+        lib.matmul_launch.argtypes = [
+            ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, ptr,
+        ]
+        lib.matmul_launch.restype = ctypes.c_int
+        _MM_LIB = lib
+    return _MM_LIB
+
+
+def _matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (row-major M x K)")
+    w = w.contiguous()  # (K, N): small
+    (m, k), n = x.shape, w.shape[1]
+    dev = x.device
+    with torch.cuda.device(dev):
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        rc = _matmul_library().matmul_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"matmul kernel: CUDA error {rc}")
+    matmul.launches += 1
+    return out
+
+
+def matmul(
+    x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) ``out_dtype``, summed in f32.
+
+    Counterpart of ``dmd_era5_tpu/ops/matmul.py:101`` (kernel K6).  x and
+    w share one dtype: float32 (full-f32 products, the JAX package's
+    ``HIGHEST``) or bfloat16 (products exact in f32, its ``DEFAULT``
+    bf16 pass).  Any M, K and N: the JAX entry's divisibility by its
+    blocks is a TPU tiling constraint, and the kernel masks ragged edges.
+
+    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
+    the Hopper kernel and counts it in ``matmul.launches``.
+    """
+    _check_operands(x, w, out_dtype)
+    if x.device.type == "cpu":
+        return _matmul_plain(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _matmul_cuda(x, w, out_dtype)
+
+
+matmul.launches = 0

@@ -1,13 +1,16 @@
-"""The Gram kernel of a tall panel and Cholesky QR on it.
+"""The Gram kernel of a tall panel, Cholesky QR on it, and the
+Householder panel QR.
 
-PyTorch counterpart of ``dmd_era5_tpu/ops/qr_panel.py:100-206``:
-:func:`gram` (G = A^T A in one pass over A) and the CholeskyQR leaves
-built on it, :func:`cholqr`, :func:`cholqr2` and :func:`cholqr2_split`.
+PyTorch counterpart of ``dmd_era5_tpu/ops/qr_panel.py:100-324``:
+:func:`gram` (G = A^T A in one pass over A), the CholeskyQR leaves built
+on it, :func:`cholqr`, :func:`cholqr2` and :func:`cholqr2_split`, and
+:func:`householder_panel`.
 
 On a CUDA tensor :func:`gram` launches the hand-written Hopper kernel
-``csrc/gram.cu`` (K4 at ``"highest"``, K5 at ``"bf16_split"``); on a CPU
-tensor it takes the plain PyTorch version beside it.  There is no
-fallback between the two.  ``lax.Precision`` has no torch counterpart,
+``csrc/gram.cu`` (K4 at ``"highest"``, K5 at ``"bf16_split"``) and
+:func:`householder_panel` ``csrc/householder.cu`` (K7); on a CPU tensor
+each takes the plain PyTorch version beside it.  There is no fallback
+between the two.  ``lax.Precision`` has no torch counterpart,
 so the precisions are the strings ``"highest"`` and ``"bf16_split"``.
 
 The whitening Q = A R^-1 is one ``torch.linalg.solve_triangular``: the
@@ -23,7 +26,7 @@ import torch
 
 from dmd_era5_tpu_torch.utils.linalg import safe_cholesky
 
-__all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "PRECISIONS"]
+__all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel", "PRECISIONS"]
 
 PRECISIONS = ("highest", "bf16_split")
 _OB = 64  # edge of the kernel's output blocks of G
@@ -192,3 +195,113 @@ def cholqr2_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     q1, r1 = cholqr(a, "bf16_split")
     q2, r2 = cholqr(q1, "bf16_split")
     return q2, r2 @ r1
+
+
+# ------------------------------------------------------- Householder panel
+
+PANEL_N_MAX = 256  # widest panel of the Householder kernel (its shared arrays)
+
+
+def _check_panel(a: torch.Tensor) -> None:
+    if a.ndim != 2 or a.shape[1] < 1:
+        raise ValueError(f"need a non-empty (m, n) panel, got {tuple(a.shape)}")
+    m, n = a.shape
+    if m < n:
+        raise ValueError(f"householder_panel needs m >= n (R is the first n rows), got {m} x {n}")
+    if n > PANEL_N_MAX:
+        raise ValueError(f"householder_panel takes n <= {PANEL_N_MAX}, got {n}")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"householder_panel takes float32 or bfloat16, got {a.dtype}")
+
+
+def _householder_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: the same column sweep in
+    torch ops (not a library QR), f32 throughout, the sign of R's
+    diagonal as the reflectors leave it."""
+    m, n = a.shape
+    w = a.float().clone()
+    vs = torch.zeros((n, m), dtype=torch.float32, device=a.device)
+    betas = torch.zeros(n, dtype=torch.float32, device=a.device)
+    for j in range(n):
+        tail = w[j:, j]
+        ajj = tail[0]
+        alpha = -torch.where(ajj >= 0, 1.0, -1.0) * torch.sqrt((tail * tail).sum())
+        v = tail.clone()
+        v[0] = ajj - alpha
+        vtv = (v * v).sum()
+        beta = torch.where(vtv > 0, 2.0 / vtv, 0.0)
+        w[j:, j:] -= v[:, None] * (beta * (v @ w[j:, j:]))[None, :]
+        vs[j, j:] = v
+        betas[j] = beta
+    r = torch.triu(w[:n])
+    q = torch.eye(m, n, dtype=torch.float32, device=a.device)
+    for j in reversed(range(n)):
+        v = vs[j, j:]
+        q[j:, j:] -= v[:, None] * (betas[j] * (v @ q[j:, j:]))[None, :]
+    return q, r
+
+
+_HH_LIB = None
+
+
+def _householder_library():
+    global _HH_LIB
+    if _HH_LIB is None:
+        from dmd_era5_tpu_torch.ops._build import load_kernel_library
+
+        lib = load_kernel_library("householder")
+        ptr, flag = ctypes.c_void_p, ctypes.c_int
+        # a, q, r, reflector scratch, m, n, stream
+        lib.householder_launch.argtypes = [ptr, ptr, ptr, ptr, flag, flag, ptr]
+        lib.householder_launch.restype = ctypes.c_int
+        _HH_LIB = lib
+    return _HH_LIB
+
+
+def _householder_cuda(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    m, n = a.shape
+    dev = a.device
+    with torch.cuda.device(dev):
+        a = a.float().contiguous()
+        q = torch.empty((m, n), dtype=torch.float32, device=dev)
+        r = torch.empty((n, n), dtype=torch.float32, device=dev)
+        v = torch.empty((n, m), dtype=torch.float32, device=dev)
+        rc = _householder_library().householder_launch(
+            a.data_ptr(), q.data_ptr(), r.data_ptr(), v.data_ptr(), m, n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"householder kernel: CUDA error {rc}")
+    # v is released on return while the kernel may still run: the caching
+    # allocator hands its memory only to later work on this stream
+    householder_panel.launches += 1
+    return q, r
+
+
+def householder_panel(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Householder QR of a panel (m >= n, n <= 256): (Q (m, n), R (n, n))
+    float32 with the diag(R) >= 0 convention.
+
+    Counterpart of ``dmd_era5_tpu/ops/qr_panel.py:290`` (kernel K7).  The
+    JAX kernel keeps the panel in VMEM, so its caller bounds the panel
+    (``ops/tsqr.py::in_householder_kernel_envelope``); this kernel works
+    in device memory and takes any m.
+
+    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
+    the Hopper kernel and counts it in ``householder_panel.launches``.
+    The sign fix is applied after either, as the JAX package applies it
+    outside its kernel.
+    """
+    _check_panel(a)
+    if a.device.type == "cpu":
+        q, r = _householder_plain(a)
+    elif a.device.type == "cuda":
+        q, r = _householder_cuda(a)
+    else:
+        raise ValueError(f"no kernel for device {a.device}")
+    signs = torch.sign(torch.diagonal(r))
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return q * signs[None, :], r * signs[:, None]
+
+
+householder_panel.launches = 0

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from dmd_era5_tpu_torch.ops.qr_panel import cholqr2, cholqr2_split
+from dmd_era5_tpu_torch.ops.qr_panel import cholqr2, cholqr2_split, householder_panel
 
 __all__ = ["qr_positive", "tsqr", "default_qr_method", "QR_METHODS"]
 
@@ -41,11 +41,11 @@ def _local_factor(x: torch.Tensor, method: str) -> tuple[torch.Tensor, torch.Ten
 
     ``"cholqr2"`` and ``"cholqr2_split"`` run the CholeskyQR2 leaves of
     :mod:`ops.qr_panel` on the Gram kernel.  ``"householder"`` is the
-    backward-stable leaf: library QR on a CPU tensor.  On the
-    accelerator the JAX package runs its Householder panel kernel (K7)
-    inside that kernel's envelope, and K7 is not ported yet, so such a
-    panel raises rather than take a library QR in its place; outside
-    the envelope the library QR is the JAX package's choice too.
+    backward-stable leaf.  Off the CPU, inside the JAX package's envelope
+    for its Householder panel kernel, it runs
+    :func:`ops.qr_panel.householder_panel` (K7 on a CUDA tensor; any
+    other device raises there); outside the envelope and on the CPU it
+    takes the library QR, as the JAX package does.
     """
     if method == "cholqr2":
         return cholqr2(x)
@@ -54,11 +54,7 @@ def _local_factor(x: torch.Tensor, method: str) -> tuple[torch.Tensor, torch.Ten
     if method != "householder":
         raise ValueError(f"qr method must be one of {QR_METHODS}, got {method!r}")
     if x.device.type != "cpu" and in_householder_kernel_envelope(*x.shape):
-        raise ValueError(
-            f"householder leaf on a {tuple(x.shape)} panel on {x.device}: the JAX package "
-            "runs its Householder panel kernel (K7, dmd_era5_tpu/ops/qr_panel.py:212) here, "
-            "which is not ported yet; use method='cholqr2' or 'cholqr2_split'"
-        )
+        return householder_panel(x)
     return qr_positive(x)
 
 

@@ -3,9 +3,12 @@
 Every flag combination of ``sketch_center_gram_project`` in float32 and
 bfloat16, at a ragged row count and both kernel width classes; ``gram``
 at both precisions, float32 and bfloat16 input, ragged row counts and
-panel widths past the JAX kernel's 1024.  Needs a CUDA card and nvcc;
-elsewhere each case skips.  JAX is not needed, so on a machine without
-it run
+panel widths past the JAX kernel's 1024; ``matmul`` (K6) over operand
+and output dtypes and ragged M, N and K; ``householder_panel`` (K7) at
+the streamed SVD's panel, the edges of its envelope and an
+ill-conditioned panel, and the Householder leaf inside and outside that
+envelope.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
+is not needed, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from dmd_era5_tpu_torch.ops import matmul, qr_panel
+from dmd_era5_tpu_torch.ops.tsqr import _local_factor, qr_positive
 
 M, T = 1000, 168  # M is no multiple of the kernel's 64- or 128-row tiles
 
@@ -119,3 +123,102 @@ def test_cholqr2_leaves_on_card(cuda, leaf, precision):
     eye = torch.eye(110, dtype=torch.float64, device=cuda)
     assert float((q.double().T @ q.double() - eye).abs().max()) < 5e-6
     assert float((q.double() @ r.double() - a.double()).norm() / a.double().norm()) < 5e-6
+
+
+MATMUL_CASES = [
+    pytest.param(dtype, out_dtype, m, k, n, id=f"{dtype}-{out_dtype}-m{m}-k{k}-n{n}")
+    for dtype in ["float32", "bfloat16"]
+    for out_dtype in ["float32", "bfloat16"]
+    # the streamed block's widths at a ragged row count; every edge ragged;
+    # one element; a depth no 16-deep stage divides; a second column tile
+    for m, k, n in [(4099, 168, 110), (130, 17, 129), (1, 1, 1), (1000, 333, 7), (64, 64, 256)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype,m,k,n", MATMUL_CASES)
+def test_matmul_kernel_matches_plain_on_card(cuda, dtype, out_dtype, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(tdt)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(tdt)
+    before = matmul.matmul.launches
+    got = matmul.matmul(x, w, out_dtype=odt)
+    ref = matmul._matmul_plain(x, w, odt)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 1
+    assert got.dtype == odt and got.shape == (m, n)
+    # the same exact f32 products (bf16 x bf16 is exact there) summed in
+    # another order; a bf16 output may then round the other way, by one ulp
+    rel = float((got.double() - ref.double()).norm() / ref.double().norm())
+    assert rel <= (2.0**-8 if out_dtype == "bfloat16" else 1e-5), rel
+
+
+def _panel(kind: str, gen, dev):
+    if kind == "ill":  # tests/test_08_kernels.py:258-270
+        a = torch.randn((256, 16), generator=gen, device=dev)
+        a[:, 0] *= 1e5
+        a[:, 1] = a[:, 0] + 1e-2 * torch.randn(256, generator=gen, device=dev)
+        return a
+    if kind == "zero_col":
+        a = torch.randn((300, 40), generator=gen, device=dev)
+        a[:, 7] = 0.0
+        return a
+    m, n = (int(v) for v in kind.split("x"))
+    return torch.randn((m, n), generator=gen, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["168x110", "8760x110", "4096x256", "64x64", "65x1", "ill", "zero_col"])
+def test_householder_kernel_matches_plain_on_card(cuda, kind):
+    """Q orthonormal and Q R == A as tests/test_08_kernels.py:245-270
+    holds them (1e-4 and, for the ill-conditioned panel, 1e-3 and atol
+    1.0), for the kernel and the plain version alike; R's entries agree
+    to 1e-5 of max|R| (the same arithmetic summed in another order) and,
+    on the Gaussian panels, cond < 10, Q's to 5e-5 in Frobenius norm."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    a = _panel(kind, gen, cuda)
+    m, n = a.shape
+    before = qr_panel.householder_panel.launches
+    q, r = qr_panel.householder_panel(a)
+    q_p, r_p = qr_panel._householder_plain(a)
+    signs = torch.where(torch.diagonal(r_p) < 0, -1.0, 1.0)
+    q_p, r_p = q_p * signs, r_p * signs[:, None]
+    torch.cuda.synchronize()
+    assert qr_panel.householder_panel.launches == before + 1
+    assert q.shape == (m, n) and r.shape == (n, n)
+    assert bool((torch.diagonal(r) >= 0).all()) and torch.equal(r, torch.triu(r))
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    a64 = a.double()
+    for qq, rr in ((q, r), (q_p, r_p)):
+        orth = float((qq.double().T @ qq.double() - eye).abs().max())
+        if kind == "ill":
+            assert orth <= 1e-3, orth
+            assert torch.allclose(qq.double() @ rr.double(), a64, rtol=1e-3, atol=1.0)
+        else:
+            assert orth <= 1e-4, orth
+            rec = float((qq.double() @ rr.double() - a64).norm() / a64.norm())
+            assert rec <= 1e-5, rec
+    assert float((r - r_p).abs().max()) <= 1e-5 * float(r_p.abs().max())
+    if kind not in ("ill", "zero_col"):
+        assert float((q.double() - q_p.double()).norm() / q_p.double().norm()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_householder_leaf_on_card(cuda):
+    """Inside the JAX package's envelope the leaf launches K7; outside it
+    (26 MB > 12 MiB) it takes the library QR, as the JAX package does."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    inside = torch.randn((168, 110), generator=gen, device=cuda)
+    before = qr_panel.householder_panel.launches
+    q, r = _local_factor(inside, "householder")
+    q_k, r_k = qr_panel.householder_panel(inside)
+    torch.cuda.synchronize()
+    assert qr_panel.householder_panel.launches == before + 2
+    assert torch.equal(q, q_k) and torch.equal(r, r_k)
+    outside = torch.randn((20_000, 110), generator=gen, device=cuda)
+    q, r = _local_factor(outside, "householder")
+    q_l, r_l = qr_positive(outside)
+    torch.cuda.synchronize()
+    assert qr_panel.householder_panel.launches == before + 2
+    assert torch.equal(r, r_l)

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from dmd_era5_tpu_torch.ops import matmul, qr_panel
-from dmd_era5_tpu_torch.ops.tsqr import _local_factor, in_householder_kernel_envelope
+from dmd_era5_tpu_torch.ops.tsqr import _local_factor, in_householder_kernel_envelope, qr_positive
+from dmd_era5_tpu_torch.pipeline import streamed_exact_gram_svd, streamed_randomized_svd
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "dmd_era5_tpu_torch"
@@ -99,13 +100,39 @@ def test_gram_range_and_devices_raise():
 
 def test_householder_leaf_raises_inside_k7_envelope_off_cpu():
     """The JAX package runs its Householder panel kernel (K7) on the
-    accelerator inside a 12 MiB envelope; until K7 is ported the port
-    raises there instead of taking a library QR, and takes the library
-    QR outside it, as the JAX package does."""
+    accelerator inside a 12 MiB envelope and the library QR outside it;
+    the port's leaf does the same off the CPU, so a tensor on a device
+    with no kernel reaches the kernel wrapper there and is refused."""
     assert in_householder_kernel_envelope(16_384, 64)
     assert not in_householder_kernel_envelope(16_384, 257)
     assert not in_householder_kernel_envelope(15_573_600, 110)
-    with pytest.raises(ValueError, match="K7"):
+    with pytest.raises(ValueError, match="no kernel for device"):
         _local_factor(torch.zeros(1000, 32, device="meta"), "householder")
     with pytest.raises(ValueError, match="qr method must be one of"):
         _local_factor(torch.zeros(10, 4), "xla")
+
+
+def test_cpu_matmul_and_householder_take_plain_versions():
+    gen = torch.Generator().manual_seed(3)
+    x, w = torch.randn(70, 12, generator=gen), torch.randn(12, 9, generator=gen)
+    assert torch.equal(matmul.matmul(x, w), matmul._matmul_plain(x, w, torch.float32))
+    q, r = qr_panel.householder_panel(x)
+    q_p, r_p = qr_panel._householder_plain(x)
+    signs = torch.where(torch.diagonal(r_p) < 0, -1.0, 1.0)
+    assert torch.equal(q, q_p * signs) and torch.equal(r, r_p * signs[:, None])
+    # the CPU leaf stays the library QR, as the JAX package's does
+    assert torch.equal(_local_factor(x, "householder")[1], qr_positive(x)[1])
+    assert matmul.matmul.launches == qr_panel.householder_panel.launches == 0
+    with pytest.raises(ValueError, match="no kernel for device"):
+        matmul.matmul(x.to("meta"), w.to("meta"))
+
+
+def test_streamed_svd_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
+    """``device=None`` is the card: without CUDA the streamed entry
+    points raise instead of running on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.randn(64, 16, generator=torch.Generator().manual_seed(4)).numpy()
+    for entry in (streamed_randomized_svd, streamed_exact_gram_svd):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            entry(x, 3)
+        assert entry(x, 3, block_rows=16, device="cpu").U.shape == (64, 3)

@@ -1,9 +1,12 @@
-"""Parity of the port's fused sketch/centre/Gram/projection pass.
+"""Parity of the port's fused sketch/centre/Gram/projection pass and its
+tiled matmul.
 
 The same numpy inputs go through ``dmd_era5_tpu.ops.matmul.
-sketch_center_gram_project`` (Pallas in interpret mode on the CPU) and
-the port's wrapper, which takes its plain PyTorch version for a CPU
-tensor.  Every flag combination, in float32 and bfloat16.
+sketch_center_gram_project`` and ``matmul`` (Pallas in interpret mode on
+the CPU) and the port's wrappers, which take their plain PyTorch
+versions for a CPU tensor.  Every flag combination of the fused pass, in
+float32 and bfloat16; the matmul at the JAX tests' shapes and at ragged
+ones the JAX entry refuses.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from dmd_era5_tpu.ops.matmul import matmul as matmul_jax
 from dmd_era5_tpu.ops.matmul import sketch_center_gram_project as scgp_jax
+from dmd_era5_tpu_torch.ops.matmul import matmul as matmul_torch
 from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project as scgp_torch
 
 M, T = 333, 40  # M is a multiple of no block size of either kernel
@@ -89,3 +94,61 @@ def test_sketch_center_gram_project_parity(
             )
         np.testing.assert_allclose(g_t, g_j, rtol=2e-2, atol=2e-2 * np.abs(g_j).max() * 2**-8)
         np.testing.assert_allclose(c_t, c_j, rtol=2e-2, atol=2e-2 * np.abs(c_j).max() * 2**-8)
+
+
+def test_matmul_f32_parity(rng):
+    """tests/test_08_kernels.py:28-32 (rtol 1e-5, atol 1e-3 against
+    numpy), and the JAX kernel's output to the same."""
+    x = rng.standard_normal((1024, 512)).astype(np.float32)
+    w = rng.standard_normal((512, 256)).astype(np.float32)
+    out = matmul_torch(torch.from_numpy(x), torch.from_numpy(w))
+    assert out.dtype == torch.float32 and matmul_torch.launches == 0
+    out_j = np.asarray(matmul_jax(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(out.numpy(), x @ w, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(out.numpy(), out_j, rtol=1e-5, atol=1e-3)
+
+
+def test_matmul_bf16_parity(rng):
+    """tests/test_08_kernels.py:35-42: bf16 operands, f32 out.  Each
+    product of two bf16 values is exact in f32, so against the f64
+    product of the rounded operands the only error is the f32 sum, and
+    against the JAX kernel the order of that sum."""
+    x = rng.standard_normal((512, 512)).astype(np.float32)
+    w = rng.standard_normal((512, 128)).astype(np.float32)
+    xt, wt = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    out = matmul_torch(xt, wt).numpy()
+    assert out.dtype == np.float32
+    np.testing.assert_allclose(out, x @ w, rtol=5e-2, atol=2.0)
+    exact = xt.double().numpy() @ wt.double().numpy()
+    np.testing.assert_allclose(out, exact, rtol=1e-5, atol=1e-3)
+    out_j = np.asarray(matmul_jax(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)))
+    np.testing.assert_allclose(out, out_j, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (333, 40, 110), (1000, 168, 130), (7, 300, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_matmul_ragged_shapes(rng, m, k, n, dtype, out_dtype):
+    """Shapes no block divides, which the JAX entry refuses (a TPU tiling
+    constraint) and the port takes: against numpy's f64 product of the
+    stored operands, rounded once to ``out_dtype``."""
+    tdt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(tdt)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(tdt)
+    out = matmul_torch(x, w, out_dtype=odt)
+    assert out.dtype == odt and out.shape == (m, n)
+    exact = torch.from_numpy(x.double().numpy() @ w.double().numpy())
+    np.testing.assert_allclose(out.double().numpy(), exact.to(odt).double().numpy(),
+                               rtol=2.0**-7 if out_dtype == "bfloat16" else 1e-5, atol=1e-3)
+
+
+def test_matmul_checks():
+    x = torch.zeros(10, 12)
+    with pytest.raises(ValueError, match="share one dtype"):
+        matmul_torch(x, torch.zeros(12, 4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="need x"):
+        matmul_torch(x, torch.zeros(11, 4))
+    with pytest.raises(ValueError, match="out_dtype"):
+        matmul_torch(x, torch.zeros(12, 4), out_dtype=torch.float64)
+    with pytest.raises(ValueError, match="empty"):
+        matmul_torch(torch.zeros(0, 12), torch.zeros(12, 4))

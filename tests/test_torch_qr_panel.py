@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from dmd_era5_tpu.ops import qr_panel as jqr
+from dmd_era5_tpu.ops.qr_panel import householder_panel as householder_jax
 from dmd_era5_tpu.ops.tsqr import _local_factor as local_factor_jax
 from dmd_era5_tpu.ops.tsqr import qr_positive as qr_positive_jax
 from dmd_era5_tpu.ops.tsqr import tsqr as tsqr_jax
@@ -168,3 +169,64 @@ def test_split_leaf_on_row_centred_panel_matches_jax_fault():
     assert dev_t > 5e-4 and dev_j > 5e-4
     assert abs(dev_t - dev_j) <= 1e-5
     assert u_dev(*(o.numpy() for o in qr_panel.cholqr2(_t(x)))) < 1e-6
+
+
+def _householder_pair(a):
+    q, r = (o.numpy() for o in qr_panel.householder_panel(_t(a)))
+    q_j, r_j = (np.asarray(o) for o in householder_jax(jnp.asarray(a)))
+    assert qr_panel.householder_panel.launches == 0  # CPU tensors never reach the kernel
+    return q, r, q_j, r_j
+
+
+@pytest.mark.parametrize("m,n", [(512, 32), (168, 110), (64, 64), (65, 1)])
+def test_householder_panel_parity(rng, m, n):
+    """tests/test_08_kernels.py:245-255 (against LAPACK: Q and R to
+    2e-3, Q^T Q to 1e-4), and the JAX kernel's column sweep to 1e-5 of
+    max|R|: the same arithmetic in another summation order.  m = n and
+    a single column included."""
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    q, r, q_j, r_j = _householder_pair(a)
+    assert q.shape == (m, n) and r.shape == (n, n) and q.dtype == np.float32
+    q_ref, r_ref = (o.numpy() for o in qr_positive(_t(a)))
+    np.testing.assert_allclose(r, r_ref, atol=2e-3)
+    np.testing.assert_allclose(q, q_ref, atol=2e-3)
+    np.testing.assert_allclose(q.T @ q, np.eye(n), atol=1e-4)
+    assert np.all(np.diag(r) >= 0) and np.array_equal(r, np.triu(r))
+    np.testing.assert_allclose(r, r_j, rtol=0, atol=1e-5 * np.abs(r_j).max())
+    np.testing.assert_allclose(q, q_j, atol=1e-5)
+
+
+def test_householder_panel_ill_conditioned(rng):
+    """tests/test_08_kernels.py:258-270, tolerances as there, and the
+    JAX kernel's R to 1e-5 of max|R|."""
+    a = rng.standard_normal((256, 16)).astype(np.float32)
+    a[:, 0] *= 1e5
+    a[:, 1] = a[:, 0] + 1e-2 * rng.standard_normal(256).astype(np.float32)
+    q, r, q_j, r_j = _householder_pair(a)
+    np.testing.assert_allclose(q.T @ q, np.eye(16), atol=1e-3)
+    np.testing.assert_allclose(q @ r, a, rtol=1e-3, atol=1.0)
+    np.testing.assert_allclose(r, r_j, rtol=0, atol=1e-5 * np.abs(r_j).max())
+
+
+def test_householder_panel_zero_column(rng):
+    """A zero column has v^T v = 0, so beta = 0 and its reflector is the
+    identity; R's zero diagonal takes the + sign (sign(0) -> +1), and Q
+    keeps e_j's column there, as the JAX kernel does."""
+    a = rng.standard_normal((40, 6)).astype(np.float32)
+    a[:, 2] = 0.0
+    q, r, q_j, r_j = _householder_pair(a)
+    assert r[2, 2] == 0.0
+    np.testing.assert_allclose(q @ r, a, atol=1e-5)
+    np.testing.assert_allclose(r, r_j, atol=1e-5)
+    np.testing.assert_allclose(q, q_j, atol=1e-5)
+
+
+def test_householder_panel_checks():
+    with pytest.raises(ValueError, match="m >= n"):
+        qr_panel.householder_panel(torch.zeros(5, 6))
+    with pytest.raises(ValueError, match="n <= 256"):
+        qr_panel.householder_panel(torch.zeros(300, 257))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qr_panel.householder_panel(torch.zeros(8, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qr_panel.householder_panel(torch.zeros(8, 4, device="meta"))
