@@ -38,14 +38,31 @@ of which raises on failure so the script exits non-zero:
    blocks, n_iter auto = 4: six passes, K6 on every block of five, K7
    four times), then (e) optDMD and the forecast on its result at d = 1;
    (d) ``streamed_exact_gram_svd`` (2^18-row blocks, no kernel); both
-   held to phase 8 (b) and to an out-of-core bound on device memory.
+   held to phase 8 (b) and to an out-of-core bound on device memory;
+11. (run next, on the week still on the card) the randomized Hankel SVD
+   at d = 3, k = 100 in bf16: a 384-wide sketch, past the fused kernel
+   K1, so each of its five passes takes the two-pass route (K2
+   ``sketch_center_gram`` then K3 ``project``), then optDMD and the
+   forecast;
+10. one year of hourly 1-degree ERA5 (181 x 360 points, 15 variable-level
+   blocks, 8,760 hours: 977,400 rows), generated on the card from the
+   seed after the week is freed, centred in place: (a) K2 and K3 against
+   their plain versions at the path's shapes, with times; (b) the SVD
+   stage's dispatcher ``svd_on_era5`` on ``config.ini``'s ``[era5-svd]``
+   defaults at that size (hankel, randomized, f32: eight two-pass
+   passes); (c) optDMD and the forecast on it; (d) ``svd_type =
+   standard`` through the same dispatcher (the exact Hankel SVD: K5 once,
+   one two-pass pass); (e) ``fit_step_fused`` and ``fit_step_lean``
+   (k = 100, sketch 128) against each other and against the exact loss;
+   (f) K1 and the two-pass route timed on the same X and sketch.
 
-Phases 3-4, 7, each call of 8, 9c-e and 9d are the main path: every
-kernel's launch count is set to 0 just before each and read just after,
-and checked exactly.  The comparisons (2, 5, 6, 9a) are not counted.  The
-last line is the JSON result; the line before it the card's name and
-power limit; before that one JSON line with every kernel.  Without CUDA
-the script exits non-zero before printing any result.
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11 and 10b-e are the main path:
+every kernel's launch count is set to 0 just before each and read just
+after, and checked exactly.  The comparisons (2, 5, 6, 9a, 10a, 10f) are
+not counted.  The last line is the JSON result; the line before it the
+card's name and power limit; before that one JSON line with every
+kernel.  Without CUDA the script exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -70,6 +87,10 @@ CSRC = "dmd_era5_tpu_torch/ops/csrc"
 KERNELS = {
     "K1": ("sketch_center_gram_project", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:183"),
+    # one kernel for the TPU's whole-T (K2a) and T-tiled (K2b) variants
+    "K2": ("sketch_center_gram", f"{CSRC}/sketch_center_gram.cu",
+           "dmd_era5_tpu/ops/matmul.py:142, dmd_era5_tpu/ops/matmul.py:442"),
+    "K3": ("project", f"{CSRC}/project.cu", "dmd_era5_tpu/ops/matmul.py:593"),
     "K4": ("gram_highest", f"{CSRC}/gram.cu", "dmd_era5_tpu/ops/qr_panel.py:40"),
     "K5": ("gram_bf16_split", f"{CSRC}/gram.cu", "dmd_era5_tpu/ops/qr_panel.py:62"),
     "K6": ("matmul", f"{CSRC}/matmul.cu", "dmd_era5_tpu/ops/matmul.py:79"),
@@ -93,6 +114,15 @@ TSQR_CENTRED_FAULT = {"orth": (5e-4, 2e-3), "lead6": 2e-4}
 # the streamed SVD's blocks (the JAX package's defaults) and sketch width
 RAND_BLOCK, EXACT_BLOCK, R_SKETCH = 1 << 16, 1 << 18, 110
 GIB = 1 << 30
+# one year of hourly 1-degree ERA5 (2019), the same 15 variable-level
+# blocks; pairs damped slowly enough to keep >= 10% of their amplitude
+# at hour 8,760
+YEAR_LAT, YEAR_LON, YEAR_DEG, YEAR_HOURS = 181, 360, 1.0, 8760
+YEAR_PAIRS = ((-1e-4, 24.0, 12.0), (-2e-4, 12.0, 8.0), (-5e-5, 730.0, 6.0))
+# config.ini's [era5-svd] with only these overrides (phase 10 b, d)
+YEAR_CONFIG = dict(start_datetime="2019-01-01T00", end_datetime="2019-12-31T23",
+                   variables="temperature,u_component_of_wind,v_component_of_wind",
+                   levels="1000,850,700,500,250", n_components=100)
 
 
 def log(msg: str) -> None:
@@ -146,8 +176,8 @@ def phase_build() -> None:
     from dmd_era5_tpu_torch.ops import _build, matmul, qr_panel
 
     names = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
-    loaders = (matmul._kernel_library, matmul._matmul_library, qr_panel._kernel_library,
-               qr_panel._householder_library)
+    loaders = (matmul._kernel_library, matmul._scg_library, matmul._project_library,
+               matmul._matmul_library, qr_panel._kernel_library, qr_panel._householder_library)
     t0 = time.perf_counter()
     # each loader runs its own nvcc at first use; threads start them together
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
@@ -167,6 +197,8 @@ def launch_counts() -> dict:
     from dmd_era5_tpu_torch.ops import matmul, qr_panel
 
     return {"K1": matmul.sketch_center_gram_project.launches,
+            "K2": matmul.sketch_center_gram.launches,
+            "K3": matmul.project.launches,
             "K4": qr_panel.gram.launches["highest"],
             "K5": qr_panel.gram.launches["bf16_split"],
             "K6": matmul.matmul.launches,
@@ -182,6 +214,8 @@ def reset_counts() -> None:
     from dmd_era5_tpu_torch.ops import matmul, qr_panel
 
     matmul.sketch_center_gram_project.launches = 0
+    matmul.sketch_center_gram.launches = 0
+    matmul.project.launches = 0
     matmul.matmul.launches = 0
     qr_panel.gram.launches.update({p: 0 for p in qr_panel.gram.launches})
     qr_panel.householder_panel.launches = 0
@@ -195,9 +229,17 @@ def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
-def _chunks(a: torch.Tensor, rows: int = 1 << 19):
+def _chunk_rows(*arrays: torch.Tensor) -> int:
+    """Rows per chunk: 2^19, fewer where an f64 copy of a chunk of the
+    widest array would pass 1 GiB (the year's X is 8,760 wide)."""
+    width = max([1, *(a.shape[1] for a in arrays if a.ndim == 2)])
+    return max(1, min(1 << 19, GIB // (8 * width)))
+
+
+def _chunks(a: torch.Tensor, rows: int | None = None):
     """Row chunks of a (a 0-d tensor as one chunk of one)."""
     a = a.reshape(1) if a.ndim == 0 else a
+    rows = rows or _chunk_rows(a)
     return [a[r:r + rows] for r in range(0, a.shape[0], rows)]
 
 
@@ -208,7 +250,8 @@ def rel_err(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None
     The error is relative to |scale| where given, else to |b|."""
     num = den = max_abs = 0.0
     ref = b if scale is None else scale
-    for ac, bc, sc in zip(_chunks(a), _chunks(b), _chunks(ref)):
+    rows = _chunk_rows(a, b, ref)
+    for ac, bc, sc in zip(_chunks(a, rows), _chunks(b, rows), _chunks(ref, rows)):
         diff = ac.double() - bc.double()
         num += float((diff * diff).sum())
         den += float(sc.double().square().sum())
@@ -225,7 +268,8 @@ def within_bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Every entry of a within one bf16 ulp of b's (plus f32 roundoff
     slack where centring cancels), over row chunks."""
     top = float(b.abs().max())
-    for ac, bc in zip(_chunks(a), _chunks(b)):
+    rows = _chunk_rows(a, b)
+    for ac, bc in zip(_chunks(a, rows), _chunks(b, rows)):
         bd = bc.double()
         ulp = torch.exp2(torch.floor(torch.log2(bd.abs().clamp_min(1e-30))) - 7)
         if not bool(((ac.double() - bd).abs() <= ulp + 2.0**-20 * top).all()):
@@ -238,7 +282,8 @@ def gram_f64(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     the stored f32 matrices, against which the kernels are read."""
     b = a if b is None else b
     out = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float64, device=a.device)
-    for ac, bc in zip(_chunks(a), _chunks(b)):
+    rows = _chunk_rows(a, b)
+    for ac, bc in zip(_chunks(a, rows), _chunks(b, rows)):
         out += ac.double().T @ bc.double()
     return out
 
@@ -362,16 +407,29 @@ def phase_kernel_at_path_shapes(x: torch.Tensor, seed: int) -> dict:
 
 
 def make_era5_week(seed: int):
-    """X (S, 168) f32 on the card: per row the mock temperature recipe's
-    mean, (265 - lapse) cos(latitude), plus three planted damped pairs
-    with random complex patterns, plus noise at 1% of the signal's rms."""
+    """X (S, 168) f32 on the card: one week of hourly 0.25-degree ERA5."""
+    return make_era5(seed, N_LAT, N_LON, 0.25, T_HOURS, PAIRS)
+
+
+def make_era5_year(seed: int):
+    """X (S, 8760) f32 on the card: one year of hourly 1-degree ERA5."""
+    return make_era5(seed, YEAR_LAT, YEAR_LON, YEAR_DEG, YEAR_HOURS, YEAR_PAIRS)
+
+
+def make_era5(seed: int, n_lat: int, n_lon: int, deg: float, t_hours: int, pairs):
+    """X (S, T) f32 on the card, S = 15 n_lat n_lon: per row the mock
+    temperature recipe's mean, (265 - lapse) cos(latitude), plus the
+    planted damped pairs with random complex patterns, plus noise at 1%
+    of the signal's rms.  Rows are drawn in chunks of at most 2^20 rows
+    and 1 GiB."""
     dev = torch.device("cuda")
-    s_rows = N_BLOCKS * N_LAT * N_LON
+    s_rows = N_BLOCKS * n_lat * n_lon
+    chunk = min(CHUNK, max(1, GIB // (4 * t_hours)))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    hours = torch.arange(T_HOURS, dtype=torch.float64, device=dev)
-    alpha = torch.tensor([complex(d, 2 * math.pi / p) for d, p, _ in PAIRS],
+    hours = torch.arange(t_hours, dtype=torch.float64, device=dev)
+    alpha = torch.tensor([complex(d, 2 * math.pi / p) for d, p, _ in pairs],
                          dtype=torch.complex128, device=dev)
-    amps = torch.tensor([a for *_, a in PAIRS], dtype=torch.float64, device=dev)
+    amps = torch.tensor([a for *_, a in pairs], dtype=torch.float64, device=dev)
 
     def dynamics(h):
         return (amps[:, None] * torch.exp(alpha[:, None] * h[None, :])).to(torch.complex64)
@@ -380,25 +438,25 @@ def make_era5_week(seed: int):
     # Re(c e) with Re c, Im c ~ N(0, 1) has variance |e|^2
     signal_rms = float(torch.sqrt((dyn.abs() ** 2).sum(0).mean()))
     noise_std = NOISE_FRACTION * signal_rms
-    x = torch.empty((s_rows, T_HOURS), dtype=torch.float32, device=dev)
-    patterns = torch.empty((s_rows, len(PAIRS)), dtype=torch.complex64, device=dev)
+    x = torch.empty((s_rows, t_hours), dtype=torch.float32, device=dev)
+    patterns = torch.empty((s_rows, len(pairs)), dtype=torch.complex64, device=dev)
     row_mean = torch.empty(s_rows, dtype=torch.float32, device=dev)
     levels = torch.tensor(LEVELS, dtype=torch.float32, device=dev)
-    for r0 in range(0, s_rows, CHUNK):
-        r1 = min(r0 + CHUNK, s_rows)
+    for r0 in range(0, s_rows, chunk):
+        r1 = min(r0 + chunk, s_rows)
         rows = torch.arange(r0, r1, device=dev)
-        lapse = (1000.0 - levels[(rows // (N_LAT * N_LON)) % len(LEVELS)]) / 100.0
-        lat = 90.0 - 0.25 * ((rows // N_LON) % N_LAT).float()
+        lapse = (1000.0 - levels[(rows // (n_lat * n_lon)) % len(LEVELS)]) / 100.0
+        lat = 90.0 - deg * ((rows // n_lon) % n_lat).float()
         row_mean[r0:r1] = (265.0 - lapse) * torch.cos(torch.deg2rad(lat))
         c = torch.complex(
-            torch.randn((r1 - r0, len(PAIRS)), generator=gen, device=dev),
-            torch.randn((r1 - r0, len(PAIRS)), generator=gen, device=dev),
+            torch.randn((r1 - r0, len(pairs)), generator=gen, device=dev),
+            torch.randn((r1 - r0, len(pairs)), generator=gen, device=dev),
         )
         patterns[r0:r1] = c
         x[r0:r1] = (
             row_mean[r0:r1, None]
             + c.real @ dyn.real - c.imag @ dyn.imag
-            + noise_std * torch.randn((r1 - r0, T_HOURS), generator=gen, device=dev)
+            + noise_std * torch.randn((r1 - r0, t_hours), generator=gen, device=dev)
         )
 
     def truth(h):
@@ -1010,6 +1068,324 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
     return expect
 
 
+def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor,
+                               center: bool) -> tuple[dict, torch.Tensor]:
+    """K2 against its plain version on the card, on the same x and w
+    (f32, Yc f32).  Tolerances: Yc and the row sums of squares within
+    1e-5 relative Frobenius error of the plain version's; the row sums
+    read against sum_t |x| (x's rows are centred, so the sums cancel to
+    roundoff); G exactly symmetric and within 1e-5 max|G| of the f64 sums
+    of the kernel's own stored Yc, and within that plus the plain
+    version's own error of the plain version.  No single library call
+    computes this function.  Returns the readings and the kernel's Yc."""
+    from dmd_era5_tpu_torch.ops.matmul import _sketch_center_gram_plain, sketch_center_gram
+
+    def kernel():
+        return sketch_center_gram(x, w, center=center)
+
+    def plain():
+        return _sketch_center_gram_plain(x, w, torch.float32, center)
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(got[3], got[3].T), f"{label} K2: G not exactly symmetric")
+    res = dict(label=label, m=x.shape[0], t=x.shape[1], n=w.shape[1], center=center)
+    res["yc_rel"], res["max_abs_err"] = rel_err(got[0], ref[0])
+    res["rowsum_rel"] = rel_err(got[1], ref[1], row_abs_sums(x))[0]
+    res["rowsumsq_rel"] = rel_err(got[2], ref[2])[0]
+    exact = gram_f64(got[0])
+    scale = float(exact.abs().max())
+    for who, g in (("kernel", got[3]), ("plain", ref[3])):
+        res[f"{who}_G_vs_f64_over_max"] = float((g.double() - exact).abs().max()) / scale
+    res["G_vs_plain_over_max"] = float((got[3].double() - ref[3].double()).abs().max()) / scale
+    log(f"    {json.dumps(res)}")
+    for name in ("yc_rel", "rowsum_rel", "rowsumsq_rel"):
+        check(res[name] <= 1e-5, f"{label} K2: {name} {res[name]:.3e} > 1e-5")
+    check(res["kernel_G_vs_f64_over_max"] <= 1e-5,
+          f"{label} K2: G vs f64 {res['kernel_G_vs_f64_over_max']:.3e} max|G| > 1e-5")
+    limit = 1e-5 + res["plain_G_vs_f64_over_max"]
+    check(res["G_vs_plain_over_max"] <= limit,
+          f"{label} K2: G vs plain {res['G_vs_plain_over_max']:.3e} > {limit:.3e}")
+    yc = got[0]
+    del got, ref, exact
+    p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
+    m, t, n = res["m"], res["t"], res["n"]
+    # X W (2 m t n) and Yc^T Yc counted whole (m n^2), f32 on CUDA cores;
+    # X and W read, Yc, the (m, 2) stats and G written
+    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None)
+    res["bound_ms"], res["bound_by"] = bound(2 * m * t * n + m * n * n, PEAK_F32,
+                                             4 * (m * t + t * n + m * n + 2 * m + n * n))
+    log(f"    K2 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, bound "
+        f"{res['bound_ms']:.3f} by {res['bound_by']})")
+    return res, yc
+
+
+def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
+    """K3 against its plain version and the library on the card, on the
+    same x and y (f32).  Tolerances: C within 1e-5 max|C| of the f64 sums
+    of Y^T X, and within that plus the plain version's own error of the
+    plain version.  Library call: one ``torch.matmul(y.T, x)`` in f32
+    (TF32 off), which the port never makes."""
+    from dmd_era5_tpu_torch.ops.matmul import _project_plain, project, project_row_shares
+
+    def kernel():
+        return project(x, y)
+
+    def plain():
+        return _project_plain(x, y)
+
+    def library():
+        return torch.matmul(y.T, x)
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    exact = gram_f64(y, x)
+    scale = float(exact.abs().max())
+    (m, t), n = x.shape, y.shape[1]
+    res = dict(label=label, m=m, t=t, n=n, row_shares=project_row_shares(x, y))
+    for who, c in (("kernel", got), ("plain", ref)):
+        res[f"{who}_C_vs_f64_over_max"] = float((c.double() - exact).abs().max()) / scale
+    diff = (got.double() - ref.double()).abs().max()
+    res["max_abs_err"], res["C_vs_plain_over_max"] = float(diff), float(diff) / scale
+    log(f"    {json.dumps(res)}")
+    check(res["kernel_C_vs_f64_over_max"] <= 1e-5,
+          f"{label} K3: C vs f64 {res['kernel_C_vs_f64_over_max']:.3e} max|C| > 1e-5")
+    limit = 1e-5 + res["plain_C_vs_f64_over_max"]
+    check(res["C_vs_plain_over_max"] <= limit,
+          f"{label} K3: C vs plain {res['C_vs_plain_over_max']:.3e} > {limit:.3e}")
+    del got, ref, exact
+    p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
+    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=event_ms(library))
+    res["bound_ms"], res["bound_by"] = bound(2 * m * n * t, PEAK_F32, 4 * (m * t + m * n + n * t))
+    log(f"    K3 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, library "
+        f"{res['library_ms']:.3f}, bound {res['bound_ms']:.3f} by {res['bound_by']}), "
+        f"{res['row_shares']} row shares")
+    return res
+
+
+@contextlib.contextmanager
+def stage_clock(module, *names: str):
+    """Wall time of each call of ``module.<name>`` between two device
+    synchronizations, into the yielded dict (name -> list of seconds)."""
+    saved = {name: getattr(module, name) for name in names}
+    times = {name: [] for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            out, secs = synced(saved[name], *args, **kwargs)
+            times[name].append(secs)
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def phase_wide_sketch(week: dict, seed: int) -> dict:
+    """Phase 11: the randomized Hankel SVD at d = 3 (N = 3 x 128 = 384,
+    bf16 GEMMs, the function's default) on the ERA5-week X: past K1's
+    N_MAX, so n_iter auto = 4 gives five two-pass passes (K2 5, K3 5, K1
+    0); then optDMD and the forecast at d = 3."""
+    from dmd_era5_tpu_torch.ops import hankel_randomized_svd_fused
+
+    d, k = 3, 100
+    x = week["x"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    svd, times["hankel_svd_d3"] = synced(hankel_randomized_svd_fused, x, d, k, generator=gen)
+    launches = launch_counts()
+    u, s, v = svd
+    orth = orthonormality(u)
+    log(f"[11] d = 3 randomized Hankel SVD (bf16, N = 384): U {tuple(u.shape)}, max|U^T U - I| "
+        f"{orth:.2e}, s[:8] {[round(float(a), 2) for a in s[:8]]}, launches {launches}")
+    check(launches == counts(K2=5, K3=5), f"d = 3 Hankel SVD launched {launches}, expected K2 5, K3 5")
+    # bf16 Yc: the whitening describes the stored values (tests/test_07:212's bound)
+    check(orth <= 1e-2, f"d = 3 Hankel SVD: U^T U - I max {orth:.3e} > 1e-2")
+    check(bool((s > 0).all()) and bool((s[1:] <= s[:-1]).all()), "d = 3: s not positive descending")
+    dmd_and_forecast("d=3", svd, week, times, d)
+    times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"    stage wall times (s): {json.dumps(times)} (peak_gb: device memory over the phase's start)")
+    del u, s, v, svd
+    return launches
+
+
+def year_config(**overrides) -> dict:
+    """The port's parse of config.ini's [era5-svd], with the year's
+    overrides (YEAR_CONFIG) and ``overrides``."""
+    from dmd_era5_tpu_torch.core import config_parser, config_reader
+
+    raw = config_reader("era5-svd", ROOT / "config.ini")
+    return config_parser({**raw, **YEAR_CONFIG, **overrides}, "era5-svd")
+
+
+def check_resolved_interlace(label: str, s_rand: torch.Tensor, s_exact: torch.Tensor) -> dict:
+    """``check_interlace`` on the components the exact route resolves,
+    s^2 > 1e-6 s_0^2: below that the bf16-split Gram (~3e-6 max|G| off,
+    PERF.md) and the f32 eigh (eps_f32 lambda_max) carry no information
+    about the eigenvalue.  The unresolved tail's ratios are logged."""
+    s_rand, s_exact = s_rand.double().cpu(), s_exact.double().cpu()
+    resolved = int((s_exact > 1e-3 * s_exact[0]).sum())
+    out = check_interlace(label, s_rand[:resolved], s_exact[:resolved])
+    tail = s_rand[resolved:] / s_exact[resolved:]
+    out.update(resolved=resolved, tail_min_ratio=float(tail.min()) if len(tail) else None,
+               tail_max_ratio=float(tail.max()) if len(tail) else None)
+    return out
+
+
+def phase_year(seed: int) -> tuple[dict, dict]:
+    """Phase 10 on one year of hourly 1-degree ERA5.  Returns the main
+    path's launch counts and the K2 / K3 readings at the Hankel shape."""
+    from dmd_era5_tpu_torch.ops import hankel, stacked_sketch_matrix
+    from dmd_era5_tpu_torch.ops.matmul import _sketch_center_gram_project_cuda, _two_pass
+    from dmd_era5_tpu_torch.pipeline import fit_step_fused, fit_step_lean, svd_on_era5
+    from dmd_era5_tpu_torch.utils.labels import Field
+
+    torch.cuda.reset_peak_memory_stats()
+    times, total = {}, dict.fromkeys(KERNELS, 0)
+    (x, truth, row_mean, alpha_true, noise_std), times["generate"] = synced(make_era5_year, seed)
+    m, t = x.shape
+
+    def centre():  # in place: a centred copy would be a second 34 GB
+        mean = x.mean(dim=1)
+        x.sub_(mean[:, None])
+        return mean
+
+    mean, times["center"] = synced(centre)
+    year = dict(x=x, mean=mean, truth=truth, row_mean=row_mean, alpha_true=alpha_true)
+    log(f"[10] ERA5 year X {tuple(x.shape)} f32 ({x.numel() * 4 / 1e9:.2f} GB) generated in "
+        f"{times['generate']:.2f} s, centred in place in {times['center']:.2f} s; noise std "
+        f"{noise_std:.4f}")
+
+    log("[10a] K2 and K3 against their plain versions at the path's shapes (CUDA-event ms)")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    w_hankel = stacked_sketch_matrix(torch.randn((t - 1, 128), generator=gen, device=x.device), 2, t)
+    k2_res, yc = compare_sketch_center_gram("hankel_pass", x, w_hankel, center=False)
+    k3_res = compare_project("hankel_pass", x, yc)
+    del yc
+    w_fit = torch.randn((t, 128), generator=gen, device=x.device)
+    _, yc = compare_sketch_center_gram("fit_step", x, w_fit, center=True)
+    compare_project("fit_step", x, yc)
+    del yc
+
+    log("[10b] svd_on_era5 on config.ini's [era5-svd] defaults, year overrides "
+        f"{json.dumps(YEAR_CONFIG)}")
+    field = Field(x, ("space", "time"))
+    parsed = year_config()
+    check((parsed["svd_type"], parsed["delay_embedding"], parsed["precision"],
+           parsed["svd_backend"]) == ("randomized", 2, "float32", "auto"),
+          f"config.ini's [era5-svd] defaults moved: {parsed}")
+    reset_counts()
+    (u, s, v), times["svd_on_era5"] = synced(svd_on_era5, None, parsed, da_flat=field)
+    launches = launch_counts()
+    u, s, v = (torch.from_numpy(a).cuda() for a in (u, s, v))
+    orth = orthonormality(u)
+    log(f"    metrics {json.dumps(parsed['metrics'])}; U {tuple(u.shape)}, max|U^T U - I| "
+        f"{orth:.2e}, s[:8] {[round(float(a), 2) for a in s[:8]]}, launches {launches}")
+    check(parsed["metrics"]["svd_backend"] == "hankel", "the year did not resolve to hankel")
+    check(launches == counts(K2=8, K3=8), f"svd_on_era5 launched {launches}, expected K2 8, K3 8")
+    check(orth <= 1e-3, f"year Hankel SVD: U^T U - I max {orth:.3e} > 1e-3")
+    check(bool((s > 0).all()) and bool((s[1:] <= s[:-1]).all()), "year: s not positive descending")
+    log("[10c] optDMD (rank 6) and a 24-step forecast on (b)")
+    dmd_and_forecast("year", (u, s, v), year, times, d=2)
+    s_rand = s.clone()
+    total = {key: total[key] + n for key, n in launches.items()}
+    del u, s, v
+
+    log("[10d] svd_type = standard through svd_on_era5: the exact Hankel SVD")
+    parsed = year_config(svd_type="standard")
+    reset_counts()
+    with stage_clock(hankel, "raw_gram") as gram_clock, stage_clock(torch.linalg, "eigh") as eigh_clock:
+        (u, s, v), times["svd_on_era5_standard"] = synced(svd_on_era5, None, parsed, da_flat=field)
+    launches = launch_counts()
+    times["raw_gram_k5"], times["eigh"] = gram_clock["raw_gram"], eigh_clock["eigh"]
+    s = torch.from_numpy(s)
+    inter = check_resolved_interlace("year (b) vs exact", s_rand, s)
+    log(f"    metrics {json.dumps(parsed['metrics'])}; raw Gram (K5) {times['raw_gram_k5']} s, "
+        f"eigh {times['eigh']} s; s[:8] {[round(float(a), 2) for a in s[:8]]}, s[-1] "
+        f"{float(s[-1]):.3f}; (b) / exact: {json.dumps(inter)}; launches {launches}")
+    check(launches == counts(K2=1, K3=1, K5=1),
+          f"year standard path launched {launches}, expected K5 1, K2 1, K3 1")
+    total = {key: total[key] + n for key, n in launches.items()}
+    s_exact = s
+    del u, s, v
+
+    log("[10e] fit_step_fused and fit_step_lean (f32, k = 100, sketch 128)")
+    omega = torch.randn((t, 128), generator=gen, device=x.device)
+    states = {}
+    for name, step in (("fused", fit_step_fused), ("lean", fit_step_lean)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        states[name], times[f"fit_step_{name}"] = synced(step, x, omega, 100)
+        launches = launch_counts()
+        log(f"    {name}: {times[f'fit_step_{name}']:.3f} s, loss {float(states[name].loss):.6e}, "
+            f"launches {launches}, device memory over its start "
+            f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
+        check(launches == counts(K2=1, K3=1), f"fit_step_{name} launched {launches}, expected K2 1, K3 1")
+        total = {key: total[key] + n for key, n in launches.items()}
+    fused, lean = states["fused"], states["lean"]
+    # the exact rank-100 (and planted rank-6) loss of the centred X from
+    # its f64 Gram
+    g64 = gram_f64(x)
+    lam = torch.linalg.eigvalsh(g64).flip(0).clamp_min(0)
+    loss_exact, loss_rank6 = (float(torch.sqrt(lam[r:].sum() / lam.sum())) for r in (100, 6))
+    del g64
+    u_rel = [float((fused.u[:, :c] - lean.u[:, :c]).norm() / fused.u[:, :c].norm()) for c in (6, 100)]
+    agree = dict(s_rel=float(((fused.s - lean.s).abs() / fused.s).max()),
+                 loss_fused=float(fused.loss), loss_lean=float(lean.loss), loss_exact=loss_exact,
+                 loss_rank6=loss_rank6,
+                 u_rel_lead6=u_rel[0], u_rel_all=u_rel[1],
+                 fit_s0_over_exact=float(fused.s[0]) / math.sqrt(float(lam[0])))
+    log(f"    fused vs lean and the exact loss: {json.dumps(agree)}")
+    check(agree["s_rel"] <= 1e-5 and abs(agree["loss_lean"] / agree["loss_fused"] - 1) <= 1e-4,
+          "fit_step_lean does not agree with fit_step_fused")
+    check(u_rel[0] <= 1e-4, f"fit steps: leading-6 U differ by {u_rel[0]:.3e}")
+    # the step's loss is sqrt(1 - ||Z||^2 / ||Xc||^2), a cancellation at
+    # ~1e-4 of ||Xc||^2, and ||Z||^2 sums s_i^2 from an f32 eigh that
+    # resolves each of the 94 noise-floor values (s_i^2 ~ 4e-8 s_0^2
+    # here) only to ~eps_f32 s_0^2, which moves the loss by ~1-2%
+    # (ROADMAP Queue 3); it must not fall below the optimum
+    check(loss_exact * (1 - 1e-3) <= agree["loss_fused"] <= loss_exact * 1.05,
+          f"fit step loss {agree['loss_fused']:.6e} vs the exact rank-100 loss {loss_exact:.6e}")
+    del fused, lean, states
+
+    log("[10f] K1 and the two-pass route on the same X and the Hankel pass's sketch (N = 256)")
+    n_cta = 132  # K1's one wave at N = 256 (one CTA per SM): its f64 scratch
+    scratch = n_cta * 256 * (256 + t) * 8
+    log(f"    K1's f64 partial scratch {scratch / 1e9:.2f} GB")
+    args = (torch.float32, False, False, False, None, True)
+
+    def k1():
+        return _sketch_center_gram_project_cuda(x, w_hankel, *args)
+
+    def two_pass():
+        return _two_pass(x, w_hankel, *args)
+
+    a, b = k1(), two_pass()
+    agree = {name: rel_err(p, q)[0] for name, p, q in (("G", a[3], b[3]), ("C", a[4], b[4]))}
+    del a, b
+    times_f = [event_ms(f, reps=2) for f in (two_pass, k1, k1, two_pass)]
+    res_f = dict(k1_ms=(times_f[1] + times_f[2]) / 2, two_pass_ms=(times_f[0] + times_f[3]) / 2,
+                 k1_vs_two_pass_rel=agree)
+    log(f"    {json.dumps(res_f)}")
+    check(max(agree.values()) <= 1e-5, f"K1 and the two-pass route disagree: {agree}")
+    times["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"    stage wall times (s): {json.dumps(times)}; exact s[:6] "
+        f"{[round(float(a), 1) for a in s_exact[:6]]}")
+    del year, x, field
+    return total, {"K2": k2_res, "K3": k3_res}
+
+
 def kernel_line(key: str, launches: int, res: dict) -> dict:
     name, source, replaces = KERNELS[key]
     max_abs = res["max_abs_err"]
@@ -1046,9 +1422,19 @@ def main() -> None:
     streamed_cmp = phase_streamed_kernels(x, args.seed)
     for key, n in phase_streamed(week, ref8, args.seed).items():
         launches[key] += n
+    for key, n in phase_wide_sketch(week, args.seed).items():
+        launches[key] += n
+    # the week's tensors go before the year (34 GB) is built
+    del week, x, ref8
+    torch.cuda.empty_cache()
+    year_launches, two_pass_cmp = phase_year(args.seed)
+    for key, n in year_launches.items():
+        launches[key] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
     print(json.dumps({"kernels": [
         kernel_line("K1", launches["K1"], hankel_cmp),
+        kernel_line("K2", launches["K2"], two_pass_cmp["K2"]),
+        kernel_line("K3", launches["K3"], two_pass_cmp["K3"]),
         kernel_line("K4", launches["K4"], gram_cmp[("X", "highest")]),
         kernel_line("K5", launches["K5"], gram_cmp[("X", "bf16_split")]),
         kernel_line("K6", launches["K6"], streamed_cmp["f32"]),

@@ -1,4 +1,5 @@
-"""Operators over the snapshot matrix: the fused kernel pass, the tiled
+"""Operators over the snapshot matrix: the fused kernel pass and its
+two-pass fallback, the tiled
 matmul (``ops.matmul.matmul``; not re-exported here, where its name
 would hide the module), the Gram kernel, the Householder panel,
 tall-skinny QR and the SVDs on them."""
@@ -9,7 +10,7 @@ from dmd_era5_tpu_torch.ops.hankel import (
     hankel_randomized_svd_fused_core,
     stacked_sketch_matrix,
 )
-from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
+from dmd_era5_tpu_torch.ops.matmul import project, sketch_center_gram, sketch_center_gram_project
 from dmd_era5_tpu_torch.ops.qr_panel import cholqr, cholqr2, cholqr2_split, gram, householder_panel
 from dmd_era5_tpu_torch.ops.svd import (
     SVDResult,
@@ -34,8 +35,10 @@ __all__ = [
     "hankel_randomized_svd_fused",
     "hankel_randomized_svd_fused_core",
     "householder_panel",
+    "project",
     "qr_positive",
     "randomized_svd",
+    "sketch_center_gram",
     "sketch_center_gram_project",
     "sklearn_n_iter",
     "stacked_sketch_matrix",

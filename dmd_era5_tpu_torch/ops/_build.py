@@ -3,8 +3,9 @@
 Each kernel source under ``ops/csrc/`` exposes a plain C interface and
 is compiled by ``nvcc`` into its own shared library at first use, then
 loaded with ``ctypes``.  Libraries land in ``build/dmd_era5_tpu_torch/``
-at the repository root, named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads in milliseconds.
+at the repository root, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads in milliseconds.
 Nothing here runs at import time: the CPU-only test environment has no
 ``nvcc``.
 """
@@ -50,8 +51,9 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():

@@ -1,5 +1,5 @@
-"""The fused sketch / centre / Gram / projection pass over X, and the
-tiled matmul of the streamed sketch.
+"""The fused sketch / centre / Gram / projection pass over X, its
+two-pass fallback, and the tiled matmul of the streamed sketch.
 
 PyTorch counterpart of ``dmd_era5_tpu/ops/matmul.py::
 sketch_center_gram_project``.  From ONE read of the snapshot matrix
@@ -9,31 +9,83 @@ X (M, T) and a sketch W (T, N) it returns
     rowsum, rowsumsq                             (or their two scalar sums)
     G  = Yc^T Yc,   C = Yc^T X                   both from the STORED Yc
 
-and of ``dmd_era5_tpu/ops/matmul.py::matmul``: (M, K) @ (K, N) summed
-in f32, the per-block sketch of the out-of-core SVD.
+Where the JAX package's fused kernel cannot take the time axis, and
+where the port's fused kernel cannot take the sketch's width
+(:func:`takes_two_pass`), the same outputs come from two passes,
+:func:`sketch_center_gram` then :func:`project`, as in the JAX package.
+Also ``dmd_era5_tpu/ops/matmul.py::matmul``: (M, K) @ (K, N) summed in
+f32, the per-block sketch of the out-of-core SVD.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/sketch_center_gram_project.cu``, ``csrc/matmul.cu``); on a CPU
-tensor it takes the plain PyTorch version beside it, which does the
-same arithmetic with ``torch.matmul``.  There is no fallback between
-the two.
+(``csrc/sketch_center_gram_project.cu`` K1, ``csrc/sketch_center_gram.cu``
+K2, ``csrc/project.cu`` K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
+takes the plain PyTorch version beside it, which does the same
+arithmetic with ``torch.matmul``.  There is no fallback between the two:
+which pass runs is decided by the shapes alone, the same on both.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
-__all__ = ["sketch_center_gram_project", "matmul", "N_MAX"]
+__all__ = [
+    "sketch_center_gram_project",
+    "sketch_center_gram",
+    "project",
+    "takes_two_pass",
+    "matmul",
+    "N_MAX",
+    "SKETCH_N_MAX",
+]
 
-# Widest sketch of the Hopper kernel.  Wider ones need the two-pass
-# fallback of the JAX package (kernels K2 sketch_center_gram and K3
-# project), which is not ported yet.  The kernel takes any T: its cost
-# in T is the f64 scratch of per-CTA partials, n_cta * N * (N + T) * 8
-# bytes, allocated below.
+logger = logging.getLogger(__name__)
+
+# Widest sketch of the fused kernel K1 (its registers).  Wider ones take
+# the two-pass route.  K1 takes any T: its cost in T is the f64 scratch of
+# per-CTA partials, n_cta * N * (N + T) * 8 bytes, allocated below.
 N_MAX = 256
+# Widest sketch of K2, whose Gram stage keeps n_share * N^2 f64 partials.
+SKETCH_N_MAX = 2048
 _DTYPES = (torch.float32, torch.bfloat16)
+# The JAX package's X-tile budget by itemsize (dmd_era5_tpu/ops/matmul.py:
+# 331), which sets where it leaves its fused kernel for the two passes.
+_TILE_BUDGET = {2: 2 << 20, 4: 1 << 20}
+_SCRATCH_CAP = 1 << 30  # f64 scratch of a row-share reduction, at most
+_PLAIN_CHUNK = 1 << 28  # bytes of f32 rows a plain version takes at once
+
+
+def long_time_axis(t_cols: int, itemsize: int) -> bool:
+    """Where the JAX package's fused kernel cannot hold one 128-row tile
+    of X: 128 T itemsize > 4 x its tile budget, i.e. T > 8,192 in f32 and
+    T > 32,768 in bf16 (``dmd_era5_tpu/ops/matmul.py:374``)."""
+    return 128 * t_cols * itemsize > 4 * _TILE_BUDGET[itemsize]
+
+
+def takes_two_pass(t_cols: int, n: int, itemsize: int) -> bool:
+    """Whether :func:`sketch_center_gram_project` takes the two passes:
+    where the JAX package does (:func:`long_time_axis`), and where K1
+    cannot go, a sketch wider than ``N_MAX``."""
+    return long_time_axis(t_cols, itemsize) or n > N_MAX
+
+
+def _row_slices(x: torch.Tensor):
+    """Row slices of x of about ``_PLAIN_CHUNK`` bytes in f32, so a plain
+    version never builds an (M, T) temporary."""
+    rows = max(1, _PLAIN_CHUNK // (4 * max(1, x.shape[1])))
+    return [slice(r, min(r + rows, x.shape[0])) for r in range(0, x.shape[0], rows)]
+
+
+def _row_sumsq(x: torch.Tensor, square_in_storage: bool = False) -> torch.Tensor:
+    """sum_t x^2 per row in f32, row chunk by row chunk; the square is
+    rounded to x's dtype first with ``square_in_storage``."""
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    for sl in _row_slices(x):
+        xc = x[sl]
+        out[sl] = ((xc * xc).float() if square_in_storage else xc.float().square()).sum(dim=1)
+    return out
 
 
 def _prepare(w, t_cols, center, stats_col, t_valid):
@@ -70,13 +122,7 @@ def _check_operands(x, w, out_dtype):
 
 def _check(x, w, out_dtype, t_valid):
     _check_operands(x, w, out_dtype)
-    t_cols, n = w.shape
-    if n > N_MAX:
-        raise ValueError(
-            f"sketch width {n} is outside the fused kernel's range (max "
-            f"{N_MAX}); the two-pass fallback (K2 sketch_center_gram + K3 "
-            "project) is not ported yet"
-        )
+    t_cols = w.shape[0]
     if t_valid is not None and not 0 < t_valid <= t_cols:
         raise ValueError(f"t_valid={t_valid} outside (0, {t_cols}]")
 
@@ -106,10 +152,10 @@ def _sketch_center_gram_project_plain(
         # the ones column gives the pre-centering row sum; the square
         # is taken in the storage dtype, summed in f32
         rs = y[:, -1].clone()
-        ssq = (x * x).float().sum(dim=1)
+        ssq = _row_sumsq(x, square_in_storage=True)
     else:
         rs = xf.sum(dim=1)
-        ssq = (xf * xf).sum(dim=1)
+        ssq = _row_sumsq(x)
     # in place, which saves one (M, N) f32 copy (16 GB at ERA5 size)
     yc = y.sub_((rs * inv_t)[:, None] * colw[None, :]).to(out_dtype)
     ycf = yc.float()
@@ -150,26 +196,39 @@ def _kernel_library():
 _CTAS_PER_SM: dict[tuple, int] = {}
 
 
-def _grid(dev, x_bf16: int, out_bf16: int, n: int) -> int:
-    """CTAs that run at once on the card: SMs x resident CTAs per SM.
-
-    One wave covers the card; each CTA then walks its row tiles, and
-    the f64 partial scratch holds one copy per CTA.
-    """
-    key = (dev.index, x_bf16, out_bf16, n)
+def _resident_ctas(dev, key: tuple, query) -> int:
+    """CTAs of one kernel that run at once on the card: SMs x resident
+    CTAs per SM, the latter from ``query(address of an int)`` (a C
+    occupancy function of the kernel's library), cached under ``key``."""
+    key = (dev.index, *key)
     if key not in _CTAS_PER_SM:
         per_sm = ctypes.c_int(0)
-        rc = _kernel_library().scgp_ctas_per_sm(
-            x_bf16, out_bf16, n, ctypes.addressof(per_sm)
-        )
+        rc = query(ctypes.addressof(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(
-                f"sketch_center_gram_project occupancy: CUDA error {rc}, "
-                f"{per_sm.value} CTAs per SM"
+                f"{key[1]} occupancy: CUDA error {rc}, {per_sm.value} CTAs per SM"
             )
         _CTAS_PER_SM[key] = per_sm.value
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return sms * _CTAS_PER_SM[key]
+
+
+def _grid(dev, x_bf16: int, out_bf16: int, n: int) -> int:
+    """K1's grid: one wave of its resident CTAs covers the card; each CTA
+    then walks its row tiles, and the f64 partial scratch holds one copy
+    per CTA."""
+    return _resident_ctas(
+        dev, ("sketch_center_gram_project", x_bf16, out_bf16, n),
+        lambda out: _kernel_library().scgp_ctas_per_sm(x_bf16, out_bf16, n, out),
+    )
+
+
+def _row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
+    """Row shares of a row-share reduction (``csrc/row_share_atb.cuh``):
+    enough CTAs to fill one wave of the card, at most one share per
+    128-row tile, and f64 scratch (``share_bytes`` a share) within 1 GiB."""
+    shares = -(-wave // n_blocks)
+    return max(1, min(shares, -(-m // 128), _SCRATCH_CAP // share_bytes, 65535))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -243,20 +302,274 @@ def sketch_center_gram_project(
     trailing T - t_valid columns of x are zero padding; only the
     centering divisor uses the true count.
 
-    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    the Hopper kernel and counts the launch in
-    ``sketch_center_gram_project.launches``.
+    Where :func:`takes_two_pass` says so, the outputs come from
+    :func:`sketch_center_gram` then :func:`project` (kernels K2 and K3),
+    with the JAX package's fallback semantics: the row statistics from
+    the f32 values of X (not from the stats column, whose ones still
+    enter W), ``scalar_stats`` summed from them, and Yc computed even
+    when ``emit_yc=False``.  A ``t_valid`` below T raises where the JAX
+    package's fallback raises, on a time axis too long for its fused
+    kernel; a sketch too wide for K1 alone keeps it.
+
+    A CPU tensor takes the plain PyTorch versions; a CUDA tensor launches
+    the Hopper kernels and counts each launch in the wrapper's
+    ``launches`` (``sketch_center_gram_project.launches`` for K1).
     """
     _check(x, w, out_dtype, t_valid)
     args = (out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    if takes_two_pass(w.shape[0], w.shape[1], x.element_size()):
+        return _two_pass(x, w, *args)
     if x.device.type == "cpu":
         return _sketch_center_gram_project_plain(x, w, *args)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     return _sketch_center_gram_project_cuda(x, w, *args)
 
 
+def _two_pass(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc):
+    """``dmd_era5_tpu/ops/matmul.py:374-387``: K2 then K3."""
+    t_cols = x.shape[1]
+    if t_valid not in (None, t_cols) and long_time_axis(t_cols, x.element_size()):
+        raise ValueError(
+            "t_valid column padding needs the fused single-pass kernel; time "
+            f"axis {t_cols} is too long for it (the JAX package's fallback "
+            "refuses it too)"
+        )
+    w, _, _ = _prepare(w, t_cols, center, stats_col, t_valid)
+    yc, rs, ss, g = sketch_center_gram(x, w, out_dtype=out_dtype, center=center, t_valid=t_valid)
+    c = project(x, yc)
+    yc_out = yc if emit_yc else None
+    if scalar_stats:
+        return yc_out, (rs * rs).sum(), ss.sum(), g, c
+    return yc_out, rs, ss, g, c
+
+
 sketch_center_gram_project.launches = 0
+
+
+# ------------------------------------------------- the two-pass fallback
+
+
+def _check_sketch(x, w, out_dtype, t_valid):
+    _check_operands(x, w, out_dtype)
+    if w.shape[1] > SKETCH_N_MAX:
+        raise ValueError(
+            f"sketch width {w.shape[1]} is outside the range of the "
+            f"sketch_center_gram kernel (max {SKETCH_N_MAX}, its Gram scratch)"
+        )
+    if t_valid is not None and not 0 < t_valid <= w.shape[0]:
+        raise ValueError(f"t_valid={t_valid} outside (0, {w.shape[0]}]")
+
+
+def _sketch_center_gram_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+    center: bool = True,
+    t_valid: int | None = None,
+):
+    """Plain PyTorch version of K2: the same outputs from f32 products
+    (TF32 off on a card), X taken in row chunks, G from the stored Yc in
+    f32 sums (the kernel's sums are f64-grade)."""
+    _check_sketch(x, w, out_dtype, t_valid)
+    wf = w.float()
+    colw = wf.sum(dim=0)
+    inv_t = (1.0 / (t_valid or x.shape[1])) if center else 0.0
+    m, n = x.shape[0], w.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, rs, ss = torch.empty((m, n), **f32), torch.empty(m, **f32), torch.empty(m, **f32)
+    for sl in _row_slices(x):
+        xc = x[sl].float()
+        y[sl] = xc @ wf
+        rs[sl] = xc.sum(dim=1)
+        ss[sl] = xc.square().sum(dim=1)
+    yc = y.sub_((rs * inv_t)[:, None] * colw[None, :]).to(out_dtype)
+    ycf = yc.float()
+    return yc, rs, ss, ycf.T @ ycf
+
+
+_SCG_LIB = None
+
+
+def _scg_library():
+    global _SCG_LIB
+    if _SCG_LIB is None:
+        from dmd_era5_tpu_torch.ops._build import load_kernel_library
+
+        lib = load_kernel_library("sketch_center_gram")
+        ptr, flag = ctypes.c_void_p, ctypes.c_int
+        lib.scg_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # x, w, colw, yc, stats
+            ptr, ptr,  # per-share f64 partials of G, reduced G
+            ctypes.c_longlong, flag, flag,  # m, t, n
+            flag, flag, ctypes.c_float, flag, ptr,  # x_bf16, out_bf16, inv_t, n_share, stream
+        ]
+        lib.scg_launch.restype = ctypes.c_int
+        lib.scg_gram_ctas_per_sm.argtypes = [flag, ptr]  # out_bf16, &out
+        lib.scg_gram_ctas_per_sm.restype = ctypes.c_int
+        _SCG_LIB = lib
+    return _SCG_LIB
+
+
+def _sketch_center_gram_cuda(x, w, out_dtype, center, t_valid):
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (row-major M x T)")
+    w = w.contiguous()
+    colw = w.float().sum(dim=0)
+    inv_t = (1.0 / (t_valid or x.shape[1])) if center else 0.0
+    (m, t_cols), n, dev = x.shape, w.shape[1], x.device
+    x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
+    lib = _scg_library()
+    with torch.cuda.device(dev):
+        wave = _resident_ctas(dev, ("sketch_center_gram", out_bf16),
+                              lambda out: lib.scg_gram_ctas_per_sm(out_bf16, out))
+        nb = -(-n // 64)
+        n_share = _row_shares(wave, nb * (nb + 1) // 2, m, 8 * n * n)
+        f32 = dict(dtype=torch.float32, device=dev)
+        yc = torch.empty((m, n), dtype=out_dtype, device=dev)
+        stats = torch.empty((m, 2), **f32)
+        g = torch.empty((n, n), **f32)
+        g_part = torch.empty((n_share, n, n), dtype=torch.float64, device=dev)
+        rc = lib.scg_launch(
+            x.data_ptr(), w.data_ptr(), colw.data_ptr(), yc.data_ptr(), stats.data_ptr(),
+            g_part.data_ptr(), g.data_ptr(), m, t_cols, n, x_bf16, out_bf16, inv_t,
+            n_share, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sketch_center_gram kernel: CUDA error {rc}")
+    sketch_center_gram.launches += 1
+    return yc, stats[:, 0], stats[:, 1], g
+
+
+def sketch_center_gram(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+    center: bool = True,
+    t_valid: int | None = None,
+):
+    """(Yc, rowsum, rowsumsq, G) from one read of X: the first pass of
+    the fallback (``dmd_era5_tpu/ops/matmul.py:491``, kernels K2a/K2b).
+
+    x: (M, T); w: (T, N), both float32 or both bfloat16.  Returns Yc
+    (M, N) ``out_dtype`` = X W - (rowsum / T) colsum(W) (no correction
+    with ``center=False``), rowsum and rowsumsq (M,) f32 from the f32
+    values of X, and G = Yc^T Yc (N, N) f32 from the STORED Yc.
+    ``t_valid`` replaces T as the centring divisor (trailing zero
+    columns), which the JAX entry does not take.  Any M and T; N up to
+    ``SKETCH_N_MAX``.
+
+    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
+    the Hopper kernel (``csrc/sketch_center_gram.cu``) and counts it in
+    ``sketch_center_gram.launches``.
+    """
+    _check_sketch(x, w, out_dtype, t_valid)
+    if x.device.type == "cpu":
+        return _sketch_center_gram_plain(x, w, out_dtype, center, t_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _sketch_center_gram_cuda(x, w, out_dtype, center, t_valid)
+
+
+sketch_center_gram.launches = 0
+
+
+def _check_project(x, y):
+    if x.ndim != 2 or y.ndim != 2 or x.shape[0] != y.shape[0]:
+        raise ValueError(f"need x (M, T) and y (M, N); got {tuple(x.shape)}, {tuple(y.shape)}")
+    if x.dtype not in _DTYPES or y.dtype not in _DTYPES:
+        raise ValueError(f"x and y must each be one of {_DTYPES}; got {x.dtype}, {y.dtype}")
+    if y.device != x.device:
+        raise ValueError(f"x on {x.device} but y on {y.device}")
+    if min(*x.shape, y.shape[1]) < 1:
+        raise ValueError(f"empty operand: x {tuple(x.shape)}, y {tuple(y.shape)}")
+
+
+def _project_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: f32 products (TF32 off on a card),
+    summed row chunk by row chunk in f32."""
+    _check_project(x, y)
+    c = None
+    for sl in _row_slices(x):
+        part = y[sl].float().T @ x[sl].float()
+        c = part if c is None else c.add_(part)
+    return c
+
+
+_PROJECT_LIB = None
+
+
+def _project_library():
+    global _PROJECT_LIB
+    if _PROJECT_LIB is None:
+        from dmd_era5_tpu_torch.ops._build import load_kernel_library
+
+        lib = load_kernel_library("project")
+        ptr, flag = ctypes.c_void_p, ctypes.c_int
+        # y, x, per-share f64 partials, C, m, n, t, y_bf16, x_bf16, n_share, stream
+        lib.project_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, ptr,
+        ]
+        lib.project_launch.restype = ctypes.c_int
+        lib.project_ctas_per_sm.argtypes = [flag, flag, ptr]  # y_bf16, x_bf16, &out
+        lib.project_ctas_per_sm.restype = ctypes.c_int
+        _PROJECT_LIB = lib
+    return _PROJECT_LIB
+
+
+def project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
+    """Row shares K3 takes for C = Y^T X on the card: one wave of its
+    CTAs over the 64 x 64 blocks of C, its f64 scratch (n_share N T
+    doubles) held within 1 GiB."""
+    (m, t_cols), n, dev = x.shape, y.shape[1], x.device
+    y_bf16, x_bf16 = int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16)
+    lib = _project_library()
+    with torch.cuda.device(dev):
+        wave = _resident_ctas(dev, ("project", y_bf16, x_bf16),
+                              lambda out: lib.project_ctas_per_sm(y_bf16, x_bf16, out))
+    return _row_shares(wave, -(-n // 64) * -(-t_cols // 64), m, 8 * n * t_cols)
+
+
+def _project_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("x and y must be contiguous (row-major)")
+    (m, t_cols), n, dev = x.shape, y.shape[1], x.device
+    n_share = project_row_shares(x, y)
+    logger.debug("project: %d row shares, %.1f MB of f64 scratch", n_share,
+                 8 * n_share * n * t_cols / 1e6)
+    with torch.cuda.device(dev):
+        c = torch.empty((n, t_cols), dtype=torch.float32, device=dev)
+        part = torch.empty((n_share, n, t_cols), dtype=torch.float64, device=dev)
+        rc = _project_library().project_launch(
+            y.data_ptr(), x.data_ptr(), part.data_ptr(), c.data_ptr(), m, n, t_cols,
+            int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16), n_share,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"project kernel: CUDA error {rc}")
+    project.launches += 1
+    return c
+
+
+def project(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """C = Y^T X (N, T) f32 in one streaming pass over X and Y: the
+    second pass of the fallback (``dmd_era5_tpu/ops/matmul.py:610``,
+    kernel K3).
+
+    x: (M, T); y: (M, N), each float32 or bfloat16.  Any M, T and N.  A
+    CPU tensor takes the plain PyTorch version; a CUDA tensor launches
+    the Hopper kernel (``csrc/project.cu``) and counts it in
+    ``project.launches``.
+    """
+    _check_project(x, y)
+    if x.device.type == "cpu":
+        return _project_plain(x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _project_cuda(x, y)
+
+
+project.launches = 0
 
 
 # ------------------------------------------------------------ tiled matmul

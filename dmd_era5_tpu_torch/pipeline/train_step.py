@@ -6,7 +6,9 @@ Xc = X - mu 1^T is never built: ONE pass of
 ``ops.matmul.sketch_center_gram_project`` returns the centred sketch Yc,
 the two scalars of the row statistics, G = Yc^T Yc and C = Yc^T X, and
 everything after it is r-sized except the skinny lift U = Yc (W^T Ub).
-With Z = S_k V_k^T the loss needs no S-sized product:
+The memory-lean variant (:func:`fit_step_lean`) emits no Yc and lifts U
+from X itself, the centring folded into the small lift matrix.  With
+Z = S_k V_k^T the loss needs no S-sized product:
 
     ||Xc - U Z||^2 = ||Xc||^2 - ||Z||^2,   ||Xc||^2 = ||X||^2 - T ||mu||^2.
 """
@@ -23,9 +25,12 @@ from dmd_era5_tpu_torch.utils.linalg import gram_whiten, spd_solve
 __all__ = [
     "FitState",
     "fit_step_fused",
+    "fit_step_lean",
     "fit_ingest_pass",
     "fit_reduce_lift",
 ]
+
+_LIFT_ROWS = 1 << 20  # rows of X upcast at a time by the lean lift
 
 
 class FitState(NamedTuple):
@@ -62,6 +67,52 @@ def fit_step_fused(
         y, sq_norm_xc, gram, c, n_components=n_components,
         t_valid=t_valid, small_algebra=small_algebra,
     )
+
+
+def fit_step_lean(
+    x: torch.Tensor,
+    omega: torch.Tensor,
+    n_components: int,
+    gemm_dtype: torch.dtype = torch.float32,
+    u_dtype: torch.dtype | None = None,
+    t_valid: int | None = None,
+    small_algebra: str = "hybrid",
+) -> FitState:
+    """Memory-lean fit step: device memory holds ONE extra S-sized array.
+
+    Counterpart of ``dmd_era5_tpu/pipeline/train_step.py:365``: the same
+    math as :func:`fit_step_fused`, but the pass emits no Yc
+    (``emit_yc=False``) and U comes from one more product with X, the
+    centring folded into the small lift matrix:
+
+        U = Xc (Omega W Ub) = X (M - (1/T) 1_valid (1_valid^T M)),
+        M = Omega W Ub.
+
+    U is float32 (``u_dtype=None``) or ``u_dtype``.
+    """
+    t_pad = x.shape[1]
+    t_cols = t_valid if t_valid is not None else t_pad
+    xg = x.to(gemm_dtype)
+    _, rs_sq_sum, sumsq_sum, gram, c = sketch_center_gram_project(
+        xg, omega.to(gemm_dtype), out_dtype=gemm_dtype, scalar_stats=True,
+        t_valid=t_valid, emit_yc=False,
+    )
+    c_centered = _centred_projection(c, t_valid)
+    w_lift, s, vt = _reduced_factors(gram, c_centered, n_components, method=small_algebra)
+    vt = vt[:n_components, :t_cols]
+
+    m_small = omega.float() @ w_lift  # (T_pad, k)
+    valid = torch.ones((t_pad, 1), dtype=torch.float32, device=x.device)
+    valid[t_cols:] = 0.0
+    m_fold = m_small - (valid / t_cols) * (m_small * valid).sum(dim=0, keepdim=True)
+    if u_dtype is None or u_dtype == torch.float32:
+        # row chunks: a bf16 X is upcast a chunk at a time, never whole
+        u = torch.empty((x.shape[0], m_fold.shape[1]), dtype=torch.float32, device=x.device)
+        for r0 in range(0, x.shape[0], _LIFT_ROWS):
+            torch.matmul(xg[r0 : r0 + _LIFT_ROWS].float(), m_fold, out=u[r0 : r0 + _LIFT_ROWS])
+    else:
+        u = (xg @ m_fold.to(gemm_dtype)).to(u_dtype)
+    return _dynamics_and_loss(u, s, vt, sumsq_sum - rs_sq_sum / t_cols)
 
 
 def fit_ingest_pass(
@@ -149,16 +200,24 @@ def fit_reduce_lift(
     """Stage 2 of the fused fit: small algebra and the skinny U lift
     (U in float32)."""
     t_cols = t_valid if t_valid is not None else c.shape[1]
-    c_mu = c.sum(dim=1) / t_cols
-    # subtract the mean only on the true columns: pad columns stay zero
-    c_centered = c - c_mu[:, None]
-    if t_valid is not None and t_valid != c.shape[1]:
-        c_centered[:, t_valid:] = 0.0
-
+    c_centered = _centred_projection(c, t_valid)
     w_lift, s, vt = _reduced_factors(gram, c_centered, n_components, method=small_algebra)
     vt = vt[:n_components, :t_cols]
-    u = y.float() @ w_lift
+    return _dynamics_and_loss(y.float() @ w_lift, s, vt, sq_norm_xc)
 
+
+def _centred_projection(c: torch.Tensor, t_valid: int | None) -> torch.Tensor:
+    """C - c_mu 1^T with c_mu = C 1 / t_valid, the mean subtracted only
+    on the true columns: pad columns stay zero."""
+    t_cols = t_valid if t_valid is not None else c.shape[1]
+    c_centered = c - (c.sum(dim=1) / t_cols)[:, None]
+    if t_cols != c.shape[1]:
+        c_centered[:, t_cols:] = 0.0
+    return c_centered
+
+
+def _dynamics_and_loss(u, s, vt, sq_norm_xc) -> FitState:
+    """The reduced one-step operator and the loss from the factors."""
     z = s[:, None] * vt
     z1, z2 = z[:, :-1], z[:, 1:]
     g1 = z1 @ z1.T

@@ -1,7 +1,10 @@
 """The Hopper kernels against their plain PyTorch versions, on the card.
 
 Every flag combination of ``sketch_center_gram_project`` in float32 and
-bfloat16, at a ragged row count and both kernel width classes; ``gram``
+bfloat16, at a ragged row count and both kernel width classes; the
+two-pass fallback, ``sketch_center_gram`` (K2) and ``project`` (K3), over
+operand and output dtypes at ragged M, T and N up to 512, and its route
+through ``sketch_center_gram_project``; ``gram``
 at both precisions, float32 and bfloat16 input, ragged row counts and
 panel widths past the JAX kernel's 1024; ``matmul`` (K6) over operand
 and output dtypes and ragged M, N and K; ``householder_panel`` (K7) at
@@ -222,3 +225,101 @@ def test_householder_leaf_on_card(cuda):
     torch.cuda.synchronize()
     assert qr_panel.householder_panel.launches == before + 2
     assert torch.equal(r, r_l)
+
+
+SCG_CASES = [
+    pytest.param(dtype, out_dtype, center, m, t, n,
+                 id=f"{dtype}-{out_dtype}-c{center:d}-m{m}-t{t}-n{n}")
+    for dtype, out_dtype in [("float32", "float32"), ("bfloat16", "bfloat16"),
+                             ("bfloat16", "float32"), ("float32", "bfloat16")]
+    # ragged every way; K1's widest; past it (d = 3 at k = 100); d = 4; one element
+    for m, t, n, center in [(1000, 168, 100, True), (1031, 333, 256, False),
+                            (777, 8760, 257, True), (300, 50, 384, True),
+                            (129, 40, 512, False), (1, 1, 1, True)]
+]
+
+
+def _f64_close(got, exact, what, rel=1e-5):
+    """Within ``rel`` of the largest entry of the f64 sums."""
+    err = float((got.double() - exact).abs().max())
+    scale = float(exact.abs().max())
+    assert err <= rel * max(scale, 1e-30), (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype,center,m,t,n", SCG_CASES)
+def test_sketch_center_gram_kernel_matches_plain_on_card(cuda, dtype, out_dtype, center, m, t, n):
+    """K2: Yc within f32 roundoff of the plain version (one bf16 ulp for
+    a bf16 Yc, which may round the other way), the row statistics within
+    1e-5, and G exactly symmetric and within 1e-5 max|G| of the f64 sums
+    of the kernel's own stored Yc (the plain version sums it in f32)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    x = (torch.randn((m, t), generator=gen, device=cuda) + 1.0).to(tdt)
+    w = torch.randn((t, n), generator=gen, device=cuda).to(tdt)
+    before = matmul.sketch_center_gram.launches
+    got = matmul.sketch_center_gram(x, w, out_dtype=odt, center=center)
+    ref = matmul._sketch_center_gram_plain(x, w, odt, center)
+    torch.cuda.synchronize()
+    assert matmul.sketch_center_gram.launches == before + 1
+    yc, rs, ss, g = got
+    assert yc.dtype == odt and yc.shape == (m, n) and g.shape == (n, n)
+    assert torch.equal(g, g.T)
+    for name, a, b in zip(("yc", "rowsum", "rowsumsq"), got, ref):
+        a, b = a.double(), b.double()
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        limit = 2.0**-8 if (name == "yc" and out_dtype == "bfloat16") else 1e-5
+        assert rel <= limit, (name, rel)
+    ycd = yc.double()
+    _f64_close(g, ycd.T @ ycd, "G")
+
+
+PROJECT_CASES = [
+    pytest.param(y_dtype, x_dtype, m, t, n, id=f"y{y_dtype}-x{x_dtype}-m{m}-t{t}-n{n}")
+    for y_dtype, x_dtype in [("float32", "float32"), ("bfloat16", "bfloat16"),
+                             ("bfloat16", "float32")]
+    for m, t, n in [(1000, 168, 100), (1031, 8760, 256), (300, 50, 384), (129, 65, 512),
+                    (1, 1, 1)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y_dtype,x_dtype,m,t,n", PROJECT_CASES)
+def test_project_kernel_matches_plain_on_card(cuda, y_dtype, x_dtype, m, t, n):
+    """K3: C within 1e-5 max|C| of the f64 sums of Y^T X, and of the plain
+    version (which sums in f32)."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = torch.randn((m, t), generator=gen, device=cuda).to(getattr(torch, x_dtype))
+    y = torch.randn((m, n), generator=gen, device=cuda).to(getattr(torch, y_dtype))
+    before = matmul.project.launches
+    c = matmul.project(x, y)
+    ref = matmul._project_plain(x, y)
+    torch.cuda.synchronize()
+    assert matmul.project.launches == before + 1
+    assert c.dtype == torch.float32 and c.shape == (n, t)
+    exact = y.double().T @ x.double()
+    _f64_close(c, exact, "C")
+    _f64_close(c, ref.double(), "C vs plain", rel=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,launches", [(168, 256, (1, 0, 0)), (168, 384, (0, 1, 1)),
+                                          (8760, 128, (0, 1, 1))])
+def test_fused_entry_routes_on_card(cuda, t, n, launches):
+    """sketch_center_gram_project launches K1 where it can, else K2 and K3
+    once each (a sketch past N_MAX, a time axis past the JAX package's
+    fused range), and agrees with its plain route."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((700, t), generator=gen, device=cuda)
+    w = torch.randn((t, n), generator=gen, device=cuda)
+    before = (matmul.sketch_center_gram_project.launches, matmul.sketch_center_gram.launches,
+              matmul.project.launches)
+    got = matmul.sketch_center_gram_project(x, w, scalar_stats=True)
+    torch.cuda.synchronize()
+    after = (matmul.sketch_center_gram_project.launches, matmul.sketch_center_gram.launches,
+             matmul.project.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == launches
+    ref = matmul.sketch_center_gram_project(x.cpu(), w.cpu(), scalar_stats=True)
+    for name, a, b in zip(("yc", "rs2", "ss", "G", "C"), got, ref):
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).norm() / b.norm()) <= 1e-5, name

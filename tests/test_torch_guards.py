@@ -26,7 +26,8 @@ def test_package_imports_without_jax():
         "import dmd_era5_tpu_torch, dmd_era5_tpu_torch.convert\n"
         "import dmd_era5_tpu_torch.ops, dmd_era5_tpu_torch.models\n"
         "import dmd_era5_tpu_torch.pipeline, dmd_era5_tpu_torch.snapmat\n"
-        "import dmd_era5_tpu_torch.utils\n"
+        "import dmd_era5_tpu_torch.utils, dmd_era5_tpu_torch.core\n"
+        "import dmd_era5_tpu_torch.pipeline.era5_svd, dmd_era5_tpu_torch.utils.labels\n"
         "assert not any(m == 'dmd_era5_tpu' or m.startswith('dmd_era5_tpu.')"
         " for m in sys.modules), 'the JAX package was imported'\n"
     )
@@ -68,8 +69,16 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 
 def test_kernel_range_and_devices_raise():
     x = torch.zeros(10, 12)
-    with pytest.raises(ValueError, match="K2 sketch_center_gram"):
-        matmul.sketch_center_gram_project(x, torch.zeros(12, matmul.N_MAX + 1))
+    # a sketch wider than K1 takes the two-pass route (K2 then K3), on the
+    # CPU through their plain versions; K2's own range raises past it
+    wide = torch.zeros(12, matmul.N_MAX + 1)
+    assert matmul.takes_two_pass(12, matmul.N_MAX + 1, 4)
+    yc, _, _, g, c = matmul.sketch_center_gram_project(x, wide)
+    assert yc.shape == (10, matmul.N_MAX + 1) and g.shape == (matmul.N_MAX + 1,) * 2
+    assert c.shape == (matmul.N_MAX + 1, 12)
+    assert matmul.sketch_center_gram.launches == matmul.project.launches == 0
+    with pytest.raises(ValueError, match="sketch_center_gram kernel"):
+        matmul.sketch_center_gram_project(x, torch.zeros(12, matmul.SKETCH_N_MAX + 1))
     with pytest.raises(ValueError, match="no kernel for device"):
         matmul.sketch_center_gram_project(x.to("meta"), torch.zeros(12, 4, device="meta"))
     with pytest.raises(ValueError, match="share one dtype"):

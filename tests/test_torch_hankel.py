@@ -108,3 +108,37 @@ def test_hankel_exact_svd_matches_materialized_and_jax(rng, d):
     signs = np.sign(np.sum(u * np.asarray(ref.U), axis=0))
     np.testing.assert_allclose(u * signs, np.asarray(ref.U), atol=1e-5)
     np.testing.assert_allclose(v * signs[:, None], np.asarray(ref.V), atol=1e-5)
+
+
+def test_hankel_randomized_svd_fused_d3_takes_two_passes(rng):
+    """d = 3 at the standard k = 100: a 3 x 128 = 384-wide stacked sketch,
+    past K1's N_MAX, so every pass takes the two-pass route (K2 + K3) in
+    the port, where the JAX package runs its fused kernel; one omega
+    drawn by JAX goes to both (test_08_kernels.py:346 covers d = 3)."""
+    from dmd_era5_tpu_torch.ops import matmul
+
+    s, t, d, k, n_over = 200, 160, 3, 100, 28
+    x = _decaying(rng, s, t)
+    t_out = t - d + 1
+    assert matmul.takes_two_pass(t, d * (k + n_over), 4)
+    omega = np.array(jax.random.normal(jax.random.key(0), (t_out, k + n_over), dtype=jnp.float32))
+    res_j = hankel_jax(jnp.asarray(x), d, k, gemm_dtype=jnp.float32, seed=0)
+    res_t = hankel_randomized_svd_fused_core(
+        torch.from_numpy(x), d, k, torch.from_numpy(omega), gemm_dtype=torch.float32
+    )
+    u, sv, v = (r.numpy() for r in res_t)
+    assert u.shape == (d * s, k) and v.shape == (k, t_out)
+    assert matmul.sketch_center_gram_project.launches == 0
+    s_j = np.asarray(res_j.s)
+    # test_08:147-153's rtol; past the signal the values sit at the noise
+    # floor, which f32 resolves only to ~1e-6 of s[0]
+    np.testing.assert_allclose(sv, s_j, rtol=1e-4, atol=1e-5 * s_j[0])
+    # the decaying signal's components (test_08_kernels.py:147-153 on U and
+    # V); past them the values sit at the noise floor, where U and V are
+    # any basis of a nearly degenerate subspace
+    lead = int(np.sum(s_j > 1e-2 * s_j[0]))
+    np.testing.assert_allclose(u[:, :lead], np.asarray(res_j.U)[:, :lead], atol=1e-3)
+    np.testing.assert_allclose(v[:lead], np.asarray(res_j.V)[:lead], atol=1e-3)
+    s_ref = np.linalg.svd(delay_embed_np(x, d), compute_uv=False)
+    np.testing.assert_allclose(sv[:lead], s_ref[:lead], rtol=2e-3)
+    np.testing.assert_allclose(u.T @ u, np.eye(k), atol=2e-3)
