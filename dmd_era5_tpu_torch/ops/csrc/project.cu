@@ -32,16 +32,6 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-template <typename Op>
-cudaError_t dispatch(const Op& op, int y_bf16, int x_bf16) {
-  if (y_bf16 && x_bf16) return op.template run<bf16, bf16>();
-  if (y_bf16) return op.template run<bf16, float>();
-  if (x_bf16) return op.template run<float, bf16>();
-  return op.template run<float, float>();
-}
-
 struct Launch {
   const void* y;
   const void* x;
@@ -59,19 +49,11 @@ struct Launch {
   }
 };
 
-struct Occupancy {
-  int* out;
-  template <typename TY, typename TX>
-  cudaError_t run() const {
-    return atb::ctas_per_sm<TY, TX>(out);
-  }
-};
-
 }  // namespace
 
 // CTAs of the main kernel that fit one SM at once, into *out.
 extern "C" int project_ctas_per_sm(int y_bf16, int x_bf16, int* out) {
-  return (int)dispatch(Occupancy{out}, y_bf16, x_bf16);
+  return (int)atb::dispatch(atb::Occupancy{out}, y_bf16, x_bf16);
 }
 
 // C (n x t, f32) = Y^T X; part holds n_share * n * t doubles.  Returns a
@@ -80,5 +62,5 @@ extern "C" int project_launch(const void* y, const void* x, double* part, float*
                               long long m, int n, int t, int y_bf16, int x_bf16,
                               int n_share, void* stream) {
   const Launch op{y, x, part, c, m, n, t, n_share, static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(op, y_bf16, x_bf16);
+  return (int)atb::dispatch(op, y_bf16, x_bf16);
 }

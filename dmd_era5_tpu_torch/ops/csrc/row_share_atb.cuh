@@ -162,4 +162,23 @@ cudaError_t ctas_per_sm(int* out) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, atb_main<TA, TB>, THREADS, 0);
 }
 
+// op.run<A, B>() with A and B each float or bf16, chosen by the two flags.
+template <typename Op>
+cudaError_t dispatch(const Op& op, int a_bf16, int b_bf16) {
+  using bf16 = __nv_bfloat16;
+  if (a_bf16 && b_bf16) return op.template run<bf16, bf16>();
+  if (a_bf16) return op.template run<bf16, float>();
+  if (b_bf16) return op.template run<float, bf16>();
+  return op.template run<float, float>();
+}
+
+// CTAs of atb_main<A, B> that fit one SM at once, into *out.
+struct Occupancy {
+  int* out;
+  template <typename TA, typename TB>
+  cudaError_t run() const {
+    return ctas_per_sm<TA, TB>(out);
+  }
+};
+
 }  // namespace atb

@@ -197,14 +197,6 @@ __global__ void __launch_bounds__(THREADS) scg_sketch(Params p) {
   }
 }
 
-template <typename Op>
-cudaError_t dispatch(const Op& op, int x_bf16, int out_bf16) {
-  if (x_bf16 && out_bf16) return op.template run<bf16, bf16>();
-  if (x_bf16) return op.template run<bf16, float>();
-  if (out_bf16) return op.template run<float, bf16>();
-  return op.template run<float, float>();
-}
-
 struct Launch {
   const Params& p;
   double* g_part;
@@ -224,19 +216,11 @@ struct Launch {
   }
 };
 
-struct Occupancy {
-  int* out;
-  template <typename TX, typename TY>
-  cudaError_t run() const {
-    return atb::ctas_per_sm<TY, TY>(out);
-  }
-};
-
 }  // namespace
 
 // CTAs of the Gram stage's main kernel that fit one SM at once, into *out.
 extern "C" int scg_gram_ctas_per_sm(int out_bf16, int* out) {
-  return (int)dispatch(Occupancy{out}, 0, out_bf16);
+  return (int)atb::dispatch(atb::Occupancy{out}, out_bf16, out_bf16);
 }
 
 // Yc (m x n, out dtype), stats (m x 2, f32: row sum, row sum of squares)
@@ -249,5 +233,5 @@ extern "C" int scg_launch(const void* x, const void* w, const float* colw, void*
   if (m < 1 || t < 1 || n < 1 || n_share < 1) return (int)cudaErrorInvalidValue;
   const Params p{x, w, colw, yc, stats, m, t, n, inv_t};
   const Launch op{p, g_part, g, n_share, static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(op, x_bf16, out_bf16);
+  return (int)atb::dispatch(op, x_bf16, out_bf16);
 }

@@ -57,7 +57,7 @@ _SCRATCH_CAP = 1 << 30  # f64 scratch of a row-share reduction, at most
 _PLAIN_CHUNK = 1 << 28  # bytes of f32 rows a plain version takes at once
 
 
-def long_time_axis(t_cols: int, itemsize: int) -> bool:
+def _long_time_axis(t_cols: int, itemsize: int) -> bool:
     """Where the JAX package's fused kernel cannot hold one 128-row tile
     of X: 128 T itemsize > 4 x its tile budget, i.e. T > 8,192 in f32 and
     T > 32,768 in bf16 (``dmd_era5_tpu/ops/matmul.py:374``)."""
@@ -66,14 +66,14 @@ def long_time_axis(t_cols: int, itemsize: int) -> bool:
 
 def takes_two_pass(t_cols: int, n: int, itemsize: int) -> bool:
     """Whether :func:`sketch_center_gram_project` takes the two passes:
-    where the JAX package does (:func:`long_time_axis`), and where K1
+    where the JAX package does (:func:`_long_time_axis`), and where K1
     cannot go, a sketch wider than ``N_MAX``."""
-    return long_time_axis(t_cols, itemsize) or n > N_MAX
+    return _long_time_axis(t_cols, itemsize) or n > N_MAX
 
 
 def _row_slices(x: torch.Tensor):
     """Row slices of x of about ``_PLAIN_CHUNK`` bytes in f32, so a plain
-    version never builds an (M, T) temporary."""
+    version never builds an f32 temporary of all of x's rows."""
     rows = max(1, _PLAIN_CHUNK // (4 * max(1, x.shape[1])))
     return [slice(r, min(r + rows, x.shape[0])) for r in range(0, x.shape[0], rows)]
 
@@ -329,7 +329,7 @@ def sketch_center_gram_project(
 def _two_pass(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc):
     """``dmd_era5_tpu/ops/matmul.py:374-387``: K2 then K3."""
     t_cols = x.shape[1]
-    if t_valid not in (None, t_cols) and long_time_axis(t_cols, x.element_size()):
+    if t_valid not in (None, t_cols) and _long_time_axis(t_cols, x.element_size()):
         raise ValueError(
             "t_valid column padding needs the fused single-pass kernel; time "
             f"axis {t_cols} is too long for it (the JAX package's fallback "
@@ -369,23 +369,27 @@ def _sketch_center_gram_plain(
     t_valid: int | None = None,
 ):
     """Plain PyTorch version of K2: the same outputs from f32 products
-    (TF32 off on a card), X taken in row chunks, G from the stored Yc in
-    f32 sums (the kernel's sums are f64-grade)."""
+    (TF32 off on a card), X and the stored Yc taken in row chunks, so no
+    (M, T) or (M, N) f32 temporary is built; G from the stored Yc in f32
+    sums (the kernel's sums are f64-grade)."""
     _check_sketch(x, w, out_dtype, t_valid)
     wf = w.float()
     colw = wf.sum(dim=0)
     inv_t = (1.0 / (t_valid or x.shape[1])) if center else 0.0
     m, n = x.shape[0], w.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
-    y, rs, ss = torch.empty((m, n), **f32), torch.empty(m, **f32), torch.empty(m, **f32)
+    yc = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rs, ss = torch.empty(m, **f32), torch.empty(m, **f32)
     for sl in _row_slices(x):
         xc = x[sl].float()
-        y[sl] = xc @ wf
         rs[sl] = xc.sum(dim=1)
         ss[sl] = xc.square().sum(dim=1)
-    yc = y.sub_((rs * inv_t)[:, None] * colw[None, :]).to(out_dtype)
-    ycf = yc.float()
-    return yc, rs, ss, ycf.T @ ycf
+        yc[sl] = (xc @ wf).sub_((rs[sl] * inv_t)[:, None] * colw[None, :]).to(out_dtype)
+    g = torch.zeros((n, n), **f32)
+    for sl in _row_slices(yc):
+        ycf = yc[sl].float()
+        g.addmm_(ycf.T, ycf)
+    return yc, rs, ss, g
 
 
 _SCG_LIB = None
@@ -517,7 +521,7 @@ def _project_library():
     return _PROJECT_LIB
 
 
-def project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
+def _project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
     """Row shares K3 takes for C = Y^T X on the card: one wave of its
     CTAs over the 64 x 64 blocks of C, its f64 scratch (n_share N T
     doubles) held within 1 GiB."""
@@ -534,7 +538,7 @@ def _project_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous (row-major)")
     (m, t_cols), n, dev = x.shape, y.shape[1], x.device
-    n_share = project_row_shares(x, y)
+    n_share = _project_row_shares(x, y)
     logger.debug("project: %d row shares, %.1f MB of f64 scratch", n_share,
                  8 * n_share * n * t_cols / 1e6)
     with torch.cuda.device(dev):

@@ -104,7 +104,7 @@ def test_routing(t, n, dtype, two_pass):
     where K1 cannot go (N > 256)."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
     assert mt.takes_two_pass(t, n, itemsize) is two_pass
-    assert mt.long_time_axis(t, itemsize) is (two_pass and n <= mt.N_MAX)
+    assert mt._long_time_axis(t, itemsize) is (two_pass and n <= mt.N_MAX)
 
 
 @pytest.mark.parametrize("flags", [dict(), dict(scalar_stats=True, emit_yc=False),
