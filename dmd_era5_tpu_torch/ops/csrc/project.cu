@@ -7,30 +7,41 @@
 //
 // The Pallas grid walks row blocks in order and adds into one resident
 // (N, block_t) accumulator.  Here CTAs run concurrently: a CTA owns one
-// 64 x 64 block of C (64 sketch columns by 64 time steps) and one share of
-// the rows, with f32 sums per 128-row tile added into f64 sums in
-// registers and one fixed-order reduction over the shares
-// (row_share_atb.cuh).  The CTAs of one block row of C run next to one
-// another in launch order and read the same rows of X and Y at about the
-// same time, so the re-reads come from L2.
+// 128 x 128 block of C (128 sketch columns by 128 time steps) and one share
+// of the rows, on the tensor-core row-share mainloop of
+// row_share_atb_tc.cuh: MMA sums per 128-row tile added into f64 sums and
+// one fixed-order reduction over the shares.
 //
-// What bounds it on an H100: 2 M N T flops against (M T + M N) element
-// reads.  At the hourly year (M 977,400, T 8,760, N 256, f32) that is
-// about 4.4e12 flops against 35 GB, ~124 flops per byte, so a kernel on
-// the f32 CUDA cores (67 TFLOP/s) is bound by arithmetic (~65 ms), not by
-// HBM (~11 ms).  This first version is a plain shared-memory tiled kernel,
-// 4 x 4 outputs per thread, full f32 FMAs (the JAX package's HIGHEST; bf16
-// operands are upcast, their products exact in f32), no load/compute
-// overlap.  Tensor cores and TMA pipelines are later work and must keep
-// the f64-grade accumulation.
+// What bounds it on an H100: 2 M N T useful flops against (M T + M N)
+// element reads.  With f32 operands (the year: M 977,400, T 8,760, N 256 or
+// 128; the fit step) the products are 3xTF32, three tensor-core passes, so
+// 3 x 2 M N T operations at 495 TFLOP/s: 26.6 ms at N 256 against 10.5 ms of
+// HBM, bound by operations; the design keeps the three passes on the
+// tensor cores and splits each operand element once per warp that reads
+// it.  With bf16 operands (the d = 3 pass: the week, M 15,573,600, T 168,
+// N 384) one bf16 pass: 2 M N T at 989 TFLOP/s is 2.0 ms against 5.1 ms to
+// read X and Y once, bound by bytes; 128-wide blocks cut the re-reads of X
+// and Y (each read by N/128 resp. T/128 CTAs, from L2 when those CTAs run
+// together) and a four-deep cp.async ring keeps HBM busy while the MMAs run.
+// The f64 tile sums (shared memory, read and written each 128 rows) cost a
+// fixed ~2 K shared-memory cycles a tile, which is what a bf16 tile of 128
+// rows spends on its MMAs: at the d = 3 shape they are half the kernel's
+// shared-memory traffic.
 //
 // Ranges: any M, N and T, Y and X each f32 or bf16; ragged edges masked.
 // Scratch: n_share * N * T doubles (17.9 MB a share at N 256, T 8,760),
 // sized and capped by the wrapper.
 
-#include "row_share_atb.cuh"
+#include "row_share_atb_tc.cuh"
 
 namespace {
+
+constexpr int BT = 128;  // edge of a block of C
+
+template <typename TY, typename TX>
+constexpr int mode() {
+  return sizeof(TY) == 2 && sizeof(TX) == 2 ? atb_tc::BF16 : atb_tc::TF32X3;
+}
 
 struct Launch {
   const void* y;
@@ -44,8 +55,17 @@ struct Launch {
   cudaStream_t stream;
   template <typename TY, typename TX>
   cudaError_t run() const {
-    return atb::launch<TY, TX>(static_cast<const TY*>(y), static_cast<const TX*>(x),
-                               part, c, m, n, t, 0, n_share, stream);
+    return atb_tc::launch<TY, TX, mode<TY, TX>(), BT>(static_cast<const TY*>(y),
+                                                      static_cast<const TX*>(x), part, c, m,
+                                                      n, t, 0, n_share, stream);
+  }
+};
+
+struct Occupancy {
+  int* out;
+  template <typename TY, typename TX>
+  cudaError_t run() const {
+    return atb_tc::ctas_per_sm<TY, TX, mode<TY, TX>(), BT>(out);
   }
 };
 
@@ -53,8 +73,11 @@ struct Launch {
 
 // CTAs of the main kernel that fit one SM at once, into *out.
 extern "C" int project_ctas_per_sm(int y_bf16, int x_bf16, int* out) {
-  return (int)atb::dispatch(atb::Occupancy{out}, y_bf16, x_bf16);
+  return (int)atb::dispatch(Occupancy{out}, y_bf16, x_bf16);
 }
+
+// Edge of the blocks of C that the main kernel's CTAs own.
+extern "C" int project_block_edge() { return BT; }
 
 // C (n x t, f32) = Y^T X; part holds n_share * n * t doubles.  Returns a
 // cudaError_t code: 0 when both kernels were launched.

@@ -231,6 +231,23 @@ def _row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
     return max(1, min(shares, -(-m // 128), _SCRATCH_CAP // share_bytes, 65535))
 
 
+def _wave_row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
+    """Row shares of the tensor-core row-share reduction
+    (``csrc/row_share_atb_tc.cuh``), whose CTAs (n_blocks a share) run
+    about one per SM: the fewest shares whose waves of ``wave`` CTAs are
+    within 3% of the best filled, at most one share per 128-row tile, and
+    f64 scratch (``share_bytes`` a share) within 1 GiB.  The time of a
+    split into s shares goes as ceil(n_blocks s / wave) / s, and
+    s = wave reaches its least, n_blocks / wave."""
+    cap = max(1, min(-(-m // 128), _SCRATCH_CAP // share_bytes, 65535, wave))
+
+    def waves_per_share(s: int) -> float:
+        return -(-(n_blocks * s) // wave) / s
+
+    best = min(waves_per_share(s) for s in range(1, cap + 1))
+    return next(s for s in range(1, cap + 1) if waves_per_share(s) <= 1.03 * best)
+
+
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -517,21 +534,24 @@ def _project_library():
         lib.project_launch.restype = ctypes.c_int
         lib.project_ctas_per_sm.argtypes = [flag, flag, ptr]  # y_bf16, x_bf16, &out
         lib.project_ctas_per_sm.restype = ctypes.c_int
+        lib.project_block_edge.argtypes = []
+        lib.project_block_edge.restype = ctypes.c_int
         _PROJECT_LIB = lib
     return _PROJECT_LIB
 
 
 def _project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
-    """Row shares K3 takes for C = Y^T X on the card: one wave of its
-    CTAs over the 64 x 64 blocks of C, its f64 scratch (n_share N T
-    doubles) held within 1 GiB."""
+    """Row shares K3 takes for C = Y^T X on the card: whole waves of its
+    CTAs over the blocks of C, its f64 scratch (n_share N T doubles) held
+    within 1 GiB."""
     (m, t_cols), n, dev = x.shape, y.shape[1], x.device
     y_bf16, x_bf16 = int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16)
     lib = _project_library()
     with torch.cuda.device(dev):
         wave = _resident_ctas(dev, ("project", y_bf16, x_bf16),
                               lambda out: lib.project_ctas_per_sm(y_bf16, x_bf16, out))
-    return _row_shares(wave, -(-n // 64) * -(-t_cols // 64), m, 8 * n * t_cols)
+    edge = lib.project_block_edge()
+    return _wave_row_shares(wave, -(-n // edge) * -(-t_cols // edge), m, 8 * n * t_cols)
 
 
 def _project_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -24,13 +24,14 @@ import ctypes
 
 import torch
 
+from dmd_era5_tpu_torch.ops.matmul import _resident_ctas, _wave_row_shares
 from dmd_era5_tpu_torch.utils.linalg import safe_cholesky
 
 __all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel", "PRECISIONS"]
 
 PRECISIONS = ("highest", "bf16_split")
-_OB = 64  # edge of the kernel's output blocks of G
-_MT = 128  # rows per tile of the kernel
+_OB = 64  # edge of K4's output blocks of G
+_MT = 128  # rows per tile of the kernels
 
 
 def _check(a: torch.Tensor, precision: str) -> None:
@@ -78,26 +79,27 @@ def _kernel_library():
         # a, per-share f64 partials, G, m, k, a_bf16, split, n_share, stream
         lib.gram_launch.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, ptr]
         lib.gram_launch.restype = ctypes.c_int
-        lib.gram_ctas_per_sm.argtypes = [flag, flag, ptr]  # a_bf16, split, &out
+        lib.gram_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # a_bf16, split, k, &out
         lib.gram_ctas_per_sm.restype = ctypes.c_int
+        lib.gram_split_block_edge.argtypes = [flag]  # k
+        lib.gram_split_block_edge.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-_CTAS_PER_SM: dict[tuple, int] = {}
-
-
-def _n_share(dev, a_bf16: int, split: int, m: int, n_pairs: int) -> int:
-    """Row shares: as many as fill one wave of the card's resident CTAs
-    with all n_pairs blocks of G, at least 1, at most one per row tile."""
-    key = (dev.index, a_bf16, split)
-    if key not in _CTAS_PER_SM:
-        per_sm = ctypes.c_int(0)
-        rc = _kernel_library().gram_ctas_per_sm(a_bf16, split, ctypes.addressof(per_sm))
-        if rc != 0 or per_sm.value < 1:
-            raise RuntimeError(f"gram occupancy: CUDA error {rc}, {per_sm.value} CTAs per SM")
-        _CTAS_PER_SM[key] = per_sm.value
-    wave = torch.cuda.get_device_properties(dev).multi_processor_count * _CTAS_PER_SM[key]
+def _n_share(dev, a_bf16: int, split: int, m: int, k: int) -> int:
+    """Row shares.  K4: as many as fill one wave of the card's resident
+    CTAs with all its 64 x 64 upper blocks of G, at least 1, at most one
+    per row tile.  K5 (the tensor-core mainloop): whole waves over its
+    upper blocks, its f64 scratch (n_share K^2 doubles) within 1 GiB."""
+    lib = _kernel_library()
+    edge = lib.gram_split_block_edge(k) if split else _OB
+    wave = _resident_ctas(dev, ("gram", a_bf16, split, edge),
+                          lambda out: lib.gram_ctas_per_sm(a_bf16, split, k, out))
+    nb = -(-k // edge)
+    n_pairs = nb * (nb + 1) // 2
+    if split:
+        return _wave_row_shares(wave, n_pairs, m, 8 * k * k)
     return max(1, min(wave // n_pairs, -(-m // _MT)))
 
 
@@ -108,10 +110,11 @@ def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
     dev = a.device
     a_bf16, split = int(a.dtype == torch.bfloat16), int(precision == "bf16_split")
     nb = -(-k // _OB)
-    n_pairs = nb * (nb + 1) // 2
     with torch.cuda.device(dev):
-        n_share = _n_share(dev, a_bf16, split, m, n_pairs)
-        part = torch.empty((n_share, n_pairs, _OB, _OB), dtype=torch.float64, device=dev)
+        n_share = _n_share(dev, a_bf16, split, m, k)
+        # K4: per-share 64 x 64 upper blocks; K5: per-share K x K (upper blocks written)
+        shape = (n_share, k, k) if split else (n_share, nb * (nb + 1) // 2, _OB, _OB)
+        part = torch.empty(shape, dtype=torch.float64, device=dev)
         g = torch.empty((k, k), dtype=torch.float32, device=dev)
         rc = _kernel_library().gram_launch(
             a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, a_bf16, split, n_share,
@@ -135,8 +138,9 @@ def gram(a: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     error, for callers whose error is quadratic in G's perturbation).
     Any K: the JAX kernel stops at K = 1024 because its K x K accumulator
     must fit VMEM, while this one's f64 scratch lives in device memory
-    and grows with the number of 64 x 64 blocks of G.  The result is
-    exactly symmetric on the card.
+    and grows with K^2.  The result is exactly symmetric on the card.
+    On the card K4 runs on CUDA cores (full f32 FMAs) and K5 on the
+    tensor cores (bf16 MMAs on the split), both with f64 tile sums.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
     the Hopper kernel and counts it in ``gram.launches[precision]``.

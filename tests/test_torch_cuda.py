@@ -3,10 +3,11 @@
 Every flag combination of ``sketch_center_gram_project`` in float32 and
 bfloat16, at a ragged row count and both kernel width classes; the
 two-pass fallback, ``sketch_center_gram`` (K2) and ``project`` (K3), over
-operand and output dtypes at ragged M, T and N up to 512, and its route
-through ``sketch_center_gram_project``; ``gram``
-at both precisions, float32 and bfloat16 input, ragged row counts and
-panel widths past the JAX kernel's 1024; ``matmul`` (K6) over operand
+operand and output dtypes at ragged M, T and N up to 512 (on both sides
+of K3's 128-wide tensor-core blocks), K3 against one TF32 pass, and its
+route through ``sketch_center_gram_project``; ``gram`` at both
+precisions, float32 and bfloat16 input, ragged row counts and panel
+widths on both sides of K5's block edges and past the JAX kernel's 1024; ``matmul`` (K6) over operand
 and output dtypes and ragged M, N and K; ``householder_panel`` (K7) at
 the streamed SVD's panel, the edges of its envelope and an
 ill-conditioned panel, and the Householder leaf inside and outside that
@@ -85,7 +86,10 @@ GRAM_CASES = [
     pytest.param(precision, dtype, m, k, id=f"{precision}-{dtype}-m{m}-k{k}")
     for precision, dtype in [("highest", "float32"), ("highest", "bfloat16"),
                              ("bf16_split", "float32")]
-    for m, k in [(1000, 8), (1000, 110), (4099, 168), (1000, 1024), (300, 1030)]
+    # K5's blocks are 64 wide up to K = 256, 128 past it: widths on both
+    # sides of each edge, one column, M no multiple of a 16-row slab
+    for m, k in [(1000, 8), (1000, 110), (4099, 168), (1000, 1024), (300, 1030), (1001, 1),
+                 (777, 65), (1000, 256), (1001, 257), (133, 300)]
 ]
 
 
@@ -277,9 +281,13 @@ def test_sketch_center_gram_kernel_matches_plain_on_card(cuda, dtype, out_dtype,
 PROJECT_CASES = [
     pytest.param(y_dtype, x_dtype, m, t, n, id=f"y{y_dtype}-x{x_dtype}-m{m}-t{t}-n{n}")
     for y_dtype, x_dtype in [("float32", "float32"), ("bfloat16", "bfloat16"),
-                             ("bfloat16", "float32")]
+                             ("bfloat16", "float32"), ("float32", "bfloat16")]
+    # K3's 128 x 128 blocks of C and 16- or 32-row slabs: N and T on no
+    # multiple of 8, 16 or 128, N = 1, T = 1, both past 256 at once, and
+    # the d = 3 pass's aligned widths (16-byte copies)
     for m, t, n in [(1000, 168, 100), (1031, 8760, 256), (300, 50, 384), (129, 65, 512),
-                    (1, 1, 1)]
+                    (1, 1, 1), (1037, 133, 77), (257, 130, 1), (300, 1, 129), (515, 300, 260),
+                    (1000, 168, 384)]
 ]
 
 
@@ -300,6 +308,32 @@ def test_project_kernel_matches_plain_on_card(cuda, y_dtype, x_dtype, m, t, n):
     exact = y.double().T @ x.double()
     _f64_close(c, exact, "C")
     _f64_close(c, ref.double(), "C vs plain", rel=2e-5)
+
+
+@pytest.mark.cuda
+def test_project_is_not_one_tf32_pass_on_card(cuda):
+    """K3's 3xTF32 products on f32 operands whose entries span six decades:
+    C within 1e-6 max|C| of the f64 sums, a limit that one TF32 pass (the
+    library product with TF32 allowed, ~2^-11 a product) misses."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+
+    def wide(shape):
+        mag = 10.0 ** (6 * torch.rand(shape, generator=gen, device=cuda) - 3)
+        return torch.randn(shape, generator=gen, device=cuda) * mag
+
+    x, y = wide((20_000, 168)), wide((20_000, 100))
+    exact = y.double().T @ x.double()
+    scale = float(exact.abs().max())
+    c = matmul.project(x, y)
+    err = float((c.double() - exact).abs().max()) / scale
+    assert err <= 1e-6, err
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one_pass = float(((y.T @ x).double() - exact).abs().max()) / scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert one_pass > 1e-6, one_pass
 
 
 @pytest.mark.cuda
