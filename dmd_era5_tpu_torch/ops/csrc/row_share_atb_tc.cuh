@@ -83,7 +83,8 @@ enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2 };
 
 template <typename TA, typename TB, int MODE, int BT>
 struct Cfg {
-  static constexpr int BK = MODE == BF16 ? 32 : 16;  // rows per slab: 8 KB of A
+  // rows per slab: 8 KB of A at BT 128; 64-wide blocks take twice the rows
+  static constexpr int BK = MODE == BF16 || BT == 64 ? 32 : 16;
   static constexpr int PAD = MODE == SPLIT_BF16 ? 4 : 8;  // see the fragment loads
   static constexpr int S = BT + PAD;  // row stride of a slab, elements
   static constexpr int WM = BT / 2;
@@ -150,19 +151,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// hi = tf32(v) rounded to nearest (ties away), lo = tf32(v - hi); v - hi is
-// exact in f32.  An EXACT operand (a bf16 value) is its own hi.
+// tf32(v) rounded to nearest, ties away from zero: bit for bit what
+// cvt.rna.tf32.f32 returns for a finite v, in two integer operations (the
+// conversion instruction runs on the SM's narrow conversion pipe).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32_rna(v), lo = tf32_rna(v - hi); v - hi is exact in f32.  An
+// EXACT operand (a bf16 value) is its own hi.
 template <bool EXACT>
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   if constexpr (EXACT) {
     hi = __float_as_uint(v);
     lo = 0u;
-    return;
+  } else {
+    hi = tf32_rna(v);
+    lo = tf32_rna(v - __uint_as_float(hi));
   }
-  uint32_t h;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(v));
-  hi = h & 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
 }
 
 // (v0, v1) -> bf16x2 with v0 in the low half (the lower k of a fragment pair).
@@ -215,6 +221,16 @@ __device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ src, lo
 
 // ------------------------------------------------------------ products
 
+// acc += d in f32, rounded to nearest.  The tensor core's own accumulation
+// rounds toward zero: chained over a 128-row tile, that bias added up to
+// ~1e-6 of a coherent sum (8e-7 of max|C| at the year's N 256), so each
+// k-chunk's MMAs start from zero and only their sum, whose truncation is a
+// few ulps of one chunk, enters acc.
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += d[q];
+}
+
 // One slab's products into acc.  as / bs: the slabs, [BK][S]; the warp's
 // tile starts at row wm0 of A's block and column wn0 of B's.
 template <typename TA, typename TB, int MODE, int BT>
@@ -243,7 +259,11 @@ __device__ __forceinline__ void slab_products(
         uint32_t af[4];
         ldsm_x4_trans(smem_u32(p), af[0], af[1], af[2], af[3]);
 #pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni) mma_bf16(acc[mi][ni], af, bf[ni]);
+        for (int ni = 0; ni < C::NI; ++ni) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, af, bf[ni]);
+          add4(acc[mi][ni], d);
+        }
       }
     }
   } else if constexpr (MODE == TF32X3) {
@@ -271,9 +291,11 @@ __device__ __forceinline__ void slab_products(
         split_tf32<A_EXACT>(atb::to_f32(p[4 * S + 8]), ah[3], al[3]);
 #pragma unroll
         for (int ni = 0; ni < C::NI; ++ni) {
-          if (!A_EXACT) mma_tf32(acc[mi][ni], al, bh[ni]);
-          if (!B_EXACT) mma_tf32(acc[mi][ni], ah, bl[ni]);
-          mma_tf32(acc[mi][ni], ah, bh[ni]);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          if (!A_EXACT) mma_tf32(d, al, bh[ni]);
+          if (!B_EXACT) mma_tf32(d, ah, bl[ni]);
+          mma_tf32(d, ah, bh[ni]);
+          add4(acc[mi][ni], d);
         }
       }
     }
@@ -299,9 +321,11 @@ __device__ __forceinline__ void slab_products(
         split_bf16(p[8 * S + 8], p[9 * S + 8], ah[3], al[3]);
 #pragma unroll
         for (int ni = 0; ni < C::NI; ++ni) {
-          mma_bf16(acc[mi][ni], al, bh[ni]);
-          mma_bf16(acc[mi][ni], ah, bl[ni]);
-          mma_bf16(acc[mi][ni], ah, bh[ni]);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, al, bh[ni]);
+          mma_bf16(d, ah, bl[ni]);
+          mma_bf16(d, ah, bh[ni]);
+          add4(acc[mi][ni], d);
         }
       }
     }
@@ -310,8 +334,9 @@ __device__ __forceinline__ void slab_products(
 
 // ------------------------------------------------------------ kernel
 
+// Two CTAs an SM at BT = 64 (at most 128 registers a thread), one at 128.
 template <typename TA, typename TB, int MODE, int BT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
     atb_tc_main(const TA* __restrict__ a, const TB* __restrict__ b, double* __restrict__ part,
                 long long m, int na, int nb, int upper, int n_share, int vec_a, int vec_b) {
   using C = Cfg<TA, TB, MODE, BT>;
