@@ -50,9 +50,11 @@ of which raises on failure so the script exits non-zero:
    seed after the week is freed, centred in place, with the exact
    singular values of X and of its d = 2 Hankel embedding from an f64
    Gram and f64 ``eigvalsh``: (a) K2 and K3 against their plain versions
-   at the path's shapes, with times; (b) the SVD stage's dispatcher
-   ``svd_on_era5`` on ``config.ini``'s ``[era5-svd]`` defaults at that
-   size (hankel, randomized, f32: eight two-pass passes); (c) optDMD and
+   at the path's shapes, with times, and K5 on X (K = 8,760) against the
+   f64 Gram of the references (no plain version: it does not fit); (b)
+   the SVD stage's dispatcher ``svd_on_era5`` on ``config.ini``'s
+   ``[era5-svd]`` defaults at that size (hankel, randomized, f32: eight
+   two-pass passes); (c) optDMD and
    the forecast on it; (d) ``svd_type = standard`` through the same
    dispatcher (the exact Hankel SVD: K5 once, one two-pass pass); (e)
    ``fit_step_fused`` and ``fit_step_lean`` (k = 100, sketch 128)
@@ -101,8 +103,9 @@ KERNELS = {
     "K7": ("householder_panel", f"{CSRC}/householder.cu", "dmd_era5_tpu/ops/qr_panel.py:212"),
 }
 # H100 SXM published peaks (NVIDIA data sheet, dense): f32 on CUDA cores,
-# bf16 on tensor cores, HBM3
+# bf16 and TF32 on tensor cores, HBM3
 PEAK_F32, PEAK_BF16, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+PEAK_TF32 = 495e12
 
 # one week of hourly 0.25-degree ERA5, 3 variables x 5 pressure levels
 N_LAT, N_LON, N_BLOCKS, T_HOURS = 721, 1440, 15, 168
@@ -589,7 +592,8 @@ def phase_fit_step(x: torch.Tensor, seed: int) -> None:
         del state
 
 
-def compare_gram(label: str, a: torch.Tensor, precision: str) -> dict:
+def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tensor | None = None,
+                 reps: int = 3) -> dict:
     """K4 or K5 against its plain version and the f64 sums of A^T A.
 
     Tolerances: ``"highest"`` within 1e-6 relative Frobenius error of the
@@ -600,7 +604,10 @@ def compare_gram(label: str, a: torch.Tensor, precision: str) -> dict:
     to ~1e-5 themselves: within the kernel's own limit plus the plain
     version's error.  G must be exactly symmetric.  Times are CUDA-event
     ms in turns plain, kernel, kernel, plain; the library call is one f32
-    ``a.T @ a`` (TF32 off), which the port never makes."""
+    ``a.T @ a`` (TF32 off), which the port never makes.  With ``exact``
+    given (the f64 sums, formed by the caller) there is no plain version:
+    at the year its f32 copies of H and L (2 x 34 GB) do not fit beside
+    A, and ``plain_ms`` is None."""
     from dmd_era5_tpu_torch.ops.qr_panel import _gram_plain, gram
 
     def kernel():
@@ -612,34 +619,48 @@ def compare_gram(label: str, a: torch.Tensor, precision: str) -> dict:
     def library():
         return a.T @ a
 
-    exact = gram_f64(a)
-    got, ref = kernel(), plain()
+    with_plain = exact is None
+    exact = gram_f64(a) if exact is None else exact
+    got = kernel()
     torch.cuda.synchronize()
     check(torch.equal(got, got.T), f"{label} {precision}: G not exactly symmetric")
     scale = float(exact.abs().max())
     res = dict(label=label, precision=precision, m=a.shape[0], k=a.shape[1])
-    for who, g in (("kernel", got), ("plain", ref)):
-        res[f"{who}_rel_vs_f64"] = rel_err(g, exact)[0]
-        res[f"{who}_max_abs_vs_f64_over_max"] = float((g.double() - exact).abs().max()) / scale
-    res["rel_vs_plain"], res["max_abs_err"] = rel_err(got, ref)
+    res["kernel_rel_vs_f64"] = rel_err(got, exact)[0]
+    res["kernel_max_abs_vs_f64_over_max"] = float((got.double() - exact).abs().max()) / scale
+    if with_plain:
+        ref = plain()
+        res["plain_rel_vs_f64"] = rel_err(ref, exact)[0]
+        res["plain_max_abs_vs_f64_over_max"] = float((ref.double() - exact).abs().max()) / scale
+        res["rel_vs_plain"], res["max_abs_err"] = rel_err(got, ref)
+        del ref
+    else:
+        res["max_abs_err"] = float((got.double() - exact).abs().max())
     if precision == "highest":
         limit = 1e-6
         check(res["kernel_rel_vs_f64"] <= limit,
               f"{label} K4: G relative error vs f64 {res['kernel_rel_vs_f64']:.3e} > {limit}")
-        limit_plain = limit + res["plain_rel_vs_f64"]
-        got_plain = res["rel_vs_plain"]
     else:
         limit = 3e-5
         check(res["kernel_max_abs_vs_f64_over_max"] <= limit,
               f"{label} K5: G max error vs f64 {res['kernel_max_abs_vs_f64_over_max']:.3e} "
               f"max|G| > {limit}")
-        limit_plain = limit + res["plain_max_abs_vs_f64_over_max"]
-        got_plain = res["max_abs_err"] / scale
-    check(got_plain <= limit_plain,
-          f"{label} {precision}: kernel vs plain {got_plain:.3e} > {limit_plain:.3e}")
-    del got, ref, exact
-    p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
-    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=event_ms(library))
+    if with_plain:
+        if precision == "highest":
+            limit_plain = limit + res["plain_rel_vs_f64"]
+            got_plain = res["rel_vs_plain"]
+        else:
+            limit_plain = limit + res["plain_max_abs_vs_f64_over_max"]
+            got_plain = res["max_abs_err"] / scale
+        check(got_plain <= limit_plain,
+              f"{label} {precision}: kernel vs plain {got_plain:.3e} > {limit_plain:.3e}")
+    del got, exact
+    if with_plain:
+        p1, k1, k2, p2 = (event_ms(f, reps) for f in (plain, kernel, kernel, plain))
+        res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+    else:
+        res.update(ms=event_ms(kernel, reps), plain_ms=None)
+    res["library_ms"] = event_ms(library, reps)
     m, k = a.shape
     if precision == "highest":  # the symmetric half in full f32 on CUDA cores
         res["bound_ms"], res["bound_by"] = bound(m * k * (k + 1), PEAK_F32, 4 * m * k + 4 * k * k)
@@ -1145,8 +1166,10 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     same x and y (each f32 or bf16).  Tolerances: C within 1e-5 max|C| of
     the f64 sums of Y^T X, and within that plus the plain version's own
     error of the plain version.  Library call: one ``torch.matmul(y.T,
-    x)`` (f32 with TF32 off; on bf16 operands it rounds C to bf16), which
-    the port never makes."""
+    x)`` (f32 with TF32 off), on bf16 operands ``torch.mm(y.T, x,
+    out_dtype=torch.float32)``, the same function; the port never makes
+    it.  Bound: on the tensor cores, 3xTF32 for f32 operands (three
+    passes of 2MNT), two passes for bf16 x f32, one bf16 pass for bf16."""
     from dmd_era5_tpu_torch.ops.matmul import _project_plain, project, _project_row_shares
 
     def kernel():
@@ -1155,8 +1178,10 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     def plain():
         return _project_plain(x, y)
 
+    bf16 = (x.dtype == torch.bfloat16) + (y.dtype == torch.bfloat16)
+
     def library():
-        return torch.matmul(y.T, x)
+        return torch.mm(y.T, x, out_dtype=torch.float32) if bf16 == 2 else torch.matmul(y.T, x)
 
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -1178,9 +1203,10 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     del got, ref, exact
     p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
     res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=event_ms(library))
-    peak = PEAK_BF16 if x.dtype == y.dtype == torch.bfloat16 else PEAK_F32
+    passes, peak = ((3, PEAK_TF32), (2, PEAK_TF32), (1, PEAK_BF16))[bf16]
     res["bound_ms"], res["bound_by"] = bound(
-        2 * m * n * t, peak, x.element_size() * m * t + y.element_size() * m * n + 4 * n * t)
+        passes * 2 * m * n * t, peak,
+        x.element_size() * m * t + y.element_size() * m * n + 4 * n * t)
     log(f"    K3 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, library "
         f"{res['library_ms']:.3f}, bound {res['bound_ms']:.3f} by {res['bound_by']}), "
         f"{res['row_shares']} row shares")
@@ -1294,17 +1320,18 @@ def phase_year(seed: int) -> tuple[dict, dict]:
         g64 = gram_f64(x)
         lam_x = torch.linalg.eigvalsh(g64).flip(0).clamp_min(0)
         lam_h = torch.linalg.eigvalsh(g64[:-1, :-1] + g64[1:, 1:]).flip(0).clamp_min(0)
-        return lam_x.cpu(), lam_h.cpu()
+        return g64, lam_x.cpu(), lam_h.cpu()
 
     # the exact SVDs of X and of its d = 2 Hankel embedding H, whose Gram
     # is g[:-1, :-1] + g[1:, 1:] for g = X^T X: f64 sums and f64 eigvalsh
-    (lam_x, lam_h), times["references"] = synced(references)
+    (g64, lam_x, lam_h), times["references"] = synced(references)
     s_x_ref, s_h_ref = lam_x.sqrt(), lam_h.sqrt()
     log(f"    exact references (f64 Gram and eigvalsh) in {times['references']:.2f} s: s(X)[:8] "
         f"{[round(float(a), 2) for a in s_x_ref[:8]]}, s(H)[99] / s(H)[0] "
         f"{float(s_h_ref[99] / s_h_ref[0]):.3e}")
 
-    log("[10a] K2 and K3 against their plain versions at the path's shapes (CUDA-event ms)")
+    log("[10a] K2 and K3 against their plain versions at the path's shapes, K5 against the f64 "
+        "Gram (CUDA-event ms)")
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     w_hankel = stacked_sketch_matrix(torch.randn((t - 1, 128), generator=gen, device=x.device), 2, t)
     k2_res, yc = compare_sketch_center_gram("hankel_pass", x, w_hankel, center=False)
@@ -1314,6 +1341,10 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     _, yc = compare_sketch_center_gram("fit_step", x, w_fit, center=True)
     compare_project("fit_step", x, yc)
     del yc
+    log("    K5 on X (K = 8,760) against the f64 Gram of the references; no plain version "
+        "(its f32 H and L would be 68.5 GB beside X)")
+    k5_res = compare_gram("year_X", x, "bf16_split", exact=g64, reps=1)
+    del g64
 
     log("[10b] svd_on_era5 on config.ini's [era5-svd] defaults, year overrides "
         f"{json.dumps(YEAR_CONFIG)}")
@@ -1435,12 +1466,15 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     times_f = [event_ms(f, reps=2) for f in (two_pass, k1, k1, two_pass)]
     res_f = dict(k1_ms=(times_f[1] + times_f[2]) / 2, two_pass_ms=(times_f[0] + times_f[3]) / 2,
                  k1_vs_two_pass_rel=agree)
+    n = w_hankel.shape[1]  # K1's bound as compare_kernel counts it (Yc and the row stats written)
+    res_f["k1_bound_ms"], res_f["k1_bound_by"] = bound(
+        m * n * (4 * t + n + 1), PEAK_F32, 4 * (m * t + t * n + m * n) + 4 * (2 * m + n * n + n * t))
     log(f"    {json.dumps(res_f)}")
     check(max(agree.values()) <= 1e-5, f"K1 and the two-pass route disagree: {agree}")
     times["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"    stage wall times (s): {json.dumps(times)}")
     del year, x, field
-    return total, {"K2": k2_res, "K3": k3_res}
+    return total, {"K2": k2_res, "K3": k3_res, "K5": k5_res}
 
 
 def kernel_line(key: str, launches: int, res: dict) -> dict:

@@ -40,7 +40,8 @@ constexpr int BT = 128;  // edge of a block of C
 
 template <typename TY, typename TX>
 constexpr int mode() {
-  return sizeof(TY) == 2 && sizeof(TX) == 2 ? atb_tc::BF16 : atb_tc::TF32X3;
+  return sizeof(TY) == 2 ? (sizeof(TX) == 2 ? atb_tc::BF16 : atb_tc::TF32X3)
+                         : (sizeof(TX) == 2 ? atb_tc::TF32X3 : atb_tc::WGMMA_TF32X3);
 }
 
 struct Launch {

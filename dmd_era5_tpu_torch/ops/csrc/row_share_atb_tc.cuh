@@ -79,7 +79,7 @@ constexpr int WARPS_B = 4;  // warps along B's columns; 2 along A's
 constexpr int MT = 128;     // rows per tile: summed in f32 from zero
 constexpr int STAGES = 4;   // slabs in the shared-memory ring
 
-enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2 };
+enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2, WGMMA_TF32X3 = 3 };
 
 template <typename TA, typename TB, int MODE, int BT>
 struct Cfg {
@@ -87,7 +87,8 @@ struct Cfg {
   static constexpr int BK = MODE == BF16 || BT == 64 ? 32 : 16;
   static constexpr int PAD = MODE == SPLIT_BF16 ? 4 : 8;  // see the fragment loads
   static constexpr int S = BT + PAD;  // row stride of a slab, elements
-  static constexpr int WM = BT / 2;
+  static constexpr int WARPS_A = THREADS / 32 / WARPS_B;
+  static constexpr int WM = BT / WARPS_A;
   static constexpr int WN = BT / WARPS_B;
   static constexpr int MI = WM / 16;  // m16 tiles a warp
   static constexpr int NI = WN / 8;   // n8 tiles a warp
@@ -171,6 +172,14 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   }
 }
 
+// The same split with lo left as the f32 residual: the tensor core drops
+// its 13 low bits, a truncation of lo by at most 2^-11 |lo| <= 2^-22 |v|,
+// the size of the dropped lo x lo term.
+__device__ __forceinline__ void split_tf32_hw(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
 // (v0, v1) -> bf16x2 with v0 in the low half (the lower k of a fragment pair).
 __device__ __forceinline__ uint32_t pack_bf16(float v0, float v1) {
   uint32_t r;
@@ -188,7 +197,7 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uin
 
 // Rows [r0, r0 + BK) and columns [c0, c0 + BT) of src (ncols wide) into a
 // slab of row stride S; out-of-range elements are zero.
-template <typename T, int BT, int BK, int S>
+template <typename T, int BT, int BK, int S, int THREADS>
 __device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ src, long long r0,
                                            long long m, int ncols, int c0, int vec, int tid) {
   if (vec) {  // ncols a multiple of VEC: a chunk is wholly in or out
@@ -385,9 +394,10 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   auto stage = [&](long long s) {
     const long long r0 = (share + (s / SPT) * n_share) * MT + (s % SPT) * C::BK;
     unsigned char* st = ring + (int)(s % STAGES) * C::STAGE_BYTES;
-    stage_slab<TA, BT, C::BK, C::S>(reinterpret_cast<TA*>(st), a, r0, m, na, a0, vec_a, tid);
-    stage_slab<TB, BT, C::BK, C::S>(reinterpret_cast<TB*>(st + C::A_BYTES), b, r0, m, nb, b0,
-                                    vec_b, tid);
+    stage_slab<TA, BT, C::BK, C::S, THREADS>(reinterpret_cast<TA*>(st), a, r0, m, na, a0, vec_a,
+                                             tid);
+    stage_slab<TB, BT, C::BK, C::S, THREADS>(reinterpret_cast<TB*>(st + C::A_BYTES), b, r0, m, nb,
+                                             b0, vec_b, tid);
   };
 
 #pragma unroll
@@ -439,6 +449,236 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
       }
 }
 
+// ------------------------------------------- f32 x f32 on wgmma (WGMMA_TF32X3)
+//
+// K3's f32 products: 3xTF32 on warpgroup MMAs, which run asynchronously
+// beside the splitting and at twice the tf32 rate mma.sync reaches.  Two
+// warpgroups own rows 0-63 and 64-127 of a 128 x 128 block of C; each holds
+// its A operand in registers (a warp's 16 rows, loaded from the MN-major raw
+// slab and split as in TF32X3, lo left to the tensor core's truncation), and
+// B comes from shared memory, where tf32 wgmma wants it K-major: each 16-row
+// slab of B is split once a CTA into hi and lo planes of 8 x 16-byte core
+// matrices, transposed on the way, while the previous slab's MMAs run.  Per
+// slab, from zero: D = A_lo B_hi + A_hi B_lo over both k8 steps, then
+// + A_hi B_hi of each (six m64n128k8 MMAs, the small terms first, so only
+// the last two round a large D toward zero); then acc += D in f32, and the
+// f64 sums every 128 rows, as in the other modes.  Raw slabs of A and B are
+// read into registers a slab ahead (B two, since it is split a slab before
+// its MMAs) and stored into two shared slots each at the end of a slab; the
+// rows must be 16-byte aligned (vec_a, vec_b), else the wrapper takes
+// TF32X3.
+namespace wg {
+constexpr int BT = 128;
+constexpr int BK = 16;  // rows per slab: two k8 steps
+constexpr int SPT = MT / BK;
+constexpr int RING = 2;  // raw slabs of A, and of B, in shared memory
+constexpr int S = BT + 8;                    // raw row stride, floats: S % 32 == 8
+constexpr int SLAB = BK * S;                 // floats
+constexpr int PLANE = BT * BK;               // words: 64 core matrices of 8 x 4 tf32
+constexpr int SUM_BYTES = 64 * THREADS * 8;  // 64 f64 sums a thread
+constexpr int SMEM = SUM_BYTES + 2 * RING * SLAB * 4 + 2 * 2 * PLANE * 4;
+static_assert(SMEM <= 232448, "shared memory of one CTA");
+}  // namespace wg
+
+// Shared-memory descriptor of a K-major operand without swizzle: core
+// matrices of 8 rows x 16 bytes, the next along K 128 bytes on (leading
+// byte offset), the next 8 rows BK / 4 core matrices on (stride byte offset).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(wg::BK / 4 * 128 >> 4) << 32);
+}
+
+// d (+)= a b: a 64 x 8 tf32 slice in registers (a warp's 16 rows in the
+// mma.m16n8k8 layout), b 8 x 128 from a descriptor; d as 16 n8 tiles of the
+// m16n8 accumulator layout.  scale_d 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Registers that an in-flight wgmma reads or writes: the compiler must
+// neither reuse nor read them before the wait.
+__device__ __forceinline__ void hold(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[4]) {
+  asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    atb_wgmma_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
+                     double* __restrict__ part, long long m, int na, int nb, int upper,
+                     int n_share, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
+  float* ring_a = reinterpret_cast<float*>(smem + wg::SUM_BYTES);
+  float* ring_b = ring_a + wg::RING * wg::SLAB;  // raw slabs s % 2
+  uint32_t* planes = reinterpret_cast<uint32_t*>(ring_b + wg::RING * wg::SLAB);  // [2][hi, lo]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's rows of A's block
+  const int nbb = (nb + wg::BT - 1) / wg::BT;
+  const int a0 = (blockIdx.x / nbb) * wg::BT;
+  const int b0 = (blockIdx.x % nbb) * wg::BT;
+  const int share = blockIdx.y;
+  const long long n_tiles = (m + MT - 1) / MT;
+  const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
+  const long long n_slabs = my_tiles * wg::SPT;
+
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sums[i * THREADS + tid] = 0.0;
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+
+  auto rows = [&](long long s) {
+    return (share + (s / wg::SPT) * n_share) * MT + (s % wg::SPT) * wg::BK;
+  };
+  // raw B slab s -> planes s % 2: element (k, n) of core matrix c = (n / 8)
+  // (BK / 4) + k / 4 at word c 32 + (n % 8) 4 + k % 4.  A thread splits the
+  // four k of one n that share 16 bytes of a core matrix: its warp reads 32
+  // neighbouring n of a raw row and writes four whole core-matrix rows, both
+  // conflict-free.
+  auto split_b = [&](long long s) {
+    const float* raw = ring_b + (s & 1) * wg::SLAB;
+    uint32_t* hi = planes + (int)(s & 1) * 2 * wg::PLANE;
+#pragma unroll
+    for (int i = 0; i < wg::PLANE / 4 / THREADS; ++i) {
+      const int q = i * THREADS + tid;
+      const int n = q % wg::BT;
+      const int kb = q / wg::BT;
+      uint4 h, l;
+      split_tf32_hw(raw[(4 * kb) * wg::S + n], h.x, l.x);
+      split_tf32_hw(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
+      split_tf32_hw(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
+      split_tf32_hw(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
+      const int w = ((n >> 3) * (wg::BK / 4) + kb) * 32 + (n & 7) * 4;
+      *reinterpret_cast<uint4*>(hi + w) = h;
+      *reinterpret_cast<uint4*>(hi + wg::PLANE + w) = l;
+    }
+  };
+  // this warp's A fragments of k8 step kc of raw A slab s
+  auto a_frags = [&](long long s, int kc, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const float* as = ring_a + (s & 1) * wg::SLAB + (kc * 8 + t) * wg::S + row0 + g;
+    split_tf32_hw(as[0], ah[0], al[0]);
+    split_tf32_hw(as[8], ah[1], al[1]);
+    split_tf32_hw(as[4 * wg::S], ah[2], al[2]);
+    split_tf32_hw(as[4 * wg::S + 8], ah[3], al[3]);
+  };
+
+  // A s + 1 and B s + 2 are read into registers during slab s and stored
+  // at its end (cp.async copies into a three-slab ring took 37% longer in
+  // this kernel on an H100); 16-byte rows only, which launch() checks
+  auto ldg = [&](const float* src, int ncols, int c0, long long s, float4 (&v)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      const int c = (q & 31) * 4;
+      const long long gr = rows(s) + (q >> 5);
+      v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
+                 ? __ldg(reinterpret_cast<const float4*>(src + gr * ncols + c0 + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto sts = [&](float* ring, long long s, const float4 (&v)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      *reinterpret_cast<float4*>(ring + (s & 1) * wg::SLAB + (q >> 5) * wg::S + (q & 31) * 4) = v[i];
+    }
+  };
+  float4 va[2], vb[2];
+  ldg(a, na, a0, 0, va);
+  sts(ring_a, 0, va);
+  ldg(b, nb, b0, 0, vb);
+  sts(ring_b, 0, vb);
+  ldg(b, nb, b0, 1, vb);
+  sts(ring_b, 1, vb);
+  __syncthreads();
+  if (n_slabs > 0) split_b(0);
+  fence_proxy_async();
+  ldg(a, na, a0, 1, va);
+  ldg(b, nb, b0, 2, vb);
+
+  int in_tile = 0;
+  for (long long s = 0; s < n_slabs; ++s) {
+    __syncthreads();  // planes s % 2, A s and B s + 1 in place; slab s - 1 done with
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    a_frags(s, 0, ah0, al0);
+    a_frags(s, 1, ah1, al1);
+    const uint32_t p_hi = smem_u32(planes + (int)(s & 1) * 2 * wg::PLANE);
+    const uint64_t hi0 = kmajor_desc(p_hi);  // k8 step 0: core matrices 0-1 along K
+    const uint64_t hi1 = kmajor_desc(p_hi + 256);  // step 1: 2-3
+    const uint64_t lo0 = kmajor_desc(p_hi + wg::PLANE * 4);
+    const uint64_t lo1 = kmajor_desc(p_hi + wg::PLANE * 4 + 256);
+    hold(d);
+    wgmma_fence();
+    wgmma_tf32(d, al0, hi0, 0);  // the small terms first, then the large ones
+    wgmma_tf32(d, ah0, lo0, 1);
+    wgmma_tf32(d, al1, hi1, 1);
+    wgmma_tf32(d, ah1, lo1, 1);
+    wgmma_tf32(d, ah0, hi0, 1);
+    wgmma_tf32(d, ah1, hi1, 1);
+    wgmma_commit();
+    if (s + 1 < n_slabs) split_b(s + 1);  // beside the MMAs
+    fence_proxy_async();
+    wgmma_wait<0>();
+    hold(d);
+    hold(ah0);
+    hold(al0);
+    hold(ah1);
+    hold(al1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+    if (++in_tile == wg::SPT) {  // end of a 128-row tile: into the f64 sums
+      in_tile = 0;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sums[i * THREADS + tid] += (double)acc[i];
+        acc[i] = 0.f;
+      }
+    }
+    sts(ring_a, s + 1, va);
+    sts(ring_b, s + 2, vb);
+    ldg(a, na, a0, s + 2, va);
+    ldg(b, nb, b0, s + 3, vb);
+  }
+
+  // accumulator 4j + q: row g (+8 for q >= 2) of the warp's 16, column 8j + 2t + (q & 1)
+  double* dst = part + (size_t)share * na * nb;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = a0 + row0 + g + ((i & 3) >> 1) * 8;
+    const int c = b0 + (i >> 2) * 8 + 2 * t + (i & 1);
+    if (r < na && c < nb) dst[(size_t)r * nb + c] = sums[i * THREADS + tid];
+  }
+}
+
 template <typename T>
 inline int aligned16(const T* p, int ncols) {
   return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ((long long)ncols * sizeof(T)) % 16 == 0;
@@ -446,40 +686,64 @@ inline int aligned16(const T* p, int ncols) {
 
 // Launches the main kernel and atb::atb_reduce on `stream`; returns a
 // cudaError_t code.  part: n_share * na * nb doubles.
+// The main kernel of a mode, its shared memory and the shapes it takes.
+template <typename TA, typename TB, int MODE, int BT>
+struct Main {
+  static constexpr bool WG = MODE == WGMMA_TF32X3;
+  static_assert(!WG || (BT == wg::BT && sizeof(TA) == 4 && sizeof(TB) == 4), "wgmma: f32, 128");
+  static constexpr int SMEM = WG ? wg::SMEM : Cfg<TA, TB, MODE, BT>::SMEM;
+  using Fn = void (*)(const TA*, const TB*, double*, long long, int, int, int, int, int, int);
+  static Fn kernel() {
+    if constexpr (WG) {
+      return atb_wgmma_tf32x3;
+    } else {
+      return atb_tc_main<TA, TB, MODE, BT>;
+    }
+  }
+};
+
+// Launches the main kernel and atb::atb_reduce on `stream`; returns a
+// cudaError_t code.  part: n_share * na * nb doubles.
 template <typename TA, typename TB, int MODE, int BT>
 cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long m, int na,
                    int nb, int upper, int n_share, cudaStream_t stream) {
-  using C = Cfg<TA, TB, MODE, BT>;
-  if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 || (upper && na != nb)) {
+  using K = Main<TA, TB, MODE, BT>;
+  if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 || (upper && na != nb) ||
+      (upper && K::WG)) {
     return cudaErrorInvalidValue;
+  }
+  if constexpr (K::WG) {  // wgmma reads 16-byte rows; others take mma.sync
+    if (!aligned16(a, na) || !aligned16(b, nb)) {
+      return launch<TA, TB, TF32X3, BT>(a, b, part, out, m, na, nb, upper, n_share, stream);
+    }
   }
   const long long nba = (na + BT - 1) / BT;
   const long long nbb = (nb + BT - 1) / BT;
   const long long n_blocks = upper ? nbb * (nbb + 1) / 2 : nba * nbb;
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = atb_tc_main<TA, TB, MODE, BT>;
+  const auto kernel = K::kernel();
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)n_blocks, n_share), THREADS, C::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)n_blocks, n_share), THREADS, K::SMEM, stream>>>(
       a, b, part, m, na, nb, upper, n_share, aligned16(a, na), aligned16(b, nb));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = (long long)na * nb;
-  atb::atb_reduce<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      part, out, n_share, na, nb, upper);
+  atb::atb_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, out, n_share, na,
+                                                                      nb, upper);
   return cudaGetLastError();
 }
 
 // CTAs of the main kernel that fit one SM at once, into *out.
 template <typename TA, typename TB, int MODE, int BT>
 cudaError_t ctas_per_sm(int* out) {
-  using C = Cfg<TA, TB, MODE, BT>;
-  auto kernel = atb_tc_main<TA, TB, MODE, BT>;
+  using K = Main<TA, TB, MODE, BT>;
+  const auto kernel = K::kernel();
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, THREADS, C::SMEM);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, THREADS, K::SMEM);
 }
 
 }  // namespace atb_tc

@@ -216,3 +216,28 @@ def test_checks_and_range():
         mt.project(x.to("meta"), torch.zeros(10, 4, device="meta"))
     with pytest.raises(ValueError, match="each be one of"):
         mt.project(x, torch.zeros(10, 4, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("wave,n_blocks,m,share_bytes", [
+    (132, 138, 977_400, 8 * 256 * 8760),    # K3, the year's Hankel pass (N 256)
+    (132, 69, 977_400, 8 * 128 * 8760),     # K3, the year's fit step (N 128)
+    (132, 6, 15_573_600, 8 * 384 * 168),    # K3, the week's d = 3 pass
+    (132, 2415, 977_400, 8 * 8760 * 8760),  # K5, the year (scratch caps it at one share)
+    (264, 6, 15_573_600, 8 * 168 * 168),    # K5, the week at two CTAs an SM
+    (132, 138, 300, 8 * 256 * 8760),        # fewer row tiles than the best split
+    (132, 1, 1, 8),
+])
+def test_wave_row_shares(wave, n_blocks, m, share_bytes):
+    """The tensor-core reduction's row shares: the fewest whose CTAs fill
+    whole waves within 3% of the best split, within one share a 128-row
+    tile and 1 GiB of f64 scratch (checked against a brute-force search)."""
+    s = mt._wave_row_shares(wave, n_blocks, m, share_bytes)
+    cap = min(-(-m // 128), (1 << 30) // share_bytes, 65535)
+    assert 1 <= s <= max(1, cap)
+
+    def cost(k):
+        return -(-(n_blocks * k) // wave) / k
+
+    best = min(cost(k) for k in range(1, max(1, cap) + 1))
+    assert cost(s) <= 1.03 * best
+    assert all(cost(k) > 1.03 * best for k in range(1, s))
