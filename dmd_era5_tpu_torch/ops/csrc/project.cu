@@ -10,23 +10,24 @@
 // 128 x 128 block of C (128 sketch columns by 128 time steps) and one share
 // of the rows, on the tensor-core row-share mainloop of
 // row_share_atb_tc.cuh: MMA sums per 128-row tile added into f64 sums and
-// one fixed-order reduction over the shares.
+// one fixed-order reduction over the shares.  The modes: WGMMA_TF32X3 for
+// f32 x f32, WGMMA_BF16 for bf16 x bf16, TF32X3 (mma.sync) for mixed types.
 //
 // What bounds it on an H100: 2 M N T useful flops against (M T + M N)
 // element reads.  With f32 operands (the year: M 977,400, T 8,760, N 256 or
 // 128; the fit step) the products are 3xTF32, three tensor-core passes, so
 // 3 x 2 M N T operations at 495 TFLOP/s: 26.6 ms at N 256 against 10.5 ms of
-// HBM, bound by operations; the design keeps the three passes on the
-// tensor cores and splits each operand element once per warp that reads
-// it.  With bf16 operands (the d = 3 pass: the week, M 15,573,600, T 168,
-// N 384) one bf16 pass: 2 M N T at 989 TFLOP/s is 2.0 ms against 5.1 ms to
-// read X and Y once, bound by bytes; 128-wide blocks cut the re-reads of X
-// and Y (each read by N/128 resp. T/128 CTAs, from L2 when those CTAs run
-// together) and a four-deep cp.async ring keeps HBM busy while the MMAs run.
-// The f64 tile sums (shared memory, read and written each 128 rows) cost a
-// fixed ~2 K shared-memory cycles a tile, which is what a bf16 tile of 128
-// rows spends on its MMAs: at the d = 3 shape they are half the kernel's
-// shared-memory traffic.
+// HBM, bound by operations.  The design puts the three passes on warpgroup
+// MMAs, which run beside the splitting of the next slab; B is split once a
+// CTA and A once a warp.  With bf16 operands (the d = 3 pass: the week, M
+// 15,573,600, T 168, N 384) one bf16 pass: 2 M N T at 989 TFLOP/s is 2.0 ms
+// against 5.1 ms to read X and Y once, bound by bytes; 128-wide blocks cut
+// the re-reads of X and Y (each read by N/128 resp. T/128 CTAs, from L2 when
+// those CTAs run together) and the next slab's loads are in flight while
+// the MMAs run.  The f64 tile sums cost a fixed read and write of the CTA's
+// 128 KB of shared sums every 128 rows, which at the d = 3 shape is about as
+// much shared-memory traffic as the slabs themselves.  Rows that are not
+// 16-byte aligned, and mixed f32 x bf16 operands, take the mma.sync modes.
 //
 // Ranges: any M, N and T, Y and X each f32 or bf16; ragged edges masked.
 // Scratch: n_share * N * T doubles (17.9 MB a share at N 256, T 8,760),
@@ -40,7 +41,7 @@ constexpr int BT = 128;  // edge of a block of C
 
 template <typename TY, typename TX>
 constexpr int mode() {
-  return sizeof(TY) == 2 ? (sizeof(TX) == 2 ? atb_tc::BF16 : atb_tc::TF32X3)
+  return sizeof(TY) == 2 ? (sizeof(TX) == 2 ? atb_tc::WGMMA_BF16 : atb_tc::TF32X3)
                          : (sizeof(TX) == 2 ? atb_tc::TF32X3 : atb_tc::WGMMA_TF32X3);
 }
 

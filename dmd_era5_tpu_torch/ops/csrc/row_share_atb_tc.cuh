@@ -7,55 +7,52 @@
 // A is M x NA and B is M x NB, both row-major.  The reduction runs over the
 // rows, the slow axis of both: each operand is MN-major for the MMA.
 //
-// Work split.  A CTA (256 threads, 8 warps as 2 x 4) owns one BT x BT block
-// (bi, bj) of C and one share of the rows, which it walks in 128-row tiles
+// Work split.  A CTA (256 threads, 8 warps) owns one BT x BT block (bi, bj)
+// of C and one share of the rows, which it walks in 128-row tiles
 // (grid-stride over tiles by the number of shares).  Each tile's
 // contribution is summed by the MMAs into f32 accumulators from zero, then
 // added into f64 sums: an f32 running sum over a CTA's rows loses the
-// noise-floor directions of a Gram matrix at ERA5 size.  A warp's tile is
-// BT/2 x BT/4, so at BT = 128 a thread holds 64 f32 accumulators; its 64
-// f64 sums would not fit beside them in 255 registers, so they live in
-// shared memory (BT^2 doubles, each thread its own slots: no barrier, no
-// bank conflict), read and written once per 128-row tile.  Each CTA writes
-// its f64 block once into its share's slice of the scratch; atb_reduce sums
-// the shares in a fixed order.  No atomics: C is identical from run to run.
-// With `upper` only the blocks bi <= bj of a symmetric product (A = B) are
-// computed and the reduction mirrors the upper triangle, so G comes out
-// exactly symmetric.  Block indices run fastest within a share and, for
-// `upper`, row-major over the upper pairs, so CTAs next to one another in
-// launch order share a row share and an A slice: the operand slabs that
-// several CTAs read at about the same time come from L2.
+// noise-floor directions of a Gram matrix at ERA5 size.  At BT = 128 a
+// thread holds 64 f32 accumulators; its 64 f64 sums would not fit beside
+// them in 255 registers, so they live in shared memory (BT^2 doubles, each
+// thread its own slots: no barrier, no bank conflict), read and written once
+// per 128-row tile.  Each CTA writes its f64 block once into its share's
+// slice of the scratch; atb_reduce sums the shares in a fixed order.  No
+// atomics: C is identical from run to run.  With `upper` only the blocks
+// bi <= bj of a symmetric product (A = B) are computed and the reduction
+// mirrors the upper triangle, so G comes out exactly symmetric.  Block
+// indices run fastest within a share and, for `upper`, row-major over the
+// upper pairs, so CTAs next to one another in launch order share a row share
+// and an A slice: the operand slabs that several CTAs read at about the same
+// time come from L2.
 //
-// Staging: a ring of STAGES slabs of BK rows of both operands in shared
-// memory, filled by cp.async (16-byte copies where the row stride and the
-// base are 16-byte aligned, which every main-path shape is; 4-byte copies of
-// single f32 elements otherwise; 2-byte bf16 elements, below cp.async's
-// smallest copy, by plain loads).  Copies of slab i + STAGES - 1 are in flight
-// while the MMAs run on slab i; one barrier a slab.  Rows past M and columns
-// past NA / NB are zero-filled in-kernel, so nothing is padded or copied.
-// The slabs stay as they lie in memory, one row padded by PAD elements so
-// that the fragment loads below hit 32 distinct banks.
+// Accumulation.  The tensor core rounds its own sums toward zero: MMAs
+// chained over a whole 128-row tile left a bias far above f32 rounding in a
+// coherent sum.  So every 8 to 32 rows the MMAs start from zero, the small
+// terms first, and their sum is added into the tile's f32 accumulators with
+// round-to-nearest.
 //
-// Products, by mode (a warp's fragments are loaded from the slabs by hand):
-//   BF16       bf16 x bf16 (K3 at the d = 3 pass): ldmatrix.trans of the
-//              MN-major slabs, mma.m16n8k16 bf16 with f32 accumulation;
-//              the products are exact in f32.
-//   TF32X3     f32 x f32, or f32 x bf16 (K3 at the year and the fit step):
-//              each f32 operand split as hi = tf32_rna(a), lo = tf32_rna(a -
-//              hi) (lo from the ROUNDED hi: the tensor core truncates the 13
-//              low bits it is handed), acc += lo.hi + hi.lo + hi.hi by
-//              mma.m16n8k8 tf32.  A bf16 operand is exact in tf32, so its lo
-//              term is dropped (two products).  This is the counterpart of
-//              Precision.HIGHEST; one tf32 pass (~1e-3) would not be.
-//   SPLIT_BF16 f32 x f32 split in bf16 (K5): H = bf16(a), L = bf16(a - H),
-//              formed in registers as the fragments are loaded;
-//              acc += L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.m16n8k16
-//              bf16 (L^T L dropped, as in the JAX kernel).
-// Why mma.sync and not wgmma: the split operands must pass through
-// registers to be split, and mma.sync takes register fragments directly;
-// tf32 wgmma would also need K-major shared operands, which these MN-major
-// slabs are not.  wgmma (with the split written to shared memory once per
-// element) is later work.
+// Products, by mode:
+//   WGMMA_TF32X3 f32 x f32 with 16-byte rows (K3 at the year and in the fit
+//                step): 3xTF32 on warpgroup MMAs, below.
+//   WGMMA_BF16   bf16 x bf16 with 16-byte rows (K3 at the d = 3 pass): one
+//                bf16 warpgroup MMA; the products are exact in f32.
+//   TF32X3       f32 x bf16, or f32 rows not 16-byte aligned: 3xTF32 on
+//                mma.sync m16n8k8; a bf16 operand is exact in tf32, so its
+//                lo term is dropped (two products).
+//   BF16         bf16 rows not 16-byte aligned: mma.sync m16n8k16 on
+//                ldmatrix.trans fragments of the MN-major slabs.
+//   SPLIT_BF16   f32 x f32 split in bf16 (K5): H = bf16(a), L = bf16(a -
+//                H), formed in registers as the fragments are loaded;
+//                L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.sync m16n8k16
+//                bf16 (L^T L dropped, as in the JAX kernel).
+// 3xTF32: hi = tf32(a) rounded to nearest, lo = a - hi (exact in f32, from
+// the ROUNDED hi: the tensor core drops the 13 low bits it is handed),
+// acc += lo.hi + hi.lo + hi.hi -- the counterpart of Precision.HIGHEST; one
+// tf32 pass (~1e-3) would not be.  The mma.sync modes stage slabs by
+// cp.async in a four-deep ring; the wgmma modes read a slab into registers
+// a slab ahead.  The split modes on mma.sync take their split operands from
+// registers, where they are formed; the bf16 split on wgmma is later work.
 //
 // Ranges: any M, NA and NB; BT is 128 (K3, K5 at K > 256) or 64 (K5 at
 // K <= 256, gram.cu's table).  The wrapper sizes the scratch, n_share * NA *
@@ -79,7 +76,7 @@ constexpr int WARPS_B = 4;  // warps along B's columns; 2 along A's
 constexpr int MT = 128;     // rows per tile: summed in f32 from zero
 constexpr int STAGES = 4;   // slabs in the shared-memory ring
 
-enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2, WGMMA_TF32X3 = 3 };
+enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2, WGMMA_TF32X3 = 3, WGMMA_BF16 = 4 };
 
 template <typename TA, typename TB, int MODE, int BT>
 struct Cfg {
@@ -592,7 +589,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
 
   // A s + 1 and B s + 2 are read into registers during slab s and stored
-  // at its end (cp.async copies into a three-slab ring took 37% longer in
+  // at its end (cp.async copies into a deeper ring ran markedly slower in
   // this kernel on an H100); 16-byte rows only, which launch() checks
   auto ldg = [&](const float* src, int ncols, int c0, long long s, float4 (&v)[2]) {
 #pragma unroll
@@ -679,23 +676,182 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------ bf16 x bf16 on wgmma (WGMMA_BF16)
+//
+// K3 at the d = 3 pass: the same two warpgroups and 128 x 128 block as
+// WGMMA_TF32X3, no split.  A (a warp's 16 rows) comes from the MN-major raw
+// slab by ldmatrix.trans, as in BF16; B stays MN-major and wgmma transposes
+// it (imm-trans-b): the register-staged loads store each 16-byte run of 8
+// columns straight into 8 x 8 core matrices, a slab's 32 rows as 4 x 16 of
+// them.  Per slab, from zero: D = A B over its two k16 steps, then acc += D.
+namespace wgb {
+constexpr int BK = 32;  // rows per slab: two k16 steps
+constexpr int SPT = MT / BK;
+constexpr int S = wg::BT + 8;               // raw A row stride, bf16: 272 bytes
+constexpr int A_SLAB = BK * S;              // bf16 elements
+constexpr int B_SLAB = BK * wg::BT;         // bf16 elements: 64 core matrices
+constexpr int K_STRIDE = wg::BT / 8 * 128;  // bytes between core matrices along K
+constexpr int SMEM = wg::SUM_BYTES + 2 * (A_SLAB + B_SLAB) * 2;
+static_assert(SMEM <= 232448, "shared memory of one CTA");
+}  // namespace wgb
+
+// MN-major B without swizzle: core matrices of 8 k-rows x 16 bytes, the next
+// along K K_STRIDE bytes on (leading byte offset), the next along N 128
+// bytes on (stride byte offset).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(wgb::K_STRIDE >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    atb_wgmma_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                   double* __restrict__ part, long long m, int na, int nb, int upper,
+                   int n_share, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
+  bf16* ring_a = reinterpret_cast<bf16*>(smem + wg::SUM_BYTES);  // raw slabs s % 2
+  bf16* ring_b = ring_a + 2 * wgb::A_SLAB;                        // core matrices, s % 2
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;
+  const int nbb = (nb + wg::BT - 1) / wg::BT;
+  const int a0 = (blockIdx.x / nbb) * wg::BT;
+  const int b0 = (blockIdx.x % nbb) * wg::BT;
+  const int share = blockIdx.y;
+  const long long n_tiles = (m + MT - 1) / MT;
+  const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
+  const long long n_slabs = my_tiles * wgb::SPT;
+
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sums[i * THREADS + tid] = 0.0;
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+
+  auto rows = [&](long long s) {
+    return (share + (s / wgb::SPT) * n_share) * MT + (s % wgb::SPT) * wgb::BK;
+  };
+  // 16-byte runs of a slab, two a thread.  A: run q is row q / 16, columns
+  // 8 (q % 16).  B: run q is row 8 (q / 128) + q % 8, columns 8 ((q / 8) %
+  // 16), so 8 neighbouring lanes fill one core matrix (128 contiguous bytes)
+  // and a warp reads 64 contiguous bytes of each of 8 rows.
+  auto ldg = [&](const bf16* src, int ncols, int c0, long long s, bool is_b, uint4 (&v)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
+      const int c = is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8;
+      const long long gr = rows(s) + k;
+      v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
+                 ? __ldg(reinterpret_cast<const uint4*>(src + gr * ncols + c0 + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto sts_a = [&](long long s, const uint4 (&v)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      *reinterpret_cast<uint4*>(ring_a + (s & 1) * wgb::A_SLAB + (q >> 4) * wgb::S + (q & 15) * 8) =
+          v[i];
+    }
+  };
+  auto sts_b = [&](long long s, const uint4 (&v)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;  // core matrix (k / 8, n / 8), row k % 8
+      const int off = ((q >> 7) * 16 + ((q >> 3) & 15)) * 64 + (q & 7) * 8;
+      *reinterpret_cast<uint4*>(ring_b + (s & 1) * wgb::B_SLAB + off) = v[i];
+    }
+  };
+  uint4 va[2], vb[2];
+  ldg(a, na, a0, 0, false, va);
+  sts_a(0, va);
+  ldg(b, nb, b0, 0, true, vb);
+  sts_b(0, vb);
+  ldg(a, na, a0, 1, false, va);
+  ldg(b, nb, b0, 1, true, vb);
+
+  const int j = lane >> 3;  // ldmatrix: lane addresses row lane % 8 of matrix lane / 8
+  const int r = lane & 7;
+  int in_tile = 0;
+  for (long long s = 0; s < n_slabs; ++s) {
+    fence_proxy_async();  // this thread's stores of slab s, to wgmma's reads
+    __syncthreads();      // slab s in place; slab s - 1 done with
+    uint32_t af0[4], af1[4];
+    const bf16* as = ring_a + (s & 1) * wgb::A_SLAB + row0 + (j & 1) * 8;
+    ldsm_x4_trans(smem_u32(as + ((j >> 1) * 8 + r) * wgb::S), af0[0], af0[1], af0[2], af0[3]);
+    ldsm_x4_trans(smem_u32(as + (16 + (j >> 1) * 8 + r) * wgb::S), af1[0], af1[1], af1[2],
+                  af1[3]);
+    const uint32_t pb = smem_u32(ring_b + (s & 1) * wgb::B_SLAB);
+    hold(d);
+    wgmma_fence();
+    wgmma_bf16(d, af0, mnmajor_desc(pb), 0);                      // rows 0-15 of the slab
+    wgmma_bf16(d, af1, mnmajor_desc(pb + 2 * wgb::K_STRIDE), 1);  // rows 16-31
+    wgmma_commit();
+    sts_a(s + 1, va);  // the other slots, free since the barrier
+    sts_b(s + 1, vb);
+    ldg(a, na, a0, s + 2, false, va);
+    ldg(b, nb, b0, s + 2, true, vb);
+    wgmma_wait<0>();
+    hold(d);
+    hold(af0);
+    hold(af1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+    if (++in_tile == wgb::SPT) {  // end of a 128-row tile: into the f64 sums
+      in_tile = 0;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sums[i * THREADS + tid] += (double)acc[i];
+        acc[i] = 0.f;
+      }
+    }
+  }
+
+  double* dst = part + (size_t)share * na * nb;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int rr = a0 + row0 + g + ((i & 3) >> 1) * 8;
+    const int c = b0 + (i >> 2) * 8 + 2 * t + (i & 1);
+    if (rr < na && c < nb) dst[(size_t)rr * nb + c] = sums[i * THREADS + tid];
+  }
+}
+
 template <typename T>
 inline int aligned16(const T* p, int ncols) {
   return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ((long long)ncols * sizeof(T)) % 16 == 0;
 }
 
-// Launches the main kernel and atb::atb_reduce on `stream`; returns a
-// cudaError_t code.  part: n_share * na * nb doubles.
 // The main kernel of a mode, its shared memory and the shapes it takes.
 template <typename TA, typename TB, int MODE, int BT>
 struct Main {
-  static constexpr bool WG = MODE == WGMMA_TF32X3;
-  static_assert(!WG || (BT == wg::BT && sizeof(TA) == 4 && sizeof(TB) == 4), "wgmma: f32, 128");
-  static constexpr int SMEM = WG ? wg::SMEM : Cfg<TA, TB, MODE, BT>::SMEM;
+  static constexpr bool WG = MODE == WGMMA_TF32X3 || MODE == WGMMA_BF16;
+  static_assert(!WG || (BT == wg::BT && sizeof(TA) == sizeof(TB)), "wgmma: one dtype, 128");
+  static constexpr int SMEM = MODE == WGMMA_TF32X3 ? wg::SMEM
+                              : MODE == WGMMA_BF16 ? wgb::SMEM
+                                                   : Cfg<TA, TB, MODE, BT>::SMEM;
+  static constexpr int FALLBACK = MODE == WGMMA_TF32X3 ? TF32X3 : BF16;  // unaligned rows
   using Fn = void (*)(const TA*, const TB*, double*, long long, int, int, int, int, int, int);
   static Fn kernel() {
-    if constexpr (WG) {
+    if constexpr (MODE == WGMMA_TF32X3) {
       return atb_wgmma_tf32x3;
+    } else if constexpr (MODE == WGMMA_BF16) {
+      return atb_wgmma_bf16;
     } else {
       return atb_tc_main<TA, TB, MODE, BT>;
     }
@@ -714,7 +870,7 @@ cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long
   }
   if constexpr (K::WG) {  // wgmma reads 16-byte rows; others take mma.sync
     if (!aligned16(a, na) || !aligned16(b, nb)) {
-      return launch<TA, TB, TF32X3, BT>(a, b, part, out, m, na, nb, upper, n_share, stream);
+      return launch<TA, TB, K::FALLBACK, BT>(a, b, part, out, m, na, nb, upper, n_share, stream);
     }
   }
   const long long nba = (na + BT - 1) / BT;
