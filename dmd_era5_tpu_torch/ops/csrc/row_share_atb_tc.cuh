@@ -105,10 +105,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copies of `bytes` (16 or 4) that zero-fill the destination when !ok.
+// Copies of 16, 8 or 4 bytes that zero-fill the destination when !ok.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
@@ -156,25 +161,19 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
-// hi = tf32_rna(v), lo = tf32_rna(v - hi); v - hi is exact in f32.  An
-// EXACT operand (a bf16 value) is its own hi.
-template <bool EXACT>
+// hi = tf32_rna(v), lo = v - hi, exact in f32 and left to the tensor core,
+// which drops its 13 low bits: a truncation of lo by at most 2^-11 |lo| <=
+// 2^-22 |v|, the size of the dropped lo x lo term.  An EXACT operand (a bf16
+// value) is its own hi.
+template <bool EXACT = false>
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   if constexpr (EXACT) {
     hi = __float_as_uint(v);
     lo = 0u;
   } else {
     hi = tf32_rna(v);
-    lo = tf32_rna(v - __uint_as_float(hi));
+    lo = __float_as_uint(v - __uint_as_float(hi));
   }
-}
-
-// The same split with lo left as the f32 residual: the tensor core drops
-// its 13 low bits, a truncation of lo by at most 2^-11 |lo| <= 2^-22 |v|,
-// the size of the dropped lo x lo term.
-__device__ __forceinline__ void split_tf32_hw(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // (v0, v1) -> bf16x2 with v0 in the low half (the lower k of a fragment pair).
@@ -193,21 +192,39 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uin
 // ------------------------------------------------------------ staging
 
 // Rows [r0, r0 + BK) and columns [c0, c0 + BT) of src (ncols wide) into a
-// slab of row stride S; out-of-range elements are zero.
+// slab of row stride S, in cp.async copies of BYTES (16 or 8) that are
+// wholly in or out of range (ncols is a multiple of BYTES / sizeof(T));
+// out-of-range elements are zero.
+template <int BYTES, typename T, int BT, int BK, int S, int THREADS>
+__device__ __forceinline__ void stage_runs(T* dst, const T* __restrict__ src, long long r0,
+                                           long long m, int ncols, int c0, int tid) {
+  constexpr int VEC = BYTES / (int)sizeof(T);
+  constexpr int CPR = BT / VEC;
+#pragma unroll(BYTES == 16 ? 8 : 1)  // the 8-byte path rolled: K5's 64-wide kernel has 128 registers
+  for (int i = tid; i < BK * CPR; i += THREADS) {
+    const int k = i / CPR;
+    const int c = (i % CPR) * VEC;
+    const long long gr = r0 + k;
+    const bool ok = gr < m && c0 + c < ncols;
+    const T* p = ok ? src + gr * ncols + c0 + c : src;
+    if constexpr (BYTES == 16) {
+      cp_async16(smem_u32(dst + k * S + c), p, ok);
+    } else {
+      cp_async8(smem_u32(dst + k * S + c), p, ok);
+    }
+  }
+}
+
+// The same with copies as wide as the rows' alignment allows: `width` is
+// 16, 8, or 0 for single elements (bf16 ones, below cp.async's 4 bytes,
+// by plain loads).
 template <typename T, int BT, int BK, int S, int THREADS>
 __device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ src, long long r0,
-                                           long long m, int ncols, int c0, int vec, int tid) {
-  if (vec) {  // ncols a multiple of VEC: a chunk is wholly in or out
-    constexpr int VEC = 16 / (int)sizeof(T);
-    constexpr int CPR = BT / VEC;
-#pragma unroll
-    for (int i = tid; i < BK * CPR; i += THREADS) {
-      const int k = i / CPR;
-      const int c = (i % CPR) * VEC;
-      const long long gr = r0 + k;
-      const bool ok = gr < m && c0 + c < ncols;
-      cp_async16(smem_u32(dst + k * S + c), ok ? src + gr * ncols + c0 + c : src, ok);
-    }
+                                           long long m, int ncols, int c0, int width, int tid) {
+  if (width == 16) {
+    stage_runs<16, T, BT, BK, S, THREADS>(dst, src, r0, m, ncols, c0, tid);
+  } else if (width == 8) {
+    stage_runs<8, T, BT, BK, S, THREADS>(dst, src, r0, m, ncols, c0, tid);
   } else {
 #pragma unroll 4
     for (int i = tid; i < BK * BT; i += THREADS) {
@@ -344,7 +361,8 @@ __device__ __forceinline__ void slab_products(
 template <typename TA, typename TB, int MODE, int BT>
 __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
     atb_tc_main(const TA* __restrict__ a, const TB* __restrict__ b, double* __restrict__ part,
-                long long m, int na, int nb, int upper, int n_share, int vec_a, int vec_b) {
+                long long m, int na, int nb, int upper, int n_share, int width_a,
+                int width_b) {
   using C = Cfg<TA, TB, MODE, BT>;
   constexpr int SPT = MT / C::BK;  // slabs a tile
   extern __shared__ __align__(16) unsigned char smem[];
@@ -391,10 +409,10 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   auto stage = [&](long long s) {
     const long long r0 = (share + (s / SPT) * n_share) * MT + (s % SPT) * C::BK;
     unsigned char* st = ring + (int)(s % STAGES) * C::STAGE_BYTES;
-    stage_slab<TA, BT, C::BK, C::S, THREADS>(reinterpret_cast<TA*>(st), a, r0, m, na, a0, vec_a,
-                                             tid);
+    stage_slab<TA, BT, C::BK, C::S, THREADS>(reinterpret_cast<TA*>(st), a, r0, m, na, a0,
+                                             width_a, tid);
     stage_slab<TB, BT, C::BK, C::S, THREADS>(reinterpret_cast<TB*>(st + C::A_BYTES), b, r0, m, nb,
-                                             b0, vec_b, tid);
+                                             b0, width_b, tid);
   };
 
 #pragma unroll
@@ -462,7 +480,7 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
 // f64 sums every 128 rows, as in the other modes.  Raw slabs of A and B are
 // read into registers a slab ahead (B two, since it is split a slab before
 // its MMAs) and stored into two shared slots each at the end of a slab; the
-// rows must be 16-byte aligned (vec_a, vec_b), else the wrapper takes
+// rows must be 16-byte aligned (width_a, width_b), else the wrapper takes
 // TF32X3.
 namespace wg {
 constexpr int BT = 128;
@@ -523,10 +541,11 @@ __device__ __forceinline__ void hold(uint32_t (&r)[4]) {
   asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
 }
 
+template <int = 0>  // instantiated only by the library that launches it
 __global__ void __launch_bounds__(THREADS, 1)
     atb_wgmma_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
                      double* __restrict__ part, long long m, int na, int nb, int upper,
-                     int n_share, int vec_a, int vec_b) {
+                     int n_share, int width_a, int width_b) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
   float* ring_a = reinterpret_cast<float*>(smem + wg::SUM_BYTES);
@@ -570,10 +589,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int n = q % wg::BT;
       const int kb = q / wg::BT;
       uint4 h, l;
-      split_tf32_hw(raw[(4 * kb) * wg::S + n], h.x, l.x);
-      split_tf32_hw(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
-      split_tf32_hw(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
-      split_tf32_hw(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
+      split_tf32(raw[(4 * kb) * wg::S + n], h.x, l.x);
+      split_tf32(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
+      split_tf32(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
+      split_tf32(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
       const int w = ((n >> 3) * (wg::BK / 4) + kb) * 32 + (n & 7) * 4;
       *reinterpret_cast<uint4*>(hi + w) = h;
       *reinterpret_cast<uint4*>(hi + wg::PLANE + w) = l;
@@ -582,10 +601,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   // this warp's A fragments of k8 step kc of raw A slab s
   auto a_frags = [&](long long s, int kc, uint32_t (&ah)[4], uint32_t (&al)[4]) {
     const float* as = ring_a + (s & 1) * wg::SLAB + (kc * 8 + t) * wg::S + row0 + g;
-    split_tf32_hw(as[0], ah[0], al[0]);
-    split_tf32_hw(as[8], ah[1], al[1]);
-    split_tf32_hw(as[4 * wg::S], ah[2], al[2]);
-    split_tf32_hw(as[4 * wg::S + 8], ah[3], al[3]);
+    split_tf32(as[0], ah[0], al[0]);
+    split_tf32(as[8], ah[1], al[1]);
+    split_tf32(as[4 * wg::S], ah[2], al[2]);
+    split_tf32(as[4 * wg::S + 8], ah[3], al[3]);
   };
 
   // A s + 1 and B s + 2 are read into registers during slab s and stored
@@ -714,10 +733,11 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+template <int = 0>  // instantiated only by the library that launches it
 __global__ void __launch_bounds__(THREADS, 1)
     atb_wgmma_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
                    double* __restrict__ part, long long m, int na, int nb, int upper,
-                   int n_share, int vec_a, int vec_b) {
+                   int n_share, int width_a, int width_b) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
   bf16* ring_a = reinterpret_cast<bf16*>(smem + wg::SUM_BYTES);  // raw slabs s % 2
@@ -832,9 +852,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// Widest copy, in bytes, that every row of p (ncols wide) is aligned to:
+// 16, 8, or 0 (element by element).
 template <typename T>
-inline int aligned16(const T* p, int ncols) {
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ((long long)ncols * sizeof(T)) % 16 == 0;
+inline int row_copy_bytes(const T* p, int ncols) {
+  const long long row = (long long)ncols * sizeof(T);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(p);
+  if (base % 16 == 0 && row % 16 == 0) return 16;
+  if (base % 8 == 0 && row % 8 == 0) return 8;
+  return 0;
 }
 
 // The main kernel of a mode, its shared memory and the shapes it takes.
@@ -849,9 +875,9 @@ struct Main {
   using Fn = void (*)(const TA*, const TB*, double*, long long, int, int, int, int, int, int);
   static Fn kernel() {
     if constexpr (MODE == WGMMA_TF32X3) {
-      return atb_wgmma_tf32x3;
+      return atb_wgmma_tf32x3<>;
     } else if constexpr (MODE == WGMMA_BF16) {
-      return atb_wgmma_bf16;
+      return atb_wgmma_bf16<>;
     } else {
       return atb_tc_main<TA, TB, MODE, BT>;
     }
@@ -869,7 +895,7 @@ cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long
     return cudaErrorInvalidValue;
   }
   if constexpr (K::WG) {  // wgmma reads 16-byte rows; others take mma.sync
-    if (!aligned16(a, na) || !aligned16(b, nb)) {
+    if (row_copy_bytes(a, na) != 16 || row_copy_bytes(b, nb) != 16) {
       return launch<TA, TB, K::FALLBACK, BT>(a, b, part, out, m, na, nb, upper, n_share, stream);
     }
   }
@@ -882,7 +908,7 @@ cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((unsigned)n_blocks, n_share), THREADS, K::SMEM, stream>>>(
-      a, b, part, m, na, nb, upper, n_share, aligned16(a, na), aligned16(b, nb));
+      a, b, part, m, na, nb, upper, n_share, row_copy_bytes(a, na), row_copy_bytes(b, nb));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = (long long)na * nb;
