@@ -27,7 +27,8 @@
 // are later work.
 //
 // K5 (the bf16 split) runs on the tensor-core mainloop of
-// row_share_atb_tc.cuh with `upper`: H and L are formed in registers once
+// row_share_atb_tc.cuh (atb_split_bf16, mma.sync on a cp.async ring) with
+// `upper`: H and L are formed in registers once
 // per element a warp loads, and each upper block takes three bf16 MMAs,
 // H_i^T H_j + H_i^T L_j + L_i^T H_j, into one f32 accumulator; their sum over
 // the blocks is H^T H + H^T L + (H^T L)^T.  A bf16 x bf16 product is exact in
@@ -206,9 +207,9 @@ extern "C" int gram_split_block_edge(int k) { return k <= 256 ? 64 : 128; }
 extern "C" int gram_ctas_per_sm(int a_bf16, int split, int k, int* ctas_per_sm) {
   if (a_bf16 && split) return (int)cudaErrorInvalidValue;
   if (split) {
-    return gram_split_block_edge(k) == 64
-               ? (int)atb_tc::ctas_per_sm<float, float, atb_tc::SPLIT_BF16, 64>(ctas_per_sm)
-               : (int)atb_tc::ctas_per_sm<float, float, atb_tc::SPLIT_BF16, 128>(ctas_per_sm);
+    return (int)atb_tc::ctas_per_sm(
+        gram_split_block_edge(k) == 64 ? atb_tc::split_main<64>() : atb_tc::split_main<128>(),
+        ctas_per_sm);
   }
   if (a_bf16) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -231,11 +232,9 @@ extern "C" int gram_launch(const void* a, double* part, float* g, long long m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split) {
     const float* af = static_cast<const float*>(a);
-    return gram_split_block_edge(k) == 64
-               ? (int)atb_tc::launch<float, float, atb_tc::SPLIT_BF16, 64>(af, af, part, g, m,
-                                                                           k, k, 1, n_share, s)
-               : (int)atb_tc::launch<float, float, atb_tc::SPLIT_BF16, 128>(af, af, part, g, m,
-                                                                            k, k, 1, n_share, s);
+    return (int)atb_tc::launch(
+        gram_split_block_edge(k) == 64 ? atb_tc::split_main<64>() : atb_tc::split_main<128>(),
+        af, af, part, g, m, k, k, 1, n_share, s);
   }
   const int nb = (k + OB - 1) / OB;
   const int n_pairs = nb * (nb + 1) / 2;

@@ -10,8 +10,8 @@
 // 128 x 128 block of C (128 sketch columns by 128 time steps) and one share
 // of the rows, on the tensor-core row-share mainloop of
 // row_share_atb_tc.cuh: MMA sums per 128-row tile added into f64 sums and
-// one fixed-order reduction over the shares.  The modes: WGMMA_TF32X3 for
-// f32 x f32, WGMMA_BF16 for bf16 x bf16, TF32X3 (mma.sync) for mixed types.
+// one fixed-order reduction over the shares: atb_wgmma_tf32x3 for f32 x f32
+// and for mixed f32 x bf16 operands, atb_wgmma_bf16 for bf16 x bf16.
 //
 // What bounds it on an H100: 2 M N T useful flops against (M T + M N)
 // element reads.  With f32 operands (the year: M 977,400, T 8,760, N 256 or
@@ -27,7 +27,7 @@
 // the MMAs run.  The f64 tile sums cost a fixed read and write of the CTA's
 // 128 KB of shared sums every 128 rows, which at the d = 3 shape is about as
 // much shared-memory traffic as the slabs themselves.  Rows that are not
-// 16-byte aligned, and mixed f32 x bf16 operands, take the mma.sync modes.
+// 16-byte aligned take the same kernels with narrower loads.
 //
 // Ranges: any M, N and T, Y and X each f32 or bf16; ragged edges masked.
 // Scratch: n_share * N * T doubles (17.9 MB a share at N 256, T 8,760),
@@ -36,14 +36,6 @@
 #include "row_share_atb_tc.cuh"
 
 namespace {
-
-constexpr int BT = 128;  // edge of a block of C
-
-template <typename TY, typename TX>
-constexpr int mode() {
-  return sizeof(TY) == 2 ? (sizeof(TX) == 2 ? atb_tc::WGMMA_BF16 : atb_tc::TF32X3)
-                         : (sizeof(TX) == 2 ? atb_tc::TF32X3 : atb_tc::WGMMA_TF32X3);
-}
 
 struct Launch {
   const void* y;
@@ -57,9 +49,8 @@ struct Launch {
   cudaStream_t stream;
   template <typename TY, typename TX>
   cudaError_t run() const {
-    return atb_tc::launch<TY, TX, mode<TY, TX>(), BT>(static_cast<const TY*>(y),
-                                                      static_cast<const TX*>(x), part, c, m,
-                                                      n, t, 0, n_share, stream);
+    return atb_tc::launch(atb_tc::project_main<TY, TX>(), static_cast<const TY*>(y),
+                          static_cast<const TX*>(x), part, c, m, n, t, 0, n_share, stream);
   }
 };
 
@@ -67,7 +58,7 @@ struct Occupancy {
   int* out;
   template <typename TY, typename TX>
   cudaError_t run() const {
-    return atb_tc::ctas_per_sm<TY, TX, mode<TY, TX>(), BT>(out);
+    return atb_tc::ctas_per_sm(atb_tc::project_main<TY, TX>(), out);
   }
 };
 
@@ -79,7 +70,7 @@ extern "C" int project_ctas_per_sm(int y_bf16, int x_bf16, int* out) {
 }
 
 // Edge of the blocks of C that the main kernel's CTAs own.
-extern "C" int project_block_edge() { return BT; }
+extern "C" int project_block_edge() { return atb_tc::wg::BT; }
 
 // C (n x t, f32) = Y^T X; part holds n_share * n * t doubles.  Returns a
 // cudaError_t code: 0 when both kernels were launched.

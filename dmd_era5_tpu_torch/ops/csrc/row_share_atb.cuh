@@ -1,10 +1,12 @@
-// C = A^T B over the rows of two tall matrices, f64-grade: the reduction
-// shared by K2's Gram stage (G = Yc^T Yc, sketch_center_gram.cu) and K3
-// (C = Y^T X, project.cu).
+// C = A^T B over the rows of two tall matrices, f64-grade, on the CUDA
+// cores: the reduction of K2's Gram stage (G = Yc^T Yc,
+// sketch_center_gram.cu).  Its scratch layout, fixed-order reduction
+// (atb_reduce) and dtype dispatch are shared with the tensor-core mainloop
+// of K3 and K5 (row_share_atb_tc.cuh).
 //
-// A is M x NA and B is M x NB, both row-major, f32 or bf16 (bf16 values
-// are exact in f32).  A CTA owns one 64 x 64 block (bi, bj) of C and one
-// share of the rows, which it walks in 128-row tiles (grid-stride over
+// A is M x NA and B is M x NB, both row-major, both f32 or both bf16 (bf16
+// values are exact in f32).  A CTA owns one 64 x 64 block (bi, bj) of C and
+// one share of the rows, which it walks in 128-row tiles (grid-stride over
 // tiles by the number of shares).  Each tile's contribution is summed in
 // f32 from zero and then added into f64 sums held in registers, as in K4
 // (gram.cu): an f32 running sum over a CTA's rows loses the noise-floor
@@ -36,9 +38,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename TA, typename TB>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    atb_main(const TA* __restrict__ a, const TB* __restrict__ b,
+    atb_main(const T* __restrict__ a, const T* __restrict__ b,
              double* __restrict__ part, long long m, int na, int nb,
              int upper, int n_share) {
   __shared__ __align__(16) float as[KC][OB];
@@ -140,15 +142,15 @@ inline int n_out_blocks(int na, int nb, int upper) {
 }
 
 // Launches both kernels on `stream`; returns a cudaError_t code.
-template <typename TA, typename TB>
-cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long m,
+template <typename T>
+cudaError_t launch(const T* a, const T* b, double* part, float* out, long long m,
                    int na, int nb, int upper, int n_share, cudaStream_t stream) {
   if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 ||
       (upper && na != nb)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(n_out_blocks(na, nb, upper), n_share);
-  atb_main<TA, TB><<<grid, THREADS, 0, stream>>>(a, b, part, m, na, nb, upper, n_share);
+  atb_main<T><<<grid, THREADS, 0, stream>>>(a, b, part, m, na, nb, upper, n_share);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = (long long)na * nb;
@@ -157,9 +159,10 @@ cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long
   return cudaGetLastError();
 }
 
-template <typename TA, typename TB>
+// CTAs of atb_main<T> that fit one SM at once, into *out.
+template <typename T>
 cudaError_t ctas_per_sm(int* out) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, atb_main<TA, TB>, THREADS, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, atb_main<T>, THREADS, 0);
 }
 
 // op.run<A, B>() with A and B each float or bf16, chosen by the two flags.
@@ -171,14 +174,5 @@ cudaError_t dispatch(const Op& op, int a_bf16, int b_bf16) {
   if (b_bf16) return op.template run<float, bf16>();
   return op.template run<float, float>();
 }
-
-// CTAs of atb_main<A, B> that fit one SM at once, into *out.
-struct Occupancy {
-  int* out;
-  template <typename TA, typename TB>
-  cudaError_t run() const {
-    return ctas_per_sm<TA, TB>(out);
-  }
-};
 
 }  // namespace atb

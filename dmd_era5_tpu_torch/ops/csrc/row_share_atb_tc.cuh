@@ -32,30 +32,28 @@
 // terms first, and their sum is added into the tile's f32 accumulators with
 // round-to-nearest.
 //
-// Products, by mode:
-//   WGMMA_TF32X3 f32 x f32 with 16-byte rows (K3 at the year and in the fit
-//                step): 3xTF32 on warpgroup MMAs, below.
-//   WGMMA_BF16   bf16 x bf16 with 16-byte rows (K3 at the d = 3 pass): one
-//                bf16 warpgroup MMA; the products are exact in f32.
-//   TF32X3       f32 x bf16, or f32 rows not 16-byte aligned: 3xTF32 on
-//                mma.sync m16n8k8; a bf16 operand is exact in tf32, so its
-//                lo term is dropped (two products).
-//   BF16         bf16 rows not 16-byte aligned: mma.sync m16n8k16 on
-//                ldmatrix.trans fragments of the MN-major slabs.
-//   SPLIT_BF16   f32 x f32 split in bf16 (K5): H = bf16(a), L = bf16(a -
-//                H), formed in registers as the fragments are loaded;
-//                L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.sync m16n8k16
-//                bf16 (L^T L dropped, as in the JAX kernel).
+// Three kernels:
+//   atb_wgmma_tf32x3  K3 on f32 operands, or one f32 and one bf16: 3xTF32
+//                     on warpgroup MMAs, 128 x 128 blocks.  A bf16 operand
+//                     is widened to f32 as it is loaded; it is exact in
+//                     tf32, so its lo term is dropped (two products).
+//   atb_wgmma_bf16    K3 on bf16 operands: one bf16 warpgroup MMA, 128 x
+//                     128 blocks; the products are exact in f32.
+//   atb_split_bf16    K5, f32 x f32 split in bf16: H = bf16(a), L = bf16(a -
+//                     H), formed in registers as the fragments are loaded;
+//                     L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.sync m16n8k16
+//                     bf16 (L^T L dropped, as in the JAX kernel); 64- or
+//                     128-wide blocks, slabs staged by cp.async in a
+//                     four-deep ring.
+// The wgmma kernels read each slab into registers a slab ahead and store it
+// into shared memory at the end of a slab, in 16- or 8-byte loads where the
+// rows are aligned to them and element by element where they are not.
 // 3xTF32: hi = tf32(a) rounded to nearest, lo = a - hi (exact in f32, from
 // the ROUNDED hi: the tensor core drops the 13 low bits it is handed),
 // acc += lo.hi + hi.lo + hi.hi -- the counterpart of Precision.HIGHEST; one
-// tf32 pass (~1e-3) would not be.  The mma.sync modes stage slabs by
-// cp.async in a four-deep ring; the wgmma modes read a slab into registers
-// a slab ahead.  The split modes on mma.sync take their split operands from
-// registers, where they are formed; the bf16 split on wgmma is later work.
+// tf32 pass (~1e-3) would not be.
 //
-// Ranges: any M, NA and NB; BT is 128 (K3, K5 at K > 256) or 64 (K5 at
-// K <= 256, gram.cu's table).  The wrapper sizes the scratch, n_share * NA *
+// Ranges: any M, NA and NB.  The wrapper sizes the scratch, n_share * NA *
 // NB doubles, keeps it near 1 GiB and picks n_share so that the CTAs fill
 // whole waves of the card.
 
@@ -72,32 +70,7 @@ namespace atb_tc {
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
-constexpr int WARPS_B = 4;  // warps along B's columns; 2 along A's
-constexpr int MT = 128;     // rows per tile: summed in f32 from zero
-constexpr int STAGES = 4;   // slabs in the shared-memory ring
-
-enum Mode : int { BF16 = 0, TF32X3 = 1, SPLIT_BF16 = 2, WGMMA_TF32X3 = 3, WGMMA_BF16 = 4 };
-
-template <typename TA, typename TB, int MODE, int BT>
-struct Cfg {
-  // rows per slab: 8 KB of A at BT 128; 64-wide blocks take twice the rows
-  static constexpr int BK = MODE == BF16 || BT == 64 ? 32 : 16;
-  static constexpr int PAD = MODE == SPLIT_BF16 ? 4 : 8;  // see the fragment loads
-  static constexpr int S = BT + PAD;  // row stride of a slab, elements
-  static constexpr int WARPS_A = THREADS / 32 / WARPS_B;
-  static constexpr int WM = BT / WARPS_A;
-  static constexpr int WN = BT / WARPS_B;
-  static constexpr int MI = WM / 16;  // m16 tiles a warp
-  static constexpr int NI = WN / 8;   // n8 tiles a warp
-  static constexpr int ACC = MI * NI * 4;  // f32 accumulators a thread
-  static constexpr int A_BYTES = BK * S * (int)sizeof(TA);
-  static constexpr int STAGE_BYTES = A_BYTES + BK * S * (int)sizeof(TB);
-  static constexpr int SUM_BYTES = ACC * THREADS * 8;
-  static constexpr int SMEM = SUM_BYTES + STAGES * STAGE_BYTES;
-  static_assert(MT % BK == 0 && NI % 2 == 0 && A_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0,
-                "slab layout");
-  static_assert(SMEM <= 232448, "shared memory of one CTA");
-};
+constexpr int MT = 128;  // rows per tile: summed in f32 from zero
 
 // ---------------------------------------------------------------- PTX
 
@@ -134,15 +107,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint3
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -189,16 +153,40 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uin
   lo = pack_bf16(v0 - __uint_as_float(hi << 16), v1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-// ------------------------------------------------------------ staging
+// ------------------------------------------------- K5's split (mma.sync)
+
+namespace split {
+constexpr int WARPS_B = 4;  // warps along B's columns; 2 along A's
+constexpr int STAGES = 4;   // slabs in the shared-memory ring
+
+template <int BT>
+struct Cfg {
+  // rows per slab: 8 KB of A at BT 128; 64-wide blocks take twice the rows
+  static constexpr int BK = BT == 64 ? 32 : 16;
+  static constexpr int S = BT + 4;  // row stride of a slab, floats: see the fragment loads
+  static constexpr int WARPS_A = THREADS / 32 / WARPS_B;
+  static constexpr int WM = BT / WARPS_A;
+  static constexpr int WN = BT / WARPS_B;
+  static constexpr int MI = WM / 16;  // m16 tiles a warp
+  static constexpr int NI = WN / 8;   // n8 tiles a warp
+  static constexpr int ACC = MI * NI * 4;  // f32 accumulators a thread
+  static constexpr int A_BYTES = BK * S * 4;
+  static constexpr int STAGE_BYTES = 2 * A_BYTES;
+  static constexpr int SUM_BYTES = ACC * THREADS * 8;
+  static constexpr int SMEM = SUM_BYTES + STAGES * STAGE_BYTES;
+  static_assert(MT % BK == 0 && A_BYTES % 16 == 0, "slab layout");
+  static_assert(SMEM <= 232448, "shared memory of one CTA");
+};
+}  // namespace split
 
 // Rows [r0, r0 + BK) and columns [c0, c0 + BT) of src (ncols wide) into a
 // slab of row stride S, in cp.async copies of BYTES (16 or 8) that are
-// wholly in or out of range (ncols is a multiple of BYTES / sizeof(T));
+// wholly in or out of range (ncols is a multiple of BYTES / 4);
 // out-of-range elements are zero.
-template <int BYTES, typename T, int BT, int BK, int S, int THREADS>
-__device__ __forceinline__ void stage_runs(T* dst, const T* __restrict__ src, long long r0,
+template <int BYTES, int BT, int BK, int S>
+__device__ __forceinline__ void stage_runs(float* dst, const float* __restrict__ src, long long r0,
                                            long long m, int ncols, int c0, int tid) {
-  constexpr int VEC = BYTES / (int)sizeof(T);
+  constexpr int VEC = BYTES / 4;
   constexpr int CPR = BT / VEC;
 #pragma unroll(BYTES == 16 ? 8 : 1)  // the 8-byte path rolled: K5's 64-wide kernel has 128 registers
   for (int i = tid; i < BK * CPR; i += THREADS) {
@@ -206,7 +194,7 @@ __device__ __forceinline__ void stage_runs(T* dst, const T* __restrict__ src, lo
     const int c = (i % CPR) * VEC;
     const long long gr = r0 + k;
     const bool ok = gr < m && c0 + c < ncols;
-    const T* p = ok ? src + gr * ncols + c0 + c : src;
+    const float* p = ok ? src + gr * ncols + c0 + c : src;
     if constexpr (BYTES == 16) {
       cp_async16(smem_u32(dst + k * S + c), p, ok);
     } else {
@@ -216,15 +204,14 @@ __device__ __forceinline__ void stage_runs(T* dst, const T* __restrict__ src, lo
 }
 
 // The same with copies as wide as the rows' alignment allows: `width` is
-// 16, 8, or 0 for single elements (bf16 ones, below cp.async's 4 bytes,
-// by plain loads).
-template <typename T, int BT, int BK, int S, int THREADS>
-__device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ src, long long r0,
+// 16, 8, or 0 for single elements.
+template <int BT, int BK, int S>
+__device__ __forceinline__ void stage_slab(float* dst, const float* __restrict__ src, long long r0,
                                            long long m, int ncols, int c0, int width, int tid) {
   if (width == 16) {
-    stage_runs<16, T, BT, BK, S, THREADS>(dst, src, r0, m, ncols, c0, tid);
+    stage_runs<16, BT, BK, S>(dst, src, r0, m, ncols, c0, tid);
   } else if (width == 8) {
-    stage_runs<8, T, BT, BK, S, THREADS>(dst, src, r0, m, ncols, c0, tid);
+    stage_runs<8, BT, BK, S>(dst, src, r0, m, ncols, c0, tid);
   } else {
 #pragma unroll 4
     for (int i = tid; i < BK * BT; i += THREADS) {
@@ -232,139 +219,64 @@ __device__ __forceinline__ void stage_slab(T* dst, const T* __restrict__ src, lo
       const int c = i % BT;
       const long long gr = r0 + k;
       const bool ok = gr < m && c0 + c < ncols;
-      const T* p = ok ? src + gr * ncols + c0 + c : src;
-      if constexpr (sizeof(T) == 4) {
-        cp_async4(smem_u32(dst + k * S + c), p, ok);
-      } else {
-        dst[k * S + c] = ok ? *p : __ushort_as_bfloat16((unsigned short)0);
-      }
+      cp_async4(smem_u32(dst + k * S + c), ok ? src + gr * ncols + c0 + c : src, ok);
     }
   }
 }
 
-// ------------------------------------------------------------ products
-
-// acc += d in f32, rounded to nearest.  The tensor core's own accumulation
-// rounds toward zero: chained over a 128-row tile, that bias added up to
-// ~1e-6 of a coherent sum (8e-7 of max|C| at the year's N 256), so each
-// k-chunk's MMAs start from zero and only their sum, whose truncation is a
-// few ulps of one chunk, enters acc.
-__device__ __forceinline__ void add4(float (&acc)[4], const float (&d)[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += d[q];
-}
-
-// One slab's products into acc.  as / bs: the slabs, [BK][S]; the warp's
-// tile starts at row wm0 of A's block and column wn0 of B's.
-template <typename TA, typename TB, int MODE, int BT>
-__device__ __forceinline__ void slab_products(
-    float (&acc)[Cfg<TA, TB, MODE, BT>::MI][Cfg<TA, TB, MODE, BT>::NI][4], const TA* as,
-    const TB* bs, int wm0, int wn0, int lane) {
-  using C = Cfg<TA, TB, MODE, BT>;
+// One slab's split products into acc.  as / bs: the slabs, [BK][S]; the
+// warp's tile starts at row wm0 of A's block and column wn0 of B's.
+// m16n8k16 fragments, k in pairs (2t, 2t+1) and (2t+8, 2t+9): with S % 32
+// == 4 the lanes' (k = 2t or 2t+1, col g) hit 32 distinct banks.  Each
+// k16 step's MMAs start from zero, the small terms first, and only their
+// sum enters acc, in f32 rounded to nearest.
+template <int BT>
+__device__ __forceinline__ void split_products(
+    float (&acc)[split::Cfg<BT>::MI][split::Cfg<BT>::NI][4], const float* as, const float* bs,
+    int wm0, int wn0, int lane) {
+  using C = split::Cfg<BT>;
   constexpr int S = C::S;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (MODE == BF16) {
-    // x4.trans: lane l addresses row l % 8 of 8 x 8 matrix l / 8
-    const int j = lane >> 3;
-    const int r = lane & 7;
 #pragma unroll
-    for (int k0 = 0; k0 < C::BK; k0 += 16) {
-      uint32_t bf[C::NI][2];
+  for (int k0 = 0; k0 < C::BK; k0 += 16) {
+    uint32_t bh[C::NI][2], bl[C::NI][2];
 #pragma unroll
-      for (int ni = 0; ni < C::NI; ni += 2) {  // matrices (k lo, n), (k hi, n), (k lo, n+8), ...
-        const TB* p = bs + (k0 + (j & 1) * 8 + r) * S + wn0 + ni * 8 + (j >> 1) * 8;
-        ldsm_x4_trans(smem_u32(p), bf[ni][0], bf[ni][1], bf[ni + 1][0], bf[ni + 1][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi) {  // matrices (k lo, m), (k lo, m+8), (k hi, m), ...
-        const TA* p = as + (k0 + (j >> 1) * 8 + r) * S + wm0 + mi * 16 + (j & 1) * 8;
-        uint32_t af[4];
-        ldsm_x4_trans(smem_u32(p), af[0], af[1], af[2], af[3]);
-#pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(d, af, bf[ni]);
-          add4(acc[mi][ni], d);
-        }
-      }
+    for (int ni = 0; ni < C::NI; ++ni) {
+      const float* p = bs + (k0 + 2 * t) * S + wn0 + ni * 8 + g;
+      split_bf16(p[0], p[S], bh[ni][0], bl[ni][0]);
+      split_bf16(p[8 * S], p[9 * S], bh[ni][1], bl[ni][1]);
     }
-  } else if constexpr (MODE == TF32X3) {
-    // m16n8k8 fragments: A (row g / g+8, k t / t+4), B (k t / t+4, col g).
-    // Bank of element (k, col) is (k S + col) % 32 with S % 32 == 8: the 32
-    // lanes' (t, g) fall on 32 distinct banks.
-    constexpr bool A_EXACT = sizeof(TA) == 2;
-    constexpr bool B_EXACT = sizeof(TB) == 2;
 #pragma unroll
-    for (int k0 = 0; k0 < C::BK; k0 += 8) {
-      uint32_t bh[C::NI][2], bl[C::NI][2];
+    for (int mi = 0; mi < C::MI; ++mi) {
+      const float* p = as + (k0 + 2 * t) * S + wm0 + mi * 16 + g;
+      uint32_t ah[4], al[4];
+      split_bf16(p[0], p[S], ah[0], al[0]);
+      split_bf16(p[8], p[S + 8], ah[1], al[1]);
+      split_bf16(p[8 * S], p[9 * S], ah[2], al[2]);
+      split_bf16(p[8 * S + 8], p[9 * S + 8], ah[3], al[3]);
 #pragma unroll
       for (int ni = 0; ni < C::NI; ++ni) {
-        const TB* p = bs + (k0 + t) * S + wn0 + ni * 8 + g;
-        split_tf32<B_EXACT>(atb::to_f32(p[0]), bh[ni][0], bl[ni][0]);
-        split_tf32<B_EXACT>(atb::to_f32(p[4 * S]), bh[ni][1], bl[ni][1]);
-      }
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(d, al, bh[ni]);
+        mma_bf16(d, ah, bl[ni]);
+        mma_bf16(d, ah, bh[ni]);
 #pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi) {
-        const TA* p = as + (k0 + t) * S + wm0 + mi * 16 + g;
-        uint32_t ah[4], al[4];
-        split_tf32<A_EXACT>(atb::to_f32(p[0]), ah[0], al[0]);
-        split_tf32<A_EXACT>(atb::to_f32(p[8]), ah[1], al[1]);
-        split_tf32<A_EXACT>(atb::to_f32(p[4 * S]), ah[2], al[2]);
-        split_tf32<A_EXACT>(atb::to_f32(p[4 * S + 8]), ah[3], al[3]);
-#pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          if (!A_EXACT) mma_tf32(d, al, bh[ni]);
-          if (!B_EXACT) mma_tf32(d, ah, bl[ni]);
-          mma_tf32(d, ah, bh[ni]);
-          add4(acc[mi][ni], d);
-        }
-      }
-    }
-  } else {
-    // m16n8k16 fragments, k in pairs (2t, 2t+1) and (2t+8, 2t+9): with
-    // S % 32 == 4 the lanes' (k = 2t or 2t+1, col g) hit 32 distinct banks.
-#pragma unroll
-    for (int k0 = 0; k0 < C::BK; k0 += 16) {
-      uint32_t bh[C::NI][2], bl[C::NI][2];
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) {
-        const float* p = bs + (k0 + 2 * t) * S + wn0 + ni * 8 + g;
-        split_bf16(p[0], p[S], bh[ni][0], bl[ni][0]);
-        split_bf16(p[8 * S], p[9 * S], bh[ni][1], bl[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi) {
-        const float* p = as + (k0 + 2 * t) * S + wm0 + mi * 16 + g;
-        uint32_t ah[4], al[4];
-        split_bf16(p[0], p[S], ah[0], al[0]);
-        split_bf16(p[8], p[S + 8], ah[1], al[1]);
-        split_bf16(p[8 * S], p[9 * S], ah[2], al[2]);
-        split_bf16(p[8 * S + 8], p[9 * S + 8], ah[3], al[3]);
-#pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(d, al, bh[ni]);
-          mma_bf16(d, ah, bl[ni]);
-          mma_bf16(d, ah, bh[ni]);
-          add4(acc[mi][ni], d);
-        }
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += d[q];
       }
     }
   }
 }
 
-// ------------------------------------------------------------ kernel
-
 // Two CTAs an SM at BT = 64 (at most 128 registers a thread), one at 128.
-template <typename TA, typename TB, int MODE, int BT>
+template <int BT>
 __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
-    atb_tc_main(const TA* __restrict__ a, const TB* __restrict__ b, double* __restrict__ part,
-                long long m, int na, int nb, int upper, int n_share, int width_a,
-                int width_b) {
-  using C = Cfg<TA, TB, MODE, BT>;
+    atb_split_bf16(const float* __restrict__ a, const float* __restrict__ b,
+                   double* __restrict__ part, long long m, int na, int nb, int upper,
+                   int n_share, int width_a, int width_b) {
+  using C = split::Cfg<BT>;
   constexpr int SPT = MT / C::BK;  // slabs a tile
+  constexpr int STAGES = split::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [ACC][THREADS]
   unsigned char* ring = smem + C::SUM_BYTES;
@@ -372,8 +284,8 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm0 = (warp / WARPS_B) * C::WM;
-  const int wn0 = (warp % WARPS_B) * C::WN;
+  const int wm0 = (warp / split::WARPS_B) * C::WM;
+  const int wn0 = (warp % split::WARPS_B) * C::WN;
   const int nbb = (nb + BT - 1) / BT;
   int bi, bj;
   if (upper) {  // pairs (0,0), (0,1), ..., (0,nbb-1), (1,1), ... in order
@@ -409,10 +321,9 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   auto stage = [&](long long s) {
     const long long r0 = (share + (s / SPT) * n_share) * MT + (s % SPT) * C::BK;
     unsigned char* st = ring + (int)(s % STAGES) * C::STAGE_BYTES;
-    stage_slab<TA, BT, C::BK, C::S, THREADS>(reinterpret_cast<TA*>(st), a, r0, m, na, a0,
-                                             width_a, tid);
-    stage_slab<TB, BT, C::BK, C::S, THREADS>(reinterpret_cast<TB*>(st + C::A_BYTES), b, r0, m, nb,
-                                             b0, width_b, tid);
+    stage_slab<BT, C::BK, C::S>(reinterpret_cast<float*>(st), a, r0, m, na, a0, width_a, tid);
+    stage_slab<BT, C::BK, C::S>(reinterpret_cast<float*>(st + C::A_BYTES), b, r0, m, nb, b0,
+                                width_b, tid);
   };
 
 #pragma unroll
@@ -428,8 +339,8 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
     if (s + STAGES - 1 < n_slabs) stage(s + STAGES - 1);
     cp_async_commit();
     const unsigned char* st = ring + slot * C::STAGE_BYTES;
-    slab_products<TA, TB, MODE, BT>(acc, reinterpret_cast<const TA*>(st),
-                                    reinterpret_cast<const TB*>(st + C::A_BYTES), wm0, wn0, lane);
+    split_products<BT>(acc, reinterpret_cast<const float*>(st),
+                       reinterpret_cast<const float*>(st + C::A_BYTES), wm0, wn0, lane);
     if (++in_tile == SPT) {  // end of a 128-row tile: into the f64 sums
       in_tile = 0;
 #pragma unroll
@@ -464,24 +375,23 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
       }
 }
 
-// ------------------------------------------- f32 x f32 on wgmma (WGMMA_TF32X3)
+// ------------------------------------- 3xTF32 on wgmma (atb_wgmma_tf32x3)
 //
 // K3's f32 products: 3xTF32 on warpgroup MMAs, which run asynchronously
 // beside the splitting and at twice the tf32 rate mma.sync reaches.  Two
 // warpgroups own rows 0-63 and 64-127 of a 128 x 128 block of C; each holds
 // its A operand in registers (a warp's 16 rows, loaded from the MN-major raw
-// slab and split as in TF32X3, lo left to the tensor core's truncation), and
-// B comes from shared memory, where tf32 wgmma wants it K-major: each 16-row
+// slab and split there, lo left to the tensor core's truncation), and B
+// comes from shared memory, where tf32 wgmma wants it K-major: each 16-row
 // slab of B is split once a CTA into hi and lo planes of 8 x 16-byte core
 // matrices, transposed on the way, while the previous slab's MMAs run.  Per
 // slab, from zero: D = A_lo B_hi + A_hi B_lo over both k8 steps, then
 // + A_hi B_hi of each (six m64n128k8 MMAs, the small terms first, so only
-// the last two round a large D toward zero); then acc += D in f32, and the
-// f64 sums every 128 rows, as in the other modes.  Raw slabs of A and B are
-// read into registers a slab ahead (B two, since it is split a slab before
-// its MMAs) and stored into two shared slots each at the end of a slab; the
-// rows must be 16-byte aligned (width_a, width_b), else the wrapper takes
-// TF32X3.
+// the last two round a large D toward zero; a bf16 operand has no lo, and
+// its two products go); then acc += D in f32, and the f64 sums every 128
+// rows.  Raw slabs of A and B are read into registers a slab ahead (B two,
+// since it is split a slab before its MMAs), widened to f32, and stored
+// into two shared slots each at the end of a slab.
 namespace wg {
 constexpr int BT = 128;
 constexpr int BK = 16;  // rows per slab: two k8 steps
@@ -541,11 +451,57 @@ __device__ __forceinline__ void hold(uint32_t (&r)[4]) {
   asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
 }
 
-template <int = 0>  // instantiated only by the library that launches it
+// Elements c .. c + 3 of row gr of src (m x ncols, row-major) in f32, zero
+// past the edges: one 16-byte (f32) or 8-byte (bf16) load where every row
+// is aligned to it (vec; then ncols is a multiple of 4), else one by one.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* __restrict__ src, long long gr, long long m,
+                                       int ncols, int c, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (gr >= m || c >= ncols) return v;
+  const T* p = src + gr * ncols + c;
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      return __ldg(reinterpret_cast<const float4*>(p));
+    } else {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+    }
+  }
+  v.x = atb::to_f32(p[0]);
+  if (c + 1 < ncols) v.y = atb::to_f32(p[1]);
+  if (c + 2 < ncols) v.z = atb::to_f32(p[2]);
+  if (c + 3 < ncols) v.w = atb::to_f32(p[3]);
+  return v;
+}
+
+// This thread's two runs of four columns of a 16-row slab from row r0 of
+// src: run q = i THREADS + tid is row q / 32, columns c0 + 4 (q % 32); zero
+// unless live.
+template <typename T>
+__device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r0, long long m,
+                                          int ncols, int c0, bool vec, bool live, int tid,
+                                          float4 (&v)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = i * THREADS + tid;
+    v[i] = live ? load4(src, r0 + (q >> 5), m, ncols, c0 + (q & 31) * 4, vec)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// TA, TB: float, or one of them bf16 (bf16 x bf16 takes atb_wgmma_bf16).
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS, 1)
-    atb_wgmma_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
+    atb_wgmma_tf32x3(const TA* __restrict__ a, const TB* __restrict__ b,
                      double* __restrict__ part, long long m, int na, int nb, int upper,
                      int n_share, int width_a, int width_b) {
+  constexpr bool A_EXACT = sizeof(TA) == 2;  // bf16: its own hi, no lo
+  constexpr bool B_EXACT = sizeof(TB) == 2;
+  static_assert(!(A_EXACT && B_EXACT), "bf16 x bf16 is atb_wgmma_bf16");
+  const bool vec_a = width_a >= 4 * (int)sizeof(TA);
+  const bool vec_b = width_b >= 4 * (int)sizeof(TB);
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
   float* ring_a = reinterpret_cast<float*>(smem + wg::SUM_BYTES);
@@ -589,10 +545,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int n = q % wg::BT;
       const int kb = q / wg::BT;
       uint4 h, l;
-      split_tf32(raw[(4 * kb) * wg::S + n], h.x, l.x);
-      split_tf32(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
-      split_tf32(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
-      split_tf32(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
+      split_tf32<B_EXACT>(raw[(4 * kb) * wg::S + n], h.x, l.x);
+      split_tf32<B_EXACT>(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
+      split_tf32<B_EXACT>(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
+      split_tf32<B_EXACT>(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
       const int w = ((n >> 3) * (wg::BK / 4) + kb) * 32 + (n & 7) * 4;
       *reinterpret_cast<uint4*>(hi + w) = h;
       *reinterpret_cast<uint4*>(hi + wg::PLANE + w) = l;
@@ -601,26 +557,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   // this warp's A fragments of k8 step kc of raw A slab s
   auto a_frags = [&](long long s, int kc, uint32_t (&ah)[4], uint32_t (&al)[4]) {
     const float* as = ring_a + (s & 1) * wg::SLAB + (kc * 8 + t) * wg::S + row0 + g;
-    split_tf32(as[0], ah[0], al[0]);
-    split_tf32(as[8], ah[1], al[1]);
-    split_tf32(as[4 * wg::S], ah[2], al[2]);
-    split_tf32(as[4 * wg::S + 8], ah[3], al[3]);
+    split_tf32<A_EXACT>(as[0], ah[0], al[0]);
+    split_tf32<A_EXACT>(as[8], ah[1], al[1]);
+    split_tf32<A_EXACT>(as[4 * wg::S], ah[2], al[2]);
+    split_tf32<A_EXACT>(as[4 * wg::S + 8], ah[3], al[3]);
   };
 
   // A s + 1 and B s + 2 are read into registers during slab s and stored
   // at its end (cp.async copies into a deeper ring ran markedly slower in
-  // this kernel on an H100); 16-byte rows only, which launch() checks
-  auto ldg = [&](const float* src, int ncols, int c0, long long s, float4 (&v)[2]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;
-      const int c = (q & 31) * 4;
-      const long long gr = rows(s) + (q >> 5);
-      v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
-                 ? __ldg(reinterpret_cast<const float4*>(src + gr * ncols + c0 + c))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
+  // this kernel on an H100)
+  float4 va[2], vb[2];
+  auto ldg_a = [&](long long s) { load_slab(a, rows(s), m, na, a0, vec_a, s < n_slabs, tid, va); };
+  auto ldg_b = [&](long long s) { load_slab(b, rows(s), m, nb, b0, vec_b, s < n_slabs, tid, vb); };
   auto sts = [&](float* ring, long long s, const float4 (&v)[2]) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -628,18 +576,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<float4*>(ring + (s & 1) * wg::SLAB + (q >> 5) * wg::S + (q & 31) * 4) = v[i];
     }
   };
-  float4 va[2], vb[2];
-  ldg(a, na, a0, 0, va);
+  ldg_a(0);
   sts(ring_a, 0, va);
-  ldg(b, nb, b0, 0, vb);
+  ldg_b(0);
   sts(ring_b, 0, vb);
-  ldg(b, nb, b0, 1, vb);
+  ldg_b(1);
   sts(ring_b, 1, vb);
   __syncthreads();
   if (n_slabs > 0) split_b(0);
   fence_proxy_async();
-  ldg(a, na, a0, 1, va);
-  ldg(b, nb, b0, 2, vb);
+  ldg_a(1);
+  ldg_b(2);
 
   int in_tile = 0;
   for (long long s = 0; s < n_slabs; ++s) {
@@ -654,10 +601,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint64_t lo1 = kmajor_desc(p_hi + wg::PLANE * 4 + 256);
     hold(d);
     wgmma_fence();
-    wgmma_tf32(d, al0, hi0, 0);  // the small terms first, then the large ones
-    wgmma_tf32(d, ah0, lo0, 1);
-    wgmma_tf32(d, al1, hi1, 1);
-    wgmma_tf32(d, ah1, lo1, 1);
+    // the small terms first, then the large ones; the first starts D from zero
+    if constexpr (B_EXACT) {
+      wgmma_tf32(d, al0, hi0, 0);
+      wgmma_tf32(d, al1, hi1, 1);
+    } else if constexpr (A_EXACT) {
+      wgmma_tf32(d, ah0, lo0, 0);
+      wgmma_tf32(d, ah1, lo1, 1);
+    } else {
+      wgmma_tf32(d, al0, hi0, 0);
+      wgmma_tf32(d, ah0, lo0, 1);
+      wgmma_tf32(d, al1, hi1, 1);
+      wgmma_tf32(d, ah1, lo1, 1);
+    }
     wgmma_tf32(d, ah0, hi0, 1);
     wgmma_tf32(d, ah1, hi1, 1);
     wgmma_commit();
@@ -666,9 +622,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<0>();
     hold(d);
     hold(ah0);
-    hold(al0);
     hold(ah1);
-    hold(al1);
+    if constexpr (!A_EXACT) {
+      hold(al0);
+      hold(al1);
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += d[i];
     if (++in_tile == wg::SPT) {  // end of a 128-row tile: into the f64 sums
@@ -681,8 +639,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     sts(ring_a, s + 1, va);
     sts(ring_b, s + 2, vb);
-    ldg(a, na, a0, s + 2, va);
-    ldg(b, nb, b0, s + 3, vb);
+    ldg_a(s + 2);
+    ldg_b(s + 3);
   }
 
   // accumulator 4j + q: row g (+8 for q >= 2) of the warp's 16, column 8j + 2t + (q & 1)
@@ -695,12 +653,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// ------------------------------------------ bf16 x bf16 on wgmma (WGMMA_BF16)
+// -------------------------------------- bf16 x bf16 on wgmma (atb_wgmma_bf16)
 //
 // K3 at the d = 3 pass: the same two warpgroups and 128 x 128 block as
-// WGMMA_TF32X3, no split.  A (a warp's 16 rows) comes from the MN-major raw
-// slab by ldmatrix.trans, as in BF16; B stays MN-major and wgmma transposes
-// it (imm-trans-b): the register-staged loads store each 16-byte run of 8
+// atb_wgmma_tf32x3, no split.  A (a warp's 16 rows) comes from the MN-major
+// raw slab by ldmatrix.trans; B stays MN-major and wgmma transposes it
+// (imm-trans-b): the register-staged loads store each 16-byte run of 8
 // columns straight into 8 x 8 core matrices, a slab's 32 rows as 4 x 16 of
 // them.  Per slab, from zero: D = A B over its two k16 steps, then acc += D.
 namespace wgb {
@@ -731,6 +689,25 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Elements c .. c + 7 of row gr of src (m x ncols, row-major), zero past
+// the edges: one 16-byte load where every row is aligned to it (vec; then
+// ncols is a multiple of 8), else one by one.
+__device__ __forceinline__ uint4 load8(const bf16* __restrict__ src, long long gr, long long m,
+                                      int ncols, int c, bool vec) {
+  if (gr >= m || c >= ncols) return make_uint4(0u, 0u, 0u, 0u);
+  const bf16* p = src + gr * ncols + c;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo = c + 2 * j < ncols ? h[2 * j] : 0u;
+    const uint32_t hi = c + 2 * j + 1 < ncols ? h[2 * j + 1] : 0u;
+    w[j] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 template <int = 0>  // instantiated only by the library that launches it
@@ -770,16 +747,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   // 8 (q % 16).  B: run q is row 8 (q / 128) + q % 8, columns 8 ((q / 8) %
   // 16), so 8 neighbouring lanes fill one core matrix (128 contiguous bytes)
   // and a warp reads 64 contiguous bytes of each of 8 rows.
+  const bool vec_a = width_a == 16;
+  const bool vec_b = width_b == 16;
   auto ldg = [&](const bf16* src, int ncols, int c0, long long s, bool is_b, uint4 (&v)[2]) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int q = i * THREADS + tid;
       const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
       const int c = is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8;
-      const long long gr = rows(s) + k;
-      v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
-                 ? __ldg(reinterpret_cast<const uint4*>(src + gr * ncols + c0 + c))
-                 : make_uint4(0u, 0u, 0u, 0u);
+      v[i] = s < n_slabs ? load8(src, rows(s) + k, m, ncols, c0 + c, is_b ? vec_b : vec_a)
+                         : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   auto sts_a = [&](long long s, const uint4 (&v)[2]) {
@@ -863,51 +840,51 @@ inline int row_copy_bytes(const T* p, int ncols) {
   return 0;
 }
 
-// The main kernel of a mode, its shared memory and the shapes it takes.
-template <typename TA, typename TB, int MODE, int BT>
+// A main kernel, the shared memory it takes, the edge of its blocks of C,
+// and whether it takes `upper`.
+template <typename TA, typename TB>
 struct Main {
-  static constexpr bool WG = MODE == WGMMA_TF32X3 || MODE == WGMMA_BF16;
-  static_assert(!WG || (BT == wg::BT && sizeof(TA) == sizeof(TB)), "wgmma: one dtype, 128");
-  static constexpr int SMEM = MODE == WGMMA_TF32X3 ? wg::SMEM
-                              : MODE == WGMMA_BF16 ? wgb::SMEM
-                                                   : Cfg<TA, TB, MODE, BT>::SMEM;
-  static constexpr int FALLBACK = MODE == WGMMA_TF32X3 ? TF32X3 : BF16;  // unaligned rows
-  using Fn = void (*)(const TA*, const TB*, double*, long long, int, int, int, int, int, int);
-  static Fn kernel() {
-    if constexpr (MODE == WGMMA_TF32X3) {
-      return atb_wgmma_tf32x3<>;
-    } else if constexpr (MODE == WGMMA_BF16) {
-      return atb_wgmma_bf16<>;
-    } else {
-      return atb_tc_main<TA, TB, MODE, BT>;
-    }
-  }
+  void (*kernel)(const TA*, const TB*, double*, long long, int, int, int, int, int, int);
+  int smem;
+  int edge;
+  bool upper;
 };
 
-// Launches the main kernel and atb::atb_reduce on `stream`; returns a
+// K5's split product at block edge BT (64 or 128).
+template <int BT>
+Main<float, float> split_main() {
+  return {atb_split_bf16<BT>, split::Cfg<BT>::SMEM, BT, true};
+}
+
+// K3's product for its operand types: one bf16 pass for bf16 x bf16, else
+// 3xTF32 (two products where one operand is bf16).
+template <typename TA, typename TB>
+Main<TA, TB> project_main() {
+  if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
+    return {atb_wgmma_bf16<>, wgb::SMEM, wg::BT, false};
+  } else {
+    return {atb_wgmma_tf32x3<TA, TB>, wg::SMEM, wg::BT, false};
+  }
+}
+
+// Launches k's kernel and atb::atb_reduce on `stream`; returns a
 // cudaError_t code.  part: n_share * na * nb doubles.
-template <typename TA, typename TB, int MODE, int BT>
-cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long m, int na,
-                   int nb, int upper, int n_share, cudaStream_t stream) {
-  using K = Main<TA, TB, MODE, BT>;
-  if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 || (upper && na != nb) ||
-      (upper && K::WG)) {
+template <typename TA, typename TB>
+cudaError_t launch(const Main<TA, TB>& k, const TA* a, const TB* b, double* part, float* out,
+                   long long m, int na, int nb, int upper, int n_share, cudaStream_t stream) {
+  if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 ||
+      (upper && (na != nb || !k.upper))) {
     return cudaErrorInvalidValue;
   }
-  if constexpr (K::WG) {  // wgmma reads 16-byte rows; others take mma.sync
-    if (row_copy_bytes(a, na) != 16 || row_copy_bytes(b, nb) != 16) {
-      return launch<TA, TB, K::FALLBACK, BT>(a, b, part, out, m, na, nb, upper, n_share, stream);
-    }
-  }
-  const long long nba = (na + BT - 1) / BT;
-  const long long nbb = (nb + BT - 1) / BT;
+  const long long nba = (na + k.edge - 1) / k.edge;
+  const long long nbb = (nb + k.edge - 1) / k.edge;
   const long long n_blocks = upper ? nbb * (nbb + 1) / 2 : nba * nbb;
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto kernel = K::kernel();
+  const auto kernel = k.kernel;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)n_blocks, n_share), THREADS, K::SMEM, stream>>>(
+  kernel<<<dim3((unsigned)n_blocks, n_share), THREADS, k.smem, stream>>>(
       a, b, part, m, na, nb, upper, n_share, row_copy_bytes(a, na), row_copy_bytes(b, nb));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -917,15 +894,13 @@ cudaError_t launch(const TA* a, const TB* b, double* part, float* out, long long
   return cudaGetLastError();
 }
 
-// CTAs of the main kernel that fit one SM at once, into *out.
-template <typename TA, typename TB, int MODE, int BT>
-cudaError_t ctas_per_sm(int* out) {
-  using K = Main<TA, TB, MODE, BT>;
-  const auto kernel = K::kernel();
+// CTAs of k's kernel that fit one SM at once, into *out.
+template <typename TA, typename TB>
+cudaError_t ctas_per_sm(const Main<TA, TB>& k, int* out) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+      cudaFuncSetAttribute(k.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, THREADS, K::SMEM);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k.kernel, THREADS, k.smem);
 }
 
 }  // namespace atb_tc

@@ -212,7 +212,7 @@ struct Launch {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const TY* yc = static_cast<const TY*>(p.yc);
-    return atb::launch<TY, TY>(yc, yc, g_part, g, p.m, p.n, p.n, 1, n_share, stream);
+    return atb::launch<TY>(yc, yc, g_part, g, p.m, p.n, p.n, 1, n_share, stream);
   }
 };
 
@@ -220,7 +220,7 @@ struct Launch {
 
 // CTAs of the Gram stage's main kernel that fit one SM at once, into *out.
 extern "C" int scg_gram_ctas_per_sm(int out_bf16, int* out) {
-  return (int)atb::dispatch(atb::Occupancy{out}, out_bf16, out_bf16);
+  return (int)(out_bf16 ? atb::ctas_per_sm<__nv_bfloat16>(out) : atb::ctas_per_sm<float>(out));
 }
 
 // Yc (m x n, out dtype), stats (m x 2, f32: row sum, row sum of squares)

@@ -31,6 +31,8 @@ import logging
 
 import torch
 
+from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, row_shares, wave_row_shares
+
 __all__ = [
     "sketch_center_gram_project",
     "sketch_center_gram",
@@ -53,7 +55,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # The JAX package's X-tile budget by itemsize (dmd_era5_tpu/ops/matmul.py:
 # 331), which sets where it leaves its fused kernel for the two passes.
 _TILE_BUDGET = {2: 2 << 20, 4: 1 << 20}
-_SCRATCH_CAP = 1 << 30  # f64 scratch of a row-share reduction, at most
 _PLAIN_CHUNK = 1 << 28  # bytes of f32 rows a plain version takes at once
 
 
@@ -193,59 +194,14 @@ def _kernel_library():
     return _LIB
 
 
-_CTAS_PER_SM: dict[tuple, int] = {}
-
-
-def _resident_ctas(dev, key: tuple, query) -> int:
-    """CTAs of one kernel that run at once on the card: SMs x resident
-    CTAs per SM, the latter from ``query(address of an int)`` (a C
-    occupancy function of the kernel's library), cached under ``key``."""
-    key = (dev.index, *key)
-    if key not in _CTAS_PER_SM:
-        per_sm = ctypes.c_int(0)
-        rc = query(ctypes.addressof(per_sm))
-        if rc != 0 or per_sm.value < 1:
-            raise RuntimeError(
-                f"{key[1]} occupancy: CUDA error {rc}, {per_sm.value} CTAs per SM"
-            )
-        _CTAS_PER_SM[key] = per_sm.value
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return sms * _CTAS_PER_SM[key]
-
-
 def _grid(dev, x_bf16: int, out_bf16: int, n: int) -> int:
     """K1's grid: one wave of its resident CTAs covers the card; each CTA
     then walks its row tiles, and the f64 partial scratch holds one copy
     per CTA."""
-    return _resident_ctas(
+    return resident_ctas(
         dev, ("sketch_center_gram_project", x_bf16, out_bf16, n),
         lambda out: _kernel_library().scgp_ctas_per_sm(x_bf16, out_bf16, n, out),
     )
-
-
-def _row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
-    """Row shares of a row-share reduction (``csrc/row_share_atb.cuh``):
-    enough CTAs to fill one wave of the card, at most one share per
-    128-row tile, and f64 scratch (``share_bytes`` a share) within 1 GiB."""
-    shares = -(-wave // n_blocks)
-    return max(1, min(shares, -(-m // 128), _SCRATCH_CAP // share_bytes, 65535))
-
-
-def _wave_row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
-    """Row shares of the tensor-core row-share reduction
-    (``csrc/row_share_atb_tc.cuh``), whose CTAs (n_blocks a share) run
-    about one per SM: the fewest shares whose waves of ``wave`` CTAs are
-    within 3% of the best filled, at most one share per 128-row tile, and
-    f64 scratch (``share_bytes`` a share) within 1 GiB.  The time of a
-    split into s shares goes as ceil(n_blocks s / wave) / s, and
-    s = wave reaches its least, n_blocks / wave."""
-    cap = max(1, min(-(-m // 128), _SCRATCH_CAP // share_bytes, 65535, wave))
-
-    def waves_per_share(s: int) -> float:
-        return -(-(n_blocks * s) // wave) / s
-
-    best = min(waves_per_share(s) for s in range(1, cap + 1))
-    return next(s for s in range(1, cap + 1) if waves_per_share(s) <= 1.03 * best)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -442,10 +398,10 @@ def _sketch_center_gram_cuda(x, w, out_dtype, center, t_valid):
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
     lib = _scg_library()
     with torch.cuda.device(dev):
-        wave = _resident_ctas(dev, ("sketch_center_gram", out_bf16),
+        wave = resident_ctas(dev, ("sketch_center_gram", out_bf16),
                               lambda out: lib.scg_gram_ctas_per_sm(out_bf16, out))
         nb = -(-n // 64)
-        n_share = _row_shares(wave, nb * (nb + 1) // 2, m, 8 * n * n)
+        n_share = row_shares(wave, nb * (nb + 1) // 2, m, 8 * n * n)
         f32 = dict(dtype=torch.float32, device=dev)
         yc = torch.empty((m, n), dtype=out_dtype, device=dev)
         stats = torch.empty((m, 2), **f32)
@@ -548,10 +504,10 @@ def _project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
     y_bf16, x_bf16 = int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16)
     lib = _project_library()
     with torch.cuda.device(dev):
-        wave = _resident_ctas(dev, ("project", y_bf16, x_bf16),
+        wave = resident_ctas(dev, ("project", y_bf16, x_bf16),
                               lambda out: lib.project_ctas_per_sm(y_bf16, x_bf16, out))
     edge = lib.project_block_edge()
-    return _wave_row_shares(wave, -(-n // edge) * -(-t_cols // edge), m, 8 * n * t_cols)
+    return wave_row_shares(wave, -(-n // edge) * -(-t_cols // edge), m, 8 * n * t_cols)
 
 
 def _project_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

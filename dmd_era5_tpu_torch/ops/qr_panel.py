@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from dmd_era5_tpu_torch.ops.matmul import _resident_ctas, _wave_row_shares
+from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 from dmd_era5_tpu_torch.utils.linalg import safe_cholesky
 
 __all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel", "PRECISIONS"]
@@ -94,12 +94,12 @@ def _n_share(dev, a_bf16: int, split: int, m: int, k: int) -> int:
     upper blocks, its f64 scratch (n_share K^2 doubles) within 1 GiB."""
     lib = _kernel_library()
     edge = lib.gram_split_block_edge(k) if split else _OB
-    wave = _resident_ctas(dev, ("gram", a_bf16, split, edge),
+    wave = resident_ctas(dev, ("gram", a_bf16, split, edge),
                           lambda out: lib.gram_ctas_per_sm(a_bf16, split, k, out))
     nb = -(-k // edge)
     n_pairs = nb * (nb + 1) // 2
     if split:
-        return _wave_row_shares(wave, n_pairs, m, 8 * k * k)
+        return wave_row_shares(wave, n_pairs, m, 8 * k * k)
     return max(1, min(wave // n_pairs, -(-m // _MT)))
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from dmd_era5_tpu.ops import matmul as mj
+from dmd_era5_tpu_torch.ops import _occupancy as occupancy
 from dmd_era5_tpu_torch.ops import matmul as mt
 
 
@@ -231,7 +232,7 @@ def test_wave_row_shares(wave, n_blocks, m, share_bytes):
     """The tensor-core reduction's row shares: the fewest whose CTAs fill
     whole waves within 3% of the best split, within one share a 128-row
     tile and 1 GiB of f64 scratch (checked against a brute-force search)."""
-    s = mt._wave_row_shares(wave, n_blocks, m, share_bytes)
+    s = occupancy.wave_row_shares(wave, n_blocks, m, share_bytes)
     cap = min(-(-m // 128), (1 << 30) // share_bytes, 65535)
     assert 1 <= s <= max(1, cap)
 
