@@ -27,7 +27,8 @@
 // the MMAs run.  The f64 tile sums cost a fixed read and write of the CTA's
 // 128 KB of shared sums every 128 rows, which at the d = 3 shape is about as
 // much shared-memory traffic as the slabs themselves.  Rows that are not
-// 16-byte aligned take the same kernels with narrower loads.
+// aligned to a whole load take another instantiation of the same kernel,
+// which loads element by element (a runtime choice cost ~4%).
 //
 // Ranges: any M, N and T, Y and X each f32 or bf16; ragged edges masked.
 // Scratch: n_share * N * T doubles (17.9 MB a share at N 256, T 8,760),
@@ -49,8 +50,11 @@ struct Launch {
   cudaStream_t stream;
   template <typename TY, typename TX>
   cudaError_t run() const {
-    return atb_tc::launch(atb_tc::project_main<TY, TX>(), static_cast<const TY*>(y),
-                          static_cast<const TX*>(x), part, c, m, n, t, 0, n_share, stream);
+    const TY* yt = static_cast<const TY*>(y);
+    const TX* xt = static_cast<const TX*>(x);
+    const bool aligned = atb_tc::project_rows_aligned(yt, n, xt, t);
+    return atb_tc::launch(atb_tc::project_main<TY, TX>(aligned), yt, xt, part, c, m, n, t, 0,
+                          n_share, stream);
   }
 };
 
@@ -58,7 +62,9 @@ struct Occupancy {
   int* out;
   template <typename TY, typename TX>
   cudaError_t run() const {
-    return atb_tc::ctas_per_sm(atb_tc::project_main<TY, TX>(), out);
+    // the aligned kernel's; the other takes the same shared memory and
+    // registers within the same one-CTA launch bound
+    return atb_tc::ctas_per_sm(atb_tc::project_main<TY, TX>(true), out);
   }
 };
 

@@ -46,8 +46,9 @@
 //                     128-wide blocks, slabs staged by cp.async in a
 //                     four-deep ring.
 // The wgmma kernels read each slab into registers a slab ahead and store it
-// into shared memory at the end of a slab, in 16- or 8-byte loads where the
-// rows are aligned to them and element by element where they are not.
+// into shared memory at the end of a slab: one instantiation in 16-byte (8
+// for a bf16 operand of the 3xTF32 kernel) loads for rows aligned to them,
+// one element by element for rows that are not.
 // 3xTF32: hi = tf32(a) rounded to nearest, lo = a - hi (exact in f32, from
 // the ROUNDED hi: the tensor core drops the 13 low bits it is handed),
 // acc += lo.hi + hi.lo + hi.hi -- the counterpart of Precision.HIGHEST; one
@@ -451,48 +452,54 @@ __device__ __forceinline__ void hold(uint32_t (&r)[4]) {
   asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
 }
 
-// Elements c .. c + 3 of row gr of src (m x ncols, row-major) in f32, zero
-// past the edges: one 16-byte (f32) or 8-byte (bf16) load where every row
-// is aligned to it (vec; then ncols is a multiple of 4), else one by one.
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* __restrict__ src, long long gr, long long m,
-                                       int ncols, int c, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (gr >= m || c >= ncols) return v;
-  const T* p = src + gr * ncols + c;
-  if (vec) {
-    if constexpr (sizeof(T) == 4) {
-      return __ldg(reinterpret_cast<const float4*>(p));
-    } else {
-      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-      return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-    }
-  }
-  v.x = atb::to_f32(p[0]);
-  if (c + 1 < ncols) v.y = atb::to_f32(p[1]);
-  if (c + 2 < ncols) v.z = atb::to_f32(p[2]);
-  if (c + 3 < ncols) v.w = atb::to_f32(p[3]);
-  return v;
+// Four neighbouring elements at p in f32: one 16-byte (f32) or 8-byte
+// (bf16) load.
+__device__ __forceinline__ float4 load_vec4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_vec4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // This thread's two runs of four columns of a 16-row slab from row r0 of
-// src: run q = i THREADS + tid is row q / 32, columns c0 + 4 (q % 32); zero
-// unless live.
-template <typename T>
+// src (m x ncols, row-major), in f32: run q = i THREADS + tid is row q / 32,
+// columns c0 + 4 (q % 32); zero past the edges and unless live.  Where every
+// row is aligned to a run (VEC; then ncols is a multiple of 4) a run is one
+// load, wholly in or out of range; else element by element.
+template <bool VEC, typename T>
 __device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r0, long long m,
-                                          int ncols, int c0, bool vec, bool live, int tid,
-                                          float4 (&v)[2]) {
+                                          int ncols, int c0, bool live, int tid, float4 (&v)[2]) {
+  if constexpr (VEC) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q = i * THREADS + tid;
-    v[i] = live ? load4(src, r0 + (q >> 5), m, ncols, c0 + (q & 31) * 4, vec)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      const int c = c0 + (q & 31) * 4;
+      const long long gr = r0 + (q >> 5);
+      v[i] = (live && gr < m && c < ncols) ? load_vec4(src + gr * ncols + c)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = i * THREADS + tid;
+      const int c = c0 + (q & 31) * 4;
+      const long long gr = r0 + (q >> 5);
+      const T* p = src + gr * ncols + c;
+      const bool ok = live && gr < m;
+      v[i].x = ok && c < ncols ? atb::to_f32(p[0]) : 0.f;
+      v[i].y = ok && c + 1 < ncols ? atb::to_f32(p[1]) : 0.f;
+      v[i].z = ok && c + 2 < ncols ? atb::to_f32(p[2]) : 0.f;
+      v[i].w = ok && c + 3 < ncols ? atb::to_f32(p[3]) : 0.f;
+    }
   }
 }
 
 // TA, TB: float, or one of them bf16 (bf16 x bf16 takes atb_wgmma_bf16).
-template <typename TA, typename TB>
+// VEC: every row of A and B is aligned to a run of four elements, loaded
+// at once (a runtime choice in the loads cost this kernel ~4% on an H100).
+template <typename TA, typename TB, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
     atb_wgmma_tf32x3(const TA* __restrict__ a, const TB* __restrict__ b,
                      double* __restrict__ part, long long m, int na, int nb, int upper,
@@ -500,8 +507,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr bool A_EXACT = sizeof(TA) == 2;  // bf16: its own hi, no lo
   constexpr bool B_EXACT = sizeof(TB) == 2;
   static_assert(!(A_EXACT && B_EXACT), "bf16 x bf16 is atb_wgmma_bf16");
-  const bool vec_a = width_a >= 4 * (int)sizeof(TA);
-  const bool vec_b = width_b >= 4 * (int)sizeof(TB);
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
   float* ring_a = reinterpret_cast<float*>(smem + wg::SUM_BYTES);
@@ -567,8 +572,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   // at its end (cp.async copies into a deeper ring ran markedly slower in
   // this kernel on an H100)
   float4 va[2], vb[2];
-  auto ldg_a = [&](long long s) { load_slab(a, rows(s), m, na, a0, vec_a, s < n_slabs, tid, va); };
-  auto ldg_b = [&](long long s) { load_slab(b, rows(s), m, nb, b0, vec_b, s < n_slabs, tid, vb); };
+  auto ldg_a = [&](long long s) { load_slab<VEC>(a, rows(s), m, na, a0, s < n_slabs, tid, va); };
+  auto ldg_b = [&](long long s) { load_slab<VEC>(b, rows(s), m, nb, b0, s < n_slabs, tid, vb); };
   auto sts = [&](float* ring, long long s, const float4 (&v)[2]) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -691,26 +696,8 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// Elements c .. c + 7 of row gr of src (m x ncols, row-major), zero past
-// the edges: one 16-byte load where every row is aligned to it (vec; then
-// ncols is a multiple of 8), else one by one.
-__device__ __forceinline__ uint4 load8(const bf16* __restrict__ src, long long gr, long long m,
-                                      int ncols, int c, bool vec) {
-  if (gr >= m || c >= ncols) return make_uint4(0u, 0u, 0u, 0u);
-  const bf16* p = src + gr * ncols + c;
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t lo = c + 2 * j < ncols ? h[2 * j] : 0u;
-    const uint32_t hi = c + 2 * j + 1 < ncols ? h[2 * j + 1] : 0u;
-    w[j] = lo | (hi << 16);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-template <int = 0>  // instantiated only by the library that launches it
+// VEC: every row of A and B is 16-byte aligned, 8 columns loaded at once.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
     atb_wgmma_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
                    double* __restrict__ part, long long m, int na, int nb, int upper,
@@ -747,16 +734,37 @@ __global__ void __launch_bounds__(THREADS, 1)
   // 8 (q % 16).  B: run q is row 8 (q / 128) + q % 8, columns 8 ((q / 8) %
   // 16), so 8 neighbouring lanes fill one core matrix (128 contiguous bytes)
   // and a warp reads 64 contiguous bytes of each of 8 rows.
-  const bool vec_a = width_a == 16;
-  const bool vec_b = width_b == 16;
+  // Where the rows are not 16-byte aligned, element by element.
   auto ldg = [&](const bf16* src, int ncols, int c0, long long s, bool is_b, uint4 (&v)[2]) {
+    if constexpr (VEC) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;
-      const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
-      const int c = is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8;
-      v[i] = s < n_slabs ? load8(src, rows(s) + k, m, ncols, c0 + c, is_b ? vec_b : vec_a)
-                         : make_uint4(0u, 0u, 0u, 0u);
+      for (int i = 0; i < 2; ++i) {
+        const int q = i * THREADS + tid;
+        const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
+        const int c = is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8;
+        const long long gr = rows(s) + k;
+        v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
+                   ? __ldg(reinterpret_cast<const uint4*>(src + gr * ncols + c0 + c))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = i * THREADS + tid;
+        const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
+        const int c = c0 + (is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8);
+        const long long gr = rows(s) + k;
+        const bool ok = s < n_slabs && gr < m;
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t lo = ok && c + 2 * j < ncols ? h[gr * ncols + c + 2 * j] : 0u;
+          const uint32_t hi = ok && c + 2 * j + 1 < ncols ? h[gr * ncols + c + 2 * j + 1] : 0u;
+          w[j] = lo | (hi << 16);
+        }
+        v[i] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
     }
   };
   auto sts_a = [&](long long s, const uint4 (&v)[2]) {
@@ -856,14 +864,25 @@ Main<float, float> split_main() {
   return {atb_split_bf16<BT>, split::Cfg<BT>::SMEM, BT, true};
 }
 
-// K3's product for its operand types: one bf16 pass for bf16 x bf16, else
-// 3xTF32 (two products where one operand is bf16).
+// Whether every row of a and b is aligned to one load of K3's kernel for
+// these types: 16 bytes, 8 for a bf16 operand beside an f32 one.
 template <typename TA, typename TB>
-Main<TA, TB> project_main() {
+bool project_rows_aligned(const TA* a, int na, const TB* b, int nb) {
+  constexpr bool BF16 = sizeof(TA) == 2 && sizeof(TB) == 2;
+  return row_copy_bytes(a, na) >= (BF16 ? 16 : 4 * (int)sizeof(TA)) &&
+         row_copy_bytes(b, nb) >= (BF16 ? 16 : 4 * (int)sizeof(TB));
+}
+
+// K3's product for its operand types: one bf16 pass for bf16 x bf16, else
+// 3xTF32 (two products where one operand is bf16); `aligned` from
+// project_rows_aligned.
+template <typename TA, typename TB>
+Main<TA, TB> project_main(bool aligned) {
   if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
-    return {atb_wgmma_bf16<>, wgb::SMEM, wg::BT, false};
+    return {aligned ? &atb_wgmma_bf16<true> : &atb_wgmma_bf16<false>, wgb::SMEM, wg::BT, false};
   } else {
-    return {atb_wgmma_tf32x3<TA, TB>, wg::SMEM, wg::BT, false};
+    return {aligned ? &atb_wgmma_tf32x3<TA, TB, true> : &atb_wgmma_tf32x3<TA, TB, false>,
+            wg::SMEM, wg::BT, false};
   }
 }
 
