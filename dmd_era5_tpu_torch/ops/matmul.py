@@ -572,30 +572,47 @@ def _matmul_library():
 
         lib = load_kernel_library("matmul")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # x, w, out, m, k, n, x_bf16, out_bf16, stream
+        # x, w, out, m, k, n, x_bf16, out_bf16, ctas, restart, stream
         lib.matmul_launch.argtypes = [
-            ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, ptr,
+            ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, flag, ptr,
         ]
         lib.matmul_launch.restype = ctypes.c_int
+        lib.matmul_ctas_per_sm.argtypes = [flag, flag, ptr]
+        lib.matmul_ctas_per_sm.restype = ctypes.c_int
+        lib.matmul_empty_launch.argtypes = [ptr]
+        lib.matmul_empty_launch.restype = ctypes.c_int
         _MM_LIB = lib
     return _MM_LIB
 
 
-def _matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+def _matmul_launch(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+                   restart: bool = True) -> torch.Tensor:
+    """One launch of K6 on the card, uncounted.  ``restart=False`` chains
+    every MMA of a row tile instead of restarting them each chunk: it is
+    there for the accuracy reading in PERF.md only."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x K)")
     w = w.contiguous()  # (K, N): small
     (m, k), n = x.shape, w.shape[1]
-    dev = x.device
+    dev, x_bf16 = x.device, int(x.dtype == torch.bfloat16)
+    lib = _matmul_library()
     with torch.cuda.device(dev):
+        # persistent CTAs: as many as run at once on the card
+        ctas = resident_ctas(dev, ("matmul", x_bf16, k),
+                             lambda res: lib.matmul_ctas_per_sm(x_bf16, k, res))
         out = torch.empty((m, n), dtype=out_dtype, device=dev)
-        rc = _matmul_library().matmul_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        rc = lib.matmul_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, x_bf16,
+            int(out_dtype == torch.bfloat16), ctas, int(restart),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"matmul kernel: CUDA error {rc}")
+    return out
+
+
+def _matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    out = _matmul_launch(x, w, out_dtype)
     matmul.launches += 1
     return out
 
@@ -606,9 +623,9 @@ def matmul(
     """(M, K) @ (K, N) -> (M, N) ``out_dtype``, summed in f32.
 
     Counterpart of ``dmd_era5_tpu/ops/matmul.py:101`` (kernel K6).  x and
-    w share one dtype: float32 (full-f32 products, the JAX package's
-    ``HIGHEST``) or bfloat16 (products exact in f32, its ``DEFAULT``
-    bf16 pass).  Any M, K and N: the JAX entry's divisibility by its
+    w share one dtype: float32 (f32-faithful products, the JAX package's
+    ``HIGHEST``: 3xTF32 on the card's tensor cores) or bfloat16 (products
+    exact in f32, its ``DEFAULT`` bf16 pass).  Any M, K and N: the JAX entry's divisibility by its
     blocks is a TPU tiling constraint, and the kernel masks ragged edges.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches

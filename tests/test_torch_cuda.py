@@ -8,7 +8,9 @@ of K3's 128-wide tensor-core blocks), K3 against one TF32 pass, and its
 route through ``sketch_center_gram_project``; ``gram`` at both
 precisions, float32 and bfloat16 input, ragged row counts and panel
 widths on both sides of K5's block edges and past the JAX kernel's 1024; ``matmul`` (K6) over operand
-and output dtypes and ragged M, N and K; ``householder_panel`` (K7) at
+and output dtypes, ragged M, N and K on both sides of its tile, column
+and MMA-depth edges and past its resident depth of w, and against one
+TF32 pass; ``householder_panel`` (K7) at
 the streamed SVD's panel, the edges of its envelope and an
 ill-conditioned panel, and the Householder leaf inside and outside that
 envelope.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
@@ -138,7 +140,17 @@ MATMUL_CASES = [
     for out_dtype in ["float32", "bfloat16"]
     # the streamed block's widths at a ragged row count; every edge ragged;
     # one element; a depth no 16-deep stage divides; a second column tile
-    for m, k, n in [(4099, 168, 110), (130, 17, 129), (1, 1, 1), (1000, 333, 7), (64, 64, 256)]
+    for m, k, n in [(4099, 168, 110), (130, 17, 129), (1, 1, 1), (1000, 333, 7), (64, 64, 256),
+                    # both sides of the 64-row warpgroup and 128-row tile
+                    # edges, the 112-wide CTA column and the 8- and 16-deep
+                    # MMA steps; w past the resident depth (168 < K), in
+                    # panels, with unaligned (169, 1,030) and aligned
+                    # (1,024) rows; past both at once
+                    (63, 8, 8), (64, 16, 112), (65, 24, 113), (127, 168, 256), (129, 169, 257),
+                    (300, 1030, 110), (65, 1024, 257),
+                    # several row tiles a persistent CTA, in one and in
+                    # three CTA columns
+                    (40_000, 168, 110), (20_000, 168, 257)]
 ]
 
 
@@ -331,6 +343,33 @@ def test_project_is_not_one_tf32_pass_on_card(cuda):
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         one_pass = float(((y.T @ x).double() - exact).abs().max()) / scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert one_pass > 1e-6, one_pass
+
+
+@pytest.mark.cuda
+def test_matmul_is_not_one_tf32_pass_on_card(cuda):
+    """K6's 3xTF32 products on f32 operands whose entries span six decades
+    (the streamed block's K and N): out within 1e-6 max|out| of the f64
+    product, a limit that one TF32 pass (the library product with TF32
+    allowed, ~2^-11 a product) misses."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+
+    def wide(shape):
+        mag = 10.0 ** (6 * torch.rand(shape, generator=gen, device=cuda) - 3)
+        return torch.randn(shape, generator=gen, device=cuda) * mag
+
+    x, w = wide((20_000, 168)), wide((168, 110))
+    exact = x.double() @ w.double()
+    scale = float(exact.abs().max())
+    out = matmul.matmul(x, w)
+    err = float((out.double() - exact).abs().max()) / scale
+    assert err <= 1e-6, err
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one_pass = float(((x @ w).double() - exact).abs().max()) / scale
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert one_pass > 1e-6, one_pass
