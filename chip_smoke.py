@@ -32,7 +32,8 @@ of which raises on failure so the script exits non-zero:
    another;
 9. the out-of-core SVD at the same size: (a) the tiled matmul K6 and the
    Householder panel K7 against their plain versions at the streamed
-   path's shapes; (b) the centred X written from the card to a packed
+   path's shapes, K6 also against the f64 product with a one-TF32-pass
+   control, and the time of an empty launch; (b) the centred X written from the card to a packed
    ``.npy`` artifact (10.47 GB) in a temporary directory (``TMPDIR``),
    deleted at the end; (c) ``streamed_randomized_svd`` on it (65,536-row
    blocks, n_iter auto = 4: six passes, K6 on every block of five, K7
@@ -140,6 +141,13 @@ FIT_TAIL_SHARE_MIN = 0.8
 # and N 128, the d = 3 pass), of max|C|: 3xTF32 reads 0.9-1.0e-7 there on
 # an H100, the f32 library product 5.3e-7; one TF32 pass must read above it
 K3_F64_LIMIT = 2e-7
+# K6's out against the f64 product at the streamed block and its ragged tail
+# (f32 operands), of max|out|: at most this many times the plain f32
+# product's error in the same run (3xTF32 with the MMA sums restarted every
+# chunk reads 1.9e-7 and 2.2e-7 there on an H100, the plain version 4.9e-7
+# and 5.2e-7, the MMAs chained over a tile 1.6e-6 and 2.0e-6, one TF32 pass
+# 8.9e-5 and 9.2e-5)
+K6_F64_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -838,15 +846,25 @@ def phase_truncated(x: torch.Tensor, seed: int) -> tuple[dict, dict]:
     return total, {"s": s_of[ref_b], "u6": lead_u[ref_b]}
 
 
-def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor) -> dict:
-    """K6 against its plain version on the card, on the same x and w.
+def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool) -> dict:
+    """K6 against its plain version, the f64 product and the library on
+    the card, on the same x and w.
 
-    Tolerance: relative Frobenius error <= 1e-5 -- both sum the same
-    exact f32 products (bf16 x bf16 is exact there) over K = 168 terms,
-    in another order.  Library call: one ``torch.mm`` in f32 (TF32 off),
-    or for bf16 operands ``torch.mm(..., out_dtype=torch.float32)`` where
-    the installed torch has it (else none); the port never makes it."""
-    from dmd_era5_tpu_torch.ops.matmul import _matmul_plain, matmul
+    Tolerances: relative Frobenius error <= 1e-5 of the plain version's
+    out -- both sum f32-faithful products (3xTF32 against full f32; bf16
+    x bf16 is exact in f32) over K = 168 terms, in another order.  Against
+    the f64 product of the stored operands (max error over max|out|): where
+    ``f64_gate`` (f32 operands: the streamed block and the ragged tail),
+    K6's at most ``K6_F64_FACTOR`` times the plain f32 product's in this
+    run, and a control, one TF32 pass (``torch.mm`` with TF32 allowed, the
+    flag restored), above that limit, so that it tells 3xTF32 from one
+    pass.  Logged beside: K6 with every MMA of a tile chained instead of
+    restarted each chunk (``_matmul_launch(restart=False)``, uncounted).
+    Library call: one ``torch.mm`` in f32 (TF32 off), or for bf16 operands
+    ``torch.mm(..., out_dtype=torch.float32)`` where the installed torch has
+    it (else none); the port never makes it.  Bound: 3xTF32, three
+    tensor-core passes of 2MKN, for f32 operands; one bf16 pass for bf16."""
+    from dmd_era5_tpu_torch.ops.matmul import _matmul_launch, _matmul_plain, matmul
 
     def kernel():
         return matmul(x, w)
@@ -860,10 +878,37 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor) -> dict:
         return torch.mm(x, w, out_dtype=torch.float32) if bf16 else torch.mm(x, w)
 
     got, ref = kernel(), plain()
+    chained = _matmul_launch(x, w, torch.float32, restart=False)
     torch.cuda.synchronize()
     rel, max_abs = rel_err(got, ref)
     check(rel <= 1e-5, f"{label}: K6 relative error {rel:.3e} > 1e-5")
-    del got, ref
+    w64 = w.double()
+    exact = torch.cat([xc.double() @ w64 for xc in _chunks(x)])
+    scale = float(exact.abs().max())
+
+    def vs_f64(out: torch.Tensor) -> float:
+        return float((out.double() - exact).abs().max()) / scale
+
+    (m, k), n = x.shape, w.shape[1]
+    res = dict(label=label, m=m, k=k, n=n, dtype=str(x.dtype)[6:], rel_err=rel,
+               max_abs_err=max_abs, kernel_vs_f64_over_max=vs_f64(got),
+               plain_vs_f64_over_max=vs_f64(ref), chained_vs_f64_over_max=vs_f64(chained))
+    del got, ref, chained
+    if f64_gate:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            res["one_tf32_pass_vs_f64_over_max"] = vs_f64(torch.mm(x, w))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        limit = K6_F64_FACTOR * res["plain_vs_f64_over_max"]
+        check(res["kernel_vs_f64_over_max"] <= limit,
+              f"{label} K6: out vs f64 {res['kernel_vs_f64_over_max']:.3e} max|out| > "
+              f"{K6_F64_FACTOR} x the plain f32 product's ({limit:.3e})")
+        check(res["one_tf32_pass_vs_f64_over_max"] > limit,
+              f"{label} K6: one TF32 pass reads {res['one_tf32_pass_vs_f64_over_max']:.3e} "
+              f"max|out|, within {limit:.3e}: the limit does not tell 3xTF32 from it")
+    del exact
     try:
         library()
     except (RuntimeError, TypeError, NotImplementedError):
@@ -871,14 +916,13 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor) -> dict:
     else:
         library_ms = event_ms(library, reps=20)
     p1, k1, k2, p2 = (event_ms(f, reps=20) for f in (plain, kernel, kernel, plain))
-    (m, k), n = x.shape, w.shape[1]
     size = x.element_size()
-    bound_ms, bound_by = bound(2 * m * k * n, PEAK_BF16 if bf16 else PEAK_F32,
+    bound_ms, bound_by = bound((1 if bf16 else 3) * 2 * m * k * n, PEAK_BF16 if bf16 else PEAK_TF32,
                                size * (m * k + k * n) + 4 * m * n)
-    res = dict(label=label, m=m, k=k, n=n, dtype=str(x.dtype)[6:], rel_err=rel,
-               max_abs_err=max_abs, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
     log(f"    {json.dumps(res)}")
+    check(res["ms"] >= bound_ms, f"{label} K6: {res['ms']:.4f} ms below its bound {bound_ms:.4f}")
     return res
 
 
@@ -947,9 +991,15 @@ def phase_streamed_kernels(x: torch.Tensor, seed: int) -> dict:
     blk = x[:RAND_BLOCK]
     omega = torch.randn((x.shape[1], R_SKETCH), generator=gen, device=x.device)
     z = qr_positive(blk.T @ (blk @ omega))[0].contiguous()
-    out = {"f32": compare_matmul("block f32", blk, z),
-           "bf16": compare_matmul("block bf16", blk.bfloat16(), z.bfloat16()),
-           "tail": compare_matmul("ragged tail f32", x[n_rows - tail:], z)}
+    out = {"f32": compare_matmul("block f32", blk, z, f64_gate=True),
+           "bf16": compare_matmul("block bf16", blk.bfloat16(), z.bfloat16(), f64_gate=False),
+           "tail": compare_matmul("ragged tail f32", x[n_rows - tail:], z, f64_gate=True)}
+    from dmd_era5_tpu_torch.ops.matmul import _matmul_library
+
+    lib, stream = _matmul_library(), torch.cuda.current_stream().cuda_stream
+    check(lib.matmul_empty_launch(stream) == 0, "empty kernel did not launch")
+    out["empty_launch_ms"] = event_ms(lambda: lib.matmul_empty_launch(stream), reps=200)
+    log(f"    an empty kernel launched the way K6 is (ctypes): {out['empty_launch_ms']:.4f} ms")
     for m, n in ((x.shape[1], R_SKETCH), (8760, 110), (4096, 256)):
         panel = torch.randn((m, n), generator=gen, device=x.device)
         out[(m, n)] = compare_householder(f"panel {m}x{n}", panel)

@@ -21,8 +21,8 @@
 // 0.022 ms at 3.35 TB/s, against 3 x 2 M K N = 7.3 G TF32 operations,
 // 0.015 ms at 495 TFLOP/s; with bf16 operands 51 MB, 0.015 ms, against 2.4
 // G bf16 operations, 0.002 ms.  Bytes bound both, so the design streams x
-// once, keeps w out of the stream and keeps enough of x in flight to fill
-// the memory pipe, with the MMAs beside the loads:
+// once, keeps w out of the stream and keeps x's loads in flight beside the
+// MMAs:
 //
 // - Persistent CTAs, about one an SM (the wrapper sizes the grid from the
 //   occupancy query), in columns of BN = 112 output columns (N 110 padded
@@ -35,7 +35,7 @@
 //   streams through a ring of STAGES chunks of 128 rows x 128 bytes (32 f32
 //   or 64 bf16 columns of K), each one TMA copy with the 128-byte swizzle,
 //   whose out-of-range rows and columns the copy engine fills with zeros.
-//   One thread keeps STAGES - 1 chunks in flight; a chunk's slot is refilled
+//   One thread keeps up to STAGES chunks in flight; a chunk's slot is refilled
 //   as soon as every warp has its A fragments in registers, while that
 //   chunk's MMAs run.  Rows whose stride or base is not 16-byte aligned
 //   (K % 4 for f32, K % 8 for bf16) take the element-wise instantiation,
@@ -49,17 +49,29 @@
 //   of each chunk (4 k-steps) start from zero and their sum is added into
 //   f32 accumulators rounded to nearest (RESTART; the other instantiation
 //   chains every MMA of a tile, for the accuracy reading of PERF.md).
-// - Epilogue: a tile's 128 x 112 sums are stored straight from registers,
-//   masked on ragged M and N, in f32 or bf16, while the ring already holds
-//   the next tile's first chunks.
+// - Epilogue: a tile's sums go through shared memory 32 rows at a time, so
+//   that each warp stores 128 contiguous bytes of one row of out (f32 or
+//   bf16, masked on ragged M and N), while the ring already holds the next
+//   tile's first chunks.
 //
-// Shared-memory budget (227 KB a CTA): the ring takes 4 x 16 KB = 64 KB; w
-// takes K x 112 x 8 bytes for f32 (hi and lo planes: 150.5 KB at K 168)
-// and K x 112 x 2 for bf16 (37.6 KB), K padded with zeros to the MMA's depth
-// (8 tf32, 16 bf16) in shared memory only.  So w is resident for K <= 184
-// (f32) or 736 (bf16); past that it is walked in panels of 160 or 704 rows of
-// K, restaged once a tile and panel (from L2: w is small).  N > 112 takes
-// more CTA columns.
+// What the card showed (H100, phase 9a's shapes; scripts/torch_k6_phases.py
+// times variants without one phase each, PERF.md has the numbers): the
+// phases of a CTA do not overlap one another -- the x stream, the 3xTF32
+// MMAs (at the TF32 peak) and the stores of out add up, and a ring of 2
+// chunks reads as 4 does.  With one CTA an SM (the f32 planes take 150.5
+// KB) nothing else runs beside them; warp-specialised stores or a second
+// CTA an SM need the shared memory that w takes.  Stores straight from the
+// accumulator registers (32 bytes of each of 8 rows a warp) read slower
+// than the staged ones, and w's staging with its loads unrolled 8 deep
+// faster than rolled.
+//
+// Shared-memory budget (227 KB a CTA): the ring takes 4 x 16 KB = 64 KB and
+// the staged rows of out 14 KB; w takes K x 112 x 8 bytes for f32 (hi and
+// lo planes: 150.5 KB at K 168) and K x 112 x 2 for bf16 (37.6 KB), K padded
+// with zeros to the MMA's depth (8 tf32, 16 bf16) in shared memory only.
+// So w is resident for K <= 168 (f32) or 672 (bf16); past that it is
+// walked in panels of 160 or 640 rows of K, restaged once a tile and panel
+// (from L2: w is small).  N > 112 takes more CTA columns.
 //
 // Tile table (each choice and what decided it on an H100; it stands in for
 // the TPU tile sweep of the nearest product, scripts/kernel_tune.py:218-225):
@@ -68,9 +80,13 @@
 //                           block over 132 SMs fill 97% of 4 rounds
 //   columns a CTA     112   N 110 -> one n112 MMA, 2% padding (n128: 14%)
 //   chunk of K        128 B the 128-byte swizzle's row; 4 MMA k-steps
-//   ring              4     48 KB of x in flight an SM; 64 KB beside the
-//                           150.5 KB of f32 planes
-//   MMA chain         4     k-steps between restarts from zero (one chunk)
+//   ring              4     64 KB beside the 150.5 KB of f32 planes; 2
+//                           reads the same
+//   MMA chain         4     k-steps between restarts from zero (one chunk):
+//                           chained over a tile, out read 3.3-3.8x the
+//                           plain f32 product's error against the f64
+//                           product, restarted 0.38-0.42x (chip_smoke.py)
+//   rows staged       32    the 14 KB left beside the f32 planes
 //   threads           256   two consumer warpgroups, no producer warp: one
 //                           thread issues the copies between its MMAs
 //
@@ -95,7 +111,9 @@ constexpr int STAGE_BYTES = BM * CHUNK_ROW;    // 16 KB
 constexpr int SMEM_CAP = 232448;               // shared memory of one CTA
 constexpr int ALIGN = 1024;                    // the 128-byte swizzle's period
 constexpr int BAR_BYTES = STAGES * 8;
-constexpr int FREE = SMEM_CAP - ALIGN - STAGES * STAGE_BYTES - BAR_BYTES;  // for w
+constexpr int OUT_ROWS = 32;                   // rows of a tile staged at once for the stores
+constexpr int OUT_BYTES = OUT_ROWS * BN * 4;   // 14 KB
+constexpr int FREE = SMEM_CAP - ALIGN - STAGES * STAGE_BYTES - BAR_BYTES - OUT_BYTES;  // for w
 
 template <typename T>
 struct Cfg;
@@ -111,7 +129,7 @@ struct Cfg<bf16> {
   static constexpr int KC = CHUNK_ROW / 2;
   static constexpr int KSTEP = 16;
   static constexpr int ROW_BYTES = 2 * BN;
-  static constexpr int PANEL = 704;
+  static constexpr int PANEL = 640;
 };
 
 // Deepest K of w resident at once, a multiple of the MMA's depth.
@@ -119,7 +137,7 @@ template <typename T>
 constexpr int kmax() {
   return FREE / Cfg<T>::ROW_BYTES / Cfg<T>::KSTEP * Cfg<T>::KSTEP;
 }
-static_assert(kmax<float>() == 184 && kmax<bf16>() == 736, "the budget in the note");
+static_assert(kmax<float>() == 168 && kmax<bf16>() == 672, "the budget in the note");
 static_assert(Cfg<float>::PANEL % Cfg<float>::KC == 0 && Cfg<float>::PANEL <= kmax<float>() &&
                   Cfg<bf16>::PANEL % Cfg<bf16>::KC == 0 && Cfg<bf16>::PANEL <= kmax<bf16>(),
               "a panel is whole chunks and fits");
@@ -135,7 +153,8 @@ int panel_rows(int k) {
 
 template <typename T>
 int smem_bytes(int k) {
-  return ALIGN + STAGES * STAGE_BYTES + panel_rows<T>(k) * Cfg<T>::ROW_BYTES + BAR_BYTES;
+  return ALIGN + STAGES * STAGE_BYTES + panel_rows<T>(k) * Cfg<T>::ROW_BYTES + BAR_BYTES +
+         OUT_BYTES;
 }
 
 // ---------------------------------------------------------------- PTX
@@ -247,6 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
   unsigned char* planes = ring + STAGES * STAGE_BYTES;
   uint64_t* bars = reinterpret_cast<uint64_t*>(planes + kw * C::ROW_BYTES);
+  float* staged = reinterpret_cast<float*>(bars + STAGES);  // OUT_ROWS x BN sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -288,6 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t* hi = reinterpret_cast<uint32_t*>(planes);
       uint32_t* lo = hi + kw * BN;
       const int nkb = kw / 4;
+#pragma unroll 8  // loads of eight items in flight: w comes from L2
       for (int q = tid; q < nkb * BN; q += THREADS) {
         const int nn = q % BN;
         const int kb = q / BN;
@@ -309,6 +330,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const unsigned short* wh = reinterpret_cast<const unsigned short*>(w);
       bf16* p = reinterpret_cast<bf16*>(planes);
       constexpr int NB = BN / 8;
+#pragma unroll 2
       for (int q = tid; q < kw * NB; q += THREADS) {
         const int nb = q % NB;
         const int kk = q / NB;
@@ -451,33 +473,38 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < NACC; ++i) acc[i] += d[i];
     }
     if (++ci == cpt) {  // the tile's last chunk: store it
-      // accumulator 4 jn + q: row g (+8 for q >= 2), column 8 jn + 2 t + (q & 1)
+      // Through shared memory, OUT_ROWS rows at a time (the rows of warps
+      // 2 h and 2 h + 1), so that a warp's stores are 128 contiguous bytes
+      // of out, not 32 bytes of each of 8 rows: accumulator 4 jn + q is row
+      // g (+8 for q >= 2), column 8 jn + 2 t + (q & 1) of the warp's 16.
       const float(&v)[NACC] = RESTART ? acc : d;
-      const bool even = (n & 1) == 0;
+      const int rows = (int)min((long long)BM, m - row0);
+      const int cols = min(BN, n - n0);
+      for (int h = 0; h * OUT_ROWS < rows; ++h) {
+        if ((warp >> 1) == h) {
 #pragma unroll
-      for (int i = 0; i < NACC; i += 2) {
-        const long long gr = row0 + wrow + g + ((i & 3) >> 1) * 8;
-        const int gc = n0 + (i >> 2) * 8 + 2 * t;
-        if (gr < m && gc < n) {
-          const bool pair = even && gc + 1 < n;
-          if (out_bf16) {
-            bf16* p = static_cast<bf16*>(out) + gr * n + gc;
-            if (pair) {
-              *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[i], v[i + 1]);
+          for (int i = 0; i < NACC; i += 2) {
+            const int r = (warp & 1) * 16 + g + ((i & 3) >> 1) * 8;
+            *reinterpret_cast<float2*>(staged + r * BN + (i >> 2) * 8 + 2 * t) =
+                make_float2(v[i], v[i + 1]);
+          }
+        }
+        __syncthreads();
+        // a warp a row: 128 contiguous bytes of out a store
+        const long long first = (row0 + h * OUT_ROWS) * n + n0;  // out's element (row, n0)
+        const int nr = min(OUT_ROWS, rows - h * OUT_ROWS);
+        for (int r = warp; r < nr; r += THREADS / 32) {
+          for (int c = lane; c < cols; c += 32) {
+            const float val = staged[r * BN + c];
+            const long long o = first + (long long)r * n + c;
+            if (out_bf16) {
+              static_cast<bf16*>(out)[o] = __float2bfloat16_rn(val);
             } else {
-              p[0] = __float2bfloat16_rn(v[i]);
-              if (gc + 1 < n) p[1] = __float2bfloat16_rn(v[i + 1]);
-            }
-          } else {
-            float* p = static_cast<float*>(out) + gr * n + gc;
-            if (pair) {
-              *reinterpret_cast<float2*>(p) = make_float2(v[i], v[i + 1]);
-            } else {
-              p[0] = v[i];
-              if (gc + 1 < n) p[1] = v[i + 1];
+              static_cast<float*>(out)[o] = val;
             }
           }
         }
+        __syncthreads();
       }
       if constexpr (RESTART) {
 #pragma unroll
@@ -498,7 +525,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
