@@ -491,12 +491,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         __syncthreads();
         // a warp a row: 128 contiguous bytes of out a store
-        const long long first = (row0 + h * OUT_ROWS) * n + n0;  // out's element (row, n0)
+        const long long base = (row0 + h * OUT_ROWS) * n + n0;  // out's element (row, n0)
         const int nr = min(OUT_ROWS, rows - h * OUT_ROWS);
         for (int r = warp; r < nr; r += THREADS / 32) {
           for (int c = lane; c < cols; c += 32) {
             const float val = staged[r * BN + c];
-            const long long o = first + (long long)r * n + c;
+            const long long o = base + (long long)r * n + c;
             if (out_bf16) {
               static_cast<bf16*>(out)[o] = __float2bfloat16_rn(val);
             } else {
