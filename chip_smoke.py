@@ -33,7 +33,8 @@ of which raises on failure so the script exits non-zero:
 9. the out-of-core SVD at the same size: (a) the tiled matmul K6 and the
    Householder panel K7 against their plain versions at the streamed
    path's shapes, K6 also against the f64 product with a one-TF32-pass
-   control, and the time of an empty launch; (b) the centred X written from the card to a packed
+   control, and its device time beside the wrapper's; (b) the centred X
+   written from the card to a packed
    ``.npy`` artifact (10.47 GB) in a temporary directory (``TMPDIR``),
    deleted at the end; (c) ``streamed_randomized_svd`` on it (65,536-row
    blocks, n_iter auto = 4: six passes, K6 on every block of five, K7
@@ -145,8 +146,8 @@ K3_F64_LIMIT = 2e-7
 # (f32 operands), of max|out|: at most this many times the plain f32
 # product's error in the same run (3xTF32 with the MMA sums restarted every
 # chunk reads 1.9e-7 and 2.2e-7 there on an H100, the plain version 4.9e-7
-# and 5.2e-7, the MMAs chained over a tile 1.6e-6 and 2.0e-6, one TF32 pass
-# 8.9e-5 and 9.2e-5)
+# and 5.2e-7, one TF32 pass 8.9e-5 and 9.2e-5; the MMAs chained over a tile,
+# scripts/torch_k6_phases.py's `chained` variant, 1.6e-6 and 2.0e-6)
 K6_F64_FACTOR = 2.0
 
 
@@ -179,6 +180,29 @@ def event_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn in ms, by CUDA events, after one warm-up:
+    the launches are queued behind a sleep of the card, so that it runs
+    them back to back however long the host takes to issue each one (the
+    sleep grows until the host is done before it ends)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card still sleeps: every launch is queued
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        check(cycles < 1 << 32, "device_ms: the host never got ahead of the card")
+        cycles *= 4
 
 
 def phase_device() -> str:
@@ -858,13 +882,14 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
     K6's at most ``K6_F64_FACTOR`` times the plain f32 product's in this
     run, and a control, one TF32 pass (``torch.mm`` with TF32 allowed, the
     flag restored), above that limit, so that it tells 3xTF32 from one
-    pass.  Logged beside: K6 with every MMA of a tile chained instead of
-    restarted each chunk (``_matmul_launch(restart=False)``, uncounted).
-    Library call: one ``torch.mm`` in f32 (TF32 off), or for bf16 operands
+    pass.  Times: ``ms`` is the wrapper's, calls issued back to back
+    (CUDA events), ``device_ms`` the kernel's alone (``device_ms``: its
+    launches queued behind a sleep of the card), and the same pair for
+    the library call.  Library call: one ``torch.mm`` in f32 (TF32 off), or for bf16 operands
     ``torch.mm(..., out_dtype=torch.float32)`` where the installed torch has
     it (else none); the port never makes it.  Bound: 3xTF32, three
     tensor-core passes of 2MKN, for f32 operands; one bf16 pass for bf16."""
-    from dmd_era5_tpu_torch.ops.matmul import _matmul_launch, _matmul_plain, matmul
+    from dmd_era5_tpu_torch.ops.matmul import _matmul_plain, matmul
 
     def kernel():
         return matmul(x, w)
@@ -878,7 +903,6 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
         return torch.mm(x, w, out_dtype=torch.float32) if bf16 else torch.mm(x, w)
 
     got, ref = kernel(), plain()
-    chained = _matmul_launch(x, w, torch.float32, restart=False)
     torch.cuda.synchronize()
     rel, max_abs = rel_err(got, ref)
     check(rel <= 1e-5, f"{label}: K6 relative error {rel:.3e} > 1e-5")
@@ -892,8 +916,8 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
     (m, k), n = x.shape, w.shape[1]
     res = dict(label=label, m=m, k=k, n=n, dtype=str(x.dtype)[6:], rel_err=rel,
                max_abs_err=max_abs, kernel_vs_f64_over_max=vs_f64(got),
-               plain_vs_f64_over_max=vs_f64(ref), chained_vs_f64_over_max=vs_f64(chained))
-    del got, ref, chained
+               plain_vs_f64_over_max=vs_f64(ref))
+    del got, ref
     if f64_gate:
         saved = torch.backends.cuda.matmul.allow_tf32
         try:
@@ -912,17 +936,19 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
     try:
         library()
     except (RuntimeError, TypeError, NotImplementedError):
-        library_ms = None
+        library_ms = library_device_ms = None
     else:
-        library_ms = event_ms(library, reps=20)
+        library_ms, library_device_ms = event_ms(library, reps=20), device_ms(library)
     p1, k1, k2, p2 = (event_ms(f, reps=20) for f in (plain, kernel, kernel, plain))
     size = x.element_size()
     bound_ms, bound_by = bound((1 if bf16 else 3) * 2 * m * k * n, PEAK_BF16 if bf16 else PEAK_TF32,
                                size * (m * k + k * n) + 4 * m * n)
-    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=library_ms,
+    res.update(ms=(k1 + k2) / 2, device_ms=device_ms(kernel), plain_ms=(p1 + p2) / 2,
+               library_ms=library_ms, library_device_ms=library_device_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     log(f"    {json.dumps(res)}")
-    check(res["ms"] >= bound_ms, f"{label} K6: {res['ms']:.4f} ms below its bound {bound_ms:.4f}")
+    for key in ("ms", "device_ms"):
+        check(res[key] >= bound_ms, f"{label} K6: {key} {res[key]:.4f} below its bound {bound_ms:.4f}")
     return res
 
 
@@ -994,12 +1020,6 @@ def phase_streamed_kernels(x: torch.Tensor, seed: int) -> dict:
     out = {"f32": compare_matmul("block f32", blk, z, f64_gate=True),
            "bf16": compare_matmul("block bf16", blk.bfloat16(), z.bfloat16(), f64_gate=False),
            "tail": compare_matmul("ragged tail f32", x[n_rows - tail:], z, f64_gate=True)}
-    from dmd_era5_tpu_torch.ops.matmul import _matmul_library
-
-    lib, stream = _matmul_library(), torch.cuda.current_stream().cuda_stream
-    check(lib.matmul_empty_launch(stream) == 0, "empty kernel did not launch")
-    out["empty_launch_ms"] = event_ms(lambda: lib.matmul_empty_launch(stream), reps=200)
-    log(f"    an empty kernel launched the way K6 is (ctypes): {out['empty_launch_ms']:.4f} ms")
     for m, n in ((x.shape[1], R_SKETCH), (8760, 110), (4096, 256)):
         panel = torch.randn((m, n), generator=gen, device=x.device)
         out[(m, n)] = compare_householder(f"panel {m}x{n}", panel)
@@ -1554,7 +1574,8 @@ def kernel_line(key: str, launches: int, res: dict) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max_abs["yc"] if key == "K1" else max_abs,  # K1: y_wide of the SVD
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-                bound_by=res["bound_by"], library_ms=res.get("library_ms"))
+                bound_by=res["bound_by"], library_ms=res.get("library_ms"),
+                **{key: res[key] for key in ("device_ms",) if key in res})
 
 
 def main() -> None:

@@ -15,7 +15,7 @@ __all__ = ["resident_ctas", "row_shares", "wave_row_shares", "SCRATCH_CAP"]
 
 SCRATCH_CAP = 1 << 30  # f64 scratch of a row-share reduction, at most
 
-_CTAS_PER_SM: dict[tuple, int] = {}
+_RESIDENT: dict[tuple, int] = {}
 
 
 def resident_ctas(dev, key: tuple, query) -> int:
@@ -23,16 +23,16 @@ def resident_ctas(dev, key: tuple, query) -> int:
     CTAs per SM, the latter from ``query(address of an int)`` (a C
     occupancy function of the kernel's library), cached under ``key``."""
     key = (dev.index, *key)
-    if key not in _CTAS_PER_SM:
+    if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
         rc = query(ctypes.addressof(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(
                 f"{key[1]} occupancy: CUDA error {rc}, {per_sm.value} CTAs per SM"
             )
-        _CTAS_PER_SM[key] = per_sm.value
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return sms * _CTAS_PER_SM[key]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _RESIDENT[key] = sms * per_sm.value
+    return _RESIDENT[key]
 
 
 def row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:

@@ -47,8 +47,9 @@
 //   (m64n112k8); bf16: ldmatrix fragments, four m64n112k16 MMAs.
 // - Accumulation: the tensor core rounds its sums toward zero, so the MMAs
 //   of each chunk (4 k-steps) start from zero and their sum is added into
-//   f32 accumulators rounded to nearest (RESTART; the other instantiation
-//   chains every MMA of a tile, for the accuracy reading of PERF.md).
+//   f32 accumulators rounded to nearest (chained over a tile instead, out
+//   read 3-4x the plain f32 product's error: scripts/torch_k6_phases.py's
+//   `chained` variant, PERF.md).
 // - Epilogue: a tile's sums go through shared memory 32 rows at a time, so
 //   that each warp stores 128 contiguous bytes of one row of out (f32 or
 //   bf16, masked on ragged M and N), while the ring already holds the next
@@ -85,7 +86,8 @@
 //   MMA chain         4     k-steps between restarts from zero (one chunk):
 //                           chained over a tile, out read 3.3-3.8x the
 //                           plain f32 product's error against the f64
-//                           product, restarted 0.38-0.42x (chip_smoke.py)
+//                           product, restarted 0.38-0.42x (chip_smoke.py,
+//                           scripts/torch_k6_phases.py)
 //   rows staged       32    the 14 KB left beside the f32 planes
 //   threads           256   two consumer warpgroups, no producer warp: one
 //                           thread issues the copies between its MMAs
@@ -93,6 +95,8 @@
 // Ranges: any M, K and N; x row-major and contiguous, w row-major.
 
 #include <cuda.h>
+
+#include <atomic>
 
 #include "row_share_atb_tc.cuh"
 
@@ -152,9 +156,8 @@ int panel_rows(int k) {
 }
 
 template <typename T>
-int smem_bytes(int k) {
-  return ALIGN + STAGES * STAGE_BYTES + panel_rows<T>(k) * Cfg<T>::ROW_BYTES + BAR_BYTES +
-         OUT_BYTES;
+constexpr int smem_bytes(int rows) {
+  return ALIGN + STAGES * STAGE_BYTES + rows * Cfg<T>::ROW_BYTES + BAR_BYTES + OUT_BYTES;
 }
 
 // ---------------------------------------------------------------- PTX
@@ -252,9 +255,8 @@ __device__ __forceinline__ int swz(int r, int cbytes) {
 }
 
 // T: the operands' type.  TMA: x's rows and base are 16-byte aligned, and
-// its chunks come by TMA; else element by element.  RESTART: restart the
-// MMA sums every chunk (the product's); else chain them over the tile.
-template <typename T, bool TMA, bool RESTART>
+// its chunks come by TMA; else element by element.
+template <typename T, bool TMA>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_tc(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
               const T* __restrict__ w, void* __restrict__ out, int out_bf16, long long m, int k,
@@ -392,7 +394,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const int steps = min(STEPS, (k - col0 + C::KSTEP - 1) / C::KSTEP);
     const int kk0 = (col0 - kp0) / C::KSTEP;  // the chunk's first k-step in the planes
-    const bool first = RESTART || ci == 0;    // the chunk's first MMA starts d from zero
     if constexpr (F32) {
       // A fragment of k8 step q: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
       uint32_t ah[STEPS][4], al[STEPS][4];
@@ -418,7 +419,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int q = 0; q < STEPS; ++q) {
         if (q < steps) {
           const uint32_t off = (kk0 + q) * 256;
-          wgmma_tf32(d, al[q], smem_desc(plane_hi + off, 128, sbo), (first && q == 0) ? 0 : 1);
+          wgmma_tf32(d, al[q], smem_desc(plane_hi + off, 128, sbo), q == 0 ? 0 : 1);
           wgmma_tf32(d, ah[q], smem_desc(plane_lo + off, 128, sbo), 1);
         }
       }
@@ -456,7 +457,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int q = 0; q < STEPS; ++q) {
         if (q < steps) {
           wgmma_bf16(d, af[q], smem_desc(plane_hi + (kk0 + q) * 2 * KSTRIDE, KSTRIDE, 128),
-                     (first && q == 0) ? 0 : 1);
+                     q == 0 ? 0 : 1);
         }
       }
       atb_tc::wgmma_commit();
@@ -468,16 +469,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       hold(d);
       hold(af);
     }
-    if constexpr (RESTART) {
+    // the chunk's MMAs started from zero: their sum into acc, rounded to nearest
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] += d[i];
-    }
+    for (int i = 0; i < NACC; ++i) acc[i] += d[i];
     if (++ci == cpt) {  // the tile's last chunk: store it
       // Through shared memory, OUT_ROWS rows at a time (the rows of warps
       // 2 h and 2 h + 1), so that a warp's stores are 128 contiguous bytes
       // of out, not 32 bytes of each of 8 rows: accumulator 4 jn + q is row
       // g (+8 for q >= 2), column 8 jn + 2 t + (q & 1) of the warp's 16.
-      const float(&v)[NACC] = RESTART ? acc : d;
       const int rows = (int)min((long long)BM, m - row0);
       const int cols = min(BN, n - n0);
       for (int h = 0; h * OUT_ROWS < rows; ++h) {
@@ -486,7 +485,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int i = 0; i < NACC; i += 2) {
             const int r = (warp & 1) * 16 + g + ((i & 3) >> 1) * 8;
             *reinterpret_cast<float2*>(staged + r * BN + (i >> 2) * 8 + 2 * t) =
-                make_float2(v[i], v[i + 1]);
+                make_float2(acc[i], acc[i + 1]);
           }
         }
         __syncthreads();
@@ -506,17 +505,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         __syncthreads();
       }
-      if constexpr (RESTART) {
 #pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-      }
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
       ci = 0;
       ++it;
     }
   }
 }
-
-__global__ void empty_kernel() {}
 
 // ------------------------------------------------------------ host side
 
@@ -542,10 +537,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename T, bool TMA, bool RESTART>
+// Let the instantiation take the most dynamic shared memory any K asks of
+// it (w's planes at their deepest), once on each device: not at every
+// launch, where the call is host time beside a ~0.04 ms kernel.
+template <typename T, bool TMA>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ULL << dev;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(matmul_tc<T, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<T>(kmax<T>()));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename T, bool TMA>
 cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, int n, int out_bf16,
                    int ctas, cudaStream_t stream) {
-  const auto kernel = matmul_tc<T, TMA, RESTART>;
   CUtensorMap map{};
   if constexpr (TMA) {
     const EncodeTiled encode = encode_tiled();
@@ -561,58 +573,46 @@ cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, 
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   }
-  const int smem = smem_bytes<T>(k);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_smem<T, TMA>();
   if (err != cudaSuccess) return err;
   const long long row_tiles = (m + BM - 1) / BM;
   const int col_tiles = (n + BN - 1) / BN;
   if (col_tiles > 65535) return cudaErrorInvalidValue;
   const long long per_col = ctas / col_tiles > 1 ? ctas / col_tiles : 1;
   const dim3 grid((unsigned)(row_tiles < per_col ? row_tiles : per_col), (unsigned)col_tiles);
-  kernel<<<grid, THREADS, smem, stream>>>(map, static_cast<const T*>(x), static_cast<const T*>(w),
-                                          out, out_bf16, m, k, n, panel_rows<T>(k));
+  const int kw = panel_rows<T>(k);
+  matmul_tc<T, TMA><<<grid, THREADS, smem_bytes<T>(kw), stream>>>(
+      map, static_cast<const T*>(x), static_cast<const T*>(w), out, out_bf16, m, k, n, kw);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, void* out, long long m, int k, int n,
-                     int out_bf16, int ctas, int restart, cudaStream_t s) {
+                     int out_bf16, int ctas, cudaStream_t s) {
   // TMA: a 16-byte aligned base and row stride
   const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
-  if (restart) {
-    return tma ? launch<T, true, true>(x, w, out, m, k, n, out_bf16, ctas, s)
-               : launch<T, false, true>(x, w, out, m, k, n, out_bf16, ctas, s);
-  }
-  return tma ? launch<T, true, false>(x, w, out, m, k, n, out_bf16, ctas, s)
-             : launch<T, false, false>(x, w, out, m, k, n, out_bf16, ctas, s);
+  return tma ? launch<T, true>(x, w, out, m, k, n, out_bf16, ctas, s)
+             : launch<T, false>(x, w, out, m, k, n, out_bf16, ctas, s);
 }
 
 }  // namespace
 
 // CTAs of the kernel that fit one SM at once at depth k, into *out.
 extern "C" int matmul_ctas_per_sm(int x_bf16, int k, int* out) {
-  const auto kernel = x_bf16 ? (const void*)matmul_tc<bf16, true, true>
-                             : (const void*)matmul_tc<float, true, true>;
-  const int smem = x_bf16 ? smem_bytes<bf16>(k) : smem_bytes<float>(k);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = x_bf16 ? allow_smem<bf16, true>() : allow_smem<float, true>();
   if (err != cudaSuccess) return (int)err;
+  const auto kernel = x_bf16 ? (const void*)matmul_tc<bf16, true> : (const void*)matmul_tc<float, true>;
+  const int smem = x_bf16 ? smem_bytes<bf16>(panel_rows<bf16>(k)) : smem_bytes<float>(panel_rows<float>(k));
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, THREADS, smem);
 }
 
 // out (m x n, f32 or bf16) = x (m x k) @ w (k x n), both row-major and of
 // one dtype (f32, or bf16 when x_bf16), on at most `ctas` CTAs (the card's
-// resident ones); `restart` 0 chains every MMA of a tile (the accuracy
-// reading only).  Returns a cudaError_t code: 0 when the kernel was launched.
+// resident ones).  Returns a cudaError_t code: 0 when the kernel was launched.
 extern "C" int matmul_launch(const void* x, const void* w, void* out, long long m, int k, int n,
-                             int x_bf16, int out_bf16, int ctas, int restart, void* stream) {
+                             int x_bf16, int out_bf16, int ctas, void* stream) {
   if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_bf16 ? dispatch<bf16>(x, w, out, m, k, n, out_bf16, ctas, restart, s)
-                      : dispatch<float>(x, w, out, m, k, n, out_bf16, ctas, restart, s));
-}
-
-// One launch of an empty kernel: the launch overhead beside K6's time.
-extern "C" int matmul_empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return (int)cudaGetLastError();
+  return (int)(x_bf16 ? dispatch<bf16>(x, w, out, m, k, n, out_bf16, ctas, s)
+                      : dispatch<float>(x, w, out, m, k, n, out_bf16, ctas, s));
 }

@@ -167,8 +167,9 @@ def test_matmul_kernel_matches_plain_on_card(cuda, dtype, out_dtype, m, k, n):
     torch.cuda.synchronize()
     assert matmul.matmul.launches == before + 1
     assert got.dtype == odt and got.shape == (m, n)
-    # the same exact f32 products (bf16 x bf16 is exact there) summed in
-    # another order; a bf16 output may then round the other way, by one ulp
+    # f32-faithful products on both sides (3xTF32 on the card against full
+    # f32; bf16 x bf16 products are exact in f32) summed in another order;
+    # a bf16 output may then round the other way, by one ulp
     rel = float((got.double() - ref.double()).norm() / ref.double().norm())
     assert rel <= (2.0**-8 if out_dtype == "bfloat16" else 1e-5), rel
 
