@@ -48,8 +48,8 @@
 // - Accumulation: the tensor core rounds its sums toward zero, so the MMAs
 //   of each chunk (4 k-steps) start from zero and their sum is added into
 //   f32 accumulators rounded to nearest (chained over a tile instead, out
-//   read 3-4x the plain f32 product's error: scripts/torch_k6_phases.py's
-//   `chained` variant, PERF.md).
+//   read 2.2-3.8x the plain f32 product's error against the f64 product:
+//   the `chained` variant of scripts/torch_k6_phases.py, PERF.md).
 // - Epilogue: a tile's sums go through shared memory 32 rows at a time, so
 //   that each warp stores 128 contiguous bytes of one row of out (f32 or
 //   bf16, masked on ragged M and N), while the ring already holds the next
@@ -84,10 +84,10 @@
 //   ring              4     64 KB beside the 150.5 KB of f32 planes; 2
 //                           reads the same
 //   MMA chain         4     k-steps between restarts from zero (one chunk):
-//                           chained over a tile, out read 3.3-3.8x the
+//                           chained over a tile, out read 2.2-3.8x the
 //                           plain f32 product's error against the f64
-//                           product, restarted 0.38-0.42x (chip_smoke.py,
-//                           scripts/torch_k6_phases.py)
+//                           product, restarted 0.32-0.42x (chip_smoke.py;
+//                           scripts/torch_k6_phases.py's `chained`)
 //   rows staged       32    the 14 KB left beside the f32 planes
 //   threads           256   two consumer warpgroups, no producer warp: one
 //                           thread issues the copies between its MMAs
