@@ -1,176 +1,394 @@
-// K7 on Hopper: Householder QR of one tall panel A (m x n), n <= 256.
+// K7 on Hopper: Householder QR of one tall panel A (m x n), n <= 256, with
+// the panel resident in shared memory across P co-resident CTAs.
 //
 // Replaces the Pallas kernel dmd_era5_tpu/ops/qr_panel.py::
-// _householder_kernel (behind householder_panel, :290), the backward-stable
-// TSQR leaf (dmd_era5_tpu/ops/tsqr.py:91-98) that re-orthonormalises the
-// (T x r) iterate of the streamed randomized SVD between its passes.  It
-// computes what the Pallas kernel computes, column by column j:
+// _householder_kernel (:212, behind householder_panel, :290), the
+// backward-stable TSQR leaf (dmd_era5_tpu/ops/tsqr.py:91-98) that
+// re-orthonormalises the (T x r) iterate of the streamed randomized SVD
+// between its passes.  It computes what the Pallas kernel computes, column
+// by column j:
 //
 //   sigma = |A[j:, j]|^2;  sign = +1 where a_jj >= 0, else -1;
 //   alpha = -sign sqrt(sigma);  v = A[j:, j] - alpha e_j;
 //   beta = 2 / v^T v, or 0 where v^T v = 0;
-//   A[j:, j:] -= v (beta v^T A[j:, j:])      (columns >= j only)
+//   A[j:, j:] -= v (beta v^T A[j:, j:])
 //
-// then R = the upper triangle of A's first n rows, and Q = the reflectors
-// applied in reverse to the first n columns of the identity.  The
-// diag(R) >= 0 sign fix is left to the caller, as the JAX package applies
-// it outside pallas_call.
+// then R = the upper triangle of the first n rows and Q = H_0 ... H_{n-1}
+// I[:, :n], and takes diag(R) >= 0 itself (sign(0) -> +1): row j of R and
+// column j of Q are written with alpha_j's sign.  All sums are f32, in
+// another order than the Pallas kernel's.
 //
-// The Pallas kernel keeps the panel resident in VMEM.  Its envelope
-// (3 m n 4 bytes <= 12 MiB: up to 1,048,576 floats, e.g. 8,760 x 110 or
-// 4,096 x 256) is far past the 227 KB of shared memory of one CTA, so here
-// one CTA of 1,024 threads factors the panel in device memory, where it
-// stays L2-resident (4 MB at most): the working panel is the Q output
-// buffer, the reflectors go to a (n x m) scratch, beta and the per-column
-// partial sums to shared memory.  |A[j:, j]|^2 and v^T v are block
-// reductions in a fixed order; v^T A over the trailing columns maps
-// neighbouring threads to neighbouring columns of a row (coalesced), with
-// the rows split over thread groups whose partials are summed in a fixed
-// order.  Every sum is f32, as in the Pallas kernel.  The reverse pass for
-// Q touches only columns >= j: the columns left of j are zero in rows >= j
-// there, so their products with v are exactly zero in the Pallas kernel
-// too.
+// What bounds it.  4 m n^2 - 4 n^3 / 3 f32 flops and 8 m n + 4 n^2 bytes
+// are microseconds at most on an H100 (0.016 ms at 4,096 x 256).  The
+// factorization is a chain of n dependent reflectors, each of which needs
+// sums over every row of the panel before any row can take it, so what
+// bounds it is the latency of n dependent exchanges, against the library
+// QR's time.
 //
-// What bounds it on an H100: 4 m n^2 - 4 n^3 / 3 flops against 8 m n
-// bytes -- at the slice's (168 x 110), 6.4 MFLOP, well under a microsecond
-// at the 67 TFLOP/s f32 peak.  In practice one CTA walks 2 n dependent
-// steps, each a few barriers and a pass over the trailing panel from L2,
-// so latency bounds it.  At (168 x 110) the panel (74 KB) would fit shared
-// memory; that, and a blocked (WY) form that turns the trailing updates
-// into matrix products, are left to later work.
+// The design.  The rows are split into P contiguous shares, one CTA of
+// 1,024 threads an SM, launched cooperatively so that all are resident
+// (P = 1: an ordinary launch, every exchange a block barrier).  Each CTA
+// holds its share of all n columns in shared memory for the whole launch;
+// device memory sees only the first read of A, the exchanges and the last
+// writes of Q and R.  The reflectors stay below the diagonal of their
+// columns, as LAPACK stores them.  One grid-wide exchange a reflector:
+// after a CTA applies reflector j - 1 to its rows, in the same pass it
+// takes the dot products of the new column j, over its rows below row j,
+// with every column of its share (c >= j: v^T A and sigma; c < j: V^T v_j
+// for the compact WY form).  It writes them to a double-buffered global
+// slot (j mod 2); the CTA that holds row j writes row j.  After one grid
+// barrier (a counter on a global word, zeroed by the caller) every CTA sums
+// the P partials in the same fixed order, with the same code, so all of
+// them apply bitwise-identical reflectors.  A thread (g, c) owns column c
+// of every G-th row of its share (G = 1,024 / n row groups); column j + 1,
+// the next reflector, is not written back during the pass that updates it
+// (each thread recomputes its new value from the old one, and the new
+// column goes to a separate buffer), so the pass needs no barrier inside.
+// Every CTA builds the WY factor T column by column from V^T v_j,
+//   T[0:j, j] = -beta_j T[0:j, 0:j] (V^T v_j)[0:j],  T[j, j] = beta_j,
+// during the barrier's exchange, packed upper in shared memory (n (n+1)/2
+// floats: 128.5 KB at n = 256, which caps a share at 90 rows there; the
+// caller sizes P so that the share fits).  The CTA that holds row j writes
+// R's row j and V's row j of the top n x n block to device memory as the
+// reflector is known.  After the last reflector and one more barrier each
+// CTA forms X = V_rows T in place, loads V_top over T and writes its rows
+// of Q = I[:, :n] - X V_top^T, all f32 FMAs on the CUDA cores.  That is
+// n + 1 grid barriers, against 2 n dependent sweeps in the Pallas kernel.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
 constexpr int N_MAX = 256;
 
-struct Shared {
-  float2 red[WARPS];   // per-warp partials of a block reduction
-  float part[THREADS]; // per-thread partials of v^T A
-  float wcol[N_MAX];   // beta v^T A, per trailing column
-  float beta[N_MAX];   // one per reflector
+__host__ __device__ inline int tri(int n) { return n * (n + 1) / 2; }
+
+// (a, b), a <= b, of an n x n upper triangle packed by rows
+__host__ __device__ inline int pk(int a, int b, int n) { return a * n - a * (a - 1) / 2 + (b - a); }
+
+__host__ __device__ inline int share_start(int p, int m, int P) {
+  return (int)((long long)p * m / P);
+}
+
+// Offsets, in floats, of the arrays in dynamic shared memory.  The total is
+// rows_cap (n + 2) + n (n + 1) / 2 + 2 THREADS + 8 n floats, the formula of
+// ops/qr_panel.py::_householder_smem_bytes.
+struct Layout {
+  int w, t, vbuf, part, seg, xslot, xrow, rowbuf, ybuf, vdiag, sgn, total;
 };
 
-// (sum of a, sum of b) over the block, the same value in every thread.
-__device__ float2 block_sum2(float a, float b, Shared& sh) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  if ((threadIdx.x & 31) == 0) sh.red[threadIdx.x >> 5] = make_float2(a, b);
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-  for (int w = 0; w < WARPS; ++w) {
-    s.x += sh.red[w].x;
-    s.y += sh.red[w].y;
-  }
-  __syncthreads();  // red is reused by the next reduction
-  return s;
+__host__ __device__ inline Layout layout(int rows_cap, int n) {
+  Layout L;
+  L.w = 0;                           // the share, rows_cap x n row-major
+  L.t = L.w + rows_cap * n;          // T, then V_top^T, packed upper
+  L.vbuf = L.t + tri(n);             // the next reflector's column, 2 x rows_cap
+  L.part = L.vbuf + 2 * rows_cap;    // per-thread partial dots, G x n
+  L.seg = L.part + THREADS;          // per-segment sums of the P partials
+  L.xslot = L.seg + THREADS;         // P = 1: the exchange's sums, 2 x n
+  L.xrow = L.xslot + 2 * n;          // P = 1: the exchange's row j, 2 x n
+  L.rowbuf = L.xrow + 2 * n;         // row j
+  L.ybuf = L.rowbuf + n;             // V^T v_j
+  L.vdiag = L.ybuf + n;              // v_jj
+  L.sgn = L.vdiag + n;               // sign of alpha_j
+  L.total = L.sgn + n;
+  return L;
 }
 
-// work[j:, j:] -= v (beta v^T work[j:, j:]), v = vj[j:].  The trailing
-// columns take `lanes` threads (a power of two >= n - j, at least a warp),
-// the rows are split over THREADS / lanes groups.  Neither pointer is
-// declared read-only: both are written earlier in the same launch.
-__device__ void apply_reflector(float* work, const float* vj, float beta,
-                                int m, int n, int j, Shared& sh) {
-  const int cols = n - j;
-  int lanes = 32;
-  while (lanes < cols) lanes <<= 1;
-  const int groups = THREADS / lanes;
-  const int t = threadIdx.x;
-  const int lc = t % lanes;
-  const int grp = t / lanes;
-  const int c = j + lc;
-
-  float s = 0.f;
-  if (lc < cols) {
-    for (int i = j + grp; i < m; i += groups) {
-      s = fmaf(vj[i], work[(size_t)i * n + c], s);
-    }
-  }
-  sh.part[t] = s;
-  __syncthreads();
-  if (t < cols) {
-    float tot = 0.f;
-    for (int g = 0; g < groups; ++g) tot += sh.part[g * lanes + t];
-    sh.wcol[t] = beta * tot;
-  }
-  __syncthreads();
-  if (lc < cols) {
-    const float wc = sh.wcol[lc];
-    for (int i = j + grp; i < m; i += groups) {
-      const size_t e = (size_t)i * n + c;
-      work[e] = work[e] - vj[i] * wc;
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    householder_kernel(const float* __restrict__ a, float* q, float* r,
-                       float* v, int m, int n) {
-  __shared__ Shared sh;
-  const int t = threadIdx.x;
-  const size_t mn = (size_t)m * n;
-  float* work = q;  // the working panel, then Q
-
-  for (size_t e = t; e < mn; e += THREADS) work[e] = a[e];
+// Every CTA's writes before it are visible to every CTA after it.  The
+// count only grows: the k-th barrier of the launch waits for k P arrivals.
+template <bool SINGLE>
+__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
   __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    float all = 0.f;    // |A[j:, j]|^2
-    float below = 0.f;  // |A[j+1:, j]|^2
-    for (int i = j + t; i < m; i += THREADS) {
-      const float x = work[(size_t)i * n + j];
-      all = fmaf(x, x, all);
-      if (i > j) below = fmaf(x, x, below);
+  if constexpr (!SINGLE) {
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(count, 1u);
+      // a CTA that never arrives (not resident) traps after ~10 s, not a hang
+      const long long t0 = clock64();
+      while (ld_acquire(count) < target) {
+        if (clock64() - t0 > 20000000000LL) __trap();
+      }
+      __threadfence();
     }
-    const float2 s = block_sum2(all, below, sh);
-    const float ajj = work[(size_t)j * n + j];
-    const float sign = ajj >= 0.f ? 1.f : -1.f;
-    const float alpha = -sign * sqrtf(s.x);
-    const float vjj = ajj - alpha;
-    const float vtv = s.y + vjj * vjj;
-    const float beta = vtv > 0.f ? 2.f / vtv : 0.f;
-    float* vj = v + (size_t)j * m;
-    for (int i = j + t; i < m; i += THREADS) {
-      vj[i] = (i == j) ? vjj : work[(size_t)i * n + j];
-    }
-    if (t == 0) sh.beta[j] = beta;
     __syncthreads();
-    apply_reflector(work, vj, beta, m, n, j, sh);
+  }
+}
+
+// T[0:j, j] = -beta T[0:j, 0:j] y[0:j], T[j, j] = beta: a warp a row of T,
+// its lanes over the row's entries, one fixed reduction order.
+__device__ void t_column(float* T, const float* y, float beta, int j, int n) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int k = warp; k < j; k += THREADS / 32) {
+    float s = 0.f;
+    for (int l = k + lane; l < j; l += 32) s = fmaf(T[pk(k, l, n)], y[l], s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) T[pk(k, j, n)] = -beta * s;
+  }
+  if (threadIdx.x == 0) T[pk(j, j, n)] = beta;
+}
+
+// xg: the global exchange, slot[2][P][n] partial sums, row[2][n], then
+// V_top^T packed upper (n (n+1) / 2); count: the barrier's word, 0 at launch.
+template <bool SINGLE>
+__global__ void __launch_bounds__(THREADS, 1)
+    householder_kernel(const float* __restrict__ a, float* __restrict__ q,
+                       float* __restrict__ r, float* xg, unsigned* count,
+                       int m, int n, int P) {
+  extern __shared__ float sm[];
+  const int p = blockIdx.x;
+  const int r0 = share_start(p, m, P);
+  const int rows = share_start(p + 1, m, P) - r0;
+  const int rows_cap = (m + P - 1) / P;
+  const Layout L = layout(rows_cap, n);
+  float* W = sm + L.w;
+  float* T = sm + L.t;
+  float* vbuf = sm + L.vbuf;
+  float* part = sm + L.part;
+  float* rowbuf = sm + L.rowbuf;
+  float* ybuf = sm + L.ybuf;
+  float* vdiag = sm + L.vdiag;
+  float* sgn = sm + L.sgn;
+  float* gslot = xg;
+  float* grow = xg + 2 * P * n;
+  float* vtop = grow + 2 * n;
+
+  const int tid = threadIdx.x;
+  const int G = THREADS / n;  // row groups; thread (g, c) = g n + c
+  const int g = tid / n, c = tid % n;
+  const bool lane_on = g < G;
+  const int S = SINGLE ? 1 : min(G, P);  // segments of the sum over the P partials
+
+  // row j of the panel as it enters step j, written by the CTA that holds it
+  auto write_row = [&](int j, int col, float x) {
+    if constexpr (SINGLE) {
+      sm[L.xrow + (j & 1) * n + col] = x;
+    } else {
+      __stcg(grow + (j & 1) * n + col, x);
+    }
+  };
+
+  for (int e = tid; e < rows * n; e += THREADS) W[e] = a[(size_t)r0 * n + e];
+  __syncthreads();
+
+  // column 0's dots with every column, below row 0
+  float pc = 0.f;
+  if (lane_on) {
+    for (int li = g; li < rows; li += G) {
+      const float x0 = W[li * n], xc = W[li * n + c];
+      if (c == 0) vbuf[li] = x0;
+      if (r0 + li > 0) {
+        pc = fmaf(x0, xc, pc);
+      } else {
+        write_row(0, c, xc);
+      }
+    }
+  }
+  part[tid] = pc;
+
+  float beta_prev = 0.f;
+  for (int j = 0; j < n; ++j) {
+    // the exchange: this CTA's sums over its row groups, T's column j - 1
+    // meanwhile, one barrier, then the P partials summed in fixed order
+    __syncthreads();
+    if (tid < n) {
+      float s = 0.f;
+      for (int gg = 0; gg < G; ++gg) s += part[gg * n + tid];
+      if constexpr (SINGLE) {
+        sm[L.xslot + (j & 1) * n + tid] = s;
+      } else {
+        __stcg(gslot + ((j & 1) * P + p) * n + tid, s);
+      }
+    }
+    if (j > 0) t_column(T, ybuf, beta_prev, j - 1, n);
+    grid_barrier<SINGLE>(count, (unsigned)(j + 1) * P);
+    const float* segp;
+    const float* rowp;
+    if constexpr (SINGLE) {
+      segp = sm + L.xslot + (j & 1) * n;
+      rowp = sm + L.xrow + (j & 1) * n;
+    } else {
+      float* seg = sm + L.seg;
+      if (lane_on && g < S) {
+        float s = 0.f;
+        const float* src = gslot + (j & 1) * P * n + c;
+        for (int pp = g * P / S; pp < (g + 1) * P / S; ++pp) s += __ldcg(src + pp * n);
+        seg[g * n + c] = s;
+      }
+      if (tid < n) rowbuf[tid] = __ldcg(grow + (j & 1) * n + tid);
+      __syncthreads();
+      segp = seg;
+      rowp = rowbuf;
+    }
+    auto tot = [&](int col) {  // sum over rows below j of column j times column col
+      float s = 0.f;
+      for (int k = 0; k < S; ++k) s += segp[k * n + col];
+      return s;
+    };
+
+    // the reflector, the same in every thread of every CTA
+    const float ajj = rowp[j];
+    const float below = tot(j);
+    const float alpha = -(ajj >= 0.f ? 1.f : -1.f) * sqrtf(fmaf(ajj, ajj, below));
+    const float vjj = ajj - alpha;
+    const float vtv = fmaf(vjj, vjj, below);
+    const float beta = vtv > 0.f ? 2.f / vtv : 0.f;
+    const float sgn_j = alpha < 0.f ? -1.f : 1.f;
+    float wc = 0.f;
+    if (lane_on) {
+      const float dot = fmaf(vjj, rowp[c], tot(c));  // v^T A[j:, c]
+      wc = beta * dot;
+      if (g == 0) {
+        if (c < j) ybuf[c] = dot;
+        if (p == j % P) {  // R's row j and V_top's row j
+          r[(size_t)j * n + c] = c < j ? 0.f : (c == j ? fabsf(alpha) : sgn_j * fmaf(-vjj, wc, rowp[c]));
+          if (c <= j) vtop[pk(c, j, n)] = c < j ? rowp[c] : vjj;
+        }
+      }
+    }
+    const float w1 = j + 1 < n ? beta * fmaf(vjj, rowp[j + 1], tot(j + 1)) : 0.f;
+    if (tid == 0) {
+      vdiag[j] = vjj;
+      sgn[j] = sgn_j;
+    }
+    beta_prev = beta;
+
+    // reflector j on the rows below j, and column j + 1's dots with every
+    // column below row j + 1.  Column j + 1 is read, never written, here.
+    const float* vcur = vbuf + (j & 1) * rows_cap;
+    float* vnext = vbuf + ((j + 1) & 1) * rows_cap;
+    pc = 0.f;
+    if (lane_on) {
+      for (int li = g; li < rows; li += G) {
+        const int i = r0 + li;
+        if (i <= j) continue;
+        const float v = vcur[li];
+        float* wr = W + li * n;
+        float xc;
+        if (c > j) {
+          xc = fmaf(-v, wc, wr[c]);
+        } else if (c == j) {
+          xc = v;
+          wr[j] = v;
+        } else {
+          xc = wr[c];
+        }
+        if (j + 1 < n) {
+          const float nv = fmaf(-v, w1, wr[j + 1]);  // == xc where c == j + 1
+          if (c == j + 1) {
+            vnext[li] = nv;
+          } else if (c > j + 1) {
+            wr[c] = xc;
+          }
+          if (i > j + 1) {
+            pc = fmaf(nv, xc, pc);
+          } else {
+            write_row(j + 1, c, xc);
+          }
+        }
+      }
+    }
+    part[tid] = pc;
   }
 
-  for (int e = t; e < n * n; e += THREADS) {
-    const int row = e / n;
-    const int col = e % n;
-    r[e] = row <= col ? work[(size_t)row * n + col] : 0.f;
+  // T's last column; V_top complete in device memory after one more barrier
+  __syncthreads();
+  t_column(T, ybuf, beta_prev, n - 1, n);
+  grid_barrier<SINGLE>(count, (unsigned)(n + 1) * P);
+
+  // X = V_rows T, in place a row group at a time
+  const int iters = (rows + G - 1) / G;
+  for (int k = 0; k < iters; ++k) {
+    const int li = g + k * G;
+    const bool on = lane_on && li < rows;
+    float x = 0.f;
+    if (on) {
+      const int i = r0 + li;
+      const float* wr = W + li * n;
+      const int kmax = min(c, i);  // V[i, kk] = 0 past the diagonal
+      for (int kk = 0; kk <= kmax; ++kk) {
+        const float vik = kk < i ? wr[kk] : vdiag[kk];
+        x = fmaf(vik, T[pk(kk, c, n)], x);
+      }
+    }
+    __syncthreads();
+    if (on) W[li * n + c] = x;
   }
   __syncthreads();
-  for (size_t e = t; e < mn; e += THREADS) {
-    work[e] = (e / n == e % n) ? 1.f : 0.f;
-  }
+  for (int e = tid; e < tri(n); e += THREADS) T[e] = __ldcg(vtop + e);
   __syncthreads();
-  for (int j = n - 1; j >= 0; --j) {
-    apply_reflector(work, v + (size_t)j * m, sh.beta[j], m, n, j, sh);
+
+  // Q = I[:, :n] - X V_top^T, column c times the sign of alpha_c
+  if (lane_on) {
+    for (int li = g; li < rows; li += G) {
+      const int i = r0 + li;
+      const float* xr = W + li * n;
+      float s = 0.f;
+      for (int l = 0; l <= c; ++l) s = fmaf(xr[l], T[pk(l, c, n)], s);
+      q[(size_t)i * n + c] = sgn[c] * ((i == c ? 1.f : 0.f) - s);
+    }
   }
+}
+
+template <bool SINGLE>
+cudaError_t allow_smem(int dev, int bytes) {
+  static int allowed[64] = {};  // the opt-in maximum, set once a device
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (bytes > optin) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(householder_kernel<SINGLE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e == cudaSuccess) allowed[dev] = optin;
+  return e;
 }
 
 }  // namespace
 
-// Q (m x n) and R (n x n) of a row-major f32 panel a (m x n), m >= n,
-// 1 <= n <= 256; v is (n x m) f32 scratch.  R's diagonal keeps the sign the
-// reflectors give it.  Returns a cudaError_t code: 0 when the kernel was
-// launched.
-extern "C" int householder_launch(const float* a, float* q, float* r, float* v,
-                                  int m, int n, void* stream) {
-  if (n < 1 || n > N_MAX || m < n) return (int)cudaErrorInvalidValue;
-  householder_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, q, r, v, m, n);
-  return (int)cudaGetLastError();
+// Shared memory of one CTA, in bytes, for a share of at most rows_cap rows.
+extern "C" long long householder_smem_bytes(int rows_cap, int n) {
+  return (long long)sizeof(float) * layout(rows_cap, n).total;
+}
+
+// The shared memory a CTA may opt into on device dev, in bytes.
+extern "C" int householder_smem_optin(int dev, int* out) {
+  return (int)cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// Q (m x n) and R (n x n), diag(R) >= 0, of a row-major f32 panel a
+// (m x n), m >= n, 1 <= n <= 256, on P CTAs (1 <= P <= m, all resident).
+// xg: f32 scratch of 2 P n + 2 n + n (n + 1) / 2; count: one unsigned,
+// zero at launch (unused at P = 1).  Returns a cudaError_t code: 0 when
+// the kernel was launched.
+extern "C" int householder_launch(const float* a, float* q, float* r, float* xg,
+                                  unsigned* count, int m, int n, int P, void* stream) {
+  if (n < 1 || n > N_MAX || m < n || P < 1 || P > m) return (int)cudaErrorInvalidValue;
+  const int rows_cap = (m + P - 1) / P;
+  const int bytes = (int)householder_smem_bytes(rows_cap, n);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P == 1) {
+    e = allow_smem<true>(dev, bytes);
+    if (e != cudaSuccess) return (int)e;
+    householder_kernel<true><<<1, THREADS, bytes, s>>>(a, q, r, xg, count, m, n, P);
+    return (int)cudaGetLastError();
+  }
+  e = allow_smem<false>(dev, bytes);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&a, (void*)&q, (void*)&r, (void*)&xg, (void*)&count,
+                  (void*)&m, (void*)&n, (void*)&P};
+  e = cudaLaunchCooperativeKernel((const void*)householder_kernel<false>, dim3(P),
+                                  dim3(THREADS), args, (size_t)bytes, s);
+  return (int)e;
 }

@@ -27,7 +27,8 @@ import torch
 from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 from dmd_era5_tpu_torch.utils.linalg import safe_cholesky
 
-__all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel", "PRECISIONS"]
+__all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel",
+           "householder_shares", "PRECISIONS"]
 
 PRECISIONS = ("highest", "bf16_split")
 _OB = 64  # edge of K4's output blocks of G
@@ -203,7 +204,7 @@ def cholqr2_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------------------------------- Householder panel
 
-PANEL_N_MAX = 256  # widest panel of the Householder kernel (its shared arrays)
+PANEL_N_MAX = 256  # widest panel of the Householder kernel
 
 
 def _check_panel(a: torch.Tensor) -> None:
@@ -245,6 +246,47 @@ def _householder_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, r
 
 
+# K7's CTAs: 1,024 threads each, one an SM, launched together (cooperative)
+_HH_THREADS = 1024
+# K7's row shares, measured on an H100 (scripts/torch_k7_phases.py): one CTA
+# up to this many rows, else about this many rows a CTA, by panel width
+# (n_max, single_rows_max, rows_per_cta)
+_HH_SHARE_TABLE = ((128, 512, 64), (256, 256, 32))
+
+
+def _householder_smem_bytes(rows_cap: int, n: int) -> int:
+    """Shared memory of one K7 CTA whose share has at most ``rows_cap``
+    rows: the share, T (n (n+1) / 2), two reflector columns, the
+    per-thread partials and the small vectors (``csrc/householder.cu::
+    layout``)."""
+    return 4 * (rows_cap * (n + 2) + n * (n + 1) // 2 + 2 * _HH_THREADS + 8 * n)
+
+
+def householder_shares(m: int, n: int, sms: int, smem_budget: int) -> list[tuple[int, int]]:
+    """K7's row shares of an (m, n) panel, one CTA each: contiguous
+    ``[start, stop)`` ranges covering ``range(m)``, ``start = p m // P``.
+
+    P comes from ``_HH_SHARE_TABLE``, is raised to the fewest CTAs whose
+    shares fit ``smem_budget`` bytes of shared memory each, and is at most
+    ``sms`` (all CTAs resident, one an SM) and m.  Raises ``ValueError``
+    where even ``sms`` CTAs cannot hold the panel.
+    """
+    if n < 1 or m < n:
+        raise ValueError(f"need an (m, n) panel with m >= n >= 1, got {m} x {n}")
+    fit = next((p for p in range(1, min(sms, m) + 1)
+                if _householder_smem_bytes(-(-m // p), n) <= smem_budget), None)
+    if fit is None:
+        cap = max((smem_budget // 4 - n * (n + 1) // 2 - 2 * _HH_THREADS - 8 * n) // (n + 2), 0)
+        raise ValueError(
+            f"householder_panel: a {m} x {n} panel needs more than {sms} CTAs of "
+            f"{smem_budget} bytes of shared memory (at most {cap} rows a CTA, "
+            f"{cap * min(sms, m)} rows in all at n = {n})")
+    single_max, per_cta = next((s, r) for n_max, s, r in _HH_SHARE_TABLE if n <= n_max)
+    want = 1 if m <= single_max else -(-m // per_cta)
+    ctas = min(max(want, fit), sms, m)
+    return [(p * m // ctas, (p + 1) * m // ctas) for p in range(ctas)]
+
+
 _HH_LIB = None
 
 
@@ -255,29 +297,57 @@ def _householder_library():
 
         lib = load_kernel_library("householder")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # a, q, r, reflector scratch, m, n, stream
-        lib.householder_launch.argtypes = [ptr, ptr, ptr, ptr, flag, flag, ptr]
+        # a, q, r, exchange scratch, barrier word, m, n, CTAs, stream
+        lib.householder_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, flag, flag, flag, ptr]
         lib.householder_launch.restype = ctypes.c_int
+        lib.householder_smem_optin.argtypes = [flag, ptr]  # device, &out
+        lib.householder_smem_optin.restype = ctypes.c_int
         _HH_LIB = lib
     return _HH_LIB
 
 
-def _householder_cuda(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+_HH_LIMITS: dict[int, tuple[int, int]] = {}
+
+
+def _householder_limits(dev) -> tuple[int, int]:
+    """(SMs, opt-in shared memory a CTA) of the card, cached a device."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _HH_LIMITS:
+        optin = ctypes.c_int(0)
+        rc = _householder_library().householder_smem_optin(index, ctypes.addressof(optin))
+        if rc != 0:
+            raise RuntimeError(f"householder kernel: CUDA error {rc}")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _HH_LIMITS[index] = (sms, optin.value)
+    return _HH_LIMITS[index]
+
+
+def _householder_launch(a: torch.Tensor, ctas: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K7 on ``ctas`` CTAs (not counted): (Q, R), diag(R) >= 0."""
     m, n = a.shape
     dev = a.device
     with torch.cuda.device(dev):
         a = a.float().contiguous()
         q = torch.empty((m, n), dtype=torch.float32, device=dev)
         r = torch.empty((n, n), dtype=torch.float32, device=dev)
-        v = torch.empty((n, m), dtype=torch.float32, device=dev)
+        xg = torch.empty(2 * ctas * n + 2 * n + n * (n + 1) // 2, dtype=torch.float32, device=dev)
+        # the grid barrier's word, zero at launch (a single CTA uses none)
+        count = torch.zeros(1 if ctas > 1 else 0, dtype=torch.int32, device=dev)
         rc = _householder_library().householder_launch(
-            a.data_ptr(), q.data_ptr(), r.data_ptr(), v.data_ptr(), m, n,
-            torch.cuda.current_stream(dev).cuda_stream,
+            a.data_ptr(), q.data_ptr(), r.data_ptr(), xg.data_ptr(), count.data_ptr(),
+            m, n, ctas, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"householder kernel: CUDA error {rc}")
-    # v is released on return while the kernel may still run: the caching
-    # allocator hands its memory only to later work on this stream
+    # xg and count are released on return while the kernel may still run:
+    # the caching allocator hands their memory only to later work on this stream
+    return q, r
+
+
+def _householder_cuda(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    m, n = a.shape
+    sms, smem = _householder_limits(a.device)
+    q, r = _householder_launch(a, len(householder_shares(m, n, sms, smem)))
     householder_panel.launches += 1
     return q, r
 
@@ -288,21 +358,23 @@ def householder_panel(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     Counterpart of ``dmd_era5_tpu/ops/qr_panel.py:290`` (kernel K7).  The
     JAX kernel keeps the panel in VMEM, so its caller bounds the panel
-    (``ops/tsqr.py::in_householder_kernel_envelope``); this kernel works
-    in device memory and takes any m.
+    (``ops/tsqr.py::in_householder_kernel_envelope``); this kernel keeps
+    it in the shared memory of up to one CTA an SM
+    (:func:`householder_shares`) and raises ``ValueError`` on a panel
+    they cannot hold (past 57,816 rows at n = 110, 10,692 at n = 256 on
+    an H100, well outside that envelope).
 
-    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    the Hopper kernel and counts it in ``householder_panel.launches``.
-    The sign fix is applied after either, as the JAX package applies it
-    outside its kernel.
+    A CPU tensor takes the plain PyTorch version and the sign fix after
+    it, as the JAX package applies it outside its kernel; a CUDA tensor
+    launches the Hopper kernel, which fixes the signs itself, and counts
+    it in ``householder_panel.launches``.
     """
     _check_panel(a)
-    if a.device.type == "cpu":
-        q, r = _householder_plain(a)
-    elif a.device.type == "cuda":
-        q, r = _householder_cuda(a)
-    else:
+    if a.device.type == "cuda":
+        return _householder_cuda(a)
+    if a.device.type != "cpu":
         raise ValueError(f"no kernel for device {a.device}")
+    q, r = _householder_plain(a)
     signs = torch.sign(torch.diagonal(r))
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     return q * signs[None, :], r * signs[:, None]

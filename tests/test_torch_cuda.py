@@ -12,8 +12,10 @@ and output dtypes, ragged M, N and K on both sides of its tile, column
 and MMA-depth edges and past its resident depth of w, and against one
 TF32 pass; ``householder_panel`` (K7) at
 the streamed SVD's panel, the edges of its envelope and an
-ill-conditioned panel, and the Householder leaf inside and outside that
-envelope.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
+ill-conditioned panel, on its own choice of CTAs and on forced ones
+(shares shorter than n, row j's holder at share edges, a zero column in
+a late share, m no multiple of the CTAs), past its capacity, and the
+Householder leaf inside and outside that envelope.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
 is not needed, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -184,28 +186,53 @@ def _panel(kind: str, gen, dev):
         a = torch.randn((300, 40), generator=gen, device=dev)
         a[:, 7] = 0.0
         return a
+    if kind == "zero_col_late":  # 20 CTAs of 10 rows: column 117's row is in the 12th
+        a = torch.randn((200, 120), generator=gen, device=dev)
+        a[:, 117] = 0.0
+        return a
     m, n = (int(v) for v in kind.split("x"))
     return torch.randn((m, n), generator=gen, device=dev)
 
 
+# (panel, CTAs): None takes householder_panel's own choice and counts the
+# launch; a number forces that many CTAs through the uncounted launch
+HOUSEHOLDER_CASES = [
+    pytest.param(kind, None, id=kind)
+    for kind in ["168x110", "8760x110", "4096x256", "64x64", "65x1", "ill", "zero_col"]
+] + [
+    pytest.param("1000x200", 132, id="p132-shares-shorter-than-n"),
+    pytest.param("256x128", 4, id="p4-row-holder-at-share-edges"),
+    pytest.param("zero_col_late", 20, id="p20-zero-column-in-a-late-share"),
+    pytest.param("1003x50", 7, id="p7-m-not-a-multiple"),
+    pytest.param("168x110", 3, id="p3-week-iterate"),
+    pytest.param("64x64", 64, id="p64-one-row-a-cta"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["168x110", "8760x110", "4096x256", "64x64", "65x1", "ill", "zero_col"])
-def test_householder_kernel_matches_plain_on_card(cuda, kind):
+@pytest.mark.parametrize("kind,ctas", HOUSEHOLDER_CASES)
+def test_householder_kernel_matches_plain_on_card(cuda, kind, ctas):
     """Q orthonormal and Q R == A as tests/test_08_kernels.py:245-270
     holds them (1e-4 and, for the ill-conditioned panel, 1e-3 and atol
     1.0), for the kernel and the plain version alike; R's entries agree
     to 1e-5 of max|R| (the same arithmetic summed in another order) and,
-    on the Gaussian panels, cond < 10, Q's to 5e-5 in Frobenius norm."""
+    on the Gaussian panels, cond < 10, Q's to 5e-5 in Frobenius norm.
+    Forced CTA counts put shares shorter than n, row j's holder at share
+    edges, a zero column whose row lies in a late share and a ragged last
+    share on the card."""
     gen = torch.Generator(device=cuda).manual_seed(17)
     a = _panel(kind, gen, cuda)
     m, n = a.shape
     before = qr_panel.householder_panel.launches
-    q, r = qr_panel.householder_panel(a)
+    if ctas is None:
+        q, r = qr_panel.householder_panel(a)
+    else:
+        q, r = qr_panel._householder_launch(a, ctas)
     q_p, r_p = qr_panel._householder_plain(a)
     signs = torch.where(torch.diagonal(r_p) < 0, -1.0, 1.0)
     q_p, r_p = q_p * signs, r_p * signs[:, None]
     torch.cuda.synchronize()
-    assert qr_panel.householder_panel.launches == before + 1
+    assert qr_panel.householder_panel.launches == before + (ctas is None)
     assert q.shape == (m, n) and r.shape == (n, n)
     assert bool((torch.diagonal(r) >= 0).all()) and torch.equal(r, torch.triu(r))
     eye = torch.eye(n, dtype=torch.float64, device=cuda)
@@ -220,8 +247,30 @@ def test_householder_kernel_matches_plain_on_card(cuda, kind):
             rec = float((qq.double() @ rr.double() - a64).norm() / a64.norm())
             assert rec <= 1e-5, rec
     assert float((r - r_p).abs().max()) <= 1e-5 * float(r_p.abs().max())
-    if kind not in ("ill", "zero_col"):
+    if kind.startswith("zero_col"):
+        zc = 7 if kind == "zero_col" else 117
+        assert float(r[zc, zc]) == 0.0
+    elif kind != "ill":
         assert float((q.double() - q_p.double()).norm() / q_p.double().norm()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_householder_kernel_capacity_on_card(cuda):
+    """A panel past what one CTA an SM holds in shared memory raises
+    ValueError, naming the limit, and launches nothing."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, smem = qr_panel._householder_limits(cuda)
+    rows = 1
+    while qr_panel._householder_smem_bytes(rows + 1, 256) <= smem:
+        rows += 1
+    before = qr_panel.householder_panel.launches
+    with pytest.raises(ValueError, match="rows a CTA"):
+        qr_panel.householder_panel(torch.zeros((rows * sms + 1, 256), device=cuda))
+    assert qr_panel.householder_panel.launches == before
+    q, r = qr_panel.householder_panel(torch.randn((rows * sms, 256), device=cuda))
+    torch.cuda.synchronize()
+    assert qr_panel.householder_panel.launches == before + 1
+    assert bool(torch.isfinite(q).all()) and bool((torch.diagonal(r) >= 0).all())
 
 
 @pytest.mark.cuda

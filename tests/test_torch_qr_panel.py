@@ -230,3 +230,128 @@ def test_householder_panel_checks():
         qr_panel.householder_panel(torch.zeros(8, 4, dtype=torch.float64))
     with pytest.raises(ValueError, match="no kernel for device"):
         qr_panel.householder_panel(torch.zeros(8, 4, device="meta"))
+
+
+# H100: 132 SMs, 227 KB of shared memory a CTA may opt into
+_SMS, _SMEM = 132, 232_448
+
+
+@pytest.mark.parametrize("m,n", [(168, 110), (8760, 110), (4096, 256), (64, 64), (65, 1),
+                                 (1000, 40), (9532, 110), (10_600, 256), (40_000, 96)])
+def test_householder_shares(m, n):
+    """K7's row shares: contiguous, covering every row once, each within
+    the shared-memory budget, at most one CTA an SM and no more CTAs than
+    rows; the week's (168, 110) iterate takes one CTA."""
+    shares = qr_panel.householder_shares(m, n, _SMS, _SMEM)
+    assert 1 <= len(shares) <= min(_SMS, m)
+    assert shares[0][0] == 0 and shares[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    assert all(lo < hi for lo, hi in shares)
+    rows_cap = max(hi - lo for lo, hi in shares)
+    assert rows_cap == -(-m // len(shares))  # the kernel sizes its shared memory by this
+    assert qr_panel._householder_smem_bytes(rows_cap, n) <= _SMEM
+    p = len(shares)
+    assert shares == [(k * m // p, (k + 1) * m // p) for k in range(p)]  # csrc share_start
+    if (m, n) == (168, 110):
+        assert p == 1
+
+
+def test_householder_shares_capacity():
+    """Past what all the SMs' shared memory holds the wrapper raises,
+    naming the limit; fewer SMs hold fewer rows.  The JAX package's
+    envelope (m n <= 1,048,576) lies well inside."""
+    with pytest.raises(ValueError, match="rows a CTA"):
+        qr_panel.householder_shares(10_700, 256, _SMS, _SMEM)
+    assert len(qr_panel.householder_shares(10_692, 256, _SMS, _SMEM)) == _SMS
+    with pytest.raises(ValueError, match="needs more than 4 CTAs"):
+        qr_panel.householder_shares(8760, 110, 4, _SMEM)
+    for n in (1, 32, 110, 128, 200, 256):
+        m = max(n, 1_048_576 // n)
+        assert len(qr_panel.householder_shares(m, n, _SMS, _SMEM)) <= _SMS
+
+
+def _kernel_schedule(a: np.ndarray, n_shares: int) -> tuple[np.ndarray, np.ndarray]:
+    """The schedule of ``csrc/householder.cu`` in torch ops, f32: the rows
+    in ``n_shares`` contiguous shares; at step j each share's dots of
+    column j with every column over its rows below j, summed in share
+    order, and row j from its share; the reflector's scalars from those;
+    R's row j and V_top's row j as the reflector is known; T's column j
+    from V^T v_j; then Q = I[:, :n] - (V T) V_top^T and the signs of
+    alpha on R's rows and Q's columns."""
+    w = torch.from_numpy(a).float().clone()
+    m, n = w.shape
+    bounds = [(p * m // n_shares, (p + 1) * m // n_shares) for p in range(n_shares)]
+    t = torch.zeros((n, n))
+    r = torch.zeros((n, n))
+    v_top = torch.zeros((n, n))
+    v_diag = torch.zeros(n)
+    sgn = torch.ones(n)
+    for j in range(n):
+        tot = torch.zeros(n)
+        for lo, hi in bounds:
+            lo = max(lo, j + 1)
+            if lo < hi:
+                tot = tot + w[lo:hi, j] @ w[lo:hi]
+        row = w[j].clone()
+        ajj, below = row[j], tot[j]
+        alpha = -(1.0 if ajj >= 0 else -1.0) * torch.sqrt(ajj * ajj + below)
+        vjj = ajj - alpha
+        vtv = vjj * vjj + below
+        beta = 2.0 / vtv if vtv > 0 else torch.zeros(())
+        dot = vjj * row + tot  # v^T A[j:, c] for c >= j, (V^T v_j)_c for c < j
+        wc = beta * dot
+        s = -1.0 if alpha < 0 else 1.0
+        r[j, j] = alpha.abs()
+        r[j, j + 1:] = s * (row[j + 1:] - vjj * wc[j + 1:])
+        v_top[j, :j], v_top[j, j] = row[:j], vjj
+        t[:j, j] = -beta * (t[:j, :j] @ dot[:j])
+        t[j, j] = beta
+        v_diag[j], sgn[j] = vjj, s
+        w[j + 1:, j + 1:] -= w[j + 1:, j:j + 1] * wc[None, j + 1:]
+    v = torch.tril(w[:, :n], -1)
+    v[range(n), range(n)] = v_diag
+    q = (torch.eye(m, n) - (v @ t) @ v_top.T) * sgn[None, :]
+    return q.numpy(), r.numpy()
+
+
+@pytest.mark.parametrize("shares", [1, 2, 5])
+@pytest.mark.parametrize("m,n", [(512, 32), (168, 110), (64, 64), (65, 1)])
+def test_kernel_schedule_parity(rng, shares, m, n):
+    """The kernel's schedule against the JAX kernel (interpret mode), at
+    test_householder_panel_parity's tolerances; with 5 shares of 64 x 64
+    and 168 x 110 the shares are shorter than n, so row j's holder moves
+    from share to share during the factorization."""
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    q, r = _kernel_schedule(a, shares)
+    q_j, r_j = (np.asarray(o) for o in householder_jax(jnp.asarray(a)))
+    np.testing.assert_allclose(q.T @ q, np.eye(n), atol=1e-4)
+    assert np.all(np.diag(r) >= 0) and np.array_equal(r, np.triu(r))
+    np.testing.assert_allclose(r, r_j, rtol=0, atol=1e-5 * np.abs(r_j).max())
+    np.testing.assert_allclose(q, q_j, atol=1e-5)
+
+
+@pytest.mark.parametrize("shares", [1, 2, 5])
+def test_kernel_schedule_ill_conditioned(rng, shares):
+    """test_householder_panel_ill_conditioned's panel and tolerances."""
+    a = rng.standard_normal((256, 16)).astype(np.float32)
+    a[:, 0] *= 1e5
+    a[:, 1] = a[:, 0] + 1e-2 * rng.standard_normal(256).astype(np.float32)
+    q, r = _kernel_schedule(a, shares)
+    r_j = np.asarray(householder_jax(jnp.asarray(a))[1])
+    np.testing.assert_allclose(q.T @ q, np.eye(16), atol=1e-3)
+    np.testing.assert_allclose(q @ r, a, rtol=1e-3, atol=1.0)
+    np.testing.assert_allclose(r, r_j, rtol=0, atol=1e-5 * np.abs(r_j).max())
+
+
+@pytest.mark.parametrize("shares", [1, 2, 5])
+def test_kernel_schedule_zero_column(rng, shares):
+    """test_householder_panel_zero_column's panel: beta = 0 keeps e_j's
+    column in Q through the WY form, and R's zero diagonal is +0."""
+    a = rng.standard_normal((40, 6)).astype(np.float32)
+    a[:, 2] = 0.0
+    q, r = _kernel_schedule(a, shares)
+    q_j, r_j = (np.asarray(o) for o in householder_jax(jnp.asarray(a)))
+    assert r[2, 2] == 0.0 and not np.signbit(r[2, 2])
+    np.testing.assert_allclose(q @ r, a, atol=1e-5)
+    np.testing.assert_allclose(r, r_j, atol=1e-5)
+    np.testing.assert_allclose(q, q_j, atol=1e-5)
