@@ -32,8 +32,9 @@ of which raises on failure so the script exits non-zero:
    another;
 9. the out-of-core SVD at the same size: (a) the tiled matmul K6 and the
    Householder panel K7 against their plain versions at the streamed
-   path's shapes, K6 also against the f64 product with a one-TF32-pass
-   control, and its device time beside the wrapper's; (b) the centred X
+   path's shapes (K7 also at its envelope's edges), K6 also against the
+   f64 product with a one-TF32-pass control, and both kernels' device
+   times beside their wrappers' and the library's; (b) the centred X
    written from the card to a packed
    ``.npy`` artifact (10.47 GB) in a temporary directory (``TMPDIR``),
    deleted at the end; (c) ``streamed_randomized_svd`` on it (65,536-row
@@ -52,8 +53,10 @@ of which raises on failure so the script exits non-zero:
    seed after the week is freed, centred in place, with the exact
    singular values of X and of its d = 2 Hankel embedding from an f64
    Gram and f64 ``eigvalsh``: (a) K2 and K3 against their plain versions
-   at the path's shapes, with times, and K5 on X (K = 8,760) against the
-   f64 Gram of the references (no plain version: it does not fit); (b)
+   at the path's shapes, with times, K5 on X (K = 8,760) against the
+   f64 Gram of the references (no plain version: it does not fit), and
+   K7 on Z = X^T (X Omega) (8,760 x 110, spectrum s^2), the panel that
+   the streamed randomized route's first leaf gets from this year; (b)
    the SVD stage's dispatcher ``svd_on_era5`` on ``config.ini``'s
    ``[era5-svd]`` defaults at that size (hankel, randomized, f32: eight
    two-pass passes); (c) optDMD and

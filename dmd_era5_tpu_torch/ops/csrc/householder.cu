@@ -1,5 +1,5 @@
 // K7 on Hopper: Householder QR of one tall panel A (m x n), n <= 256, with
-// the panel resident in shared memory across P co-resident CTAs.
+// the panel resident on chip across P co-resident CTAs.
 //
 // Replaces the Pallas kernel dmd_era5_tpu/ops/qr_panel.py::
 // _householder_kernel (:212, behind householder_panel, :290), the
@@ -22,78 +22,129 @@
 // are microseconds at most on an H100 (0.016 ms at 4,096 x 256).  The
 // factorization is a chain of n dependent reflectors, each of which needs
 // sums over every row of the panel before any row can take it, so what
-// bounds it is the latency of n dependent exchanges, against the library
-// QR's time.
+// bounds it is the latency of n dependent exchanges, and the instructions
+// each step issues between them, against the library QR's time.
 //
-// The design.  The rows are split into P contiguous shares, one CTA of
-// 1,024 threads an SM, launched cooperatively so that all are resident
-// (P = 1: an ordinary launch, every exchange a block barrier).  Each CTA
-// holds its share of all n columns in shared memory for the whole launch;
-// device memory sees only the first read of A, the exchanges and the last
-// writes of Q and R.  The reflectors stay below the diagonal of their
-// columns, as LAPACK stores them.  One grid-wide exchange a reflector:
-// after a CTA applies reflector j - 1 to its rows, in the same pass it
-// takes the dot products of the new column j, over its rows below row j,
-// with every column of its share (c >= j: v^T A and sigma; c < j: V^T v_j
-// for the compact WY form).  It writes them to a double-buffered global
-// slot (j mod 2); the CTA that holds row j writes row j.  After one grid
-// barrier (a counter on a global word, zeroed by the caller) every CTA sums
-// the P partials in the same fixed order, with the same code, so all of
-// them apply bitwise-identical reflectors.  A thread (g, c) owns column c
-// of every G-th row of its share (G = 1,024 / n row groups); column j + 1,
-// the next reflector, is not written back during the pass that updates it
-// (each thread recomputes its new value from the old one, and the new
-// column goes to a separate buffer), so the pass needs no barrier inside.
-// Every CTA builds the WY factor T column by column from V^T v_j,
-//   T[0:j, j] = -beta_j T[0:j, 0:j] (V^T v_j)[0:j],  T[j, j] = beta_j,
-// during the barrier's exchange, packed upper in shared memory (n (n+1)/2
-// floats: 128.5 KB at n = 256, which caps a share at 90 rows there; the
-// caller sizes P so that the share fits).  The CTA that holds row j writes
-// R's row j and V's row j of the top n x n block to device memory as the
-// reflector is known.  After the last reflector and one more barrier each
-// CTA forms X = V_rows T in place, loads V_top over T and writes its rows
-// of Q = I[:, :n] - X V_top^T, all f32 FMAs on the CUDA cores.  That is
-// n + 1 grid barriers, against 2 n dependent sweeps in the Pallas kernel.
+// The design.  The rows are split into P contiguous shares, one CTA of 256
+// threads an SM, launched cooperatively so that all are resident (P = 1:
+// an ordinary launch, every exchange a block barrier).  Thread (g, q)
+// holds columns 4 q .. 4 q + 3 of rows g, g + G, ... of its share in
+// registers (G = 256 / (n / 4) row groups, K <= 32 rows a thread) for the
+// whole factorization; device memory sees only the first read of A, the
+// exchanges and the last writes of Q and R.  A step loads the reflector's
+// entry of each row once (a broadcast from shared memory) for four FMAs,
+// with no branch.  The reflectors stay below the diagonal of their
+// columns, as LAPACK stores them.  One exchange a reflector: after a CTA
+// applies reflector j - 1 to its rows, it takes the dot products of the
+// new column j, over its rows below row j, with every column (c >= j:
+// v^T A and sigma; c < j: y_j = V^T v_j for the compact WY form), sums
+// them over its row groups and stores each sum with the step's tag in one
+// 64-bit word of a double-buffered global slot (j mod 2); the CTA that
+// holds row j stores row j so.  Every CTA polls the P slots, 32 bytes a
+// load, until each word carries the step's tag: the data is its own flag,
+// so a step costs one round trip through L2 and no grid barrier.  All CTAs
+// sum the P partials in the same fixed order with the same code, so all of
+// them apply bitwise-identical reflectors.
+//
+// Q by the compact WY form, Q = I[:, :n] - V T V_top^T, without forming T:
+// T's recurrence T[0:j, j] = -beta_j T[0:j, 0:j] y_j, T[j, j] = beta_j
+// gives, for W = V T, W[:, j] = beta_j (v_j - W[:, 0:j] y_j), one dot a row
+// and no chain across rows.  Each CTA builds its rows of W in shared memory
+// (the share's rows x n, where the panel would be) a column a step, during
+// the next step's exchange; the CTA that holds row j writes R's row j and
+// V's row j of the top n x n block to device memory as the reflector is
+// known.  After the last reflector and one grid barrier (a counter, zeroed
+// with the slots by the caller), each CTA loads V_top^T (column-major,
+// each column zero-padded to whole float4s: ~n (n+1) / 2 floats) and
+// writes its rows of Q = I[:, :n] - W V_top^T: f32 FMAs on the CUDA cores,
+// 16 FMAs a float4 of a row.  Shared memory then holds W, V_top^T and the
+// exchange's buffers: at n = 256 a share of at most 80 rows, at n = 110
+// the registers' 288.  That is n exchanges and one barrier, against 2 n
+// dependent sweeps in the Pallas kernel.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 1024;
+constexpr int THREADS = 256;
 constexpr int N_MAX = 256;
+constexpr int K_MAX = 32;  // rows a thread holds, at most (4 columns each, in registers)
+constexpr int BATCH = 4;   // source CTAs in flight a polling thread
 
-__host__ __device__ inline int tri(int n) { return n * (n + 1) / 2; }
+typedef unsigned long long u64;
 
-// (a, b), a <= b, of an n x n upper triangle packed by rows
-__host__ __device__ inline int pk(int a, int b, int n) { return a * n - a * (a - 1) / 2 + (b - a); }
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Column c of an n x n upper triangle, zero-padded to whole float4s: rows
+// 0..c at cs(c), cs(c) = sum over l < c of round4(l + 1).
+__host__ __device__ inline int cs(int c) {
+  const int a = c >> 2, b = c & 3;
+  return 4 * (a + 1) * (2 * a + b);
+}
 
 __host__ __device__ inline int share_start(int p, int m, int P) {
   return (int)((long long)p * m / P);
 }
 
+__host__ __device__ inline int row_groups(int n) { return THREADS / (round4(n) / 4); }
+
 // Offsets, in floats, of the arrays in dynamic shared memory.  The total is
-// rows_cap (n + 2) + n (n + 1) / 2 + 2 THREADS + 8 n floats, the formula of
-// ops/qr_panel.py::_householder_smem_bytes.
+// rows_cap ns + cs(n) + 2 K_MAX G + 8 THREADS + 8 ns floats (ns the row
+// stride round4(n), G the row groups), the formula of ops/qr_panel.py::
+// _householder_smem_bytes.
 struct Layout {
-  int w, t, vbuf, part, seg, xslot, xrow, rowbuf, ybuf, vdiag, sgn, total;
+  int w, vt, vbuf, part, seg, xslot, xrow, rowbuf, ybuf, vdiag, sgn, total;
 };
 
 __host__ __device__ inline Layout layout(int rows_cap, int n) {
+  const int ns = round4(n);
   Layout L;
-  L.w = 0;                           // the share, rows_cap x n row-major
-  L.t = L.w + rows_cap * n;          // T, then V_top^T, packed upper
-  L.vbuf = L.t + tri(n);             // the next reflector's column, 2 x rows_cap
-  L.part = L.vbuf + 2 * rows_cap;    // per-thread partial dots, G x n
-  L.seg = L.part + THREADS;          // per-segment sums of the P partials
-  L.xslot = L.seg + THREADS;         // P = 1: the exchange's sums, 2 x n
-  L.xrow = L.xslot + 2 * n;          // P = 1: the exchange's row j, 2 x n
-  L.rowbuf = L.xrow + 2 * n;         // row j
-  L.ybuf = L.rowbuf + n;             // V^T v_j
-  L.vdiag = L.ybuf + n;              // v_jj
-  L.sgn = L.vdiag + n;               // sign of alpha_j
-  L.total = L.sgn + n;
+  L.w = 0;                                      // W = V T: rows_cap x ns
+  L.vt = L.w + rows_cap * ns;                   // V_top^T: cs(n)
+  L.vbuf = L.vt + cs(n);                        // the reflector's column: 2 x K_MAX G
+  L.part = L.vbuf + 2 * K_MAX * row_groups(n);  // per-thread partial dots: G x ns
+  L.seg = L.part + 4 * THREADS;                 // per-segment sums of the P partials
+  L.xslot = L.seg + 4 * THREADS;                // P = 1: the exchange's sums, 2 x ns
+  L.xrow = L.xslot + 2 * ns;                    // P = 1: the exchange's row j, 2 x ns
+  L.rowbuf = L.xrow + 2 * ns;                   // row j
+  L.ybuf = L.rowbuf + ns;                       // y_j = V^T v_j (past j: v^T A)
+  L.vdiag = L.ybuf + ns;                        // v_jj
+  L.sgn = L.vdiag + ns;                         // sign of alpha_j
+  L.total = L.sgn + ns;
   return L;
 }
+
+__device__ __forceinline__ void st_tagged(u64* p, unsigned tag, float x) {
+  const u64 w = ((u64)tag << 32) | __float_as_uint(x);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
+// four consecutive exchange words (32-byte aligned), each read whole
+__device__ __forceinline__ void ld_words4(const u64* p, u64 (&w)[4]) {
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(w[0]), "=l"(w[1]) : "l"(p) : "memory");
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(w[2]), "=l"(w[3]) : "l"(p + 2) : "memory");
+}
+
+__device__ __forceinline__ bool tagged(const u64 (&w)[4], unsigned tag) {
+  return (unsigned)(w[0] >> 32) == tag && (unsigned)(w[1] >> 32) == tag &&
+         (unsigned)(w[2] >> 32) == tag && (unsigned)(w[3] >> 32) == tag;
+}
+
+// the four words once each carries the tag; a writer that never comes (a
+// CTA not resident) traps after ~10 s instead of hanging the card
+__device__ __forceinline__ void wait_tagged(const u64* p, u64 (&w)[4], unsigned tag) {
+  if (!tagged(w, tag)) {
+    const long long t0 = clock64();
+    do {
+      if (clock64() - t0 > 20000000000LL) __trap();
+      ld_words4(p, w);
+    } while (!tagged(w, tag));
+  }
+}
+
+__device__ __forceinline__ float word_value(u64 w) { return __uint_as_float((unsigned)w); }
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -101,263 +152,382 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// Every CTA's writes before it are visible to every CTA after it.  The
-// count only grows: the k-th barrier of the launch waits for k P arrivals.
-template <bool SINGLE>
-__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
+// Every CTA's writes before it are visible to every CTA after it.
+__device__ void grid_barrier(unsigned* count, unsigned target) {
   __syncthreads();
-  if constexpr (!SINGLE) {
-    if (threadIdx.x == 0) {
-      __threadfence();
-      atomicAdd(count, 1u);
-      // a CTA that never arrives (not resident) traps after ~10 s, not a hang
-      const long long t0 = clock64();
-      while (ld_acquire(count) < target) {
-        if (clock64() - t0 > 20000000000LL) __trap();
-      }
-      __threadfence();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    const long long t0 = clock64();
+    while (ld_acquire(count) < target) {
+      if (clock64() - t0 > 20000000000LL) __trap();
     }
-    __syncthreads();
+    __threadfence();
   }
+  __syncthreads();
 }
 
-// T[0:j, j] = -beta T[0:j, 0:j] y[0:j], T[j, j] = beta: a warp a row of T,
-// its lanes over the row's entries, one fixed reduction order.
-__device__ void t_column(float* T, const float* y, float beta, int j, int n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = warp; k < j; k += THREADS / 32) {
-    float s = 0.f;
-    for (int l = k + lane; l < j; l += 32) s = fmaf(T[pk(k, l, n)], y[l], s);
+// out[k][u] = sum over l of rows[li_k, l] tri[cs(c_u) + l], c_u = 4 q + u,
+// for the K rows of thread (g, q): the rows and the triangle's columns four
+// entries a load (the triangle's padding and the rows' entries past their
+// diagonal are zero).
+template <int K>
+__device__ void rows_times_tri(const float* rows, int ns, const float* tri_, int n, int q,
+                               int g, int G, int nrows, float (&out)[K][4]) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) T[pk(k, j, n)] = -beta * s;
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) out[k][u] = 0.f;
   }
-  if (threadIdx.x == 0) T[pk(j, j, n)] = beta;
+  const int top = 4 * q + 3;
+  for (int l = 0; l <= top; l += 4) {
+    float4 t[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = 4 * q + u;
+      t[u] = l <= c && c < n ? *reinterpret_cast<const float4*>(tri_ + cs(c) + l)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int li = g + k * G;
+      if (li < nrows) {
+        const float4 x = *reinterpret_cast<const float4*>(rows + li * ns + l);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          out[k][u] = fmaf(x.x, t[u].x, out[k][u]);
+          out[k][u] = fmaf(x.y, t[u].y, out[k][u]);
+          out[k][u] = fmaf(x.z, t[u].z, out[k][u]);
+          out[k][u] = fmaf(x.w, t[u].w, out[k][u]);
+        }
+      }
+    }
+  }
 }
 
-// xg: the global exchange, slot[2][P][n] partial sums, row[2][n], then
-// V_top^T packed upper (n (n+1) / 2); count: the barrier's word, 0 at launch.
-template <bool SINGLE>
+// W[li, j] = beta (v_i - W[li, 0:j] y[0:j]) for the share's rows li, a
+// thread a row: W's columns j and past are still 0, so the dot runs over
+// whole float4s.
+__device__ void w_column(float* W, int ns, int rows, int r0, const float* vcol, float vjj,
+                         const float* y, float beta, int j) {
+  const int l4 = (j + 3) >> 2;
+  const float4* y4 = reinterpret_cast<const float4*>(y);
+  for (int li = threadIdx.x; li < rows; li += THREADS) {
+    const float4* w4 = reinterpret_cast<const float4*>(W + li * ns);
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+    for (int l = 0; l < l4; ++l) {
+      const float4 a = w4[l], b = y4[l];
+      s0 = fmaf(a.x, b.x, s0);
+      s1 = fmaf(a.y, b.y, s1);
+      s2 = fmaf(a.z, b.z, s2);
+      s3 = fmaf(a.w, b.w, s3);
+    }
+    const int i = r0 + li;
+    const float v = i > j ? vcol[li] : (i == j ? vjj : 0.f);
+    W[li * ns + j] = beta * (v - ((s0 + s1) + (s2 + s3)));
+  }
+}
+
+// xg (P > 1): the tagged exchange, slot[2][P][ns] and row[2][ns] words, then
+// the final barrier's word, all zero at launch.  vtop: V_top^T, column c
+// (row c of V_top) at cs(c), zero-padded.
+template <int K, bool SINGLE>
 __global__ void __launch_bounds__(THREADS, 1)
-    householder_kernel(const float* __restrict__ a, float* __restrict__ q,
-                       float* __restrict__ r, float* xg, unsigned* count,
-                       int m, int n, int P) {
-  extern __shared__ float sm[];
+    householder_kernel(const float* __restrict__ a, float* __restrict__ q_out,
+                       float* __restrict__ r, u64* xg, float* vtop, int m, int n, int P) {
+  extern __shared__ __align__(16) float sm[];
   const int p = blockIdx.x;
   const int r0 = share_start(p, m, P);
   const int rows = share_start(p + 1, m, P) - r0;
   const int rows_cap = (m + P - 1) / P;
+  const int ns = round4(n);
+  const int quads = ns / 4;
   const Layout L = layout(rows_cap, n);
   float* W = sm + L.w;
-  float* T = sm + L.t;
-  float* vbuf = sm + L.vbuf;
   float* part = sm + L.part;
-  float* rowbuf = sm + L.rowbuf;
   float* ybuf = sm + L.ybuf;
   float* vdiag = sm + L.vdiag;
   float* sgn = sm + L.sgn;
-  float* gslot = xg;
-  float* grow = xg + 2 * P * n;
-  float* vtop = grow + 2 * n;
+  u64* gslot = xg;
+  u64* grow = xg + 2 * P * ns;
 
   const int tid = threadIdx.x;
-  const int G = THREADS / n;  // row groups; thread (g, c) = g n + c
-  const int g = tid / n, c = tid % n;
+  const int G = row_groups(n);  // thread (g, q) = g quads + q: columns 4 q .. 4 q + 3
+  const int g = tid / quads, q = tid % quads;
   const bool lane_on = g < G;
   const int S = SINGLE ? 1 : min(G, P);  // segments of the sum over the P partials
+  const int vstride = K_MAX * G;         // one of vbuf's two columns
 
-  // row j of the panel as it enters step j, written by the CTA that holds it
-  auto write_row = [&](int j, int col, float x) {
-    if constexpr (SINGLE) {
-      sm[L.xrow + (j & 1) * n + col] = x;
-    } else {
-      __stcg(grow + (j & 1) * n + col, x);
-    }
-  };
+  for (int e = tid; e < rows_cap * ns; e += THREADS) W[e] = 0.f;
 
-  for (int e = tid; e < rows * n; e += THREADS) W[e] = a[(size_t)r0 * n + e];
-  __syncthreads();
-
-  // column 0's dots with every column, below row 0
-  float pc = 0.f;
-  if (lane_on) {
-    for (int li = g; li < rows; li += G) {
-      const float x0 = W[li * n], xc = W[li * n + c];
-      if (c == 0) vbuf[li] = x0;
-      if (r0 + li > 0) {
-        pc = fmaf(x0, xc, pc);
-      } else {
-        write_row(0, c, xc);
-      }
+  float x[K][4];  // columns 4 q + u of rows g + k G of the share (0 past the panel)
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int li = g + k * G;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = 4 * q + u;
+      x[k][u] = lane_on && li < rows && c < n ? a[(size_t)(r0 + li) * n + c] : 0.f;
     }
   }
-  part[tid] = pc;
 
-  float beta_prev = 0.f;
-  for (int j = 0; j < n; ++j) {
-    // the exchange: this CTA's sums over its row groups, T's column j - 1
-    // meanwhile, one barrier, then the P partials summed in fixed order
-    __syncthreads();
-    if (tid < n) {
-      float s = 0.f;
-      for (int gg = 0; gg < G; ++gg) s += part[gg * n + tid];
-      if constexpr (SINGLE) {
-        sm[L.xslot + (j & 1) * n + tid] = s;
-      } else {
-        __stcg(gslot + ((j & 1) * P + p) * n + tid, s);
+  // row j of the panel as it enters step j, from the threads that hold it
+  auto write_row = [&](int j) {
+    const int li = j - r0;
+    if (lane_on && li >= 0 && li < rows && li % G == g) {
+      const int kj = li / G;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k == kj) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = x[k][u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if constexpr (SINGLE) {
+          sm[L.xrow + (j & 1) * ns + 4 * q + u] = v[u];
+        } else {
+          st_tagged(grow + (j & 1) * ns + 4 * q + u, j + 1, v[u]);
+        }
       }
     }
-    if (j > 0) t_column(T, ybuf, beta_prev, j - 1, n);
-    grid_barrier<SINGLE>(count, (unsigned)(j + 1) * P);
+  };
+  // column c of the share to vbuf's column `col`, from the threads that hold it
+  auto column_out = [&](int c, int col) {
+    if (lane_on && q == c >> 2) {
+      float* dst = sm + L.vbuf + col * vstride;
+      const int u = c & 3;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        dst[g + k * G] = u == 0 ? x[k][0] : u == 1 ? x[k][1] : u == 2 ? x[k][2] : x[k][3];
+      }
+    }
+  };
+  // this CTA's dots of vbuf's column `col` with every column, over its rows
+  // below row `below`, summed over the row groups by the next exchange
+  auto dots = [&](int col, int below) {
+    const float* v = sm + L.vbuf + col * vstride;
+    float pc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int li = g + k * G;
+      const float vk = r0 + li > below && li < rows ? v[li] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pc[u] = fmaf(vk, x[k][u], pc[u]);
+    }
+    if (lane_on) *reinterpret_cast<float4*>(part + g * ns + 4 * q) = make_float4(pc[0], pc[1], pc[2], pc[3]);
+  };
+
+  column_out(0, 0);
+  write_row(0);
+  __syncthreads();
+  dots(0, 0);  // column 0's dots with every column, below row 0
+
+  float beta_prev = 0.f;
+  int step_p = 0;  // j mod P
+  for (int j = 0; j < n; ++j) {
+    // the exchange: this CTA's sums over its row groups out, W's column
+    // j - 1 meanwhile, then the P partials in, summed in fixed order
+    __syncthreads();
+    if (tid < ns) {
+      float s = 0.f;
+      for (int gg = 0; gg < G; ++gg) s += part[gg * ns + tid];
+      if constexpr (SINGLE) {
+        sm[L.xslot + (j & 1) * ns + tid] = s;
+      } else {
+        st_tagged(gslot + ((j & 1) * P + p) * ns + tid, j + 1, s);
+      }
+    }
+    if (j > 0) {
+      w_column(W, ns, rows, r0, sm + L.vbuf + ((j - 1) & 1) * vstride, vdiag[j - 1], ybuf,
+               beta_prev, j - 1);
+    }
     const float* segp;
     const float* rowp;
     if constexpr (SINGLE) {
-      segp = sm + L.xslot + (j & 1) * n;
-      rowp = sm + L.xrow + (j & 1) * n;
+      __syncthreads();
+      segp = sm + L.xslot + (j & 1) * ns;
+      rowp = sm + L.xrow + (j & 1) * ns;
     } else {
       float* seg = sm + L.seg;
+      float* rowbuf = sm + L.rowbuf;
+      const unsigned tag = j + 1;
+      u64 rw[4];
+      const u64* rsrc = grow + (j & 1) * ns + 4 * tid;
+      if (tid < quads) ld_words4(rsrc, rw);
       if (lane_on && g < S) {
-        float s = 0.f;
-        const float* src = gslot + (j & 1) * P * n + c;
-        for (int pp = g * P / S; pp < (g + 1) * P / S; ++pp) s += __ldcg(src + pp * n);
-        seg[g * n + c] = s;
+        const u64* src = gslot + (j & 1) * P * ns + 4 * q;
+        const int hi = (g + 1) * P / S;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int base = g * P / S; base < hi; base += BATCH) {
+          u64 w[BATCH][4];
+#pragma unroll
+          for (int b = 0; b < BATCH; ++b) {
+            if (base + b < hi) ld_words4(src + (base + b) * ns, w[b]);
+          }
+#pragma unroll
+          for (int b = 0; b < BATCH; ++b) {
+            if (base + b < hi) {
+              wait_tagged(src + (base + b) * ns, w[b], tag);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) s[u] += word_value(w[b][u]);
+            }
+          }
+        }
+        *reinterpret_cast<float4*>(seg + g * ns + 4 * q) = make_float4(s[0], s[1], s[2], s[3]);
       }
-      if (tid < n) rowbuf[tid] = __ldcg(grow + (j & 1) * n + tid);
+      if (tid < quads) {
+        wait_tagged(rsrc, rw, tag);
+        *reinterpret_cast<float4*>(rowbuf + 4 * tid) =
+            make_float4(word_value(rw[0]), word_value(rw[1]), word_value(rw[2]), word_value(rw[3]));
+      }
       __syncthreads();
       segp = seg;
       rowp = rowbuf;
     }
-    auto tot = [&](int col) {  // sum over rows below j of column j times column col
-      float s = 0.f;
-      for (int k = 0; k < S; ++k) s += segp[k * n + col];
-      return s;
-    };
 
     // the reflector, the same in every thread of every CTA
+    const bool holds_row_j = P == 1 || p == step_p;  // writes R's and V_top's row j
+    step_p = step_p + 1 == P ? 0 : step_p + 1;
     const float ajj = rowp[j];
-    const float below = tot(j);
+    float below = 0.f;  // sum over rows below j of column j squared
+    for (int k = 0; k < S; ++k) below += segp[k * ns + j];
     const float alpha = -(ajj >= 0.f ? 1.f : -1.f) * sqrtf(fmaf(ajj, ajj, below));
     const float vjj = ajj - alpha;
     const float vtv = fmaf(vjj, vjj, below);
     const float beta = vtv > 0.f ? 2.f / vtv : 0.f;
     const float sgn_j = alpha < 0.f ? -1.f : 1.f;
-    float wc = 0.f;
-    if (lane_on) {
-      const float dot = fmaf(vjj, rowp[c], tot(c));  // v^T A[j:, c]
-      wc = beta * dot;
-      if (g == 0) {
-        if (c < j) ybuf[c] = dot;
-        if (p == j % P) {  // R's row j and V_top's row j
-          r[(size_t)j * n + c] = c < j ? 0.f : (c == j ? fabsf(alpha) : sgn_j * fmaf(-vjj, wc, rowp[c]));
-          if (c <= j) vtop[pk(c, j, n)] = c < j ? rowp[c] : vjj;
+    float wc[4];  // beta v^T A[j:, c] for j < c < n, else 0
+    {
+      const float4 r4 = *reinterpret_cast<const float4*>(rowp + 4 * q);
+      float4 t4 = *reinterpret_cast<const float4*>(segp + 4 * q);
+      for (int k = 1; k < S; ++k) {
+        const float4 u4 = *reinterpret_cast<const float4*>(segp + k * ns + 4 * q);
+        t4.x += u4.x;
+        t4.y += u4.y;
+        t4.z += u4.z;
+        t4.w += u4.w;
+      }
+      const float row[4] = {r4.x, r4.y, r4.z, r4.w};
+      const float dot[4] = {fmaf(vjj, r4.x, t4.x), fmaf(vjj, r4.y, t4.y),  // v^T A[j:, c]
+                            fmaf(vjj, r4.z, t4.z), fmaf(vjj, r4.w, t4.w)};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) wc[u] = 4 * q + u > j && 4 * q + u < n ? beta * dot[u] : 0.f;
+      if (lane_on && g == 0) {
+        *reinterpret_cast<float4*>(ybuf + 4 * q) = make_float4(dot[0], dot[1], dot[2], dot[3]);
+        if (holds_row_j) {  // R's row j; V_top's row j, zero-padded
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int c = 4 * q + u;
+            if (c < n) {
+              r[(size_t)j * n + c] =
+                  c < j ? 0.f : (c == j ? fabsf(alpha) : sgn_j * fmaf(-vjj, wc[u], row[u]));
+            }
+            if (c <= (j | 3)) vtop[cs(j) + c] = c < j ? row[u] : (c == j ? vjj : 0.f);
+          }
         }
       }
     }
-    const float w1 = j + 1 < n ? beta * fmaf(vjj, rowp[j + 1], tot(j + 1)) : 0.f;
     if (tid == 0) {
       vdiag[j] = vjj;
       sgn[j] = sgn_j;
     }
     beta_prev = beta;
 
-    // reflector j on the rows below j, and column j + 1's dots with every
-    // column below row j + 1.  Column j + 1 is read, never written, here.
-    const float* vcur = vbuf + (j & 1) * rows_cap;
-    float* vnext = vbuf + ((j + 1) & 1) * rows_cap;
-    pc = 0.f;
+    // reflector j on the rows below j: the others, and the columns at or
+    // left of j, take -0 w or -v 0 and keep their values; rows past the
+    // share stay 0 (their v is 0)
     if (lane_on) {
-      for (int li = g; li < rows; li += G) {
-        const int i = r0 + li;
-        if (i <= j) continue;
-        const float v = vcur[li];
-        float* wr = W + li * n;
-        float xc;
-        if (c > j) {
-          xc = fmaf(-v, wc, wr[c]);
-        } else if (c == j) {
-          xc = v;
-          wr[j] = v;
-        } else {
-          xc = wr[c];
-        }
-        if (j + 1 < n) {
-          const float nv = fmaf(-v, w1, wr[j + 1]);  // == xc where c == j + 1
-          if (c == j + 1) {
-            vnext[li] = nv;
-          } else if (c > j + 1) {
-            wr[c] = xc;
-          }
-          if (i > j + 1) {
-            pc = fmaf(nv, xc, pc);
-          } else {
-            write_row(j + 1, c, xc);
-          }
-        }
+      const float* vcur = sm + L.vbuf + (j & 1) * vstride;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float v = r0 + g + k * G > j ? vcur[g + k * G] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[k][u] = fmaf(-v, wc[u], x[k][u]);
       }
     }
-    part[tid] = pc;
-  }
-
-  // T's last column; V_top complete in device memory after one more barrier
-  __syncthreads();
-  t_column(T, ybuf, beta_prev, n - 1, n);
-  grid_barrier<SINGLE>(count, (unsigned)(n + 1) * P);
-
-  // X = V_rows T, in place a row group at a time
-  const int iters = (rows + G - 1) / G;
-  for (int k = 0; k < iters; ++k) {
-    const int li = g + k * G;
-    const bool on = lane_on && li < rows;
-    float x = 0.f;
-    if (on) {
-      const int i = r0 + li;
-      const float* wr = W + li * n;
-      const int kmax = min(c, i);  // V[i, kk] = 0 past the diagonal
-      for (int kk = 0; kk <= kmax; ++kk) {
-        const float vik = kk < i ? wr[kk] : vdiag[kk];
-        x = fmaf(vik, T[pk(kk, c, n)], x);
-      }
-    }
+    if (j + 1 == n) break;
+    column_out(j + 1, (j + 1) & 1);
+    write_row(j + 1);
     __syncthreads();
-    if (on) W[li * n + c] = x;
+    dots((j + 1) & 1, j + 1);  // column j + 1's dots with every column below row j + 1
   }
+
+  // W's last column; V_top complete in device memory after a barrier
   __syncthreads();
-  for (int e = tid; e < tri(n); e += THREADS) T[e] = __ldcg(vtop + e);
+  w_column(W, ns, rows, r0, sm + L.vbuf + ((n - 1) & 1) * vstride, vdiag[n - 1], ybuf, beta_prev,
+           n - 1);
+  if constexpr (SINGLE) {
+    __syncthreads();
+  } else {
+    grid_barrier(reinterpret_cast<unsigned*>(xg + 2 * P * ns + 2 * ns), P);
+  }
+  float* Vt = sm + L.vt;
+  for (int e = tid; e < cs(n); e += THREADS) Vt[e] = __ldcg(vtop + e);
   __syncthreads();
 
-  // Q = I[:, :n] - X V_top^T, column c times the sign of alpha_c
+  // Q = I[:, :n] - W V_top^T, column c times the sign of alpha_c
   if (lane_on) {
-    for (int li = g; li < rows; li += G) {
+    float acc[K][4];
+    rows_times_tri<K>(W, ns, Vt, n, q, g, G, rows, acc);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int li = g + k * G;
       const int i = r0 + li;
-      const float* xr = W + li * n;
-      float s = 0.f;
-      for (int l = 0; l <= c; ++l) s = fmaf(xr[l], T[pk(l, c, n)], s);
-      q[(size_t)i * n + c] = sgn[c] * ((i == c ? 1.f : 0.f) - s);
+      if (li < rows) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = 4 * q + u;
+          if (c < n) q_out[(size_t)i * n + c] = sgn[c] * ((i == c ? 1.f : 0.f) - acc[k][u]);
+        }
+      }
     }
+  }
+}
+
+template <int K, bool SINGLE>
+cudaError_t launch(const float* a, float* q, float* r, u64* xg, float* vtop, int m, int n,
+                   int P, int bytes, cudaStream_t s) {
+  static int allowed[64] = {};  // the opt-in maximum, set once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (allowed[dev] < bytes) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    if (bytes > optin) return cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(householder_kernel<K, SINGLE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = optin;
+  }
+  if constexpr (SINGLE) {
+    householder_kernel<K, true><<<1, THREADS, bytes, s>>>(a, q, r, xg, vtop, m, n, P);
+    return cudaGetLastError();
+  } else {
+    void* args[] = {(void*)&a, (void*)&q, (void*)&r, (void*)&xg, (void*)&vtop,
+                    (void*)&m, (void*)&n, (void*)&P};
+    return cudaLaunchCooperativeKernel((const void*)householder_kernel<K, false>, dim3(P),
+                                       dim3(THREADS), args, (size_t)bytes, s);
   }
 }
 
 template <bool SINGLE>
-cudaError_t allow_smem(int dev, int bytes) {
-  static int allowed[64] = {};  // the opt-in maximum, set once a device
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (allowed[dev] >= bytes) return cudaSuccess;
-  int optin = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(householder_kernel<SINGLE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (e == cudaSuccess) allowed[dev] = optin;
-  return e;
+cudaError_t launch_k(int k, const float* a, float* q, float* r, u64* xg, float* vtop, int m,
+                     int n, int P, int bytes, cudaStream_t s) {
+  if (k <= 4) return launch<4, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
+  if (k <= 8) return launch<8, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
+  if (k <= 16) return launch<16, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
+  if (k <= 24) return launch<24, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
+  return launch<K_MAX, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
 }
 
 }  // namespace
-
-// Shared memory of one CTA, in bytes, for a share of at most rows_cap rows.
-extern "C" long long householder_smem_bytes(int rows_cap, int n) {
-  return (long long)sizeof(float) * layout(rows_cap, n).total;
-}
 
 // The shared memory a CTA may opt into on device dev, in bytes.
 extern "C" int householder_smem_optin(int dev, int* out) {
@@ -365,30 +535,19 @@ extern "C" int householder_smem_optin(int dev, int* out) {
 }
 
 // Q (m x n) and R (n x n), diag(R) >= 0, of a row-major f32 panel a
-// (m x n), m >= n, 1 <= n <= 256, on P CTAs (1 <= P <= m, all resident).
-// xg: f32 scratch of 2 P n + 2 n + n (n + 1) / 2; count: one unsigned,
-// zero at launch (unused at P = 1).  Returns a cudaError_t code: 0 when
-// the kernel was launched.
-extern "C" int householder_launch(const float* a, float* q, float* r, float* xg,
-                                  unsigned* count, int m, int n, int P, void* stream) {
+// (m x n), m >= n, 1 <= n <= 256, on P CTAs (1 <= P <= m, all resident,
+// at most 32 G rows a CTA, G = 256 / (round4(n) / 4)).  xg (P > 1):
+// 2 (P + 1) round4(n) + 1 zeroed 64-bit words; vtop: cs(n) floats.
+// Returns a cudaError_t code: 0 when the kernel was launched.
+extern "C" int householder_launch(const float* a, float* q, float* r, void* xg, float* vtop,
+                                  int m, int n, int P, void* stream) {
   if (n < 1 || n > N_MAX || m < n || P < 1 || P > m) return (int)cudaErrorInvalidValue;
   const int rows_cap = (m + P - 1) / P;
-  const int bytes = (int)householder_smem_bytes(rows_cap, n);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
+  const int k = (rows_cap + row_groups(n) - 1) / row_groups(n);
+  if (k > K_MAX) return (int)cudaErrorInvalidValue;
+  const int bytes = (int)(sizeof(float) * layout(rows_cap, n).total);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P == 1) {
-    e = allow_smem<true>(dev, bytes);
-    if (e != cudaSuccess) return (int)e;
-    householder_kernel<true><<<1, THREADS, bytes, s>>>(a, q, r, xg, count, m, n, P);
-    return (int)cudaGetLastError();
-  }
-  e = allow_smem<false>(dev, bytes);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {(void*)&a, (void*)&q, (void*)&r, (void*)&xg, (void*)&count,
-                  (void*)&m, (void*)&n, (void*)&P};
-  e = cudaLaunchCooperativeKernel((const void*)householder_kernel<false>, dim3(P),
-                                  dim3(THREADS), args, (size_t)bytes, s);
-  return (int)e;
+  u64* words = static_cast<u64*>(xg);
+  return (int)(P == 1 ? launch_k<true>(k, a, q, r, words, vtop, m, n, P, bytes, s)
+                      : launch_k<false>(k, a, q, r, words, vtop, m, n, P, bytes, s));
 }

@@ -246,43 +246,76 @@ def _householder_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, r
 
 
-# K7's CTAs: 1,024 threads each, one an SM, launched together (cooperative)
-_HH_THREADS = 1024
-# K7's row shares, measured on an H100 (scripts/torch_k7_phases.py): one CTA
-# up to this many rows, else about this many rows a CTA, by panel width
-# (n_max, single_rows_max, rows_per_cta)
-_HH_SHARE_TABLE = ((128, 512, 64), (256, 256, 32))
+# K7's CTAs: 256 threads each, one an SM, launched together (cooperative);
+# thread (g, q) holds columns 4 q .. 4 q + 3 of at most _HH_ROWS_A_THREAD
+# rows in registers, in _HH_THREADS // ceil(n / 4) row groups g
+_HH_THREADS = 256
+_HH_ROWS_A_THREAD = 32
+# K7's CTAs by panel shape: for panels up to n_max wide, (m_max, CTAs) rows,
+# the first whose m_max >= m (None: any m).  The fastest CTA count measured
+# on an H100 (scripts/torch_k7_phases.py) at m = 512, 1,024, 2,048, 4,096,
+# 8,760 (n = 110) and 256, 1,024, 4,096 (n = 256); one CTA for the week's
+# (168, 110) iterate, whose exchange is then a block barrier.
+_HH_CTAS_TABLE = (
+    (128, ((256, 1), (1024, 16), (2048, 24), (4096, 33), (None, 44))),
+    (256, ((1024, 16), (None, 66))),
+)
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _tri_padded(n: int) -> int:
+    """Floats of an n x n upper triangle stored by columns, each padded to
+    whole float4s (``csrc/householder.cu::cs(n)``)."""
+    a, b = divmod(n, 4)
+    return 4 * (a + 1) * (2 * a + b)
+
+
+def _row_groups(n: int) -> int:
+    return _HH_THREADS // (_round4(n) // 4)
 
 
 def _householder_smem_bytes(rows_cap: int, n: int) -> int:
     """Shared memory of one K7 CTA whose share has at most ``rows_cap``
-    rows: the share, T (n (n+1) / 2), two reflector columns, the
-    per-thread partials and the small vectors (``csrc/householder.cu::
-    layout``)."""
-    return 4 * (rows_cap * (n + 2) + n * (n + 1) // 2 + 2 * _HH_THREADS + 8 * n)
+    rows: its rows of W = V T (padded to whole float4s), V_top^T, the
+    reflector's column twice, the per-thread partials and the small
+    vectors (``csrc/householder.cu::layout``)."""
+    ns = _round4(n)
+    return 4 * (rows_cap * ns + _tri_padded(n) + 2 * _HH_ROWS_A_THREAD * _row_groups(n)
+                + 8 * _HH_THREADS + 8 * ns)
+
+
+def _householder_rows_cap(n: int, smem_budget: int) -> int:
+    """The most rows one K7 CTA holds: its shared memory and its threads'
+    registers (``_HH_ROWS_A_THREAD`` rows in each row group)."""
+    fixed = _householder_smem_bytes(0, n)
+    by_smem = max(0, (smem_budget - fixed) // (4 * _round4(n)))
+    return min(by_smem, _HH_ROWS_A_THREAD * _row_groups(n))
 
 
 def householder_shares(m: int, n: int, sms: int, smem_budget: int) -> list[tuple[int, int]]:
     """K7's row shares of an (m, n) panel, one CTA each: contiguous
     ``[start, stop)`` ranges covering ``range(m)``, ``start = p m // P``.
 
-    P comes from ``_HH_SHARE_TABLE``, is raised to the fewest CTAs whose
-    shares fit ``smem_budget`` bytes of shared memory each, and is at most
+    P comes from ``_HH_CTAS_TABLE``, is raised to the fewest CTAs whose
+    shares fit ``smem_budget`` bytes of shared memory and the registers
+    each (:func:`_householder_rows_cap`), and is at most
     ``sms`` (all CTAs resident, one an SM) and m.  Raises ``ValueError``
     where even ``sms`` CTAs cannot hold the panel.
     """
     if n < 1 or m < n:
         raise ValueError(f"need an (m, n) panel with m >= n >= 1, got {m} x {n}")
-    fit = next((p for p in range(1, min(sms, m) + 1)
-                if _householder_smem_bytes(-(-m // p), n) <= smem_budget), None)
+    cap = _householder_rows_cap(n, smem_budget)
+    fit = next((p for p in range(1, min(sms, m) + 1) if -(-m // p) <= cap), None)
     if fit is None:
-        cap = max((smem_budget // 4 - n * (n + 1) // 2 - 2 * _HH_THREADS - 8 * n) // (n + 2), 0)
         raise ValueError(
             f"householder_panel: a {m} x {n} panel needs more than {sms} CTAs of "
             f"{smem_budget} bytes of shared memory (at most {cap} rows a CTA, "
             f"{cap * min(sms, m)} rows in all at n = {n})")
-    single_max, per_cta = next((s, r) for n_max, s, r in _HH_SHARE_TABLE if n <= n_max)
-    want = 1 if m <= single_max else -(-m // per_cta)
+    by_m = next(rows for n_max, rows in _HH_CTAS_TABLE if n <= n_max)
+    want = next(c for m_max, c in by_m if m_max is None or m <= m_max)
     ctas = min(max(want, fit), sms, m)
     return [(p * m // ctas, (p + 1) * m // ctas) for p in range(ctas)]
 
@@ -297,7 +330,7 @@ def _householder_library():
 
         lib = load_kernel_library("householder")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # a, q, r, exchange scratch, barrier word, m, n, CTAs, stream
+        # a, q, r, exchange words, V_top, m, n, CTAs, stream
         lib.householder_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, flag, flag, flag, ptr]
         lib.householder_launch.restype = ctypes.c_int
         lib.householder_smem_optin.argtypes = [flag, ptr]  # device, &out
@@ -330,16 +363,18 @@ def _householder_launch(a: torch.Tensor, ctas: int) -> tuple[torch.Tensor, torch
         a = a.float().contiguous()
         q = torch.empty((m, n), dtype=torch.float32, device=dev)
         r = torch.empty((n, n), dtype=torch.float32, device=dev)
-        xg = torch.empty(2 * ctas * n + 2 * n + n * (n + 1) // 2, dtype=torch.float32, device=dev)
-        # the grid barrier's word, zero at launch (a single CTA uses none)
-        count = torch.zeros(1 if ctas > 1 else 0, dtype=torch.int32, device=dev)
+        # the exchange's tagged words and the last barrier's, zero at launch
+        # (a single CTA exchanges through shared memory)
+        ns = _round4(n)
+        xg = torch.zeros(2 * (ctas + 1) * ns + 1 if ctas > 1 else 0, dtype=torch.int64, device=dev)
+        v_top = torch.empty(_tri_padded(n), dtype=torch.float32, device=dev)
         rc = _householder_library().householder_launch(
-            a.data_ptr(), q.data_ptr(), r.data_ptr(), xg.data_ptr(), count.data_ptr(),
+            a.data_ptr(), q.data_ptr(), r.data_ptr(), xg.data_ptr(), v_top.data_ptr(),
             m, n, ctas, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"householder kernel: CUDA error {rc}")
-    # xg and count are released on return while the kernel may still run:
+    # xg and v_top are released on return while the kernel may still run:
     # the caching allocator hands their memory only to later work on this stream
     return q, r
 
@@ -361,7 +396,7 @@ def householder_panel(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (``ops/tsqr.py::in_householder_kernel_envelope``); this kernel keeps
     it in the shared memory of up to one CTA an SM
     (:func:`householder_shares`) and raises ``ValueError`` on a panel
-    they cannot hold (past 57,816 rows at n = 110, 10,692 at n = 256 on
+    they cannot hold (past 38,016 rows at n = 110, 10,560 at n = 256 on
     an H100, well outside that envelope).
 
     A CPU tensor takes the plain PyTorch version and the sign fix after

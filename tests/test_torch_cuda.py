@@ -260,9 +260,7 @@ def test_householder_kernel_capacity_on_card(cuda):
     ValueError, naming the limit, and launches nothing."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     _, smem = qr_panel._householder_limits(cuda)
-    rows = 1
-    while qr_panel._householder_smem_bytes(rows + 1, 256) <= smem:
-        rows += 1
+    rows = qr_panel._householder_rows_cap(256, smem)
     before = qr_panel.householder_panel.launches
     with pytest.raises(ValueError, match="rows a CTA"):
         qr_panel.householder_panel(torch.zeros((rows * sms + 1, 256), device=cuda))

@@ -237,7 +237,7 @@ _SMS, _SMEM = 132, 232_448
 
 
 @pytest.mark.parametrize("m,n", [(168, 110), (8760, 110), (4096, 256), (64, 64), (65, 1),
-                                 (1000, 40), (9532, 110), (10_600, 256), (40_000, 96)])
+                                 (1000, 40), (9532, 110), (10_000, 256), (10_000, 96)])
 def test_householder_shares(m, n):
     """K7's row shares: contiguous, covering every row once, each within
     the shared-memory budget, at most one CTA an SM and no more CTAs than
@@ -250,6 +250,7 @@ def test_householder_shares(m, n):
     rows_cap = max(hi - lo for lo, hi in shares)
     assert rows_cap == -(-m // len(shares))  # the kernel sizes its shared memory by this
     assert qr_panel._householder_smem_bytes(rows_cap, n) <= _SMEM
+    assert rows_cap <= qr_panel._householder_rows_cap(n, _SMEM)  # shared memory and registers
     p = len(shares)
     assert shares == [(k * m // p, (k + 1) * m // p) for k in range(p)]  # csrc share_start
     if (m, n) == (168, 110):
@@ -261,8 +262,8 @@ def test_householder_shares_capacity():
     naming the limit; fewer SMs hold fewer rows.  The JAX package's
     envelope (m n <= 1,048,576) lies well inside."""
     with pytest.raises(ValueError, match="rows a CTA"):
-        qr_panel.householder_shares(10_700, 256, _SMS, _SMEM)
-    assert len(qr_panel.householder_shares(10_692, 256, _SMS, _SMEM)) == _SMS
+        qr_panel.householder_shares(10_600, 256, _SMS, _SMEM)
+    assert len(qr_panel.householder_shares(10_560, 256, _SMS, _SMEM)) == _SMS
     with pytest.raises(ValueError, match="needs more than 4 CTAs"):
         qr_panel.householder_shares(8760, 110, 4, _SMEM)
     for n in (1, 32, 110, 128, 200, 256):
@@ -275,16 +276,17 @@ def _kernel_schedule(a: np.ndarray, n_shares: int) -> tuple[np.ndarray, np.ndarr
     in ``n_shares`` contiguous shares; at step j each share's dots of
     column j with every column over its rows below j, summed in share
     order, and row j from its share; the reflector's scalars from those;
-    R's row j and V_top's row j as the reflector is known; T's column j
-    from V^T v_j; then Q = I[:, :n] - (V T) V_top^T and the signs of
-    alpha on R's rows and Q's columns."""
+    R's row j and V_top's row j as the reflector is known; column j of
+    W = V T (the compact WY form's T, applied) from y_j = V^T v_j by T's
+    recurrence, W[:, j] = beta_j (v_j - W[:, :j] y_j); then
+    Q = I[:, :n] - W V_top^T and the signs of alpha on R's rows and Q's
+    columns."""
     w = torch.from_numpy(a).float().clone()
     m, n = w.shape
     bounds = [(p * m // n_shares, (p + 1) * m // n_shares) for p in range(n_shares)]
-    t = torch.zeros((n, n))
+    w_vt = torch.zeros((m, n))  # W = V T
     r = torch.zeros((n, n))
     v_top = torch.zeros((n, n))
-    v_diag = torch.zeros(n)
     sgn = torch.ones(n)
     for j in range(n):
         tot = torch.zeros(n)
@@ -304,13 +306,12 @@ def _kernel_schedule(a: np.ndarray, n_shares: int) -> tuple[np.ndarray, np.ndarr
         r[j, j] = alpha.abs()
         r[j, j + 1:] = s * (row[j + 1:] - vjj * wc[j + 1:])
         v_top[j, :j], v_top[j, j] = row[:j], vjj
-        t[:j, j] = -beta * (t[:j, :j] @ dot[:j])
-        t[j, j] = beta
-        v_diag[j], sgn[j] = vjj, s
+        v_j = torch.zeros(m)
+        v_j[j], v_j[j + 1:] = vjj, w[j + 1:, j]
+        w_vt[:, j] = beta * (v_j - w_vt[:, :j] @ dot[:j])
+        sgn[j] = s
         w[j + 1:, j + 1:] -= w[j + 1:, j:j + 1] * wc[None, j + 1:]
-    v = torch.tril(w[:, :n], -1)
-    v[range(n), range(n)] = v_diag
-    q = (torch.eye(m, n) - (v @ t) @ v_top.T) * sgn[None, :]
+    q = (torch.eye(m, n) - w_vt @ v_top.T) * sgn[None, :]
     return q.numpy(), r.numpy()
 
 
