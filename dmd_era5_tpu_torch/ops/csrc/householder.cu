@@ -523,6 +523,7 @@ cudaError_t launch_k(int k, const float* a, float* q, float* r, u64* xg, float* 
   if (k <= 4) return launch<4, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
   if (k <= 8) return launch<8, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
   if (k <= 16) return launch<16, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
+  if (k <= 20) return launch<20, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
   if (k <= 24) return launch<24, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
   return launch<K_MAX, SINGLE>(a, q, r, xg, vtop, m, n, P, bytes, s);
 }
