@@ -356,7 +356,8 @@ def _householder_limits(dev) -> tuple[int, int]:
 
 
 def _householder_launch(a: torch.Tensor, ctas: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of K7 on ``ctas`` CTAs (not counted): (Q, R), diag(R) >= 0."""
+    """One launch of K7 on ``ctas`` CTAs, counted in
+    ``householder_panel.launches``: (Q, R), diag(R) >= 0."""
     m, n = a.shape
     dev = a.device
     with torch.cuda.device(dev):
@@ -376,15 +377,14 @@ def _householder_launch(a: torch.Tensor, ctas: int) -> tuple[torch.Tensor, torch
         raise RuntimeError(f"householder kernel: CUDA error {rc}")
     # xg and v_top are released on return while the kernel may still run:
     # the caching allocator hands their memory only to later work on this stream
+    householder_panel.launches += 1
     return q, r
 
 
 def _householder_cuda(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     m, n = a.shape
     sms, smem = _householder_limits(a.device)
-    q, r = _householder_launch(a, len(householder_shares(m, n, sms, smem)))
-    householder_panel.launches += 1
-    return q, r
+    return _householder_launch(a, len(householder_shares(m, n, sms, smem)))
 
 
 def householder_panel(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
