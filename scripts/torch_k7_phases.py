@@ -31,8 +31,7 @@ between them.  Times are ``chip_smoke.device_ms`` (the launches queued
 behind a sleep of the card, so the host's time per call drops out),
 beside the library's (``torch.linalg.qr`` with the diag(R) >= 0 flip)
 and the CTA count that ``householder_shares`` picks.  Prints one JSON
-line a shape (also to ``chiprun_out/k7_phases.jsonl``), then the card's
-name and power limit.  ``--quick``: the three shapes only.  Needs a
+line a shape, then the card's name and power limit.  ``--quick``: the three shapes only.  Needs a
 CUDA card and nvcc.
 """
 
@@ -138,8 +137,6 @@ def main() -> None:
     dev = torch.device("cuda")
     sms, smem = qr_panel._householder_limits(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    sink = (ROOT / "chiprun_out" / "k7_phases.jsonl").open("w")
     for m, n in SHAPES + ([] if args.quick else MORE_SHAPES):
         a = torch.randn((m, n), generator=gen, device=dev)
         q = torch.empty((m, n), device=dev)
@@ -172,13 +169,10 @@ def main() -> None:
                     eye = torch.eye(n, device=dev, dtype=torch.float64)
                     times["orth"] = float((q.double().T @ q.double() - eye).abs().max())
             row["by_ctas"][ctas] = times
-        line = json.dumps(row)
-        print(line, flush=True)
-        sink.write(line + "\n")
+        print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    sink.write(json.dumps({"card": smi}) + "\n")
 
 
 if __name__ == "__main__":
