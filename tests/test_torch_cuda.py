@@ -186,6 +186,8 @@ def _panel(kind: str, gen, dev):
         a = torch.randn((300, 40), generator=gen, device=dev)
         a[:, 7] = 0.0
         return a
+    if kind == "bf16":  # widened to f32 before the kernel, as the plain version does
+        return torch.randn((168, 110), generator=gen, device=dev).bfloat16()
     if kind == "zero_col_late":  # 20 CTAs of 10 rows: column 117's row is in the 12th
         a = torch.randn((200, 120), generator=gen, device=dev)
         a[:, 117] = 0.0
@@ -198,7 +200,7 @@ def _panel(kind: str, gen, dev):
 # that many CTAs through the wrapper's launch (counted all the same)
 HOUSEHOLDER_CASES = [
     pytest.param(kind, None, id=kind)
-    for kind in ["168x110", "8760x110", "4096x256", "64x64", "65x1", "ill", "zero_col"]
+    for kind in ["168x110", "8760x110", "4096x256", "64x64", "65x1", "ill", "zero_col", "bf16"]
 ] + [
     pytest.param("1000x200", 132, id="p132-shares-shorter-than-n"),
     pytest.param("256x128", 4, id="p4-row-holder-at-share-edges"),
