@@ -29,7 +29,7 @@
 // threads an SM, launched cooperatively so that all are resident (P = 1:
 // an ordinary launch, every exchange a block barrier).  Thread (g, q)
 // holds columns 4 q .. 4 q + 3 of rows g, g + G, ... of its share in
-// registers (G = 256 / (n / 4) row groups, K <= 32 rows a thread) for the
+// registers (G = 256 / ceil(n / 4) row groups, K <= 32 rows a thread) for the
 // whole factorization; device memory sees only the first read of A, the
 // exchanges and the last writes of Q and R.  A step loads the reflector's
 // entry of each row once (a broadcast from shared memory) for four FMAs,
