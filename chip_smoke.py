@@ -152,6 +152,8 @@ K3_F64_LIMIT = 2e-7
 # and 5.2e-7, one TF32 pass 8.9e-5 and 9.2e-5; the MMAs chained over a tile,
 # scripts/torch_k6_phases.py's `chained` variant, 1.6e-6 and 2.0e-6)
 K6_F64_FACTOR = 2.0
+# K1's stage device times (sketch, G, C) by shape, printed before the kernels line
+K1_STAGES: list[dict] = []
 
 
 def log(msg: str) -> None:
@@ -273,6 +275,18 @@ def reset_counts() -> None:
     qr_panel.householder_panel.launches = 0
 
 
+@contextlib.contextmanager
+def one_tf32_pass():
+    """f32 library products in one TF32 pass inside, the flag restored: the
+    control that a 3xTF32 kernel's accuracy limit must tell apart."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
     operations over the peak rate for their type and the bytes (each
@@ -354,8 +368,13 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
     error means nothing; the row sums are then read against the sum of
     their terms' magnitudes, sum_t |x|, the scale of a sum's forward
     error bound (for scalar stats, against sum_r (sum_t |x|)^2), and
-    held to the same 1e-5.  Times are CUDA-event ms; outputs are freed
-    before timing, as at ERA5 size each Yc is up to 16 GB.
+    held to the same 1e-5.  On f32 operands a control, one TF32 pass
+    (the library products Yc^T Yc and Yc^T X of the plain version's Yc
+    with TF32 allowed, the flag restored), must miss the 1e-5 that G and
+    C meet against the f64 sums.  Times are CUDA-event ms; outputs are
+    freed before timing, as at ERA5 size each Yc is up to 16 GB.  Each
+    stage's device ms (sketch, G, C) is read alone on the same buffers
+    and kept in ``K1_STAGES``.
     """
     from dmd_era5_tpu_torch.ops.matmul import (
         _sketch_center_gram_project_plain,
@@ -388,6 +407,15 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
                  for v, out in (("kernel", got[names.index(name)]),
                                 ("plain", ref[names.index(name)]))}
     bf16 = dtype == torch.bfloat16
+    if not bf16:
+        with one_tf32_pass():
+            one_pass = {"G": ref[0].T @ ref[0], "C": ref[0].T @ x}
+        for name, out in one_pass.items():
+            err_exact[f"one_tf32_pass_{name}_vs_f64"] = rel_err(out, exact[name])[0]
+            check(err_exact[f"one_tf32_pass_{name}_vs_f64"] > 1e-5,
+                  f"{label}: one TF32 pass reads {name} within 1e-5 of the f64 sums: the "
+                  "limit does not tell 3xTF32 from it")
+        del one_pass
     if bf16:
         check(within_bf16_ulp(got[0], ref[0]), f"{label}: bf16 Yc beyond one ulp")
     for name, e in errs.items():
@@ -404,19 +432,46 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
     # turns: plain, kernel, kernel, plain
     p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
     m, t = x.shape
-    n, size = w.shape[1], x.element_size()
-    # X W (2 m n t), the symmetric half of Yc^T Yc (m n (n + 1)), Yc^T X
-    # (2 m n t), counted as for K4 and K5; X and W read, Yc, the stats, G
-    # and C written
-    stats = 2 if flags.get("scalar_stats") else 2 * m
-    bound_ms, bound_by = bound(
-        m * n * (4 * t + n + 1), PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32,
-        size * (m * t + t * n + m * n) + 4 * (stats + n * n + n * t))
+    n = w.shape[1]
+    bound_ms, bound_by = k1_bound(m, t, n, x.dtype, flags.get("scalar_stats", False))
     res = dict(label=label, m=m, t=t, n=n, dtype=str(dtype).replace("torch.", ""),
                flags=flags, centred=centred, rel_err=errs, **err_exact, max_abs_err=max_abs,
-               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms, bound_by=bound_by)
+               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms, bound_by=bound_by,
+               stage_device_ms=k1_stage_ms(x, w, dtype, flags))
+    K1_STAGES.append(dict(label=label, m=m, t=t, n=n, dtype=res["dtype"], **res["stage_device_ms"]))
     log(f"    {json.dumps(res)}")
     return res
+
+
+def k1_bound(m: int, t: int, n: int, dtype: torch.dtype, scalar_stats: bool
+             ) -> tuple[float, str]:
+    """K1's bound on the tensor cores: X W (2 m n t), the symmetric half of
+    Yc^T Yc (m n (n + 1)) and Yc^T X (2 m n t), three TF32 passes of each
+    for f32 operands, one bf16 pass for bf16; X and W read, Yc, the
+    statistics, G and C written."""
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    stats = 2 if scalar_stats else 2 * m
+    return bound((1 if bf16 else 3) * m * n * (4 * t + n + 1), PEAK_BF16 if bf16 else PEAK_TF32,
+                 size * (m * t + t * n + m * n) + 4 * (stats + n * n + n * t))
+
+
+def k1_stage_ms(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, flags: dict,
+                reps: int = 5) -> dict:
+    """Device ms of each of K1's stages alone (``chip_smoke.device_ms``),
+    each launched through the wrapper's plan on one set of buffers after
+    one whole call has filled them; not counted as launches."""
+    from dmd_era5_tpu_torch.ops.matmul import _scgp_plan
+
+    args = {key: flags.get(key, default) for key, default in (
+        ("center", True), ("stats_col", False), ("scalar_stats", False), ("t_valid", None),
+        ("emit_yc", True))}
+    out, run = _scgp_plan(x, w, dtype, **args)
+    run(7)
+    times = {name: device_ms(lambda mask=mask: run(mask), reps)
+             for name, mask in (("sketch", 1), ("G", 2), ("C", 4))}
+    del out, run
+    return times
 
 
 def phase_kernel_vs_plain(seed: int) -> None:
@@ -636,7 +691,8 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
     """K4 or K5 against its plain version and the f64 sums of A^T A.
 
     Tolerances: ``"highest"`` within 1e-6 relative Frobenius error of the
-    f64 sums (K1 reads 2.5e-8 at this size), ``"bf16_split"`` within
+    f64 sums, which on f32 A one TF32 pass (the library product with TF32
+    allowed, the control) must miss; ``"bf16_split"`` within
     3e-5 max|G| of them (tests/test_25_linalg.py:102: the split drops
     L^T L and rounds L to bf16, ~1e-6 relative).  Against the plain
     version, whose f32 library sums over millions of rows are off by up
@@ -679,6 +735,12 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
         limit = 1e-6
         check(res["kernel_rel_vs_f64"] <= limit,
               f"{label} K4: G relative error vs f64 {res['kernel_rel_vs_f64']:.3e} > {limit}")
+        if a.dtype == torch.float32:
+            with one_tf32_pass():
+                res["one_tf32_pass_rel_vs_f64"] = rel_err(a.T @ a, exact)[0]
+            check(res["one_tf32_pass_rel_vs_f64"] > limit,
+                  f"{label} K4: one TF32 pass reads {res['one_tf32_pass_rel_vs_f64']:.3e}, within "
+                  f"{limit}: the limit does not tell 3xTF32 from it")
     else:
         limit = 3e-5
         check(res["kernel_max_abs_vs_f64_over_max"] <= limit,
@@ -701,11 +763,15 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
         res.update(ms=event_ms(kernel, reps), plain_ms=None)
     res["library_ms"] = event_ms(library, reps)
     m, k = a.shape
-    if precision == "highest":  # the symmetric half in full f32 on CUDA cores
-        res["bound_ms"], res["bound_by"] = bound(m * k * (k + 1), PEAK_F32, 4 * m * k + 4 * k * k)
+    size = a.element_size()
+    if precision == "highest":  # the symmetric half: 3xTF32 on f32 A, one bf16 pass on bf16 A
+        bf16 = a.dtype == torch.bfloat16
+        res["bound_ms"], res["bound_by"] = bound(
+            (1 if bf16 else 3) * m * k * (k + 1), PEAK_BF16 if bf16 else PEAK_TF32,
+            size * m * k + 4 * k * k)
     else:  # H^T H (symmetric half) and H^T L, both bf16 products
         res["bound_ms"], res["bound_by"] = bound(
-            m * k * (k + 1) + 2 * m * k * k, PEAK_BF16, 4 * m * k + 4 * k * k)
+            m * k * (k + 1) + 2 * m * k * k, PEAK_BF16, size * m * k + 4 * k * k)
     log(f"    {json.dumps(res)}")
     return res
 
@@ -1572,9 +1638,6 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     del fused, lean, states
 
     log("[10f] K1 and the two-pass route on the same X and the Hankel pass's sketch (N = 256)")
-    n_cta = 132  # K1's one wave at N = 256 (one CTA per SM): its f64 scratch
-    scratch = n_cta * 256 * (256 + t) * 8
-    log(f"    K1's f64 partial scratch {scratch / 1e9:.2f} GB")
     args = (torch.float32, False, False, False, None, True)
 
     def k1():
@@ -1590,10 +1653,14 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     res_f = dict(k1_ms=(times_f[1] + times_f[2]) / 2, two_pass_ms=(times_f[0] + times_f[3]) / 2,
                  k1_vs_two_pass_rel=agree)
     n = w_hankel.shape[1]  # K1's bound as compare_kernel counts it (Yc and the row stats written)
-    res_f["k1_bound_ms"], res_f["k1_bound_by"] = bound(
-        m * n * (4 * t + n + 1), PEAK_F32, 4 * (m * t + t * n + m * n) + 4 * (2 * m + n * n + n * t))
+    res_f["k1_bound_ms"], res_f["k1_bound_by"] = k1_bound(m, t, n, x.dtype, False)
+    res_f["k1_stage_device_ms"] = k1_stage_ms(x, w_hankel, torch.float32, dict(center=False))
+    K1_STAGES.append(dict(label="year_10f", m=m, t=t, n=n, dtype="float32",
+                          **res_f["k1_stage_device_ms"]))
     log(f"    {json.dumps(res_f)}")
     check(max(agree.values()) <= 1e-5, f"K1 and the two-pass route disagree: {agree}")
+    check(res_f["k1_ms"] < res_f["two_pass_ms"],
+          f"K1 {res_f['k1_ms']:.1f} ms is not below the two passes' {res_f['two_pass_ms']:.1f} ms")
     times["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"    stage wall times (s): {json.dumps(times)}")
     del year, x, field
@@ -1646,6 +1713,9 @@ def main() -> None:
     for key, n in year_launches.items():
         launches[key] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
+    for row in K1_STAGES:
+        log(f"K1 stages, {row['label']} {row['dtype']} m {row['m']} t {row['t']} n {row['n']}: "
+            f"device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}, C {row['C']:.3f}")
     print(json.dumps({"kernels": [
         kernel_line("K1", launches["K1"], hankel_cmp),
         kernel_line("K2", launches["K2"], two_pass_cmp["K2"]),

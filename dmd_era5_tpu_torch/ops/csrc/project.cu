@@ -52,8 +52,8 @@ struct Launch {
   cudaError_t run() const {
     const TY* yt = static_cast<const TY*>(y);
     const TX* xt = static_cast<const TX*>(x);
-    const bool aligned = atb_tc::project_rows_aligned(yt, n, xt, t);
-    return atb_tc::launch(atb_tc::project_main<TY, TX>(aligned), yt, xt, part, c, m, n, t, 0,
+    const bool aligned = atb_tc::wgmma_rows_aligned(yt, n, xt, t);
+    return atb_tc::launch(atb_tc::wgmma_main<TY, TX>(aligned), yt, xt, part, c, m, n, t, 0,
                           n_share, stream);
   }
 };
@@ -64,7 +64,7 @@ struct Occupancy {
   cudaError_t run() const {
     // the aligned kernel's; the other takes the same shared memory and
     // registers within the same one-CTA launch bound
-    return atb_tc::ctas_per_sm(atb_tc::project_main<TY, TX>(true), out);
+    return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
   }
 };
 

@@ -1,6 +1,7 @@
 // C = A^T B over the rows of two tall matrices on the tensor cores,
-// f64-grade: the mainloop of K3 (C = Y^T X, project.cu) and K5 (the
-// bf16-split Gram G = A^T A, gram.cu).  K2's Gram stage and K4 keep the
+// f64-grade: the mainloop of K3 (C = Y^T X, project.cu), K4 (G = A^T A at
+// "highest", gram.cu), K5 (the bf16-split Gram, gram.cu) and the G and C
+// stages of K1 (sketch_center_gram_project.cu).  K2's Gram stage keeps the
 // CUDA-core reduction of row_share_atb.cuh, whose scratch layout, fixed-order
 // reduction (atb::atb_reduce) and dtype dispatch this one shares.
 //
@@ -24,7 +25,9 @@
 // indices run fastest within a share and, for `upper`, row-major over the
 // upper pairs, so CTAs next to one another in launch order share a row share
 // and an A slice: the operand slabs that several CTAs read at about the same
-// time come from L2.
+// time come from L2.  A diagonal block of `upper` (bi = bj: A's slice is B's)
+// in the wgmma kernels reads its slab once: its A fragments come from B's
+// shared-memory copy, so it loads half the bytes and skips A's split.
 //
 // Accumulation.  The tensor core rounds its own sums toward zero: MMAs
 // chained over a whole 128-row tile left a bias far above f32 rounding in a
@@ -33,12 +36,13 @@
 // round-to-nearest.
 //
 // Three kernels:
-//   atb_wgmma_tf32x3  K3 on f32 operands, or one f32 and one bf16: 3xTF32
-//                     on warpgroup MMAs, 128 x 128 blocks.  A bf16 operand
-//                     is widened to f32 as it is loaded; it is exact in
-//                     tf32, so its lo term is dropped (two products).
-//   atb_wgmma_bf16    K3 on bf16 operands: one bf16 warpgroup MMA, 128 x
-//                     128 blocks; the products are exact in f32.
+//   atb_wgmma_tf32x3  K3, K4 and K1's G and C on f32 operands, or one f32
+//                     and one bf16: 3xTF32 on warpgroup MMAs, 128 x 128
+//                     blocks.  A bf16 operand is widened to f32 as it is
+//                     loaded; it is exact in tf32, so its lo term is
+//                     dropped (two products).
+//   atb_wgmma_bf16    the same on bf16 operands: one bf16 warpgroup MMA,
+//                     128 x 128 blocks; the products are exact in f32.
 //   atb_split_bf16    K5, f32 x f32 split in bf16: H = bf16(a), L = bf16(a -
 //                     H), formed in registers as the fragments are loaded;
 //                     L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.sync m16n8k16
@@ -63,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "row_share_atb.cuh"
 
@@ -180,6 +186,23 @@ struct Cfg {
 };
 }  // namespace split
 
+// Block (bi, bj) of C that CTA blockIdx.x owns, nbb blocks along B: with
+// `upper` the pairs bi <= bj in row-major order (0,0), (0,1), ...,
+// (0,nbb-1), (1,1), ...; else bi = idx / nbb, bj = idx % nbb.
+__device__ __forceinline__ void block_of(int idx, int nbb, int upper, int& bi, int& bj) {
+  if (upper) {
+    bi = 0;
+    while (idx >= nbb - bi) {
+      idx -= nbb - bi;
+      ++bi;
+    }
+    bj = bi + idx;
+  } else {
+    bi = idx / nbb;
+    bj = idx % nbb;
+  }
+}
+
 // Rows [r0, r0 + BK) and columns [c0, c0 + BT) of src (ncols wide) into a
 // slab of row stride S, in cp.async copies of BYTES (16 or 8) that are
 // wholly in or out of range (ncols is a multiple of BYTES / 4);
@@ -289,18 +312,7 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   const int wn0 = (warp % split::WARPS_B) * C::WN;
   const int nbb = (nb + BT - 1) / BT;
   int bi, bj;
-  if (upper) {  // pairs (0,0), (0,1), ..., (0,nbb-1), (1,1), ... in order
-    int idx = blockIdx.x;
-    bi = 0;
-    while (idx >= nbb - bi) {
-      idx -= nbb - bi;
-      ++bi;
-    }
-    bj = bi + idx;
-  } else {
-    bi = blockIdx.x / nbb;
-    bj = blockIdx.x % nbb;
-  }
+  block_of(blockIdx.x, nbb, upper, bi, bj);
   const int a0 = bi * BT;
   const int b0 = bj * BT;
   const int share = blockIdx.y;
@@ -520,8 +532,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = lane & 3;
   const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's rows of A's block
   const int nbb = (nb + wg::BT - 1) / wg::BT;
-  const int a0 = (blockIdx.x / nbb) * wg::BT;
-  const int b0 = (blockIdx.x % nbb) * wg::BT;
+  int bi, bj;
+  block_of(blockIdx.x, nbb, upper, bi, bj);
+  const int a0 = bi * wg::BT;
+  const int b0 = bj * wg::BT;
+  // A's slab is B's: read once, A's fragments from B's planes
+  const bool diag = std::is_same<TA, TB>::value && upper && bi == bj;
   const int share = blockIdx.y;
   const long long n_tiles = (m + MT - 1) / MT;
   const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
@@ -559,8 +575,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<uint4*>(hi + wg::PLANE + w) = l;
     }
   };
-  // this warp's A fragments of k8 step kc of raw A slab s
+  // this warp's A fragments of k8 step kc of raw A slab s; on a diagonal
+  // block, of B's planes of slab s, already split: (k, n) at the word above,
+  // so the lanes read 32 neighbouring words
   auto a_frags = [&](long long s, int kc, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    if (diag) {
+      constexpr int N8 = wg::BK / 4 * 32;  // words from row n to n + 8
+      const uint32_t* hi =
+          planes + (int)(s & 1) * 2 * wg::PLANE + ((row0 >> 3) * N8) + kc * 64 + g * 4 + t;
+      ah[0] = hi[0];
+      ah[1] = hi[N8];
+      ah[2] = hi[32];
+      ah[3] = hi[N8 + 32];
+      al[0] = hi[wg::PLANE];
+      al[1] = hi[wg::PLANE + N8];
+      al[2] = hi[wg::PLANE + 32];
+      al[3] = hi[wg::PLANE + N8 + 32];
+      return;
+    }
     const float* as = ring_a + (s & 1) * wg::SLAB + (kc * 8 + t) * wg::S + row0 + g;
     split_tf32<A_EXACT>(as[0], ah[0], al[0]);
     split_tf32<A_EXACT>(as[8], ah[1], al[1]);
@@ -572,7 +604,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   // at its end (cp.async copies into a deeper ring ran markedly slower in
   // this kernel on an H100)
   float4 va[2], vb[2];
-  auto ldg_a = [&](long long s) { load_slab<VEC>(a, rows(s), m, na, a0, s < n_slabs, tid, va); };
+  auto ldg_a = [&](long long s) {
+    if (!diag) load_slab<VEC>(a, rows(s), m, na, a0, s < n_slabs, tid, va);
+  };
   auto ldg_b = [&](long long s) { load_slab<VEC>(b, rows(s), m, nb, b0, s < n_slabs, tid, vb); };
   auto sts = [&](float* ring, long long s, const float4 (&v)[2]) {
 #pragma unroll
@@ -582,7 +616,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
   ldg_a(0);
-  sts(ring_a, 0, va);
+  if (!diag) sts(ring_a, 0, va);
   ldg_b(0);
   sts(ring_b, 0, vb);
   ldg_b(1);
@@ -642,7 +676,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         acc[i] = 0.f;
       }
     }
-    sts(ring_a, s + 1, va);
+    if (!diag) sts(ring_a, s + 1, va);
     sts(ring_b, s + 2, vb);
     ldg_a(s + 2);
     ldg_b(s + 3);
@@ -714,8 +748,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = lane & 3;
   const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;
   const int nbb = (nb + wg::BT - 1) / wg::BT;
-  const int a0 = (blockIdx.x / nbb) * wg::BT;
-  const int b0 = (blockIdx.x % nbb) * wg::BT;
+  int bi, bj;
+  block_of(blockIdx.x, nbb, upper, bi, bj);
+  const int a0 = bi * wg::BT;
+  const int b0 = bj * wg::BT;
+  const bool diag = upper && bi == bj;  // A's slab is B's: read once, A from B's core matrices
   const int share = blockIdx.y;
   const long long n_tiles = (m + MT - 1) / MT;
   const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
@@ -784,11 +821,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
   uint4 va[2], vb[2];
-  ldg(a, na, a0, 0, false, va);
-  sts_a(0, va);
+  if (!diag) {
+    ldg(a, na, a0, 0, false, va);
+    sts_a(0, va);
+  }
   ldg(b, nb, b0, 0, true, vb);
   sts_b(0, vb);
-  ldg(a, na, a0, 1, false, va);
+  if (!diag) ldg(a, na, a0, 1, false, va);
   ldg(b, nb, b0, 1, true, vb);
 
   const int j = lane >> 3;  // ldmatrix: lane addresses row lane % 8 of matrix lane / 8
@@ -798,19 +837,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_proxy_async();  // this thread's stores of slab s, to wgmma's reads
     __syncthreads();      // slab s in place; slab s - 1 done with
     uint32_t af0[4], af1[4];
-    const bf16* as = ring_a + (s & 1) * wgb::A_SLAB + row0 + (j & 1) * 8;
-    ldsm_x4_trans(smem_u32(as + ((j >> 1) * 8 + r) * wgb::S), af0[0], af0[1], af0[2], af0[3]);
-    ldsm_x4_trans(smem_u32(as + (16 + (j >> 1) * 8 + r) * wgb::S), af1[0], af1[1], af1[2],
-                  af1[3]);
+    if (diag) {  // row r of k block kb of core matrix (kb, n / 8) of B's slab
+      const bf16* bs = ring_b + (s & 1) * wgb::B_SLAB + ((j >> 1) * 16 + (row0 >> 3) + (j & 1)) * 64 + r * 8;
+      ldsm_x4_trans(smem_u32(bs), af0[0], af0[1], af0[2], af0[3]);
+      ldsm_x4_trans(smem_u32(bs + 2 * 16 * 64), af1[0], af1[1], af1[2], af1[3]);
+    } else {
+      const bf16* as = ring_a + (s & 1) * wgb::A_SLAB + row0 + (j & 1) * 8;
+      ldsm_x4_trans(smem_u32(as + ((j >> 1) * 8 + r) * wgb::S), af0[0], af0[1], af0[2], af0[3]);
+      ldsm_x4_trans(smem_u32(as + (16 + (j >> 1) * 8 + r) * wgb::S), af1[0], af1[1], af1[2],
+                    af1[3]);
+    }
     const uint32_t pb = smem_u32(ring_b + (s & 1) * wgb::B_SLAB);
     hold(d);
     wgmma_fence();
     wgmma_bf16(d, af0, mnmajor_desc(pb), 0);                      // rows 0-15 of the slab
     wgmma_bf16(d, af1, mnmajor_desc(pb + 2 * wgb::K_STRIDE), 1);  // rows 16-31
     wgmma_commit();
-    sts_a(s + 1, va);  // the other slots, free since the barrier
+    if (!diag) sts_a(s + 1, va);  // the other slots, free since the barrier
     sts_b(s + 1, vb);
-    ldg(a, na, a0, s + 2, false, va);
+    if (!diag) ldg(a, na, a0, s + 2, false, va);
     ldg(b, nb, b0, s + 2, true, vb);
     wgmma_wait<0>();
     hold(d);
@@ -864,35 +909,36 @@ Main<float, float> split_main() {
   return {atb_split_bf16<BT>, split::Cfg<BT>::SMEM, BT, true};
 }
 
-// Whether every row of a and b is aligned to one load of K3's kernel for
-// these types: 16 bytes, 8 for a bf16 operand beside an f32 one.
+// Whether every row of a and b is aligned to one load of the wgmma kernels
+// for these types: 16 bytes, 8 for a bf16 operand beside an f32 one.
 template <typename TA, typename TB>
-bool project_rows_aligned(const TA* a, int na, const TB* b, int nb) {
+bool wgmma_rows_aligned(const TA* a, int na, const TB* b, int nb) {
   constexpr bool BF16 = sizeof(TA) == 2 && sizeof(TB) == 2;
   return row_copy_bytes(a, na) >= (BF16 ? 16 : 4 * (int)sizeof(TA)) &&
          row_copy_bytes(b, nb) >= (BF16 ? 16 : 4 * (int)sizeof(TB));
 }
 
-// K3's product for its operand types: one bf16 pass for bf16 x bf16, else
-// 3xTF32 (two products where one operand is bf16); `aligned` from
-// project_rows_aligned.
+// The wgmma product for its operand types (K3, K4 at "highest", K1's G and
+// C): one bf16 pass for bf16 x bf16, else 3xTF32 (two products where one
+// operand is bf16); `aligned` from wgmma_rows_aligned.  One operand type
+// takes `upper` (A = B, a Gram matrix).
 template <typename TA, typename TB>
-Main<TA, TB> project_main(bool aligned) {
+Main<TA, TB> wgmma_main(bool aligned) {
   if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
-    return {aligned ? &atb_wgmma_bf16<true> : &atb_wgmma_bf16<false>, wgb::SMEM, wg::BT, false};
+    return {aligned ? &atb_wgmma_bf16<true> : &atb_wgmma_bf16<false>, wgb::SMEM, wg::BT, true};
   } else {
     return {aligned ? &atb_wgmma_tf32x3<TA, TB, true> : &atb_wgmma_tf32x3<TA, TB, false>,
-            wg::SMEM, wg::BT, false};
+            wg::SMEM, wg::BT, std::is_same<TA, TB>::value};
   }
 }
 
 // Launches k's kernel and atb::atb_reduce on `stream`; returns a
-// cudaError_t code.  part: n_share * na * nb doubles.
+// cudaError_t code.  part: n_share * na * nb doubles.  `upper`: a is b.
 template <typename TA, typename TB>
 cudaError_t launch(const Main<TA, TB>& k, const TA* a, const TB* b, double* part, float* out,
                    long long m, int na, int nb, int upper, int n_share, cudaStream_t stream) {
   if (m < 1 || na < 1 || nb < 1 || n_share < 1 || n_share > 65535 ||
-      (upper && (na != nb || !k.upper))) {
+      (upper && (na != nb || !k.upper || (const void*)a != (const void*)b))) {
     return cudaErrorInvalidValue;
   }
   const long long nba = (na + k.edge - 1) / k.edge;

@@ -45,9 +45,10 @@ __all__ = [
 
 logger = logging.getLogger(__name__)
 
-# Widest sketch of the fused kernel K1 (its registers).  Wider ones take
-# the two-pass route.  K1 takes any T: its cost in T is the f64 scratch of
-# per-CTA partials, n_cta * N * (N + T) * 8 bytes, allocated below.
+# Widest sketch of the fused kernel K1, as the JAX package's fused kernel
+# (dmd_era5_tpu/ops/matmul.py:263: N <= 256).  Wider ones take the two-pass
+# route.  K1 takes any T: its f64 row-share scratch, N (N + T) doubles a
+# share, stays within 1 GiB.
 N_MAX = 256
 # Widest sketch of K2, whose Gram stage keeps n_share * N^2 f64 partials.
 SKETCH_N_MAX = 2048
@@ -142,8 +143,8 @@ def _sketch_center_gram_project_plain(
 
     f32 products (run with TF32 off on a card), with Yc quantized to
     ``out_dtype`` before G and C are formed from it.  Over millions of
-    rows its f32 sums are less accurate than the kernel's, whose per-CTA
-    partials accumulate in f64.
+    rows its f32 sums are less accurate than the kernel's, whose tile
+    sums accumulate in f64.
     """
     _check(x, w, out_dtype, t_valid)
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
@@ -169,6 +170,7 @@ def _sketch_center_gram_project_plain(
 
 
 _LIB = None
+_STAGES = 7  # K1's sketch, G and C stages (bits 0-2 of scgp_launch's mask)
 
 
 def _kernel_library():
@@ -177,30 +179,30 @@ def _kernel_library():
         from dmd_era5_tpu_torch.ops._build import load_kernel_library
 
         lib = load_kernel_library("sketch_center_gram_project")
-        ptr = ctypes.c_void_p
-        flag = ctypes.c_int
+        ptr, flag = ctypes.c_void_p, ctypes.c_int
         lib.scgp_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr,  # x, w, colw, yc, stats
-            ptr, ptr, ptr,  # per-CTA f64 partials: G, C, scalar stats
-            ptr, ptr, ptr,  # reduced G, C, scalar stats
+            ptr, ptr,  # scalar stats: per-CTA f64 sums, reduced
+            ptr, ptr, ptr, ptr,  # G: per-share f64 scratch, reduced; C: the same
             ctypes.c_longlong, flag, flag,  # m, t, n
-            flag, flag, flag, flag, flag,  # x_bf16, out_bf16, stats_col, scalar_stats, emit_yc
-            ctypes.c_float, flag, ptr,  # inv_t, n_cta, stream
+            flag, flag, flag, ctypes.c_float,  # x_bf16, out_bf16, stats_col, inv_t
+            flag, flag, flag, flag, ptr,  # sketch CTAs, G and C row shares, stages, stream
         ]
         lib.scgp_launch.restype = ctypes.c_int
-        lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # x_bf16, out_bf16, n, &out
+        # stage, x_bf16, out_bf16, t, &out
+        lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, flag, ptr]
         lib.scgp_ctas_per_sm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _grid(dev, x_bf16: int, out_bf16: int, n: int) -> int:
-    """K1's grid: one wave of its resident CTAs covers the card; each CTA
-    then walks its row tiles, and the f64 partial scratch holds one copy
-    per CTA."""
+def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, t_cols: int) -> int:
+    """CTAs of one of K1's stages (0 sketch, 1 G, 2 C) resident on the card
+    at once; the sketch's depends on how much of W its CTAs hold."""
+    t_key = t_cols if stage == 0 else 0
     return resident_ctas(
-        dev, ("sketch_center_gram_project", x_bf16, out_bf16, n),
-        lambda out: _kernel_library().scgp_ctas_per_sm(x_bf16, out_bf16, n, out),
+        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, t_key),
+        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, max(t_key, 1), out),
     )
 
 
@@ -208,48 +210,64 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _sketch_center_gram_project_cuda(
-    x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc
-):
+def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc):
+    """K1's outputs, allocated, and ``run(stages)``, which launches the
+    stages in the mask (1 sketch, 2 G = Yc^T Yc, 4 C = Yc^T X) into them.
+    Yc is allocated as scratch where ``emit_yc`` is off: G and C are read
+    from it.  The sketch runs on the card's resident CTAs; G and C on the
+    row shares that fill whole waves over their 128 x 128 blocks (G's
+    upper ones), their f64 scratch within 1 GiB."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
-    m, t_cols = x.shape
-    n = w.shape[1]
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    (m, t_cols), n, dev = x.shape, w.shape[1], x.device
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
-    n_tiles = -(-m // 128)  # rows per tile in the kernel (MT)
+    nb, nt = -(-n // 128), -(-t_cols // 128)  # 128 x 128 blocks of G and C
     with torch.cuda.device(dev):
-        n_cta = min(n_tiles, _grid(dev, x_bf16, out_bf16, n))
-    yc = torch.empty((m, n), dtype=out_dtype, device=dev) if emit_yc else None
-    stats = None if scalar_stats else torch.empty((m, 2), **f32)
-    st = torch.empty(2, **f32) if scalar_stats else None
-    g = torch.empty((n, n), **f32)
-    c = torch.empty((n, t_cols), **f32)
-    f64 = dict(dtype=torch.float64, device=dev)  # per-CTA partials
-    g_part = torch.empty((n_cta, n, n), **f64)
-    c_part = torch.empty((n_cta, n, t_cols), **f64)
-    st_part = torch.empty((n_cta, 2), **f64) if scalar_stats else None
-    lib = _kernel_library()
-    with torch.cuda.device(dev):
-        rc = lib.scgp_launch(
-            _ptr(x), _ptr(w), _ptr(colw), _ptr(yc), _ptr(stats),
-            _ptr(g_part), _ptr(c_part), _ptr(st_part),
-            _ptr(g), _ptr(c), _ptr(st),
-            m, t_cols, n, x_bf16, out_bf16,
-            int(stats_col), int(scalar_stats), int(emit_yc),
-            inv_t, n_cta, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sketch_center_gram_project kernel: CUDA error {rc}")
-    # the scratch and w/colw copies are released on return while the
-    # kernels may still run: the caching allocator hands their memory
-    # only to later work on this same stream, which runs after them
+        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols) for st in range(3)]
+    g_shares = wave_row_shares(waves[1], nb * (nb + 1) // 2, m, 8 * n * n)
+    c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols)
+    f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
+    out = dict(
+        yc=torch.empty((m, n), dtype=out_dtype, device=dev),
+        stats=None if scalar_stats else torch.empty((m, 2), **f32),
+        st=torch.empty(2, **f32) if scalar_stats else None,
+        g=torch.empty((n, n), **f32),
+        c=torch.empty((n, t_cols), **f32),
+    )
+    st_part = torch.empty((waves[0], 2), **f64) if scalar_stats else None
+    g_part = torch.empty((g_shares, n, n), **f64)
+    c_part = torch.empty((c_shares, n, t_cols), **f64)
+    logger.debug("sketch_center_gram_project: %d sketch CTAs, %d / %d row shares of G / C",
+                 waves[0], g_shares, c_shares)
+
+    def run(stages: int) -> None:
+        with torch.cuda.device(dev):
+            rc = _kernel_library().scgp_launch(
+                _ptr(x), _ptr(w), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
+                _ptr(st_part), _ptr(out["st"]), _ptr(g_part), _ptr(out["g"]), _ptr(c_part),
+                _ptr(out["c"]), m, t_cols, n, x_bf16, out_bf16, int(stats_col), inv_t,
+                waves[0], g_shares, c_shares, stages, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"sketch_center_gram_project kernel: CUDA error {rc}")
+
+    return out, run
+
+
+def _sketch_center_gram_project_cuda(
+    x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc
+):
+    out, run = _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc)
+    run(_STAGES)
+    # the scratch (and Yc without emit_yc) is released on return while the
+    # kernels may still run: the caching allocator hands its memory only to
+    # later work on this same stream, which runs after them
     sketch_center_gram_project.launches += 1
+    yc = out["yc"] if emit_yc else None
     if scalar_stats:
-        return yc, st[0], st[1], g, c
-    return yc, stats[:, 0], stats[:, 1], g, c
+        return yc, out["st"][0], out["st"][1], out["g"], out["c"]
+    return yc, out["stats"][:, 0], out["stats"][:, 1], out["g"], out["c"]
 
 
 def sketch_center_gram_project(

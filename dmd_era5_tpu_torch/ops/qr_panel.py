@@ -31,8 +31,6 @@ __all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel",
            "householder_shares", "PRECISIONS"]
 
 PRECISIONS = ("highest", "bf16_split")
-_OB = 64  # edge of K4's output blocks of G
-_MT = 128  # rows per tile of the kernels
 
 
 def _check(a: torch.Tensor, precision: str) -> None:
@@ -82,26 +80,22 @@ def _kernel_library():
         lib.gram_launch.restype = ctypes.c_int
         lib.gram_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # a_bf16, split, k, &out
         lib.gram_ctas_per_sm.restype = ctypes.c_int
-        lib.gram_split_block_edge.argtypes = [flag]  # k
-        lib.gram_split_block_edge.restype = ctypes.c_int
+        lib.gram_block_edge.argtypes = [flag, flag]  # split, k
+        lib.gram_block_edge.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def _n_share(dev, a_bf16: int, split: int, m: int, k: int) -> int:
-    """Row shares.  K4: as many as fill one wave of the card's resident
-    CTAs with all its 64 x 64 upper blocks of G, at least 1, at most one
-    per row tile.  K5 (the tensor-core mainloop): whole waves over its
-    upper blocks, its f64 scratch (n_share K^2 doubles) within 1 GiB."""
+    """Row shares of K4 and K5 (the tensor-core mainloop): whole waves of
+    the card's resident CTAs over the upper blocks of G, the f64 scratch
+    (n_share K^2 doubles) within 1 GiB."""
     lib = _kernel_library()
-    edge = lib.gram_split_block_edge(k) if split else _OB
+    edge = lib.gram_block_edge(split, k)
     wave = resident_ctas(dev, ("gram", a_bf16, split, edge),
                           lambda out: lib.gram_ctas_per_sm(a_bf16, split, k, out))
     nb = -(-k // edge)
-    n_pairs = nb * (nb + 1) // 2
-    if split:
-        return wave_row_shares(wave, n_pairs, m, 8 * k * k)
-    return max(1, min(wave // n_pairs, -(-m // _MT)))
+    return wave_row_shares(wave, nb * (nb + 1) // 2, m, 8 * k * k)
 
 
 def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
@@ -110,12 +104,10 @@ def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
     m, k = a.shape
     dev = a.device
     a_bf16, split = int(a.dtype == torch.bfloat16), int(precision == "bf16_split")
-    nb = -(-k // _OB)
     with torch.cuda.device(dev):
         n_share = _n_share(dev, a_bf16, split, m, k)
-        # K4: per-share 64 x 64 upper blocks; K5: per-share K x K (upper blocks written)
-        shape = (n_share, k, k) if split else (n_share, nb * (nb + 1) // 2, _OB, _OB)
-        part = torch.empty(shape, dtype=torch.float64, device=dev)
+        # per-share K x K, of which the upper blocks are written
+        part = torch.empty((n_share, k, k), dtype=torch.float64, device=dev)
         g = torch.empty((k, k), dtype=torch.float32, device=dev)
         rc = _kernel_library().gram_launch(
             a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, a_bf16, split, n_share,
@@ -140,8 +132,10 @@ def gram(a: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     Any K: the JAX kernel stops at K = 1024 because its K x K accumulator
     must fit VMEM, while this one's f64 scratch lives in device memory
     and grows with K^2.  The result is exactly symmetric on the card.
-    On the card K4 runs on CUDA cores (full f32 FMAs) and K5 on the
-    tensor cores (bf16 MMAs on the split), both with f64 tile sums.
+    On the card both run on the tensor cores with f64 tile sums: K4 in
+    3xTF32 for f32 A (the counterpart of ``HIGHEST``) and one bf16 pass
+    for bf16 A (its products are exact in f32), K5 in bf16 MMAs on the
+    split.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
     the Hopper kernel and counts it in ``gram.launches[precision]``.

@@ -1,5 +1,6 @@
 """Where K6's time goes on the card: CUDA-event ms of variants of
-``dmd_era5_tpu_torch/ops/csrc/matmul.cu`` that drop one phase each, and
+``dmd_era5_tpu_torch/ops/csrc/matmul.cu`` (with its mainloop,
+``matmul_tc.cuh``, inlined) that drop one phase each, and
 what restarting the MMA sums every chunk buys in accuracy.
 
     python scripts/torch_k6_phases.py
@@ -50,6 +51,7 @@ from chip_smoke import device_ms, event_ms  # noqa: E402
 from dmd_era5_tpu_torch.ops import _build  # noqa: E402
 
 SRC = _build.CSRC_DIR / "matmul.cu"
+MAINLOOP = _build.CSRC_DIR / "matmul_tc.cuh"  # inlined into SRC, where the edits land
 OUT = ROOT / "build" / "k6_phases"
 MMA = ("wgmma_tf32(d,", "wgmma_bf16(d,")
 STORES = ("static_cast<bf16*>(out)[o] = ", "static_cast<float*>(out)[o] = ")
@@ -67,7 +69,7 @@ def variant(name: str) -> str:
     """The source with the edit that names the variant."""
     if name == "empty":
         return EMPTY
-    src = SRC.read_text()
+    src = SRC.read_text().replace(f'#include "{MAINLOOP.name}"', MAINLOOP.read_text())
     edits: list[tuple[str, str]] = []
     if "no_mma" in name or name.startswith("sleep_"):
         edits += [(m, f"if (0) {m}") for m in MMA]
@@ -85,7 +87,7 @@ def variant(name: str) -> str:
                    "for (int i = 0; i < NACC; ++i) acc[i] = d[i];")]
     for old, new in edits:
         if old not in src:
-            raise SystemExit(f"{name}: '{old.strip()}' is no longer in {SRC.name}")
+            raise SystemExit(f"{name}: '{old.strip()}' is no longer in {SRC.name} or {MAINLOOP.name}")
         src = src.replace(old, new)
     return src
 

@@ -1,13 +1,16 @@
 """The Hopper kernels against their plain PyTorch versions, on the card.
 
-Every flag combination of ``sketch_center_gram_project`` in float32 and
-bfloat16, at a ragged row count and both kernel width classes; the
+Every flag combination of ``sketch_center_gram_project`` (K1) in float32
+and bfloat16, at a ragged row count, at the week's T and past W's resident
+depth, on both sides of the sketch stage's 112-wide CTA columns, and
+against one TF32 pass; the
 two-pass fallback, ``sketch_center_gram`` (K2) and ``project`` (K3), over
 operand and output dtypes at ragged M, T and N up to 512 (on both sides
 of K3's 128-wide tensor-core blocks), K3 against one TF32 pass, and its
 route through ``sketch_center_gram_project``; ``gram`` at both
 precisions, float32 and bfloat16 input, ragged row counts and panel
-widths on both sides of K5's block edges and past the JAX kernel's 1024; ``matmul`` (K6) over operand
+widths on both sides of K4's and K5's block edges and past the JAX
+kernel's 1024, K4 against one TF32 pass; ``matmul`` (K6) over operand
 and output dtypes, ragged M, N and K on both sides of its tile, column
 and MMA-depth edges and past its resident depth of w, and against one
 TF32 pass; ``householder_panel`` (K7) at
@@ -57,14 +60,42 @@ def cuda():
 def test_kernel_matches_plain_on_card(
     cuda, dtype, center, stats_col, scalar_stats, t_valid, emit_yc
 ):
-    n = 100 if (center ^ stats_col ^ emit_yc) else 256  # 128- and 256-wide tiles
+    n = 100 if (center ^ stats_col ^ emit_yc) else 256  # one and three 112-wide CTA columns
+    _check_k1(cuda, dtype, T, n, center, stats_col, scalar_stats, t_valid, emit_yc)
+
+
+# K1 past W's resident depth (168 rows of K in f32, 672 in bf16: walked in
+# panels), at widths on both sides of the sketch stage's 112-wide CTA
+# columns and at the widest, over every flag combination
+PANEL_CASES = [
+    pytest.param(dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc,
+                 id=f"{dtype}-t{t}-n{n}-c{center:d}-sc{stats_col:d}-ss{scalar_stats:d}"
+                    f"-tv{t_valid:d}-e{emit_yc:d}")
+    for dtype, t in [("float32", 300), ("bfloat16", 700)]
+    for n in [100, 112, 113, 224, 225, 256]
+    for center, stats_col, scalar_stats, t_valid, emit_yc in itertools.product(
+        [True, False], [False, True], [False, True], [False, True], [True, False])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t,n,center,stats_col,scalar_stats,t_valid,emit_yc", PANEL_CASES)
+def test_kernel_past_the_resident_panel_on_card(
+    cuda, dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc
+):
+    _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, t - 5 if t_valid else None,
+              emit_yc)
+
+
+def _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc):
+    """K1 against its plain version at M rows (no multiple of 128), T = t."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     tdt = getattr(torch, dtype)
-    x = torch.randn((M, T), generator=gen, device=cuda) + 2.0
+    x = torch.randn((M, t), generator=gen, device=cuda) + 2.0
     if t_valid is not None:
         x[:, t_valid:] = 0.0
     x = x.to(tdt)
-    w = torch.randn((T, n), generator=gen, device=cuda).to(tdt)
+    w = torch.randn((t, n), generator=gen, device=cuda).to(tdt)
     flags = dict(out_dtype=tdt, center=center, stats_col=stats_col,
                  scalar_stats=scalar_stats, t_valid=t_valid, emit_yc=emit_yc)
     before = matmul.sketch_center_gram_project.launches
@@ -93,7 +124,9 @@ GRAM_CASES = [
     # K5's blocks are 64 wide up to K = 256, 128 past it: widths on both
     # sides of each edge, one column, M no multiple of a 16-row slab
     for m, k in [(1000, 8), (1000, 110), (4099, 168), (1000, 1024), (300, 1030), (1001, 1),
-                 (777, 65), (1000, 256), (1001, 257), (133, 300)]
+                 (777, 65), (1000, 256), (1001, 257), (133, 300),
+                 # one past K4's 128-wide block edge
+                 (1000, 129)]
 ]
 
 
@@ -423,6 +456,59 @@ def test_matmul_is_not_one_tf32_pass_on_card(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert one_pass > 1e-6, one_pass
+
+
+def _wide(shape, gen, dev):
+    """Gaussian entries scaled by magnitudes spread over six decades."""
+    mag = 10.0 ** (6 * torch.rand(shape, generator=gen, device=dev) - 3)
+    return torch.randn(shape, generator=gen, device=dev) * mag
+
+
+def _one_tf32_pass_err(fn, exact) -> float:
+    """max|fn() - exact| / max|exact| with TF32 allowed for the library
+    product inside fn, the flag restored."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return float((got.double() - exact).abs().max()) / float(exact.abs().max())
+
+
+@pytest.mark.cuda
+def test_sketch_center_gram_project_is_not_one_tf32_pass_on_card(cuda):
+    """K1's three stages on f32 operands whose entries span six decades (the
+    week's T, the fit step's sketch width): Yc within 1e-6 max|Yc| of the
+    f64 product X W (no centring), G and C within 1e-6 of the f64 sums of
+    the stored Yc, limits that one TF32 pass of each product misses."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    x, w = _wide((20_000, 168), gen, cuda), _wide((168, 128), gen, cuda)
+    yc, _, _, g, c = matmul.sketch_center_gram_project(x, w, center=False)
+    y64 = yc.double()
+    exact = {"Yc": x.double() @ w.double(), "G": y64.T @ y64, "C": y64.T @ x.double()}
+    for name, got in (("Yc", yc), ("G", g), ("C", c)):
+        err = float((got.double() - exact[name]).abs().max()) / float(exact[name].abs().max())
+        assert err <= 1e-6, (name, err)
+    one_pass = {"Yc": lambda: x @ w, "G": lambda: yc.T @ yc, "C": lambda: yc.T @ x}
+    for name, fn in one_pass.items():
+        err = _one_tf32_pass_err(fn, exact[name])
+        assert err > 1e-6, (name, err)
+
+
+@pytest.mark.cuda
+def test_gram_is_not_one_tf32_pass_on_card(cuda):
+    """K4's 3xTF32 products on f32 A whose entries span six decades (the
+    week's K): G within 1e-6 max|G| of the f64 sums, exactly symmetric, a
+    limit that one TF32 pass misses."""
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    a = _wide((20_000, 168), gen, cuda)
+    exact = a.double().T @ a.double()
+    g = qr_panel.gram(a)
+    assert torch.equal(g, g.T)
+    err = float((g.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= 1e-6, err
+    assert _one_tf32_pass_err(lambda: a.T @ a, exact) > 1e-6
 
 
 @pytest.mark.cuda
