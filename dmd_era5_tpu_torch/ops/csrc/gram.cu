@@ -23,12 +23,14 @@
 // K4 takes the wgmma kernels: 3xTF32 for f32 A (atb_wgmma_tf32x3: hi =
 // tf32(a), lo = a - hi, lo.hi + hi.lo + hi.hi, the counterpart of
 // HIGHEST) and one bf16 pass for bf16 A (atb_wgmma_bf16: products exact in
-// f32), 128 x 128 blocks of G.  A diagonal block reads its slab of A once
-// and takes its A fragments from B's shared copy.  What bounds it on an
-// H100: at K 168 (the week's X) and 110 (its sketch) the bytes, 4 M K at
-// 3.35 TB/s (3.1 and 2.0 ms), against 3 M K (K + 1) TF32 operations of the
-// upper half at 495 TFLOP/s (2.6 and 1.1 ms); the 128-wide blocks pad that
-// to 3 x 128^2 at K 168 (3.5x the upper half) and 128^2 at K 110 (2.7x).
+// f32).  A diagonal block reads its slab of A once and takes its A
+// fragments from B's shared copy.  What bounds it on an H100: at K 168 (the
+// week's X) and 110 (its sketch) the bytes, 4 M K at 3.35 TB/s (3.1 and 2.0
+// ms), against 3 M K (K + 1) TF32 operations of the upper half at 495
+// TFLOP/s (2.6 and 1.1 ms); 128-wide blocks pad that to 3 x 128^2 at K 168
+// (3.5x the upper half) and 128^2 at K 110 (2.7x).  What the card reads is
+// neither: the CTA's loads, splits, MMAs and f64 sums run in turn (as K3's,
+// PERF.md), ~40% of the TF32 rate on the blocks.
 //
 // K5 (the bf16 split) runs on atb_split_bf16 (mma.sync on a cp.async ring):
 // H and L are formed in registers once per element a warp loads, and each
@@ -41,13 +43,20 @@
 // (2.25e14, 228 ms).
 //
 // Block edges by K (the table that replaces the TPU tile sweep of
-// scripts/kernel_tune.py):
+// scripts/kernel_tune.py).  K4, f32 A, device ms at the week's 15,573,600
+// rows on an H100 (scripts/torch_k4_blocks.py, PERF.md; a.T @ a beside):
 //
-//   K4, any K   128 x 128  two m64 warpgroups a block, the wgmma kernels'
-//                          one shape; K 110: 1 block, K 168: 3 (measured
-//                          against a.T @ a in chip_smoke.py, PERF.md); a
-//                          narrower layout for K <= 256 (m64 strips, n = K
-//                          rounded up to 8) is not built
+//   K          128 x 128   64 x 64   a.T @ a   edge
+//   110        7.55        11.35     9.13      128  one block
+//   128        7.17        10.34     9.04      128  one block against three
+//   168        23.27       20.25     26.21     64   three blocks padded to
+//                                                   256^2 against six
+//   256        23.79       33.37     35.92     128  three blocks against ten
+//
+//   so K4 and K1's G stage take 64-wide blocks for 128 < K <= 192
+//   (atb_tc::gram_edge), 128 elsewhere; a 64 x 64 block costs ~0.45 of a
+//   128 x 128 one for a quarter of its MMAs (twice the loads an output).
+//   bf16 A: 128 x 128 (the bf16 kernel's one shape).
 //   K5, K <= 256  64 x 64  K 110: 3 blocks, 2.0x the upper half's entries;
 //                          K 168: 6 blocks, 1.7x (128-wide blocks: 2.7x and
 //                          3.5x for the same L2 traffic, 3 KB a row at 168)
@@ -67,10 +76,22 @@ namespace {
 
 using atb_tc::bf16;
 
-// K5's block edge at width k (the table above).
+// K5's block edge at width k (the table above; K4's is atb_tc::gram_edge).
 int split_edge(int k) { return k <= 256 ? 64 : 128; }
 
-// K4 (split 0) for f32 or bf16 a, K5 (split 1) for f32 a.
+// The main kernel: K4 (split 0) for f32 or bf16 a, K5 (split 1) for f32 a,
+// at block edge `edge` (64 or 128; bf16 a takes 128).
+template <typename Op>
+cudaError_t with_main(int a_bf16, int split, int edge, const Op& op) {
+  if ((edge != 64 && edge != 128) || (a_bf16 && (split || edge != 128))) {
+    return cudaErrorInvalidValue;
+  }
+  if (split) return edge == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
+  if (a_bf16) return op(atb_tc::wgmma_main<bf16, bf16>(op.aligned_bf16()));
+  return edge == 64 ? op(atb_tc::wgmma_main<float, float, 64>(op.aligned_f32()))
+                    : op(atb_tc::wgmma_main<float, float, 128>(op.aligned_f32()));
+}
+
 struct Launch {
   const void* a;
   double* part;
@@ -79,50 +100,51 @@ struct Launch {
   int k;
   int n_share;
   cudaStream_t stream;
-  template <typename T>
-  cudaError_t highest() const {
-    const T* at = static_cast<const T*>(a);
-    const bool aligned = atb_tc::wgmma_rows_aligned(at, k, at, k);
-    return atb_tc::launch(atb_tc::wgmma_main<T, T>(aligned), at, at, part, g, m, k, k, 1, n_share,
-                          stream);
-  }
-  cudaError_t split() const {
+  bool aligned_f32() const {
     const float* af = static_cast<const float*>(a);
-    return atb_tc::launch(split_edge(k) == 64 ? atb_tc::split_main<64>() : atb_tc::split_main<128>(),
-                          af, af, part, g, m, k, k, 1, n_share, stream);
+    return atb_tc::wgmma_rows_aligned(af, k, af, k);
+  }
+  bool aligned_bf16() const {
+    const bf16* ab = static_cast<const bf16*>(a);
+    return atb_tc::wgmma_rows_aligned(ab, k, ab, k);
+  }
+  template <typename T>
+  cudaError_t operator()(const atb_tc::Main<T, T>& main) const {
+    const T* at = static_cast<const T*>(a);
+    return atb_tc::launch(main, at, at, part, g, m, k, k, 1, n_share, stream);
+  }
+};
+
+struct Occupancy {
+  int* out;
+  bool aligned_f32() const { return true; }  // the aligned kernel's; the other takes the same
+  bool aligned_bf16() const { return true; }  // shared memory and registers within one bound
+  template <typename T>
+  cudaError_t operator()(const atb_tc::Main<T, T>& main) const {
+    return atb_tc::ctas_per_sm(main, out);
   }
 };
 
 }  // namespace
 
-// Edge of the blocks of G that the main kernel's CTAs own: K4 (split 0) or
-// K5 (split 1) at width k.
-extern "C" int gram_block_edge(int split, int k) {
-  return split ? split_edge(k) : atb_tc::wg::BT;
+// Edge of the blocks of G that the main kernel's CTAs own, from the table
+// above: K4 (split 0) for f32 or bf16 A, K5 (split 1), at width k.
+extern "C" int gram_block_edge(int a_bf16, int split, int k) {
+  return split ? split_edge(k) : atb_tc::gram_edge(a_bf16, k);
 }
 
-// CTAs of the main kernel that fit one SM at once, into *ctas_per_sm: K4
-// (split 0) for f32 or bf16 A, or K5 (split 1) at width k.  Returns a
-// cudaError_t code.
-extern "C" int gram_ctas_per_sm(int a_bf16, int split, int k, int* ctas_per_sm) {
-  if (a_bf16 && split) return (int)cudaErrorInvalidValue;
-  if (split) {
-    return (int)atb_tc::ctas_per_sm(
-        split_edge(k) == 64 ? atb_tc::split_main<64>() : atb_tc::split_main<128>(), ctas_per_sm);
-  }
-  // the aligned kernel's; the other takes the same shared memory and
-  // registers within the same one-CTA launch bound
-  return (int)(a_bf16 ? atb_tc::ctas_per_sm(atb_tc::wgmma_main<bf16, bf16>(true), ctas_per_sm)
-                      : atb_tc::ctas_per_sm(atb_tc::wgmma_main<float, float>(true), ctas_per_sm));
+// CTAs of the main kernel at block edge `edge` that fit one SM at once, into
+// *ctas_per_sm.  Returns a cudaError_t code.
+extern "C" int gram_ctas_per_sm(int a_bf16, int split, int edge, int* ctas_per_sm) {
+  return (int)with_main(a_bf16, split, edge, Occupancy{ctas_per_sm});
 }
 
 // G (k x k, f32) of a (m x k, row-major, f32 or bf16) over n_share row
-// shares; part holds n_share * k * k doubles of scratch.  Returns a
-// cudaError_t code: 0 when both kernels were launched.
+// shares, in blocks of edge x edge; part holds n_share * k * k doubles of
+// scratch.  Returns a cudaError_t code: 0 when both kernels were launched.
 extern "C" int gram_launch(const void* a, double* part, float* g, long long m, int k, int a_bf16,
-                           int split, int n_share, void* stream) {
-  if (m < 1 || k < 1 || n_share < 1 || (a_bf16 && split)) return (int)cudaErrorInvalidValue;
-  const Launch op{a, part, g, m, k, n_share, static_cast<cudaStream_t>(stream)};
-  if (split) return (int)op.split();
-  return (int)(a_bf16 ? op.highest<bf16>() : op.highest<float>());
+                           int split, int edge, int n_share, void* stream) {
+  if (m < 1 || k < 1 || n_share < 1) return (int)cudaErrorInvalidValue;
+  return (int)with_main(a_bf16, split, edge,
+                        Launch{a, part, g, m, k, n_share, static_cast<cudaStream_t>(stream)});
 }

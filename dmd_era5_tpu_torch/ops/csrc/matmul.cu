@@ -31,8 +31,8 @@
 
 // CTAs of the kernel that fit one SM at once at depth k, into *out.
 extern "C" int matmul_ctas_per_sm(int x_bf16, int k, int* out) {
-  return (int)(x_bf16 ? mm_tc::ctas_per_sm<atb_tc::bf16, false>(k, out)
-                      : mm_tc::ctas_per_sm<float, false>(k, out));
+  return (int)(x_bf16 ? mm_tc::ctas_per_sm<atb_tc::bf16, false, 112>(k, out)
+                      : mm_tc::ctas_per_sm<float, false, 112>(k, out));
 }
 
 // out (m x n, f32 or bf16) = x (m x k) @ w (k x n), both row-major and of
@@ -42,6 +42,6 @@ extern "C" int matmul_launch(const void* x, const void* w, void* out, long long 
                              int x_bf16, int out_bf16, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const mm_tc::CenterArgs none{};
-  return (int)(x_bf16 ? mm_tc::dispatch<atb_tc::bf16, false>(x, w, out, m, k, n, out_bf16, ctas, none, s)
-                      : mm_tc::dispatch<float, false>(x, w, out, m, k, n, out_bf16, ctas, none, s));
+  return (int)(x_bf16 ? mm_tc::dispatch<atb_tc::bf16, false, 112>(x, w, out, m, k, n, out_bf16, ctas, none, s)
+                      : mm_tc::dispatch<float, false, 112>(x, w, out, m, k, n, out_bf16, ctas, none, s));
 }

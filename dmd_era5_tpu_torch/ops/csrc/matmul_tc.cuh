@@ -13,8 +13,9 @@
 // The output is f32, or bf16 rounded from the f32 sum.
 //
 // - Persistent CTAs, about one an SM (the wrapper sizes the grid from the
-//   occupancy query), in columns of BN = 112 output columns (N 110 padded
-//   to the next valid wgmma width, not to 128).  A CTA loads its column of w
+//   occupancy query), in columns of BN output columns: 112 for K6 (N 110
+//   padded to the next valid wgmma width, not to 128), 112 or 128 for K1
+//   (its table, sketch_center_gram_project.cu).  A CTA loads its column of w
 //   once, splits it into K-major tf32 hi and lo planes (transposed on the
 //   way in, as K3's B) or, for bf16, stores it MN-major for wgmma's
 //   transpose bit (as K3-bf16's B), and then walks 128-row tiles of x,
@@ -34,8 +35,8 @@
 //   A_lo B_hi + A_hi B_lo of its four k8 steps, then A_hi B_hi
 //   (m64n112k8); bf16: ldmatrix fragments, four m64n112k16 MMAs.
 // - Accumulation: the tensor core rounds its sums toward zero, so the MMAs
-//   of each chunk (4 k-steps) start from zero and their sum is added into
-//   f32 accumulators rounded to nearest (chained over a tile instead, out
+//   of each chunk (4 k-steps; every k-step in K1's bf16 sketch) start from
+//   zero and their sum is added into f32 accumulators rounded to nearest (chained over a tile instead, out
 //   read 2.2-3.8x the plain f32 product's error against the f64 product:
 //   the `chained` variant of scripts/torch_k6_phases.py, PERF.md).
 // - Epilogue: a tile's sums go through shared memory 32 rows at a time, so
@@ -60,14 +61,17 @@
 // with zeros to the MMA's depth (8 tf32, 16 bf16) in shared memory only.
 // So w is resident for K <= 168 (f32) or 672 (bf16); past that it is
 // walked in panels of 160 or 640 rows of K, restaged once a tile and panel
-// (from L2: w is small).  N > 112 takes more CTA columns.
+// (from L2: w is small).  N > BN takes more CTA columns.  At BN 128 the
+// f32 planes take 168 KB at K 168 and the staged rows 16 KB, so the ring
+// is 2 chunks deep (Tile): w resident for K <= 176 (f32) or 704 (bf16).
 //
 // Tile table (each choice and what decided it on an H100; it stands in for
 // the TPU tile sweep of the nearest product, scripts/kernel_tune.py:218-225):
 //
 //   rows a tile       128   two m64 warpgroups; 512 tiles of the streamed
 //                           block over 132 SMs fill 97% of 4 rounds
-//   columns a CTA     112   N 110 -> one n112 MMA, 2% padding (n128: 14%)
+//   columns a CTA     112   N 110 -> one n112 MMA, 2% padding (n128: 14%);
+//                           K1's sketch: 112 or 128 by N (its table)
 //   chunk of K        128 B the 128-byte swizzle's row; 4 MMA k-steps
 //   ring              4     64 KB beside the 150.5 KB of f32 planes; 2
 //                           reads the same
@@ -107,30 +111,39 @@ using atb_tc::smem_u32;
 
 constexpr int THREADS = 256;
 constexpr int BM = 128;                        // rows of x a tile
-constexpr int BN = 112;                        // columns of out a CTA
-constexpr int NACC = BN / 2;                   // f32 accumulators a thread: 56
-constexpr int STAGES = 4;                      // x chunks in the ring
 constexpr int CHUNK_ROW = 128;                 // bytes of a chunk's row: the swizzle's
 constexpr int STAGE_BYTES = BM * CHUNK_ROW;    // 16 KB
 constexpr int SMEM_CAP = 232448;               // shared memory of one CTA
 constexpr int ALIGN = 1024;                    // the 128-byte swizzle's period
-constexpr int BAR_BYTES = STAGES * 8;
 constexpr int OUT_ROWS = 32;                   // rows of a tile staged at once for the stores
-constexpr int OUT_BYTES = OUT_ROWS * BN * 4;   // 14 KB
 constexpr int MU_BYTES = BM * 4;               // the tile's row means (K1's epilogue)
-constexpr int FREE = SMEM_CAP - ALIGN - STAGES * STAGE_BYTES - BAR_BYTES - OUT_BYTES - MU_BYTES;  // for w
 
-template <typename T>
+// What depends on the columns of out a CTA: BN 112 (K6: N 110 in one
+// column) or 128 (K1: N 128 in one column, 256 in two), whose f32 planes
+// leave room for a 2-deep ring only.
+template <int BN_>
+struct Tile {
+  static constexpr int BN = BN_;
+  static constexpr int NACC = BN / 2;                 // f32 accumulators a thread
+  static constexpr int STAGES = BN == 112 ? 4 : 2;    // x chunks in the ring
+  static constexpr int BAR_BYTES = STAGES * 8;
+  static constexpr int OUT_BYTES = OUT_ROWS * BN * 4;  // 14 or 16 KB
+  static constexpr int FREE =
+      SMEM_CAP - ALIGN - STAGES * STAGE_BYTES - BAR_BYTES - OUT_BYTES - MU_BYTES;  // for w
+  static_assert(BN == 112 || BN == 128, "a wgmma width the kernel has");
+};
+
+template <typename T, int BN>
 struct Cfg;
-template <>
-struct Cfg<float> {
+template <int BN>
+struct Cfg<float, BN> {
   static constexpr int KC = CHUNK_ROW / 4;   // columns of K a chunk
   static constexpr int KSTEP = 8;            // K of one MMA
   static constexpr int ROW_BYTES = 8 * BN;   // a row of K in the hi and lo planes
   static constexpr int PANEL = 160;          // rows of K a panel, where K does not fit
 };
-template <>
-struct Cfg<bf16> {
+template <int BN>
+struct Cfg<bf16, BN> {
   static constexpr int KC = CHUNK_ROW / 2;
   static constexpr int KSTEP = 16;
   static constexpr int ROW_BYTES = 2 * BN;
@@ -138,27 +151,33 @@ struct Cfg<bf16> {
 };
 
 // Deepest K of w resident at once, a multiple of the MMA's depth.
-template <typename T>
+template <typename T, int BN>
 constexpr int kmax() {
-  return FREE / Cfg<T>::ROW_BYTES / Cfg<T>::KSTEP * Cfg<T>::KSTEP;
+  return Tile<BN>::FREE / Cfg<T, BN>::ROW_BYTES / Cfg<T, BN>::KSTEP * Cfg<T, BN>::KSTEP;
 }
-static_assert(kmax<float>() == 168 && kmax<bf16>() == 672, "the budget in the note");
-static_assert(Cfg<float>::PANEL % Cfg<float>::KC == 0 && Cfg<float>::PANEL <= kmax<float>() &&
-                  Cfg<bf16>::PANEL % Cfg<bf16>::KC == 0 && Cfg<bf16>::PANEL <= kmax<bf16>(),
+static_assert(kmax<float, 112>() == 168 && kmax<bf16, 112>() == 672 && kmax<float, 128>() == 176 &&
+                  kmax<bf16, 128>() == 704,
+              "the budget in the note");
+static_assert(Cfg<float, 112>::PANEL % Cfg<float, 112>::KC == 0 &&
+                  Cfg<float, 112>::PANEL <= kmax<float, 112>() &&
+                  Cfg<bf16, 112>::PANEL % Cfg<bf16, 112>::KC == 0 &&
+                  Cfg<bf16, 112>::PANEL <= kmax<bf16, 112>(),
               "a panel is whole chunks and fits");
 
 // Rows of K of w a CTA holds: all of K, padded to the MMA's depth, where it
 // fits; else a panel.
-template <typename T>
+template <typename T, int BN>
 int panel_rows(int k) {
-  constexpr int S = Cfg<T>::KSTEP;
+  constexpr int S = Cfg<T, BN>::KSTEP;
   const int padded = (k + S - 1) / S * S;
-  return padded <= kmax<T>() ? padded : Cfg<T>::PANEL;
+  return padded <= kmax<T, BN>() ? padded : Cfg<T, BN>::PANEL;
 }
 
-template <typename T>
+template <typename T, int BN>
 constexpr int smem_bytes(int rows) {
-  return ALIGN + STAGES * STAGE_BYTES + rows * Cfg<T>::ROW_BYTES + BAR_BYTES + OUT_BYTES + MU_BYTES;
+  using L = Tile<BN>;
+  return ALIGN + L::STAGES * STAGE_BYTES + rows * Cfg<T, BN>::ROW_BYTES + L::BAR_BYTES +
+         L::OUT_BYTES + MU_BYTES;
 }
 
 // What K1's epilogue (sketch_center_gram_project.cu) takes beside out.
@@ -223,7 +242,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t saddr, uint32_t lbo, uint
 // d (+)= a b, 64 x 112: a a warp's 16 rows in registers (the m16n8k8 tf32 or
 // m16n8k16 bf16 fragment), b from a descriptor; d as 14 n8 tiles of the
 // m16n8 accumulator layout.  scale_d 0 ignores d's old value.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[NACC], const uint32_t (&a)[4], uint64_t desc,
+__device__ __forceinline__ void wgmma_tf32(float (&d)[56], const uint32_t (&a)[4], uint64_t desc,
                                            int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
@@ -234,7 +253,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[NACC], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 // B MN-major, read through the transpose bit
-__device__ __forceinline__ void wgmma_bf16(float (&d)[NACC], const uint32_t (&a)[4], uint64_t desc,
+__device__ __forceinline__ void wgmma_bf16(float (&d)[56], const uint32_t (&a)[4], uint64_t desc,
                                            int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
@@ -243,6 +262,16 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[NACC], const uint32_t (&a)
       "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The same at n 128 (atb_tc's, whose descriptor layout these share).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  atb_tc::wgmma_tf32(d, a, desc, scale_d);
+}
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  atb_tc::wgmma_bf16(d, a, desc, scale_d);
 }
 
 // Registers that an in-flight wgmma reads or writes (atb_tc::hold, at
@@ -298,16 +327,19 @@ __device__ __forceinline__ void chunk_row_stats(const unsigned char* st, int tid
 }
 
 // T: the operands' type.  TMA: x's rows and base are 16-byte aligned, and
-// its chunks come by TMA; else element by element.  CENTER: K1's epilogue --
+// its chunks come by TMA; else element by element.  BN: columns of out a CTA
+// (Tile).  CENTER: K1's epilogue --
 // the row sums and sums of squares of x from the chunks in the ring, out =
 // x w - (rs inv_t) colw rounded to its dtype, the row statistics (CTA column
 // 0 only) as (m, 2) or as a CTA's f64 sums of rs^2 and ss.
-template <typename T, bool TMA, bool CENTER>
+template <typename T, bool TMA, bool CENTER, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_tc(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
               const T* __restrict__ w, void* __restrict__ out, int out_bf16, long long m, int k,
               int n, int kw, const CenterArgs ca) {
-  using C = Cfg<T>;
+  using C = Cfg<T, BN>;
+  constexpr int NACC = Tile<BN>::NACC;
+  constexpr int STAGES = Tile<BN>::STAGES;
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int STEPS = C::KC / C::KSTEP;  // MMA k-steps a chunk: 4
   extern __shared__ unsigned char smem_raw[];
@@ -501,28 +533,57 @@ __global__ void __launch_bounds__(THREADS, 1)
       // MN-major core matrices of 8 k x 16 bytes: the next along K
       // (BN / 8) 128 bytes on, the next along N 128; a k16 step is two
       constexpr uint32_t KSTRIDE = BN / 8 * 128;
-      hold(d);
-      atb_tc::wgmma_fence();
+      if constexpr (CENTER) {
+        // K1 rounds Y to bf16 after centring: every k16 step starts from
+        // zero and its sum goes into acc rounded to nearest, so Y keeps the
+        // accuracy of an f32 sum (PERF.md), where a sum chained over a
+        // chunk is truncated by the tensor core
 #pragma unroll
-      for (int q = 0; q < STEPS; ++q) {
-        if (q < steps) {
-          wgmma_bf16(d, af[q], smem_desc(plane_hi + (kk0 + q) * 2 * KSTRIDE, KSTRIDE, 128),
-                     q == 0 ? 0 : 1);
+        for (int q = 0; q < STEPS; ++q) {
+          if (q < steps) {
+            hold(d);
+            atb_tc::wgmma_fence();
+            wgmma_bf16(d, af[q], smem_desc(plane_hi + (kk0 + q) * 2 * KSTRIDE, KSTRIDE, 128), 0);
+            atb_tc::wgmma_commit();
+            if (q == 0) {
+              chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
+              __syncthreads();
+              if constexpr (TMA) {
+                if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
+              }
+            }
+            atb_tc::wgmma_wait<0>();
+            hold(d);
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) acc[i] += d[i];
+          }
         }
+        hold(af);
+      } else {
+        hold(d);
+        atb_tc::wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < STEPS; ++q) {
+          if (q < steps) {
+            wgmma_bf16(d, af[q], smem_desc(plane_hi + (kk0 + q) * 2 * KSTRIDE, KSTRIDE, 128),
+                       q == 0 ? 0 : 1);
+          }
+        }
+        atb_tc::wgmma_commit();
+        __syncthreads();
+        if constexpr (TMA) {
+          if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
+        }
+        atb_tc::wgmma_wait<0>();
+        hold(d);
+        hold(af);
       }
-      atb_tc::wgmma_commit();
-      if constexpr (CENTER) chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
-      __syncthreads();
-      if constexpr (TMA) {
-        if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
-      }
-      atb_tc::wgmma_wait<0>();
-      hold(d);
-      hold(af);
     }
     // the chunk's MMAs started from zero: their sum into acc, rounded to nearest
+    if constexpr (F32 || !CENTER) {
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] += d[i];
+      for (int i = 0; i < NACC; ++i) acc[i] += d[i];
+    }
     if (++ci == cpt) {  // the tile's last chunk: store it
       // Through shared memory, OUT_ROWS rows at a time (the rows of warps
       // 2 h and 2 h + 1), so that a warp's stores are 128 contiguous bytes
@@ -629,7 +690,7 @@ inline EncodeTiled encode_tiled() {
 // Let the instantiation take the most dynamic shared memory any K asks of
 // it (w's planes at their deepest), once on each device: not at every
 // launch, where the call is host time beside a ~0.04 ms kernel.
-template <typename T, bool TMA, bool CENTER>
+template <typename T, bool TMA, bool CENTER, int BN>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};  // a bit a device
   int dev = 0;
@@ -638,21 +699,23 @@ cudaError_t allow_smem() {
   if (dev >= 64) return cudaErrorInvalidDevice;
   const unsigned long long bit = 1ULL << dev;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(matmul_tc<T, TMA, CENTER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<T>(kmax<T>()));
+  err = cudaFuncSetAttribute(matmul_tc<T, TMA, CENTER, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<T, BN>(kmax<T, BN>()));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-// The grid of a launch on at most `ctas` CTAs: (CTAs a column, columns).
-inline dim3 grid_of(long long m, int n, int ctas) {
+// The grid of a launch on at most `ctas` CTAs, bn columns of out a CTA:
+// (CTAs a column, columns).
+inline dim3 grid_of(long long m, int n, int ctas, int bn) {
   const long long row_tiles = (m + BM - 1) / BM;
-  const int col_tiles = (n + BN - 1) / BN;
+  const int col_tiles = (n + bn - 1) / bn;
   const long long per_col = ctas / col_tiles > 1 ? ctas / col_tiles : 1;
   return dim3((unsigned)(row_tiles < per_col ? row_tiles : per_col), (unsigned)col_tiles);
 }
 
-template <typename T, bool TMA, bool CENTER>
+template <typename T, bool TMA, bool CENTER, int BN>
 cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, int n, int out_bf16,
                    int ctas, const CenterArgs& ca, cudaStream_t stream) {
   CUtensorMap map{};
@@ -661,7 +724,7 @@ cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, 
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
     const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(T)};
-    const cuuint32_t box[2] = {(cuuint32_t)Cfg<T>::KC, (cuuint32_t)BM};
+    const cuuint32_t box[2] = {(cuuint32_t)Cfg<T, BN>::KC, (cuuint32_t)BM};
     const cuuint32_t unit[2] = {1, 1};
     const CUresult r = encode(
         &map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
@@ -670,34 +733,36 @@ cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, 
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem<T, TMA, CENTER>();
+  const cudaError_t err = allow_smem<T, TMA, CENTER, BN>();
   if (err != cudaSuccess) return err;
   if ((n + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
-  const int kw = panel_rows<T>(k);
-  matmul_tc<T, TMA, CENTER><<<grid_of(m, n, ctas), THREADS, smem_bytes<T>(kw), stream>>>(
-      map, static_cast<const T*>(x), static_cast<const T*>(w), out, out_bf16, m, k, n, kw, ca);
+  const int kw = panel_rows<T, BN>(k);
+  matmul_tc<T, TMA, CENTER, BN><<<grid_of(m, n, ctas, BN), THREADS, smem_bytes<T, BN>(kw),
+                                  stream>>>(map, static_cast<const T*>(x),
+                                            static_cast<const T*>(w), out, out_bf16, m, k, n, kw,
+                                            ca);
   return cudaGetLastError();
 }
 
 // out (m x n, f32 or bf16) = x (m x k) @ w (k x n) of type T, both row-major,
-// with K1's epilogue where CENTER, on at most `ctas` CTAs; by TMA where x's
-// base and row stride are 16-byte aligned.
-template <typename T, bool CENTER>
+// BN columns of out a CTA, with K1's epilogue where CENTER, on at most `ctas`
+// CTAs; by TMA where x's base and row stride are 16-byte aligned.
+template <typename T, bool CENTER, int BN>
 cudaError_t dispatch(const void* x, const void* w, void* out, long long m, int k, int n,
                      int out_bf16, int ctas, const CenterArgs& ca, cudaStream_t s) {
   if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
-  return tma ? launch<T, true, CENTER>(x, w, out, m, k, n, out_bf16, ctas, ca, s)
-             : launch<T, false, CENTER>(x, w, out, m, k, n, out_bf16, ctas, ca, s);
+  return tma ? launch<T, true, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s)
+             : launch<T, false, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s);
 }
 
 // CTAs of the kernel that fit one SM at once at depth k, into *out.
-template <typename T, bool CENTER>
+template <typename T, bool CENTER, int BN>
 cudaError_t ctas_per_sm(int k, int* out) {
-  const cudaError_t err = allow_smem<T, true, CENTER>();
+  const cudaError_t err = allow_smem<T, true, CENTER, BN>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, matmul_tc<T, true, CENTER>, THREADS,
-                                                       smem_bytes<T>(panel_rows<T>(k)));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, matmul_tc<T, true, CENTER, BN>, THREADS,
+                                                       smem_bytes<T, BN>(panel_rows<T, BN>(k)));
 }
 
 }  // namespace mm_tc

@@ -390,33 +390,50 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
 
 // ------------------------------------- 3xTF32 on wgmma (atb_wgmma_tf32x3)
 //
-// K3's f32 products: 3xTF32 on warpgroup MMAs, which run asynchronously
-// beside the splitting and at twice the tf32 rate mma.sync reaches.  Two
-// warpgroups own rows 0-63 and 64-127 of a 128 x 128 block of C; each holds
-// its A operand in registers (a warp's 16 rows, loaded from the MN-major raw
-// slab and split there, lo left to the tensor core's truncation), and B
-// comes from shared memory, where tf32 wgmma wants it K-major: each 16-row
-// slab of B is split once a CTA into hi and lo planes of 8 x 16-byte core
-// matrices, transposed on the way, while the previous slab's MMAs run.  Per
-// slab, from zero: D = A_lo B_hi + A_hi B_lo over both k8 steps, then
-// + A_hi B_hi of each (six m64n128k8 MMAs, the small terms first, so only
-// the last two round a large D toward zero; a bf16 operand has no lo, and
-// its two products go); then acc += D in f32, and the f64 sums every 128
-// rows.  Raw slabs of A and B are read into registers a slab ahead (B two,
-// since it is split a slab before its MMAs), widened to f32, and stored
-// into two shared slots each at the end of a slab.
+// K3's, K4's and K1's f32 products: 3xTF32 on warpgroup MMAs, which run
+// asynchronously beside the splitting and at twice the tf32 rate mma.sync
+// reaches.  Each warpgroup holds its A operand in registers (a warp's 16
+// rows, loaded from the MN-major raw slab and split there, lo left to the
+// tensor core's truncation), and B comes from shared memory, where tf32
+// wgmma wants it K-major: each 16-row slab of B is split once a CTA into hi
+// and lo planes of 8 x 16-byte core matrices, transposed on the way, while
+// the previous slab's MMAs run.  Two block edges:
+//   BT 128  the two warpgroups own rows 0-63 and 64-127 of a 128 x 128
+//           block; per slab, from zero: D = A_lo B_hi + A_hi B_lo over both
+//           k8 steps, then + A_hi B_hi of each (six m64n128k8 MMAs).
+//   BT 64   both own the 64 rows of a 64 x 64 block, warpgroup w the k8
+//           step w of each slab: D = A_lo B_hi + A_hi B_lo + A_hi B_hi
+//           (three m64n64k8 MMAs); their f64 sums are added, in warpgroup
+//           order, as the block is written.  Half the registers: two CTAs
+//           an SM.
+// The small terms go first, so only the last MMAs round a large D toward
+// zero; a bf16 operand has no lo, and its products go.  Then acc += D in
+// f32, and the f64 sums every 128 rows.  Raw slabs of A and B are read into
+// registers a slab ahead (B two, since it is split a slab before its MMAs),
+// widened to f32, and stored into two shared slots each at the end of a
+// slab.
 namespace wg {
-constexpr int BT = 128;
-constexpr int BK = 16;  // rows per slab: two k8 steps
+constexpr int BT = 128;  // the block edge of the bf16 kernel and of 3xTF32's default
+constexpr int BK = 16;   // rows per slab: two k8 steps
 constexpr int SPT = MT / BK;
 constexpr int RING = 2;  // raw slabs of A, and of B, in shared memory
-constexpr int S = BT + 8;                    // raw row stride, floats: S % 32 == 8
-constexpr int SLAB = BK * S;                 // floats
-constexpr int PLANE = BT * BK;               // words: 64 core matrices of 8 x 4 tf32
-constexpr int SUM_BYTES = 64 * THREADS * 8;  // 64 f64 sums a thread
-constexpr int SMEM = SUM_BYTES + 2 * RING * SLAB * 4 + 2 * 2 * PLANE * 4;
-static_assert(SMEM <= 232448, "shared memory of one CTA");
+constexpr int SUM_BYTES = 64 * THREADS * 8;  // 64 f64 sums a thread at BT 128
 }  // namespace wg
+
+// atb_wgmma_tf32x3's layout at block edge BT (128 or 64).
+template <int BT>
+struct Tf32Cfg {
+  static constexpr int S = BT + 8;           // raw row stride, floats: S % 32 == 8
+  static constexpr int SLAB = wg::BK * S;    // floats
+  static constexpr int PLANE = BT * wg::BK;  // words: core matrices of 8 x 4 tf32
+  static constexpr int NACC = BT / 2;        // f32 accumulators a thread: m64 x nBT
+  static constexpr int RPR = BT / 4;         // runs of four columns a slab row
+  static constexpr int RUNS = BT / 64;       // runs of a slab a thread loads
+  static constexpr int SUM_BYTES = NACC * THREADS * 8;
+  static constexpr int SMEM = SUM_BYTES + 2 * wg::RING * SLAB * 4 + 2 * 2 * PLANE * 4;
+  static_assert(S % 32 == 8 && RUNS * THREADS * 4 == wg::BK * BT, "slab layout");
+  static_assert(SMEM * (BT == 64 ? 2 : 1) <= 232448, "shared memory of the CTAs of an SM");
+};
 
 // Shared-memory descriptor of a K-major operand without swizzle: core
 // matrices of 8 rows x 16 bytes, the next along K 128 bytes on (leading
@@ -440,6 +457,18 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// The same at n 64: d as 8 n8 tiles.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -456,9 +485,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 // Registers that an in-flight wgmma reads or writes: the compiler must
 // neither reuse nor read them before the wait.
-__device__ __forceinline__ void hold(float (&r)[64]) {
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 __device__ __forceinline__ void hold(uint32_t (&r)[4]) {
   asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
@@ -475,29 +505,26 @@ __device__ __forceinline__ float4 load_vec4(const bf16* p) {
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
-// This thread's two runs of four columns of a 16-row slab from row r0 of
-// src (m x ncols, row-major), in f32: run q = i THREADS + tid is row q / 32,
-// columns c0 + 4 (q % 32); zero past the edges and unless live.  Where every
-// row is aligned to a run (VEC; then ncols is a multiple of 4) a run is one
-// load, wholly in or out of range; else element by element.
-template <bool VEC, typename T>
+// This thread's runs of four columns of a 16-row slab from row r0 of src
+// (m x ncols, row-major), in f32, BT columns from c0: run q = i THREADS +
+// tid is row q / RPR, columns c0 + 4 (q % RPR); zero past the edges and
+// unless live.  Where every row is aligned to a run (VEC; then ncols is a
+// multiple of 4) a run is one load, wholly in or out of range; else
+// element by element.
+template <int BT, bool VEC, typename T>
 __device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r0, long long m,
-                                          int ncols, int c0, bool live, int tid, float4 (&v)[2]) {
-  if constexpr (VEC) {
+                                          int ncols, int c0, bool live, int tid,
+                                          float4 (&v)[Tf32Cfg<BT>::RUNS]) {
+  using C = Tf32Cfg<BT>;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;
-      const int c = c0 + (q & 31) * 4;
-      const long long gr = r0 + (q >> 5);
+  for (int i = 0; i < C::RUNS; ++i) {
+    const int q = i * THREADS + tid;
+    const int c = c0 + (q % C::RPR) * 4;
+    const long long gr = r0 + q / C::RPR;
+    if constexpr (VEC) {
       v[i] = (live && gr < m && c < ncols) ? load_vec4(src + gr * ncols + c)
                                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;
-      const int c = c0 + (q & 31) * 4;
-      const long long gr = r0 + (q >> 5);
+    } else {
       const T* p = src + gr * ncols + c;
       const bool ok = live && gr < m;
       v[i].x = ok && c < ncols ? atb::to_f32(p[0]) : 0.f;
@@ -511,31 +538,37 @@ __device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r
 // TA, TB: float, or one of them bf16 (bf16 x bf16 takes atb_wgmma_bf16).
 // VEC: every row of A and B is aligned to a run of four elements, loaded
 // at once (a runtime choice in the loads cost this kernel ~4% on an H100).
-template <typename TA, typename TB, bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
+// BT: the block edge, 128 or 64 (the note above).
+template <typename TA, typename TB, bool VEC, int BT>
+__global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
     atb_wgmma_tf32x3(const TA* __restrict__ a, const TB* __restrict__ b,
                      double* __restrict__ part, long long m, int na, int nb, int upper,
                      int n_share, int width_a, int width_b) {
+  using C = Tf32Cfg<BT>;
+  constexpr int NACC = C::NACC;
   constexpr bool A_EXACT = sizeof(TA) == 2;  // bf16: its own hi, no lo
   constexpr bool B_EXACT = sizeof(TB) == 2;
+  constexpr int KCS = BT == 128 ? 2 : 1;  // k8 steps of a slab a warpgroup takes
   static_assert(!(A_EXACT && B_EXACT), "bf16 x bf16 is atb_wgmma_bf16");
   extern __shared__ __align__(16) unsigned char smem[];
-  double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
-  float* ring_a = reinterpret_cast<float*>(smem + wg::SUM_BYTES);
-  float* ring_b = ring_a + wg::RING * wg::SLAB;  // raw slabs s % 2
-  uint32_t* planes = reinterpret_cast<uint32_t*>(ring_b + wg::RING * wg::SLAB);  // [2][hi, lo]
+  double* sums = reinterpret_cast<double*>(smem);  // [NACC][THREADS]
+  float* ring_a = reinterpret_cast<float*>(smem + C::SUM_BYTES);
+  float* ring_b = ring_a + wg::RING * C::SLAB;  // raw slabs s % 2
+  uint32_t* planes = reinterpret_cast<uint32_t*>(ring_b + wg::RING * C::SLAB);  // [2][hi, lo]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's rows of A's block
-  const int nbb = (nb + wg::BT - 1) / wg::BT;
+  // the warp's rows of A's block; at BT 64 its warpgroup's k8 step
+  const int row0 = (BT == 128 ? (warp >> 2) * 64 : 0) + (warp & 3) * 16;
+  const int kc0 = BT == 128 ? 0 : warp >> 2;
+  const int nbb = (nb + BT - 1) / BT;
   int bi, bj;
   block_of(blockIdx.x, nbb, upper, bi, bj);
-  const int a0 = bi * wg::BT;
-  const int b0 = bj * wg::BT;
+  const int a0 = bi * BT;
+  const int b0 = bj * BT;
   // A's slab is B's: read once, A's fragments from B's planes
   const bool diag = std::is_same<TA, TB>::value && upper && bi == bj;
   const int share = blockIdx.y;
@@ -544,10 +577,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const long long n_slabs = my_tiles * wg::SPT;
 
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sums[i * THREADS + tid] = 0.0;
-  float acc[64], d[64];
+  for (int i = 0; i < NACC; ++i) sums[i * THREADS + tid] = 0.0;
+  float acc[NACC], d[NACC];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = d[i] = 0.f;
 
   auto rows = [&](long long s) {
     return (share + (s / wg::SPT) * n_share) * MT + (s % wg::SPT) * wg::BK;
@@ -558,21 +591,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   // neighbouring n of a raw row and writes four whole core-matrix rows, both
   // conflict-free.
   auto split_b = [&](long long s) {
-    const float* raw = ring_b + (s & 1) * wg::SLAB;
-    uint32_t* hi = planes + (int)(s & 1) * 2 * wg::PLANE;
+    const float* raw = ring_b + (s & 1) * C::SLAB;
+    uint32_t* hi = planes + (int)(s & 1) * 2 * C::PLANE;
 #pragma unroll
-    for (int i = 0; i < wg::PLANE / 4 / THREADS; ++i) {
+    for (int i = 0; i < C::PLANE / 4 / THREADS; ++i) {
       const int q = i * THREADS + tid;
-      const int n = q % wg::BT;
-      const int kb = q / wg::BT;
+      const int n = q % BT;
+      const int kb = q / BT;
       uint4 h, l;
-      split_tf32<B_EXACT>(raw[(4 * kb) * wg::S + n], h.x, l.x);
-      split_tf32<B_EXACT>(raw[(4 * kb + 1) * wg::S + n], h.y, l.y);
-      split_tf32<B_EXACT>(raw[(4 * kb + 2) * wg::S + n], h.z, l.z);
-      split_tf32<B_EXACT>(raw[(4 * kb + 3) * wg::S + n], h.w, l.w);
+      split_tf32<B_EXACT>(raw[(4 * kb) * C::S + n], h.x, l.x);
+      split_tf32<B_EXACT>(raw[(4 * kb + 1) * C::S + n], h.y, l.y);
+      split_tf32<B_EXACT>(raw[(4 * kb + 2) * C::S + n], h.z, l.z);
+      split_tf32<B_EXACT>(raw[(4 * kb + 3) * C::S + n], h.w, l.w);
       const int w = ((n >> 3) * (wg::BK / 4) + kb) * 32 + (n & 7) * 4;
       *reinterpret_cast<uint4*>(hi + w) = h;
-      *reinterpret_cast<uint4*>(hi + wg::PLANE + w) = l;
+      *reinterpret_cast<uint4*>(hi + C::PLANE + w) = l;
     }
   };
   // this warp's A fragments of k8 step kc of raw A slab s; on a diagonal
@@ -582,37 +615,40 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (diag) {
       constexpr int N8 = wg::BK / 4 * 32;  // words from row n to n + 8
       const uint32_t* hi =
-          planes + (int)(s & 1) * 2 * wg::PLANE + ((row0 >> 3) * N8) + kc * 64 + g * 4 + t;
+          planes + (int)(s & 1) * 2 * C::PLANE + ((row0 >> 3) * N8) + kc * 64 + g * 4 + t;
       ah[0] = hi[0];
       ah[1] = hi[N8];
       ah[2] = hi[32];
       ah[3] = hi[N8 + 32];
-      al[0] = hi[wg::PLANE];
-      al[1] = hi[wg::PLANE + N8];
-      al[2] = hi[wg::PLANE + 32];
-      al[3] = hi[wg::PLANE + N8 + 32];
+      al[0] = hi[C::PLANE];
+      al[1] = hi[C::PLANE + N8];
+      al[2] = hi[C::PLANE + 32];
+      al[3] = hi[C::PLANE + N8 + 32];
       return;
     }
-    const float* as = ring_a + (s & 1) * wg::SLAB + (kc * 8 + t) * wg::S + row0 + g;
+    const float* as = ring_a + (s & 1) * C::SLAB + (kc * 8 + t) * C::S + row0 + g;
     split_tf32<A_EXACT>(as[0], ah[0], al[0]);
     split_tf32<A_EXACT>(as[8], ah[1], al[1]);
-    split_tf32<A_EXACT>(as[4 * wg::S], ah[2], al[2]);
-    split_tf32<A_EXACT>(as[4 * wg::S + 8], ah[3], al[3]);
+    split_tf32<A_EXACT>(as[4 * C::S], ah[2], al[2]);
+    split_tf32<A_EXACT>(as[4 * C::S + 8], ah[3], al[3]);
   };
 
   // A s + 1 and B s + 2 are read into registers during slab s and stored
   // at its end (cp.async copies into a deeper ring ran markedly slower in
   // this kernel on an H100)
-  float4 va[2], vb[2];
+  float4 va[C::RUNS], vb[C::RUNS];
   auto ldg_a = [&](long long s) {
-    if (!diag) load_slab<VEC>(a, rows(s), m, na, a0, s < n_slabs, tid, va);
+    if (!diag) load_slab<BT, VEC>(a, rows(s), m, na, a0, s < n_slabs, tid, va);
   };
-  auto ldg_b = [&](long long s) { load_slab<VEC>(b, rows(s), m, nb, b0, s < n_slabs, tid, vb); };
-  auto sts = [&](float* ring, long long s, const float4 (&v)[2]) {
+  auto ldg_b = [&](long long s) {
+    load_slab<BT, VEC>(b, rows(s), m, nb, b0, s < n_slabs, tid, vb);
+  };
+  auto sts = [&](float* ring, long long s, const float4 (&v)[C::RUNS]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < C::RUNS; ++i) {
       const int q = i * THREADS + tid;
-      *reinterpret_cast<float4*>(ring + (s & 1) * wg::SLAB + (q >> 5) * wg::S + (q & 31) * 4) = v[i];
+      *reinterpret_cast<float4*>(ring + (s & 1) * C::SLAB + (q / C::RPR) * C::S +
+                                 (q % C::RPR) * 4) = v[i];
     }
   };
   ldg_a(0);
@@ -630,48 +666,46 @@ __global__ void __launch_bounds__(THREADS, 1)
   int in_tile = 0;
   for (long long s = 0; s < n_slabs; ++s) {
     __syncthreads();  // planes s % 2, A s and B s + 1 in place; slab s - 1 done with
-    uint32_t ah0[4], al0[4], ah1[4], al1[4];
-    a_frags(s, 0, ah0, al0);
-    a_frags(s, 1, ah1, al1);
-    const uint32_t p_hi = smem_u32(planes + (int)(s & 1) * 2 * wg::PLANE);
-    const uint64_t hi0 = kmajor_desc(p_hi);  // k8 step 0: core matrices 0-1 along K
-    const uint64_t hi1 = kmajor_desc(p_hi + 256);  // step 1: 2-3
-    const uint64_t lo0 = kmajor_desc(p_hi + wg::PLANE * 4);
-    const uint64_t lo1 = kmajor_desc(p_hi + wg::PLANE * 4 + 256);
+    uint32_t ah[KCS][4], al[KCS][4];
+#pragma unroll
+    for (int q = 0; q < KCS; ++q) a_frags(s, kc0 + q, ah[q], al[q]);
+    const uint32_t p_hi = smem_u32(planes + (int)(s & 1) * 2 * C::PLANE);
     hold(d);
     wgmma_fence();
-    // the small terms first, then the large ones; the first starts D from zero
-    if constexpr (B_EXACT) {
-      wgmma_tf32(d, al0, hi0, 0);
-      wgmma_tf32(d, al1, hi1, 1);
-    } else if constexpr (A_EXACT) {
-      wgmma_tf32(d, ah0, lo0, 0);
-      wgmma_tf32(d, ah1, lo1, 1);
-    } else {
-      wgmma_tf32(d, al0, hi0, 0);
-      wgmma_tf32(d, ah0, lo0, 1);
-      wgmma_tf32(d, al1, hi1, 1);
-      wgmma_tf32(d, ah1, lo1, 1);
+    // the small terms first, then the large ones; the first starts D from
+    // zero.  k8 step kc: core matrices 2 kc and 2 kc + 1 along K
+#pragma unroll
+    for (int q = 0; q < KCS; ++q) {
+      const uint32_t hi = p_hi + (kc0 + q) * 256;
+      const uint64_t hi_d = kmajor_desc(hi);
+      const uint64_t lo_d = kmajor_desc(hi + C::PLANE * 4);
+      if constexpr (B_EXACT) {
+        wgmma_tf32(d, al[q], hi_d, q == 0 ? 0 : 1);
+      } else if constexpr (A_EXACT) {
+        wgmma_tf32(d, ah[q], lo_d, q == 0 ? 0 : 1);
+      } else {
+        wgmma_tf32(d, al[q], hi_d, q == 0 ? 0 : 1);
+        wgmma_tf32(d, ah[q], lo_d, 1);
+      }
     }
-    wgmma_tf32(d, ah0, hi0, 1);
-    wgmma_tf32(d, ah1, hi1, 1);
+#pragma unroll
+    for (int q = 0; q < KCS; ++q) wgmma_tf32(d, ah[q], kmajor_desc(p_hi + (kc0 + q) * 256), 1);
     wgmma_commit();
     if (s + 1 < n_slabs) split_b(s + 1);  // beside the MMAs
     fence_proxy_async();
     wgmma_wait<0>();
     hold(d);
-    hold(ah0);
-    hold(ah1);
-    if constexpr (!A_EXACT) {
-      hold(al0);
-      hold(al1);
+#pragma unroll
+    for (int q = 0; q < KCS; ++q) {
+      hold(ah[q]);
+      if constexpr (!A_EXACT) hold(al[q]);
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+    for (int i = 0; i < NACC; ++i) acc[i] += d[i];
     if (++in_tile == wg::SPT) {  // end of a 128-row tile: into the f64 sums
       in_tile = 0;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < NACC; ++i) {
         sums[i * THREADS + tid] += (double)acc[i];
         acc[i] = 0.f;
       }
@@ -682,13 +716,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     ldg_b(s + 3);
   }
 
-  // accumulator 4j + q: row g (+8 for q >= 2) of the warp's 16, column 8j + 2t + (q & 1)
+  // accumulator 4j + q: row g (+8 for q >= 2) of the warp's 16, column 8j +
+  // 2t + (q & 1).  At BT 64 warpgroup 1's sums of the same entries are added
+  // to warpgroup 0's, which writes them.
+  if constexpr (BT == 64) {
+    __syncthreads();
+    if (warp >= 4) return;
+  }
   double* dst = part + (size_t)share * na * nb;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NACC; ++i) {
     const int r = a0 + row0 + g + ((i & 3) >> 1) * 8;
     const int c = b0 + (i >> 2) * 8 + 2 * t + (i & 1);
-    if (r < na && c < nb) dst[(size_t)r * nb + c] = sums[i * THREADS + tid];
+    double v = sums[i * THREADS + tid];
+    if constexpr (BT == 64) v += sums[i * THREADS + tid + THREADS / 2];
+    if (r < na && c < nb) dst[(size_t)r * nb + c] = v;
   }
 }
 
@@ -919,18 +961,25 @@ bool wgmma_rows_aligned(const TA* a, int na, const TB* b, int nb) {
 }
 
 // The wgmma product for its operand types (K3, K4 at "highest", K1's G and
-// C): one bf16 pass for bf16 x bf16, else 3xTF32 (two products where one
-// operand is bf16); `aligned` from wgmma_rows_aligned.  One operand type
-// takes `upper` (A = B, a Gram matrix).
-template <typename TA, typename TB>
+// C): one bf16 pass for bf16 x bf16 (128 x 128 blocks), else 3xTF32 (two
+// products where one operand is bf16) at block edge EDGE, 128 or 64;
+// `aligned` from wgmma_rows_aligned.  One operand type takes `upper` (A = B,
+// a Gram matrix).
+template <typename TA, typename TB, int EDGE = wg::BT>
 Main<TA, TB> wgmma_main(bool aligned) {
   if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
+    static_assert(EDGE == wg::BT, "the bf16 kernel's blocks are 128 wide");
     return {aligned ? &atb_wgmma_bf16<true> : &atb_wgmma_bf16<false>, wgb::SMEM, wg::BT, true};
   } else {
-    return {aligned ? &atb_wgmma_tf32x3<TA, TB, true> : &atb_wgmma_tf32x3<TA, TB, false>,
-            wg::SMEM, wg::BT, std::is_same<TA, TB>::value};
+    return {aligned ? &atb_wgmma_tf32x3<TA, TB, true, EDGE> : &atb_wgmma_tf32x3<TA, TB, false, EDGE>,
+            Tf32Cfg<EDGE>::SMEM, EDGE, std::is_same<TA, TB>::value};
   }
 }
+
+// The block edge of the wgmma Gram (K4 at "highest", K1's G stage) at width
+// k: the table in gram.cu (64-wide blocks pay where 128-wide ones would be
+// mostly padding).
+inline int gram_edge(bool bf16, int k) { return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }
 
 // Launches k's kernel and atb::atb_reduce on `stream`; returns a
 // cudaError_t code.  part: n_share * na * nb doubles.  `upper`: a is b.

@@ -21,8 +21,9 @@
 // chip:
 //
 //   1. sketch  matmul_tc.cuh (K6's mainloop) with its CENTER epilogue:
-//              persistent CTAs, W's column resident in shared memory (tf32
-//              hi/lo planes or bf16, in panels past T 168 f32 / 672 bf16),
+//              persistent CTAs, W's 112- or 128-wide column resident in
+//              shared memory (tf32 hi/lo planes or bf16, in panels past T
+//              168 / 176 f32 and 672 / 704 bf16),
 //              X by TMA (element by element where its rows are not 16-byte
 //              aligned), 3xTF32 or bf16 wgmma restarted every chunk; the
 //              row sums from the X chunks in shared memory, Yc centred with
@@ -30,8 +31,8 @@
 //              the (M, 2) statistics from CTA column 0, or its CTAs' f64
 //              sums of rs^2 and ss, summed here in CTA order.
 //   2. G       row_share_atb_tc.cuh's wgmma kernels with `upper` (K4's
-//              path): Yc^T Yc on the upper 128 x 128 blocks, diagonal
-//              blocks reading Yc once, mirrored by the reduction.
+//              path, its block table): Yc^T Yc on the upper blocks,
+//              diagonal blocks reading Yc once, mirrored by the reduction.
 //   3. C       the same kernels without it (K3's path): Yc^T X.
 //
 // Every stage sums in f32 from zero over at most a 128-row tile (the MMAs
@@ -41,6 +42,23 @@
 // 3xTF32 (the counterpart of Precision.HIGHEST); bf16 x bf16 products are
 // exact in f32 and take one bf16 pass; Yc of one dtype against X of the
 // other takes the mixed 3xTF32 kernel (two products).
+//
+// The sketch's columns a CTA (the table that replaces the TPU tile sweeps of
+// scripts/fused_tune2.py and pass1_tune.py): device ms of the sketch stage
+// alone at the week's X (M 15,573,600, T 168) on an H100
+// (scripts/torch_tc_tables.py, PERF.md):
+//
+//   N, dtype    112 columns   128 columns   columns
+//   100 f32     14.03         14.85         112  one column either way
+//   128 f32     27.97         12.25         128  one column against two
+//   128 bf16    17.10         6.89          128
+//   224 f32     28.68         26.32         128  two columns either way
+//   256 f32     42.75         24.85         128  two columns against three
+//
+//   so 112 where one 112-wide column holds N, else 128.  A 128-wide pass
+//   reads ~12% under a 112-wide one though its MMAs are 14% wider and its
+//   ring 2 chunks deep (its f32 planes take 168 KB at T 168): the pass is
+//   not bound by its MMAs (matmul_tc.cuh's note).
 //
 // Yc is written to device memory between the stages: with emit_yc off the
 // wrapper allocates it as scratch.  The old CUDA-core kernel's per-CTA f64
@@ -54,6 +72,33 @@
 #include "matmul_tc.cuh"
 
 namespace {
+
+// op(the G stage's kernel) for a Yc of type TY at block edge `edge` (64 or
+// 128 for f32, 128 for bf16: atb_tc::gram_edge's table).
+template <typename TY, typename Op>
+cudaError_t gram_main(const TY* y, int n, int edge, const Op& op) {
+  const bool aligned = atb_tc::wgmma_rows_aligned(y, n, y, n);
+  if constexpr (sizeof(TY) == 2) {
+    if (edge != atb_tc::wg::BT) return cudaErrorInvalidValue;
+    return op(atb_tc::wgmma_main<TY, TY>(aligned));
+  } else {
+    if (edge != 64 && edge != 128) return cudaErrorInvalidValue;
+    return edge == 64 ? op(atb_tc::wgmma_main<TY, TY, 64>(aligned))
+                      : op(atb_tc::wgmma_main<TY, TY, 128>(aligned));
+  }
+}
+
+// The sketch's columns a CTA at width n (the table in the note above).
+int sketch_columns(int n) { return n <= 112 ? 112 : 128; }
+
+// The sketch stage at `bn` columns a CTA (112 or 128).
+template <typename TX>
+cudaError_t sketch(int bn, const void* x, const void* w, void* yc, long long m, int t, int n,
+                   int out_bf16, int ctas, const mm_tc::CenterArgs& ca, cudaStream_t stream) {
+  if (bn == 112) return mm_tc::dispatch<TX, true, 112>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
+  if (bn == 128) return mm_tc::dispatch<TX, true, 128>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
+  return cudaErrorInvalidValue;
+}
 
 // The scalar statistics: the sketch CTAs' f64 sums, in CTA order.
 __global__ void scgp_stats_reduce(const double* __restrict__ st_part, int n_cta, float* st) {
@@ -78,7 +123,9 @@ struct Launch {
   int t;
   int n;
   int out_bf16;
+  int sketch_bn;
   int sketch_ctas;
+  int g_edge;
   int g_shares;
   int c_shares;
   int stages;  // bit 0 sketch, bit 1 G, bit 2 C
@@ -88,10 +135,11 @@ struct Launch {
   cudaError_t run() const {
     cudaError_t err = cudaSuccess;
     if (stages & 1) {
-      err = mm_tc::dispatch<TX, true>(x, w, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
+      err = sketch<TX>(sketch_bn, x, w, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
       if (err != cudaSuccess) return err;
       if (ca.st_part != nullptr) {
-        scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, mm_tc::grid_of(m, n, sketch_ctas).x, st);
+        scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part,
+                                                mm_tc::grid_of(m, n, sketch_ctas, sketch_bn).x, st);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
       }
@@ -99,8 +147,9 @@ struct Launch {
     const TY* y = static_cast<const TY*>(yc);
     const TX* xt = static_cast<const TX*>(x);
     if (stages & 2) {
-      err = atb_tc::launch(atb_tc::wgmma_main<TY, TY>(atb_tc::wgmma_rows_aligned(y, n, y, n)), y, y,
-                           g_part, g, m, n, n, 1, g_shares, stream);
+      err = gram_main<TY>(y, n, g_edge, [&](const auto& main) {
+        return atb_tc::launch(main, y, y, g_part, g, m, n, n, 1, g_shares, stream);
+      });
       if (err != cudaSuccess) return err;
     }
     if (stages & 4) {
@@ -114,43 +163,60 @@ struct Launch {
 struct Occupancy {
   int stage;
   int t;
+  int width;
   int* out;
   template <typename TX, typename TY>
   cudaError_t run() const {
     // the aligned kernels'; the others take the same shared memory and
-    // registers within the same one-CTA launch bound
-    if (stage == 0) return mm_tc::ctas_per_sm<TX, true>(t, out);
-    if (stage == 1) return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TY>(true), out);
+    // registers within the same launch bound
+    if (stage == 0) {
+      if (width == 112) return mm_tc::ctas_per_sm<TX, true, 112>(t, out);
+      if (width == 128) return mm_tc::ctas_per_sm<TX, true, 128>(t, out);
+      return cudaErrorInvalidValue;
+    }
+    if (stage == 1) {
+      return gram_main<TY>(nullptr, 0, width,
+                           [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
+    }
     return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
   }
 };
 
 }  // namespace
 
-// CTAs of one stage's kernel (0 sketch at depth t, 1 G, 2 C) that fit one SM
-// at once, for these dtypes, into *out.  Returns a cudaError_t code.
-extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int* out) {
+// The sketch's columns a CTA (sketch_columns) and the G stage's block edge
+// (atb_tc::gram_edge) for this Yc dtype and width n.
+extern "C" int scgp_sketch_columns(int n) { return sketch_columns(n); }
+extern "C" int scgp_gram_edge(int out_bf16, int n) { return atb_tc::gram_edge(out_bf16, n); }
+
+// CTAs of one stage's kernel that fit one SM at once, for these dtypes, into
+// *out: 0 the sketch at depth t and `width` columns a CTA, 1 G at block edge
+// `width`, 2 C.  Returns a cudaError_t code.
+extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int width, int* out) {
   if (stage < 0 || stage > 2 || t < 1) return (int)cudaErrorInvalidValue;
-  return (int)atb::dispatch(Occupancy{stage, t, out}, x_bf16, out_bf16);
+  return (int)atb::dispatch(Occupancy{stage, t, width, out}, x_bf16, out_bf16);
 }
 
 // The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for the function) on
 // `stream`.  yc: M x N of the out dtype, written by the sketch.  stats: M x 2,
 // or null for the scalar statistics, which take st_part (sketch_ctas x 2
-// doubles) and st (2).  g_part: g_shares N^2 doubles; c_part: c_shares N T.
+// doubles) and st (2).  The sketch at sketch_bn columns a CTA
+// (scgp_sketch_columns), G in blocks of g_edge (scgp_gram_edge), g_part
+// g_shares N^2 doubles; c_part: c_shares N T.
 // Returns a cudaError_t code: 0 when every kernel was launched.
 extern "C" int scgp_launch(const void* x, const void* w, const float* colw, void* yc, float* stats,
                            double* st_part, float* st, double* g_part, float* g, double* c_part,
                            float* c, long long m, int t, int n, int x_bf16, int out_bf16,
-                           int stats_col, float inv_t, int sketch_ctas, int g_shares, int c_shares,
-                           int stages, void* stream) {
+                           int stats_col, float inv_t, int sketch_bn, int sketch_ctas,
+                           int g_edge, int g_shares, int c_shares, int stages, void* stream) {
   if (m < 1 || t < 1 || n < 1 || sketch_ctas < 1 || (stats == nullptr) == (st_part == nullptr) ||
       (st_part != nullptr && st == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
-  const Launch op{x,     w,   yc,       ca,       st,          g_part,   g,
-                  c_part, c,  m,        t,        n,           out_bf16, sketch_ctas,
-                  g_shares, c_shares, stages, static_cast<cudaStream_t>(stream)};
+  const Launch op{x,      w,         yc,          ca,       st,       g_part,
+                  g,      c_part,    c,           m,        t,        n,
+                  out_bf16, sketch_bn, sketch_ctas, g_edge, g_shares, c_shares,
+                  stages, static_cast<cudaStream_t>(stream)};
   return (int)atb::dispatch(op, x_bf16, out_bf16);
 }

@@ -64,15 +64,17 @@ def test_kernel_matches_plain_on_card(
     _check_k1(cuda, dtype, T, n, center, stats_col, scalar_stats, t_valid, emit_yc)
 
 
-# K1 past W's resident depth (168 rows of K in f32, 672 in bf16: walked in
-# panels), at widths on both sides of the sketch stage's 112-wide CTA
-# columns and at the widest, over every flag combination
+# K1 past W's resident depth (176 rows of K in f32, 704 in bf16 at 128
+# columns a CTA, 168 and 672 at 112: walked in panels), at widths on both
+# sides of the sketch stage's CTA columns (112 or 128 wide, whichever pads
+# less) and at the widest, over every flag combination
 PANEL_CASES = [
     pytest.param(dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc,
                  id=f"{dtype}-t{t}-n{n}-c{center:d}-sc{stats_col:d}-ss{scalar_stats:d}"
                     f"-tv{t_valid:d}-e{emit_yc:d}")
     for dtype, t in [("float32", 300), ("bfloat16", 700)]
-    for n in [100, 112, 113, 224, 225, 256]
+    # 168: G on 64-wide blocks in f32 (K4's table)
+    for n in [100, 112, 113, 128, 129, 168, 224, 225, 256]
     for center, stats_col, scalar_stats, t_valid, emit_yc in itertools.product(
         [True, False], [False, True], [False, True], [False, True], [True, False])
 ]
@@ -104,14 +106,22 @@ def _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_
     torch.cuda.synchronize()
     assert matmul.sketch_center_gram_project.launches == before + 1
     assert (got[0] is None) == (not emit_yc)
+    if dtype == "bfloat16":
+        # G and C come from the STORED Yc, and two summation orders of Y
+        # round a few of its entries the other way, one ulp each (held
+        # below): ~1e-4 of them move G and C by ~1.7e-5.  So the plain
+        # products are taken of the kernel's own stored Yc, which K1 gives
+        # bit for bit again with emit_yc
+        again = matmul.sketch_center_gram_project(x, w, **{**flags, "emit_yc": True})
+        assert torch.equal(again[3], got[3]) and torch.equal(again[4], got[4])
+        ycf = again[0].float()
+        ref = (*ref[:3], ycf.T @ ycf, ycf.T @ x.float())
     for name, a, b in zip(("yc", "rowsum", "rowsumsq", "G", "C"), got, ref):
         if b is None:
             continue
         a, b = a.double(), b.double()
         # f32: summation order only.  bf16: a stored Yc entry may round the
-        # other way, by one ulp (2^-8 relative); the f32 stats, G and C move
-        # far less (PERF.md: within 2.3e-6 of the plain version on the card
-        # even at 2^19 rows, where that is the plain version's f32 error)
+        # other way, by one ulp (2^-8 relative); the f32 stats move far less
         rel = float((a - b).norm() / b.norm())
         limit = 2.0**-8 if (dtype == "bfloat16" and name == "yc") else 1e-5
         assert rel <= limit, (name, rel)
@@ -121,12 +131,11 @@ GRAM_CASES = [
     pytest.param(precision, dtype, m, k, id=f"{precision}-{dtype}-m{m}-k{k}")
     for precision, dtype in [("highest", "float32"), ("highest", "bfloat16"),
                              ("bf16_split", "float32")]
-    # K5's blocks are 64 wide up to K = 256, 128 past it: widths on both
-    # sides of each edge, one column, M no multiple of a 16-row slab
+    # K5's blocks are 64 wide up to K = 256, 128 past it, K4's (f32) 64 wide
+    # for 128 < K <= 192, 128 elsewhere: widths on both sides of each edge,
+    # one column, M no multiple of a 16-row slab
     for m, k in [(1000, 8), (1000, 110), (4099, 168), (1000, 1024), (300, 1030), (1001, 1),
-                 (777, 65), (1000, 256), (1001, 257), (133, 300),
-                 # one past K4's 128-wide block edge
-                 (1000, 129)]
+                 (777, 65), (1000, 256), (1001, 257), (133, 300), (1000, 129), (1000, 193)]
 ]
 
 
