@@ -83,13 +83,12 @@ int split_edge(int k) { return k <= 256 ? 64 : 128; }
 // at block edge `edge` (64 or 128; bf16 a takes 128).
 template <typename Op>
 cudaError_t with_main(int a_bf16, int split, int edge, const Op& op) {
-  if ((edge != 64 && edge != 128) || (a_bf16 && (split || edge != 128))) {
-    return cudaErrorInvalidValue;
+  if (split) {
+    if (a_bf16 || (edge != 64 && edge != 128)) return cudaErrorInvalidValue;
+    return edge == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
   }
-  if (split) return edge == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
-  if (a_bf16) return op(atb_tc::wgmma_main<bf16, bf16>(op.aligned_bf16()));
-  return edge == 64 ? op(atb_tc::wgmma_main<float, float, 64>(op.aligned_f32()))
-                    : op(atb_tc::wgmma_main<float, float, 128>(op.aligned_f32()));
+  return a_bf16 ? atb_tc::with_gram_main<bf16>(op.aligned_bf16(), edge, op)
+                : atb_tc::with_gram_main<float>(op.aligned_f32(), edge, op);
 }
 
 struct Launch {

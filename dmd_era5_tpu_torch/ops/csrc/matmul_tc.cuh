@@ -264,23 +264,13 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[56], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// The same at n 128 (atb_tc's, whose descriptor layout these share).
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                                           int scale_d) {
-  atb_tc::wgmma_tf32(d, a, desc, scale_d);
-}
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                                           int scale_d) {
-  atb_tc::wgmma_bf16(d, a, desc, scale_d);
-}
+// The same at n 128: atb_tc's, the same instructions.
+using atb_tc::wgmma_bf16;
+using atb_tc::wgmma_tf32;
 
-// Registers that an in-flight wgmma reads or writes (atb_tc::hold, at
-// these widths).
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+// Registers that an in-flight wgmma reads or writes: atb_tc::hold, and a
+// fragment of each k-step of a chunk.
+using atb_tc::hold;
 template <int N>
 __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
 #pragma unroll

@@ -981,6 +981,20 @@ Main<TA, TB> wgmma_main(bool aligned) {
 // mostly padding).
 inline int gram_edge(bool bf16, int k) { return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }
 
+// op(the wgmma Gram's kernel for T at block edge `edge`): 64 or 128 for f32
+// (3xTF32), 128 for bf16; `aligned` from wgmma_rows_aligned.
+template <typename T, typename Op>
+cudaError_t with_gram_main(bool aligned, int edge, const Op& op) {
+  if constexpr (sizeof(T) == 2) {
+    if (edge != wg::BT) return cudaErrorInvalidValue;
+    return op(wgmma_main<T, T>(aligned));
+  } else {
+    if (edge == 64) return op(wgmma_main<T, T, 64>(aligned));
+    if (edge == 128) return op(wgmma_main<T, T, 128>(aligned));
+    return cudaErrorInvalidValue;
+  }
+}
+
 // Launches k's kernel and atb::atb_reduce on `stream`; returns a
 // cudaError_t code.  part: n_share * na * nb doubles.  `upper`: a is b.
 template <typename TA, typename TB>

@@ -73,21 +73,6 @@
 
 namespace {
 
-// op(the G stage's kernel) for a Yc of type TY at block edge `edge` (64 or
-// 128 for f32, 128 for bf16: atb_tc::gram_edge's table).
-template <typename TY, typename Op>
-cudaError_t gram_main(const TY* y, int n, int edge, const Op& op) {
-  const bool aligned = atb_tc::wgmma_rows_aligned(y, n, y, n);
-  if constexpr (sizeof(TY) == 2) {
-    if (edge != atb_tc::wg::BT) return cudaErrorInvalidValue;
-    return op(atb_tc::wgmma_main<TY, TY>(aligned));
-  } else {
-    if (edge != 64 && edge != 128) return cudaErrorInvalidValue;
-    return edge == 64 ? op(atb_tc::wgmma_main<TY, TY, 64>(aligned))
-                      : op(atb_tc::wgmma_main<TY, TY, 128>(aligned));
-  }
-}
-
 // The sketch's columns a CTA at width n (the table in the note above).
 int sketch_columns(int n) { return n <= 112 ? 112 : 128; }
 
@@ -147,9 +132,10 @@ struct Launch {
     const TY* y = static_cast<const TY*>(yc);
     const TX* xt = static_cast<const TX*>(x);
     if (stages & 2) {
-      err = gram_main<TY>(y, n, g_edge, [&](const auto& main) {
-        return atb_tc::launch(main, y, y, g_part, g, m, n, n, 1, g_shares, stream);
-      });
+      err = atb_tc::with_gram_main<TY>(
+          atb_tc::wgmma_rows_aligned(y, n, y, n), g_edge, [&](const auto& main) {
+            return atb_tc::launch(main, y, y, g_part, g, m, n, n, 1, g_shares, stream);
+          });
       if (err != cudaSuccess) return err;
     }
     if (stages & 4) {
@@ -175,8 +161,8 @@ struct Occupancy {
       return cudaErrorInvalidValue;
     }
     if (stage == 1) {
-      return gram_main<TY>(nullptr, 0, width,
-                           [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
+      return atb_tc::with_gram_main<TY>(
+          true, width, [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
     }
     return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
   }

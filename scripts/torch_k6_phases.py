@@ -78,9 +78,9 @@ def variant(name: str) -> str:
     if name.startswith("sleep_"):
         edits.append((WAIT, f"{WAIT}      __nanosleep({int(name[6:])});\n"))
     if name == "ring_2":  # the freed 32 KB leave w's planes as they are
-        edits += [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;"),
-                  ('static_assert(kmax<float>() == 168 && kmax<bf16>() == 672, "the budget in the note");',
-                   "")]
+        edits += [("static constexpr int STAGES = BN == 112 ? 4 : 2;",
+                   "static constexpr int STAGES = 2;"),
+                  ("kmax<float, 112>() == 168 && kmax<bf16, 112>() == 672 && ", "")]
     if name == "chained":  # d starts from zero at a tile's first chunk only
         edits += [("q == 0 ? 0 : 1", "ci == 0 && q == 0 ? 0 : 1"),
                   ("for (int i = 0; i < NACC; ++i) acc[i] += d[i];",
