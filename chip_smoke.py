@@ -72,8 +72,9 @@ every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f) are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
-kernel.  Without CUDA the script exits non-zero before printing any
-result.
+kernel, and before that one line a K1 comparison with the device ms of
+each of K1's three stages (sketch, G, C).  Without CUDA the script exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
