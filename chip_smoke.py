@@ -366,12 +366,7 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
     by up to ~1e-5 of |G|, so both are also read against the f64 sums of
     the plain version's stored Yc.  The kernel must be within 1e-5 of
     those and within 1e-5 plus the plain version's own error of the
-    plain version.  A bf16 Yc is held to one ulp of the plain version's
-    above; G and C are formed from the STORED Yc, and two summation
-    orders of Y round a few entries of it the other way (one ulp each,
-    ~1e-4 of them: ~1.7e-5 of G and C on random data), so with a bf16
-    Yc the f64 sums and the plain products that the kernel's G and C
-    are held to are those of the kernel's own stored Yc.  With ``centred`` (x's rows already have zero mean)
+    plain version.  With ``centred`` (x's rows already have zero mean)
     each row sum cancels to roundoff in both versions, where a relative
     error means nothing; the row sums are then read against the sum of
     their terms' magnitudes, sum_t |x|, the scale of a sum's forward
@@ -409,19 +404,12 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
             if flags.get("scalar_stats"):
                 scale = scale.square().sum()
         errs[name], max_abs[name] = rel_err(a, b, scale)
-    bf16 = dtype == torch.bfloat16
-    yc_of_gc = got[0] if bf16 else ref[0]  # the stored Yc that G and C are read against
-    exact = {"G": gram_f64(yc_of_gc), "C": gram_f64(yc_of_gc, x)}
-    if bf16:  # the plain version's products of the kernel's stored Yc
-        ycf = got[0].float()
-        ref = (*ref[:3], ycf.T @ ycf, ycf.T @ x.float())
-        del ycf
-        for name in ("G", "C"):
-            errs[name], max_abs[name] = rel_err(got[names.index(name)], ref[names.index(name)])
+    exact = {"G": gram_f64(ref[0]), "C": gram_f64(ref[0], x)}
     err_exact = {f"{v}_{name}_vs_f64": rel_err(out, exact[name])[0]
                  for name in exact
                  for v, out in (("kernel", got[names.index(name)]),
                                 ("plain", ref[names.index(name)]))}
+    bf16 = dtype == torch.bfloat16
     if not bf16:
         with one_tf32_pass():
             one_pass = {"G": ref[0].T @ ref[0], "C": ref[0].T @ x}

@@ -44,7 +44,8 @@
 //
 // Block edges by K (the table that replaces the TPU tile sweep of
 // scripts/kernel_tune.py).  K4, f32 A, device ms at the week's 15,573,600
-// rows on an H100 (scripts/torch_k4_blocks.py, PERF.md; a.T @ a beside):
+// rows on an H100 80GB HBM3 at 700 W (scripts/torch_tc_tables.py, which
+// builds this source at each edge; PERF.md; a.T @ a beside):
 //
 //   K          128 x 128   64 x 64   a.T @ a   edge
 //   110        7.55        11.35     9.13      128  one block
@@ -79,16 +80,16 @@ using atb_tc::bf16;
 // K5's block edge at width k (the table above; K4's is atb_tc::gram_edge).
 int split_edge(int k) { return k <= 256 ? 64 : 128; }
 
-// The main kernel: K4 (split 0) for f32 or bf16 a, K5 (split 1) for f32 a,
-// at block edge `edge` (64 or 128; bf16 a takes 128).
+// The main kernel at width k, at the block edge of the table above: K4
+// (split 0) for f32 or bf16 a, K5 (split 1) for f32 a.
 template <typename Op>
-cudaError_t with_main(int a_bf16, int split, int edge, const Op& op) {
+cudaError_t with_main(int a_bf16, int split, int k, const Op& op) {
   if (split) {
-    if (a_bf16 || (edge != 64 && edge != 128)) return cudaErrorInvalidValue;
-    return edge == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
+    if (a_bf16) return cudaErrorInvalidValue;
+    return split_edge(k) == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
   }
-  return a_bf16 ? atb_tc::with_gram_main<bf16>(op.aligned_bf16(), edge, op)
-                : atb_tc::with_gram_main<float>(op.aligned_f32(), edge, op);
+  return a_bf16 ? atb_tc::with_gram_main<bf16>(op.aligned_bf16(), k, op)
+                : atb_tc::with_gram_main<float>(op.aligned_f32(), k, op);
 }
 
 struct Launch {
@@ -126,24 +127,25 @@ struct Occupancy {
 
 }  // namespace
 
-// Edge of the blocks of G that the main kernel's CTAs own, from the table
-// above: K4 (split 0) for f32 or bf16 A, K5 (split 1), at width k.
-extern "C" int gram_block_edge(int a_bf16, int split, int k) {
-  return split ? split_edge(k) : atb_tc::gram_edge(a_bf16, k);
+// Upper blocks of G (the main kernel's CTAs a row share) at width k: K4
+// (split 0) for f32 or bf16 A, K5 (split 1), at the edge of the table above.
+extern "C" int gram_upper_blocks(int a_bf16, int split, int k) {
+  return atb_tc::upper_blocks(k, split ? split_edge(k) : atb_tc::gram_edge(a_bf16, k));
 }
 
-// CTAs of the main kernel at block edge `edge` that fit one SM at once, into
+// CTAs of the main kernel at width k that fit one SM at once, into
 // *ctas_per_sm.  Returns a cudaError_t code.
-extern "C" int gram_ctas_per_sm(int a_bf16, int split, int edge, int* ctas_per_sm) {
-  return (int)with_main(a_bf16, split, edge, Occupancy{ctas_per_sm});
+extern "C" int gram_ctas_per_sm(int a_bf16, int split, int k, int* ctas_per_sm) {
+  return (int)with_main(a_bf16, split, k, Occupancy{ctas_per_sm});
 }
 
 // G (k x k, f32) of a (m x k, row-major, f32 or bf16) over n_share row
-// shares, in blocks of edge x edge; part holds n_share * k * k doubles of
-// scratch.  Returns a cudaError_t code: 0 when both kernels were launched.
+// shares, in the blocks of the table above; part holds n_share * k * k
+// doubles of scratch.  Returns a cudaError_t code: 0 when both kernels were
+// launched.
 extern "C" int gram_launch(const void* a, double* part, float* g, long long m, int k, int a_bf16,
-                           int split, int edge, int n_share, void* stream) {
+                           int split, int n_share, void* stream) {
   if (m < 1 || k < 1 || n_share < 1) return (int)cudaErrorInvalidValue;
-  return (int)with_main(a_bf16, split, edge,
+  return (int)with_main(a_bf16, split, k,
                         Launch{a, part, g, m, k, n_share, static_cast<cudaStream_t>(stream)});
 }

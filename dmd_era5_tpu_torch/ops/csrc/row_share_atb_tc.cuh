@@ -981,17 +981,22 @@ Main<TA, TB> wgmma_main(bool aligned) {
 // mostly padding).
 inline int gram_edge(bool bf16, int k) { return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }
 
-// op(the wgmma Gram's kernel for T at block edge `edge`): 64 or 128 for f32
-// (3xTF32), 128 for bf16; `aligned` from wgmma_rows_aligned.
+// Blocks bi <= bj of a k x k Gram matrix in blocks of edge x edge.
+inline int upper_blocks(int k, int edge) {
+  const int nb = (k + edge - 1) / edge;
+  return nb * (nb + 1) / 2;
+}
+
+// op(the wgmma Gram's kernel for T at width k): 3xTF32 for f32 at the block
+// edge of gram_edge, one bf16 pass for bf16 (128-wide blocks); `aligned`
+// from wgmma_rows_aligned.
 template <typename T, typename Op>
-cudaError_t with_gram_main(bool aligned, int edge, const Op& op) {
+cudaError_t with_gram_main(bool aligned, int k, const Op& op) {
   if constexpr (sizeof(T) == 2) {
-    if (edge != wg::BT) return cudaErrorInvalidValue;
     return op(wgmma_main<T, T>(aligned));
   } else {
-    if (edge == 64) return op(wgmma_main<T, T, 64>(aligned));
-    if (edge == 128) return op(wgmma_main<T, T, 128>(aligned));
-    return cudaErrorInvalidValue;
+    return gram_edge(false, k) == 64 ? op(wgmma_main<T, T, 64>(aligned))
+                                     : op(wgmma_main<T, T, 128>(aligned));
   }
 }
 

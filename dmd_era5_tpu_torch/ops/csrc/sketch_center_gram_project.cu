@@ -45,8 +45,9 @@
 //
 // The sketch's columns a CTA (the table that replaces the TPU tile sweeps of
 // scripts/fused_tune2.py and pass1_tune.py): device ms of the sketch stage
-// alone at the week's X (M 15,573,600, T 168) on an H100
-// (scripts/torch_tc_tables.py, PERF.md):
+// alone at the week's X (M 15,573,600, T 168) on an H100 80GB HBM3 at 700 W
+// (scripts/torch_tc_tables.py, which builds this source at each width;
+// PERF.md):
 //
 //   N, dtype    112 columns   128 columns   columns
 //   100 f32     14.03         14.85         112  one column either way
@@ -76,13 +77,13 @@ namespace {
 // The sketch's columns a CTA at width n (the table in the note above).
 int sketch_columns(int n) { return n <= 112 ? 112 : 128; }
 
-// The sketch stage at `bn` columns a CTA (112 or 128).
+// The sketch stage at the columns a CTA of its table.
 template <typename TX>
-cudaError_t sketch(int bn, const void* x, const void* w, void* yc, long long m, int t, int n,
+cudaError_t sketch(const void* x, const void* w, void* yc, long long m, int t, int n,
                    int out_bf16, int ctas, const mm_tc::CenterArgs& ca, cudaStream_t stream) {
-  if (bn == 112) return mm_tc::dispatch<TX, true, 112>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
-  if (bn == 128) return mm_tc::dispatch<TX, true, 128>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
-  return cudaErrorInvalidValue;
+  return sketch_columns(n) == 112
+             ? mm_tc::dispatch<TX, true, 112>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream)
+             : mm_tc::dispatch<TX, true, 128>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
 }
 
 // The scalar statistics: the sketch CTAs' f64 sums, in CTA order.
@@ -108,9 +109,7 @@ struct Launch {
   int t;
   int n;
   int out_bf16;
-  int sketch_bn;
   int sketch_ctas;
-  int g_edge;
   int g_shares;
   int c_shares;
   int stages;  // bit 0 sketch, bit 1 G, bit 2 C
@@ -120,11 +119,11 @@ struct Launch {
   cudaError_t run() const {
     cudaError_t err = cudaSuccess;
     if (stages & 1) {
-      err = sketch<TX>(sketch_bn, x, w, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
+      err = sketch<TX>(x, w, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
       if (err != cudaSuccess) return err;
       if (ca.st_part != nullptr) {
-        scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part,
-                                                mm_tc::grid_of(m, n, sketch_ctas, sketch_bn).x, st);
+        const int n_cta = mm_tc::grid_of(m, n, sketch_ctas, sketch_columns(n)).x;
+        scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, n_cta, st);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
       }
@@ -133,7 +132,7 @@ struct Launch {
     const TX* xt = static_cast<const TX*>(x);
     if (stages & 2) {
       err = atb_tc::with_gram_main<TY>(
-          atb_tc::wgmma_rows_aligned(y, n, y, n), g_edge, [&](const auto& main) {
+          atb_tc::wgmma_rows_aligned(y, n, y, n), n, [&](const auto& main) {
             return atb_tc::launch(main, y, y, g_part, g, m, n, n, 1, g_shares, stream);
           });
       if (err != cudaSuccess) return err;
@@ -149,20 +148,19 @@ struct Launch {
 struct Occupancy {
   int stage;
   int t;
-  int width;
+  int n;
   int* out;
   template <typename TX, typename TY>
   cudaError_t run() const {
     // the aligned kernels'; the others take the same shared memory and
     // registers within the same launch bound
     if (stage == 0) {
-      if (width == 112) return mm_tc::ctas_per_sm<TX, true, 112>(t, out);
-      if (width == 128) return mm_tc::ctas_per_sm<TX, true, 128>(t, out);
-      return cudaErrorInvalidValue;
+      return sketch_columns(n) == 112 ? mm_tc::ctas_per_sm<TX, true, 112>(t, out)
+                                      : mm_tc::ctas_per_sm<TX, true, 128>(t, out);
     }
     if (stage == 1) {
       return atb_tc::with_gram_main<TY>(
-          true, width, [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
+          true, n, [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
     }
     return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
   }
@@ -170,39 +168,37 @@ struct Occupancy {
 
 }  // namespace
 
-// The sketch's columns a CTA (sketch_columns) and the G stage's block edge
-// (atb_tc::gram_edge) for this Yc dtype and width n.
-extern "C" int scgp_sketch_columns(int n) { return sketch_columns(n); }
-extern "C" int scgp_gram_edge(int out_bf16, int n) { return atb_tc::gram_edge(out_bf16, n); }
+// Upper blocks of G (the G stage's CTAs a row share) for this Yc dtype and
+// width n, at the block edge of K4's table (atb_tc::gram_edge).
+extern "C" int scgp_gram_blocks(int out_bf16, int n) {
+  return atb_tc::upper_blocks(n, atb_tc::gram_edge(out_bf16, n));
+}
 
-// CTAs of one stage's kernel that fit one SM at once, for these dtypes, into
-// *out: 0 the sketch at depth t and `width` columns a CTA, 1 G at block edge
-// `width`, 2 C.  Returns a cudaError_t code.
-extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int width, int* out) {
-  if (stage < 0 || stage > 2 || t < 1) return (int)cudaErrorInvalidValue;
-  return (int)atb::dispatch(Occupancy{stage, t, width, out}, x_bf16, out_bf16);
+// CTAs of one stage's kernel that fit one SM at once, for these dtypes and
+// width n, into *out: 0 the sketch at depth t (at its table's columns a CTA),
+// 1 G (at K4's block edge), 2 C.  Returns a cudaError_t code.
+extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int n, int* out) {
+  if (stage < 0 || stage > 2 || t < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return (int)atb::dispatch(Occupancy{stage, t, n, out}, x_bf16, out_bf16);
 }
 
 // The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for the function) on
 // `stream`.  yc: M x N of the out dtype, written by the sketch.  stats: M x 2,
 // or null for the scalar statistics, which take st_part (sketch_ctas x 2
-// doubles) and st (2).  The sketch at sketch_bn columns a CTA
-// (scgp_sketch_columns), G in blocks of g_edge (scgp_gram_edge), g_part
-// g_shares N^2 doubles; c_part: c_shares N T.
+// doubles) and st (2).  The sketch at its table's columns a CTA, G at K4's
+// block edge; g_part: g_shares N^2 doubles; c_part: c_shares N T.
 // Returns a cudaError_t code: 0 when every kernel was launched.
 extern "C" int scgp_launch(const void* x, const void* w, const float* colw, void* yc, float* stats,
                            double* st_part, float* st, double* g_part, float* g, double* c_part,
                            float* c, long long m, int t, int n, int x_bf16, int out_bf16,
-                           int stats_col, float inv_t, int sketch_bn, int sketch_ctas,
-                           int g_edge, int g_shares, int c_shares, int stages, void* stream) {
+                           int stats_col, float inv_t, int sketch_ctas, int g_shares,
+                           int c_shares, int stages, void* stream) {
   if (m < 1 || t < 1 || n < 1 || sketch_ctas < 1 || (stats == nullptr) == (st_part == nullptr) ||
       (st_part != nullptr && st == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
-  const Launch op{x,      w,         yc,          ca,       st,       g_part,
-                  g,      c_part,    c,           m,        t,        n,
-                  out_bf16, sketch_bn, sketch_ctas, g_edge, g_shares, c_shares,
-                  stages, static_cast<cudaStream_t>(stream)};
+  const Launch op{x, w, yc, ca, st, g_part, g, c_part, c, m, t, n, out_bf16, sketch_ctas,
+                  g_shares, c_shares, stages, static_cast<cudaStream_t>(stream)};
   return (int)atb::dispatch(op, x_bf16, out_bf16);
 }

@@ -186,31 +186,28 @@ def _kernel_library():
             ptr, ptr, ptr, ptr,  # G: per-share f64 scratch, reduced; C: the same
             ctypes.c_longlong, flag, flag,  # m, t, n
             flag, flag, flag, ctypes.c_float,  # x_bf16, out_bf16, stats_col, inv_t
-            flag, flag,  # the sketch's columns a CTA and its CTAs
-            flag, flag, flag,  # G's block edge, G and C row shares
+            flag, flag, flag,  # the sketch's CTAs, G and C row shares
             flag, ptr,  # stages, stream
         ]
         lib.scgp_launch.restype = ctypes.c_int
-        # stage, x_bf16, out_bf16, t, the stage's width (sketch columns or G edge), &out
+        # stage, x_bf16, out_bf16, t, n, &out
         lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, flag, flag, ptr]
         lib.scgp_ctas_per_sm.restype = ctypes.c_int
-        lib.scgp_sketch_columns.argtypes = [flag]  # n
-        lib.scgp_sketch_columns.restype = ctypes.c_int
-        lib.scgp_gram_edge.argtypes = [flag, flag]  # out_bf16, n
-        lib.scgp_gram_edge.restype = ctypes.c_int
+        lib.scgp_gram_blocks.argtypes = [flag, flag]  # out_bf16, n
+        lib.scgp_gram_blocks.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, t_cols: int, width: int) -> int:
+def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, t_cols: int, n: int) -> int:
     """CTAs of one of K1's stages (0 sketch, 1 G, 2 C) resident on the card
-    at once: the sketch's at ``width`` columns a CTA, depending on how much
-    of W its CTAs hold; G's at block edge ``width``."""
+    at once: the sketch's depend on its columns a CTA (by n) and how much of
+    W its CTAs hold (by T), G's on its block edge (by n)."""
     t_key = t_cols if stage == 0 else 1
-    w_key = width if stage < 2 else 0
+    n_key = n if stage < 2 else 1
     return resident_ctas(
-        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, t_key, w_key),
-        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, t_key, w_key, out),
+        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, t_key, n_key),
+        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, t_key, n_key, out),
     )
 
 
@@ -218,30 +215,25 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc,
-               sketch_bn: int | None = None, g_edge: int | None = None):
+def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc):
     """K1's outputs, allocated, and ``run(stages)``, which launches the
     stages in the mask (1 sketch, 2 G = Yc^T Yc, 4 C = Yc^T X) into them.
     Yc is allocated as scratch where ``emit_yc`` is off: G and C are read
-    from it.  The sketch runs on the card's resident CTAs, its columns a
-    CTA from its table (``scgp_sketch_columns``); G and C on the row shares
-    that fill whole waves over their blocks (G's upper ones, of the edge of
-    K4's table; C's 128 x 128), their f64 scratch within 1 GiB.
-    ``sketch_bn`` and ``g_edge`` override the tables; only a measurement
-    sets them."""
+    from it.  The sketch runs on the card's resident CTAs; G and C on the
+    row shares that fill whole waves over their blocks (G's upper ones,
+    ``scgp_gram_blocks``; C's 128 x 128), their f64 scratch within 1 GiB.
+    The library picks the sketch's columns a CTA and G's block edge from
+    its own tables."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
     (m, t_cols), n, dev = x.shape, w.shape[1], x.device
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
     lib = _kernel_library()
-    sketch_bn = lib.scgp_sketch_columns(n) if sketch_bn is None else sketch_bn
-    g_edge = lib.scgp_gram_edge(out_bf16, n) if g_edge is None else g_edge
-    ng, nb, nt = -(-n // g_edge), -(-n // 128), -(-t_cols // 128)  # blocks of G and C
+    nb, nt = -(-n // 128), -(-t_cols // 128)  # blocks of C
     with torch.cuda.device(dev):
-        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols, width)
-                 for st, width in enumerate((sketch_bn, g_edge, 0))]
-    g_shares = wave_row_shares(waves[1], ng * (ng + 1) // 2, m, 8 * n * n)
+        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols, n) for st in range(3)]
+    g_shares = wave_row_shares(waves[1], lib.scgp_gram_blocks(out_bf16, n), m, 8 * n * n)
     c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols)
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
     out = dict(
@@ -263,7 +255,7 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
                 _ptr(x), _ptr(w), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
                 _ptr(st_part), _ptr(out["st"]), _ptr(g_part), _ptr(out["g"]), _ptr(c_part),
                 _ptr(out["c"]), m, t_cols, n, x_bf16, out_bf16, int(stats_col), inv_t,
-                sketch_bn, waves[0], g_edge, g_shares, c_shares, stages,
+                waves[0], g_shares, c_shares, stages,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:

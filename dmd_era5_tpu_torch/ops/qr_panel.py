@@ -75,46 +75,42 @@ def _kernel_library():
 
         lib = load_kernel_library("gram")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # a, per-share f64 partials, G, m, k, a_bf16, split, edge, n_share, stream
-        lib.gram_launch.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag,
-                                    ptr]
+        # a, per-share f64 partials, G, m, k, a_bf16, split, n_share, stream
+        lib.gram_launch.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, ptr]
         lib.gram_launch.restype = ctypes.c_int
-        lib.gram_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # a_bf16, split, edge, &out
+        lib.gram_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # a_bf16, split, k, &out
         lib.gram_ctas_per_sm.restype = ctypes.c_int
-        lib.gram_block_edge.argtypes = [flag, flag, flag]  # a_bf16, split, k
-        lib.gram_block_edge.restype = ctypes.c_int
+        lib.gram_upper_blocks.argtypes = [flag, flag, flag]  # a_bf16, split, k
+        lib.gram_upper_blocks.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _n_share(dev, a_bf16: int, split: int, edge: int, m: int, k: int) -> int:
-    """Row shares of K4 and K5 (the tensor-core mainloop) at block edge
-    ``edge``: whole waves of the card's resident CTAs over the upper blocks
-    of G, the f64 scratch (n_share K^2 doubles) within 1 GiB."""
+def _n_share(dev, a_bf16: int, split: int, m: int, k: int) -> int:
+    """Row shares of K4 and K5 (the tensor-core mainloop): whole waves of
+    the card's resident CTAs over the upper blocks of G (at the block edge
+    that the library's table gives width k), the f64 scratch (n_share K^2
+    doubles) within 1 GiB."""
     lib = _kernel_library()
-    wave = resident_ctas(dev, ("gram", a_bf16, split, edge),
-                          lambda out: lib.gram_ctas_per_sm(a_bf16, split, edge, out))
-    nb = -(-k // edge)
-    return wave_row_shares(wave, nb * (nb + 1) // 2, m, 8 * k * k)
+    wave = resident_ctas(dev, ("gram", a_bf16, split, k),
+                          lambda out: lib.gram_ctas_per_sm(a_bf16, split, k, out))
+    return wave_row_shares(wave, lib.gram_upper_blocks(a_bf16, split, k), m, 8 * k * k)
 
 
-def _gram_cuda(a: torch.Tensor, precision: str, edge: int | None = None) -> torch.Tensor:
-    """The kernel at the block edge of its table (``gram_block_edge``), or
-    at ``edge`` (64 or 128), which only a measurement sets."""
+def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
     if not a.is_contiguous():
         raise ValueError("a must be contiguous (row-major M x K)")
     m, k = a.shape
     dev = a.device
     a_bf16, split = int(a.dtype == torch.bfloat16), int(precision == "bf16_split")
     lib = _kernel_library()
-    edge = lib.gram_block_edge(a_bf16, split, k) if edge is None else edge
     with torch.cuda.device(dev):
-        n_share = _n_share(dev, a_bf16, split, edge, m, k)
+        n_share = _n_share(dev, a_bf16, split, m, k)
         # per-share K x K, of which the upper blocks are written
         part = torch.empty((n_share, k, k), dtype=torch.float64, device=dev)
         g = torch.empty((k, k), dtype=torch.float32, device=dev)
         rc = lib.gram_launch(
-            a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, a_bf16, split, edge, n_share,
+            a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, a_bf16, split, n_share,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
