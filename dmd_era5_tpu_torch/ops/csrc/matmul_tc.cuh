@@ -679,9 +679,13 @@ inline EncodeTiled encode_tiled() {
 
 // Let the instantiation take the most dynamic shared memory any K asks of
 // it (w's planes at their deepest), once on each device: not at every
-// launch, where the call is host time beside a ~0.04 ms kernel.
+// launch, where the call is host time beside a ~0.04 ms kernel.  Static, so
+// that each library that includes this header keeps its own flag: a flag
+// of external linkage is one object in the whole process (a unique
+// symbol), and a second build of a source loaded beside the first would
+// find it set and leave its own kernel at the default limit.
 template <typename T, bool TMA, bool CENTER, int BN>
-cudaError_t allow_smem() {
+static cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};  // a bit a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
