@@ -73,8 +73,10 @@ after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f) are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
-each of K1's three stages (sketch, G, C).  Without CUDA the script exits
-non-zero before printing any result.
+each of K1's three stages (sketch, G, C) and one line a K2 comparison
+with the device ms of each of its two (sketch, G: K2 runs K1's first two
+stages).  Without CUDA the script exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ CSRC = "dmd_era5_tpu_torch/ops/csrc"
 KERNELS = {
     "K1": ("sketch_center_gram_project", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:183"),
-    # one kernel for the TPU's whole-T (K2a) and T-tiled (K2b) variants
-    "K2": ("sketch_center_gram", f"{CSRC}/sketch_center_gram.cu",
+    # the TPU's whole-T (K2a) and T-tiled (K2b) variants: K1's sketch and G stages
+    "K2": ("sketch_center_gram", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:142, dmd_era5_tpu/ops/matmul.py:442"),
     "K3": ("project", f"{CSRC}/project.cu", "dmd_era5_tpu/ops/matmul.py:593"),
     "K4": ("gram_highest", f"{CSRC}/gram.cu", "dmd_era5_tpu/ops/qr_panel.py:40"),
@@ -153,8 +155,10 @@ K3_F64_LIMIT = 2e-7
 # and 5.2e-7, one TF32 pass 8.9e-5 and 9.2e-5; the MMAs chained over a tile,
 # scripts/torch_k6_phases.py's `chained` variant, 1.6e-6 and 2.0e-6)
 K6_F64_FACTOR = 2.0
-# K1's stage device times (sketch, G, C) by shape, printed before the kernels line
+# K1's stage device times (sketch, G, C) and K2's (sketch, G) by shape,
+# printed before the kernels line
 K1_STAGES: list[dict] = []
+K2_STAGES: list[dict] = []
 
 
 def log(msg: str) -> None:
@@ -231,8 +235,8 @@ def phase_build() -> None:
     from dmd_era5_tpu_torch.ops import _build, matmul, qr_panel
 
     names = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
-    loaders = (matmul._kernel_library, matmul._scg_library, matmul._project_library,
-               matmul._matmul_library, qr_panel._kernel_library, qr_panel._householder_library)
+    loaders = (matmul._kernel_library, matmul._project_library, matmul._matmul_library,
+               qr_panel._kernel_library, qr_panel._householder_library)
     t0 = time.perf_counter()
     # each loader runs its own nvcc at first use; threads start them together
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
@@ -460,19 +464,20 @@ def k1_bound(m: int, t: int, n: int, dtype: torch.dtype, scalar_stats: bool
 
 
 def k1_stage_ms(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, flags: dict,
-                reps: int = 5) -> dict:
+                reps: int = 5, stages: int = 7) -> dict:
     """Device ms of each of K1's stages alone (``chip_smoke.device_ms``),
     each launched through the wrapper's plan on one set of buffers after
-    one whole call has filled them; not counted as launches."""
+    one whole call has filled them; not counted as launches.  K2's two
+    (sketch and G) with ``stages=3``."""
     from dmd_era5_tpu_torch.ops.matmul import _scgp_plan
 
     args = {key: flags.get(key, default) for key, default in (
         ("center", True), ("stats_col", False), ("scalar_stats", False), ("t_valid", None),
         ("emit_yc", True))}
-    out, run = _scgp_plan(x, w, dtype, **args)
-    run(7)
+    out, run = _scgp_plan(x, w, dtype, **args, stages=stages)
+    run(stages)
     times = {name: device_ms(lambda mask=mask: run(mask), reps)
-             for name, mask in (("sketch", 1), ("G", 2), ("C", 4))}
+             for name, mask in (("sketch", 1), ("G", 2), ("C", 4)) if stages & mask}
     del out, run
     return times
 
@@ -1277,9 +1282,13 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
     the row sums read against sum_t |x| (x's rows are centred, so the
     sums cancel to roundoff); G exactly symmetric and within 1e-5 max|G|
     of the f64 sums of the kernel's own stored Yc, and within that plus
-    the plain version's own error of the plain version.  No single
-    library call computes this function.  Returns the readings and the
-    kernel's Yc."""
+    the plain version's own error of the plain version.  On f32 operands
+    and an f32 Yc a control, one TF32 pass (the library products X W,
+    centred as the plain version centres, and Yc^T Yc of the kernel's Yc,
+    with TF32 allowed, the flag restored), must miss both 1e-5 limits.
+    No single library call computes this function.  The device ms of its
+    two stages alone (sketch, G) go into ``K2_STAGES``.  Returns the
+    readings and the kernel's Yc."""
     from dmd_era5_tpu_torch.ops.matmul import _sketch_center_gram_plain, sketch_center_gram
 
     def kernel():
@@ -1314,19 +1323,38 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
     limit = 1e-5 + res["plain_G_vs_f64_over_max"]
     check(res["G_vs_plain_over_max"] <= limit,
           f"{label} K2: G vs plain {res['G_vs_plain_over_max']:.3e} > {limit:.3e}")
+    if x.dtype == out_dtype == torch.float32:
+        colw = w.sum(dim=0)
+        inv_t = 1.0 / x.shape[1] if center else 0.0
+        with one_tf32_pass():
+            y1 = (x @ w).sub_((ref[1] * inv_t)[:, None] * colw[None, :])
+            g1 = got[0].T @ got[0]
+        res["one_tf32_pass_yc_rel"] = rel_err(y1, ref[0])[0]
+        res["one_tf32_pass_G_vs_f64_over_max"] = float((g1.double() - exact).abs().max()) / scale
+        del y1, g1
+        log(f"    K2 {label}: one TF32 pass: yc_rel {res['one_tf32_pass_yc_rel']:.3e}, G vs f64 "
+            f"{res['one_tf32_pass_G_vs_f64_over_max']:.3e} max|G|")
+        for name in ("one_tf32_pass_yc_rel", "one_tf32_pass_G_vs_f64_over_max"):
+            check(res[name] > 1e-5, f"{label} K2: {name} {res[name]:.3e} is within 1e-5: the "
+                  "limit does not tell 3xTF32 from one TF32 pass")
     yc = got[0]
     del got, ref, exact
     p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
     m, t, n = res["m"], res["t"], res["n"]
-    # X W (2 m t n) and Yc^T Yc counted whole (m n^2), at the peak of the
-    # operands' type; X and W read, Yc, the (m, 2) stats and G written
-    peak = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32
+    # on the tensor cores: X W (2 m t n) and the symmetric half of Yc^T Yc
+    # (m n (n + 1)), three TF32 passes for f32 X, one bf16 pass for bf16 X;
+    # X and W read, Yc, the (m, 2) stats and G written
+    bf16 = x.dtype == torch.bfloat16
     nbytes = (x.element_size() * (m * t + t * n) + yc.element_size() * m * n
               + 4 * (2 * m + n * n))
     res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None)
-    res["bound_ms"], res["bound_by"] = bound(2 * m * t * n + m * n * n, peak, nbytes)
+    res["bound_ms"], res["bound_by"] = bound((1 if bf16 else 3) * m * n * (2 * t + n + 1),
+                                             PEAK_BF16 if bf16 else PEAK_TF32, nbytes)
+    res["stage_device_ms"] = k1_stage_ms(x, w, out_dtype, dict(center=center), stages=3)
+    K2_STAGES.append(dict(label=label, m=m, t=t, n=n, dtype=res["dtype"],
+                          out_dtype=res["out_dtype"], **res["stage_device_ms"]))
     log(f"    K2 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, bound "
-        f"{res['bound_ms']:.3f} by {res['bound_by']})")
+        f"{res['bound_ms']:.3f} by {res['bound_by']}), device ms alone {res['stage_device_ms']}")
     return res, yc
 
 
@@ -1719,6 +1747,9 @@ def main() -> None:
     for row in K1_STAGES:
         log(f"K1 stages, {row['label']} {row['dtype']} m {row['m']} t {row['t']} n {row['n']}: "
             f"device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}, C {row['C']:.3f}")
+    for row in K2_STAGES:
+        log(f"K2 stages, {row['label']} {row['dtype']} (Yc {row['out_dtype']}) m {row['m']} "
+            f"t {row['t']} n {row['n']}: device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}")
     print(json.dumps({"kernels": [
         kernel_line("K1", launches["K1"], hankel_cmp),
         kernel_line("K2", launches["K2"], two_pass_cmp["K2"]),

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-__all__ = ["resident_ctas", "row_shares", "wave_row_shares", "SCRATCH_CAP"]
+__all__ = ["resident_ctas", "wave_row_shares", "SCRATCH_CAP"]
 
 SCRATCH_CAP = 1 << 30  # f64 scratch of a row-share reduction, at most
 
@@ -33,15 +33,6 @@ def resident_ctas(dev, key: tuple, query) -> int:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _RESIDENT[key] = sms * per_sm.value
     return _RESIDENT[key]
-
-
-def row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
-    """Row shares of the CUDA-core row-share reduction
-    (``csrc/row_share_atb.cuh``): enough CTAs to fill one wave of the
-    card, at most one share per 128-row tile, and f64 scratch
-    (``share_bytes`` a share) within 1 GiB."""
-    shares = -(-wave // n_blocks)
-    return max(1, min(shares, -(-m // 128), SCRATCH_CAP // share_bytes, 65535))
 
 
 def wave_row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:

@@ -72,7 +72,7 @@ struct Occupancy {
 
 // CTAs of the main kernel that fit one SM at once, into *out.
 extern "C" int project_ctas_per_sm(int y_bf16, int x_bf16, int* out) {
-  return (int)atb::dispatch(Occupancy{out}, y_bf16, x_bf16);
+  return (int)atb_tc::dispatch(Occupancy{out}, y_bf16, x_bf16);
 }
 
 // Edge of the blocks of C that the main kernel's CTAs own.
@@ -84,5 +84,5 @@ extern "C" int project_launch(const void* y, const void* x, double* part, float*
                               long long m, int n, int t, int y_bf16, int x_bf16,
                               int n_share, void* stream) {
   const Launch op{y, x, part, c, m, n, t, n_share, static_cast<cudaStream_t>(stream)};
-  return (int)atb::dispatch(op, y_bf16, x_bf16);
+  return (int)atb_tc::dispatch(op, y_bf16, x_bf16);
 }

@@ -1,9 +1,7 @@
 // C = A^T B over the rows of two tall matrices on the tensor cores,
 // f64-grade: the mainloop of K3 (C = Y^T X, project.cu), K4 (G = A^T A at
 // "highest", gram.cu), K5 (the bf16-split Gram, gram.cu) and the G and C
-// stages of K1 (sketch_center_gram_project.cu).  K2's Gram stage keeps the
-// CUDA-core reduction of row_share_atb.cuh, whose scratch layout, fixed-order
-// reduction (atb::atb_reduce) and dtype dispatch this one shares.
+// stages of K1 and K2 (sketch_center_gram_project.cu).
 //
 // A is M x NA and B is M x NB, both row-major.  The reduction runs over the
 // rows, the slow axis of both: each operand is MN-major for the MMA.
@@ -70,14 +68,39 @@
 
 #include <type_traits>
 
-#include "row_share_atb.cuh"
-
 namespace atb_tc {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int MT = 128;  // rows per tile: summed in f32 from zero
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// Sum the shares in share order (deterministic); with `upper` entry (r, c)
+// is read from (min, max), which every CTA of the upper blocks wrote.
+__global__ void atb_reduce(const double* __restrict__ part, float* __restrict__ out,
+                           int n_share, int na, int nb, int upper) {
+  const long long total = (long long)na * nb;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int r = (int)(i / nb);
+  const int c = (int)(i % nb);
+  const long long src = (upper && r > c) ? (long long)c * nb + r : i;
+  double s = 0.0;
+  for (int sh = 0; sh < n_share; ++sh) s += part[sh * total + src];
+  out[i] = (float)s;
+}
+
+// op.run<A, B>() with A and B each float or bf16, chosen by the two flags.
+template <typename Op>
+cudaError_t dispatch(const Op& op, int a_bf16, int b_bf16) {
+  if (a_bf16 && b_bf16) return op.template run<bf16, bf16>();
+  if (a_bf16) return op.template run<bf16, float>();
+  if (b_bf16) return op.template run<float, bf16>();
+  return op.template run<float, float>();
+}
 
 // ---------------------------------------------------------------- PTX
 
@@ -527,10 +550,10 @@ __device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r
     } else {
       const T* p = src + gr * ncols + c;
       const bool ok = live && gr < m;
-      v[i].x = ok && c < ncols ? atb::to_f32(p[0]) : 0.f;
-      v[i].y = ok && c + 1 < ncols ? atb::to_f32(p[1]) : 0.f;
-      v[i].z = ok && c + 2 < ncols ? atb::to_f32(p[2]) : 0.f;
-      v[i].w = ok && c + 3 < ncols ? atb::to_f32(p[3]) : 0.f;
+      v[i].x = ok && c < ncols ? to_f32(p[0]) : 0.f;
+      v[i].y = ok && c + 1 < ncols ? to_f32(p[1]) : 0.f;
+      v[i].z = ok && c + 2 < ncols ? to_f32(p[2]) : 0.f;
+      v[i].w = ok && c + 3 < ncols ? to_f32(p[3]) : 0.f;
     }
   }
 }
@@ -1000,7 +1023,7 @@ cudaError_t with_gram_main(bool aligned, int k, const Op& op) {
   }
 }
 
-// Launches k's kernel and atb::atb_reduce on `stream`; returns a
+// Launches k's kernel and atb_reduce on `stream`; returns a
 // cudaError_t code.  part: n_share * na * nb doubles.  `upper`: a is b.
 template <typename TA, typename TB>
 cudaError_t launch(const Main<TA, TB>& k, const TA* a, const TB* b, double* part, float* out,
@@ -1022,7 +1045,7 @@ cudaError_t launch(const Main<TA, TB>& k, const TA* a, const TB* b, double* part
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = (long long)na * nb;
-  atb::atb_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, out, n_share, na,
+  atb_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, out, n_share, na,
                                                                       nb, upper);
   return cudaGetLastError();
 }

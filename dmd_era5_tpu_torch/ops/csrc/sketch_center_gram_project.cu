@@ -1,8 +1,13 @@
-// K1 on Hopper: the fused sketch / centre / Gram / projection pass, in three
-// tensor-core stages.
+// K1 and K2 on Hopper: the fused sketch / centre / Gram / projection pass, in
+// three tensor-core stages, and the two-pass fallback's first pass, its first
+// two.
 //
 // Replaces dmd_era5_tpu/ops/matmul.py::_sketch_center_gram_project_kernel_1k
-// (the Pallas kernel behind sketch_center_gram_project).  From the snapshot
+// (K1, the Pallas kernel behind sketch_center_gram_project) and
+// _sketch_center_gram_kernel_1k and _sketch_center_gram_kernel (K2a and K2b,
+// the whole-T and T-tiled kernels behind sketch_center_gram: Yc, the row
+// statistics and G, no C; one function, split by whether T fits a TPU's VMEM
+// block).  From the snapshot
 // matrix X (M x T) and a sketch W (T x N) it computes
 //
 //   Y   = X W                          (f32 sums of f32-faithful products)
@@ -67,8 +72,17 @@
 // are gone: the row-share scratch is n_share N^2 + n_share N T doubles,
 // written once per CTA.
 //
+// K2 is stages 1 and 2 (the wrapper's mask 3) with stats_col 0: the (M, 2)
+// statistics from the f32 values of X, the square taken in f32, and no C.
+// So K2 builds into this library and no second one of the same templates.
+// Its shapes on the main path: bf16 X (15,573,600 x 168) with N 384 and a
+// bf16 Yc (the d = 3 Hankel pass: three 128-wide CTA columns, 6 upper
+// 128-blocks of G), and f32 X of the hourly year (977,400 x 8,760) at N 256
+// and 128, where W is walked in panels (matmul_tc.cuh).
+//
 // Ranges: any M, T and N (the wrapper routes N > 256 to K2 and K3, as the
-// JAX package's entry does past its fused range); ragged edges masked.
+// JAX package's entry does past its fused range; K2 takes N up to 2048);
+// ragged edges masked.
 
 #include "matmul_tc.cuh"
 
@@ -179,11 +193,11 @@ extern "C" int scgp_gram_blocks(int out_bf16, int n) {
 // 1 G (at K4's block edge), 2 C.  Returns a cudaError_t code.
 extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int n, int* out) {
   if (stage < 0 || stage > 2 || t < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  return (int)atb::dispatch(Occupancy{stage, t, n, out}, x_bf16, out_bf16);
+  return (int)atb_tc::dispatch(Occupancy{stage, t, n, out}, x_bf16, out_bf16);
 }
 
-// The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for the function) on
-// `stream`.  yc: M x N of the out dtype, written by the sketch.  stats: M x 2,
+// The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for K1, 3 for K2, whose
+// c_part and c may be null) on `stream`.  yc: M x N of the out dtype, written by the sketch.  stats: M x 2,
 // or null for the scalar statistics, which take st_part (sketch_ctas x 2
 // doubles) and st (2).  The sketch at its table's columns a CTA, G at K4's
 // block edge; g_part: g_shares N^2 doubles; c_part: c_shares N T.
@@ -200,5 +214,5 @@ extern "C" int scgp_launch(const void* x, const void* w, const float* colw, void
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
   const Launch op{x, w, yc, ca, st, g_part, g, c_part, c, m, t, n, out_bf16, sketch_ctas,
                   g_shares, c_shares, stages, static_cast<cudaStream_t>(stream)};
-  return (int)atb::dispatch(op, x_bf16, out_bf16);
+  return (int)atb_tc::dispatch(op, x_bf16, out_bf16);
 }

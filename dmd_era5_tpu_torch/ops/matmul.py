@@ -17,8 +17,8 @@ Also ``dmd_era5_tpu/ops/matmul.py::matmul``: (M, K) @ (K, N) summed in
 f32, the per-block sketch of the out-of-core SVD.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/sketch_center_gram_project.cu`` K1, ``csrc/sketch_center_gram.cu``
-K2, ``csrc/project.cu`` K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
+(``csrc/sketch_center_gram_project.cu`` K1, and K2 as K1's sketch and G
+stages, ``csrc/project.cu`` K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
 takes the plain PyTorch version beside it, which does the same
 arithmetic with ``torch.matmul``.  There is no fallback between the two:
 which pass runs is decided by the shapes alone, the same on both.
@@ -31,7 +31,7 @@ import logging
 
 import torch
 
-from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, row_shares, wave_row_shares
+from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 
 __all__ = [
     "sketch_center_gram_project",
@@ -171,6 +171,7 @@ def _sketch_center_gram_project_plain(
 
 _LIB = None
 _STAGES = 7  # K1's sketch, G and C stages (bits 0-2 of scgp_launch's mask)
+_K2_STAGES = 3  # K2: the sketch and G stages of the same library
 
 
 def _kernel_library():
@@ -215,15 +216,16 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc):
-    """K1's outputs, allocated, and ``run(stages)``, which launches the
-    stages in the mask (1 sketch, 2 G = Yc^T Yc, 4 C = Yc^T X) into them.
-    Yc is allocated as scratch where ``emit_yc`` is off: G and C are read
-    from it.  The sketch runs on the card's resident CTAs; G and C on the
-    row shares that fill whole waves over their blocks (G's upper ones,
-    ``scgp_gram_blocks``; C's 128 x 128), their f64 scratch within 1 GiB.
-    The library picks the sketch's columns a CTA and G's block edge from
-    its own tables."""
+def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_yc,
+               stages=_STAGES):
+    """The outputs of the stages in ``stages`` (1 sketch, 2 G = Yc^T Yc,
+    4 C = Yc^T X: 7 for K1, 3 for K2), allocated, and ``run(mask)``, which
+    launches the stages in the mask into them.  Yc is allocated as scratch
+    where ``emit_yc`` is off: G and C are read from it.  The sketch runs on
+    the card's resident CTAs; G and C on the row shares that fill whole
+    waves over their blocks (G's upper ones, ``scgp_gram_blocks``; C's
+    128 x 128), their f64 scratch within 1 GiB.  The library picks the
+    sketch's columns a CTA and G's block edge from its own tables."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
@@ -232,20 +234,21 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     lib = _kernel_library()
     nb, nt = -(-n // 128), -(-t_cols // 128)  # blocks of C
     with torch.cuda.device(dev):
-        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols, n) for st in range(3)]
+        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols, n) if stages >> st & 1 else 0
+                 for st in range(3)]
     g_shares = wave_row_shares(waves[1], lib.scgp_gram_blocks(out_bf16, n), m, 8 * n * n)
-    c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols)
+    c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols) if stages & 4 else 0
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
     out = dict(
         yc=torch.empty((m, n), dtype=out_dtype, device=dev),
         stats=None if scalar_stats else torch.empty((m, 2), **f32),
         st=torch.empty(2, **f32) if scalar_stats else None,
         g=torch.empty((n, n), **f32),
-        c=torch.empty((n, t_cols), **f32),
+        c=torch.empty((n, t_cols), **f32) if stages & 4 else None,
     )
     st_part = torch.empty((waves[0], 2), **f64) if scalar_stats else None
     g_part = torch.empty((g_shares, n, n), **f64)
-    c_part = torch.empty((c_shares, n, t_cols), **f64)
+    c_part = torch.empty((c_shares, n, t_cols), **f64) if stages & 4 else None
     logger.debug("sketch_center_gram_project: %d sketch CTAs, %d / %d row shares of G / C",
                  waves[0], g_shares, c_shares)
 
@@ -392,57 +395,11 @@ def _sketch_center_gram_plain(
     return yc, rs, ss, g
 
 
-_SCG_LIB = None
-
-
-def _scg_library():
-    global _SCG_LIB
-    if _SCG_LIB is None:
-        from dmd_era5_tpu_torch.ops._build import load_kernel_library
-
-        lib = load_kernel_library("sketch_center_gram")
-        ptr, flag = ctypes.c_void_p, ctypes.c_int
-        lib.scg_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # x, w, colw, yc, stats
-            ptr, ptr,  # per-share f64 partials of G, reduced G
-            ctypes.c_longlong, flag, flag,  # m, t, n
-            flag, flag, ctypes.c_float, flag, ptr,  # x_bf16, out_bf16, inv_t, n_share, stream
-        ]
-        lib.scg_launch.restype = ctypes.c_int
-        lib.scg_gram_ctas_per_sm.argtypes = [flag, ptr]  # out_bf16, &out
-        lib.scg_gram_ctas_per_sm.restype = ctypes.c_int
-        _SCG_LIB = lib
-    return _SCG_LIB
-
-
 def _sketch_center_gram_cuda(x, w, out_dtype, center, t_valid):
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (row-major M x T)")
-    w = w.contiguous()
-    colw = w.float().sum(dim=0)
-    inv_t = (1.0 / (t_valid or x.shape[1])) if center else 0.0
-    (m, t_cols), n, dev = x.shape, w.shape[1], x.device
-    x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
-    lib = _scg_library()
-    with torch.cuda.device(dev):
-        wave = resident_ctas(dev, ("sketch_center_gram", out_bf16),
-                              lambda out: lib.scg_gram_ctas_per_sm(out_bf16, out))
-        nb = -(-n // 64)
-        n_share = row_shares(wave, nb * (nb + 1) // 2, m, 8 * n * n)
-        f32 = dict(dtype=torch.float32, device=dev)
-        yc = torch.empty((m, n), dtype=out_dtype, device=dev)
-        stats = torch.empty((m, 2), **f32)
-        g = torch.empty((n, n), **f32)
-        g_part = torch.empty((n_share, n, n), dtype=torch.float64, device=dev)
-        rc = lib.scg_launch(
-            x.data_ptr(), w.data_ptr(), colw.data_ptr(), yc.data_ptr(), stats.data_ptr(),
-            g_part.data_ptr(), g.data_ptr(), m, t_cols, n, x_bf16, out_bf16, inv_t,
-            n_share, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sketch_center_gram kernel: CUDA error {rc}")
+    out, run = _scgp_plan(x, w, out_dtype, center, False, False, t_valid, True, _K2_STAGES)
+    run(_K2_STAGES)
     sketch_center_gram.launches += 1
-    return yc, stats[:, 0], stats[:, 1], g
+    return out["yc"], out["stats"][:, 0], out["stats"][:, 1], out["g"]
 
 
 def sketch_center_gram(
@@ -464,8 +421,9 @@ def sketch_center_gram(
     ``SKETCH_N_MAX``.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    the Hopper kernel (``csrc/sketch_center_gram.cu``) and counts it in
-    ``sketch_center_gram.launches``.
+    K1's sketch and G stages (``csrc/sketch_center_gram_project.cu``:
+    with the statistics from X, no C) and counts them in
+    ``sketch_center_gram.launches``, apart from K1's count.
     """
     _check_sketch(x, w, out_dtype, t_valid)
     if x.device.type == "cpu":

@@ -1,6 +1,6 @@
-"""The tile tables of K4 and K1 on the card, measured.
+"""The tile tables of K4, K1 and K2 on the card, measured.
 
-    python scripts/torch_tc_tables.py
+    python scripts/torch_tc_tables.py [--parts gram,sketch,long_t]
 
 Each table lives in its library (``atb_tc::gram_edge`` in
 ``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, ``sketch_columns``
@@ -25,14 +25,24 @@ f32 and N 128 in bf16, at 112 and 128 columns a CTA; Yc must be the same
 bit for bit.  Then the bf16 sketch's Y (its MMA sums restarted every k16
 step) against the f64 product, beside the f32 library product's.
 
+The sketch's long time axis (``long_t``): past W's resident depth the
+sketch stage (``matmul_tc.cuh``) restages a panel of W every tile and
+panel.  On the hourly year's X (977,400 x 8,760 f32, 34 GB) at K2's
+widths there, N 256 and 128, the sketch stage alone (the wrapper's plan
+for K2, ``stages=3``) as it is (``table``) and with the restage skipped
+after a CTA's first panel (``restage_skipped``: every panel's MMAs read
+the first one, so its Yc means nothing; timing only): the difference is
+what the restage costs.
+
 Device ms by ``chip_smoke.device_ms`` (launches queued behind a sleep of
 the card).  Prints one JSON line a shape and the card's name and power
-limit.  Needs one CUDA card, nvcc and about 30 GB of the card's memory;
-~1.5 min.
+limit.  Needs one CUDA card, nvcc and about 36 GB of the card's memory;
+~2 min.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -53,6 +63,8 @@ OUT = ROOT / "build" / "tc_tables"
 GRAM_TABLE = ("inline int gram_edge(bool bf16, int k) "
               "{ return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }")
 SKETCH_TABLE = "int sketch_columns(int n) { return n <= 112 ? 112 : 128; }"
+RESTAGE = "    if (j == 0 || (paneled && col0 == kp0)) {"
+YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
 # variant name: (library, source, header inlined, table, fixed choice)
 VARIANTS = {
     f"gram_edge{e}": ("gram", "gram.cu", "row_share_atb_tc.cuh", GRAM_TABLE,
@@ -62,6 +74,9 @@ VARIANTS = {
     f"sketch_columns{c}": ("sketch_center_gram_project", "sketch_center_gram_project.cu", None,
                            SKETCH_TABLE, f"int sketch_columns(int n) {{ return {c}; }}")
     for c in (112, 128)
+} | {
+    "restage_skipped": ("sketch_center_gram_project", "sketch_center_gram_project.cu",
+                        "matmul_tc.cuh", RESTAGE, "    if (j == 0) {"),
 }
 
 
@@ -91,17 +106,7 @@ def use(library: str, lib) -> None:
     _occupancy._RESIDENT.clear()
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
-        tables = {lib: pool.submit(_build.load_kernel_library, lib)
-                  for lib in ("gram", "sketch_center_gram_project")}
-        libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
-        tables = {lib: fut.result() for lib, fut in tables.items()}
-    gen = torch.Generator(device=dev).manual_seed(0)
+def gram_part(libs, tables, gen, dev) -> None:
     for k in (110, 128, 168, 256):
         a = torch.randn((M, k), generator=gen, device=dev)
         exact = gram_f64(a)
@@ -116,6 +121,9 @@ def main() -> None:
         row["library_device_ms"] = device_ms(lambda: a.T @ a, reps=5)
         print(json.dumps(row), flush=True)
         del a, exact
+
+
+def sketch_part(libs, tables, gen, dev) -> None:
     x = torch.randn((M, 168), generator=gen, device=dev)
     for n, dtype in ((256, torch.float32), (224, torch.float32), (128, torch.float32),
                      (100, torch.float32), (128, torch.bfloat16)):
@@ -144,6 +152,49 @@ def main() -> None:
     print(json.dumps({"bf16_sketch_rows": xb.shape[0], "t": 168, "n": 128,
                       "kernel_y_rel_vs_f64": rel_err(y, exact)[0],
                       "library_f32_y_rel_vs_f64": rel_err(xb.float() @ wb.float(), exact)[0]}))
+
+
+def long_t_part(libs, tables, gen, dev) -> None:
+    x = torch.randn(YEAR, generator=gen, device=dev)
+    for n in (256, 128):
+        w = torch.randn((YEAR[1], n), generator=gen, device=dev)
+        row = {"m": YEAR[0], "t": YEAR[1], "n": n, "dtype": "float32"}
+        for name, lib in (("table", tables["sketch_center_gram_project"]),
+                          ("restage_skipped", libs["restage_skipped"])):
+            use("sketch_center_gram_project", lib)
+            out, run = matmul._scgp_plan(x, w, torch.float32, False, False, False, None, True,
+                                         stages=3)
+            run(3)
+            row[f"sketch_device_ms_{name}"] = device_ms(lambda run=run: run(1), reps=3)
+            row[f"G_device_ms_{name}"] = device_ms(lambda run=run: run(2), reps=3)
+            del out, run
+        row["restage_share"] = 1 - row["sketch_device_ms_restage_skipped"] / row[
+            "sketch_device_ms_table"]
+        print(json.dumps(row), flush=True)
+        del w
+
+
+PARTS = {"gram": gram_part, "sketch": sketch_part, "long_t": long_t_part}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help=f"comma-separated, of {', '.join(PARTS)}")
+    parts = parser.parse_args().parts.split(",")
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
+        tables = {lib: pool.submit(_build.load_kernel_library, lib)
+                  for lib in ("gram", "sketch_center_gram_project")}
+        libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+        tables = {lib: fut.result() for lib, fut in tables.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for part in parts:
+        PARTS[part](libs, tables, gen, dev)
+        torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

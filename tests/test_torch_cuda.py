@@ -4,10 +4,12 @@ Every flag combination of ``sketch_center_gram_project`` (K1) in float32
 and bfloat16, at a ragged row count, at the week's T and past W's resident
 depth, on both sides of the sketch stage's 112-wide CTA columns, and
 against one TF32 pass; the
-two-pass fallback, ``sketch_center_gram`` (K2) and ``project`` (K3), over
-operand and output dtypes at ragged M, T and N up to 512 (on both sides
-of K3's 128-wide tensor-core blocks), K3 against one TF32 pass, and its
-route through ``sketch_center_gram_project``; ``gram`` at both
+two-pass fallback, ``sketch_center_gram`` (K2: K1's sketch and G stages)
+and ``project`` (K3), over operand and output dtypes at ragged M, T and N
+up to 2048 (on both sides of K3's 128-wide tensor-core blocks, of W's
+resident depth in K2's sketch, and on rows not 16-byte aligned), K2 and
+K3 against one TF32 pass, and their route through
+``sketch_center_gram_project``; ``gram`` at both
 precisions, float32 and bfloat16 input, ragged row counts and panel
 widths on both sides of K4's and K5's block edges and past the JAX
 kernel's 1024, K4 against one TF32 pass; ``matmul`` (K6) over operand
@@ -347,10 +349,18 @@ SCG_CASES = [
                  id=f"{dtype}-{out_dtype}-c{center:d}-m{m}-t{t}-n{n}")
     for dtype, out_dtype in [("float32", "float32"), ("bfloat16", "bfloat16"),
                              ("bfloat16", "float32"), ("float32", "bfloat16")]
-    # ragged every way; K1's widest; past it (d = 3 at k = 100); d = 4; one element
+    # ragged every way; K1's widest; past it (d = 3 at k = 100); d = 4; one
+    # element; T past W's resident depth in the sketch (176 rows of K in
+    # f32, 704 in bf16, at 128 columns a CTA: walked in panels) up to the
+    # hourly year, centred and not; rows not 16-byte aligned (T % 4 in f32,
+    # T % 8 in bf16: the element-wise instantiation) at the d = 3 width; the
+    # widest sketch, SKETCH_N_MAX
     for m, t, n, center in [(1000, 168, 100, True), (1031, 333, 256, False),
                             (777, 8760, 257, True), (300, 50, 384, True),
-                            (129, 40, 512, False), (1, 1, 1, True)]
+                            (129, 40, 512, False), (1, 1, 1, True),
+                            (1000, 705, 128, False), (1000, 705, 384, True),
+                            (1000, 8760, 128, False), (1000, 167, 384, False),
+                            (300, 168, 2048, True)]
 ]
 
 
@@ -367,7 +377,10 @@ def test_sketch_center_gram_kernel_matches_plain_on_card(cuda, dtype, out_dtype,
     """K2: Yc within f32 roundoff of the plain version (one bf16 ulp for
     a bf16 Yc, which may round the other way), the row statistics within
     1e-5, and G exactly symmetric and within 1e-5 max|G| of the f64 sums
-    of the kernel's own stored Yc (the plain version sums it in f32)."""
+    of the kernel's own stored Yc (the plain version sums it in f32).  A
+    bf16 Yc is held as K1's is: the share of its entries that differ from
+    the plain version's to 4e-3, and G to the plain product of the
+    kernel's own stored Yc within 1e-5."""
     gen = torch.Generator(device=cuda).manual_seed(23)
     tdt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
     x = (torch.randn((m, t), generator=gen, device=cuda) + 1.0).to(tdt)
@@ -387,6 +400,33 @@ def test_sketch_center_gram_kernel_matches_plain_on_card(cuda, dtype, out_dtype,
         assert rel <= limit, (name, rel)
     ycd = yc.double()
     _f64_close(g, ycd.T @ ycd, "G")
+    if out_dtype == "bfloat16":
+        flips = float((yc != ref[0]).double().mean())
+        assert flips <= 4e-3, ("yc entries differing", flips)
+        ycf = yc.float()
+        plain_g = (ycf.T @ ycf).double()
+        assert float((g.double() - plain_g).norm() / plain_g.norm()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(168, 384), (705, 256)])
+def test_sketch_center_gram_is_not_one_tf32_pass_on_card(cuda, t, n):
+    """K2's sketch and G stages on f32 operands whose entries span six
+    decades (the week's T at the d = 3 width, and a T past W's resident
+    depth): Yc within 1e-6 max|Yc| of the f64 product X W (no centring), G
+    within 1e-6 of the f64 sums of the stored Yc, limits that one TF32 pass
+    of each product misses."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    x, w = _wide((20_000, t), gen, cuda), _wide((t, n), gen, cuda)
+    yc, _, _, g = matmul.sketch_center_gram(x, w, center=False)
+    y64 = yc.double()
+    exact = {"Yc": x.double() @ w.double(), "G": y64.T @ y64}
+    for name, got in (("Yc", yc), ("G", g)):
+        err = float((got.double() - exact[name]).abs().max()) / float(exact[name].abs().max())
+        assert err <= 1e-6, (name, err)
+    for name, fn in (("Yc", lambda: x @ w), ("G", lambda: yc.T @ yc)):
+        err = _one_tf32_pass_err(fn, exact[name])
+        assert err > 1e-6, (name, err)
 
 
 PROJECT_CASES = [

@@ -2,7 +2,9 @@
 
 ``sketch_center_gram`` (K2) and ``project`` (K3) at the shapes and
 tolerances of tests/test_08_kernels.py:273-343, the JAX side in
-interpret mode; ``sketch_center_gram_project`` at a time axis where both
+interpret mode, and K2 at the main path's two kinds of pass in miniature
+(the d = 3 Hankel pass in bf16, a long uncentred time axis at N 256);
+``sketch_center_gram_project`` at a time axis where both
 packages take the two passes; the routing rule; and the hourly year
 (T = 8,760), which the port takes and the JAX fallback refuses unless
 512 divides T (ROADMAP Queue 3, R4).  The port's wrappers take their
@@ -17,8 +19,10 @@ import pytest
 import torch
 
 from dmd_era5_tpu.ops import matmul as mj
+from dmd_era5_tpu.ops.hankel import stacked_sketch_matrix as stacked_sketch_matrix_jax
 from dmd_era5_tpu_torch.ops import _occupancy as occupancy
 from dmd_era5_tpu_torch.ops import matmul as mt
+from dmd_era5_tpu_torch.ops.hankel import stacked_sketch_matrix
 
 
 def _sketch_parity(rng, m, t, r, **jax_blocks):
@@ -53,6 +57,76 @@ def test_sketch_center_gram_tiled_time(rng):
         np.testing.assert_allclose(yc, y_ref, rtol=1e-4, atol=1e-2)
         np.testing.assert_allclose(g, y_ref.T @ y_ref, rtol=1e-4, atol=0.5)
     np.testing.assert_allclose(ours[3], theirs[3], rtol=1e-4, atol=0.5)
+
+
+def _within_bf16_ulp(a: np.ndarray, ref: np.ndarray) -> bool:
+    """Every entry of a within one bf16 ulp of ref's, 2^(exponent - 8) with
+    the exponent taken exactly (frexp), plus f32 roundoff slack (2^-20 of
+    max|ref|) where a sum cancels to a few ulps of its terms."""
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(ref), 1e-30))[1] - 8)
+    return bool((np.abs(a - ref) <= ulp + 2.0**-20 * np.abs(ref).max()).all())
+
+
+def test_sketch_center_gram_d3_pass_bf16(rng):
+    """The d = 3 Hankel pass in miniature: bf16 X, the stacked bf16 W of
+    d = 3 (N = 384), no centring, a bf16 Yc, in both packages.  Each
+    package's Yc within one bf16 ulp of the exact product of the stored
+    values, and the two within one ulp of each other: f32 sums in two
+    orders round a few entries the other way, a share held to 4e-3 (the
+    card tests' limit for K1).  G from each package's own stored Yc at
+    test_08's tolerance, the statistics at test_08's."""
+    m, t, d, r = 1024, 64, 3, 128
+    x = rng.standard_normal((m, t)).astype(np.float32) + 1.0
+    omega = rng.standard_normal((t - d + 1, r)).astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    wt = stacked_sketch_matrix(torch.from_numpy(omega), d, t).bfloat16()
+    xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    wj = stacked_sketch_matrix_jax(jnp.asarray(omega), d, t).astype(jnp.bfloat16)
+    assert wt.shape == (t, d * r)
+    np.testing.assert_array_equal(wt.float().numpy(), np.asarray(wj, np.float32))
+    ours = mt.sketch_center_gram(xt, wt, out_dtype=torch.bfloat16, center=False)
+    theirs = mj.sketch_center_gram(xj, wj, out_dtype=jnp.bfloat16, center=False)
+    assert mt.sketch_center_gram.launches == 0
+    assert ours[0].dtype == torch.bfloat16 and ours[0].shape == (m, d * r)
+    yc_t, rs_t, ss_t, g_t = (o.float().numpy() for o in ours)
+    yc_j, rs_j, ss_j, g_j = (np.asarray(o, np.float32) for o in theirs)
+    x64 = xt.double().numpy()
+    y64 = x64 @ wt.double().numpy()
+    assert _within_bf16_ulp(yc_t, y64) and _within_bf16_ulp(yc_j, y64)
+    assert _within_bf16_ulp(yc_t, yc_j)
+    assert float(np.mean(yc_t != yc_j)) <= 4e-3
+    for rs, ss in ((rs_t, ss_t), (rs_j, ss_j)):
+        np.testing.assert_allclose(rs, x64.sum(axis=1), rtol=1e-4, atol=1e-2)
+        np.testing.assert_allclose(ss, (x64 * x64).sum(axis=1), rtol=1e-4, atol=1e-2)
+    for g, yc in ((g_t, yc_t), (g_j, yc_j)):
+        yc64 = yc.astype(np.float64)
+        np.testing.assert_allclose(g, yc64.T @ yc64, rtol=1e-4, atol=0.5)
+        np.testing.assert_array_equal(g, g.T)
+
+
+def test_sketch_center_gram_long_uncentred(rng):
+    """A long time axis (T = 8,704 = 17 x 512, past W's resident depth on
+    the card), no centring, N = 256: the year's Hankel pass in miniature.
+    Both packages against the f64 product and each other at the tolerance
+    of test_fused_entry_takes_two_passes_like_jax (test_08's rtol, 1e-5 of
+    the largest entry)."""
+    m, t, n = 256, 8704, 256
+    x = (rng.standard_normal((m, t)) + 0.5).astype(np.float32)
+    w = rng.standard_normal((t, n)).astype(np.float32)
+    ours = [o.numpy() for o in mt.sketch_center_gram(torch.from_numpy(x), torch.from_numpy(w),
+                                                      center=False)]
+    theirs = [np.asarray(o) for o in mj.sketch_center_gram(jnp.asarray(x), jnp.asarray(w),
+                                                           center=False)]
+    assert mt.sketch_center_gram.launches == 0
+    x64 = x.astype(np.float64)
+    y64 = x64 @ w.astype(np.float64)
+    exact = (y64, x64.sum(axis=1), (x64 * x64).sum(axis=1), y64.T @ y64)
+    for name, a, b, e in zip(("yc", "rs", "ss", "G"), ours, theirs, exact):
+        assert a.shape == b.shape == e.shape, name
+        for got in (a, b):
+            np.testing.assert_allclose(got, e, rtol=1e-4, atol=1e-5 * np.abs(e).max(),
+                                       err_msg=name)
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * np.abs(b).max(), err_msg=name)
 
 
 def test_sketch_center_gram_row_padding(rng):
@@ -227,6 +301,9 @@ def test_checks_and_range():
     (264, 6, 15_573_600, 8 * 168 * 168),    # K5, the week at two CTAs an SM
     (132, 138, 300, 8 * 256 * 8760),        # fewer row tiles than the best split
     (132, 1, 1, 8),
+    (132, 3, 977_400, 8 * 256 * 256),       # K2's G, the year's Hankel pass (N 256, 128-blocks)
+    (132, 1, 977_400, 8 * 128 * 128),       # K2's G, the year's fit step (N 128)
+    (132, 6, 15_573_600, 8 * 384 * 384),    # K2's G, the week's d = 3 pass (N 384, bf16 Yc)
 ])
 def test_wave_row_shares(wave, n_blocks, m, share_bytes):
     """The tensor-core reduction's row shares: the fewest whose CTAs fill
