@@ -120,12 +120,13 @@ constexpr int MU_BYTES = BM * 4;               // the tile's row means (K1's epi
 
 // What depends on the columns of out a CTA: BN 112 (K6: N 110 in one
 // column) or 128 (K1: N 128 in one column, 256 in two), whose f32 planes
-// leave room for a 2-deep ring only.
-template <int BN_>
+// leave room for a 2-deep ring only; and on whether w streams (STREAM: its
+// chunks ride the ring beside x's, 4 deep).
+template <int BN_, bool STREAM = false>
 struct Tile {
   static constexpr int BN = BN_;
-  static constexpr int NACC = BN / 2;                 // f32 accumulators a thread
-  static constexpr int STAGES = BN == 112 ? 4 : 2;    // x chunks in the ring
+  static constexpr int NACC = BN / 2;                            // f32 accumulators a thread
+  static constexpr int STAGES = STREAM || BN == 112 ? 4 : 2;     // x chunks in the ring
   static constexpr int BAR_BYTES = STAGES * 8;
   static constexpr int OUT_BYTES = OUT_ROWS * BN * 4;  // 14 or 16 KB
   static constexpr int FREE =
@@ -173,11 +174,27 @@ int panel_rows(int k) {
   return padded <= kmax<T, BN>() ? padded : Cfg<T, BN>::PANEL;
 }
 
-template <typename T, int BN>
+// Shared memory of a CTA holding `rows` of K of w: the planes, or with
+// STREAM a chunk of KC rows in each slot of the ring.
+template <typename T, int BN, bool STREAM = false>
 constexpr int smem_bytes(int rows) {
-  using L = Tile<BN>;
-  return ALIGN + L::STAGES * STAGE_BYTES + rows * Cfg<T, BN>::ROW_BYTES + L::BAR_BYTES +
-         L::OUT_BYTES + MU_BYTES;
+  using L = Tile<BN, STREAM>;
+  return ALIGN + L::STAGES * STAGE_BYTES + (STREAM ? L::STAGES : 1) * rows * Cfg<T, BN>::ROW_BYTES +
+         L::BAR_BYTES + L::OUT_BYTES + MU_BYTES;
+}
+static_assert(smem_bytes<float, 128, true>(Cfg<float, 128>::KC) <= SMEM_CAP,
+              "four slots of x's and w's chunks fit");
+
+// Bytes of w's chunks as the streamed kernel reads them (split_w): for each
+// CTA column and chunk of KC rows of K, its tf32 hi plane, then its lo plane.
+template <int BN>
+constexpr long long w_chunk_bytes() {
+  return (long long)Cfg<float, BN>::KC * Cfg<float, BN>::ROW_BYTES;
+}
+template <int BN>
+long long w_stream_bytes(int k, int n) {
+  const int kc = Cfg<float, BN>::KC;
+  return (long long)((n + BN - 1) / BN) * ((k + kc - 1) / kc) * w_chunk_bytes<BN>();
 }
 
 // What K1's epilogue (sketch_center_gram_project.cu) takes beside out.
@@ -216,6 +233,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
     if (clock64() - t0 > (1LL << 35)) __trap();
   }
+}
+// `bytes` contiguous bytes at src into shared memory at dst, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 // Box (c0, c1) of the 2-D map into shared memory at dst, completing on bar.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
@@ -321,21 +346,26 @@ __device__ __forceinline__ void chunk_row_stats(const unsigned char* st, int tid
 // (Tile).  CENTER: K1's epilogue --
 // the row sums and sums of squares of x from the chunks in the ring, out =
 // x w - (rs inv_t) colw rounded to its dtype, the row statistics (CTA column
-// 0 only) as (m, 2) or as a CTA's f64 sums of rs^2 and ss.
-template <typename T, bool TMA, bool CENTER, int BN>
+// 0 only) as (m, 2) or as a CTA's f64 sums of rs^2 and ss.  STREAM (f32, TMA):
+// w is split_w's chunks (kw = KC), each copied into its ring slot beside x's
+// chunk, none held; else w is row-major, held whole or in panels of kw rows.
+template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_tc(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
               const T* __restrict__ w, void* __restrict__ out, int out_bf16, long long m, int k,
               int n, int kw, const CenterArgs ca) {
   using C = Cfg<T, BN>;
-  constexpr int NACC = Tile<BN>::NACC;
-  constexpr int STAGES = Tile<BN>::STAGES;
+  static_assert(!STREAM || (sizeof(T) == 4 && TMA), "w streams for f32 x by TMA");
+  constexpr int NACC = Tile<BN, STREAM>::NACC;
+  constexpr int STAGES = Tile<BN, STREAM>::STAGES;
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int STEPS = C::KC / C::KSTEP;  // MMA k-steps a chunk: 4
+  constexpr int W_STAGE = STREAM ? (int)w_chunk_bytes<BN>() : 0;  // w's chunk a slot
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
-  unsigned char* planes = ring + STAGES * STAGE_BYTES;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(planes + kw * C::ROW_BYTES);
+  unsigned char* planes = ring + STAGES * STAGE_BYTES;  // STREAM: w's slots
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(planes + (STREAM ? STAGES * W_STAGE : kw * C::ROW_BYTES));
   float* staged = reinterpret_cast<float*>(bars + STAGES);  // OUT_ROWS x BN sums
   float* mu = staged + OUT_ROWS * BN;                        // K1: the tile's row means
 
@@ -355,11 +385,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   // (j % cpt) KC on
   auto issue = [&](long long j) {
     const long long it = j / cpt;
+    const int c = (int)(j - it * cpt);
     const int s = (int)(j % STAGES);
     const uint32_t bar = smem_u32(bars + s);
-    mbar_expect_tx(bar, STAGE_BYTES);
-    tma_load(smem_u32(ring + s * STAGE_BYTES), &xmap, (int)(j - it * cpt) * C::KC,
+    mbar_expect_tx(bar, STAGE_BYTES + W_STAGE);
+    tma_load(smem_u32(ring + s * STAGE_BYTES), &xmap, c * C::KC,
              (int)((blockIdx.x + it * gridDim.x) * BM), bar);
+    if constexpr (STREAM) {  // the chunk's rows of w's CTA column, split
+      bulk_load(smem_u32(planes + s * W_STAGE),
+                reinterpret_cast<const unsigned char*>(w) +
+                    ((long long)blockIdx.y * cpt + c) * W_STAGE,
+                W_STAGE, bar);
+    }
   };
   if constexpr (TMA) {
     if (tid == 0) {
@@ -367,7 +404,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       for (int s = 0; s < STAGES && s < jobs; ++s) issue(s);
     }
-  }  // the barrier before the first stage_w orders the inits before any wait
+  }  // the barrier before the first stage_w (STREAM: the one below) orders the
+     // inits before any wait
+  if constexpr (STREAM) __syncthreads();
 
   // rows [kp0, kp0 + kwp) of w's CTA column into the planes, zero-padded
   auto stage_w = [&](int kp0, int kwp) {
@@ -441,15 +480,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < NACC; ++i) acc[i] = d[i] = 0.f;
   float rsum = 0.f, ssum = 0.f;     // K1: this thread's half of row tid / 2 of the tile
   double st_rs2 = 0.0, st_ss = 0.0;  // K1: its rows' rs^2 and ss, scalar statistics
-  const uint32_t plane_hi = smem_u32(planes);
-  const uint32_t plane_lo = plane_hi + kw * BN * 4;  // f32 only
+  const uint32_t plane_hi = smem_u32(planes);  // held w
   int ci = 0;        // chunk of the current tile
   long long it = 0;  // tiles done
   for (long long j = 0; j < jobs; ++j) {
     const int col0 = ci * C::KC;
     const long long row0 = (blockIdx.x + it * gridDim.x) * BM;
     const int kp0 = paneled ? col0 / kw * kw : 0;
-    if (j == 0 || (paneled && col0 == kp0)) {
+    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {
       __syncthreads();  // every MMA on the old panel has completed
       stage_w(kp0, min(kw, k - kp0));
       atb_tc::fence_proxy_async();  // the planes, to wgmma's reads
@@ -464,8 +502,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
     }
     const int steps = min(STEPS, (k - col0 + C::KSTEP - 1) / C::KSTEP);
-    const int kk0 = (col0 - kp0) / C::KSTEP;  // the chunk's first k-step in the planes
+    const int kk0 = (col0 - kp0) / C::KSTEP;  // the chunk's first k-step in the planes (STREAM: 0)
     if constexpr (F32) {
+      const uint32_t w_hi = STREAM ? smem_u32(planes + s * W_STAGE) : plane_hi;
+      const uint32_t w_lo = w_hi + kw * BN * 4;
       // A fragment of k8 step q: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
       uint32_t ah[STEPS][4], al[STEPS][4];
       const float* a = reinterpret_cast<const float*>(st);
@@ -490,18 +530,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int q = 0; q < STEPS; ++q) {
         if (q < steps) {
           const uint32_t off = (kk0 + q) * 256;
-          wgmma_tf32(d, al[q], smem_desc(plane_hi + off, 128, sbo), q == 0 ? 0 : 1);
-          wgmma_tf32(d, ah[q], smem_desc(plane_lo + off, 128, sbo), 1);
+          wgmma_tf32(d, al[q], smem_desc(w_hi + off, 128, sbo), q == 0 ? 0 : 1);
+          wgmma_tf32(d, ah[q], smem_desc(w_lo + off, 128, sbo), 1);
         }
       }
 #pragma unroll
       for (int q = 0; q < STEPS; ++q) {
         if (q < steps) {
-          wgmma_tf32(d, ah[q], smem_desc(plane_hi + (kk0 + q) * 256, 128, sbo), 1);
+          wgmma_tf32(d, ah[q], smem_desc(w_hi + (kk0 + q) * 256, 128, sbo), 1);
         }
       }
       atb_tc::wgmma_commit();
       if constexpr (CENTER) chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
+      if constexpr (STREAM) atb_tc::wgmma_wait<0>();  // the MMAs read w's chunk in slot s
       __syncthreads();  // every warp's fragments of slot s are in registers
       if constexpr (TMA) {
         if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
@@ -684,7 +725,7 @@ inline EncodeTiled encode_tiled() {
 // of external linkage is one object in the whole process (a unique
 // symbol), and a second build of a source loaded beside the first would
 // find it set and leave its own kernel at the default limit.
-template <typename T, bool TMA, bool CENTER, int BN>
+template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
 static cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};  // a bit a device
   int dev = 0;
@@ -693,9 +734,10 @@ static cudaError_t allow_smem() {
   if (dev >= 64) return cudaErrorInvalidDevice;
   const unsigned long long bit = 1ULL << dev;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(matmul_tc<T, TMA, CENTER, BN>,
+  err = cudaFuncSetAttribute(matmul_tc<T, TMA, CENTER, BN, STREAM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<T, BN>(kmax<T, BN>()));
+                             STREAM ? smem_bytes<T, BN, true>(Cfg<T, BN>::KC)
+                                    : smem_bytes<T, BN>(kmax<T, BN>()));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
@@ -709,7 +751,8 @@ inline dim3 grid_of(long long m, int n, int ctas, int bn) {
   return dim3((unsigned)(row_tiles < per_col ? row_tiles : per_col), (unsigned)col_tiles);
 }
 
-template <typename T, bool TMA, bool CENTER, int BN>
+// With STREAM, w is split_w's chunks.
+template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
 cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, int n, int out_bf16,
                    int ctas, const CenterArgs& ca, cudaStream_t stream) {
   CUtensorMap map{};
@@ -727,15 +770,72 @@ cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, 
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem<T, TMA, CENTER, BN>();
+  const cudaError_t err = allow_smem<T, TMA, CENTER, BN, STREAM>();
   if (err != cudaSuccess) return err;
   if ((n + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
-  const int kw = panel_rows<T, BN>(k);
-  matmul_tc<T, TMA, CENTER, BN><<<grid_of(m, n, ctas, BN), THREADS, smem_bytes<T, BN>(kw),
-                                  stream>>>(map, static_cast<const T*>(x),
-                                            static_cast<const T*>(w), out, out_bf16, m, k, n, kw,
-                                            ca);
+  const int kw = STREAM ? Cfg<T, BN>::KC : panel_rows<T, BN>(k);
+  matmul_tc<T, TMA, CENTER, BN, STREAM>
+      <<<grid_of(m, n, ctas, BN), THREADS, smem_bytes<T, BN, STREAM>(kw), stream>>>(
+          map, static_cast<const T*>(x), static_cast<const T*>(w), out, out_bf16, m, k, n, kw, ca);
   return cudaGetLastError();
+}
+
+// w (k x n, f32, row-major) into the chunks the streamed kernel copies
+// (w_stream_bytes): for CTA column ct and chunk c of KC rows of K, at chunk
+// ct cpt + c, the tf32 hi plane and then the lo plane, each in stage_w's
+// K-major core-matrix layout at kw = KC and split as stage_w splits (so the
+// streamed product is the held one, bit for bit); zero past k and n.  One
+// thread a (chunk, 4 rows of K, column).
+template <int BN>
+__global__ void __launch_bounds__(256) split_w(const float* __restrict__ w,
+                                               uint32_t* __restrict__ out, int k, int n, int cpt) {
+  constexpr int KC = Cfg<float, BN>::KC;
+  constexpr int NKB = KC / 4;
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)((n + BN - 1) / BN) * cpt * NKB * BN;
+  if (q >= total) return;
+  const int nn = (int)(q % BN);
+  const int kb = (int)(q / BN % NKB);
+  const long long chunk = q / BN / NKB;  // ct cpt + c
+  const int gc = (int)(chunk / cpt) * BN + nn;
+  const int k0 = (int)(chunk % cpt) * KC + 4 * kb;
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = (k0 + i < k && gc < n) ? w[(long long)(k0 + i) * n + gc] : 0.f;
+    atb_tc::split_tf32(v, h[i], l[i]);
+  }
+  uint32_t* hi = out + chunk * 2 * KC * BN;
+  const int word = ((nn >> 3) * NKB + kb) * 32 + (nn & 7) * 4;
+  *reinterpret_cast<uint4*>(hi + word) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(hi + KC * BN + word) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// x's base and row stride allow its chunks by TMA.
+template <typename T>
+bool tma_ok(const void* x, int k) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
+}
+
+// out (m x n, f32 or bf16) = x (m x k, f32, TMA-aligned) @ w (k x n, f32) with
+// w streamed: split_w into w_split (w_stream_bytes<BN>(k, n) bytes), then the
+// streamed kernel, on `stream`.
+template <bool CENTER, int BN>
+cudaError_t dispatch_streamed(const void* x, const void* w, void* w_split, void* out, long long m,
+                              int k, int n, int out_bf16, int ctas, const CenterArgs& ca,
+                              cudaStream_t s) {
+  if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL || w_split == nullptr ||
+      !tma_ok<float>(x, k)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int KC = Cfg<float, BN>::KC;
+  const int cpt = (k + KC - 1) / KC;
+  const long long threads = (long long)((n + BN - 1) / BN) * cpt * (KC / 4) * BN;
+  split_w<BN><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(w), static_cast<uint32_t*>(w_split), k, n, cpt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch<float, true, CENTER, BN, true>(x, w_split, out, m, k, n, out_bf16, ctas, ca, s);
 }
 
 // out (m x n, f32 or bf16) = x (m x k) @ w (k x n) of type T, both row-major,
@@ -745,18 +845,18 @@ template <typename T, bool CENTER, int BN>
 cudaError_t dispatch(const void* x, const void* w, void* out, long long m, int k, int n,
                      int out_bf16, int ctas, const CenterArgs& ca, cudaStream_t s) {
   if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
-  return tma ? launch<T, true, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s)
+  return tma_ok<T>(x, k) ? launch<T, true, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s)
              : launch<T, false, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s);
 }
 
 // CTAs of the kernel that fit one SM at once at depth k, into *out.
-template <typename T, bool CENTER, int BN>
+template <typename T, bool CENTER, int BN, bool STREAM = false>
 cudaError_t ctas_per_sm(int k, int* out) {
-  const cudaError_t err = allow_smem<T, true, CENTER, BN>();
+  const cudaError_t err = allow_smem<T, true, CENTER, BN, STREAM>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, matmul_tc<T, true, CENTER, BN>, THREADS,
-                                                       smem_bytes<T, BN>(panel_rows<T, BN>(k)));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, matmul_tc<T, true, CENTER, BN, STREAM>, THREADS,
+      STREAM ? smem_bytes<T, BN, true>(Cfg<T, BN>::KC) : smem_bytes<T, BN>(panel_rows<T, BN>(k)));
 }
 
 }  // namespace mm_tc

@@ -88,13 +88,35 @@
 
 namespace {
 
-// The sketch's columns a CTA at width n (the table in the note above).
+// The sketch's columns a CTA at width n where W is held (the table in the
+// note above).
 int sketch_columns(int n) { return n <= 112 ? 112 : 128; }
 
-// The sketch stage at the columns a CTA of its table.
+// Whether the sketch streams W at depth t (the T axis of the table in the
+// note above): f32 X only; bf16 W stays held.
+bool streams_w(int x_bf16, int t) { return !x_bf16 && t > 176; }
+
+// Whether this call's sketch streams W: the table, and x's chunks by TMA.
 template <typename TX>
-cudaError_t sketch(const void* x, const void* w, void* yc, long long m, int t, int n,
-                   int out_bf16, int ctas, const mm_tc::CenterArgs& ca, cudaStream_t stream) {
+bool streamed(const void* x, int t) {
+  return sizeof(TX) == 4 && streams_w(0, t) && mm_tc::tma_ok<TX>(x, t);
+}
+
+// The sketch's columns a CTA: 128 where W streams, else the table's.
+int sketch_bn(bool streamed, int n) { return streamed ? 128 : sketch_columns(n); }
+
+// The sketch stage, W streamed (split into w_split first) or held at the
+// columns a CTA of its table.
+template <typename TX>
+cudaError_t sketch(const void* x, const void* w, void* w_split, void* yc, long long m, int t,
+                   int n, int out_bf16, int ctas, const mm_tc::CenterArgs& ca,
+                   cudaStream_t stream) {
+  if constexpr (sizeof(TX) == 4) {
+    if (streamed<TX>(x, t)) {
+      return mm_tc::dispatch_streamed<true, 128>(x, w, w_split, yc, m, t, n, out_bf16, ctas, ca,
+                                                 stream);
+    }
+  }
   return sketch_columns(n) == 112
              ? mm_tc::dispatch<TX, true, 112>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream)
              : mm_tc::dispatch<TX, true, 128>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
@@ -112,6 +134,7 @@ __global__ void scgp_stats_reduce(const double* __restrict__ st_part, int n_cta,
 struct Launch {
   const void* x;
   const void* w;
+  void* w_split;
   void* yc;
   mm_tc::CenterArgs ca;
   float* st;
@@ -133,10 +156,11 @@ struct Launch {
   cudaError_t run() const {
     cudaError_t err = cudaSuccess;
     if (stages & 1) {
-      err = sketch<TX>(x, w, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
+      err = sketch<TX>(x, w, w_split, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
       if (err != cudaSuccess) return err;
       if (ca.st_part != nullptr) {
-        const int n_cta = mm_tc::grid_of(m, n, sketch_ctas, sketch_columns(n)).x;
+        const int n_cta =
+            mm_tc::grid_of(m, n, sketch_ctas, sketch_bn(streamed<TX>(x, t), n)).x;
         scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, n_cta, st);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
@@ -167,8 +191,12 @@ struct Occupancy {
   template <typename TX, typename TY>
   cudaError_t run() const {
     // the aligned kernels'; the others take the same shared memory and
-    // registers within the same launch bound
+    // registers within the same launch bound (and one CTA an SM, as the
+    // streamed kernel, where x's rows keep W held)
     if (stage == 0) {
+      if constexpr (sizeof(TX) == 4) {
+        if (streams_w(0, t)) return mm_tc::ctas_per_sm<float, true, 128, true>(t, out);
+      }
       return sketch_columns(n) == 112 ? mm_tc::ctas_per_sm<TX, true, 112>(t, out)
                                       : mm_tc::ctas_per_sm<TX, true, 128>(t, out);
     }
@@ -188,6 +216,12 @@ extern "C" int scgp_gram_blocks(int out_bf16, int n) {
   return atb_tc::upper_blocks(n, atb_tc::gram_edge(out_bf16, n));
 }
 
+// Bytes of scratch the sketch takes for W's split chunks at depth t and width
+// n: 0 where it holds W.
+extern "C" long long scgp_w_stream_bytes(int x_bf16, int t, int n) {
+  return streams_w(x_bf16, t) ? mm_tc::w_stream_bytes<128>(t, n) : 0;
+}
+
 // CTAs of one stage's kernel that fit one SM at once, for these dtypes and
 // width n, into *out: 0 the sketch at depth t (at its table's columns a CTA),
 // 1 G (at K4's block edge), 2 C.  Returns a cudaError_t code.
@@ -197,22 +231,23 @@ extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int 
 }
 
 // The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for K1, 3 for K2, whose
-// c_part and c may be null) on `stream`.  yc: M x N of the out dtype, written by the sketch.  stats: M x 2,
-// or null for the scalar statistics, which take st_part (sketch_ctas x 2
-// doubles) and st (2).  The sketch at its table's columns a CTA, G at K4's
-// block edge; g_part: g_shares N^2 doubles; c_part: c_shares N T.
-// Returns a cudaError_t code: 0 when every kernel was launched.
-extern "C" int scgp_launch(const void* x, const void* w, const float* colw, void* yc, float* stats,
-                           double* st_part, float* st, double* g_part, float* g, double* c_part,
-                           float* c, long long m, int t, int n, int x_bf16, int out_bf16,
-                           int stats_col, float inv_t, int sketch_ctas, int g_shares,
-                           int c_shares, int stages, void* stream) {
+// c_part and c may be null) on `stream`.  w_split: scgp_w_stream_bytes of
+// scratch, or null where that is 0.  yc: M x N of the out dtype, written by
+// the sketch.  stats: M x 2, or null for the scalar statistics, which take
+// st_part (sketch_ctas x 2 doubles) and st (2).  The sketch at its table's
+// columns a CTA, G at K4's block edge; g_part: g_shares N^2 doubles; c_part:
+// c_shares N T.  Returns a cudaError_t code: 0 when every kernel was launched.
+extern "C" int scgp_launch(const void* x, const void* w, void* w_split, const float* colw,
+                           void* yc, float* stats, double* st_part, float* st, double* g_part,
+                           float* g, double* c_part, float* c, long long m, int t, int n,
+                           int x_bf16, int out_bf16, int stats_col, float inv_t, int sketch_ctas,
+                           int g_shares, int c_shares, int stages, void* stream) {
   if (m < 1 || t < 1 || n < 1 || sketch_ctas < 1 || (stats == nullptr) == (st_part == nullptr) ||
       (st_part != nullptr && st == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
-  const Launch op{x, w, yc, ca, st, g_part, g, c_part, c, m, t, n, out_bf16, sketch_ctas,
+  const Launch op{x, w, w_split, yc, ca, st, g_part, g, c_part, c, m, t, n, out_bf16, sketch_ctas,
                   g_shares, c_shares, stages, static_cast<cudaStream_t>(stream)};
   return (int)atb_tc::dispatch(op, x_bf16, out_bf16);
 }

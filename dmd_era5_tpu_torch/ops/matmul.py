@@ -182,7 +182,7 @@ def _kernel_library():
         lib = load_kernel_library("sketch_center_gram_project")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
         lib.scgp_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # x, w, colw, yc, stats
+            ptr, ptr, ptr, ptr, ptr, ptr,  # x, w, W's split chunks, colw, yc, stats
             ptr, ptr,  # scalar stats: per-CTA f64 sums, reduced
             ptr, ptr, ptr, ptr,  # G: per-share f64 scratch, reduced; C: the same
             ctypes.c_longlong, flag, flag,  # m, t, n
@@ -196,6 +196,8 @@ def _kernel_library():
         lib.scgp_ctas_per_sm.restype = ctypes.c_int
         lib.scgp_gram_blocks.argtypes = [flag, flag]  # out_bf16, n
         lib.scgp_gram_blocks.restype = ctypes.c_int
+        lib.scgp_w_stream_bytes.argtypes = [flag, flag, flag]  # x_bf16, t, n
+        lib.scgp_w_stream_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -247,6 +249,9 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
         c=torch.empty((n, t_cols), **f32) if stages & 4 else None,
     )
     st_part = torch.empty((waves[0], 2), **f64) if scalar_stats else None
+    # where the sketch streams W (long f32 time axes), W split into tf32 chunks
+    w_bytes = lib.scgp_w_stream_bytes(x_bf16, t_cols, n)
+    w_split = torch.empty(w_bytes, dtype=torch.uint8, device=dev) if w_bytes else None
     g_part = torch.empty((g_shares, n, n), **f64)
     c_part = torch.empty((c_shares, n, t_cols), **f64) if stages & 4 else None
     logger.debug("sketch_center_gram_project: %d sketch CTAs, %d / %d row shares of G / C",
@@ -255,7 +260,7 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     def run(stages: int) -> None:
         with torch.cuda.device(dev):
             rc = _kernel_library().scgp_launch(
-                _ptr(x), _ptr(w), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
+                _ptr(x), _ptr(w), _ptr(w_split), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
                 _ptr(st_part), _ptr(out["st"]), _ptr(g_part), _ptr(out["g"]), _ptr(c_part),
                 _ptr(out["c"]), m, t_cols, n, x_bf16, out_bf16, int(stats_col), inv_t,
                 waves[0], g_shares, c_shares, stages,

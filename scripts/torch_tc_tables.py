@@ -25,14 +25,20 @@ f32 and N 128 in bf16, at 112 and 128 columns a CTA; Yc must be the same
 bit for bit.  Then the bf16 sketch's Y (its MMA sums restarted every k16
 step) against the f64 product, beside the f32 library product's.
 
-The sketch's long time axis (``long_t``): past W's resident depth the
-sketch stage (``matmul_tc.cuh``) restages a panel of W every tile and
-panel.  On the hourly year's X (977,400 x 8,760 f32, 34 GB) at K2's
-widths there, N 256 and 128, the sketch stage alone (the wrapper's plan
-for K2, ``stages=3``) as it is (``table``) and with the restage skipped
-after a CTA's first panel (``restage_skipped``: every panel's MMAs read
-the first one, so its Yc means nothing; timing only): the difference is
-what the restage costs.
+The sketch's time axis (``long_t``), the table ``streams_w`` in
+``sketch_center_gram_project.cu``: an f32 sketch either holds W in shared
+memory (resident, or past its depth restaged in panels every tile and
+panel) or streams it (split once a call into tf32 chunks that ride the
+ring beside X's).  On the hourly year's X (977,400 x 8,760 f32, 34 GB)
+at K2's widths there, N 256 and 128, the sketch stage alone (the
+wrapper's plan for K2, ``stages=3``) as it is (``table``), with W held
+(``w_held``), streamed (``w_streamed``), and held with the restage
+skipped after a CTA's first panel (``restage_skipped``: every panel's MMAs
+read the first one, so its Yc means nothing; timing only): the last two
+against ``w_held`` say what the restage costs and what streaming saves.
+The held and streamed Yc must be the same bit for bit.  Then held against
+streamed over T from 168 to 2,048 at the week's elements (M T about
+2.6e9, N 128 and 256), which sets the table's edge.
 
 Device ms by ``chip_smoke.device_ms`` (launches queued behind a sleep of
 the card).  Prints one JSON line a shape and the card's name and power
@@ -63,34 +69,41 @@ OUT = ROOT / "build" / "tc_tables"
 GRAM_TABLE = ("inline int gram_edge(bool bf16, int k) "
               "{ return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }")
 SKETCH_TABLE = "int sketch_columns(int n) { return n <= 112 ? 112 : 128; }"
-RESTAGE = "    if (j == 0 || (paneled && col0 == kp0)) {"
+W_TABLE = "bool streams_w(int x_bf16, int t) { return !x_bf16 && t > 176; }"
+W_HELD = "bool streams_w(int x_bf16, int t) { return false; }"
+RESTAGE = "    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {"
 YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
-# variant name: (library, source, header inlined, table, fixed choice)
+SCG = ("sketch_center_gram_project", "sketch_center_gram_project.cu")
+# variant name: (library, source, header inlined, [(table, fixed choice), ...])
 VARIANTS = {
-    f"gram_edge{e}": ("gram", "gram.cu", "row_share_atb_tc.cuh", GRAM_TABLE,
-                      f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}")
+    f"gram_edge{e}": ("gram", "gram.cu", "row_share_atb_tc.cuh", [(GRAM_TABLE, (
+        f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
     for e in (128, 64)
 } | {
-    f"sketch_columns{c}": ("sketch_center_gram_project", "sketch_center_gram_project.cu", None,
-                           SKETCH_TABLE, f"int sketch_columns(int n) {{ return {c}; }}")
+    f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE, f"int sketch_columns(int n) {{ return {c}; }}"),
+                                        (W_TABLE, W_HELD)])
     for c in (112, 128)
 } | {
-    "restage_skipped": ("sketch_center_gram_project", "sketch_center_gram_project.cu",
-                        "matmul_tc.cuh", RESTAGE, "    if (j == 0) {"),
+    "w_held": (*SCG, None, [(W_TABLE, W_HELD)]),
+    "w_streamed": (*SCG, None, [(W_TABLE, W_TABLE.replace("&& t > 176", ""))]),
+    "restage_skipped": (*SCG, "matmul_tc.cuh", [(W_TABLE, W_HELD),
+                                                (RESTAGE, "    if (!STREAM && j == 0) {")]),
 }
 
 
 def build(name: str):
     """The variant's library, built."""
-    _, source, header, table, fixed = VARIANTS[name]
+    _, source, header, edits = VARIANTS[name]
     src = (_build.CSRC_DIR / source).read_text()
     if header is not None:
         src = src.replace(f'#include "{header}"', (_build.CSRC_DIR / header).read_text())
-    if table not in src:
-        raise SystemExit(f"{name}: the table is no longer '{table}'")
+    for table, fixed in edits:
+        if table not in src:
+            raise SystemExit(f"{name}: the table is no longer '{table}'")
+        src = src.replace(table, fixed)
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-    cu.write_text(src.replace(table, fixed))
+    cu.write_text(src)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", str(so), str(cu)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
@@ -154,24 +167,52 @@ def sketch_part(libs, tables, gen, dev) -> None:
                       "library_f32_y_rel_vs_f64": rel_err(xb.float() @ wb.float(), exact)[0]}))
 
 
+def sketch_times(x, w, variants, libs, tables) -> dict:
+    """The K2 sketch stage's device ms alone on x and w with each variant
+    (``table``: the library as it is), and whether the Yc of every variant
+    but ``restage_skipped`` is the table's bit for bit."""
+    row, ref, equal = {}, None, True
+    for name in variants:  # the table first
+        use("sketch_center_gram_project",
+            tables["sketch_center_gram_project"] if name == "table" else libs[name])
+        out, run = matmul._scgp_plan(x, w, torch.float32, False, False, False, None, True,
+                                     stages=3)
+        run(3)
+        if ref is None:
+            ref = out["yc"].clone()
+        elif name != "restage_skipped":
+            equal = equal and torch.equal(out["yc"], ref)
+        row[f"sketch_device_ms_{name}"] = device_ms(lambda run=run: run(1), reps=3)
+        del out, run
+    row["yc_equal"] = equal
+    return row
+
+
 def long_t_part(libs, tables, gen, dev) -> None:
     x = torch.randn(YEAR, generator=gen, device=dev)
     for n in (256, 128):
         w = torch.randn((YEAR[1], n), generator=gen, device=dev)
-        row = {"m": YEAR[0], "t": YEAR[1], "n": n, "dtype": "float32"}
-        for name, lib in (("table", tables["sketch_center_gram_project"]),
-                          ("restage_skipped", libs["restage_skipped"])):
-            use("sketch_center_gram_project", lib)
-            out, run = matmul._scgp_plan(x, w, torch.float32, False, False, False, None, True,
-                                         stages=3)
-            run(3)
-            row[f"sketch_device_ms_{name}"] = device_ms(lambda run=run: run(1), reps=3)
-            row[f"G_device_ms_{name}"] = device_ms(lambda run=run: run(2), reps=3)
-            del out, run
-        row["restage_share"] = 1 - row["sketch_device_ms_restage_skipped"] / row[
-            "sketch_device_ms_table"]
+        row = {"m": YEAR[0], "t": YEAR[1], "n": n, "dtype": "float32",
+               **sketch_times(x, w, ("table", "w_held", "w_streamed", "restage_skipped"),
+                              libs, tables)}
+        held = row["sketch_device_ms_w_held"]
+        row["restage_share_of_held"] = 1 - row["sketch_device_ms_restage_skipped"] / held
+        row["streamed_over_held"] = row["sketch_device_ms_w_streamed"] / held
         print(json.dumps(row), flush=True)
         del w
+    del x
+    torch.cuda.empty_cache()
+    for t in (168, 176, 192, 336, 705, 2048):
+        x = torch.randn((2_600_000_000 // t, t), generator=gen, device=dev)
+        for n in (128, 256):
+            w = torch.randn((t, n), generator=gen, device=dev)
+            row = {"m": x.shape[0], "t": t, "n": n, "dtype": "float32",
+                   **sketch_times(x, w, ("table", "w_held", "w_streamed"), libs, tables)}
+            row["streamed_over_held"] = (row["sketch_device_ms_w_streamed"]
+                                         / row["sketch_device_ms_w_held"])
+            print(json.dumps(row), flush=True)
+            del w
+        del x
 
 
 PARTS = {"gram": gram_part, "sketch": sketch_part, "long_t": long_t_part}

@@ -395,17 +395,24 @@ def test_sketch_center_gram_kernel_matches_plain_on_card(cuda, dtype, out_dtype,
     assert torch.equal(g, g.T)
     for name, a, b in zip(("yc", "rowsum", "rowsumsq"), got, ref):
         a, b = a.double(), b.double()
-        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        den = b.norm()
+        if name == "yc" and float(den) == 0.0:
+            # one centred time step: the plain Yc is exactly 0, and the
+            # 3xTF32 product rounds x w otherwise than the f32 product, so
+            # Yc is read against the scale of its terms, sum_t |x| |w|
+            den = (x.double().abs() @ w.double().abs()).norm()
+        rel = float((a - b).norm() / den.clamp_min(1e-30))
         limit = 2.0**-8 if (name == "yc" and out_dtype == "bfloat16") else 1e-5
         assert rel <= limit, (name, rel)
     ycd = yc.double()
     _f64_close(g, ycd.T @ ycd, "G")
     if out_dtype == "bfloat16":
-        flips = float((yc != ref[0]).double().mean())
-        assert flips <= 4e-3, ("yc entries differing", flips)
+        if bool(ref[0].any()):  # (a Yc that is exactly 0 has no rounding to flip)
+            flips = float((yc != ref[0]).double().mean())
+            assert flips <= 4e-3, ("yc entries differing", flips)
         ycf = yc.float()
         plain_g = (ycf.T @ ycf).double()
-        assert float((g.double() - plain_g).norm() / plain_g.norm()) <= 1e-5
+        assert float((g.double() - plain_g).norm() / plain_g.norm().clamp_min(1e-30)) <= 1e-5
 
 
 @pytest.mark.cuda
