@@ -65,6 +65,19 @@
 // f32 planes take 168 KB at K 168 and the staged rows 16 KB, so the ring
 // is 2 chunks deep (Tile): w resident for K <= 176 (f32) or 704 (bf16).
 //
+// Streamed w (STREAM; K1's and K2's sketch past the resident depth, f32 x
+// by TMA, BN 128): a panel's restage is two CTA-wide barriers and a tf32
+// split of as many elements of w as the tile streams of x, and took 40% of
+// the sketch at the hourly year (T 8,760).  So split_w splits w once a call
+// into device memory (w_stream_bytes: 18 MB at the year's N 256, held in
+// L2), as the chunks the kernel reads -- per CTA column and KC rows of K,
+// the hi plane then the lo plane, each in stage_w's layout at kw = KC --
+// and each chunk of w rides the ring beside its chunk of x: one bulk copy
+// of 32 KB on the same barrier as x's 16 KB, four slots (192 KB).  No
+// barrier, split or restage stands between the MMAs; a slot is refilled
+// once the MMAs that read its w have completed.  The product is the held
+// one bit for bit (the same splits, the same MMA order).
+//
 // Tile table (each choice and what decided it on an H100; it stands in for
 // the TPU tile sweep of the nearest product, scripts/kernel_tune.py:218-225):
 //
@@ -188,13 +201,9 @@ static_assert(smem_bytes<float, 128, true>(Cfg<float, 128>::KC) <= SMEM_CAP,
 // Bytes of w's chunks as the streamed kernel reads them (split_w): for each
 // CTA column and chunk of KC rows of K, its tf32 hi plane, then its lo plane.
 template <int BN>
-constexpr long long w_chunk_bytes() {
-  return (long long)Cfg<float, BN>::KC * Cfg<float, BN>::ROW_BYTES;
-}
-template <int BN>
 long long w_stream_bytes(int k, int n) {
-  const int kc = Cfg<float, BN>::KC;
-  return (long long)((n + BN - 1) / BN) * ((k + kc - 1) / kc) * w_chunk_bytes<BN>();
+  using C = Cfg<float, BN>;
+  return (long long)((n + BN - 1) / BN) * ((k + C::KC - 1) / C::KC) * C::KC * C::ROW_BYTES;
 }
 
 // What K1's epilogue (sketch_center_gram_project.cu) takes beside out.
@@ -360,7 +369,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int STAGES = Tile<BN, STREAM>::STAGES;
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int STEPS = C::KC / C::KSTEP;  // MMA k-steps a chunk: 4
-  constexpr int W_STAGE = STREAM ? (int)w_chunk_bytes<BN>() : 0;  // w's chunk a slot
+  constexpr int W_STAGE = STREAM ? C::KC * C::ROW_BYTES : 0;  // w's chunk a slot
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
   unsigned char* planes = ring + STAGES * STAGE_BYTES;  // STREAM: w's slots

@@ -66,6 +66,29 @@
 //   ring 2 chunks deep (its f32 planes take 168 KB at T 168): the pass is
 //   not bound by its MMAs (matmul_tc.cuh's note).
 //
+// The table's T axis, streams_w: an f32 sketch holds W (resident up to 176
+// rows of K, past that restaged in 160-row panels every tile and panel) or
+// streams it (split once a call into tf32 chunks that ride the ring beside
+// X's, always 128 columns a CTA).  Device ms of the sketch stage alone, held
+// against streamed, f32, at about the week's elements (M T ~2.6e9) and at
+// the hourly year (M 977,400; scripts/torch_tc_tables.py --parts long_t,
+// same card):
+//
+//   T        N 128            N 256            W
+//   168      12.16 / 13.79    24.66 / 27.91    held: resident, no restage
+//   176      11.84 / 13.44    24.06 / 27.21    held
+//   192      17.90 / 12.76    35.58 / 25.85    streamed (the first T past
+//   336      17.68 / 11.44    31.07 / 23.09    streamed  the resident depth)
+//   2,048    14.71 /  9.65    28.61 / 19.21    streamed
+//   8,760    46.76 / 31.20    91.43 / 61.66    streamed
+//
+//   so W streams for f32 X past 176 rows of K (where X's rows allow TMA;
+//   else it is held), and is held otherwise: a resident W costs no copy,
+//   and bf16 W stays held (resident to 704 rows).  At the year the restage
+//   took 40% of the held sketch (the sketch with it skipped: 54.97 and 27.54
+//   ms); the streamed one reads 12-13% above that, the copies of W's chunks
+//   from L2 (32 KB beside each 16 KB chunk of X).
+//
 // Yc is written to device memory between the stages: with emit_yc off the
 // wrapper allocates it as scratch.  The old CUDA-core kernel's per-CTA f64
 // partials of G and C (about 80 bytes of traffic per element of X at T 168)
@@ -78,7 +101,9 @@
 // Its shapes on the main path: bf16 X (15,573,600 x 168) with N 384 and a
 // bf16 Yc (the d = 3 Hankel pass: three 128-wide CTA columns, 6 upper
 // 128-blocks of G), and f32 X of the hourly year (977,400 x 8,760) at N 256
-// and 128, where W is walked in panels (matmul_tc.cuh).
+// and 128, where W streams.  What bounds it there: at the d = 3 pass the
+// bytes (X read once, Yc written: 5.17 ms; 4.4 ms of bf16 operations), at
+// the year the operations, 3 M N (2T + N + 1) in TF32 (27.0 and 13.4 ms).
 //
 // Ranges: any M, T and N (the wrapper routes N > 256 to K2 and K3, as the
 // JAX package's entry does past its fused range; K2 takes N up to 2048);

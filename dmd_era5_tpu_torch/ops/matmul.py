@@ -227,7 +227,9 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     the card's resident CTAs; G and C on the row shares that fill whole
     waves over their blocks (G's upper ones, ``scgp_gram_blocks``; C's
     128 x 128), their f64 scratch within 1 GiB.  The library picks the
-    sketch's columns a CTA and G's block edge from its own tables."""
+    sketch's columns a CTA, whether it streams W (W's split chunks then take
+    ``scgp_w_stream_bytes`` of scratch) and G's block edge from its own
+    tables."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)

@@ -78,7 +78,7 @@ def variant(name: str) -> str:
     if name.startswith("sleep_"):
         edits.append((WAIT, f"{WAIT}      __nanosleep({int(name[6:])});\n"))
     if name == "ring_2":  # the freed 32 KB leave w's planes as they are
-        edits += [("static constexpr int STAGES = BN == 112 ? 4 : 2;",
+        edits += [("static constexpr int STAGES = STREAM || BN == 112 ? 4 : 2;",
                    "static constexpr int STAGES = 2;"),
                   ("kmax<float, 112>() == 168 && kmax<bf16, 112>() == 672 && ", "")]
     if name == "chained":  # d starts from zero at a tile's first chunk only

@@ -80,8 +80,8 @@ VARIANTS = {
         f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
     for e in (128, 64)
 } | {
-    f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE, f"int sketch_columns(int n) {{ return {c}; }}"),
-                                        (W_TABLE, W_HELD)])
+    f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE,
+                                         f"int sketch_columns(int n) {{ return {c}; }}")])
     for c in (112, 128)
 } | {
     "w_held": (*SCG, None, [(W_TABLE, W_HELD)]),
