@@ -48,6 +48,30 @@ of which raises on failure so the script exits non-zero:
    384-wide sketch, past the fused kernel K1, so each of its five passes
    takes the two-pass route (K2 ``sketch_center_gram`` then K3
    ``project``), then optDMD and the forecast;
+12. (run next, on the week still on the card) the SVD stage's entry
+   points, with ``DMD_ERA5_TPU_ROOT`` and ``DMD_ERA5_TPU_REMOTE`` in a
+   temporary directory (``TMPDIR``), removed at the end.  With h5py and
+   yaml installed: (a) north-star config 1, ``config.ini``'s
+   ``[era5-download]`` and ``[era5-svd]`` on the mock backend (the global
+   numpy state seeded): ``era5_download.main`` and ``era5_svd.main`` with
+   the store, then ``era5_svd.main`` again as a workdir cache hit; s held
+   below the f64 s of the saved X, U^T U to 1e-3, the store's logs
+   naming both artifacts, K1 5 launches; (b) north-star config 3: the
+   week's raw X (the centred X plus phase 3's row means, in place) written
+   as the ERA5 slice, a FieldSet of (time, level, latitude, longitude)
+   fields (10.47 GB), then ``era5_svd.main`` on ``[era5-svd]`` with the
+   week's dates, variables and levels, ``n_components = 100`` and X not
+   saved (the sliced fields moved to the card once, flattened and
+   standardized there; K1 5 launches; a 12.46 GB U written), then again
+   as a workdir cache hit whose U is the first run's bit for bit.
+   Without h5py or yaml, one line names the missing package, (a) is
+   skipped and (b) runs the stage's compute body
+   (``era5_svd.compute_svd_results``) on the in-memory slice.  Either
+   way (b)'s s are held within the interlace of phase 7's exact Hankel s,
+   the leading 6 within 1e-5 of phase 3's, U^T U to 1e-3 (on the
+   artifact read back where there is one) and X_mean against phase 3's
+   row means, with each step's wall time, the phase's peak device memory
+   and the bytes written to disk;
 10. one year of hourly 1-degree ERA5 (181 x 360 points, 15 variable-level
    blocks, 8,760 hours: 977,400 rows), generated on the card from the
    seed after the week is freed, centred in place, with the exact
@@ -67,7 +91,7 @@ of which raises on failure so the script exits non-zero:
    and (e)'s singular values are held below the exact ones; (f) K1 and
    the two-pass route timed on the same X and sketch.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11 and 10b-e are the main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12 and 10b-e are the main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f) are not counted.  The last line is the JSON result; the line before
@@ -854,6 +878,7 @@ def phase_standard(week: dict) -> dict:
     inter = check_interlace("phase 3 vs exact Hankel", week["s_rand"], s)
     log(f"    randomized s (phase 3) / exact s: {json.dumps(inter)}")
     dmd_and_forecast("standard", svd, week, times, d)
+    week["s_exact"] = s.clone()  # phase 12 holds the SVD stage's s below these
     launches = launch_counts()
     check(launches == counts(K1=1, K5=1),
           f"standard path launches {launches}, expected K1 1, K5 1, no other")
@@ -1501,6 +1526,226 @@ def phase_wide_sketch(week: dict, seed: int) -> dict:
     return launches
 
 
+# north-star config 3's week as the SVD stage's [era5-download] / [era5-svd]
+# overrides of config.ini (phase 12 b); config 1 takes config.ini as it is
+# but for the mock's source_path (phase 12 a)
+WEEK_VARIABLES = ("temperature", "u_component_of_wind", "v_component_of_wind")
+WEEK_CONFIG = dict(start_datetime="2019-01-01T00", end_datetime="2019-01-07T23",
+                   variables=",".join(WEEK_VARIABLES), levels="1000,850,700,500,250")
+WEEK_SVD = dict(n_components=100, save_data_matrix=False)
+
+
+def stage_config(section: str, **overrides) -> dict:
+    """The raw config.ini section with ``overrides`` (a user's dict)."""
+    from dmd_era5_tpu_torch.core import config_reader
+
+    return {**config_reader(section, ROOT / "config.ini"), **overrides}
+
+
+def missing_file_packages() -> list[str]:
+    """Which of the stage's file packages (h5py for HDF5, yaml for the
+    store's logs) this machine lacks."""
+    import importlib.util
+
+    return [name for name in ("h5py", "yaml") if importlib.util.find_spec(name) is None]
+
+
+@contextlib.contextmanager
+def stage_root():
+    """DMD_ERA5_TPU_ROOT and DMD_ERA5_TPU_REMOTE pointed into a new
+    temporary directory (under TMPDIR), so that the stages' data/,
+    store/ and logs/ land there; removed, and the variables restored,
+    at the end."""
+    import os
+
+    names = ("DMD_ERA5_TPU_ROOT", "DMD_ERA5_TPU_REMOTE")
+    saved = {name: os.environ.get(name) for name in names}
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_stage_"))
+    os.environ["DMD_ERA5_TPU_ROOT"] = str(directory / "root")
+    os.environ["DMD_ERA5_TPU_REMOTE"] = str(directory / "remote")
+    try:
+        yield directory
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def week_slice(week: dict):
+    """North-star config 3's slice as the ingest stage leaves it: the
+    week's raw X (the centred X plus phase 3's row means, added in place:
+    no later phase reads the centred X) as a FieldSet of (time, level,
+    latitude, longitude) fields, each a view of X's rows on the card,
+    stamped with the attributes ``download_era5_data`` stamps."""
+    import numpy as np
+
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download
+    from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
+
+    x = week["x"]
+    x.add_(week["mean"][:, None])
+    levels = [int(v) for v in LEVELS]
+    block = len(levels) * N_LAT * N_LON
+    coords = {
+        "time": Coord("time", np.datetime64(WEEK_CONFIG["start_datetime"], "ns")
+                      + np.arange(T_HOURS) * np.timedelta64(3600, "s")),
+        "level": Coord("level", np.asarray(levels)),
+        "latitude": Coord("latitude", 90.0 - 0.25 * np.arange(N_LAT)),
+        "longitude": Coord("longitude", 0.25 * np.arange(N_LON)),
+    }
+    fields = {
+        var: Field(x[i * block:(i + 1) * block].view(len(levels), N_LAT, N_LON, T_HOURS)
+                   .permute(3, 0, 1, 2), ("time", "level", "latitude", "longitude"), coords,
+                   {"units": "K" if var == "temperature" else "m/s"}, var)
+        for i, var in enumerate(WEEK_VARIABLES)
+    }
+    parsed = config_parser(stage_config("era5-download", **WEEK_CONFIG), "era5-download")
+    return era5_download.add_config_attributes(FieldSet(fields), parsed)
+
+
+def phase_stage_config1(seed: int) -> dict:
+    """Phase 12 (a): north-star config 1, config.ini's [era5-download] and
+    [era5-svd] on the mock backend (the global numpy state seeded):
+    download with the store, the SVD stage with the store, then the
+    stage again, a workdir cache hit.  Returns the stage's times."""
+    import numpy as np
+
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
+    from dmd_era5_tpu_torch.pipeline.artifacts import file_md5, list_versions
+
+    times = {}
+    np.random.seed(seed)
+    dl, times["download"] = synced(era5_download.main, stage_config("era5-download"),
+                                   use_mock_data=True, use_store=True)
+    check(dl == (True, False), f"config 1 download: (added, retrieved) {dl}, expected (True, False)")
+    cfg = stage_config("era5-svd", source_path="mock_data")
+    parsed = config_parser(dict(cfg), "era5-svd")
+    before = launch_counts()["K1"]
+    (res, added, retrieved), times["svd_stage"] = synced(
+        era5_svd.main, dict(cfg), write_artifact=True, use_store=True)
+    k1 = launch_counts()["K1"] - before
+    check(added and not retrieved, f"config 1 SVD stage: added {added}, retrieved {retrieved}")
+    check(k1 == 5, f"config 1 SVD stage launched K1 {k1} times, expected 5")
+    (res2, added2, retrieved2), times["cache_hit"] = synced(
+        era5_svd.main, dict(cfg), write_artifact=True, use_store=True)
+    check(not added2 and not retrieved2 and launch_counts()["K1"] - before == 5,
+          "config 1: the second SVD stage was not a workdir cache hit")
+    check(np.array_equal(res2["U"].values, res["U"].values), "config 1: the cache hit's U differs")
+    x = np.asarray(res["X"].values, dtype=np.float64)
+    k = parsed["n_components"]
+    s_exact = np.linalg.svd(x, compute_uv=False)[:k]
+    s = np.asarray(res["s"].values, dtype=np.float64)
+    u = torch.from_numpy(res["U"].values).cuda()
+    orth = orthonormality(u)
+    ratio = s / s_exact
+    check(float(ratio.max()) <= 1 + 1e-4, f"config 1: s above the f64 s of X, max ratio {ratio.max()}")
+    check(orth <= 1e-3, f"config 1: U^T U - I max {orth:.3e} > 1e-3")
+    svd_log = list_versions(parsed["save_path"], data_type="era5_svd")
+    slice_log = list_versions(parsed["era5_slice_path"], data_type="era5_slice")
+    check([m for m, _ in svd_log] == [file_md5(parsed["save_path"])]
+          and [m for m, _ in slice_log] == [file_md5(parsed["era5_slice_path"])],
+          f"config 1: the store's logs {svd_log} / {slice_log} do not name the two artifacts")
+    log(f"[12a] config 1 (mock, config.ini): X {x.shape}, s[:4] {[round(float(a), 3) for a in s[:4]]}, "
+        f"s / f64 s of X from {float(ratio.min()):.5f} to {float(ratio.max()):.5f} (i.i.d. noise: "
+        f"a flat spectrum, the gap not bounded), max|U^T U - I| {orth:.2e}, K1 launches {k1}, "
+        f"store logs name slice {slice_log[0][0]} and results {svd_log[0][0]}; "
+        f"wall (s) {json.dumps({a: round(b, 3) for a, b in times.items()})}")
+    return times
+
+
+def check_week_results(label: str, res, week: dict) -> dict:
+    """Phase 12 (b)'s checks on the stage's results: s within the
+    interlace of phase 7's exact Hankel s (as phase 3), the leading 6
+    within 1e-5 of phase 3's, U^T U to 1e-3, X_mean against phase 3's
+    row means (both delay blocks)."""
+    import numpy as np
+
+    s = torch.from_numpy(np.asarray(res["s"].values))
+    inter = check_interlace(f"{label} vs exact Hankel (phase 7)", s, week["s_exact"].cpu())
+    lead = float((s[:6].double() / week["s_rand"][:6].double().cpu() - 1).abs().max())
+    check(lead <= 1e-5, f"{label}: leading 6 s differ from phase 3's by {lead:.3e} > 1e-5")
+    u = torch.from_numpy(res["U"].values).cuda()
+    orth = orthonormality(u)
+    del u
+    check(orth <= 1e-3, f"{label}: U^T U - I max {orth:.3e} > 1e-3")
+    mean = week["mean"]
+    x_mean = torch.from_numpy(np.asarray(res["X_mean"].values)).cuda().view(2, -1)
+    mean_err = float((x_mean - mean).abs().max() / mean.abs().max())
+    check(mean_err <= 1e-6, f"{label}: X_mean off phase 3's row means by {mean_err:.3e} of max")
+    check(res.attrs["svd_backend"] == "hankel", f"{label}: backend {res.attrs['svd_backend']}")
+    return {"vs_exact": inter, "lead6_vs_phase3": lead, "orth": orth, "x_mean_rel": mean_err}
+
+
+def phase_stage(week: dict, seed: int) -> dict:
+    """Phase 12: the SVD stage's entry points on the card.  (a) north-star
+    config 1 through the files and the store; (b) north-star config 3,
+    the week, at full size: its raw X written as the ERA5 slice, then
+    ``era5_svd.main`` on [era5-svd] with the week's overrides
+    (``n_components`` 100, X not saved) and again as a workdir cache
+    hit.  Without h5py or yaml, (a) is skipped and (b) runs the stage's
+    compute body on the in-memory slice.  Returns the launch counts."""
+    import numpy as np
+
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_svd
+    from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+
+    missing = missing_file_packages()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    fs = week_slice(week)
+    cfg = stage_config("era5-svd", **WEEK_CONFIG, **WEEK_SVD)
+    times = {}
+    with stage_root() as directory:
+        parsed = config_parser(dict(cfg), "era5-svd")  # its paths under the stage root
+        if missing:
+            log(f"[12] {' and '.join(missing)} not installed on this machine: (a) config 1's "
+                "download/store/cache ladder skipped, (b) runs compute_svd_results on the "
+                "in-memory slice (no slice or results file)")
+            with stage_clock(era5_svd, "_preprocess_on_device", "svd_on_era5") as clock:
+                res, times["stage_compute"] = synced(era5_svd.compute_svd_results, fs, parsed)
+            disk = 0
+        else:
+            times["config1"] = phase_stage_config1(seed)
+            k1_a = launch_counts()["K1"]
+            _, times["slice_write"] = synced(save_fieldset, fs, parsed["era5_slice_path"])
+            with stage_clock(era5_svd, "load_fieldset", "_preprocess_on_device", "svd_on_era5",
+                             "save_fieldset") as clock:
+                (res, added, retrieved), times["stage_main"] = synced(
+                    era5_svd.main, dict(cfg), write_artifact=True)
+                check(not added and not retrieved, "week: main added to or retrieved from a store")
+                check(launch_counts()["K1"] - k1_a == 5, "week: K1 launches of main != 5")
+                (hit, _, _), times["cache_hit_main"] = synced(era5_svd.main, dict(cfg),
+                                                               write_artifact=True)
+            check(launch_counts()["K1"] - k1_a == 5, "week: the second main computed again")
+            check(np.array_equal(hit["U"].values.view(np.uint32), res["U"].values.view(np.uint32)),
+                  "week: the cache hit's U is not the first run's bit for bit")
+            res = hit  # the artifact read back
+            disk = sum(p.stat().st_size for p in (directory / "root").rglob("*") if p.is_file())
+            times["slice_load"], times["cache_hit_load"] = clock.pop("load_fieldset")
+            (times["results_write"],) = clock.pop("save_fieldset")
+        times.update({f"{name}_s": v for name, v in clock.items()})
+    out = check_week_results("week (12b)", res, week)
+    launches = launch_counts()
+    expect = counts(K1=5 if missing else 10)
+    check(launches == expect, f"phase 12 launched {launches}, expected {expect}")
+    times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"[12b] config 3 week through the SVD stage: U {res['U'].shape}, s[:8] "
+        f"{[round(float(a), 2) for a in res['s'].values[:8]]}, {json.dumps(out)}, "
+        f"metrics svd_seconds {res.attrs['svd_seconds']}, launches {launches}, disk bytes {disk}")
+    log(f"    stage wall times (s): {json.dumps(times)} (peak_gb: device memory over the "
+        "phase's start)")
+    del fs, res
+    return launches
+
+
 def year_config(**overrides) -> dict:
     """The port's parse of config.ini's [era5-svd], with the year's
     overrides (YEAR_CONFIG) and ``overrides``."""
@@ -1744,6 +1989,8 @@ def main() -> None:
     for key, n in phase_streamed(week, ref8, args.seed).items():
         launches[key] += n
     for key, n in phase_wide_sketch(week, args.seed).items():
+        launches[key] += n
+    for key, n in phase_stage(week, args.seed).items():
         launches[key] += n
     # the week's tensors go before the year (34 GB) is built
     del week, x, ref8

@@ -10,12 +10,16 @@ from __future__ import annotations
 
 import ast
 import configparser
+import functools
 from pathlib import Path
 
 from dmd_era5_tpu_torch.core.logging import setup_logger
 from dmd_era5_tpu_torch.core.paths import repo_root
 
-logger = setup_logger("ConfigReader", "config_reader.log")
+
+@functools.cache
+def _logger():
+    return setup_logger("ConfigReader", "config_reader.log")
 
 
 def default_config_path() -> Path:
@@ -44,7 +48,7 @@ def config_reader(section: str, config_path: str | Path | None = None) -> dict:
 
     if not parser.has_section(section):
         msg = f"Section {section} not found in the {path} file"
-        logger.error(msg)
+        _logger().error(msg)
         raise Exception(msg)
 
     out: dict = {}
@@ -56,7 +60,7 @@ def config_reader(section: str, config_path: str | Path | None = None) -> dict:
                 f"Error while parsing {key} from {section} section "
                 f"in the config file: {err}"
             )
-            logger.error(msg)
+            _logger().error(msg)
             print(msg)
             raise
     return out

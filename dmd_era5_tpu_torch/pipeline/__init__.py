@@ -1,8 +1,20 @@
-"""The fused fit step, the out-of-core (streamed) SVD and the SVD stage."""
+"""The ingest and SVD stages, the artifact store, the fused fit step and
+the out-of-core (streamed) SVD."""
 
+from dmd_era5_tpu_torch.pipeline.artifacts import (
+    add_data_to_dvc,
+    add_data_to_store,
+    file_md5,
+    retrieve_data_from_dvc,
+    retrieve_data_from_store,
+)
+from dmd_era5_tpu_torch.pipeline.era5_download import download_era5_data
 from dmd_era5_tpu_torch.pipeline.era5_svd import (
     combine_svd_results,
+    compute_svd_results,
     resolve_svd_backend,
+    retrieve_era5_slice,
+    retrieve_svd_results,
     svd_on_era5,
 )
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
@@ -21,13 +33,22 @@ from dmd_era5_tpu_torch.pipeline.train_step import (
 
 __all__ = [
     "FitState",
+    "add_data_to_dvc",
+    "add_data_to_store",
     "combine_svd_results",
+    "compute_svd_results",
+    "download_era5_data",
+    "file_md5",
     "fit_ingest_pass",
     "fit_reduce_lift",
     "fit_step_fused",
     "fit_step_lean",
     "prefetched_row_blocks",
     "resolve_svd_backend",
+    "retrieve_data_from_dvc",
+    "retrieve_data_from_store",
+    "retrieve_era5_slice",
+    "retrieve_svd_results",
     "streamed_exact_gram_svd",
     "streamed_randomized_svd",
     "streamed_randomized_svd_core",

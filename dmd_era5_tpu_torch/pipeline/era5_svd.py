@@ -1,14 +1,20 @@
-"""The SVD stage's dispatcher on one device.
+"""The SVD stage on one device: its dispatcher and its ``main``.
 
 The port's counterpart of ``dmd_era5_tpu/pipeline/era5_svd.py``:
-:func:`resolve_svd_backend` (its line 214), the single-device branches
-of ``_svd_backend_hankel`` (:313) and ``_svd_backend_streamed`` (:435),
-the single-device ``inmem`` branch of :func:`svd_on_era5` (:540) and
-:func:`combine_svd_results` (:670).  The stage's ``main`` (the cache
-ladder, slicing and the artifact store) is not ported yet.
+:func:`resolve_svd_backend`, the single-device branches of the
+``hankel``, ``streamed`` and ``inmem`` backends behind
+:func:`svd_on_era5`, :func:`combine_svd_results`, and the stage's
+:func:`main` with its cache ladder (workdir attr match, then the
+artifact store, then compute) and artifact write.  :func:`main` calls
+:func:`compute_svd_results` between the ladder and the write: the slice
+is selected, sliced and resampled on the host (views where the selection
+allows), the forecast holdout split off there, the training fields moved
+to the device once and flattened and standardized there, and the
+factors come back as host (numpy) arrays, as the JAX function returns
+them.
 
-The port has no device mesh yet: the dispatcher runs on one device
-and resolves as the JAX one does on a one-device mesh (space = time = 1).
+The port has no device mesh yet: the stage runs on one device and
+resolves as the JAX one does on a one-device mesh (space = time = 1).
 A ``mesh_shape`` over more than one device, a multislice
 ``dcn_mesh_shape``, the ``grid2d`` backend and a multi-process group
 raise ``NotImplementedError`` (ROADMAP Queue 1 item 12), as does the
@@ -16,8 +22,9 @@ raise ``NotImplementedError`` (ROADMAP Queue 1 item 12), as does the
 
 The snapshot matrix comes in a ``Field`` whose data is a numpy array or
 a tensor; a tensor on the chosen device is used where it lies, never
-copied to the host.  The factors come back as host (numpy) arrays, as
-the JAX function returns them.
+copied to the host.
+
+Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_svd``.
 """
 
 from __future__ import annotations
@@ -26,25 +33,44 @@ import functools
 import math
 import os
 import time
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from dmd_era5_tpu_torch.core import config_parser, config_reader
 from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.ops.hankel import hankel_exact_svd, hankel_randomized_svd_fused
 from dmd_era5_tpu_torch.ops.svd import truncated_svd
+from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store, retrieve_data_from_store
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
     streamed_exact_gram_svd,
     streamed_randomized_svd,
 )
 from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
+from dmd_era5_tpu_torch.snapmat.slicing import resample_era5_dataset, slice_era5_dataset
+from dmd_era5_tpu_torch.snapmat.transform import (
+    apply_delay_embedding,
+    delay_embedded_coords,
+    flatten_era5_variables,
+    space_coord_to_level_lat_lon,
+    standardize_rows,
+)
+from dmd_era5_tpu_torch.utils.io_h5 import load_fieldset, save_fieldset
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = [
     "HBM_BUDGET_ENV",
+    "add_config_attributes",
+    "check_era5_slice",
+    "check_svd_results",
     "combine_svd_results",
+    "compute_svd_results",
+    "main",
     "resolve_svd_backend",
+    "retrieve_era5_slice",
+    "retrieve_svd_results",
     "svd_on_era5",
 ]
 
@@ -141,7 +167,7 @@ def _device(device, field: Field | None) -> torch.device:
         return field.data.device
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "svd_on_era5 runs on a CUDA card and none is available; pass "
+            "the SVD stage runs on a CUDA card and none is available; pass "
             "device='cpu' (or a CPU tensor) to run it on the host"
         )
     return torch.device("cuda")
@@ -338,3 +364,363 @@ def combine_svd_results(
             data_vars[key] = value.copy()
             data_vars[key].name = key
     return FieldSet(data_vars)
+
+
+def add_config_attributes(fs: FieldSet, parsed_config: dict) -> FieldSet:
+    """Stamp decomposition provenance."""
+    fs.attrs["source_path"] = parsed_config["source_path"]
+    fs.attrs["n_components"] = parsed_config["n_components"]
+    fs.attrs["variables"] = list(parsed_config["variables"])
+    fs.attrs["levels"] = list(parsed_config["levels"])
+    fs.attrs["mean_center"] = int(parsed_config["mean_center"])
+    fs.attrs["scale"] = int(parsed_config["scale"])
+    fs.attrs["delay_embedding"] = parsed_config["delay_embedding"]
+    fs.attrs["svd_type"] = parsed_config["svd_type"]
+    fs.attrs["era5_slice_path"] = parsed_config["era5_slice_path"]
+    fs.attrs["date_processed"] = datetime.now().isoformat()
+    fs.attrs["save_data_matrix"] = int(parsed_config["save_data_matrix"])
+    fs.attrs["forecast_holdout"] = int(parsed_config.get("forecast_holdout", 0))
+    return fs
+
+
+def _as_str_list(value) -> list[str]:
+    if isinstance(value, str):
+        return [value]
+    return [str(v) for v in value]
+
+
+def _as_int_list(value) -> list[int]:
+    if isinstance(value, (int, np.integer)):
+        return [int(value)]
+    return [int(v) for v in np.asarray(value).tolist()]
+
+
+def check_era5_slice(fs: FieldSet, parsed_config: dict) -> bool:
+    """Superset-tolerant slice match: the workdir slice is valid if the
+    requested variables and levels are subsets of what it contains and
+    the source matches."""
+    attrs = fs.attrs
+    want_vars = sorted(parsed_config["variables"])
+    want_levels = sorted(parsed_config["levels"])
+    have_vars = set(_as_str_list(attrs.get("variables", [])))
+    have_levels = set(_as_int_list(attrs.get("levels", [])))
+    return (
+        want_vars == sorted(have_vars & set(want_vars))
+        and want_levels == sorted(have_levels & set(want_levels))
+        and parsed_config["source_path"] == attrs.get("source_path")
+    )
+
+
+def check_svd_results(fs: FieldSet, parsed_config: dict) -> bool:
+    """Exact-config SVD match; an artifact with non-finite singular
+    values is rejected, so a corrupt cached file is recomputed."""
+    attrs = fs.attrs
+    if "s" in fs.data_vars and not np.isfinite(np.asarray(fs["s"].data)).all():
+        return False
+    return (
+        parsed_config["source_path"] == attrs.get("source_path")
+        and parsed_config["n_components"] == attrs.get("n_components")
+        and list(parsed_config["variables"]) == _as_str_list(attrs.get("variables", []))
+        and list(parsed_config["levels"]) == _as_int_list(attrs.get("levels", []))
+        and int(parsed_config["mean_center"]) == attrs.get("mean_center")
+        and int(parsed_config["scale"]) == attrs.get("scale")
+        and parsed_config["delay_embedding"] == attrs.get("delay_embedding")
+        and parsed_config.get("forecast_holdout", 0) == attrs.get("forecast_holdout", 0)
+    )
+
+
+def _retrieve(
+    parsed_config: dict,
+    use_store: bool,
+    path_key: str,
+    data_type: str,
+    checker,
+    label: str,
+) -> tuple[FieldSet | None, bool]:
+    """The workdir -> store retrieval ladder shared by slice and results."""
+    logger = _logger()
+
+    def from_store() -> FieldSet | None:
+        log_and_print(logger, f"Attempting to retrieve {label} from store...")
+        try:
+            retrieve_data_from_store(parsed_config, data_type=data_type)
+            log_and_print(logger, f"{label} retrieved: {parsed_config[path_key]}")
+            fs = load_fieldset(parsed_config[path_key])
+        except (FileNotFoundError, ValueError) as err:
+            log_and_print(logger, f"Could not retrieve {label} from store: {err}", "warning")
+            return None
+        # the store's match keys are a coarser filter than the full
+        # checker (and say nothing about corruption): validate the
+        # retrieved artifact exactly like a workdir hit
+        if not checker(fs, parsed_config):
+            log_and_print(
+                logger,
+                f"Store-retrieved {label} does not match configuration; recomputing.",
+                "warning",
+            )
+            return None
+        return fs
+
+    if os.path.exists(parsed_config[path_key]):
+        log_and_print(logger, f"{label} found in working directory.")
+        fs = load_fieldset(parsed_config[path_key])
+        if checker(fs, parsed_config):
+            log_and_print(logger, f"{label} matches configuration.")
+            return fs, False
+        log_and_print(logger, f"{label} does not match configuration.")
+        if use_store:
+            fs = from_store()
+            return fs, fs is not None
+        log_and_print(
+            logger, f"{label} in working directory does not match configuration.", "warning"
+        )
+        return None, False
+
+    log_and_print(logger, f"{label} not found in working directory.", "warning")
+    if use_store:
+        fs = from_store()
+        return fs, fs is not None
+    return None, False
+
+
+def retrieve_era5_slice(parsed_config: dict, use_store: bool = False) -> tuple[FieldSet | None, bool]:
+    return _retrieve(
+        parsed_config, use_store, "era5_slice_path", "era5_slice", check_era5_slice, "ERA5 slice"
+    )
+
+
+def retrieve_svd_results(parsed_config: dict, use_store: bool = False) -> tuple[FieldSet | None, bool]:
+    return _retrieve(
+        parsed_config, use_store, "save_path", "era5_svd", check_svd_results, "SVD results"
+    )
+
+
+def _holdout_truth_fields(ds_holdout: FieldSet, persist_raw: FieldSet) -> dict[str, Field]:
+    """The raw physical holdout block for the DMD stage's scorer.
+
+    Returns ``holdout_truth`` (S, h) and ``holdout_persistence`` (S,),
+    the last raw train snapshot (the no-skill baseline), on a dedicated
+    ``space_out`` axis (undelayed rows) with the level/lat/lon/variable
+    row coordinates pre-split for HDF5.
+    """
+    truth_flat = flatten_era5_variables(ds_holdout)  # (S, h) raw
+    persist_flat = flatten_era5_variables(persist_raw)  # (S, 1) raw
+    tuples = truth_flat.coords["space"].values
+    index = np.arange(len(tuples), dtype=int)
+    coords = {
+        "space_out": Coord("space_out", index),
+        "level_out": Coord("space_out", np.asarray([t[0] for t in tuples])),
+        "latitude_out": Coord("space_out", np.asarray([t[1] for t in tuples])),
+        "longitude_out": Coord("space_out", np.asarray([t[2] for t in tuples])),
+        "original_variable_out": Coord(
+            "space_out", truth_flat.coords["original_variable"].values
+        ),
+    }
+    truth = Field(
+        np.asarray(truth_flat.data, dtype=np.float32),
+        ("space_out", "time_holdout"),
+        {**coords, "time_holdout": Coord("time_holdout", truth_flat.coords["time"].values)},
+        name="holdout_truth",
+    )
+    persistence = Field(
+        np.asarray(persist_flat.data, dtype=np.float32)[:, 0],
+        ("space_out",),
+        coords,
+        name="holdout_persistence",
+    )
+    return {"holdout_truth": truth, "holdout_persistence": persistence}
+
+
+def _tile_field_along_space(field: Field, d: int) -> Field:
+    """Repeat a (space,) field d times along space: the mean/std tiling
+    that matches the delay-embedded row layout."""
+    data = np.tile(np.asarray(field.data), d)
+    coords = {
+        "space": Coord("space", np.tile(field.coords["space"].values, d)),
+        "original_variable": Coord(
+            "space", np.tile(field.coords["original_variable"].values, d)
+        ),
+    }
+    return Field(data, ("space",), coords, dict(field.attrs), field.name)
+
+
+def _on_device(fs: FieldSet, device: torch.device) -> FieldSet:
+    """The FieldSet with each field's data a tensor on ``device``: host
+    arrays copied there once, tensors already there kept as they are."""
+
+    def move(field: Field) -> Field:
+        data = field.data
+        if not isinstance(data, torch.Tensor):
+            arr = np.asarray(data)
+            data = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        return field.copy(data=data.to(device))
+
+    return fs.map(move)
+
+
+def _preprocess_on_device(ds: FieldSet, parsed_config: dict, device: torch.device):
+    """The training fields flattened to one (S, T) tensor on ``device``
+    and standardized there in place, in the slice's dtype.  Returns the
+    flat Field and the host (S,) X_mean and X_std Fields (None when not
+    asked for), tiled to the embedded rows."""
+    da_flat = flatten_era5_variables(_on_device(ds, device))
+    da_mean = da_std = None
+    if parsed_config["mean_center"]:
+        _, mean, std = standardize_rows(da_flat.data, scale=parsed_config["scale"], inplace=True)
+        d = parsed_config["delay_embedding"]
+        row_coords = {name: da_flat.coords[name] for name in ("space", "original_variable")}
+
+        def row_field(values: torch.Tensor, name: str) -> Field:
+            field = Field(values.cpu().numpy(), ("space",), row_coords, dict(da_flat.attrs), "X")
+            if d > 1:
+                field = _tile_field_along_space(field, d)
+            field.name = name
+            return field
+
+        da_mean = row_field(mean, "X_mean")
+        if std is not None:
+            da_std = row_field(std, "X_std")
+    return da_flat, da_mean, da_std
+
+
+def compute_svd_results(
+    ds: FieldSet,
+    parsed_config: dict,
+    device: torch.device | str | None = None,
+) -> FieldSet:
+    """The stage's compute body on an ERA5 slice: select the variables,
+    slice the levels, resample, withhold the forecast holdout, flatten
+    and standardize on ``device``, ``svd_on_era5``, package the factors
+    (host arrays) with X_mean / X_std, the holdout truth and (with
+    ``save_data_matrix``) the embedded X, stamp the config attributes
+    and metrics, and split the space coordinate for HDF5.
+
+    ``device``: the card unless given, or unless the slice's fields hold
+    tensors on another device.
+    """
+    _check_single_device(parsed_config)
+    ds = ds[parsed_config["variables"]]
+    ds = slice_era5_dataset(ds, levels=parsed_config["levels"])
+    ds = resample_era5_dataset(ds, parsed_config["delta_time"])
+    device = _device(device, ds.first())
+
+    # ---- forecast holdout: withhold the trailing snapshots from
+    # everything downstream (standardization statistics, factors) so the
+    # DMD stage can score its rollout against unseen truth.  The raw
+    # holdout fields and the last raw train snapshot (the persistence
+    # baseline) ride along in the artifact.
+    holdout = int(parsed_config.get("forecast_holdout", 0))
+    ds_holdout = persist_raw = None
+    if holdout > 0:
+        n_time = len(ds.coord("time").values)
+        d_embed = parsed_config["delay_embedding"]
+        min_train = max(parsed_config["n_components"] + d_embed, d_embed + 1)
+        if n_time - holdout < min_train:
+            raise ValueError(
+                f"forecast_holdout={holdout} leaves {n_time - holdout} train snapshots "
+                f"of {n_time}; need >= {min_train} (n_components + delay)."
+            )
+        ds_holdout = ds.isel(time=slice(n_time - holdout, None))
+        persist_raw = ds.isel(time=slice(n_time - holdout - 1, n_time - holdout))
+        ds = ds.isel(time=slice(0, n_time - holdout))
+        log_and_print(
+            _logger(),
+            f"Withholding final {holdout} snapshots from the fit "
+            f"({n_time - holdout} train columns remain).",
+        )
+
+    da_flat, da_mean, da_std = _preprocess_on_device(ds, parsed_config, device)
+    d = parsed_config["delay_embedding"]
+    U, s, V = svd_on_era5(None, parsed_config, device=device, da_flat=da_flat)
+    embedded_coords = delay_embedded_coords(da_flat, d)
+    da = None
+    if parsed_config["save_data_matrix"]:
+        host_flat = da_flat.copy(data=da_flat.data.cpu().numpy())
+        da = apply_delay_embedding(host_flat, d)
+    del da_flat
+
+    svd_results = combine_svd_results(U, s, V, embedded_coords, X=da, X_mean=da_mean, X_std=da_std)
+    if ds_holdout is not None:
+        svd_results.data_vars.update(_holdout_truth_fields(ds_holdout, persist_raw))
+    svd_results = add_config_attributes(svd_results, parsed_config)
+    svd_results.attrs.update(parsed_config.get("metrics", {}))
+    return space_coord_to_level_lat_lon(svd_results)
+
+
+def main(
+    config: dict | None = None,
+    write_artifact: bool = False,
+    use_store: bool = False,
+    device: torch.device | str | None = None,
+) -> tuple[FieldSet, bool, bool]:
+    """SVD stage orchestration: the cached results if the workdir or the
+    store holds a match, else :func:`compute_svd_results` on the slice
+    from the workdir or the store, then (with ``write_artifact``) the
+    artifact written and (with ``use_store``) versioned.
+
+    Returns (svd_results, added_to_store, retrieved_from_store).
+    ``device``: where a computation runs, the card unless given.
+    """
+    if config is None:
+        config = config_reader("era5-svd")
+    logger = _logger()
+    added_to_store = False
+    parsed_config = config_parser(config, "era5-svd")
+
+    try:
+        svd_results, retrieved_from_store = retrieve_svd_results(parsed_config, use_store)
+    except Exception as err:
+        msg = f"Error retrieving SVD results: {err}"
+        log_and_print(logger, msg, "error")
+        raise Exception(msg) from err
+
+    if svd_results is None:
+        try:
+            ds, _ = retrieve_era5_slice(parsed_config, use_store)
+            if ds is None:
+                if use_store:
+                    msg = "Could not retrieve ERA5 slice from working directory or store."
+                else:
+                    msg = (
+                        "Could not retrieve ERA5 slice from working directory. "
+                        "Consider using the artifact store, if available."
+                    )
+                log_and_print(logger, msg, "error")
+                raise FileNotFoundError(msg)
+        except Exception as err:
+            msg = f"Error retrieving ERA5 slice: {err}"
+            log_and_print(logger, msg, "error")
+            raise Exception(msg) from err
+
+        try:
+            svd_results = compute_svd_results(ds, parsed_config, device=device)
+        except Exception as err:
+            msg = f"Error in the SVD on ERA5 process: {err}"
+            log_and_print(logger, msg, "error")
+            raise Exception(msg) from err
+
+        if write_artifact:
+            try:
+                log_and_print(logger, "Writing SVD results...")
+                save_fieldset(svd_results, parsed_config["save_path"])
+                log_and_print(logger, f"SVD results written to {parsed_config['save_path']}")
+            except Exception as err:
+                msg = f"Error writing SVD results: {err}"
+                log_and_print(logger, msg, "error")
+                raise Exception(msg) from err
+            if use_store:
+                try:
+                    log_and_print(logger, "Versioning SVD results...")
+                    add_data_to_store(parsed_config["save_path"], svd_results.attrs)
+                    log_and_print(logger, "SVD results versioned.")
+                    added_to_store = True
+                except Exception as err:
+                    msg = f"Error versioning SVD results: {err}"
+                    log_and_print(logger, msg, "error")
+                    raise Exception(msg) from err
+
+    return svd_results, added_to_store, retrieved_from_store
+
+
+if __name__ == "__main__":
+    main(write_artifact=True, use_store=True)

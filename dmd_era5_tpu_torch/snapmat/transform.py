@@ -2,12 +2,14 @@
 
 The port's counterpart of ``dmd_era5_tpu/snapmat/transform.py``:
 
-- :func:`standardize_data`, its tensor arithmetic: per-row statistics
-  along time of an (S, T) snapshot matrix;
+- :func:`standardize_data`: on a ``Field``/``FieldSet``, host numpy
+  along a named dim, as the JAX function; on an (S, T) tensor, per-row
+  statistics along time where the tensor lies (:func:`standardize_rows`,
+  which the SVD stage runs on the card);
 - :func:`flatten_era5_variables`, :func:`delay_embed_np`,
-  :func:`delay_embedded_coords` and :func:`apply_delay_embedding`, host
-  numpy on the port's ``Field``/``FieldSet``, copied from the JAX
-  package's functions (its lines 61-180).
+  :func:`delay_embedded_coords`, :func:`apply_delay_embedding` and
+  :func:`space_coord_to_level_lat_lon`, host numpy on the port's
+  ``Field``/``FieldSet``, copied from the JAX package's functions.
 
 Layout contract (load-bearing for every consumer downstream):
 
@@ -20,12 +22,14 @@ Layout contract (load-bearing for every consumer downstream):
 
 from __future__ import annotations
 
+import functools
 from itertools import product
 from typing import Any
 
 import numpy as np
 import torch
 
+from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = [
@@ -34,21 +38,52 @@ __all__ = [
     "delay_embed_np",
     "delay_embedded_coords",
     "flatten_era5_variables",
+    "space_coord_to_level_lat_lon",
     "standardize_data",
+    "standardize_rows",
 ]
 
 SPATIAL_STACK_ORDER = ("level", "latitude", "longitude")
 
 
-def standardize_data(x: torch.Tensor, scale: bool = True):
+@functools.cache
+def _logger():
+    return setup_logger("ERA5Processing-torch", "era5_processing_torch.log")
+
+
+def standardize_data(
+    data: FieldSet | Field | torch.Tensor,
+    dim: str = "time",
+    scale: bool = True,
+):
+    """Mean-centre (and optionally scale to unit variance) along ``dim``.
+
+    Returns ``(standardized, mean, std_or_None)``.  A ``Field`` or
+    ``FieldSet`` is reduced along its named ``dim`` on the host, as the
+    JAX function does; an (S, T) tensor row by row along time
+    (:func:`standardize_rows`).
+    """
+    if isinstance(data, torch.Tensor):
+        return standardize_rows(data, scale=scale)
+    log_and_print(_logger(), f"Standardizing data along {dim} dimension...")
+    mean = data.mean(dim)
+    centered = data - mean
+    if scale:
+        std = centered.std(dim)
+        return centered / std, mean, std
+    return centered, mean, None
+
+
+def standardize_rows(x: torch.Tensor, scale: bool = True, inplace: bool = False):
     """Mean-centre (and with ``scale`` divide by the std) each row of x.
 
     Returns ``(standardized, mean, std_or_None)`` with mean and std of
     shape (S,), the statistics ``models.forecast.undo_preprocessing``
     needs.  The std is the population std (ddof 0) of the centred rows.
+    ``inplace`` overwrites x instead of making a centred copy.
     """
     mean = x.mean(dim=1)
-    centered = x - mean[:, None]
+    centered = x.sub_(mean[:, None]) if inplace else x - mean[:, None]
     if not scale:
         return centered, mean, None
     std = centered.std(dim=1, correction=0)
@@ -69,7 +104,9 @@ def flatten_era5_variables(fs: FieldSet) -> Field:
     Space is the row-major stack of (level, latitude, longitude); when
     multiple variables are present their blocks are concatenated along
     space, first variable first.  The result carries coords ``space``
-    (tuples), ``time`` (if present) and ``original_variable``.
+    (tuples), ``time`` (if present) and ``original_variable``.  Fields
+    that hold tensors are flattened where they lie, each copied once
+    into the flat tensor.
     """
     variables = fs.variables
     if not variables:
@@ -91,16 +128,22 @@ def flatten_era5_variables(fs: FieldSet) -> Field:
     space = _space_tuples(level, lat, lon)
     n_space = len(space)
 
-    blocks = []
-    for var in variables:
-        field = fs[var]
-        if has_time:
-            arr = field.transpose(*SPATIAL_STACK_ORDER, "time").data
-            blocks.append(arr.reshape(n_space, arr.shape[-1]))
-        else:
-            arr = field.transpose(*SPATIAL_STACK_ORDER).data
-            blocks.append(arr.reshape(n_space))
-    data = np.concatenate([np.asarray(b) for b in blocks], axis=0)
+    order = (*SPATIAL_STACK_ORDER, "time") if has_time else SPATIAL_STACK_ORDER
+    if isinstance(sample.data, torch.Tensor):
+        tail = (sample.sizes["time"],) if has_time else ()
+        data = torch.empty((len(variables) * n_space, *tail), dtype=sample.data.dtype,
+                           device=sample.data.device)
+        for i, var in enumerate(variables):
+            field = fs[var]
+            block = data[i * n_space : (i + 1) * n_space]
+            block.view(len(level), len(lat), len(lon), *tail).copy_(
+                field.data.permute([field.axis(d) for d in order]))
+    else:
+        blocks = []
+        for var in variables:
+            arr = fs[var].transpose(*order).data
+            blocks.append(arr.reshape(n_space, arr.shape[-1]) if has_time else arr.reshape(n_space))
+        data = np.concatenate([np.asarray(b) for b in blocks], axis=0)
 
     coords: dict[str, Any] = {
         "space": Coord("space", np.tile(space, len(variables))),
@@ -169,3 +212,50 @@ def apply_delay_embedding(X: Field, d: int) -> Field:
     attrs = dict(X.attrs)
     attrs["delay_embedding"] = d
     return Field(data, ("space", "time"), coords, attrs, name=X.name)
+
+
+def space_coord_to_level_lat_lon(fs: FieldSet) -> FieldSet:
+    """Split the tuple-valued space coord into level/lat/lon coords.
+
+    HDF5 cannot store tuple-valued coordinate arrays, so before
+    serialization the space coord becomes a 0..S-1 integer index with
+    three parallel coords.  A FieldSet already split is returned as is.
+    """
+    space = None
+    for field in fs.data_vars.values():
+        if "space" in field.coords:
+            space = field.coords["space"]
+            break
+    if space is None:
+        raise ValueError("Input dataset must have a 'space' coordinate.")
+
+    try:
+        for name in ("level", "latitude", "longitude"):
+            fs.coord(name)
+    except KeyError:
+        pass
+    else:
+        log_and_print(
+            _logger(),
+            "Dataset already has separate coordinates for "
+            "level, latitude, and longitude.",
+        )
+        return fs
+
+    tuples = space.values
+    level = np.asarray([t[0] for t in tuples])
+    lat = np.asarray([t[1] for t in tuples])
+    lon = np.asarray([t[2] for t in tuples])
+    index = np.arange(len(tuples), dtype=int)
+
+    def convert(field: Field) -> Field:
+        if "space" not in field.coords:
+            return field
+        new_coords = dict(field.coords)
+        new_coords["space"] = Coord("space", index)
+        new_coords["level"] = Coord("space", level)
+        new_coords["latitude"] = Coord("space", lat)
+        new_coords["longitude"] = Coord("space", lon)
+        return Field(field.data, field.dims, new_coords, field.attrs, field.name)
+
+    return fs.map(convert)

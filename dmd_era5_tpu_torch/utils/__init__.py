@@ -1,5 +1,6 @@
-"""Small-matrix linear algebra."""
+"""Labeled containers and small-matrix linear algebra."""
 
+from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 from dmd_era5_tpu_torch.utils.linalg import (
     complex_lstsq,
     complex_solve,
@@ -11,6 +12,9 @@ from dmd_era5_tpu_torch.utils.linalg import (
 )
 
 __all__ = [
+    "Coord",
+    "Field",
+    "FieldSet",
     "complex_lstsq",
     "complex_solve",
     "eig_sorted",

@@ -28,6 +28,7 @@ def test_package_imports_without_jax():
         "import dmd_era5_tpu_torch.pipeline, dmd_era5_tpu_torch.snapmat\n"
         "import dmd_era5_tpu_torch.utils, dmd_era5_tpu_torch.core\n"
         "import dmd_era5_tpu_torch.pipeline.era5_svd, dmd_era5_tpu_torch.utils.labels\n"
+        + _NEW_MODULES +
         "assert not any(m == 'dmd_era5_tpu' or m.startswith('dmd_era5_tpu.')"
         " for m in sys.modules), 'the JAX package was imported'\n"
     )
@@ -35,6 +36,56 @@ def test_package_imports_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+_NEW_MODULES = (
+    "import dmd_era5_tpu_torch.snapmat.mock, dmd_era5_tpu_torch.snapmat.slicing\n"
+    "import dmd_era5_tpu_torch.utils.io_h5, dmd_era5_tpu_torch.pipeline.artifacts\n"
+    "import dmd_era5_tpu_torch.pipeline.era5_download\n"
+)
+
+
+def test_package_imports_without_h5py_yaml_or_pandas():
+    """h5py and yaml are imported when a file or a log is touched, and
+    pandas not at all: the whole port imports with all three hidden."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'h5py', 'yaml', 'pandas'): sys.modules[name] = None\n"
+        "import dmd_era5_tpu_torch, dmd_era5_tpu_torch.convert\n"
+        "import dmd_era5_tpu_torch.ops, dmd_era5_tpu_torch.models, dmd_era5_tpu_torch.core\n"
+        "import dmd_era5_tpu_torch.pipeline, dmd_era5_tpu_torch.snapmat, dmd_era5_tpu_torch.utils\n"
+        + _NEW_MODULES +
+        "from dmd_era5_tpu_torch.snapmat import create_mock_era5, resample_era5_dataset\n"
+        "import datetime\n"
+        "fs = create_mock_era5('2020-01-01', '2020-01-01T05', ['temperature'], [1000], seed=0)\n"
+        "assert resample_era5_dataset(fs, datetime.timedelta(hours=2)).sizes['time'] == 3\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_stage_main_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
+    """``era5_svd.main`` without ``device`` computes on the card: without
+    CUDA it raises instead of running on the host."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
+    from dmd_era5_tpu_torch.snapmat import create_mock_era5
+    from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+
+    monkeypatch.setenv("DMD_ERA5_TPU_ROOT", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"source_path": "mock_data", "start_datetime": "2019-01-01T00",
+           "end_datetime": "2019-01-01T12", "delta_time": "1h", "variables": "temperature",
+           "levels": "1000", "svd_type": "randomized", "delay_embedding": 2, "mean_center": True,
+           "scale": False, "n_components": 3, "save_data_matrix": False}
+    parsed = config_parser(dict(cfg), "era5-svd")
+    fs = create_mock_era5("2019-01-01T00", "2019-01-01T12", ["temperature"], [1000], seed=1)
+    save_fieldset(era5_download.add_config_attributes(fs, parsed), parsed["era5_slice_path"])
+    with pytest.raises(Exception, match="CUDA card"):
+        era5_svd.main(dict(cfg))
+    assert era5_svd.main(dict(cfg), device="cpu")[0]["U"].shape == (2 * 36 * 72, 3)
 
 
 @pytest.mark.parametrize("path", ["dmd_era5_tpu_torch", "chip_smoke.py"])
