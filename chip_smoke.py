@@ -72,6 +72,29 @@ of which raises on failure so the script exits non-zero:
    artifact read back where there is one) and X_mean against phase 3's
    row means, with each step's wall time, the phase's peak device memory
    and the bytes written to disk;
+13. (run next, on the week still on the card) the DMD stage's entry
+   points.  (a) North-star config 1, ``config.ini``'s ``[era5-dmd]`` as
+   it is but for the mock's source_path (rank 6, optimized, 24 forecast
+   steps): with h5py and yaml, ``era5_dmd.main`` with the files and the
+   store, then again as a workdir cache hit; without them,
+   ``download_era5_data``'s mock slice in memory ->
+   ``compute_svd_results`` -> ``fit_dmd_from_svd_results``; shapes,
+   finite values, the attrs, K1 5 launches.  (b) The week's optDMD from
+   12b's results (rank 6, 24 forecast steps): the planted eigenvalues
+   within 1e-2, the 24 future columns within 5e-2 of the noise-free
+   signal, the field filled block by block on the card equal to the
+   one-shot ``undo_preprocessing(rollout(...))`` in row chunks (1e-5 of
+   max|field|), no kernel launch.  (c) The week with a 24-hour holdout:
+   ``compute_svd_results`` on the slice (144 train hours; K1 5
+   launches), then the fit scored on the withheld day: RMSE, ACC and
+   bias per lead, DMD's and persistence's, within 1e-5 of an f64
+   one-shot over the same forecast and weights, and DMD's RMSE at lead
+   24 below persistence's.  (d) The week bagged (8 trials of 80%): the
+   trial-mean eigenvalues within 1e-2 of the planted ones, finite stds,
+   the trials used recorded, no kernel launch, and peak device memory
+   less than 8 x the modes' 1.49 GB above (b)'s.  Each fit prints its
+   steps' wall times (U's move to the card, the fit, the scores, the
+   forecast, the rest), the device memory it took and the host's RSS;
 10. one year of hourly 1-degree ERA5 (181 x 360 points, 15 variable-level
    blocks, 8,760 hours: 977,400 rows), generated on the card from the
    seed after the week is freed, centred in place, with the exact
@@ -91,7 +114,7 @@ of which raises on failure so the script exits non-zero:
    and (e)'s singular values are held below the exact ones; (f) K1 and
    the two-pass route timed on the same X and sketch.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12 and 10b-e are the main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13 and 10b-e are the main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f) are not counted.  The last line is the JSON result; the line before
@@ -117,6 +140,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1580,8 +1604,6 @@ def week_slice(week: dict):
     no later phase reads the centred X) as a FieldSet of (time, level,
     latitude, longitude) fields, each a view of X's rows on the card,
     stamped with the attributes ``download_era5_data`` stamps."""
-    import numpy as np
-
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_download
     from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
@@ -1612,8 +1634,6 @@ def phase_stage_config1(seed: int) -> dict:
     [era5-svd] on the mock backend (the global numpy state seeded):
     download with the store, the SVD stage with the store, then the
     stage again, a workdir cache hit.  Returns the stage's times."""
-    import numpy as np
-
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
     from dmd_era5_tpu_torch.pipeline.artifacts import file_md5, list_versions
@@ -1663,8 +1683,6 @@ def check_week_results(label: str, res, week: dict) -> dict:
     interlace of phase 7's exact Hankel s (as phase 3), the leading 6
     within 1e-5 of phase 3's, U^T U to 1e-3, X_mean against phase 3's
     row means (both delay blocks)."""
-    import numpy as np
-
     s = torch.from_numpy(np.asarray(res["s"].values))
     inter = check_interlace(f"{label} vs exact Hankel (phase 7)", s, week["s_exact"].cpu())
     lead = float((s[:6].double() / week["s_rand"][:6].double().cpu() - 1).abs().max())
@@ -1681,16 +1699,15 @@ def check_week_results(label: str, res, week: dict) -> dict:
     return {"vs_exact": inter, "lead6_vs_phase3": lead, "orth": orth, "x_mean_rel": mean_err}
 
 
-def phase_stage(week: dict, seed: int) -> dict:
+def phase_stage(week: dict, seed: int):
     """Phase 12: the SVD stage's entry points on the card.  (a) north-star
     config 1 through the files and the store; (b) north-star config 3,
     the week, at full size: its raw X written as the ERA5 slice, then
     ``era5_svd.main`` on [era5-svd] with the week's overrides
     (``n_components`` 100, X not saved) and again as a workdir cache
     hit.  Without h5py or yaml, (a) is skipped and (b) runs the stage's
-    compute body on the in-memory slice.  Returns the launch counts."""
-    import numpy as np
-
+    compute body on the in-memory slice.  Returns the launch counts, the
+    slice and (b)'s results, which phase 13 takes on."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_svd
     from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
@@ -1742,7 +1759,289 @@ def phase_stage(week: dict, seed: int) -> dict:
         f"metrics svd_seconds {res.attrs['svd_seconds']}, launches {launches}, disk bytes {disk}")
     log(f"    stage wall times (s): {json.dumps(times)} (peak_gb: device memory over the "
         "phase's start)")
-    del fs, res
+    return launches, fs, res
+
+
+# north-star config 1's DMD stage takes config.ini's [era5-dmd] as it is but for
+# the mock's source_path; the week's (phase 13 b-d) adds the week's overrides
+DMD_RANK, FORECAST_STEPS, HOLDOUT, BAG_TRIALS, BAG_FRACTION = 6, 24, 24, 8, 0.8
+
+
+def host_memory() -> dict:
+    """This process's resident set now (/proc/self/status VmRSS) and its
+    peak over the process (getrusage's ru_maxrss), in GB."""
+    import resource
+
+    rss = next(int(line.split()[1]) for line in Path("/proc/self/status").read_text()
+               .splitlines() if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return {"rss_gb": rss * 1024 / 1e9, "peak_rss_gb": peak * 1024 / 1e9}
+
+
+def dmd_result(res):
+    """The fitted model of a DMD stage FieldSet (eigenvalues, amplitudes
+    and the modes where they lie), as an OptDMDResult."""
+    from dmd_era5_tpu_torch.models import OptDMDResult
+
+    modes = res["modes"].data
+    alpha = torch.from_numpy(res["eigenvalues"].values).to(modes.device)
+    amps = torch.from_numpy(res["amplitudes"].values).to(modes.device)
+    return OptDMDResult(alpha, modes, amps, None, None, 0)
+
+
+def check_dmd_fit(label: str, res, week: dict) -> float:
+    """The planted eigenvalues recovered within 1e-2 (as phase 3's
+    optDMD), finite eigenvalues, amplitudes and modes."""
+    eig = torch.from_numpy(res["eigenvalues"].values)
+    err = matched_eig_error(eig, week["alpha_true"])
+    check(err < 1e-2, f"{label}: planted eigenvalues not recovered: matched error {err:.3e}")
+    for name in ("eigenvalues", "amplitudes"):
+        check(bool(np.isfinite(res[name].values).all()), f"{label}: {name} not finite")
+    check(bool(torch.isfinite(res["modes"].data).all()), f"{label}: modes not finite")
+    return err
+
+
+def check_week_forecast(label: str, res, week: dict, mean: np.ndarray, d: int = 2) -> dict:
+    """The forecast field's future columns against the noise-free planted
+    signal (anomaly error < 5e-2, as phase 3), and the whole field against
+    the one-shot ``undo_preprocessing(rollout(...))`` of the same model,
+    computed in row chunks of the undelayed rows (1e-5 of max|field|)."""
+    from dmd_era5_tpu_torch.models import rollout, undo_preprocessing
+
+    field = res["forecast"].data
+    s_rows, n_cols = field.shape
+    n_hist = n_cols - FORECAST_STEPS
+    check(tuple(field.shape) == (week["x"].shape[0], T_HOURS - d + 1 + FORECAST_STEPS),
+          f"{label}: forecast shape {tuple(field.shape)}")
+    check(bool(torch.isfinite(field).all()), f"{label}: forecast not finite")
+    # embedded time i is hour i + d - 1
+    hours = torch.arange(n_hist, n_cols, dtype=torch.float64, device=field.device) + d - 1
+    ref = week["truth"](hours)
+    fc_err = float((field[:, n_hist:] - ref).norm() / (ref - week["row_mean"][:, None]).norm())
+    del ref
+    check(fc_err < 5e-2, f"{label}: forecast anomaly error {fc_err:.3e} >= 5e-2")
+    model = dmd_result(res)
+    t_all = torch.arange(n_cols, dtype=torch.float32, device=field.device)
+    mean_rows = torch.from_numpy(mean[(d - 1) * s_rows:]).to(field.device)
+    worst, scale = 0.0, float(field.abs().max())
+    for r0 in range(0, s_rows, CHUNK):
+        r1 = min(r0 + CHUNK, s_rows)
+        part = model._replace(modes=model.modes[(d - 1) * s_rows + r0:(d - 1) * s_rows + r1])
+        one_shot = undo_preprocessing(rollout(part, t_all), mean_rows[r0:r1], None, delay=1)
+        worst = max(worst, float((field[r0:r1] - one_shot).abs().max()))
+    check(worst <= 1e-5 * scale, f"{label}: streamed forecast off the one-shot by {worst:.3e}"
+          f" > 1e-5 of max|field| {scale:.3e}")
+    return {"future_anomaly_err": fc_err, "vs_one_shot": worst / scale}
+
+
+def f64_scores(forecast: torch.Tensor, truth: torch.Tensor, w: torch.Tensor) -> dict:
+    """Latitude-weighted RMSE, ACC (centred on the truth's row means) and
+    bias per lead, in one f64 pass over the whole (S, L) fields."""
+    f, t, w = forecast.double(), truth.double(), w.double()[:, None]
+    clim = t.mean(dim=1, keepdim=True)
+    fa, ta, err = f - clim, t - clim, f - t
+    wsum = w.sum()
+    return {
+        "rmse": torch.sqrt((err * err * w).sum(0) / wsum).cpu().numpy(),
+        "acc": ((fa * ta * w).sum(0) / torch.sqrt((fa * fa * w).sum(0) * (ta * ta * w).sum(0)))
+        .cpu().numpy(),
+        "bias": ((err * w).sum(0) / wsum).cpu().numpy(),
+    }
+
+
+def check_scores(label: str, got: dict, want: dict) -> float:
+    """RMSE and ACC within 1e-5 relative of the f64 one-shot, the bias
+    within 1e-5 of the same lead's RMSE.  Returns the worst share."""
+    worst = 0.0
+    for key in ("rmse", "acc", "bias"):
+        g, w = np.asarray(got[key], np.float64), np.asarray(want[key], np.float64)
+        scale = np.abs(want["rmse"]) if key == "bias" else np.abs(w)
+        share = float((np.abs(g - w) / scale).max())
+        check(share <= 1e-5, f"{label}: {key} off the f64 one-shot by {share:.3e} > 1e-5")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_dmd_config1(seed: int, missing: list[str]) -> None:
+    """Phase 13 (a): north-star config 1, config.ini's [era5-dmd] (rank
+    6, optimized, 24 forecast steps) on the mock backend.  With h5py and
+    yaml: the mock slice downloaded into the store, ``era5_dmd.main``
+    with the files and the store, then again (a workdir cache hit).
+    Without them: ``download_era5_data``'s mock slice in memory ->
+    ``compute_svd_results`` -> ``fit_dmd_from_svd_results``.  Checks
+    shapes, finite values, the attrs and K1 exactly 5, and logs each
+    step's wall time."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+
+    cfg = stage_config("era5-dmd", source_path="mock_data")
+    parsed = config_parser(dict(cfg), "era5-dmd")
+    times = {}
+    np.random.seed(seed)
+    before = launch_counts()["K1"]
+    if missing:
+        dl = config_parser(stage_config("era5-download"), "era5-download")
+        fs, times["mock"] = synced(era5_download.download_era5_data, dl, use_mock_data=True)
+        svd, times["svd_stage"] = synced(era5_svd.compute_svd_results, fs,
+                                         config_parser(dict(cfg), "era5-svd"))
+        res, times["dmd_fit"] = synced(era5_dmd.fit_dmd_from_svd_results, svd, parsed)
+        del fs, svd
+    else:
+        synced(era5_download.main, stage_config("era5-download"), use_mock_data=True,
+               use_store=True)
+        (res, added, retrieved), times["dmd_main"] = synced(
+            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+        check(added and not retrieved, f"config 1 DMD stage: added {added}, retrieved {retrieved}")
+        (hit, added2, retrieved2), times["cache_hit"] = synced(
+            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+        check(not added2 and not retrieved2, "config 1: the second DMD stage was not a cache hit")
+        check(np.array_equal(hit["modes"].values, res["modes"].data.cpu().numpy()),
+              "config 1: the cache hit's modes differ")
+    k1 = launch_counts()["K1"] - before
+    check(k1 == 5, f"config 1 DMD stage launched K1 {k1} times, expected 5")
+    n_space = 36 * 72  # config.ini: temperature at 1000 hPa on the 5-degree mock grid
+    d, n_time = parsed["delay_embedding"], 97 - parsed["delay_embedding"] + 1  # 97 hours
+    check(tuple(res["modes"].shape) == (n_space * d, DMD_RANK)
+          and tuple(res["forecast"].shape) == (n_space, n_time + FORECAST_STEPS),
+          f"config 1: modes {res['modes'].shape}, forecast {res['forecast'].shape}")
+    check(bool(torch.isfinite(res["forecast"].data).all()) and bool(torch.isfinite(
+        res["modes"].data).all()) and bool(np.isfinite(res["eigenvalues"].values).all()),
+        "config 1: non-finite modes, eigenvalues or forecast")
+    want = {"dmd_rank": DMD_RANK, "optimized": 1, "forecast_steps": FORECAST_STEPS,
+            "bagging_trials": 0, "svd_type": "randomized", "delay_embedding": 2}
+    got = {key: res.attrs.get(key) for key in want}
+    check(got == want and np.isfinite(res.attrs["dmd_residual"])
+          and res.attrs["lm_iterations"] >= 1, f"config 1: attrs {got}")
+    log(f"[13a] config 1 (mock, config.ini's [era5-dmd]): modes {tuple(res['modes'].shape)}, "
+        f"forecast {tuple(res['forecast'].shape)}, eigenvalues "
+        f"{[complex(round(a.real, 4), round(a.imag, 4)) for a in res['eigenvalues'].values]}, "
+        f"residual {res.attrs['dmd_residual']:.3e} ({res.attrs['lm_iterations']} LM steps; "
+        f"i.i.d.-noise mock), K1 launches {k1}; wall (s) "
+        f"{json.dumps({a: round(b, 3) for a, b in times.items()})}")
+
+
+def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
+    """Phase 13: the DMD stage's entry points on the card, after phase 12
+    on the week still in memory.  (a) north-star config 1; (b) the week's
+    optDMD from 12b's results (rank 6, 24 forecast steps); (c) the week
+    with a 24-hour holdout: ``compute_svd_results`` on the slice (144
+    train hours), then the fit scored on the withheld day against an f64
+    one-shot; (d) the week bagged (8 trials of 80%).  Returns the launch
+    counts."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.models import iter_forecast_blocks
+    from dmd_era5_tpu_torch.models.verification import latitude_weights
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd
+
+    missing = missing_file_packages()
+    reset_counts()
+    launches = counts()
+    host_start = host_memory()
+    with stage_root():
+        phase_dmd_config1(seed, missing)
+    for key, n in launch_counts().items():
+        launches[key] += n
+
+    def week_config(**overrides) -> dict:
+        fields = {"dmd_rank": DMD_RANK, "forecast_steps": FORECAST_STEPS, **overrides}
+        return config_parser(stage_config("era5-dmd", **WEEK_CONFIG, **WEEK_SVD, **fields),
+                             "era5-dmd")
+
+    def run_fit(label: str, svd_res, parsed) -> tuple:
+        """fit_dmd_from_svd_results with each step's wall time and the
+        device memory it took over its start; no kernel may launch."""
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fit_name = "bopdmd_from_svd" if parsed["bagging_trials"] else "optdmd_from_svd"
+        steps = ("_svd_factors", fit_name, "_holdout_scores", "_forecast_field")
+        with stage_clock(era5_dmd, *steps) as clock:
+            res, total = synced(era5_dmd.fit_dmd_from_svd_results, svd_res, parsed)
+        times = {name: round(sum(v), 3) for name, v in clock.items() if v}
+        times["total"] = round(total, 3)
+        times["packaging_and_rest"] = round(total - sum(sum(v) for v in clock.values()), 3)
+        times["peak_device_gb"] = round((torch.cuda.max_memory_allocated() - base) / 1e9, 3)
+        times.update({k: round(v, 3) for k, v in host_memory().items()})
+        check(launch_counts() == counts(), f"{label}: the fit launched {launch_counts()}")
+        # dmd_seconds: a later call of optDMD in this process (phase 3 made the first)
+        log(f"    {label} wall (s): {json.dumps(times)}; dmd_seconds attr "
+            f"{res.attrs['dmd_seconds']} (not a process's first optDMD call: phase 3 made it)")
+        return res, times
+
+    # (b) the week's optDMD from 12b's results
+    parsed_b = week_config()
+    res_b, times_b = run_fit("13b optDMD", week_res, parsed_b)
+    mean = np.asarray(week_res["X_mean"].values, dtype=np.float32)
+    err_b = check_dmd_fit("13b", res_b, week)
+    fc_b = check_week_forecast("13b", res_b, week, mean)
+    log(f"[13b] config 3 week optDMD (rank {DMD_RANK}): eigenvalues matched error vs planted "
+        f"{err_b:.2e}, residual {res_b.attrs['dmd_residual']:.3e} "
+        f"({res_b.attrs['lm_iterations']} LM steps), forecast {tuple(res_b['forecast'].shape)} "
+        f"{json.dumps(fc_b)}, no kernel launch")
+    del res_b
+
+    # (c) the week with a 24-hour holdout, from the SVD stage's compute body
+    reset_counts()
+    svd_cfg = config_parser(stage_config("era5-svd", **WEEK_CONFIG, **WEEK_SVD,
+                                         forecast_holdout=HOLDOUT), "era5-svd")
+    with stage_root():
+        svd_c, t_svd = synced(era5_svd.compute_svd_results, fs, svd_cfg)
+    k1 = launch_counts()["K1"]
+    check(launch_counts() == counts(K1=5), f"13c: compute_svd_results launched {launch_counts()}")
+    launches["K1"] += k1
+    check(svd_c["V"].shape[1] == T_HOURS - HOLDOUT - 1, f"13c: V {svd_c['V'].shape}")
+    res_c, _ = run_fit("13c holdout", svd_c, week_config(forecast_holdout=HOLDOUT,
+                                                         forecast_steps=0))
+    check_dmd_fit("13c", res_c, week)
+    truth = torch.from_numpy(svd_c["holdout_truth"].values).cuda()
+    persist = torch.from_numpy(svd_c["holdout_persistence"].values).cuda()
+    lat = svd_c["holdout_truth"].coords["latitude_out"].values
+    w = latitude_weights(lat, truth.device)
+    t_hours = np.arange(T_HOURS - HOLDOUT - 1, dtype=np.float32)
+    t_lead = (t_hours[-1] + np.arange(1, HOLDOUT + 1)).astype(np.float32)
+    forecast = torch.cat([blk for _, blk in iter_forecast_blocks(
+        dmd_result(res_c), t_lead, svd_c["X_mean"].values, None, delay=2)])
+    got = {key: res_c.attrs[f"forecast_{key}"] for key in ("rmse", "acc", "bias")}
+    got_p = {key: res_c.attrs[f"persistence_{key}"] for key in ("rmse", "acc", "bias")}
+    share = check_scores("13c DMD", got, f64_scores(forecast, truth, w))
+    share_p = check_scores("13c persistence", got_p,
+                           f64_scores(persist[:, None].expand(-1, HOLDOUT), truth, w))
+    del forecast, truth, persist, svd_c
+    log(f"[13c] config 3 week, {HOLDOUT}-hour holdout ({T_HOURS - HOLDOUT} train hours): "
+        f"compute_svd_results {t_svd:.3f} s (K1 launches {k1}, svd_backend "
+        f"{res_c.attrs['svd_backend']}); scores within {max(share, share_p):.2e} of the f64 "
+        f"one-shot (held 1e-5)")
+    for key in ("rmse", "acc", "bias"):
+        log(f"    {key} by lead 1-{HOLDOUT}: DMD {[round(v, 4) for v in got[key]]}; "
+            f"persistence {[round(v, 4) for v in got_p[key]]}")
+    check(got["rmse"][-1] < got_p["rmse"][-1],
+          f"13c: DMD's RMSE at lead {HOLDOUT} {got['rmse'][-1]:.4f} does not beat "
+          f"persistence's {got_p['rmse'][-1]:.4f}")
+    del res_c
+
+    # (d) the week bagged
+    parsed_d = week_config(bagging_trials=BAG_TRIALS, bagging_fraction=BAG_FRACTION)
+    res_d, times_d = run_fit("13d bagged", week_res, parsed_d)
+    err_d = check_dmd_fit("13d", res_d, week)
+    for name in ("eigenvalues_std", "amplitudes_std"):
+        check(bool(np.isfinite(res_d[name].values).all()), f"13d: {name} not finite")
+    check(bool(torch.isfinite(res_d["modes_std"].data).all()), "13d: modes_std not finite")
+    used = res_d.attrs.get("bagging_trials_used")
+    check(isinstance(used, int) and 1 <= used <= BAG_TRIALS, f"13d: bagging_trials_used {used}")
+    modes_gb = res_d["modes"].data.numel() * 8 / 1e9
+    over = times_d["peak_device_gb"] - times_b["peak_device_gb"]
+    check(over < BAG_TRIALS * modes_gb,
+          f"13d: peak device memory {over:.2f} GB over 13b's, not below {BAG_TRIALS} x "
+          f"{modes_gb:.2f} GB (a (trials, S*d, r) buffer?)")
+    log(f"[13d] config 3 week bagged ({BAG_TRIALS} trials of {BAG_FRACTION}): {used} used, "
+        f"trial-mean eigenvalues matched error vs planted {err_d:.2e}, eigenvalues std "
+        f"{[float(f'{v:.3g}') for v in res_d['eigenvalues_std'].values]}, peak device memory "
+        f"{over:.2f} GB over 13b's (limit {BAG_TRIALS * modes_gb:.2f}), no kernel launch")
+    del res_d
+    host_end = host_memory()
+    log(f"    phase 13 host memory (GB): at its start {json.dumps(host_start)}, at its end "
+        f"{json.dumps(host_end)} (peak_rss_gb: the process's peak so far)")
     return launches
 
 
@@ -1990,8 +2289,12 @@ def main() -> None:
         launches[key] += n
     for key, n in phase_wide_sketch(week, args.seed).items():
         launches[key] += n
-    for key, n in phase_stage(week, args.seed).items():
+    stage_launches, stage_fs, week_res = phase_stage(week, args.seed)
+    for key, n in stage_launches.items():
         launches[key] += n
+    for key, n in phase_dmd_stage(week, stage_fs, week_res, args.seed).items():
+        launches[key] += n
+    del stage_fs, week_res
     # the week's tensors go before the year (34 GB) is built
     del week, x, ref8
     torch.cuda.empty_cache()

@@ -11,11 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dmd_era5_tpu_torch.models.bopdmd import BOPDMDResult
+from dmd_era5_tpu_torch.models.dmd import DMDResult
 from dmd_era5_tpu_torch.models.optdmd import OptDMDResult
 from dmd_era5_tpu_torch.ops.svd import SVDResult
 from dmd_era5_tpu_torch.pipeline.train_step import FitState
 
-__all__ = ["svd_result_from_numpy", "fit_state_from_numpy", "optdmd_result_from_numpy"]
+__all__ = [
+    "svd_result_from_numpy",
+    "fit_state_from_numpy",
+    "optdmd_result_from_numpy",
+    "dmd_result_from_numpy",
+    "bopdmd_result_from_numpy",
+]
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -48,4 +56,34 @@ def optdmd_result_from_numpy(
         _tensor(b_proj, device, torch.complex64),
         _tensor(residual, device, torch.float32),
         int(n_iters),
+    )
+
+
+def dmd_result_from_numpy(
+    eigenvalues, omega, modes, amplitudes, dt, device: torch.device | str = "cpu"
+) -> DMDResult:
+    """A JAX ``DMDResult`` -> :class:`DMDResult` (complex64 eigenvalues,
+    omega, modes and amplitudes)."""
+    return DMDResult(
+        *(_tensor(a, device, torch.complex64) for a in (eigenvalues, omega, modes, amplitudes)),
+        float(dt),
+    )
+
+
+def bopdmd_result_from_numpy(
+    eigenvalues, eigenvalues_std, modes, modes_std, amplitudes, amplitudes_std, full,
+    trial_eigenvalues, n_iters, device: torch.device | str = "cpu",
+) -> BOPDMDResult:
+    """A JAX ``BOPDMDResult`` -> :class:`BOPDMDResult`; ``full`` is the
+    JAX ``OptDMDResult`` (or its six arrays in order)."""
+    return BOPDMDResult(
+        _tensor(eigenvalues, device, torch.complex64),
+        _tensor(eigenvalues_std, device, torch.float32),
+        _tensor(modes, device, torch.complex64),
+        _tensor(modes_std, device, torch.float32),
+        _tensor(amplitudes, device, torch.float32),
+        _tensor(amplitudes_std, device, torch.float32),
+        optdmd_result_from_numpy(*full, device=device),
+        _tensor(trial_eigenvalues, device, torch.complex64),
+        _tensor(n_iters, device, torch.int32),
     )

@@ -1,6 +1,6 @@
 """Exact (projected) Dynamic Mode Decomposition from truncated SVD factors.
 
-PyTorch counterpart of ``dmd_era5_tpu/models/dmd.py::dmd_from_svd``.
+PyTorch counterpart of ``dmd_era5_tpu/models/dmd.py``.
 The snapshot matrix is (space, time) with uniform step ``dt``; the only
 S-sized products are skinny GEMMs, and the r x r eigenproblem runs on the
 device with the factors.
@@ -14,7 +14,7 @@ import torch
 
 from dmd_era5_tpu_torch.utils.linalg import eig_sorted
 
-__all__ = ["DMDResult", "dmd_from_svd"]
+__all__ = ["DMDResult", "dmd_from_svd", "exact_dmd", "reconstruct"]
 
 
 class DMDResult(NamedTuple):
@@ -53,3 +53,18 @@ def dmd_from_svd(
     b = torch.linalg.lstsq(phi, x0.to(torch.complex64)[:, None]).solution[:, 0]
     omega = torch.log(eigvals) / dt
     return DMDResult(eigvals, omega, phi, b, dt)
+
+
+def exact_dmd(x: torch.Tensor, rank: int, dt: float = 1.0) -> DMDResult:
+    """Exact DMD of a (S, T) snapshot matrix at ``rank``, on its device,
+    through the full SVD of X1 = X[:, :-1] truncated to ``rank``."""
+    u, s, vt = torch.linalg.svd(x[:, :-1], full_matrices=False)
+    return dmd_from_svd(x[:, 1:], u[:, :rank], s[:rank], vt[:rank, :], dt=dt)
+
+
+def reconstruct(result: DMDResult, n_steps: int) -> torch.Tensor:
+    """Snapshots X^(t_i) = Phi diag(b) exp(omega t_i), t_i = i * dt, real
+    part, (S, n_steps)."""
+    from dmd_era5_tpu_torch.models.forecast import rollout
+
+    return rollout(result, torch.arange(n_steps, dtype=torch.float64) * result.dt)

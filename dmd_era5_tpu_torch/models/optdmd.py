@@ -9,12 +9,20 @@ least squares, minimized by Levenberg-Marquardt.  The fit runs in the
 POD-projected space, H = (diag(s) V)^T of shape (T, k), on the device
 of the SVD factors; complex arithmetic stays on that device.
 
-The Jacobian over the 2r real parameters comes from ``torch.func.jacfwd``
-through the normal-equations solve (Cholesky has a forward-mode rule, so
-no custom derivative is needed).  The two nested ``lax.while_loop``s of
-the JAX version are capped Python loops with the same accept/reject
-logic: at most ``max_iter`` LM steps, and a damping escalation capped at
-lambda = 1e12.
+The Jacobian over the 2r real parameters comes from forward-mode
+products (``torch.func.jvp``) through the normal-equations solve
+(Cholesky has a forward-mode rule, so no custom derivative is needed).
+The two nested ``lax.while_loop``s of the JAX version are capped Python
+loops with the same accept/reject logic: at most ``max_iter`` LM steps,
+and a damping escalation capped at lambda = 1e12.  One loop serves
+:func:`varpro_lm` (a batch of one) and :func:`varpro_lm_batched` (B
+independent fits on tensors with a leading batch axis): each step takes
+only the members still running, so a finished member is left as it is,
+as the done flag of the JAX package's vmapped loop leaves it.
+
+The JAX package's ``mesh`` argument (the bag sharded over the ``data``
+axis) is not ported: the port has no device mesh yet (ROADMAP Queue 1
+item 12), and a mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,14 +33,23 @@ from typing import NamedTuple
 import torch
 
 from dmd_era5_tpu_torch.utils.linalg import complex_lstsq, eig_sorted, spd_solve
+from dmd_era5_tpu_torch.utils.tensors import as_tensor
 
-__all__ = ["OptDMDResult", "varpro_lm", "optdmd_from_svd"]
+__all__ = [
+    "OptDMDResult",
+    "fit_optdmd",
+    "optdmd_from_svd",
+    "optdmd_reconstruct",
+    "varpro_lm",
+    "varpro_lm_batched",
+]
 
 # LM damping: start, raise on a rejected step, lower on an accepted one,
 # cap (the JAX package's defaults; no caller changes them)
 _LAMBDA0, _LAMBDA_UP, _LAMBDA_DOWN, _LAMBDA_CAP = 1.0, 4.0, 5.0, 1e12
 # relative ridge on the equilibrated normal equations of B
 _RIDGE = 1e-7
+NO_MESH = "the port has no device mesh yet (ROADMAP Queue 1 item 12)"
 
 
 class OptDMDResult(NamedTuple):
@@ -49,8 +66,8 @@ class OptDMDResult(NamedTuple):
 
 
 def _phi_matrix(alpha: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Phi(alpha) = exp(t outer alpha), shape (T, r)."""
-    return torch.exp(t.to(alpha.dtype)[:, None] * alpha[None, :])
+    """Phi(alpha) = exp(t outer alpha), shape (..., T, r)."""
+    return torch.exp(t.to(alpha.dtype)[..., :, None] * alpha[..., None, :])
 
 
 def _solve_b(phi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -63,23 +80,114 @@ def _solve_b(phi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     diagonal keeps fully underflowed columns solvable.
     """
     scale = (1.0 / torch.clamp(torch.linalg.vector_norm(phi, dim=-2), min=1e-30)).detach()
-    y = complex_lstsq(phi * scale[None, :], h, _RIDGE)
-    return y * scale[:, None]
+    y = complex_lstsq(phi * scale[..., None, :], h, _RIDGE)
+    return y * scale[..., :, None]
 
 
 def _unpack(theta: torch.Tensor) -> torch.Tensor:
-    r = theta.shape[0] // 2
-    return torch.complex(theta[:r], theta[r:])
+    r = theta.shape[-1] // 2
+    return torch.complex(theta[..., :r], theta[..., r:])
 
 
-def _jacfwd():
-    """``torch.func.jacfwd``, with forward-AD's decomposition table loaded
-    once outside the caller's warning filters (loading it emits a
+def _residual(theta: torch.Tensor, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The variable-projection residual H - Phi B(alpha), real and
+    imaginary parts stacked: (..., 2Tk) for theta (..., 2r)."""
+    phi = _phi_matrix(_unpack(theta), t)
+    res = h - phi @ _solve_b(phi, h)
+    return torch.cat([res.real.flatten(-2), res.imag.flatten(-2)], dim=-1)
+
+
+def _func():
+    """``torch.func``, with forward-AD's decomposition table loaded once
+    outside the caller's warning filters (loading it emits a
     DeprecationWarning from inside torch)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         import torch._decomp.decompositions_for_jvp  # noqa: F401
-    return torch.func.jacfwd
+    return torch.func
+
+
+def _jacobian(theta: torch.Tensor, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Each member's Jacobian of :func:`_residual`, (B, 2Tk, 2r): one
+    forward-mode product per parameter, the same tangent e_j for every
+    member at once (members are independent, so column j of each
+    member's Jacobian comes out of one batched product)."""
+    func = _func()
+    n_batch, n_par = theta.shape
+    basis = torch.eye(n_par, dtype=theta.dtype, device=theta.device)[:, None, :]
+    basis = basis.expand(n_par, n_batch, n_par)
+
+    def column(tangent):
+        return func.jvp(lambda th: _residual(th, h, t), (theta,), (tangent,))[1]
+
+    return func.vmap(column)(basis).permute(1, 2, 0)
+
+
+def _res_norm(theta: torch.Tensor, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(_residual(theta, h, t), dim=-1)
+
+
+def _lm_step(theta, lam, rnorm, h, t, tol):
+    """One LM step of the members given (theta (A, 2r), lam (A,) f64,
+    rnorm (A,)): each member's damping raised until its step is accepted
+    or its lambda passes the cap.  Returns the new theta, lam and rnorm
+    and each member's done flag."""
+    jac = _jacobian(theta, h, t)  # (A, 2Tk, 2r)
+    res = _residual(theta, h, t)
+    jtj = jac.mT @ jac
+    g = jac.mT @ res[..., None]
+    diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
+    diag = torch.diag_embed(torch.where(diag <= 0, torch.ones_like(diag), diag))
+
+    lam_try = lam.clone()
+    theta_try, r_try = theta.clone(), rnorm.clone()
+    accepted = torch.zeros_like(rnorm, dtype=torch.bool)
+    trying = torch.ones_like(accepted)
+    while True:
+        idx = torch.nonzero(trying).flatten()
+        if idx.numel() == 0:
+            break
+        lam_i = lam_try[idx]
+        a = jtj[idx] + lam_i.to(jtj.dtype)[:, None, None] * diag[idx]
+        cand = theta[idx] - spd_solve(a, g[idx])[..., 0]
+        r = _res_norm(cand, h[idx], t[idx])
+        ok = r < rnorm[idx]
+        theta_try[idx], r_try[idx], accepted[idx] = cand, r, ok
+        lam_i = torch.where(ok, lam_i, lam_i * _LAMBDA_UP)
+        lam_try[idx] = lam_i
+        trying[idx] = ~ok & (lam_i <= _LAMBDA_CAP)
+
+    rnorm_new = torch.where(accepted, r_try, rnorm)
+    improved = (rnorm - rnorm_new) > tol * torch.clamp(rnorm, min=1e-30)
+    theta_new = torch.where(accepted[:, None], theta_try, theta)
+    lam_new = torch.where(accepted, lam_try / _LAMBDA_DOWN, lam_try)
+    return theta_new, lam_new, rnorm_new, ~improved | ~accepted
+
+
+def _varpro(h: torch.Tensor, t: torch.Tensor, alpha0: torch.Tensor, max_iter: int, tol: float):
+    """The LM fits of B members: h (B, T, k) complex64, t (B, T) f32,
+    alpha0 (B, r) complex64, on one device.  Every step takes the members
+    still running (not done and under ``max_iter``), so a member that
+    has finished is left as it is while its batch-mates go on, as the
+    done flag of the JAX package's vmapped loop leaves it.  Returns
+    tensors alpha (B, r), B (B, r, k), rel_residual (B,), n_iters (B,)."""
+    n_batch = h.shape[0]
+    theta = torch.cat([alpha0.real, alpha0.imag], dim=-1)
+    lam = torch.full((n_batch,), _LAMBDA0, dtype=torch.float64, device=h.device)
+    rnorm = _res_norm(theta, h, t)
+    n_iters = torch.zeros(n_batch, dtype=torch.int32, device=h.device)
+    done = torch.zeros(n_batch, dtype=torch.bool, device=h.device)
+    while True:
+        act = torch.nonzero(~done & (n_iters < max_iter)).flatten()
+        if act.numel() == 0:
+            break
+        theta[act], lam[act], rnorm[act], done[act] = _lm_step(
+            theta[act], lam[act], rnorm[act], h[act], t[act], tol
+        )
+        n_iters[act] += 1
+    alpha = _unpack(theta)
+    b = _solve_b(_phi_matrix(alpha, t), h)
+    return alpha, b, rnorm / torch.linalg.vector_norm(h, dim=(-2, -1)), n_iters
 
 
 def varpro_lm(
@@ -92,62 +200,42 @@ def varpro_lm(
     """Levenberg-Marquardt over alpha with B eliminated by projection.
 
     h: (T, k) complex data; t: (T,) sample times; alpha0: (r,) complex
-    initial eigenvalues, all on one device.  Returns
-    (alpha, B, rel_residual, n_iters).
+    initial eigenvalues, all on one device.  Returns (alpha, B,
+    rel_residual, n_iters), tensors on that device but n_iters an int.
     """
     h = h.to(torch.complex64)
     t = t.to(device=h.device, dtype=torch.float32)
     alpha0 = alpha0.to(device=h.device, dtype=torch.complex64)
-    h_norm = torch.linalg.vector_norm(h)
+    alpha, b, rel, n_iters = _varpro(h[None], t[None], alpha0[None], max_iter, tol)
+    return alpha[0], b[0], rel[0], int(n_iters[0])
 
-    def residual_vec(theta):
-        phi = _phi_matrix(_unpack(theta), t)
-        res = h - phi @ _solve_b(phi, h)
-        return torch.cat([res.real.reshape(-1), res.imag.reshape(-1)])
 
-    def res_norm(theta):
-        return torch.linalg.vector_norm(residual_vec(theta))
+def varpro_lm_batched(
+    h,
+    t,
+    alpha0,
+    max_iter: int = 50,
+    tol: float = 1e-7,
+    mesh=None,
+):
+    """Batched LM over independent members, each one :func:`varpro_lm`.
 
-    jacobian = _jacfwd()(residual_vec)
-    theta = torch.cat([alpha0.real, alpha0.imag])
-    lam = _LAMBDA0
-    rnorm = res_norm(theta)
-    n_iters = 0
-    done = False
-    # the JAX loop's was_done gate (a finished fit is a no-op) is this
-    # loop's exit condition
-    while n_iters < max_iter and not done:
-        jac = jacobian(theta)  # (2Tk, 2r)
-        res = residual_vec(theta)
-        jtj = jac.T @ jac
-        g = jac.T @ res
-        diag = torch.diagonal(jtj)
-        diag = torch.where(diag <= 0, torch.ones_like(diag), diag)
+    h: (B, T, k) complex; t: (T,) sample times shared by the members, or
+    (B, T), one row per member (the BOP-DMD case: every trial fits its
+    own snapshot subset); alpha0: (B, r).  Tensors or arrays; the fits
+    run on h's device (the host for an array).
 
-        # raise lambda until a step is accepted or lambda passes the cap
-        lam_try, accepted = lam, False
-        theta_try, r_try = theta, rnorm
-        while not accepted and lam_try <= _LAMBDA_CAP:
-            delta = spd_solve(jtj + lam_try * torch.diag(diag), g[:, None])[:, 0]
-            theta_try = theta - delta
-            r_try = res_norm(theta_try)
-            accepted = bool(r_try < rnorm)
-            if not accepted:
-                lam_try *= _LAMBDA_UP
-
-        rnorm_new = r_try if accepted else rnorm
-        improved = bool((rnorm - rnorm_new) > tol * torch.clamp(rnorm, min=1e-30))
-        if accepted:
-            theta, lam = theta_try, lam_try / _LAMBDA_DOWN
-        else:
-            lam = lam_try
-        rnorm = rnorm_new
-        n_iters += 1
-        done = not improved or not accepted
-
-    alpha = _unpack(theta)
-    b = _solve_b(_phi_matrix(alpha, t), h)
-    return alpha, b, rnorm / h_norm, n_iters
+    Returns (alpha (B, r) complex64, B (B, r, k) complex64, rel_residual
+    (B,) float32, n_iters (B,) int32) as host numpy arrays.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"varpro_lm_batched with a mesh: {NO_MESH}")
+    h = as_tensor(h, torch.complex64)
+    t = as_tensor(t, torch.float32, h.device)
+    alpha0 = as_tensor(alpha0, torch.complex64, h.device)
+    if t.ndim == 1:
+        t = t.expand(h.shape[0], -1)
+    return tuple(a.cpu().numpy() for a in _varpro(h, t, alpha0, max_iter, tol))
 
 
 def _eig_init(z: torch.Tensor, t: torch.Tensor, rank: int) -> torch.Tensor:
@@ -161,31 +249,64 @@ def _eig_init(z: torch.Tensor, t: torch.Tensor, rank: int) -> torch.Tensor:
     return torch.log(eigvals) / dt
 
 
+def _lift_modes(u: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Modes U C (S, r) complex64 from the real basis u (S, k) and the
+    complex coefficients coef (k, r): one real f32 GEMM against C's
+    real and imaginary parts interleaved by column, whose (S, 2r) result
+    is the complex (S, r) array itself (no complex copy of u is made)."""
+    c = torch.view_as_real(coef.to(device=u.device, dtype=torch.complex64))  # (k, r, 2)
+    out = u.float() @ c.reshape(c.shape[0], -1)
+    return torch.view_as_complex(out.view(out.shape[0], -1, 2))
+
+
 def optdmd_from_svd(
     u: torch.Tensor,
     s: torch.Tensor,
     v: torch.Tensor,
     t: torch.Tensor,
     rank: int | None = None,
+    alpha0=None,
     max_iter: int = 50,
     tol: float = 1e-7,
 ) -> OptDMDResult:
     """Optimized DMD from the truncated SVD of the snapshot matrix.
 
     u (S, k), s (k,), v (k, T) with components as rows, t (T,) sample
-    times; rank r <= k eigenvalues (default k).  The fit sees only
-    H = (diag(s) V)^T; the one S-sized product is the mode lift, done
-    as two real GEMMs so no complex copy of u is made.
+    times; rank r <= k eigenvalues (default k); alpha0 (r,) the initial
+    eigenvalues (default: exact DMD's on the projected data).  The fit
+    sees only H = (diag(s) V)^T; the one S-sized product is the mode
+    lift.  ``max_iter = 0`` is exact DMD: alpha0 and its B.
     """
     rank = rank or s.shape[0]
-    t = t.to(device=u.device, dtype=torch.float32)
+    t = as_tensor(t, torch.float32, u.device)
     z_proj = s[:, None] * v  # (k, T) projected snapshots
-    alpha0 = _eig_init(z_proj, t, rank)
+    alpha0 = _eig_init(z_proj, t, rank) if alpha0 is None \
+        else as_tensor(alpha0, torch.complex64, u.device)
     alpha, b, rel_res, n_iters = varpro_lm(
         z_proj.T.to(torch.complex64), t, alpha0, max_iter=max_iter, tol=tol
     )
     # amplitudes: ||U B^T e_j|| = ||B[j, :]|| since U is orthonormal
     amps = torch.linalg.vector_norm(b, dim=1)
     coef = (b / torch.where(amps == 0, torch.ones_like(amps), amps)[:, None]).T
-    modes = torch.complex(u @ coef.real, u @ coef.imag)
-    return OptDMDResult(alpha, modes, amps, b, rel_res, n_iters)
+    return OptDMDResult(alpha, _lift_modes(u, coef), amps, b, rel_res, n_iters)
+
+
+def fit_optdmd(
+    x: torch.Tensor,
+    t,
+    rank: int,
+    max_iter: int = 50,
+    tol: float = 1e-7,
+) -> OptDMDResult:
+    """Optimized DMD of a (S, T) snapshot matrix on its device, through
+    its full f32 SVD truncated to ``rank``."""
+    u, sv, vt = torch.linalg.svd(x.float(), full_matrices=False)
+    return optdmd_from_svd(u[:, :rank], sv[:rank], vt[:rank, :], t, rank=rank,
+                           max_iter=max_iter, tol=tol)
+
+
+def optdmd_reconstruct(result: OptDMDResult, t) -> torch.Tensor:
+    """X^(S, T') = modes diag(amplitudes) exp(alpha t), real part."""
+    from dmd_era5_tpu_torch.models.forecast import rollout
+
+    return rollout(result, t)

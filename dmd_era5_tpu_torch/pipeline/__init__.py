@@ -1,5 +1,5 @@
-"""The ingest and SVD stages, the artifact store, the fused fit step and
-the out-of-core (streamed) SVD."""
+"""The ingest, SVD and DMD stages, the artifact store, the fused fit step
+and the out-of-core (streamed) SVD."""
 
 from dmd_era5_tpu_torch.pipeline.artifacts import (
     add_data_to_dvc,
@@ -7,6 +7,11 @@ from dmd_era5_tpu_torch.pipeline.artifacts import (
     file_md5,
     retrieve_data_from_dvc,
     retrieve_data_from_store,
+)
+from dmd_era5_tpu_torch.pipeline.era5_dmd import (
+    check_dmd_results,
+    fit_dmd_from_svd_results,
+    retrieve_dmd_results,
 )
 from dmd_era5_tpu_torch.pipeline.era5_download import download_era5_data
 from dmd_era5_tpu_torch.pipeline.era5_svd import (
@@ -35,10 +40,12 @@ __all__ = [
     "FitState",
     "add_data_to_dvc",
     "add_data_to_store",
+    "check_dmd_results",
     "combine_svd_results",
     "compute_svd_results",
     "download_era5_data",
     "file_md5",
+    "fit_dmd_from_svd_results",
     "fit_ingest_pass",
     "fit_reduce_lift",
     "fit_step_fused",
@@ -47,6 +54,7 @@ __all__ = [
     "resolve_svd_backend",
     "retrieve_data_from_dvc",
     "retrieve_data_from_store",
+    "retrieve_dmd_results",
     "retrieve_era5_slice",
     "retrieve_svd_results",
     "streamed_exact_gram_svd",

@@ -1,0 +1,389 @@
+"""The DMD stage: optimized, exact or bagged DMD and the forecast.
+
+The port's counterpart of ``dmd_era5_tpu/pipeline/era5_dmd.py`` on one
+device.  :func:`main` runs the cache ladder (workdir attr match, then the
+artifact store), else the SVD stage (``era5_svd.main``, with its own
+ladder) and :func:`fit_dmd_from_svd_results`, then writes and versions
+the artifact.  The fit takes one of three paths on the SVD factors:
+optimized DMD (variable projection), exact DMD (the same solver with no
+LM step) or bagged BOP-DMD (``bagging_trials > 0``); then, if asked, the
+forecast scored on the withheld holdout (latitude-weighted RMSE, ACC and
+bias per lead, and the persistence baseline's) and the forecast field
+over the training window and ``forecast_steps`` beyond it.
+
+U is moved to the device once (a tensor already there is used where it
+lies) and freed after the fit.  The S-sized outputs stay on the device:
+the modes (and the bag's modes std) and the forecast field, which is
+filled there row block by row block, so no (S*d, T') rollout is formed.
+They are tensors in the returned FieldSet, which ``save_fieldset``
+writes slab by slab; the small fields are host arrays, as in the JAX
+stage.
+
+Not ported yet: the mrDMD (``multiresolution_levels > 0``) and DMDc
+(``control_input``) branches, which raise ``NotImplementedError`` naming
+ROADMAP Queue 1 item 11 before anything is fitted, and a device mesh
+(item 12).
+
+Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_dmd``.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from dmd_era5_tpu_torch.core import config_parser, config_reader
+from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
+from dmd_era5_tpu_torch.models.bopdmd import bopdmd_from_svd
+from dmd_era5_tpu_torch.models.forecast import iter_forecast_blocks, streamed_forecast_scores
+from dmd_era5_tpu_torch.models.optdmd import NO_MESH, optdmd_from_svd
+from dmd_era5_tpu_torch.models.verification import ScoreAccumulator, _space_weights
+from dmd_era5_tpu_torch.pipeline import era5_svd
+from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store
+from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
+
+__all__ = ["check_dmd_results", "fit_dmd_from_svd_results", "retrieve_dmd_results", "main"]
+
+_ITEM_11 = "not ported yet (ROADMAP Queue 1 item 11)"
+
+
+@functools.cache
+def _logger():
+    return setup_logger("ERA5-DMD-torch", "era5_dmd_torch.log")
+
+
+def _all_finite(data) -> bool:
+    if isinstance(data, torch.Tensor):
+        return bool(torch.isfinite(data).all())
+    return bool(np.isfinite(np.asarray(data)).all())
+
+
+def check_dmd_results(fs: FieldSet, parsed_config: dict) -> bool:
+    """Exact-config DMD match; a cached fit with non-finite amplitudes or
+    eigenvalues is rejected, so a corrupt artifact is recomputed."""
+    attrs = fs.attrs
+    for key in ("amplitudes", "eigenvalues"):
+        if key in fs.data_vars and not _all_finite(fs[key].data):
+            return False
+    return (
+        era5_svd.check_svd_results(fs, parsed_config)
+        and parsed_config["dmd_rank"] == attrs.get("dmd_rank")
+        and int(parsed_config["optimized"]) == attrs.get("optimized")
+        and parsed_config.get("bagging_trials", 0) == attrs.get("bagging_trials", 0)
+        and parsed_config.get("forecast_steps", 0) == attrs.get("forecast_steps", 0)
+        and parsed_config.get("control_input", "none") == attrs.get("control_input", "none")
+        and parsed_config.get("multiresolution_levels", 0)
+        == attrs.get("multiresolution_levels", 0)
+        and (
+            parsed_config.get("multiresolution_levels", 0) == 0
+            or (
+                parsed_config.get("mr_max_cycles", 1.0) == attrs.get("mr_max_cycles", 1.0)
+                and parsed_config.get("mr_refit_rank", 0) == attrs.get("mr_refit_rank", 0)
+            )
+        )
+    )
+
+
+def retrieve_dmd_results(
+    parsed_config: dict, use_store: bool = False
+) -> tuple[FieldSet | None, bool]:
+    return era5_svd._retrieve(
+        parsed_config, use_store, "era5_dmd_path", "era5_dmd", check_dmd_results, "DMD results"
+    )
+
+
+def _check_ported(parsed_config: dict) -> None:
+    """Raise for the branches of the JAX stage that the port lacks."""
+    if parsed_config.get("multiresolution_levels", 0) > 0:
+        raise NotImplementedError(
+            f"multiresolution_levels={parsed_config['multiresolution_levels']} (mrDMD): {_ITEM_11}"
+        )
+    control = parsed_config.get("control_input", "none")
+    if control != "none":
+        raise NotImplementedError(f"control_input={control!r} (DMDc): {_ITEM_11}")
+
+
+def _hours_since_start(times: np.ndarray) -> np.ndarray:
+    t64 = times.astype("datetime64[ns]").astype(np.int64)
+    return ((t64 - t64[0]) / 3.6e12).astype(np.float32)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _svd_factors(svd_results: FieldSet, device: torch.device):
+    """U, s and V as f32 tensors on ``device``: host arrays copied there
+    once, tensors already there used where they lie."""
+    return tuple(era5_svd._as_tensor(svd_results[name].data, device) for name in ("U", "s", "V"))
+
+
+def _statistics(svd_results: FieldSet):
+    """The (S*d,) X_mean and X_std of the SVD artifact, None where absent."""
+    return tuple(
+        svd_results[name].data if name in svd_results else None for name in ("X_mean", "X_std")
+    )
+
+
+def _holdout_scores(result, svd_results: FieldSet, t_hours: np.ndarray, holdout: int,
+                    delay: int) -> dict:
+    """Score the rollout at the ``holdout`` leads past the train window
+    against the raw withheld truth, and the persistence baseline (the
+    last raw train snapshot) the same way: latitude-weighted RMSE, ACC
+    and bias per lead, as the artifact's attrs.  Both stream in row
+    blocks: truth and persistence rows are moved to the device beside
+    the forecast blocks, and the persistence row repeats over the leads
+    there."""
+    truth_field = svd_results["holdout_truth"]
+    truth = truth_field.data  # (S, h) raw
+    persist = svd_results["holdout_persistence"].data  # (S,) raw
+    dt_hours = float(t_hours[1] - t_hours[0]) if len(t_hours) > 1 else 1.0
+    t_lead = (t_hours[-1] + dt_hours * np.arange(1, holdout + 1)).astype(np.float32)
+    mean, std = _statistics(svd_results)
+    lat_rows = truth_field.coords["latitude_out"].values
+    scores = streamed_forecast_scores(
+        result, t_lead, truth, latitudes=lat_rows, mean=mean, std=std, delay=delay,
+    )
+    device = result.modes.device
+    n_rows = truth.shape[0]
+    w_rows = _space_weights(lat_rows, n_rows, device)
+    acc_p = ScoreAccumulator()
+    blk_p = max(4096, (1 << 26) // max(holdout, 1))
+    for s0 in range(0, n_rows, blk_p):
+        s1 = min(s0 + blk_p, n_rows)
+        acc_p.update(
+            era5_svd._as_tensor(persist[s0:s1], device)[:, None].expand(-1, holdout),
+            era5_svd._as_tensor(truth[s0:s1], device),
+            w_rows[s0:s1],
+        )
+    persist_scores = acc_p.finalize()
+    attrs: dict = {"forecast_holdout": holdout}
+    for key in ("rmse", "acc", "bias"):
+        attrs[f"forecast_{key}"] = [float(x) for x in scores[key]]
+        attrs[f"persistence_{key}"] = [float(x) for x in persist_scores[key]]
+    log_and_print(
+        _logger(),
+        f"Holdout verification over {holdout} leads: RMSE {scores['rmse'][0]:.3f} -> "
+        f"{scores['rmse'][-1]:.3f} (persistence {persist_scores['rmse'][0]:.3f} -> "
+        f"{persist_scores['rmse'][-1]:.3f}), "
+        f"ACC {scores['acc'][0]:.3f} -> {scores['acc'][-1]:.3f}.",
+    )
+    return attrs
+
+
+def _forecast_field(result, svd_results: FieldSet, u_field: Field, times: np.ndarray,
+                    t_hours: np.ndarray, n_future: int, delay: int) -> Field:
+    """The physical-unit forecast of the undelayed rows over the training
+    window and ``n_future`` steps past it, (S, T + F) f32 on the modes'
+    device, filled block by block (the dense (S*d, T + F) rollout is
+    never formed), on its own ``space_out`` / ``time_out`` axes."""
+    dt_hours = float(t_hours[1] - t_hours[0]) if len(t_hours) > 1 else 1.0
+    t_all = np.concatenate(
+        [t_hours, t_hours[-1] + dt_hours * np.arange(1, n_future + 1)]
+    ).astype(np.float32)
+    mean, std = _statistics(svd_results)
+    n_space = result.modes.shape[0] // delay
+    fields = torch.empty((n_space, len(t_all)), dtype=torch.float32, device=result.modes.device)
+    for s0, blk in iter_forecast_blocks(result, t_all, mean, std, delay=delay):
+        fields[s0 : s0 + blk.shape[0]] = blk
+    delta = times[1] - times[0] if len(times) > 1 else np.timedelta64(1, "h")
+    times_all = np.concatenate([times, times[-1] + delta * np.arange(1, n_future + 1)])
+    # the undelayed rows are the last n_space of the embedded space axis:
+    # views of U's row coordinates, not copies
+    forecast_coords = {
+        "space_out": Coord("space_out", u_field.coords["space"].values[-n_space:]),
+        "time_out": Coord("time_out", times_all),
+    }
+    for extra in ("original_variable", "level", "latitude", "longitude"):
+        if extra in u_field.coords:
+            forecast_coords[f"{extra}_out"] = Coord(
+                "space_out", u_field.coords[extra].values[-n_space:]
+            )
+    return Field(fields, ("space_out", "time_out"), forecast_coords, name="forecast")
+
+
+def fit_dmd_from_svd_results(
+    svd_results: FieldSet,
+    parsed_config: dict,
+    mesh=None,
+    device: torch.device | str | None = None,
+) -> FieldSet:
+    """Fit (opt)DMD on the SVD factors and package the results.
+
+    ``device``: where the fit runs, the card unless given, or unless U
+    is a tensor on another device.  Returns a FieldSet of the JAX
+    stage's schema whose S-sized fields (``modes``, ``modes_std``,
+    ``forecast``) are tensors on that device.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"fit_dmd_from_svd_results with a mesh: {NO_MESH}")
+    _check_ported(parsed_config)
+    u_field = svd_results["U"]
+    device = era5_svd._device(device, u_field)
+    u, s, v = _svd_factors(svd_results, device)
+    times = np.asarray(svd_results["V"].coords["time"].values)
+    t_hours = _hours_since_start(times)
+    t_fit = torch.from_numpy(t_hours).to(device)
+
+    rank = parsed_config["dmd_rank"]
+    max_iter = parsed_config["lm_max_iter"] if parsed_config["optimized"] else 0
+    n_trials = int(parsed_config.get("bagging_trials", 0))
+    kind = (
+        f"bagged optimized ({n_trials} trials)"
+        if n_trials
+        else ("optimized" if parsed_config["optimized"] else "exact")
+    )
+    log_and_print(_logger(), f"Fitting {kind} DMD at rank {rank} on {device}...")
+    _synchronize(device)
+    t_start = time.perf_counter()
+    bop = None
+    if n_trials:
+        bop = bopdmd_from_svd(
+            u, s, v, t_fit, rank=rank, n_trials=n_trials,
+            trial_fraction=parsed_config.get("bagging_fraction", 0.8), max_iter=max_iter,
+        )
+        # point estimates for packaging and rollout: the trial means; the
+        # full-data fit gives the residual and iteration diagnostics
+        result = bop.full._replace(alpha=bop.eigenvalues, modes=bop.modes,
+                                   amplitudes=bop.amplitudes)
+    else:
+        result = optdmd_from_svd(u, s, v, t_fit, rank=rank, max_iter=max_iter)
+    _synchronize(device)
+    fit_seconds = time.perf_counter() - t_start
+    del u, s, v
+    log_and_print(
+        _logger(),
+        f"DMD fit complete: rel residual {float(result.residual):.3e}, "
+        f"{int(result.n_iters)} LM iterations, {fit_seconds:.2f}s.",
+    )
+
+    rank_coord = Coord("rank", np.arange(rank))
+    space_coords = {"space": u_field.coords["space"], "rank": rank_coord}
+    for extra in ("original_variable", "delay", "level", "latitude", "longitude"):
+        if extra in u_field.coords:
+            space_coords[extra] = u_field.coords[extra]
+
+    def small(name, data, attrs=None):
+        return Field(data.cpu().numpy(), ("rank",), {"rank": rank_coord}, attrs, name=name)
+
+    data_vars: dict[str, Field] = {
+        "modes": Field(result.modes, ("space", "rank"), space_coords, name="modes"),
+        "eigenvalues": small("eigenvalues", result.alpha, {"units": "1/hour (continuous time)"}),
+        "amplitudes": small("amplitudes", result.amplitudes),
+    }
+    if bop is not None:
+        # bagging uncertainties: per-quantity trial standard deviations
+        data_vars["eigenvalues_std"] = small("eigenvalues_std", bop.eigenvalues_std,
+                                             {"units": "1/hour (trial std)"})
+        data_vars["amplitudes_std"] = small("amplitudes_std", bop.amplitudes_std)
+        data_vars["modes_std"] = Field(bop.modes_std, ("space", "rank"), space_coords,
+                                       name="modes_std")
+
+    d = int(parsed_config["delay_embedding"])
+    attrs: dict = {}
+    # forecast verification on the withheld holdout window: the fit saw
+    # only the train columns (the SVD stage withheld the tail, from the
+    # standardization statistics too)
+    holdout = int(parsed_config.get("forecast_holdout", 0))
+    if holdout > 0 and "holdout_truth" in svd_results.data_vars:
+        attrs.update(_holdout_scores(result, svd_results, t_hours, holdout, d))
+
+    n_future = parsed_config["forecast_steps"]
+    if n_future > 0:
+        data_vars["forecast"] = _forecast_field(result, svd_results, u_field, times, t_hours,
+                                                n_future, d)
+
+    out = FieldSet(data_vars, attrs=dict(svd_results.attrs))
+    out.attrs["dmd_rank"] = rank
+    out.attrs["optimized"] = int(parsed_config["optimized"])
+    out.attrs["bagging_trials"] = n_trials
+    out.attrs["multiresolution_levels"] = 0
+    out.attrs["control_input"] = "none"
+    out.attrs.update(attrs)
+    if bop is not None:
+        # diverged trials are dropped by the bag; record the survivors
+        out.attrs["bagging_trials_used"] = int(len(bop.trial_eigenvalues))
+    out.attrs["forecast_steps"] = n_future
+    out.attrs["dmd_residual"] = float(result.residual)
+    out.attrs["lm_iterations"] = int(result.n_iters)
+    out.attrs["dmd_seconds"] = round(fit_seconds, 4)
+    out.attrs["date_processed"] = datetime.now().isoformat()
+    return out
+
+
+def main(
+    config: dict | None = None,
+    write_artifact: bool = False,
+    use_store: bool = False,
+    mesh=None,
+    device: torch.device | str | None = None,
+) -> tuple[FieldSet, bool, bool]:
+    """DMD stage orchestration: the cached results if the workdir or the
+    store holds a match, else ``era5_svd.main`` (its own cache ladder)
+    and :func:`fit_dmd_from_svd_results`, then (with ``write_artifact``)
+    the artifact written and (with ``use_store``) versioned.
+
+    Returns (dmd_results, added_to_store, retrieved_from_store).
+    ``device``: where a computation runs, the card unless given.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"era5_dmd.main with a mesh: {NO_MESH}")
+    if config is None:
+        config = config_reader("era5-dmd")
+    logger = _logger()
+    added_to_store = False
+    parsed_config = config_parser(config, "era5-dmd")
+
+    try:
+        dmd_results, retrieved_from_store = retrieve_dmd_results(parsed_config, use_store)
+    except Exception as err:
+        msg = f"Error retrieving DMD results: {err}"
+        log_and_print(logger, msg, "error")
+        raise Exception(msg) from err
+
+    if dmd_results is None:
+        _check_ported(parsed_config)  # before the SVD stage runs
+        try:
+            svd_results, _, _ = era5_svd.main(
+                config, write_artifact=write_artifact, use_store=use_store, device=device
+            )
+        except Exception as err:
+            msg = f"Error obtaining SVD results for DMD: {err}"
+            log_and_print(logger, msg, "error")
+            raise Exception(msg) from err
+
+        try:
+            dmd_results = fit_dmd_from_svd_results(svd_results, parsed_config, device=device)
+        except Exception as err:
+            msg = f"Error in the DMD fit: {err}"
+            log_and_print(logger, msg, "error")
+            raise Exception(msg) from err
+
+        if write_artifact:
+            try:
+                save_fieldset(dmd_results, parsed_config["save_path"])
+                log_and_print(logger, f"DMD results written to {parsed_config['save_path']}")
+            except Exception as err:
+                msg = f"Error writing DMD results: {err}"
+                log_and_print(logger, msg, "error")
+                raise Exception(msg) from err
+            if use_store:
+                try:
+                    add_data_to_store(parsed_config["save_path"], dmd_results.attrs)
+                    added_to_store = True
+                except Exception as err:
+                    msg = f"Error versioning DMD results: {err}"
+                    log_and_print(logger, msg, "error")
+                    raise Exception(msg) from err
+
+    return dmd_results, added_to_store, retrieved_from_store
+
+
+if __name__ == "__main__":
+    main(write_artifact=True, use_store=True)

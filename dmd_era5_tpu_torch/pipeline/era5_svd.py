@@ -167,7 +167,7 @@ def _device(device, field: Field | None) -> torch.device:
         return field.data.device
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "the SVD stage runs on a CUDA card and none is available; pass "
+            "the stage runs on a CUDA card and none is available; pass "
             "device='cpu' (or a CPU tensor) to run it on the host"
         )
     return torch.device("cuda")
@@ -499,9 +499,10 @@ def _holdout_truth_fields(ds_holdout: FieldSet, persist_raw: FieldSet) -> dict[s
     """The raw physical holdout block for the DMD stage's scorer.
 
     Returns ``holdout_truth`` (S, h) and ``holdout_persistence`` (S,),
-    the last raw train snapshot (the no-skill baseline), on a dedicated
-    ``space_out`` axis (undelayed rows) with the level/lat/lon/variable
-    row coordinates pre-split for HDF5.
+    the last raw train snapshot (the no-skill baseline), as host arrays
+    (copied from the device where the slice's fields are tensors there)
+    on a dedicated ``space_out`` axis (undelayed rows) with the
+    level/lat/lon/variable row coordinates pre-split for HDF5.
     """
     truth_flat = flatten_era5_variables(ds_holdout)  # (S, h) raw
     persist_flat = flatten_era5_variables(persist_raw)  # (S, 1) raw
@@ -517,13 +518,13 @@ def _holdout_truth_fields(ds_holdout: FieldSet, persist_raw: FieldSet) -> dict[s
         ),
     }
     truth = Field(
-        np.asarray(truth_flat.data, dtype=np.float32),
+        _host(truth_flat.data)[0],
         ("space_out", "time_holdout"),
         {**coords, "time_holdout": Coord("time_holdout", truth_flat.coords["time"].values)},
         name="holdout_truth",
     )
     persistence = Field(
-        np.asarray(persist_flat.data, dtype=np.float32)[:, 0],
+        _host(persist_flat.data)[0][:, 0],
         ("space_out",),
         coords,
         name="holdout_persistence",

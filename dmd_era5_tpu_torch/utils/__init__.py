@@ -1,4 +1,4 @@
-"""Labeled containers and small-matrix linear algebra."""
+"""Labeled containers, small-matrix linear algebra and input conversion."""
 
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 from dmd_era5_tpu_torch.utils.linalg import (
@@ -10,11 +10,13 @@ from dmd_era5_tpu_torch.utils.linalg import (
     safe_cholesky,
     spd_solve,
 )
+from dmd_era5_tpu_torch.utils.tensors import as_tensor
 
 __all__ = [
     "Coord",
     "Field",
     "FieldSet",
+    "as_tensor",
     "complex_lstsq",
     "complex_solve",
     "eig_sorted",

@@ -129,3 +129,62 @@ def test_standardize_and_undo_preprocessing_parity(rng):
     ))
     np.testing.assert_allclose(out_t, out_j, atol=1e-6)
     np.testing.assert_allclose(out_t, raw[:, d - 1 :], atol=1e-5)  # test_05:236
+
+
+# ------------------------------------- the rest of tests/test_05_dmd.py
+
+
+def test_exact_dmd_and_reconstruct_parity(rng):
+    """exact_dmd recovers the system (test_05_dmd.py:62-76) in both
+    packages, and the two reconstructions agree."""
+    x, t, alpha_true = make_linear_system(rng)
+    dt = float(t[1] - t[0])
+    res_t = tm.exact_dmd(torch.from_numpy(x), rank=4, dt=dt)
+    res_j = jm.exact_dmd(jnp.asarray(x), rank=4, dt=dt)
+    w_t = res_t.omega.numpy()
+    assert matched_eig_error(w_t, alpha_true) < 1e-2
+    idx = _match(w_t, np.asarray(res_j.omega))
+    np.testing.assert_allclose(w_t[idx], np.asarray(res_j.omega), atol=1e-3)
+    rec_t = tm.reconstruct(res_t, x.shape[1]).numpy()
+    rec_j = np.asarray(jm.reconstruct(res_j, x.shape[1]))
+    assert np.linalg.norm(rec_t - x) / np.linalg.norm(x) < 1e-2
+    np.testing.assert_allclose(rec_t, rec_j, atol=1e-3 * np.abs(rec_j).max())
+
+
+def test_fit_optdmd_and_reconstruct_parity(rng):
+    """fit_optdmd on the first 48 steps extrapolates the next 16
+    (test_05_dmd.py:80-86, :206-216), as the JAX fit does."""
+    x, t, alpha_true = make_linear_system(rng, n_t=64)
+    res_t = tm.fit_optdmd(torch.from_numpy(x[:, :48]), torch.from_numpy(t[:48]), rank=4)
+    res_j = jm.fit_optdmd(jnp.asarray(x[:, :48]), jnp.asarray(t[:48]), rank=4)
+    a_t = res_t.alpha.numpy()
+    assert matched_eig_error(a_t, alpha_true) < 5e-3
+    assert float(res_t.residual) < 1e-3
+    idx = _match(a_t, np.asarray(res_j.alpha))
+    np.testing.assert_allclose(a_t[idx], np.asarray(res_j.alpha), atol=1e-3)
+    full_t = tm.optdmd_reconstruct(res_t, torch.from_numpy(t)).numpy()
+    full_j = np.asarray(jm.optdmd_reconstruct(res_j, jnp.asarray(t)))
+    rel = np.linalg.norm(full_t[:, 48:] - x[:, 48:]) / np.linalg.norm(x[:, 48:])
+    assert rel < 0.05
+    np.testing.assert_allclose(full_t, full_j, atol=1e-3 * np.abs(full_j).max())
+
+
+@pytest.mark.parametrize("max_iter", [0, 30])
+def test_optdmd_from_svd_with_alpha0(rng, max_iter):
+    """A given alpha0 seeds the LM; max_iter = 0 (the stage's exact
+    path) returns alpha0 itself with its least-squares B, in both."""
+    x, t, alpha_true = make_linear_system(rng)
+    u, s, vt = _svd(x, 4)
+    alpha0 = (alpha_true * 1.05).astype(np.complex64)
+    res_t = tm.optdmd_from_svd(torch.from_numpy(u), torch.from_numpy(s), torch.from_numpy(vt),
+                               torch.from_numpy(t), rank=4, alpha0=alpha0, max_iter=max_iter)
+    res_j = jm.optdmd_from_svd(jnp.asarray(u), jnp.asarray(s), jnp.asarray(vt), jnp.asarray(t),
+                               rank=4, alpha0=alpha0, max_iter=max_iter)
+    np.testing.assert_allclose(res_t.alpha.numpy(), np.asarray(res_j.alpha), atol=1e-4)
+    np.testing.assert_allclose(res_t.amplitudes.numpy(), np.asarray(res_j.amplitudes), rtol=1e-3)
+    np.testing.assert_allclose(float(res_t.residual), float(res_j.residual), rtol=1e-3, atol=1e-6)
+    if max_iter == 0:
+        assert res_t.n_iters == int(res_j.n_iters) == 0
+        np.testing.assert_array_equal(res_t.alpha.numpy(), alpha0)
+    else:
+        assert matched_eig_error(res_t.alpha.numpy(), alpha_true) < 5e-3
