@@ -95,6 +95,35 @@ of which raises on failure so the script exits non-zero:
    less than 8 x the modes' 1.49 GB above (b)'s.  Each fit prints its
    steps' wall times (U's move to the card, the fit, the scores, the
    forecast, the rest), the device memory it took and the host's RSS;
+14. (run next, on the week still in memory; (d) runs inside phase 9,
+   while its packed artifact exists) mrDMD, DMDc, the ensemble and the
+   mode analysis, at full width (config 3, nothing cut): (a) config 1
+   with ``multiresolution_levels = 2`` and ``control_input = "diurnal"``
+   through the DMD stage as in 13a (K1 7, K4 5); (b) mrDMD in the POD
+   subspace of 12b's SVD (3 levels at rank 6, 1.5 cycles a window; K4
+   once a window): the slow parts equal U (Z - residual) within 1e-5 of
+   ||Z|| (row blocks), the planted eigenvalues at level 0 within 1e-2,
+   the 84-hour pair slow at level 1 alone; (c) after (g), the week's raw
+   X freed, the raw refit (rank 6) of the centred d = 2 embedding
+   (31,147,200 x 167, 20.8 GB) on the card, K4 once a window, slow parts
+   + residual = X within 1e-5 of ||X||; (d) ``fit_mrdmd_streamed`` over
+   phase 9's artifact (K4 once a 65,536-row block, 238, into f64 sums on
+   the card; then the mode pass) against ``fit_mrdmd`` on the same X on
+   the card: eigenvalues matched within 5e-3, equal mask counts,
+   residual_fro within 2e-2; (e) DMDc (diurnal) on 12b's SVD: A's
+   eigenvalues within 1e-2 of the planted ones; the k-sized fit and the
+   same call on the plain versions (the host) within
+   ``DMDC_GRAM_ROUTE_GAP`` of an f64 exact-SVD formula, its forced
+   rollout against Z (1e-1); (f) ``fit_per_variable_level`` on the week's
+   FieldSet (15 members of 1,038,240 x 168, k = 100, ``solve_dmd`` at
+   rank 6; K1 15): each member's s within the interlace of its f64
+   values up to the f32 eigh's backward error (``FIT_STEP_EIGH_SLACK``),
+   the leading 6 within 1e-4, its planted eigenvalues within 1e-2; (g) ``mode_spectrum``
+   and ``modes_to_grid`` on 13b's result: the planted periods, grid
+   entries equal to the flat modes' rows; (h) ``varpro_lm_checkpointed``
+   resuming from its own file where h5py is installed (else one line
+   says it is skipped).  Each part prints its wall time and device
+   memory rise, the phase the host's RSS;
 10. one year of hourly 1-degree ERA5 (181 x 360 points, 15 variable-level
    blocks, 8,760 hours: 977,400 rows), generated on the card from the
    seed after the week is freed, centred in place, with the exact
@@ -114,7 +143,7 @@ of which raises on failure so the script exits non-zero:
    and (e)'s singular values are held below the exact ones; (f) K1 and
    the two-pass route timed on the same X and sketch.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13 and 10b-e are the main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14 and 10b-e are the main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f) are not counted.  The last line is the JSON result; the line before
@@ -642,7 +671,7 @@ def matched_eig_error(found: torch.Tensor, true: torch.Tensor) -> float:
     for tv in true.cpu().numpy():
         d = [abs(f - tv) for f in left]
         i = min(range(len(d)), key=d.__getitem__)
-        err = max(err, d[i])
+        err = max(err, float(d[i]))
         left.pop(i)
     return err
 
@@ -1246,7 +1275,8 @@ def held_to_exact(label: str, s: torch.Tensor, ref: dict) -> dict:
 def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
     """Phase 9b-e: the out-of-core SVD of the centred ERA5-week X from a
     packed artifact, both routes, and optDMD with the forecast on the
-    randomized one.  Returns the main path's launch counts."""
+    randomized one; then phase 14 (d), the streamed mrDMD over the same
+    artifact.  Returns the main path's launch counts."""
     from dmd_era5_tpu_torch.pipeline import (
         prefetched_row_blocks,
         streamed_exact_gram_svd,
@@ -1307,6 +1337,7 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
               f"{lead['all_rel']:.3e} > 2e-3")
         check(cos > 1 - 1e-6, f"streamed exact: leading-6 subspace cos min {cos:.9f}")
         del u
+        mr_launches = phase_mrdmd_streamed(week, path)
 
         # where a pass's time goes: the same blocks read only, then read and
         # copied to the card, with no work on them
@@ -1323,7 +1354,7 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         shutil.rmtree(directory, ignore_errors=True)
     times["memory_rise_mb"] = {"randomized": rise_r / 1e6, "exact": rise_e / 1e6}
     log(f"    stage wall times (s): {json.dumps(times)}")
-    return expect
+    return {key: n + mr_launches[key] for key, n in expect.items()}
 
 
 def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, center: bool,
@@ -1862,43 +1893,53 @@ def check_scores(label: str, got: dict, want: dict) -> float:
     return worst
 
 
-def phase_dmd_config1(seed: int, missing: list[str]) -> None:
+def phase_dmd_config1(seed: int, missing: list[str], label: str = "13a",
+                      expect: dict | None = None, **overrides):
     """Phase 13 (a): north-star config 1, config.ini's [era5-dmd] (rank
-    6, optimized, 24 forecast steps) on the mock backend.  With h5py and
-    yaml: the mock slice downloaded into the store, ``era5_dmd.main``
-    with the files and the store, then again (a workdir cache hit).
-    Without them: ``download_era5_data``'s mock slice in memory ->
+    6, optimized, 24 forecast steps) on the mock backend; phase 14 (a)
+    the same with ``overrides``.  With h5py and yaml: the mock slice
+    downloaded into the store, ``era5_dmd.main`` with the files and the
+    store, then again (a workdir cache hit).  Without them:
+    ``download_era5_data``'s mock slice in memory ->
     ``compute_svd_results`` -> ``fit_dmd_from_svd_results``.  Checks
-    shapes, finite values, the attrs and K1 exactly 5, and logs each
-    step's wall time."""
+    shapes, finite values, the attrs and the launches (``expect``, by
+    default K1 exactly 5), and logs each step's wall time.  Returns the
+    results."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
 
-    cfg = stage_config("era5-dmd", source_path="mock_data")
+    cfg = stage_config("era5-dmd", source_path="mock_data", **overrides)
     parsed = config_parser(dict(cfg), "era5-dmd")
     times = {}
     np.random.seed(seed)
-    before = launch_counts()["K1"]
-    if missing:
-        dl = config_parser(stage_config("era5-download"), "era5-download")
-        fs, times["mock"] = synced(era5_download.download_era5_data, dl, use_mock_data=True)
-        svd, times["svd_stage"] = synced(era5_svd.compute_svd_results, fs,
-                                         config_parser(dict(cfg), "era5-svd"))
-        res, times["dmd_fit"] = synced(era5_dmd.fit_dmd_from_svd_results, svd, parsed)
-        del fs, svd
-    else:
-        synced(era5_download.main, stage_config("era5-download"), use_mock_data=True,
-               use_store=True)
-        (res, added, retrieved), times["dmd_main"] = synced(
-            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
-        check(added and not retrieved, f"config 1 DMD stage: added {added}, retrieved {retrieved}")
-        (hit, added2, retrieved2), times["cache_hit"] = synced(
-            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
-        check(not added2 and not retrieved2, "config 1: the second DMD stage was not a cache hit")
-        check(np.array_equal(hit["modes"].values, res["modes"].data.cpu().numpy()),
-              "config 1: the cache hit's modes differ")
-    k1 = launch_counts()["K1"] - before
-    check(k1 == 5, f"config 1 DMD stage launched K1 {k1} times, expected 5")
+    before = launch_counts()
+    steps = ("_svd_factors", "optdmd_from_svd", "_mrdmd", "_dmdc", "_forecast_field")
+    with stage_clock(era5_dmd, *steps) as clock:
+        if missing:
+            dl = config_parser(stage_config("era5-download"), "era5-download")
+            fs, times["mock"] = synced(era5_download.download_era5_data, dl, use_mock_data=True)
+            svd, times["svd_stage"] = synced(era5_svd.compute_svd_results, fs,
+                                             config_parser(dict(cfg), "era5-svd"))
+            res, times["dmd_fit"] = synced(era5_dmd.fit_dmd_from_svd_results, svd, parsed)
+            del fs, svd
+        else:
+            synced(era5_download.main, stage_config("era5-download"), use_mock_data=True,
+                   use_store=True)
+            (res, added, retrieved), times["dmd_main"] = synced(
+                era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+            check(added and not retrieved,
+                  f"config 1 DMD stage: added {added}, retrieved {retrieved}")
+            (hit, added2, retrieved2), times["cache_hit"] = synced(
+                era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+            check(not added2 and not retrieved2,
+                  "config 1: the second DMD stage was not a cache hit")
+            check(np.array_equal(hit["modes"].values, res["modes"].data.cpu().numpy()),
+                  "config 1: the cache hit's modes differ")
+    times.update({f"{name}_s": round(sum(v), 3) for name, v in clock.items() if v})
+    launched = {key: n - before[key] for key, n in launch_counts().items()}
+    expect = expect or counts(K1=5)
+    check(launched == expect, f"config 1 DMD stage ({label}) launched {launched}, expected "
+          f"{expect}")
     n_space = 36 * 72  # config.ini: temperature at 1000 hPa on the 5-degree mock grid
     d, n_time = parsed["delay_embedding"], 97 - parsed["delay_embedding"] + 1  # 97 hours
     check(tuple(res["modes"].shape) == (n_space * d, DMD_RANK)
@@ -1908,16 +1949,20 @@ def phase_dmd_config1(seed: int, missing: list[str]) -> None:
         res["modes"].data).all()) and bool(np.isfinite(res["eigenvalues"].values).all()),
         "config 1: non-finite modes, eigenvalues or forecast")
     want = {"dmd_rank": DMD_RANK, "optimized": 1, "forecast_steps": FORECAST_STEPS,
-            "bagging_trials": 0, "svd_type": "randomized", "delay_embedding": 2}
+            "bagging_trials": 0, "svd_type": "randomized", "delay_embedding": 2,
+            "multiresolution_levels": overrides.get("multiresolution_levels", 0),
+            "control_input": overrides.get("control_input", "none")}
     got = {key: res.attrs.get(key) for key in want}
     check(got == want and np.isfinite(res.attrs["dmd_residual"])
           and res.attrs["lm_iterations"] >= 1, f"config 1: attrs {got}")
-    log(f"[13a] config 1 (mock, config.ini's [era5-dmd]): modes {tuple(res['modes'].shape)}, "
-        f"forecast {tuple(res['forecast'].shape)}, eigenvalues "
+    log(f"[{label}] config 1 (mock, config.ini's [era5-dmd]"
+        f"{', ' + json.dumps(overrides) if overrides else ''}): modes "
+        f"{tuple(res['modes'].shape)}, forecast {tuple(res['forecast'].shape)}, eigenvalues "
         f"{[complex(round(a.real, 4), round(a.imag, 4)) for a in res['eigenvalues'].values]}, "
         f"residual {res.attrs['dmd_residual']:.3e} ({res.attrs['lm_iterations']} LM steps; "
-        f"i.i.d.-noise mock), K1 launches {k1}; wall (s) "
+        f"i.i.d.-noise mock), launches {launched}; wall (s) "
         f"{json.dumps({a: round(b, 3) for a, b in times.items()})}")
+    return res
 
 
 def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
@@ -1927,7 +1972,7 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     with a 24-hour holdout: ``compute_svd_results`` on the slice (144
     train hours), then the fit scored on the withheld day against an f64
     one-shot; (d) the week bagged (8 trials of 80%).  Returns the launch
-    counts."""
+    counts and (b)'s results without the forecast field."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.models import iter_forecast_blocks
     from dmd_era5_tpu_torch.models.verification import latitude_weights
@@ -1979,7 +2024,7 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
         f"{err_b:.2e}, residual {res_b.attrs['dmd_residual']:.3e} "
         f"({res_b.attrs['lm_iterations']} LM steps), forecast {tuple(res_b['forecast'].shape)} "
         f"{json.dumps(fc_b)}, no kernel launch")
-    del res_b
+    del res_b.data_vars["forecast"]  # 11.9 GB; phase 14 (g) reads the rest
 
     # (c) the week with a 24-hour holdout, from the SVD stage's compute body
     reset_counts()
@@ -2042,7 +2087,436 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     host_end = host_memory()
     log(f"    phase 13 host memory (GB): at its start {json.dumps(host_start)}, at its end "
         f"{json.dumps(host_end)} (peak_rss_gb: the process's peak so far)")
+    return launches, res_b
+
+
+# mrDMD on the week (phase 14): 3 levels at rank 6.  The slow budget 1.5
+# cycles a window makes the 84-hour pair slow at level 1 alone (margins
+# >= 14% at T_used 164 and 168); 14 (d) takes 0.4, under which no planted
+# pair is slow before the finest level, so each level's rank-6 fit holds
+# the planted six and no noise direction (see phase_mrdmd_streamed)
+MR_LEVELS, MR_RANK, MR_CYCLES, MR_CYCLES_STREAMED = 3, 6, 1.5, 0.4
+MR_WINDOWS = 2**MR_LEVELS - 1
+# DMDc's k-sized fit against the f64 exact-SVD formula, discrete eigenvalues:
+# on the wide (k + q) x (T - 1) stack (102 rows under the 128-wide subspace)
+# the Gram route's G_y is rank-deficient, and its whitener's second Cholesky
+# takes the loose 1e-3 ridge or not by rounding; where it does, U's columns
+# come out ~4e-4 short of unit norm and the eigenvalues 7.8e-4 off (the
+# host's plain versions and the JAX package's dmdc_from_svd alike at the
+# week's k and T; ROADMAP Queue 3, R5)
+DMDC_GRAM_ROUTE_GAP = 2e-3
+# the fused fit step's "hybrid" small algebra takes s from an f32 eigh of
+# B B^T (the sketch's r x r), whose eigenvalues carry a backward error of
+# about r eps_f32 max|s|^2: the ensemble's noise-floor s (4e-3 of s[0] on
+# the week's members, sketch 110 of 168 columns, where the Ritz values sit
+# close to the exact ones) may pass their f64 values by that much (read
+# 1.0051 x on an H100); phase 14 (f) holds s^2 <= s_f64^2 (1 + 1e-4)^2 +
+# this slack times s_f64[0]^2, the leading 6 within 1e-4
+FIT_STEP_EIGH_SLACK = 128 * 2.0**-24
+
+
+def mr_identity_error(res, expected_rows, n_rows: int, scale: float) -> float:
+    """||sum of the levels' slow parts - expected|| / scale, summed in f64
+    over row blocks of CHUNK rows: ``expected_rows(r0, r1)`` gives those
+    rows of Z[:, :t_used] - residual."""
+    from dmd_era5_tpu_torch.models import mrdmd_reconstruct
+
+    num = 0.0
+    for r0 in range(0, n_rows, CHUNK):
+        r1 = min(r0 + CHUNK, n_rows)
+        part = res._replace(levels=[lv._replace(modes=lv.modes[:, r0:r1]) for lv in res.levels])
+        diff = mrdmd_reconstruct(part).double() - expected_rows(r0, r1).double()
+        num += float(diff.square().sum())
+    return math.sqrt(num) / scale
+
+
+def mr_spectra_match(got, ref) -> float:
+    """The largest distance of ref's eigenvalues to got's, matched per
+    window nearest first (tests/test_torch_mrdmd.py), with equal slow and
+    kept counts at every level."""
+    worst = 0.0
+    for lv, lv_ref in zip(got.levels, ref.levels):
+        for w in range(lv_ref.omega.shape[0]):
+            worst = max(worst, matched_eig_error(torch.from_numpy(lv.omega[w]),
+                                                 torch.from_numpy(lv_ref.omega[w])))
+        check(int(lv.slow_mask.sum()) == int(lv_ref.slow_mask.sum())
+              and int(lv.kept_mask.sum()) == int(lv_ref.kept_mask.sum()),
+              f"mrDMD level {lv.level}: mask counts {int(lv.slow_mask.sum())}/"
+              f"{int(lv.kept_mask.sum())} against {int(lv_ref.slow_mask.sum())}/"
+              f"{int(lv_ref.kept_mask.sum())}")
+    return worst
+
+
+def phase_mrdmd_streamed(week: dict, path: Path) -> dict:
+    """Phase 14 (d), run inside phase 9 while its packed artifact of the
+    centred week (d = 1, 15,573,600 x 168) exists: ``fit_mrdmd_streamed``
+    over it (one Gram pass, K4 once a 65,536-row block into f64 sums on
+    the card, 238 launches; then a mode pass) against ``fit_mrdmd`` on the
+    same X on the card (K4 once a window): eigenvalues matched within
+    5e-3, equal mask counts, residual_fro within 2e-2 (tests/test_26's
+    tolerances), the two routes' slow parts within 2e-2 of ||X||, and the
+    in-memory identity (slow parts + residual = X) within 1e-5 of ||X||.
+    The budget (0.4 cycles) keeps every level's rank-6 fit on the planted
+    six: a level left with fewer live planted modes than its rank fits
+    noise directions, whose singular values cluster within ~0.2%
+    (15.6M rows), so two summation orders (an f32 and an f64 Gram) pick
+    different ones.  Returns the launch counts."""
+    from dmd_era5_tpu_torch.models import fit_mrdmd, fit_mrdmd_streamed
+
+    x = week["x"]
+    n_rows = x.shape[0]
+    n_blocks = -(-n_rows // RAND_BLOCK)
+    kw = dict(dt=1.0, rank=MR_RANK, max_levels=MR_LEVELS, max_cycles=MR_CYCLES_STREAMED)
+    log(f"[14d] fit_mrdmd_streamed over the artifact ({n_blocks} blocks of {RAND_BLOCK} rows, "
+        f"{MR_LEVELS} levels at rank {MR_RANK}, {MR_CYCLES_STREAMED} cycles) against fit_mrdmd "
+        "on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    times = {}
+    with pass_clock() as passes:
+        got, times["streamed"] = synced(fit_mrdmd_streamed, path, block_rows=RAND_BLOCK,
+                                        return_modes=True, **kw)
+    times["passes"] = [round(t, 3) for t in passes]
+    check(launch_counts() == counts(K4=n_blocks),
+          f"14d streamed: launches {launch_counts()}, expected K4 {n_blocks}")
+    ref, times["in_memory"] = synced(fit_mrdmd, x, return_modes=True, **kw)
+    launches = launch_counts()
+    check(launches == counts(K4=n_blocks + MR_WINDOWS),
+          f"14d: launches {launches}, expected K4 {n_blocks} + {MR_WINDOWS}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    x_fro = math.sqrt(sum(float(c.double().square().sum()) for c in _chunks(x)))
+    out = {"eig_matched": mr_spectra_match(got, ref),
+           "residual_fro": got.residual_fro, "residual_fro_in_memory": ref.residual_fro,
+           "x_fro_gram_vs_rows": got.x_fro / x_fro - 1}
+    check(out["eig_matched"] <= 5e-3, f"14d: eigenvalues apart by {out['eig_matched']:.3e}")
+    check(abs(got.residual_fro - ref.residual_fro) <= 2e-2 * ref.residual_fro + 1e-3 * x_fro,
+          f"14d: residual_fro {got.residual_fro:.6e} against {ref.residual_fro:.6e}")
+    out["slow_parts_vs_in_memory"] = mr_identity_error(
+        got, lambda r0, r1: mr_identity_rows(ref, r0, r1), n_rows, x_fro)
+    check(out["slow_parts_vs_in_memory"] < 2e-2,
+          f"14d: slow parts apart by {out['slow_parts_vs_in_memory']:.3e} of ||X||")
+    out["identity"] = mr_identity_error(
+        ref, lambda r0, r1: x[r0:r1, : ref.t_used] - ref.residual[r0:r1], n_rows, x_fro)
+    check(out["identity"] <= 1e-5, f"14d: slow parts + residual off X by {out['identity']:.3e}")
+    out["planted_level0"] = matched_eig_error(torch.from_numpy(got.levels[0].omega[0]),
+                                              week["alpha_true"])
+    check(out["planted_level0"] < 1e-2,
+          f"14d: planted eigenvalues at level 0 off by {out['planted_level0']:.3e}")
+    del got, ref
+    log(f"    {json.dumps(out)}; wall (s) {json.dumps(times)}; device memory rise "
+        f"{peak:.2f} GB; launches {launches}")
+    compare_gram("14d block", x[:RAND_BLOCK], "highest", reps=20)  # K4 at the pass's block
     return launches
+
+
+def mr_identity_rows(res, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the sum of the levels' slow parts."""
+    from dmd_era5_tpu_torch.models import mrdmd_reconstruct
+
+    return mrdmd_reconstruct(res._replace(
+        levels=[lv._replace(modes=lv.modes[:, r0:r1]) for lv in res.levels]))
+
+
+def f64_dmdc_eigenvalues(z: torch.Tensor, u_ctrl: torch.Tensor, rank: int) -> torch.Tensor:
+    """DMDc's unforced eigenvalues (discrete) in f64 on the host, exact
+    SVDs (Proctor et al. 3.3; the row balancing and the 1e-3 cutoff of
+    ``models/dmdc.py``): the reference of phase 14 (e)."""
+    z, u = z.double().cpu(), u_ctrl.double().cpu()
+    x1, x2 = z[:, :-1], z[:, 1:]
+    gamma = float(x1.square().mean().sqrt() / u.square().mean().sqrt())
+    ut, st, vt = torch.linalg.svd(torch.cat([x1, gamma * u]), full_matrices=False)
+    p = rank + u.shape[0]
+    ut, st, vt = ut[:, :p], st[:p], vt[:p]
+    uh = torch.linalg.svd(x2, full_matrices=False)[0][:, :rank]
+    st_inv = torch.where(st > 1e-3 * st[0], 1.0 / st, torch.zeros_like(st))
+    k_fac = x2 @ (vt.T * st_inv[None, :])
+    a_red = (uh.T @ k_fac) @ (ut[: z.shape[0]].T @ uh)
+    return torch.linalg.eigvals(a_red)
+
+
+def phase_multires(week: dict, week_res, res_b, seed: int) -> dict:
+    """Phase 14: mrDMD, DMDc, the ensemble and the mode analysis on the
+    card, after phase 13 on the week still in memory (14 (d) ran in phase
+    9).  (a) north-star config 1 with ``multiresolution_levels = 2`` and
+    ``control_input = "diurnal"`` through the DMD stage; (b) mrDMD in the
+    POD subspace of 12b's SVD (3 levels at rank 6): the identity
+    slow parts = U (Z - residual) in row blocks within 1e-5 of ||Z||, the
+    planted eigenvalues at level 0, the 84-hour pair slow at level 1
+    alone; (e) DMDc (diurnal) on 12b's SVD: A's eigenvalues against the
+    planted ones (1e-2), the k-sized fit against an f64 reference with
+    exact SVDs, its forced rollout against Z; (f) ``fit_per_variable_level``
+    on the week's FieldSet (15 members of 1,038,240 x 168, k = 100,
+    ``solve_dmd`` at rank 6): each member's s within the interlace of its
+    f64 values up to the f32 eigh's backward error, its planted
+    eigenvalues; (g) ``mode_spectrum`` and
+    ``modes_to_grid`` on 13b's result; then the week's raw X is freed and
+    (c) the raw refit (rank 6) of the centred d = 2 embedding
+    (31,147,200 x 167, 20.8 GB) on the card, K4 once a window, the
+    identity in full space in row blocks within 1e-5 of ||X||; (h)
+    ``varpro_lm_checkpointed`` resuming from its own file, where h5py is
+    installed.  Returns the launch counts."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.models import (
+        dmdc_from_svd,
+        dmdc_rollout,
+        fit_dmdc,
+        fit_mrdmd,
+        mode_spectrum,
+        modes_to_grid,
+        mrdmd_from_svd,
+    )
+    from dmd_era5_tpu_torch.models.mrdmd import _fro
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+    from dmd_era5_tpu_torch.pipeline.era5_dmd import _control_series
+
+    missing = missing_file_packages()
+    launches = counts()
+    host_start = host_memory()
+
+    def record(label: str, fn, *args, expect: dict, **kwargs):
+        """fn on the main path: counts zeroed before and checked after;
+        (result, wall seconds, device memory rise in GB)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, secs = synced(fn, *args, **kwargs)
+        got = launch_counts()
+        check(got == expect, f"{label}: launches {got}, expected {expect}")
+        for key, n in got.items():
+            launches[key] += n
+        return out, secs, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # (a) config 1 with both branches
+    with stage_root():
+        reset_counts()
+        res_a = phase_dmd_config1(seed, missing, "14a", counts(K1=5 + 2, K4=3 + 2),
+                                  multiresolution_levels=2, control_input="diurnal")
+    for key, n in launch_counts().items():
+        launches[key] += n
+    n_space_a = 36 * 72 * 2
+    check(tuple(res_a["mr_modes_L1"].shape) == (2, n_space_a, DMD_RANK)
+          and tuple(res_a["dmdc_modes"].shape) == (n_space_a, DMD_RANK)
+          and tuple(res_a["dmdc_control"].shape) == (2, 95), "14a: mrDMD / DMDc field shapes")
+    for name in ("mr_modes_L0", "mr_modes_L1", "dmdc_modes"):
+        check(bool(torch.isfinite(res_a[name].data).all()), f"14a: {name} not finite")
+    rel = res_a.attrs["multiresolution_residual"]
+    check(0.0 <= rel < 1.0 and np.isfinite(res_a.attrs["dmdc_residual"]),
+          f"14a: residual shares {rel}, {res_a.attrs['dmdc_residual']}")
+    log(f"    14a: multiresolution_residual {rel:.4f}, dmdc_residual "
+        f"{res_a.attrs['dmdc_residual']:.4f}, mr_t_used {res_a.attrs['mr_t_used']}")
+    del res_a
+
+    # (b) mrDMD in the subspace of 12b's SVD
+    u, t_u = synced(lambda: torch.from_numpy(week_res["U"].values).cuda())
+    s = torch.from_numpy(np.asarray(week_res["s"].values)).cuda()
+    v = torch.from_numpy(np.asarray(week_res["V"].values)).cuda()
+    z = s[:, None] * v
+    z_fro = float(z.norm())
+    log(f"[14b] mrDMD ({MR_LEVELS} levels, rank {MR_RANK}, {MR_CYCLES} cycles) in the POD "
+        f"subspace of 12b's SVD: U {tuple(u.shape)} onto the card in {t_u:.3f} s")
+    mr_b, t_b, peak_b = record("14b", mrdmd_from_svd, u, s, v, dt=1.0, rank=MR_RANK,
+                               max_levels=MR_LEVELS, max_cycles=MR_CYCLES,
+                               expect=counts(K4=MR_WINDOWS))
+    zr = z[:, : mr_b.t_used] - mr_b.residual
+    ident_b, t_ident = synced(mr_identity_error, mr_b, lambda r0, r1: u[r0:r1] @ zr,
+                              u.shape[0], z_fro)
+    check(ident_b <= 1e-5, f"14b: slow parts off U (Z - residual) by {ident_b:.3e} of ||Z||")
+    lv0, lv1 = mr_b.levels[0], mr_b.levels[1]
+    err_b = matched_eig_error(torch.from_numpy(lv0.omega[0]), week["alpha_true"])
+    check(err_b < 1e-2, f"14b: planted eigenvalues at level 0 off by {err_b:.3e}")
+    slow84 = 2 * math.pi / 84.0  # the 84-hour pair's |omega|, its damping aside
+    slow_sets = [np.abs(lv1.omega[w][lv1.slow_mask[w]]) for w in range(2)]
+    check(not lv0.slow_mask.any() and all(len(a) == 2 and bool((abs(a - slow84) < 5e-3).all())
+                                          for a in slow_sets),
+          f"14b: slow at level 0 {lv0.omega[0][lv0.slow_mask[0]].tolist()}, at level 1 "
+          f"{[a.tolist() for a in slow_sets]}")
+    log(f"    identity {ident_b:.3e} of ||Z|| ({t_ident:.3f} s in row blocks), planted at level "
+        f"0 within {err_b:.2e}, 84-hour pair slow at level 1 in both windows; wall {t_b:.3f} s, "
+        f"device memory rise {peak_b:.2f} GB, residual share {mr_b.residual_fro / z_fro:.4f}")
+    del mr_b, zr
+
+    # (e) DMDc (diurnal) on 12b's SVD
+    times_v = np.asarray(week_res["V"].coords["time"].values)
+    u_ctrl = torch.from_numpy(_control_series("diurnal", times_v)).cuda()
+    log(f"[14e] DMDc (diurnal, q = 2) at rank {DMD_RANK} on 12b's SVD")
+    res_e, t_e, peak_e = record("14e", dmdc_from_svd, u, s, v, u_ctrl, rank=DMD_RANK, dt=1.0,
+                                expect=counts(K4=2, K1=2))
+    err_e = matched_eig_error(res_e.omega, week["alpha_true"])
+    check(err_e < 1e-2, f"14e: A's eigenvalues off the planted ones by {err_e:.3e}")
+    norms = torch.linalg.vector_norm(res_e.modes, dim=0)
+    check(bool(torch.isfinite(res_e.modes).all()) and float((norms - 1).abs().max()) < 1e-5,
+          "14e: lifted modes not finite unit columns")
+    del res_e
+    res_k, t_k, _ = record("14e k-sized", fit_dmdc, z, u_ctrl, rank=DMD_RANK,
+                           expect=counts(K4=2, K1=2))
+    res_p = fit_dmdc(z.cpu(), u_ctrl.cpu(), rank=DMD_RANK)  # the plain versions, on the host
+    lam_ref = f64_dmdc_eigenvalues(z, u_ctrl, DMD_RANK)
+    err_f64 = matched_eig_error(res_k.eigenvalues.to(torch.complex128), lam_ref)
+    err_plain_f64 = matched_eig_error(res_p.eigenvalues.to(torch.complex128), lam_ref)
+    err_plain = matched_eig_error(res_k.eigenvalues.cpu().to(torch.complex128),
+                                  res_p.eigenvalues.to(torch.complex128))
+    roll = dmdc_rollout(res_k, z[:, 0], u_ctrl)
+    roll_err = float((roll - z).norm() / z.norm())
+    log(f"    A's eigenvalues vs planted {err_e:.2e}; the k-sized fit (discrete eigenvalues) "
+        f"vs the f64 exact-SVD formula {err_f64:.2e} (the plain versions' on the host "
+        f"{err_plain_f64:.2e}; the two {err_plain:.2e} apart); one-step residual "
+        f"{res_k.residual:.3e}; forced rollout over {z.shape[1]} hours {roll_err:.3e} of ||Z||; "
+        f"wall {t_e:.3f} s (lifts included) + {t_k:.3f} s, device memory rise {peak_e:.2f} GB")
+    check(max(err_f64, err_plain_f64) <= DMDC_GRAM_ROUTE_GAP,
+          f"14e: k-sized fit's eigenvalues off the f64 exact-SVD formula by {err_f64:.3e} "
+          f"(plain versions {err_plain_f64:.3e}) > {DMDC_GRAM_ROUTE_GAP}")
+    check(roll_err < 1e-1, f"14e: forced rollout off Z by {roll_err:.3e}")
+    # (h) the checkpointed LM on the week's projected data, resumed from its own file
+    if "h5py" in missing:
+        log("[14h] h5py not installed on this machine: varpro_lm_checkpointed skipped (its "
+            "checkpoints are HDF5)")
+    else:
+        phase_checkpointed(z, week)
+    del res_k, roll, u, s, v, z
+    torch.cuda.empty_cache()
+
+    # (f) the ensemble on the week's FieldSet
+    fs = week.pop("fs")
+    n_members = len(WEEK_VARIABLES) * len(LEVELS)
+    log(f"[14f] fit_per_variable_level: {n_members} members of {N_LAT * N_LON} x {T_HOURS}, "
+        f"k = 100, solve_dmd at rank {DMD_RANK}")
+    ens, t_f, peak_f = record("14f", fit_per_variable_level, fs, 100, seed=seed + 14,
+                              solve_dmd=True, dmd_rank=DMD_RANK, expect=counts(K1=n_members))
+    del fs
+    x = week["x"]
+    block = N_LAT * N_LON
+    worst = {"max_ratio": 0.0, "over_allowance": 0.0, "lead6_rel": 0.0, "planted": 0.0}
+    for i in range(n_members):
+        g = centred_gram_f64(x[i * block:(i + 1) * block])
+        s_exact = torch.sqrt(torch.linalg.eigvalsh(g).flip(0).clamp_min(0))[:100]
+        ratio = (ens.state.s[i].double() / s_exact).cpu()
+        # the interlace, with the f32 eigh's backward error in s^2
+        allow = torch.sqrt((1 + 1e-4) ** 2 + FIT_STEP_EIGH_SLACK
+                           * (s_exact[0] / s_exact).square()).cpu()
+        lead = float((ratio[:6] - 1).abs().max())
+        check(bool((ratio <= allow).all()) and lead <= 1e-4,
+              f"14f member {ens.labels[i]}: s / f64 s up to {float(ratio.max()):.6f} (allowed "
+              f"{float(allow[ratio.argmax()]):.6f} there), leading 6 within {lead:.3e}")
+        worst["max_ratio"] = max(worst["max_ratio"], float(ratio.max()))
+        worst["over_allowance"] = max(worst["over_allowance"], float((ratio / allow).max()))
+        worst["lead6_rel"] = max(worst["lead6_rel"], lead)
+        err = matched_eig_error(ens.dmd.alpha[i], week["alpha_true"])
+        check(err < 1e-2, f"14f member {ens.labels[i]}: planted eigenvalues off by {err:.3e}")
+        worst["planted"] = max(worst["planted"], err)
+    log(f"    labels {ens.labels[0]} .. {ens.labels[-1]}; s / f64 s worst {json.dumps(worst)}; "
+        f"LM steps {ens.dmd.n_iters.tolist()}; loss {float(ens.state.loss):.4e}; wall "
+        f"{t_f:.3f} s, device memory rise {peak_f:.2f} GB")
+    del ens
+
+    # (g) the spectrum and the grid of 13b's result
+    (spec, grids), t_g = synced(lambda: (mode_spectrum(res_b["eigenvalues"].values,
+                                                       res_b["amplitudes"].values),
+                                         modes_to_grid(res_b)))
+    periods = sorted(float(p) for p in spec.period)
+    want = sorted([p for _, p, _ in PAIRS] * 2)
+    check(all(abs(a / b - 1) < 1e-2 for a, b in zip(periods, want)),
+          f"14g: periods {periods} against the planted {want}")
+    g = grids["temperature"]
+    check(g.data.shape == (len(LEVELS), N_LAT, N_LON, DMD_RANK)
+          and float(g.coords["latitude"].values[0]) == 90.0,
+          f"14g: grid {g.data.shape}, latitudes from {g.coords['latitude'].values[0]}")
+    rows = np.random.default_rng(seed).choice(N_LAT * N_LON * len(LEVELS), 8, replace=False)
+    flat = res_b["modes"].data[N_BLOCKS * N_LAT * N_LON:]  # delay block 0: the last S rows
+    for row in rows:
+        li, rest = divmod(int(row), N_LAT * N_LON)
+        ai, oi = divmod(rest, N_LON)
+        check(np.array_equal(g.data[li, ai, oi], flat[row].cpu().numpy()),
+              f"14g: grid entry ({li}, {ai}, {oi}) is not the flat mode's row {row}")
+    log(f"[14g] mode_spectrum and modes_to_grid on 13b's result: periods (h) "
+        f"{[round(p, 2) for p in periods]}, e-folding (h) "
+        f"{[round(float(e), 1) for e in spec.e_folding]}, grids "
+        f"{ {k: tuple(v.data.shape) for k, v in grids.data_vars.items()} }; wall {t_g:.3f} s")
+    del grids, spec
+
+    # (c) the raw refit of the centred d = 2 embedding, the week's raw X freed
+    mean = week["mean"]
+    s_rows, t_raw = x.shape
+    xe = torch.empty((2 * s_rows, t_raw - 1), dtype=torch.float32, device=x.device)
+    for r0 in range(0, s_rows, CHUNK):
+        r1 = min(r0 + CHUNK, s_rows)
+        xe[r0:r1] = x[r0:r1, : t_raw - 1] - mean[r0:r1, None]
+        xe[s_rows + r0 : s_rows + r1] = x[r0:r1, 1:] - mean[r0:r1, None]
+    del x
+    week["x"] = None  # no later phase reads the week's X
+    torch.cuda.empty_cache()
+    log(f"[14c] raw mrDMD refit (rank {MR_RANK}, {MR_LEVELS} levels, {MR_CYCLES} cycles) of "
+        f"the centred d = 2 embedding {tuple(xe.shape)} ({xe.numel() * 4 / 1e9:.2f} GB) on the "
+        "card")
+    mr_c, t_c, peak_c = record("14c", fit_mrdmd, xe, dt=1.0, rank=MR_RANK, max_levels=MR_LEVELS,
+                               max_cycles=MR_CYCLES, expect=counts(K4=MR_WINDOWS))
+    xe_fro = _fro(xe[:, : mr_c.t_used])
+    ident_c, t_ident = synced(mr_identity_error, mr_c,
+                              lambda r0, r1: xe[r0:r1, : mr_c.t_used] - mr_c.residual[r0:r1],
+                              xe.shape[0], xe_fro)
+    check(ident_c <= 1e-5, f"14c: slow parts + residual off X by {ident_c:.3e} of ||X||")
+    err_c = matched_eig_error(torch.from_numpy(mr_c.levels[0].omega[0]), week["alpha_true"])
+    check(err_c < 1e-2, f"14c: planted eigenvalues at level 0 off by {err_c:.3e}")
+    log(f"    identity {ident_c:.3e} of ||X|| ({t_ident:.3f} s in row blocks), planted at level "
+        f"0 within {err_c:.2e}, residual share {mr_c.residual_fro / xe_fro:.4f}; wall "
+        f"{t_c:.3f} s, device memory rise {peak_c:.2f} GB over X's "
+        f"{xe.numel() * 4 / 1e9:.2f} GB (the residual, a window copy, the modes)")
+    del mr_c
+    torch.cuda.empty_cache()
+    t_l = xe.shape[1] // 4 * 2  # level 1's window: T_used / 2 columns
+    compare_gram("14c window", xe[:, t_l: 2 * t_l].contiguous(), "highest")
+    del xe
+    torch.cuda.empty_cache()
+
+    log(f"    phase 14 host memory (GB): at its start {json.dumps(host_start)}, at its end "
+        f"{json.dumps(host_memory())}; launches {launches}")
+    return launches
+
+
+def centred_gram_f64(x: torch.Tensor) -> torch.Tensor:
+    """Xc^T Xc in f64 over row chunks, Xc = X with each row's mean over
+    time taken out (the fit step's centring)."""
+    out = torch.zeros((x.shape[1], x.shape[1]), dtype=torch.float64, device=x.device)
+    for c in _chunks(x):
+        cd = c.double()
+        cd -= cd.mean(dim=1, keepdim=True)
+        out += cd.T @ cd
+    return out
+
+
+def phase_checkpointed(z: torch.Tensor, week: dict) -> None:
+    """Phase 14 (h): ``varpro_lm_checkpointed`` on the week's projected
+    data H = Z^T (167 x 100) from the exact-DMD initial eigenvalues: four
+    steps in chunks of two into a file under TMPDIR, then resumed from it
+    to 50 steps in chunks of ten; the planted eigenvalues within 1e-2 and
+    the direct ``varpro_lm`` within 1e-4."""
+    from dmd_era5_tpu_torch.models import varpro_lm, varpro_lm_checkpointed
+    from dmd_era5_tpu_torch.models.optdmd import _eig_init
+    from dmd_era5_tpu_torch.utils.checkpoint import load_pytree
+
+    t = torch.arange(z.shape[1], dtype=torch.float32, device=z.device)
+    h = z.T.to(torch.complex64)
+    alpha0 = _eig_init(z, t, DMD_RANK)
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_ckpt_"))
+    try:
+        path = str(directory / "lm.h5")
+        varpro_lm_checkpointed(h, t, alpha0, path, max_iter=4, chunk_iters=2)
+        _, meta = load_pytree(path)
+        (alpha, _, rel, n_iters), secs = synced(varpro_lm_checkpointed, h, t, alpha0, path,
+                                                max_iter=50, chunk_iters=10)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    direct = varpro_lm(h, t, alpha0, max_iter=50)
+    err = matched_eig_error(alpha, week["alpha_true"])
+    gap = matched_eig_error(alpha, direct[0])
+    check(1 <= meta["iteration"] <= n_iters and err < 1e-2 and gap <= 1e-4,
+          f"14h: resumed at {meta['iteration']}, {n_iters} steps, planted {err:.3e}, against "
+          f"the direct solve {gap:.3e}")
+    log(f"[14h] varpro_lm_checkpointed resumed from step {meta['iteration']} to {n_iters}: "
+        f"planted within {err:.2e}, the direct solve within {gap:.2e}, residual "
+        f"{float(rel):.3e}; {secs:.3f} s")
 
 
 def year_config(**overrides) -> dict:
@@ -2292,11 +2766,18 @@ def main() -> None:
     stage_launches, stage_fs, week_res = phase_stage(week, args.seed)
     for key, n in stage_launches.items():
         launches[key] += n
-    for key, n in phase_dmd_stage(week, stage_fs, week_res, args.seed).items():
+    dmd_launches, res_b = phase_dmd_stage(week, stage_fs, week_res, args.seed)
+    for key, n in dmd_launches.items():
         launches[key] += n
-    del stage_fs, week_res
+    # phase 14 frees the week's X once it is done with the slice: it holds
+    # the only references to both
+    week["fs"] = stage_fs
+    del stage_fs, x
+    for key, n in phase_multires(week, week_res, res_b, args.seed).items():
+        launches[key] += n
+    del week_res, res_b
     # the week's tensors go before the year (34 GB) is built
-    del week, x, ref8
+    del week, ref8
     torch.cuda.empty_cache()
     year_launches, two_pass_cmp = phase_year(args.seed)
     for key, n in year_launches.items():

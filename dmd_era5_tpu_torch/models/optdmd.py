@@ -20,6 +20,11 @@ independent fits on tensors with a leading batch axis): each step takes
 only the members still running, so a finished member is left as it is,
 as the done flag of the JAX package's vmapped loop leaves it.
 
+:func:`varpro_lm_checkpointed` runs the loop in chunks, resuming from
+the solver state a checkpoint file holds, and
+:func:`optdmd_from_svd_batched` fits the members of an ensemble in one
+batched loop.
+
 The JAX package's ``mesh`` argument (the bag sharded over the ``data``
 axis) is not ported: the port has no device mesh yet (ROADMAP Queue 1
 item 12), and a mesh raises ``NotImplementedError``.
@@ -37,11 +42,14 @@ from dmd_era5_tpu_torch.utils.tensors import as_tensor
 
 __all__ = [
     "OptDMDResult",
+    "BatchedOptDMDResult",
     "fit_optdmd",
     "optdmd_from_svd",
+    "optdmd_from_svd_batched",
     "optdmd_reconstruct",
     "varpro_lm",
     "varpro_lm_batched",
+    "varpro_lm_checkpointed",
 ]
 
 # LM damping: start, raise on a rejected step, lower on an accepted one,
@@ -164,19 +172,28 @@ def _lm_step(theta, lam, rnorm, h, t, tol):
     return theta_new, lam_new, rnorm_new, ~improved | ~accepted
 
 
-def _varpro(h: torch.Tensor, t: torch.Tensor, alpha0: torch.Tensor, max_iter: int, tol: float):
+def _varpro(h: torch.Tensor, t: torch.Tensor, alpha0: torch.Tensor, max_iter: int, tol: float,
+            state=None):
     """The LM fits of B members: h (B, T, k) complex64, t (B, T) f32,
     alpha0 (B, r) complex64, on one device.  Every step takes the members
     still running (not done and under ``max_iter``), so a member that
     has finished is left as it is while its batch-mates go on, as the
-    done flag of the JAX package's vmapped loop leaves it.  Returns
-    tensors alpha (B, r), B (B, r, k), rel_residual (B,), n_iters (B,)."""
-    n_batch = h.shape[0]
-    theta = torch.cat([alpha0.real, alpha0.imag], dim=-1)
-    lam = torch.full((n_batch,), _LAMBDA0, dtype=torch.float64, device=h.device)
-    rnorm = _res_norm(theta, h, t)
-    n_iters = torch.zeros(n_batch, dtype=torch.int32, device=h.device)
-    done = torch.zeros(n_batch, dtype=torch.bool, device=h.device)
+    done flag of the JAX package's vmapped loop leaves it.  ``state``:
+    the solver state to resume from, (theta (B, 2r) f32, lambda (B,)
+    f64, residual norm (B,) f32, steps taken (B,) int32, done (B,)
+    bool); a member resumed at step 0 takes its residual norm afresh, as
+    the JAX loop does.  Returns tensors alpha (B, r), B (B, r, k),
+    rel_residual (B,), n_iters (B,) and the state reached."""
+    if state is None:
+        n_batch = h.shape[0]
+        theta = torch.cat([alpha0.real, alpha0.imag], dim=-1)
+        lam = torch.full((n_batch,), _LAMBDA0, dtype=torch.float64, device=h.device)
+        n_iters = torch.zeros(n_batch, dtype=torch.int32, device=h.device)
+        done = torch.zeros(n_batch, dtype=torch.bool, device=h.device)
+        rnorm = _res_norm(theta, h, t)
+    else:
+        theta, lam, rnorm, n_iters, done = (a.clone() for a in state)
+        rnorm = torch.where(n_iters == 0, _res_norm(theta, h, t), rnorm)
     while True:
         act = torch.nonzero(~done & (n_iters < max_iter)).flatten()
         if act.numel() == 0:
@@ -187,27 +204,93 @@ def _varpro(h: torch.Tensor, t: torch.Tensor, alpha0: torch.Tensor, max_iter: in
         n_iters[act] += 1
     alpha = _unpack(theta)
     b = _solve_b(_phi_matrix(alpha, t), h)
-    return alpha, b, rnorm / torch.linalg.vector_norm(h, dim=(-2, -1)), n_iters
+    rel = rnorm / torch.linalg.vector_norm(h, dim=(-2, -1))
+    return alpha, b, rel, n_iters, (theta, lam, rnorm, n_iters, done)
+
+
+# dtypes of the solver state's leaves (theta, lambda, residual norm, steps,
+# done); lambda is stored in f32, as the JAX package's state holds it
+_STATE_DTYPES = (torch.float32, torch.float64, torch.float32, torch.int32, torch.bool)
+_STATE_NUMPY = ("float32", "float32", "float32", "int32", "bool")
 
 
 def varpro_lm(
-    h: torch.Tensor,
-    t: torch.Tensor,
-    alpha0: torch.Tensor,
+    h,
+    t,
+    alpha0,
     max_iter: int = 50,
     tol: float = 1e-7,
+    state0=None,
+    return_state: bool = False,
 ):
     """Levenberg-Marquardt over alpha with B eliminated by projection.
 
     h: (T, k) complex data; t: (T,) sample times; alpha0: (r,) complex
-    initial eigenvalues, all on one device.  Returns (alpha, B,
-    rel_residual, n_iters), tensors on that device but n_iters an int.
+    initial eigenvalues; tensors (on one device) or host arrays.
+    ``state0``: a state to resume from, (theta (2r,), lambda, residual
+    norm, steps taken, done), as a previous call's ``return_state=True``
+    gives it (tensors) or a checkpoint holds it (arrays); the loop then
+    runs on to ``max_iter`` steps in all.  Returns (alpha, B,
+    rel_residual, n_iters[, state]), tensors on h's device but n_iters
+    an int.
     """
-    h = h.to(torch.complex64)
-    t = t.to(device=h.device, dtype=torch.float32)
-    alpha0 = alpha0.to(device=h.device, dtype=torch.complex64)
-    alpha, b, rel, n_iters = _varpro(h[None], t[None], alpha0[None], max_iter, tol)
-    return alpha[0], b[0], rel[0], int(n_iters[0])
+    h = as_tensor(h, torch.complex64)
+    t = as_tensor(t, torch.float32, h.device)
+    alpha0 = as_tensor(alpha0, torch.complex64, h.device)
+    state = None
+    if state0 is not None:
+        state = tuple(as_tensor(a, dtype, h.device).reshape(1, -1) if i == 0
+                      else as_tensor(a, dtype, h.device).reshape(1)
+                      for i, (a, dtype) in enumerate(zip(state0, _STATE_DTYPES)))
+    alpha, b, rel, n_iters, state = _varpro(h[None], t[None], alpha0[None], max_iter, tol, state)
+    out = (alpha[0], b[0], rel[0], int(n_iters[0]))
+    return out + (tuple(a[0] for a in state),) if return_state else out
+
+
+def varpro_lm_checkpointed(
+    h,
+    t,
+    alpha0,
+    checkpoint_path,
+    max_iter: int = 50,
+    chunk_iters: int = 10,
+    tol: float = 1e-7,
+):
+    """:func:`varpro_lm` in chunks of ``chunk_iters`` steps, the solver
+    state written to an HDF5 checkpoint after each (``utils/checkpoint.py``:
+    the JAX package's layout, so a checkpoint that either package writes
+    resumes in the other).  A solve killed midway resumes from the last
+    chunk written at ``checkpoint_path``.  Counterpart of
+    ``dmd_era5_tpu/models/optdmd.py:409``.
+    """
+    from pathlib import Path
+
+    from dmd_era5_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    state = None
+    start_iter = 0
+    path = Path(checkpoint_path)
+    if path.exists():
+        state, _ = load_pytree(path)
+        start_iter = int(state[3])
+
+    it = start_iter
+    result = None
+    while it < max_iter:
+        cap = min(it + chunk_iters, max_iter)
+        *result, state = varpro_lm(h, t, alpha0, max_iter=cap, tol=tol, state0=state,
+                                   return_state=True)
+        leaves = tuple(a.cpu().numpy().astype(dt) for a, dt in zip(state, _STATE_NUMPY))
+        save_pytree(path, leaves, metadata={"iteration": result[3]})
+        it = result[3]
+        if bool(state[4]) or it >= max_iter:
+            break
+        if it == start_iter:  # no progress (converged at a chunk's edge)
+            break
+        start_iter = it
+    if result is None:
+        result = varpro_lm(h, t, alpha0, max_iter=max_iter, tol=tol, state0=state)
+    return tuple(result)
 
 
 def varpro_lm_batched(
@@ -235,16 +318,22 @@ def varpro_lm_batched(
     alpha0 = as_tensor(alpha0, torch.complex64, h.device)
     if t.ndim == 1:
         t = t.expand(h.shape[0], -1)
-    return tuple(a.cpu().numpy() for a in _varpro(h, t, alpha0, max_iter, tol))
+    return tuple(a.cpu().numpy() for a in _varpro(h, t, alpha0, max_iter, tol)[:4])
 
 
 def _eig_init(z: torch.Tensor, t: torch.Tensor, rank: int) -> torch.Tensor:
     """Exact-DMD eigenvalue init on the projected data z (k, T)."""
+    return _eig_init_batched(z[None], t, rank)[0]
+
+
+def _eig_init_batched(z: torch.Tensor, t, rank: int) -> torch.Tensor:
+    """Exact-DMD eigenvalue init on projected data z (B, k, T): (B, r)
+    complex64, each member's eigenvalues by descending modulus."""
     dt = float(t[1] - t[0])
-    z1, z2 = z[:, :-1], z[:, 1:]
+    z1, z2 = z[..., :-1], z[..., 1:]
     u, s, vt = torch.linalg.svd(z1.float(), full_matrices=False)
-    u, s, vt = u[:, :rank], s[:rank], vt[:rank, :]
-    atilde = (u.T @ z2) @ (vt.T / s[None, :])
+    u, s, vt = u[..., :rank], s[..., :rank], vt[..., :rank, :]
+    atilde = (u.mT @ z2) @ (vt.mT / s[..., None, :])
     eigvals, _ = eig_sorted(atilde)
     return torch.log(eigvals) / dt
 
@@ -289,6 +378,52 @@ def optdmd_from_svd(
     amps = torch.linalg.vector_norm(b, dim=1)
     coef = (b / torch.where(amps == 0, torch.ones_like(amps), amps)[:, None]).T
     return OptDMDResult(alpha, _lift_modes(u, coef), amps, b, rel_res, n_iters)
+
+
+class BatchedOptDMDResult(NamedTuple):
+    """Per-member optimized-DMD fits from one batched solve, tensors on
+    U's device: alpha (B, r) complex; modes (B, S, r) complex unit
+    columns; amplitudes (B, r) real; b_proj (B, r, k) complex; residual
+    (B,); n_iters (B,)."""
+
+    alpha: torch.Tensor
+    modes: torch.Tensor
+    amplitudes: torch.Tensor
+    b_proj: torch.Tensor
+    residual: torch.Tensor
+    n_iters: torch.Tensor
+
+
+def optdmd_from_svd_batched(
+    u: torch.Tensor,
+    s: torch.Tensor,
+    v: torch.Tensor,
+    t,
+    rank: int | None = None,
+    alpha0=None,
+    max_iter: int = 50,
+    tol: float = 1e-7,
+) -> BatchedOptDMDResult:
+    """Optimized DMD of B members from their truncated SVDs, on U's
+    device: u (B, S, k), s (B, k), v (B, k, T) (the ensemble's
+    ``FitState``), t (T,) shared sample times.  One batched LM
+    (:func:`varpro_lm_batched`'s loop), then each member's modes lifted
+    by one real GEMM.  Counterpart of ``dmd_era5_tpu/models/optdmd.py:528``.
+    """
+    rank = rank or s.shape[-1]
+    t = as_tensor(t, torch.float32, u.device)
+    z_proj = s[..., None] * v  # (B, k, T)
+    alpha0 = _eig_init_batched(z_proj, t, rank) if alpha0 is None \
+        else as_tensor(alpha0, torch.complex64, u.device)
+    h = z_proj.mT.to(torch.complex64)
+    alpha, b, rel, n_iters, _ = _varpro(h, t.expand(h.shape[0], -1), alpha0, max_iter, tol)
+    amps = torch.linalg.vector_norm(b, dim=2)
+    coef = (b / torch.where(amps == 0, torch.ones_like(amps), amps)[..., None]).mT  # (B, k, r)
+    modes = torch.empty((u.shape[0], u.shape[1], coef.shape[-1]), dtype=torch.complex64,
+                        device=u.device)
+    for i in range(u.shape[0]):
+        modes[i] = _lift_modes(u[i], coef[i])
+    return BatchedOptDMDResult(alpha, modes, amps, b, rel, n_iters)
 
 
 def fit_optdmd(

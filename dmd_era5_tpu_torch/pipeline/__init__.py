@@ -1,5 +1,5 @@
-"""The ingest, SVD and DMD stages, the artifact store, the fused fit step
-and the out-of-core (streamed) SVD."""
+"""The ingest, SVD and DMD stages, the artifact store, the fused fit step,
+the per-variable ensemble and the out-of-core (streamed) SVD."""
 
 from dmd_era5_tpu_torch.pipeline.artifacts import (
     add_data_to_dvc,
@@ -14,6 +14,7 @@ from dmd_era5_tpu_torch.pipeline.era5_dmd import (
     retrieve_dmd_results,
 )
 from dmd_era5_tpu_torch.pipeline.era5_download import download_era5_data
+from dmd_era5_tpu_torch.pipeline.ensemble import EnsembleFit, fit_per_variable_level
 from dmd_era5_tpu_torch.pipeline.era5_svd import (
     combine_svd_results,
     compute_svd_results,
@@ -37,6 +38,7 @@ from dmd_era5_tpu_torch.pipeline.train_step import (
 )
 
 __all__ = [
+    "EnsembleFit",
     "FitState",
     "add_data_to_dvc",
     "add_data_to_store",
@@ -47,6 +49,7 @@ __all__ = [
     "file_md5",
     "fit_dmd_from_svd_results",
     "fit_ingest_pass",
+    "fit_per_variable_level",
     "fit_reduce_lift",
     "fit_step_fused",
     "fit_step_lean",

@@ -1,4 +1,5 @@
-"""The DMD stage: optimized, exact or bagged DMD and the forecast.
+"""The DMD stage: optimized, exact or bagged DMD, mrDMD, DMDc and the
+forecast.
 
 The port's counterpart of ``dmd_era5_tpu/pipeline/era5_dmd.py`` on one
 device.  :func:`main` runs the cache ladder (workdir attr match, then the
@@ -6,23 +7,25 @@ artifact store), else the SVD stage (``era5_svd.main``, with its own
 ladder) and :func:`fit_dmd_from_svd_results`, then writes and versions
 the artifact.  The fit takes one of three paths on the SVD factors:
 optimized DMD (variable projection), exact DMD (the same solver with no
-LM step) or bagged BOP-DMD (``bagging_trials > 0``); then, if asked, the
-forecast scored on the withheld holdout (latitude-weighted RMSE, ACC and
-bias per lead, and the persistence baseline's) and the forecast field
-over the training window and ``forecast_steps`` beyond it.
+LM step) or bagged BOP-DMD (``bagging_trials > 0``).  Beside it, if
+asked: an mrDMD hierarchy (``multiresolution_levels > 0``) in the POD
+subspace, or with ``mr_refit_rank > 0`` refit on the raw embedded matrix
+(the artifact's X, or without X streamed from the slice artifact through
+a packed file: one Gram pass); a DMDc fit under a control series
+(``control_input``: ``diurnal``, ``seasonal``, a ``.npy`` or an ``.h5``
+file); the forecast scored on the withheld holdout (latitude-weighted
+RMSE, ACC and bias per lead, and the persistence baseline's); and the
+forecast field over the training window and ``forecast_steps`` beyond it.
 
 U is moved to the device once (a tensor already there is used where it
-lies) and freed after the fit.  The S-sized outputs stay on the device:
-the modes (and the bag's modes std) and the forecast field, which is
-filled there row block by row block, so no (S*d, T') rollout is formed.
-They are tensors in the returned FieldSet, which ``save_fieldset``
-writes slab by slab; the small fields are host arrays, as in the JAX
-stage.
+lies) and freed once no fit needs it (before a raw mrDMD refit).  The
+S-sized outputs stay on the device: the modes (the bag's modes std, the
+mrDMD levels' and DMDc's modes) and the forecast field, which is filled
+there row block by row block, so no (S*d, T') rollout is formed.  They
+are tensors in the returned FieldSet, which ``save_fieldset`` writes slab
+by slab; the small fields are host arrays, as in the JAX stage.
 
-Not ported yet: the mrDMD (``multiresolution_levels > 0``) and DMDc
-(``control_input``) branches, which raise ``NotImplementedError`` naming
-ROADMAP Queue 1 item 11 before anything is fitted, and a device mesh
-(item 12).
+Not ported yet: a device mesh (ROADMAP Queue 1 item 12).
 
 Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_dmd``.
 """
@@ -32,6 +35,7 @@ from __future__ import annotations
 import functools
 import time
 from datetime import datetime
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,17 +43,19 @@ import torch
 from dmd_era5_tpu_torch.core import config_parser, config_reader
 from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.models.bopdmd import bopdmd_from_svd
+from dmd_era5_tpu_torch.models.dmdc import dmdc_from_svd
 from dmd_era5_tpu_torch.models.forecast import iter_forecast_blocks, streamed_forecast_scores
+from dmd_era5_tpu_torch.models.mrdmd import _fro, fit_mrdmd, fit_mrdmd_streamed, mrdmd_from_svd
 from dmd_era5_tpu_torch.models.optdmd import NO_MESH, optdmd_from_svd
 from dmd_era5_tpu_torch.models.verification import ScoreAccumulator, _space_weights
 from dmd_era5_tpu_torch.pipeline import era5_svd
 from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store
+from dmd_era5_tpu_torch.snapmat import resample_era5_dataset, slice_era5_dataset
+from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
 from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = ["check_dmd_results", "fit_dmd_from_svd_results", "retrieve_dmd_results", "main"]
-
-_ITEM_11 = "not ported yet (ROADMAP Queue 1 item 11)"
 
 
 @functools.cache
@@ -97,20 +103,201 @@ def retrieve_dmd_results(
     )
 
 
-def _check_ported(parsed_config: dict) -> None:
-    """Raise for the branches of the JAX stage that the port lacks."""
-    if parsed_config.get("multiresolution_levels", 0) > 0:
-        raise NotImplementedError(
-            f"multiresolution_levels={parsed_config['multiresolution_levels']} (mrDMD): {_ITEM_11}"
-        )
-    control = parsed_config.get("control_input", "none")
-    if control != "none":
-        raise NotImplementedError(f"control_input={control!r} (DMDc): {_ITEM_11}")
-
-
 def _hours_since_start(times: np.ndarray) -> np.ndarray:
     t64 = times.astype("datetime64[ns]").astype(np.int64)
     return ((t64 - t64[0]) / 3.6e12).astype(np.float32)
+
+
+def _control_series(control_input: str, times: np.ndarray) -> np.ndarray:
+    """The (q, T-1) control series of DMDc, u_k acting on x_k -> x_{k+1}.
+
+    ``diurnal`` and ``seasonal``: the [cos, sin] pair at 24 h or the
+    tropical year, at the transition times in absolute hours since the
+    epoch (a real clock, not the window's start).  A path: a ``.npy``
+    file, or an ``.h5`` / ``.hdf5`` file with a ``control`` dataset
+    (h5py imported here), shaped (q, T-1), (q, T) (the last column
+    dropped) or 1-D of either length.
+    """
+    n_expected = len(times) - 1
+    if control_input in ("diurnal", "seasonal"):
+        period = 24.0 if control_input == "diurnal" else 24.0 * 365.2422
+        t64 = times.astype("datetime64[ns]").astype(np.int64)
+        ang = 2.0 * np.pi * (t64[:-1] / 3.6e12).astype(np.float64) / period
+        return np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
+    if control_input.endswith(".npy"):
+        series = np.load(control_input)
+    else:
+        import h5py
+
+        with h5py.File(control_input, "r") as f:
+            if "control" not in f:
+                raise ValueError(f"control file {control_input} has no 'control' dataset")
+            series = f["control"][:]
+    series = np.asarray(series, dtype=np.float32)
+    if series.ndim == 1:
+        series = series[None, :]
+    if series.shape[1] == n_expected + 1:
+        series = series[:, :-1]
+    if series.shape[1] != n_expected:
+        raise ValueError(
+            f"control series has {series.shape[1]} columns; need "
+            f"{n_expected} (= T-1) or {n_expected + 1} (= T)"
+        )
+    return series
+
+
+def _mr_refit_streamed(parsed_config: dict, dt_hours: float, mr_levels: int, mr_refit: int,
+                       device: torch.device):
+    """The raw-data mrDMD refit without X in the SVD artifact, out of core.
+
+    The slice goes through the SVD stage's preprocessing again (variables,
+    levels, resampling, the holdout withheld, rows flattened and
+    standardized on ``device``), is packed to a ``.npy`` file beside the
+    results as d delay slabs (the d-fold Hankel matrix never exists), and
+    :func:`models.mrdmd.fit_mrdmd_streamed` fits the hierarchy from one
+    Gram pass over it; the file is removed after.  The S-sized modes are
+    formed only when they fit 2 GB; the time-side mode maps always are.
+    """
+    ds, _ = era5_svd.retrieve_era5_slice(parsed_config, use_store=False)
+    if ds is None:
+        raise ValueError(
+            "mr_refit_rank needs either the data matrix in the SVD artifact "
+            "(save_data_matrix = True) or the ERA5 slice artifact in the working "
+            "directory for the streamed refit."
+        )
+    ds = ds[parsed_config["variables"]]
+    ds = slice_era5_dataset(ds, levels=parsed_config["levels"])
+    ds = resample_era5_dataset(ds, parsed_config["delta_time"])
+    holdout = int(parsed_config.get("forecast_holdout", 0))
+    if holdout > 0:
+        ds = ds.isel(time=slice(0, len(ds.coord("time").values) - holdout))
+    da_flat, _, _ = era5_svd._preprocess_on_device(ds, parsed_config, device)
+    del ds
+    d = int(parsed_config["delay_embedding"])
+    packed = Path(str(parsed_config["save_path"]) + ".mr.packed.npy")
+    save_packed_matrix(packed, da_flat.data, d=d)
+    n_rows = da_flat.data.shape[0] * d
+    del da_flat
+    try:
+        modes_bytes = n_rows * mr_refit * 8 * (2**mr_levels - 1)
+        return fit_mrdmd_streamed(
+            packed, dt=dt_hours, rank=mr_refit, max_levels=mr_levels,
+            max_cycles=parsed_config.get("mr_max_cycles", 1.0),
+            block_rows=int(parsed_config.get("stream_block_rows", 1 << 16)),
+            return_modes=modes_bytes <= (2 << 30), device=device,
+        )
+    finally:
+        packed.unlink(missing_ok=True)
+
+
+def _mrdmd_fields(mr, space_coords: dict) -> dict[str, Field]:
+    """Each level's fields: eigenvalues, amplitudes, the int8 slow and
+    kept masks, the modes (tensors where they lie) and, on the Gram
+    route, the time-side mode maps, on dims of their own (window_L<l>,
+    mr_rank, mr_map_time)."""
+    out: dict[str, Field] = {}
+    mr_rank = Coord("mr_rank", np.arange(mr.levels[0].omega.shape[1]))
+    for lv in mr.levels:
+        win = f"window_L{lv.level}"
+        coords = {win: Coord(win, np.arange(lv.omega.shape[0])), "mr_rank": mr_rank}
+
+        def add(name, data, dims, attrs=None, extra=None):
+            key = f"{name}_L{lv.level}"
+            out[key] = Field(data, dims, {**coords, **(extra or {})}, attrs, name=key)
+
+        add("mr_eigenvalues", lv.omega, (win, "mr_rank"), {"units": "1/hour (continuous time)"})
+        add("mr_amplitudes", lv.amplitudes, (win, "mr_rank"))
+        add("mr_slow_mask", lv.slow_mask.astype(np.int8), (win, "mr_rank"),
+            {"description": "true |omega|<=rho criterion per level"})
+        kept = lv.kept_mask if lv.kept_mask is not None else lv.slow_mask
+        add("mr_kept_mask", kept.astype(np.int8), (win, "mr_rank"),
+            {"description": "modes with amplitudes kept (all-True at the finest level, "
+                            "which absorbs the remainder)"})
+        if lv.modes is not None:
+            add("mr_modes", lv.modes, (win, "space", "mr_rank"),
+                extra={"space": space_coords["space"]})
+        if lv.mode_map is not None:
+            add("mr_mode_map", lv.mode_map, (win, "mr_map_time", "mr_rank"),
+                {"description": "time-side mode factors: modes = X[:, :mr_t_used] @ map "
+                                "(unit columns)"},
+                extra={"mr_map_time": Coord("mr_map_time", np.arange(mr.t_used))})
+    return out
+
+
+def _mrdmd(factors, svd_results: FieldSet, parsed_config: dict, dt_hours: float,
+           device: torch.device, space_coords: dict) -> tuple[dict, dict]:
+    """The mrDMD hierarchy beside the main fit: in the POD subspace at
+    ``dmd_rank`` (``factors`` = (U, s, V)), or with ``mr_refit_rank > 0``
+    refit on the raw embedded matrix (``factors`` None): the artifact's X
+    on ``device``, else streamed from the slice artifact.  Returns the
+    fields and the attrs (the residual's share of the data's norm, the
+    refit rank, the slow budget, T_used)."""
+    mr_levels = int(parsed_config["multiresolution_levels"])
+    mr_refit = int(parsed_config.get("mr_refit_rank", 0))
+    max_cycles = parsed_config.get("mr_max_cycles", 1.0)
+    if mr_refit > 0 and "X" in svd_results.data_vars:
+        log_and_print(_logger(), f"Fitting {mr_levels}-level multiresolution DMD "
+                                 f"(raw-data refit at rank {mr_refit})...")
+        x_raw = era5_svd._as_tensor(svd_results["X"].data, device)
+        mr = fit_mrdmd(x_raw, dt=dt_hours, rank=mr_refit, max_levels=mr_levels,
+                       max_cycles=max_cycles)
+        ref_norm = _fro(x_raw[:, : mr.t_used])
+        del x_raw
+    elif mr_refit > 0:
+        log_and_print(_logger(), f"Fitting {mr_levels}-level multiresolution DMD (streamed raw "
+                                 f"refit at rank {mr_refit}; no X in artifact)...")
+        mr = _mr_refit_streamed(parsed_config, dt_hours, mr_levels, mr_refit, device)
+        ref_norm = mr.x_fro
+    else:
+        log_and_print(_logger(), f"Fitting {mr_levels}-level multiresolution DMD...")
+        u, s, v = factors
+        mr = mrdmd_from_svd(u, s, v, dt=dt_hours, rank=parsed_config["dmd_rank"],
+                            max_levels=mr_levels, max_cycles=max_cycles)
+        ref_norm = float(torch.linalg.vector_norm(s[:, None] * v[:, : mr.t_used]))
+    attrs = {
+        "multiresolution_residual": float(mr.residual_fro / max(ref_norm, 1e-30)),
+        "mr_refit_rank": mr_refit,
+        "mr_max_cycles": float(max_cycles),
+        "mr_t_used": int(mr.t_used),
+    }
+    return _mrdmd_fields(mr, space_coords), attrs
+
+
+def _dmdc(factors, times: np.ndarray, dt_hours: float, parsed_config: dict,
+          rank_coord: Coord, space_coords: dict) -> tuple[dict, dict]:
+    """The DMDc fit beside the main fit, on the SVD factors under the
+    configured control series.  Returns its fields (the continuous-time
+    eigenvalues, the modes where they lie, the reduced operators and the
+    series) and attrs."""
+    control_input = parsed_config["control_input"]
+    rank = parsed_config["dmd_rank"]
+    u_ctrl = _control_series(control_input, times)  # (q, T-1)
+    q_ctrl = u_ctrl.shape[0]
+    log_and_print(_logger(), f"Fitting DMDc (control='{control_input}', q={q_ctrl}) "
+                             f"at rank {rank}...")
+    res = dmdc_from_svd(*factors, u_ctrl, rank=rank,
+                        rank_omega=parsed_config.get("dmdc_rank_omega"), dt=dt_hours)
+    ctrl_coord = Coord("control", np.arange(q_ctrl))
+    rank_in = Coord("rank_in", np.arange(rank))
+    fields = {
+        "dmdc_eigenvalues": Field(res.omega.cpu().numpy(), ("rank",), {"rank": rank_coord},
+                                  {"units": "1/hour (continuous time)"}, name="dmdc_eigenvalues"),
+        "dmdc_modes": Field(res.modes, ("space", "rank"), space_coords, name="dmdc_modes"),
+        "dmdc_a_red": Field(res.a_red.cpu().numpy(), ("rank", "rank_in"),
+                            {"rank": rank_coord, "rank_in": rank_in},
+                            {"description": "reduced unforced operator U^T A U"},
+                            name="dmdc_a_red"),
+        "dmdc_b_red": Field(res.b_red.cpu().numpy(), ("rank", "control"),
+                            {"rank": rank_coord, "control": ctrl_coord},
+                            {"description": "reduced input map U^T B"}, name="dmdc_b_red"),
+        "dmdc_control": Field(u_ctrl, ("control", "time_ctrl"),
+                              {"control": ctrl_coord,
+                               "time_ctrl": Coord("time_ctrl", times[:-1])},
+                              {"description": f"control series used ({control_input})"},
+                              name="dmdc_control"),
+    }
+    log_and_print(_logger(), f"DMDc fit complete: one-step residual {res.residual:.3e}.")
+    return fields, {"control_input": control_input, "dmdc_residual": float(res.residual)}
 
 
 def _synchronize(device: torch.device) -> None:
@@ -219,11 +406,11 @@ def fit_dmd_from_svd_results(
     ``device``: where the fit runs, the card unless given, or unless U
     is a tensor on another device.  Returns a FieldSet of the JAX
     stage's schema whose S-sized fields (``modes``, ``modes_std``,
-    ``forecast``) are tensors on that device.
+    ``mr_modes_L*``, ``dmdc_modes``, ``forecast``) are tensors on that
+    device.
     """
     if mesh is not None:
         raise NotImplementedError(f"fit_dmd_from_svd_results with a mesh: {NO_MESH}")
-    _check_ported(parsed_config)
     u_field = svd_results["U"]
     device = era5_svd._device(device, u_field)
     u, s, v = _svd_factors(svd_results, device)
@@ -256,6 +443,7 @@ def fit_dmd_from_svd_results(
         result = optdmd_from_svd(u, s, v, t_fit, rank=rank, max_iter=max_iter)
     _synchronize(device)
     fit_seconds = time.perf_counter() - t_start
+    factors = (u, s, v)
     del u, s, v
     log_and_print(
         _logger(),
@@ -285,8 +473,26 @@ def fit_dmd_from_svd_results(
         data_vars["modes_std"] = Field(bop.modes_std, ("space", "rank"), space_coords,
                                        name="modes_std")
 
-    d = int(parsed_config["delay_embedding"])
+    dt_hours = float(t_hours[1] - t_hours[0]) if len(t_hours) > 1 else 1.0
+    control_input = parsed_config.get("control_input", "none")
+    mr_levels = int(parsed_config.get("multiresolution_levels", 0))
+    dmdc_fields, dmdc_attrs = {}, {}
+    if control_input != "none":  # before a raw mrDMD refit, which frees U
+        dmdc_fields, dmdc_attrs = _dmdc(factors, times, dt_hours, parsed_config, rank_coord,
+                                        space_coords)
+    if mr_levels == 0 or parsed_config.get("mr_refit_rank", 0) > 0:
+        factors = None  # no fit below reads U
     attrs: dict = {}
+    if mr_levels > 0:
+        mr_fields, mr_attrs = _mrdmd(factors, svd_results, parsed_config, dt_hours, device,
+                                     space_coords)
+        data_vars.update(mr_fields)
+        attrs.update(mr_attrs)
+    factors = None
+    data_vars.update(dmdc_fields)
+    attrs.update(dmdc_attrs)
+
+    d = int(parsed_config["delay_embedding"])
     # forecast verification on the withheld holdout window: the fit saw
     # only the train columns (the SVD stage withheld the tail, from the
     # standardization statistics too)
@@ -303,8 +509,8 @@ def fit_dmd_from_svd_results(
     out.attrs["dmd_rank"] = rank
     out.attrs["optimized"] = int(parsed_config["optimized"])
     out.attrs["bagging_trials"] = n_trials
-    out.attrs["multiresolution_levels"] = 0
-    out.attrs["control_input"] = "none"
+    out.attrs["multiresolution_levels"] = mr_levels
+    out.attrs["control_input"] = control_input
     out.attrs.update(attrs)
     if bop is not None:
         # diverged trials are dropped by the bag; record the survivors
@@ -348,7 +554,6 @@ def main(
         raise Exception(msg) from err
 
     if dmd_results is None:
-        _check_ported(parsed_config)  # before the SVD stage runs
         try:
             svd_results, _, _ = era5_svd.main(
                 config, write_artifact=write_artifact, use_store=use_store, device=device

@@ -89,13 +89,18 @@ def orth_small(z: torch.Tensor) -> torch.Tensor:
     return z @ w.transpose(-1, -2)
 
 
-def eig_sorted(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Eigendecomposition of a small matrix on its own device.
+def eig_sorted(
+    a: torch.Tensor, dtype: torch.dtype = torch.complex64
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of a small (batched) matrix on its own device.
 
-    Returns complex64 (eigenvalues, eigenvectors) ordered by descending
-    |eigenvalue| with a stable sort, as ``eig_host`` orders them.
+    Returns (eigenvalues, eigenvectors) in ``dtype`` (complex64, as
+    ``eig_host`` returns them, or complex128 for the mrDMD windows,
+    whose JAX counterpart takes an f64 ``np.linalg.eig``), ordered by
+    descending |eigenvalue| with a stable sort, as ``eig_host`` orders
+    them.
     """
-    w, v = torch.linalg.eig(a.to(torch.complex64))
+    w, v = torch.linalg.eig(a.to(dtype))
     order = torch.argsort(-w.abs(), dim=-1, stable=True)
     w = torch.gather(w, -1, order)
     v = torch.gather(v, -1, order[..., None, :].expand_as(v))

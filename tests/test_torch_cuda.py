@@ -20,7 +20,12 @@ the streamed SVD's panel, the edges of its envelope and an
 ill-conditioned panel, on its own choice of CTAs and on forced ones
 (shares shorter than n, row j's holder at share edges, a zero column in
 a late share, m no multiple of the CTAs), past its capacity, and the
-Householder leaf inside and outside that envelope.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
+Householder leaf inside and outside that envelope; the DMD models' use
+of the kernels: K4 at the streamed mrDMD refit's block and at mrDMD
+windows copied from a residual's column blocks (against the f64 sums
+and one TF32 pass), ``fit_mrdmd`` (K4 once a window) and
+``fit_mrdmd_streamed`` (once a block), DMDc (K4 and K1 twice) and the
+ensemble (K1 once a member) against their CPU runs.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
 is not needed, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -595,3 +601,123 @@ def test_fused_entry_routes_on_card(cuda, t, n, launches):
     for name, a, b in zip(("yc", "rs2", "ss", "G", "C"), got, ref):
         a, b = a.double().cpu(), b.double()
         assert float((a - b).norm() / b.norm()) <= 1e-5, name
+
+
+# K4 where the DMD models take it: the streamed mrDMD refit's block
+# (65,536 x 168) and mrDMD windows, column blocks of a row-major residual
+# copied dense (level 1 and 2 of T_used 164)
+MRDMD_GRAM_CASES = [
+    pytest.param(m, t, c0, c1, id=f"m{m}-t{t}-cols{c0}-{c1}")
+    for m, t, c0, c1 in [(65_536, 168, 0, 168), (65_536, 164, 82, 164), (65_536, 164, 41, 82)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t,c0,c1", MRDMD_GRAM_CASES)
+def test_gram_at_mrdmd_shapes_on_card(cuda, m, t, c0, c1):
+    """K4 on the block (or window copy) with entries over six decades:
+    within 1e-6 max|G| of the f64 sums, exactly symmetric, a limit that
+    one TF32 pass misses."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    a = _wide((m, t), gen, cuda)[:, c0:c1].contiguous()
+    exact = a.double().T @ a.double()
+    before = qr_panel.gram.launches["highest"]
+    g = qr_panel.gram(a)
+    torch.cuda.synchronize()
+    assert qr_panel.gram.launches["highest"] == before + 1
+    assert torch.equal(g, g.T)
+    err = float((g.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= 1e-6, err
+    assert _one_tf32_pass_err(lambda: a.T @ a, exact) > 1e-6
+
+
+def _two_scale(s_rows, t_cols, seed):
+    """test_26's slow and fast oscillation pairs and 1e-4 noise, (S, T)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(t_cols) * 0.1
+    x = sum(amp * (np.outer(rng.standard_normal(s_rows), np.cos(w * t))
+                   + np.outer(rng.standard_normal(s_rows), np.sin(w * t)))
+            for w, amp in ((0.2, 2.0), (6.0, 0.5)))
+    return (x + 1e-4 * rng.standard_normal((s_rows, t_cols))).astype(np.float32)
+
+
+def _launches():
+    return (qr_panel.gram.launches["highest"], matmul.sketch_center_gram_project.launches)
+
+
+@pytest.mark.cuda
+def test_mrdmd_routes_on_card(cuda, tmp_path):
+    """fit_mrdmd on a card tensor takes K4 once a window (7 at 3 levels)
+    and agrees with its CPU run (eigenvalues matched within 5e-3, test_26's
+    tolerance, the slow parts within 1e-4 of max|x|); fit_mrdmd_streamed
+    takes it once a block into f64 sums on the card and agrees with it."""
+    from dmd_era5_tpu_torch.models import fit_mrdmd, fit_mrdmd_streamed, mrdmd_reconstruct
+
+    x = _two_scale(5000, 256, 0)
+    kw = dict(dt=0.1, rank=6, max_levels=3, max_cycles=2.0)
+    before = _launches()
+    got = fit_mrdmd(torch.from_numpy(x).to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 7, before[1])
+    ref = fit_mrdmd(x, device="cpu", **kw)
+    for lv, lv_ref in zip(got.levels, ref.levels):
+        for w in range(lv.omega.shape[0]):
+            om, om_ref = lv.omega[w], lv_ref.omega[w]
+            left = list(range(len(om)))
+            for o in om_ref:
+                i = min(left, key=lambda j: abs(om[j] - o))
+                assert abs(om[i] - o) <= 5e-3, (lv.level, w, om, om_ref)
+                left.remove(i)
+        assert lv.kept_mask.sum() == lv_ref.kept_mask.sum()
+    rec = mrdmd_reconstruct(got).cpu().numpy()
+    assert np.abs(rec - mrdmd_reconstruct(ref).numpy()).max() <= 1e-4 * np.abs(x).max()
+
+    path = tmp_path / "x.npy"
+    np.save(path, x)
+    before = _launches()
+    streamed = fit_mrdmd_streamed(path, block_rows=1024, return_modes=True, **kw)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 5, before[1])  # 5,000 rows in 1,024-row blocks
+    rec_s = mrdmd_reconstruct(streamed).cpu().numpy()
+    assert np.linalg.norm(rec_s - rec) / np.linalg.norm(x) < 2e-2
+
+
+@pytest.mark.cuda
+def test_dmdc_and_ensemble_on_card(cuda):
+    """DMDc on a card tensor: K4 twice and K1 twice (the two Gram-route
+    SVDs), eigenvalues as on the CPU within 2e-3 (test_27); the ensemble:
+    K1 once a member, s as on the CPU within 1e-4 relative."""
+    from dmd_era5_tpu_torch.models import fit_dmdc
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+    from dmd_era5_tpu_torch.snapmat import create_mock_era5
+
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.standard_normal((3000, 4)))
+    a0 = np.zeros((4, 4))
+    for i, (th, g) in enumerate(((0.3, 0.98), (1.1, 0.9))):
+        a0[2 * i:2 * i + 2, 2 * i:2 * i + 2] = g * np.array([[np.cos(th), -np.sin(th)],
+                                                             [np.sin(th), np.cos(th)]])
+    b0 = rng.standard_normal((4, 2))
+    u_seq = rng.standard_normal((2, 119)).astype(np.float32)
+    z = rng.standard_normal(4)
+    cols = [q @ z]
+    for k in range(119):
+        z = a0 @ z + b0 @ u_seq[:, k]
+        cols.append(q @ z)
+    x = np.stack(cols, axis=1).astype(np.float32)
+    before = _launches()
+    res = fit_dmdc(torch.from_numpy(x).to(cuda), u_seq, rank=4)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 2, before[1] + 2)
+    ref = fit_dmdc(x, u_seq, rank=4, device="cpu")
+    got, want = res.eigenvalues.cpu().numpy(), ref.eigenvalues.numpy()
+    assert max(min(abs(got - w)) for w in want) <= 2e-3
+
+    fs = create_mock_era5("2020-01-01", "2020-01-01T23", ["temperature"], [1000, 500], seed=6)
+    omega = torch.randn((24, 13), generator=torch.Generator().manual_seed(9))
+    before = _launches()
+    fit = fit_per_variable_level(fs, 3, omega=omega.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 2)
+    fit_cpu = fit_per_variable_level(fs, 3, omega=omega, device="cpu")
+    np.testing.assert_allclose(fit.state.s.cpu().numpy(), fit_cpu.state.s.numpy(), rtol=1e-4)

@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_11_dmd_stage import _stage_slice, _stage_slice_dynamic
+from test_11_dmd_stage import _stage_slice, _stage_slice_dynamic, _stage_slice_forced
 from test_torch_io_h5 import to_jax
 from test_torch_optdmd import _match
 from test_torch_stage import root  # noqa: F401  (the fixture)
@@ -81,9 +81,10 @@ def both_mains(root, cfg, stage=_stage_slice, **main_kwargs):
     return out["port"], out["jax"]
 
 
-# attrs that hold timings, dates or paths, or the solver's own stopping point
+# attrs that hold timings, dates or paths, or a fit's own residual
 VOLATILE = {"date_processed", "svd_seconds", "svd_gelem_per_s", "era5_slice_path",
-            "dmd_seconds", "lm_iterations", "dmd_residual"}
+            "dmd_seconds", "lm_iterations", "dmd_residual", "multiresolution_residual",
+            "dmdc_residual"}
 
 
 def assert_same_layout(res, res_j):
@@ -305,27 +306,190 @@ def test_dmd_forecast_holdout_scores_beat_persistence(root, dmd_config, rank):
     assert not era5_dmd.check_dmd_results(res, other)
 
 
+# ------------------------------------------------- mrDMD and DMDc
+
+
+def discrete(omega, dt=1.0):
+    """The discrete eigenvalues exp(omega dt) of continuous ones: a
+    negative real eigenvalue's log lies on the branch cut, at +i pi or
+    -i pi by the sign of a roundoff imaginary part, and a mode damped
+    within a step has an omega that noise sets; both are one point here."""
+    return np.exp(np.asarray(omega, np.complex128) * dt)
+
+
+def assert_mr_levels_match(res, res_j, levels, atol):
+    """Each level's eigenvalues, as discrete ones (hourly steps), matched
+    per window within ``atol`` (never by ``np.sort_complex`` order: it
+    sorts by the real part first), and equal slow and kept counts."""
+    for lvl in range(levels):
+        om, om_j = (discrete(r[f"mr_eigenvalues_L{lvl}"].values) for r in (res, res_j))
+        assert om.shape == om_j.shape
+        for w in range(om_j.shape[0]):
+            idx = _match(om[w], om_j[w])
+            np.testing.assert_allclose(om[w][idx], om_j[w], rtol=0, atol=atol)
+        for mask in ("mr_slow_mask", "mr_kept_mask"):
+            assert res[f"{mask}_L{lvl}"].values.sum() == res_j[f"{mask}_L{lvl}"].values.sum()
+
+
+def test_dmd_stage_multiresolution(root, dmd_config):
+    """multiresolution_levels > 0 adds the per-level mrDMD fields, fit in
+    the POD subspace (test_11's case), in both packages alike."""
+    dmd_config.update(multiresolution_levels=2, mr_max_cycles=1.5)
+    (res, _, _), (res_j, _, _) = both_mains(root, dmd_config, write_artifact=True)
+    assert_same_layout(res, res_j)
+    n_space = N_SPACE * dmd_config["delay_embedding"]
+    r = dmd_config["dmd_rank"]
+    assert res["mr_eigenvalues_L0"].shape == (1, r) and res["mr_eigenvalues_L1"].shape == (2, r)
+    assert res["mr_modes_L0"].shape == (1, n_space, r) and res["mr_modes_L1"].shape == (2, n_space, r)
+    assert isinstance(res["mr_modes_L1"].data, torch.Tensor)
+    assert res["mr_slow_mask_L0"].values.dtype == np.int8
+    norms = np.linalg.norm(res["mr_modes_L0"].values[0], axis=0)
+    live = norms > 1e-6
+    np.testing.assert_allclose(norms[live], 1.0, rtol=1e-4)
+    assert res.attrs["multiresolution_levels"] == 2 and res.attrs["mr_t_used"] == 24
+    res_rel = res.attrs["multiresolution_residual"]
+    assert np.isfinite(res_rel) and 0.0 <= res_rel < 1.0
+    np.testing.assert_allclose(res_rel, res_j.attrs["multiresolution_residual"], atol=2e-2)
+    assert_mr_levels_match(res, res_j, 2, atol=5e-3)
+    # the artifact round-trips and the cache check keys on the levels
+    parsed = config_parser(dict(dmd_config), "era5-dmd")
+    reloaded = load_fieldset(parsed["save_path"])
+    np.testing.assert_array_equal(reloaded["mr_eigenvalues_L1"].values,
+                                  res["mr_eigenvalues_L1"].values)
+    np.testing.assert_array_equal(reloaded["mr_modes_L1"].values, res["mr_modes_L1"].values)
+    assert era5_dmd.check_dmd_results(reloaded, parsed)
+    plain = config_parser(dict(dmd_config, multiresolution_levels=0), "era5-dmd")
+    assert not era5_dmd.check_dmd_results(reloaded, plain)
+
+
+@pytest.mark.parametrize("route", ["in_memory", "streamed"])
+def test_dmd_stage_multiresolution_refit(root, dmd_config, route):
+    """mr_refit_rank: the hierarchy refit on the raw embedded matrix, from
+    the artifact's X (save_data_matrix) or, without X, streamed from the
+    slice artifact through a packed file; each against the JAX stage's
+    same route on the planted slice."""
+    cfg = planted(dmd_config, multiresolution_levels=2, mr_refit_rank=4,
+                  save_data_matrix=route == "in_memory", forecast_steps=0)
+    (res, _, _), (res_j, _, _) = both_mains(root, cfg, stage=_stage_slice_dynamic,
+                                            write_artifact=False)
+    assert_same_layout(res, res_j)
+    assert res.attrs["mr_refit_rank"] == 4 and res["mr_eigenvalues_L1"].shape == (2, 4)
+    t_used = res.attrs["mr_t_used"]
+    n_space = N_SPACE * cfg["delay_embedding"]
+    if route == "in_memory":
+        assert res["mr_modes_L0"].shape == (1, n_space, 4)
+        assert "mr_mode_map_L0" not in res
+    else:
+        assert res["mr_mode_map_L0"].shape == (1, t_used, 4)
+        assert res["mr_modes_L1"].shape == (2, n_space, 4)  # under the 2 GB budget
+    res_rel = res.attrs["multiresolution_residual"]
+    assert np.isfinite(res_rel) and 0.0 <= res_rel < 1.0
+    np.testing.assert_allclose(res_rel, res_j.attrs["multiresolution_residual"], atol=2e-3)
+    assert_mr_levels_match(res, res_j, 2, atol=5e-3)
+    # subspace and refit hierarchies are different artifacts
+    assert not era5_dmd.check_dmd_results(res, config_parser(dict(cfg, mr_refit_rank=0),
+                                                             "era5-dmd"))
+
+
+def test_mr_refit_streams_without_data_matrix(root, dmd_config):
+    """test_11's case: the streamed refit (no X in the SVD artifact)
+    against the in-memory refit, both the port's, on test_11's mock:
+    eigenvalues matched within 2e-2, the residual share within 2e-2."""
+    cfg = dict(dmd_config, start_datetime="2019-09-03T00", end_datetime="2019-09-04T00",
+               multiresolution_levels=2, mr_refit_rank=4, save_data_matrix=False,
+               forecast_steps=0)
+    _stage_slice(dict(cfg))
+    res, _, _ = era5_dmd.main(dict(cfg), device="cpu")
+    t_used = res.attrs["mr_t_used"]
+    assert res["mr_mode_map_L0"].shape == (1, t_used, 4)
+    assert not os.path.exists(str(config_parser(dict(cfg), "era5-dmd")["save_path"])
+                              + ".mr.packed.npy")
+    ref, _, _ = era5_dmd.main(dict(cfg, save_data_matrix=True), device="cpu")
+    assert_mr_levels_match(res, ref, 2, atol=2e-2)
+    np.testing.assert_allclose(res.attrs["multiresolution_residual"],
+                               ref.attrs["multiresolution_residual"], atol=2e-2)
+
+
+def test_dmd_stage_dmdc(root, dmd_config):
+    """control_input = diurnal on a slice with a known diurnal forcing
+    (test_11's case): the series equals the generator's (absolute phase,
+    transition-aligned), the forced model explains the transitions, the
+    control input keys the cache; the fit against the JAX stage's."""
+    cfg = dict(dmd_config, start_datetime="2019-07-01T00", end_datetime="2019-07-03T00",
+               control_input="diurnal", forecast_steps=0, n_components=8, dmd_rank=6)
+    out = {}
+    for name, main in (("jax", dmd_jax.main), ("port", era5_dmd.main)):
+        root(name)
+        u_gen = _stage_slice_forced(dict(cfg))
+        out[name] = main(dict(cfg), write_artifact=True,
+                         **({"device": "cpu"} if name == "port" else {}))[0]
+    res, res_j = out["port"], out["jax"]
+    assert_same_layout(res, res_j)
+    r, d = cfg["dmd_rank"], cfg["delay_embedding"]
+    assert res["dmdc_eigenvalues"].shape == (r,) and res["dmdc_a_red"].shape == (r, r)
+    assert res["dmdc_modes"].shape == (N_SPACE * d, r) and res["dmdc_b_red"].shape == (r, 2)
+    assert isinstance(res["dmdc_modes"].data, torch.Tensor)
+    assert res.attrs["control_input"] == "diurnal"
+    np.testing.assert_allclose(res["dmdc_control"].values, u_gen[:, d - 1 : -1], atol=1e-5)
+    np.testing.assert_array_equal(res["dmdc_control"].values, res_j["dmdc_control"].values)
+    assert res.attrs["dmdc_residual"] < 0.2
+    np.testing.assert_allclose(res.attrs["dmdc_residual"], res_j.attrs["dmdc_residual"],
+                               rtol=1e-2)
+    eig, eig_j = (discrete(r["dmdc_eigenvalues"].values) for r in (res, res_j))
+    idx = _match(eig, eig_j)
+    np.testing.assert_allclose(eig[idx], eig_j, rtol=0, atol=2e-3)
+    other = config_parser(dict(cfg, control_input="none"), "era5-dmd")
+    assert not era5_dmd.check_dmd_results(res, other)
+    parsed = config_parser(dict(cfg), "era5-dmd")
+    assert era5_dmd.check_dmd_results(load_fieldset(parsed["save_path"]), parsed)
+
+
+@pytest.mark.parametrize("kind", ["npy", "h5"])
+def test_dmd_stage_dmdc_from_file(root, dmd_config, tmp_path, kind):
+    """A control series from a .npy file, or an .h5 file's ``control``
+    dataset, aligned with the artifact's time axis (T = 24 at d = 2),
+    its last column dropped; the same fit as the JAX stage's."""
+    import h5py
+
+    cfg = dict(dmd_config, start_datetime="2019-08-01T00", end_datetime="2019-08-02T00",
+               forecast_steps=0, n_components=8, dmd_rank=6)
+    t_emb = 25 - (cfg["delay_embedding"] - 1)
+    series = np.random.default_rng(0).standard_normal((3, t_emb)).astype(np.float32)
+    path = tmp_path / f"ctrl.{kind}"
+    if kind == "npy":
+        np.save(path, series)
+    else:
+        with h5py.File(path, "w") as f:
+            f["control"] = series
+    cfg["control_input"] = str(path)
+    (res, _, _), (res_j, _, _) = both_mains(root, cfg, write_artifact=False)
+    assert res["dmdc_b_red"].shape == (6, 3) and res["dmdc_control"].shape == (3, t_emb - 1)
+    np.testing.assert_array_equal(res["dmdc_control"].values, series[:, :-1])
+    assert_same_layout(res, res_j)
+    bad = tmp_path / "bad.h5"
+    with h5py.File(bad, "w") as f:
+        f["other"] = series
+    with pytest.raises(ValueError, match="no 'control' dataset"):
+        era5_dmd._control_series(str(bad), np.arange(t_emb).astype("datetime64[h]"))
+
+
 # ----------------------------------------------- what the port lacks
 
 
-@pytest.mark.parametrize("branch", ["mrdmd", "dmdc", "mesh"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(root, dmd_config, branch):
-    """mrDMD and DMDc (ROADMAP Queue 1 item 11) and a device mesh (item
-    12) raise NotImplementedError before anything is computed."""
-    overrides = {"mrdmd": {"multiresolution_levels": 2}, "dmdc": {"control_input": "diurnal"},
-                 "mesh": {}}[branch]
-    kwargs = {"mesh": object()} if branch == "mesh" else {}
-    item = "item 12" if branch == "mesh" else "item 11"
-    cfg = dict(dmd_config, **overrides)
-    _stage_slice(dict(cfg))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        era5_dmd.main(dict(cfg), device="cpu", **kwargs)
+    """A device mesh (ROADMAP Queue 1 item 12) raises NotImplementedError
+    before anything is computed.  (The mrDMD and DMDc cases went with the
+    refusals they tested: both branches are ported.)"""
+    _stage_slice(dict(dmd_config))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        era5_dmd.main(dict(dmd_config), device="cpu", mesh=object())
     # nothing was computed: no SVD artifact in the workdir
-    assert not os.path.exists(config_parser(dict(cfg), "era5-svd")["save_path"])
+    assert not os.path.exists(config_parser(dict(dmd_config), "era5-svd")["save_path"])
     svd, _, _ = era5_svd.main(dict(dmd_config), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        era5_dmd.fit_dmd_from_svd_results(svd, config_parser(dict(cfg), "era5-dmd"),
-                                          device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        era5_dmd.fit_dmd_from_svd_results(svd, config_parser(dict(dmd_config), "era5-dmd"),
+                                          device="cpu", mesh=object())
 
 
 def test_main_needs_a_card_unless_told_otherwise(root, dmd_config, monkeypatch):

@@ -42,6 +42,9 @@ _NEW_MODULES = (
     "import dmd_era5_tpu_torch.snapmat.mock, dmd_era5_tpu_torch.snapmat.slicing\n"
     "import dmd_era5_tpu_torch.utils.io_h5, dmd_era5_tpu_torch.pipeline.artifacts\n"
     "import dmd_era5_tpu_torch.pipeline.era5_download\n"
+    "import dmd_era5_tpu_torch.models.dmdc, dmd_era5_tpu_torch.models.mrdmd\n"
+    "import dmd_era5_tpu_torch.models.analysis, dmd_era5_tpu_torch.pipeline.ensemble\n"
+    "import dmd_era5_tpu_torch.utils.checkpoint\n"
 )
 
 
@@ -196,3 +199,36 @@ def test_streamed_svd_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA card"):
             entry(x, 3)
         assert entry(x, 3, block_rows=16, device="cpu").U.shape == (64, 3)
+
+
+def test_dmd_models_need_a_card_unless_told_otherwise(tmp_path, monkeypatch):
+    """The DMD models' entry points on host data compute on the card:
+    without CUDA they raise instead of running on the host; told the CPU
+    (or given CPU tensors) they take the kernels' plain versions there and
+    count no launch."""
+    import numpy as np
+
+    from dmd_era5_tpu_torch.models import fit_dmdc, fit_mrdmd, fit_mrdmd_streamed
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+    from dmd_era5_tpu_torch.snapmat import create_mock_era5
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((40, 32)).astype(np.float32)
+    u = rng.standard_normal((1, 31)).astype(np.float32)
+    path = tmp_path / "x.npy"
+    np.save(path, x)
+    fs = create_mock_era5("2020-01-01", "2020-01-01T05", ["temperature"], [1000], seed=0)
+    calls = {
+        "fit_dmdc": lambda **kw: fit_dmdc(x, u, rank=3, **kw),
+        "fit_mrdmd": lambda **kw: fit_mrdmd(x, rank=3, max_levels=2, **kw),
+        "fit_mrdmd_streamed": lambda **kw: fit_mrdmd_streamed(path, rank=3, max_levels=2, **kw),
+        "fit_per_variable_level": lambda **kw: fit_per_variable_level(fs, 2, **kw),
+    }
+    before = dict(qr_panel.gram.launches), matmul.sketch_center_gram_project.launches
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+        assert call(device="cpu") is not None, name
+    assert fit_mrdmd(torch.from_numpy(x), rank=3, max_levels=2).residual.device.type == "cpu"
+    assert (dict(qr_panel.gram.launches), matmul.sketch_center_gram_project.launches) == before
