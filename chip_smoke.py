@@ -124,6 +124,29 @@ of which raises on failure so the script exits non-zero:
    resuming from its own file where h5py is installed (else one line
    says it is skipped).  Each part prints its wall time and device
    memory rise, the phase the host's RSS;
+15. the one-pass and updating SVD (north-star config 5's half on one
+   card).  (a) Inside phase 9, while its artifact exists:
+   ``streamed_onepass_svd`` (k = 100) over it, one disk pass (K6, K3, K4
+   once a 65,536-row block, 238 each) and the U lift from host memory
+   (K6 238): the leading 6 s within 1e-3 of phase 8 (b)'s, the tail
+   estimate within [0.5, 3] x the true rank-100 error (computed on the
+   card from X), U^T U printed beside 9c's.  (d) Then the profiler
+   (``utils.profiling.trace``) on one pass of 9c with each block copied
+   from pageable memory on the compute stream, the same pass through the
+   pinned ring, and one pass of 15a: the device's idle share and the
+   share of the H2D copies that overlaps kernels, read from the traces;
+   K3 at 15a's block against its bound (``roofline``).  (c) After
+   phase 13: 13c's SVD (144 hours) updated by the withheld 24 hours and
+   the boundary hour (``update_from_slice`` in memory, or with h5py and
+   yaml ``era5_svd_update.main`` with the files and the store on the
+   stage's own 144-hour base): V over the week's 167 embedded hours, U^T U
+   to 2e-3, the leading 6 s within 1e-4 of the exact Hankel SVD of the
+   same matrix (phase 7's route, run again on the week centred by the
+   144-hour mean), then the DMD forecast rollout (rank 6, 24 steps) on
+   the updated factors with the planted eigenvalues within 1e-2.  (b)
+   Config 1 with ``svd_backend = onepass`` in memory (K6 2, K3 1, K4 1):
+   the estimate in the attrs, the reconstruction within 1.6 x optimal.
+   Each part prints its prediction before it runs;
 10. one year of hourly 1-degree ERA5 (181 x 360 points, 15 variable-level
    blocks, 8,760 hours: 977,400 rows), generated on the card from the
    seed after the week is freed, centred in place, with the exact
@@ -143,10 +166,10 @@ of which raises on failure so the script exits non-zero:
    and (e)'s singular values are held below the exact ones; (f) K1 and
    the two-pass route timed on the same X and sketch.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14 and 10b-e are the main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c and 10b-e are the main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f) are not counted.  The last line is the JSON result; the line before
+10f) and 15d's passes are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
@@ -1301,7 +1324,7 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         u = torch.from_numpy(res.U).cuda()
         s, v = res.s, res.V
         del res
-        orth = orthonormality(u)
+        orth = orth_9c = orthonormality(u)
         check(orth <= 1e-3, f"streamed randomized: U^T U - I max {orth:.3e} > 1e-3")
         lead = held_to_exact("streamed randomized", s, ref8)
         inter = check_interlace("streamed randomized vs phase 8 (b)", s, ref8["s"])
@@ -1338,6 +1361,9 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         check(cos > 1 - 1e-6, f"streamed exact: leading-6 subspace cos min {cos:.9f}")
         del u
         mr_launches = phase_mrdmd_streamed(week, path)
+        onepass_launches, times["onepass"] = phase_onepass_streamed(week, path, ref8, orth_9c,
+                                                                    seed)
+        times["trace"] = phase_trace(week, path, seed)
 
         # where a pass's time goes: the same blocks read only, then read and
         # copied to the card, with no work on them
@@ -1354,7 +1380,10 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         shutil.rmtree(directory, ignore_errors=True)
     times["memory_rise_mb"] = {"randomized": rise_r / 1e6, "exact": rise_e / 1e6}
     log(f"    stage wall times (s): {json.dumps(times)}")
-    return {key: n + mr_launches[key] for key, n in expect.items()}
+    log(f"    9c {times['streamed_randomized']:.2f} s, 9d {times['streamed_exact']:.2f} s "
+        f"(before the pinned ring: {PAGEABLE_STREAMED_S['9c']} and "
+        f"{PAGEABLE_STREAMED_S['9d']} s)")
+    return {key: n + mr_launches[key] + onepass_launches[key] for key, n in expect.items()}
 
 
 def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, center: bool,
@@ -1972,7 +2001,8 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     with a 24-hour holdout: ``compute_svd_results`` on the slice (144
     train hours), then the fit scored on the withheld day against an f64
     one-shot; (d) the week bagged (8 trials of 80%).  Returns the launch
-    counts and (b)'s results without the forecast field."""
+    counts, (b)'s results without the forecast field and (c)'s SVD, which
+    phase 15 (c) updates."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.models import iter_forecast_blocks
     from dmd_era5_tpu_torch.models.verification import latitude_weights
@@ -2052,7 +2082,7 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     share = check_scores("13c DMD", got, f64_scores(forecast, truth, w))
     share_p = check_scores("13c persistence", got_p,
                            f64_scores(persist[:, None].expand(-1, HOLDOUT), truth, w))
-    del forecast, truth, persist, svd_c
+    del forecast, truth, persist
     log(f"[13c] config 3 week, {HOLDOUT}-hour holdout ({T_HOURS - HOLDOUT} train hours): "
         f"compute_svd_results {t_svd:.3f} s (K1 launches {k1}, svd_backend "
         f"{res_c.attrs['svd_backend']}); scores within {max(share, share_p):.2e} of the f64 "
@@ -2087,7 +2117,7 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     host_end = host_memory()
     log(f"    phase 13 host memory (GB): at its start {json.dumps(host_start)}, at its end "
         f"{json.dumps(host_end)} (peak_rss_gb: the process's peak so far)")
-    return launches, res_b
+    return launches, res_b, svd_c
 
 
 # mrDMD on the week (phase 14): 3 levels at rank 6.  The slow budget 1.5
@@ -2205,8 +2235,9 @@ def phase_mrdmd_streamed(week: dict, path: Path) -> dict:
     check(out["planted_level0"] < 1e-2,
           f"14d: planted eigenvalues at level 0 off by {out['planted_level0']:.3e}")
     del got, ref
-    log(f"    {json.dumps(out)}; wall (s) {json.dumps(times)}; device memory rise "
-        f"{peak:.2f} GB; launches {launches}")
+    log(f"    {json.dumps(out)}; wall (s) {json.dumps(times)} (streamed, before the pinned "
+        f"ring: {PAGEABLE_STREAMED_S['14d']}); device memory rise {peak:.2f} GB; launches "
+        f"{launches}")
     compare_gram("14d block", x[:RAND_BLOCK], "highest", reps=20)  # K4 at the pass's block
     return launches
 
@@ -2724,6 +2755,387 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     return total, {"K2": k2_res, "K3": k3_res, "K5": k5_res}
 
 
+# ------------------------------------------------- phase 15: one-pass and updating SVD
+
+# phase 9c's, 9d's and 14d's wall times before streamed passes read into
+# the pinned ring (s; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5),
+# printed beside this run's
+PAGEABLE_STREAMED_S = {"9c": 35.47, "9d": 11.84, "14d": 13.52}
+# 15a: the one-pass s against phase 8 (b)'s exact ones (leading 6), and the
+# bracket of its tail estimate over the true rank-100 error (test_17's)
+ONEPASS_LEAD6, ONEPASS_EST_BRACKET = 1e-3, (0.5, 3.0)
+# 15c: the updated s against the exact Hankel SVD of the same matrix
+# (leading 6), U^T U (test_15's atol)
+UPDATE_LEAD6, UPDATE_ORTH = 1e-4, 2e-3
+
+
+def true_rel_err(x: torch.Tensor, u_host: np.ndarray, s: torch.Tensor, v: torch.Tensor) -> float:
+    """||X - U diag(s) V||_F / ||X||_F on the card, X and the host U in
+    row chunks, the sums in f64."""
+    sv = (s.double()[:, None] * v.double()).float().to(x.device)
+    num = den = 0.0
+    for r0 in range(0, x.shape[0], CHUNK):
+        xb = x[r0:r0 + CHUNK]
+        diff = (xb - torch.from_numpy(u_host[r0:r0 + CHUNK]).to(x.device) @ sv).double()
+        num += float(diff.square().sum())
+        den += float(xb.double().square().sum())
+    return math.sqrt(num / den)
+
+
+def phase_onepass_streamed(week: dict, path: Path, ref8: dict, orth_9c: float,
+                           seed: int) -> tuple[dict, dict]:
+    """Phase 15 (a), inside phase 9 while its artifact of the centred week
+    (d = 1) exists: ``streamed_onepass_svd`` (k = 100) in one disk pass of
+    65,536-row blocks, K6, K3 and K4 once a block and K6 once a block for
+    the lift from host memory.  The leading 6 s held to phase 8 (b)'s
+    within ONEPASS_LEAD6, the tail estimate to ONEPASS_EST_BRACKET of the
+    true rank-100 error (computed on the card from X), U^T U printed
+    beside 9c's.  Returns the launch counts and the times."""
+    from dmd_era5_tpu_torch.pipeline import streamed_onepass_svd
+
+    x = week["x"]
+    n_blocks = -(-x.shape[0] // RAND_BLOCK)
+    log(f"[15a] streamed_onepass_svd(k = 100) over the artifact: one pass of {n_blocks} blocks "
+        f"of {RAND_BLOCK} rows (K6, K3, K4 {n_blocks} each), then the U lift from host memory "
+        f"(K6 {n_blocks}).  Predicted (H100): the pass 3-4.5 s (the host's read, as 9c's passes), "
+        "the lift 2-5 s, device memory O(one block) above the phase's start")
+    reset_counts()
+    info: dict = {}
+    res, secs, passes, rise = streamed_run("one-pass", streamed_onepass_svd, path, 100,
+                                           block_rows=RAND_BLOCK, seed=seed + 15, info=info)
+    launches = launch_counts()
+    expect = counts(K3=n_blocks, K4=n_blocks, K6=2 * n_blocks)
+    check(launches == expect, f"15a: launches {launches}, expected {expect}")
+    check(len(passes) == 1, f"15a: the one-pass route read the artifact {len(passes)} times")
+    s = res.s.cpu()
+    lead = float((s[:6].double() / ref8["s"][:6].double().cpu() - 1).abs().max())
+    check(lead <= ONEPASS_LEAD6, f"15a: leading 6 s differ from phase 8 (b) by {lead:.3e}")
+    u = torch.from_numpy(res.U).cuda()
+    orth = orthonormality(u)
+    del u
+    true = true_rel_err(x, res.U, res.s, res.V)
+    est = info["onepass_tail_rel_err_est"]
+    lo, hi = ONEPASS_EST_BRACKET
+    check(lo * true <= est <= hi * true,
+          f"15a: tail estimate {est:.4e} outside [{lo}, {hi}] x the true error {true:.4e}")
+    times = {"total": secs, "pass": passes[0], "lift_and_core": secs - passes[0],
+             "memory_rise_mb": rise / 1e6}
+    log(f"    s[:8] {[round(float(a), 2) for a in s[:8]]}, leading 6 vs phase 8 (b) {lead:.2e} "
+        f"(held {ONEPASS_LEAD6}), max|U^T U - I| {orth:.2e} (9c's {orth_9c:.2e}; not held), "
+        f"tail_rel_err_est {est:.5f} against the true rank-100 error {true:.5f} (ratio "
+        f"{est / true:.3f}, held to {list(ONEPASS_EST_BRACKET)}); launches {launches}; wall "
+        f"(s) {json.dumps(times)}")
+    return expect, times
+
+
+def _merged(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def _span(merged: list[tuple[float, float]]) -> float:
+    return sum(b - a for a, b in merged)
+
+
+def _overlap(m1: list[tuple[float, float]], m2: list[tuple[float, float]]) -> float:
+    total, j = 0.0, 0
+    for a, b in m1:
+        while j < len(m2) and m2[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(m2) and m2[k][0] < b:
+            total += min(b, m2[k][1]) - max(a, m2[k][0])
+            k += 1
+    return total
+
+
+def device_timeline(trace_file: Path) -> dict:
+    """From a Chrome trace of ``utils.profiling.trace`` around a
+    ``record_function("pass")`` scope: the device's idle share over the
+    scope (1 - the union of kernel, memcpy and memset intervals over its
+    span) and the share of the host-to-device copies' time that overlaps
+    a kernel."""
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    scope = next(e for e in events if e.get("name") == "pass"
+                 and e.get("cat") == "user_annotation" and e.get("ph") == "X")
+    w0, w1 = float(scope["ts"]), float(scope["ts"]) + float(scope["dur"])
+
+    def intervals(pred):
+        return _merged([(max(w0, float(e["ts"])), min(w1, float(e["ts"]) + float(e["dur"])))
+                        for e in events if e.get("ph") == "X" and pred(e)
+                        and float(e["ts"]) < w1 and float(e["ts"]) + float(e["dur"]) > w0])
+
+    device = intervals(lambda e: e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels = intervals(lambda e: e.get("cat") == "kernel")
+    h2d = intervals(lambda e: e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    n_h2d = sum(1 for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    return {"window_s": (w1 - w0) / 1e6, "idle_share": 1 - _span(device) / (w1 - w0),
+            "kernel_s": _span(kernels) / 1e6, "h2d_s": _span(h2d) / 1e6, "h2d_copies": n_h2d,
+            "h2d_overlapping_kernels": _overlap(h2d, kernels) / max(_span(h2d), 1e-9)}
+
+
+def q_orthonormality(g: torch.Tensor, ridge: float) -> float:
+    """max|Q^T Q - I| of Q = Y R^-1 for the Gram G = Y^T Y and R the
+    Cholesky factor of G + ridge mean(diag G) I, in f64 from G alone
+    (Q^T Q = R^-T G R^-1); NaN where that Cholesky fails."""
+    g = g.double()
+    eye = torch.eye(g.shape[0], dtype=g.dtype, device=g.device)
+    low, info = torch.linalg.cholesky_ex(g + ridge * g.diagonal().mean() * eye)
+    if int(info) != 0:
+        return float("nan")
+    r_inv = torch.linalg.solve_triangular(low.T, eye, upper=True)
+    return float((r_inv.T @ g @ r_inv - eye).abs().max())
+
+
+def traced_pass(directory: Path, body) -> dict:
+    """``device_timeline`` of one call of body (a pass over the artifact)
+    under ``utils.profiling.trace``, the card synchronized inside the
+    scope so that the span holds all of its work."""
+    from dmd_era5_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    with trace(directory):
+        with torch.profiler.record_function("pass"):
+            body()
+            torch.cuda.synchronize()
+    return device_timeline(directory / "trace.json")
+
+
+def phase_trace(week: dict, path: Path, seed: int) -> dict:
+    """Phase 15 (d), inside phase 9: one pass of 9c (y = X_blk Z on K6,
+    X_blk^T y summed) with each block read into a fresh host array and
+    copied from pageable memory on the compute stream (the ring off,
+    ``_to_device``'s ``ring=None``) and the same pass as the package runs
+    it, each block read into the pinned ring and copied on its stream, in
+    turns (off, on, on, off), and one
+    pass of 15a (the one-pass sketch's block updates), each traced; the
+    orthonormality of that sketch's Q by the Cholesky's ridge; then K3 at
+    15a's block against its bound by ``utils.profiling.roofline``.  Not
+    counted."""
+    from dmd_era5_tpu_torch.ops.matmul import matmul, project
+    from dmd_era5_tpu_torch.ops.onepass import OnePassSketch, psi_panel
+    from dmd_era5_tpu_torch.ops.tsqr import qr_positive
+    from dmd_era5_tpu_torch.pipeline import streamed_fit
+    from dmd_era5_tpu_torch.utils.profiling import roofline
+
+    x = week["x"]
+    (n_rows, t_cols), dev = x.shape, x.device
+    log("[15d] the profiler (torch.profiler, CUDA activity) on one streamed pass each: 9c's with "
+        "the ring off and on in turns, 15a's.  Predicted (H100): a ring pass 2.5-4 s against "
+        "5-8 s off; the card idle 70-95% of a 9c pass (the host's read holds it); H2D copies "
+        "overlapping kernels ~0 either way (a block's kernels end before the next block is "
+        "read)")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    z = qr_positive(torch.randn((t_cols, R_SKETCH), generator=gen, device=dev))[0].contiguous()
+    out = {}
+
+    def randomized_pass(ring_on: bool):
+        def body():
+            acc = torch.zeros((t_cols, R_SKETCH), dtype=torch.float32, device=dev)
+            if ring_on:
+                blocks = streamed_fit._device_blocks(path, n_rows, t_cols, RAND_BLOCK, dev)
+            else:
+                blocks = ((r0, streamed_fit._to_device(blk, t_cols, dev, ring=None)) for r0, blk
+                          in streamed_fit.prefetched_row_blocks(path, n_rows, RAND_BLOCK))
+            for _, b in blocks:
+                acc += b.T @ matmul(b, z)
+        return body
+
+    sketch = OnePassSketch(t_cols, 100, seed=seed + 15, device=dev, y_store="host")
+
+    def onepass_pass():
+        for r0, blk in streamed_fit._device_blocks(path, n_rows, t_cols, RAND_BLOCK, dev):
+            sketch.update(r0, blk)
+
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_trace_"))
+    try:
+        # the ring off and on in turns (off, on, on, off): a pass's time moves
+        # with the host's read
+        for name, body in (("9c_ring_off", randomized_pass(False)),
+                           ("9c_ring_on", randomized_pass(True)),
+                           ("9c_ring_on_2", randomized_pass(True)),
+                           ("9c_ring_off_2", randomized_pass(False)), ("15a", onepass_pass)):
+            out[name] = traced_pass(directory / name, body)
+            log(f"    {name}: {json.dumps(out[name])}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    # 15a's U^T U: Q = Y R^-1 from G alone, R the Cholesky of G ridged by
+    # the core's 1e-7 of its mean diagonal and by less
+    out["q_orthonormality_by_ridge"] = {
+        ridge: q_orthonormality(sketch.g, ridge) for ridge in (1e-7, 1e-10, 1e-13)}
+    log(f"    15a's Q = Y R^-1 from its G: max|Q^T Q - I| by the Cholesky's ridge (of G's mean "
+        f"diagonal) {json.dumps(out['q_orthonormality_by_ridge'])}")
+
+    # K3 at 15a's block: W = Psi^T X_blk, 3xTF32 (three TF32 products)
+    blk = x[:RAND_BLOCK]
+    psi = psi_panel(seed + 15, 0, RAND_BLOCK, 256, dev)
+    ms = device_ms(lambda: project(blk, psi))
+    m, n = blk.shape[0], psi.shape[1]
+    flops, nbytes = 3 * 2.0 * m * n * t_cols, 4.0 * (m * t_cols + m * n + n * t_cols)
+    rf = roofline(flops, nbytes, ms / 1e3, device=dev, dtype="tf32")
+    b_ms, by = bound(flops, PEAK_TF32, nbytes)
+    out["k3_roofline"] = {**rf, "device_ms": ms, "bound_ms": b_ms, "bound_by": by}
+    log(f"    K3 at 15a's block (X {m} x {t_cols}, Psi {m} x {n}): device {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by}); roofline {json.dumps(rf)}")
+    return out
+
+
+def phase_onepass_config1(seed: int) -> dict:
+    """Phase 15 (b): north-star config 1 (config.ini's [era5-download] mock
+    slice and [era5-svd]) with ``svd_backend = onepass``, in memory:
+    ``compute_svd_results`` packs the embedded matrix and streams it in one
+    pass (one block: K6 2, K3 1, K4 1).  The backend and the estimate in
+    the attrs, U's shape and U^T U, the rank-k reconstruction of the
+    embedded X within 1.6 x the optimal error (test_20's bound)."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
+    from dmd_era5_tpu_torch.snapmat import apply_delay_embedding, flatten_era5_variables
+    from dmd_era5_tpu_torch.snapmat import standardize_data
+
+    log("[15b] config 1 (mock, config.ini) with svd_backend = onepass, in memory.  Predicted "
+        "(H100): under 0.5 s; K6 2, K3 1, K4 1; the estimate above 0.1 on the i.i.d.-noise "
+        "mock (its warning printed)")
+    with stage_root():
+        np.random.seed(seed)
+        dl = config_parser(stage_config("era5-download"), "era5-download")
+        fs = era5_download.download_era5_data(dl, use_mock_data=True)
+        cfg = config_parser(stage_config("era5-svd", source_path="mock_data",
+                                         svd_backend="onepass"), "era5-svd")
+        reset_counts()
+        res, secs = synced(era5_svd.compute_svd_results, fs, cfg)
+    launches = launch_counts()
+    expect = counts(K3=1, K4=1, K6=2)
+    check(launches == expect, f"15b: launches {launches}, expected {expect}")
+    est = res.attrs.get("onepass_tail_rel_err_est")
+    check(res.attrs["svd_backend"] == "onepass" and isinstance(est, float) and est > 0,
+          f"15b: attrs svd_backend {res.attrs['svd_backend']}, estimate {est}")
+    d, k = cfg["delay_embedding"], cfg["n_components"]
+    std, _, _ = standardize_data(fs[cfg["variables"]], scale=False)
+    x = np.asarray(apply_delay_embedding(flatten_era5_variables(std), d).data, np.float64)
+    u = np.asarray(res["U"].values, np.float64)
+    check(u.shape == (x.shape[0], k), f"15b: U {u.shape}")
+    orth = float(np.abs(u.T @ u - np.eye(k)).max())
+    err = float(np.linalg.norm(x - u @ (u.T @ x)))
+    optimal = float(np.linalg.norm(np.linalg.svd(x, compute_uv=False)[k:]))
+    check(err <= 1.6 * optimal, f"15b: reconstruction {err:.4e} > 1.6 x optimal {optimal:.4e}")
+    log(f"    U {u.shape}, max|U^T U - I| {orth:.2e}, reconstruction / optimal {err / optimal:.4f} "
+        f"(held 1.6), onepass_tail_rel_err_est {est}, launches {launches}, "
+        f"{secs:.3f} s")
+    return expect
+
+
+def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
+    """Phase 15 (c), after phase 13 on the week still on the card: the
+    update of 13c's SVD (the first 144 hours, d = 2, k = 100) by the
+    withheld 24 hours and the boundary hour, ``update_svd_results`` on the
+    card (31,147,200 x 24 new columns: K3 once, K6 once for U L and once
+    a LIFT_ROWS chunk of the lift).  With h5py and yaml through
+    ``era5_svd_update.main`` with the files and the store (its base then
+    the stage's own 144-hour SVD, K1 5 more); without them,
+    ``update_from_slice`` in memory.  V's time is held to the week's 167
+    embedded hours, U^T U to UPDATE_ORTH, the leading 6 s to the exact
+    Hankel SVD of the same matrix (phase 7's route on the week centred by
+    the 144-hour mean) within UPDATE_LEAD6; then config 5's DMD forecast
+    rollout (rank 6, 24 steps) on the updated results, the planted
+    eigenvalues within 1e-2.  Then 15b.  Returns the launch counts."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.ops import hankel_exact_svd
+    from dmd_era5_tpu_torch.ops.streaming import LIFT_ROWS
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd, era5_svd_update, incremental
+    from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+
+    d, k = 2, 100
+    x = week["x"]  # the raw week: phase 12's slice added the row means in place
+    n_rows = x.shape[0]
+    n_lift = -(-n_rows * d // LIFT_ROWS)
+    missing = missing_file_packages()
+    log(f"[15c] update of 13c's SVD (144 h, d = {d}, k = {k}) by the withheld {HOLDOUT} hours + "
+        f"the boundary hour: {n_rows * d} x {HOLDOUT} new columns (K3 1, K6 1 + {n_lift}).  "
+        "Predicted (H100): the update 0.1-0.5 s on the card plus U's moves (12.46 GB each way "
+        "at 2-9 GB/s), device memory rise under 35 GB; leading 6 s within 1e-4 of the exact "
+        "SVD of the same matrix")
+    mean144 = torch.from_numpy(np.asarray(svd_c["X_mean"].values[:n_rows], np.float32)).cuda()
+    xc = x - mean144[:, None]
+    del mean144
+    ref, t_ref = synced(hankel_exact_svd, xc, d, k)
+    s_ref = ref.s.double().cpu()
+    del ref, xc
+
+    cfg = stage_config("era5-svd", **WEEK_CONFIG, **WEEK_SVD)
+    times = {"exact_reference": t_ref}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    with stage_root(), stage_clock(incremental, "svd_rank_update") as clock:
+        parsed = config_parser(dict(cfg), "era5-svd")
+        if missing:
+            log(f"    {' and '.join(missing)} not installed on this machine: the update runs "
+                "era5_svd_update.update_from_slice on 13c's results and the in-memory slice "
+                "(no files, no store)")
+            updated, times["update_from_slice"] = synced(era5_svd_update.update_from_slice,
+                                                         svd_c, fs, parsed)
+            expect = counts(K3=1, K6=1 + n_lift)
+        else:
+            # the base: the stage's own SVD of the first 144 hours, versioned
+            base_cfg = {**cfg, "end_datetime": "2019-01-06T23"}
+            base_parsed = config_parser(dict(base_cfg), "era5-svd")
+            save_fieldset(fs.isel(time=slice(0, T_HOURS - HOLDOUT)),
+                          base_parsed["era5_slice_path"])
+            _, times["base_main"] = synced(era5_svd.main, dict(base_cfg), write_artifact=True,
+                                           use_store=True)
+            save_fieldset(fs, parsed["era5_slice_path"])
+            (updated, added, did), times["update_main"] = synced(
+                era5_svd_update.main, dict(cfg), write_artifact=True, use_store=True)
+            check(did and added, f"15c: era5_svd_update.main updated {did}, added {added}")
+            expect = counts(K1=5, K3=1, K6=1 + n_lift)
+    times["svd_rank_update"] = sum(clock["svd_rank_update"])
+    times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = launch_counts()
+    check(launches == expect, f"15c: launches {launches}, expected {expect}")
+    t_v = np.asarray(updated["V"].coords["time"].values, dtype="datetime64[ns]")
+    want = (np.datetime64(WEEK_CONFIG["start_datetime"], "ns")
+            + np.arange(d - 1, T_HOURS) * np.timedelta64(3600, "s"))
+    check(np.array_equal(t_v, want), f"15c: V's time {t_v[:2]}..{t_v[-1:]} ({len(t_v)} hours)")
+    u = torch.from_numpy(updated["U"].values).cuda()
+    orth = orthonormality(u)
+    del u
+    check(orth <= UPDATE_ORTH, f"15c: U^T U - I max {orth:.3e} > {UPDATE_ORTH}")
+    rel = (torch.from_numpy(updated["s"].values).double() / s_ref - 1).abs()
+    check(float(rel[:6].max()) <= UPDATE_LEAD6,
+          f"15c: leading 6 s off the exact SVD of the same matrix by {float(rel[:6].max()):.3e}")
+    log(f"    U {updated['U'].shape}, V {updated['V'].shape} (hours {d - 1}-{T_HOURS - 1}), "
+        f"max|U^T U - I| {orth:.2e} (held {UPDATE_ORTH}), s vs the exact Hankel SVD of the "
+        f"same matrix: leading 6 {float(rel[:6].max()):.2e} (held {UPDATE_LEAD6}), the rest up "
+        f"to {float(rel.max()):.2e} (at {int(rel.argmax())}); launches {launches}; wall (s) "
+        f"{json.dumps({a: round(b, 3) for a, b in times.items()})} (peak_gb: device memory "
+        "over the update's start)")
+
+    # config 5's DMD forecast rollout on the updated factors
+    parsed_dmd = config_parser(stage_config("era5-dmd", **WEEK_CONFIG, **WEEK_SVD,
+                                            dmd_rank=DMD_RANK, forecast_steps=FORECAST_STEPS),
+                               "era5-dmd")
+    reset_counts()
+    res, t_fit = synced(era5_dmd.fit_dmd_from_svd_results, updated, parsed_dmd)
+    check(launch_counts() == counts(), f"15c DMD: launched {launch_counts()}")
+    err = check_dmd_fit("15c", res, week)
+    check(tuple(res["forecast"].shape) == (n_rows, T_HOURS - d + 1 + FORECAST_STEPS),
+          f"15c: forecast {tuple(res['forecast'].shape)}")
+    log(f"    DMD forecast rollout on the updated SVD (rank {DMD_RANK}, {FORECAST_STEPS} steps): "
+        f"eigenvalues matched error vs planted {err:.2e} (held 1e-2), forecast "
+        f"{tuple(res['forecast'].shape)}, {t_fit:.3f} s, no kernel launch")
+    del res, updated
+    out = dict(expect)
+    for key, n in phase_onepass_config1(seed).items():
+        out[key] += n
+    return out
+
+
 def kernel_line(key: str, launches: int, res: dict) -> dict:
     name, source, replaces = KERNELS[key]
     max_abs = res["max_abs_err"]
@@ -2738,6 +3150,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, str(ROOT))
     phase_build()
@@ -2766,9 +3179,12 @@ def main() -> None:
     stage_launches, stage_fs, week_res = phase_stage(week, args.seed)
     for key, n in stage_launches.items():
         launches[key] += n
-    dmd_launches, res_b = phase_dmd_stage(week, stage_fs, week_res, args.seed)
+    dmd_launches, res_b, svd_c = phase_dmd_stage(week, stage_fs, week_res, args.seed)
     for key, n in dmd_launches.items():
         launches[key] += n
+    for key, n in phase_incremental(week, stage_fs, svd_c, args.seed).items():
+        launches[key] += n
+    del svd_c
     # phase 14 frees the week's X once it is done with the slice: it holds
     # the only references to both
     week["fs"] = stage_fs
@@ -2783,6 +3199,7 @@ def main() -> None:
     for key, n in year_launches.items():
         launches[key] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
+    log(f"smoke wall time {time.perf_counter() - t_start:.1f} s (the build included)")
     for row in K1_STAGES:
         log(f"K1 stages, {row['label']} {row['dtype']} m {row['m']} t {row['t']} n {row['n']}: "
             f"device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}, C {row['C']:.3f}")

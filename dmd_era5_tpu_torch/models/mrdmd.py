@@ -401,7 +401,7 @@ def fit_mrdmd_streamed(
     """Multiresolution DMD of a packed snapshot artifact, out of core.
 
     Counterpart of ``dmd_era5_tpu/models/mrdmd.py:617``: ONE pass over
-    the artifact (``pipeline.streamed_fit.prefetched_row_blocks``) takes
+    the artifact (``pipeline.streamed_fit._device_blocks``) takes
     each block's Gram on ``device`` (K4 on the card, one launch a block;
     a bf16 artifact's blocks as they are) and adds it into an f64 (T, T)
     sum there; :func:`fit_mrdmd_gram` does the rest on the host.  With
@@ -415,8 +415,8 @@ def fit_mrdmd_streamed(
     device = streamed_fit._device(device)
     (n_rows, t_cols), _ = packed_info(path)
     gx = torch.zeros((t_cols, t_cols), dtype=torch.float64, device=device)
-    for _, blk in streamed_fit.prefetched_row_blocks(path, n_rows, block_rows):
-        gx += gram(streamed_fit._to_device(blk, t_cols, device), "highest").double()
+    for _, blk in streamed_fit._device_blocks(path, n_rows, t_cols, block_rows, device):
+        gx += gram(blk, "highest").double()
     res = fit_mrdmd_gram(gx.cpu().numpy(), dt=dt, rank=rank, max_levels=max_levels,
                          max_cycles=max_cycles)
     if not return_modes:
@@ -426,8 +426,8 @@ def fit_mrdmd_streamed(
     maps = [torch.from_numpy(lv.mode_map).to(device) for lv in res.levels]
     modes = [torch.empty((m.shape[0], n_rows, rank), dtype=torch.complex64, device=device)
              for m in maps]
-    for r0, blk in streamed_fit.prefetched_row_blocks(path, n_rows, block_rows):
-        xb = streamed_fit._to_device(blk, t_cols, device).float()[:, :t_used]
+    for r0, blk in streamed_fit._device_blocks(path, n_rows, t_cols, block_rows, device):
+        xb = blk.float()[:, :t_used]
         for level_maps, level_modes in zip(maps, modes):
             for win in range(level_maps.shape[0]):
                 level_modes[win, r0 : r0 + xb.shape[0]] = _lift_modes(xb, level_maps[win])

@@ -2,7 +2,8 @@
 two-pass fallback, the tiled
 matmul (``ops.matmul.matmul``; not re-exported here, where its name
 would hide the module), the Gram kernel, the Householder panel,
-tall-skinny QR and the SVDs on them."""
+tall-skinny QR and the SVDs on them, the one-pass (two-sided sketch)
+SVD, the streaming sketch and the rank update."""
 
 from dmd_era5_tpu_torch.ops.hankel import (
     hankel_exact_svd,
@@ -11,6 +12,13 @@ from dmd_era5_tpu_torch.ops.hankel import (
     stacked_sketch_matrix,
 )
 from dmd_era5_tpu_torch.ops.matmul import project, sketch_center_gram, sketch_center_gram_project
+from dmd_era5_tpu_torch.ops.onepass import (
+    OnePassSketch,
+    onepass_core,
+    onepass_finalize,
+    onepass_svd,
+    psi_panel,
+)
 from dmd_era5_tpu_torch.ops.qr_panel import cholqr, cholqr2, cholqr2_split, gram, householder_panel
 from dmd_era5_tpu_torch.ops.svd import (
     SVDResult,
@@ -20,10 +28,13 @@ from dmd_era5_tpu_torch.ops.svd import (
     sklearn_n_iter,
     truncated_svd,
 )
+from dmd_era5_tpu_torch.ops.streaming import StreamingSketch, svd_rank_update
 from dmd_era5_tpu_torch.ops.tsqr import default_qr_method, qr_positive, tsqr
 
 __all__ = [
+    "OnePassSketch",
     "SVDResult",
+    "StreamingSketch",
     "cholqr",
     "cholqr2",
     "cholqr2_split",
@@ -35,13 +46,18 @@ __all__ = [
     "hankel_randomized_svd_fused",
     "hankel_randomized_svd_fused_core",
     "householder_panel",
+    "onepass_core",
+    "onepass_finalize",
+    "onepass_svd",
     "project",
+    "psi_panel",
     "qr_positive",
     "randomized_svd",
     "sketch_center_gram",
     "sketch_center_gram_project",
     "sklearn_n_iter",
     "stacked_sketch_matrix",
+    "svd_rank_update",
     "truncated_svd",
     "tsqr",
 ]

@@ -1,5 +1,6 @@
 """The ingest, SVD and DMD stages, the artifact store, the fused fit step,
-the per-variable ensemble and the out-of-core (streamed) SVD."""
+the per-variable ensemble, the out-of-core (streamed and one-pass) SVD
+and the incremental update of an SVD artifact."""
 
 from dmd_era5_tpu_torch.pipeline.artifacts import (
     add_data_to_dvc,
@@ -23,9 +24,13 @@ from dmd_era5_tpu_torch.pipeline.era5_svd import (
     retrieve_svd_results,
     svd_on_era5,
 )
+from dmd_era5_tpu_torch.pipeline.era5_svd_update import select_new_snapshots, update_from_slice
+from dmd_era5_tpu_torch.pipeline.incremental import update_svd_results
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
     prefetched_row_blocks,
     streamed_exact_gram_svd,
+    streamed_onepass_svd,
+    streamed_onepass_svd_core,
     streamed_randomized_svd,
     streamed_randomized_svd_core,
 )
@@ -60,8 +65,13 @@ __all__ = [
     "retrieve_dmd_results",
     "retrieve_era5_slice",
     "retrieve_svd_results",
+    "select_new_snapshots",
     "streamed_exact_gram_svd",
+    "streamed_onepass_svd",
+    "streamed_onepass_svd_core",
     "streamed_randomized_svd",
     "streamed_randomized_svd_core",
     "svd_on_era5",
+    "update_from_slice",
+    "update_svd_results",
 ]

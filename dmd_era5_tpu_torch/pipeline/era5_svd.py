@@ -2,7 +2,7 @@
 
 The port's counterpart of ``dmd_era5_tpu/pipeline/era5_svd.py``:
 :func:`resolve_svd_backend`, the single-device branches of the
-``hankel``, ``streamed`` and ``inmem`` backends behind
+``hankel``, ``streamed``, ``onepass`` and ``inmem`` backends behind
 :func:`svd_on_era5`, :func:`combine_svd_results`, and the stage's
 :func:`main` with its cache ladder (workdir attr match, then the
 artifact store, then compute) and artifact write.  :func:`main` calls
@@ -17,8 +17,7 @@ The port has no device mesh yet: the stage runs on one device and
 resolves as the JAX one does on a one-device mesh (space = time = 1).
 A ``mesh_shape`` over more than one device, a multislice
 ``dcn_mesh_shape``, the ``grid2d`` backend and a multi-process group
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12), as does the
-``onepass`` backend (Queue 1 item 10.1).
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).
 
 The snapshot matrix comes in a ``Field`` whose data is a numpy array or
 a tensor; a tensor on the chosen device is used where it lies, never
@@ -46,6 +45,7 @@ from dmd_era5_tpu_torch.ops.svd import truncated_svd
 from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store, retrieve_data_from_store
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
     streamed_exact_gram_svd,
+    streamed_onepass_svd,
     streamed_randomized_svd,
 )
 from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
@@ -205,25 +205,32 @@ def _svd_backend_hankel(da_flat: Field, parsed_config: dict, device, d: int, k: 
 
 
 def _svd_backend_streamed(
-    da: Field | None, da_flat: Field | None, parsed_config: dict, device, d: int, k: int
+    da: Field | None, da_flat: Field | None, parsed_config: dict, device, d: int, k: int,
+    onepass: bool = False,
 ):
     """Out-of-core: pack X (the d delay slabs of the flat matrix, so the
     Hankel copy never exists in host memory) into ``<save_path>.packed.
-    npy``, stream it through the exact Gram route (``svd_type =
-    standard``) or the randomized power schedule, and remove it."""
+    npy``, stream it through the one-pass sketch (``onepass``), the exact
+    Gram route (``svd_type = standard``) or the randomized power
+    schedule, and remove it.  Returns (U, s, V, info): ``info`` holds the
+    one-pass route's ``onepass_tail_rel_err_est``."""
     packed_path = Path(str(parsed_config["save_path"]) + ".packed.npy")
     src = da_flat if da_flat is not None else da
     x = src.data if isinstance(src.data, torch.Tensor) else _as_tensor(src.data, torch.device("cpu"))
     save_packed_matrix(packed_path, x, d=d if da_flat is not None else 1)
     block_rows = int(parsed_config.get("stream_block_rows", 1 << 16))
+    info: dict = {}
     try:
-        if parsed_config["svd_type"] == "standard":
+        if onepass:
+            res = streamed_onepass_svd(packed_path, k, block_rows=block_rows, device=device,
+                                       info=info)
+        elif parsed_config["svd_type"] == "standard":
             res = streamed_exact_gram_svd(packed_path, k, block_rows=block_rows, device=device)
         else:
             res = streamed_randomized_svd(packed_path, k, block_rows=block_rows, device=device)
     finally:
         packed_path.unlink(missing_ok=True)
-    return _host(*res)
+    return (*_host(*res), info)
 
 
 def _embedded(da: Field | None, da_flat: Field | None, d: int, device) -> torch.Tensor:
@@ -251,7 +258,9 @@ def svd_on_era5(
     ``da`` is the materialized embedded matrix (may be None when
     ``da_flat``, the un-embedded (S, T) matrix, is given).  Backends:
     ``inmem`` (``truncated_svd`` of the embedded matrix), ``hankel``
-    (delay operators on ``da_flat``), ``streamed`` (out-of-core).
+    (delay operators on ``da_flat``), ``streamed`` (out-of-core),
+    ``onepass`` (out-of-core in one pass over the packed matrix; its
+    ``onepass_tail_rel_err_est`` joins the metrics).
     ``device``: the card unless given, or unless the matrix is a tensor
     on another device.  Returns host arrays (U, s, V) and records
     ``svd_backend``, ``svd_seconds`` (after the device synchronizes)
@@ -269,11 +278,6 @@ def svd_on_era5(
     backend = resolve_svd_backend(parsed_config, have_flat=da_flat is not None)
     if backend == "grid2d":
         raise NotImplementedError(f"svd_backend='grid2d': {_NO_MESH}")
-    if backend == "onepass":
-        raise NotImplementedError(
-            "svd_backend='onepass': streamed_onepass_svd is not ported yet "
-            "(ROADMAP Queue 1 item 10.1)"
-        )
     log_and_print(_logger(), f"Performing {svd_type} SVD (backend={backend}) on {device}...")
 
     def synchronize():
@@ -289,10 +293,11 @@ def svd_on_era5(
                 "the stage main provides it."
             )
         u, s, v = _svd_backend_hankel(da_flat, parsed_config, device, d, n_components)
-    elif backend == "streamed":
+    elif backend in ("streamed", "onepass"):
         if da is None and da_flat is None:
             raise ValueError("svd_on_era5 needs da or da_flat")
-        u, s, v = _svd_backend_streamed(da, da_flat, parsed_config, device, d, n_components)
+        u, s, v, stream_info = _svd_backend_streamed(
+            da, da_flat, parsed_config, device, d, n_components, onepass=backend == "onepass")
     elif backend == "inmem":
         x_embedded = _embedded(da, da_flat, d, device)
         u, s, v = _host(*truncated_svd(
@@ -313,6 +318,9 @@ def svd_on_era5(
         "svd_seconds": round(elapsed, 4),
         "svd_gelem_per_s": round(elems / elapsed / 1e9, 6),
     }
+    if backend in ("streamed", "onepass"):
+        # onepass: the sketches' tail-error estimate, into the artifact's attrs
+        parsed_config["metrics"].update(stream_info)
     log_and_print(
         _logger(),
         f"{svd_type} SVD complete ({backend}): {elapsed:.3f}s, "

@@ -3,9 +3,10 @@ the SVD without ever holding X in device memory.
 
 PyTorch counterpart of ``dmd_era5_tpu/pipeline/streamed_fit.py``:
 :func:`prefetched_row_blocks` (:51), :func:`streamed_randomized_svd`
-(:84) and :func:`streamed_exact_gram_svd` (:347).  Row blocks of the
-artifact (``snapmat/loader.py``) are read on a prefetch thread while the
-card works on the current block.
+(:84), :func:`streamed_exact_gram_svd` (:347) and
+:func:`streamed_onepass_svd` (:485).  Row blocks of the artifact
+(``snapmat/loader.py``) are read on a prefetch thread while the card
+works on the current block.
 
 Randomized route, n_iter + 2 passes over the file:
 
@@ -23,13 +24,22 @@ f32 (TF32 off on the card), as the JAX package leaves them to XLA, with
 its f32 accumulation across blocks.  Device residency is one block plus
 r x T factors.
 
-The JAX package's ``_throttle`` bounded its asynchronous dispatch queue;
-here the synchronous copy of each block from pageable host memory bounds
-the work in flight by itself.
+One-pass route (``ops/onepass.py``): one pass of Y = X_blk Omega (K6),
+W += Psi_blk X_blk (K3) and G += Y^T Y (K4), the Y rows copied to the
+host, then the U lift from host memory block by block (K6).
+
+On a card the prefetch thread reads each block straight into a pinned
+host buffer of a small ring (``utils.tensors.CopyRing``), whose copy
+stream takes it to the card: the copy of block i + 1 can run while the
+card works on block i, no fresh host array is allocated and faulted in
+a block, and a buffer is refilled only once its last copy is done.
+That bounds the work in flight, as the JAX package's ``_throttle``
+bounded its asynchronous dispatch queue.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import queue
 import threading
@@ -39,11 +49,14 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.ops.matmul import matmul
+from dmd_era5_tpu_torch.ops.onepass import OnePassSketch, default_sketch_width, draw_omega
 from dmd_era5_tpu_torch.ops.svd import SVDResult, sklearn_n_iter
 from dmd_era5_tpu_torch.ops.tsqr import _local_factor
 from dmd_era5_tpu_torch.snapmat.loader import packed_info, read_packed_rows
 from dmd_era5_tpu_torch.utils.linalg import gram_whiten
+from dmd_era5_tpu_torch.utils.tensors import CopyRing
 
 logger = logging.getLogger(__name__)
 
@@ -52,7 +65,15 @@ __all__ = [
     "streamed_randomized_svd",
     "streamed_randomized_svd_core",
     "streamed_exact_gram_svd",
+    "streamed_onepass_svd",
+    "streamed_onepass_svd_core",
 ]
+
+
+@functools.cache
+def _stage_logger():
+    """The one-pass route's log (its warning is printed as well)."""
+    return setup_logger("StreamedFit-torch", "streamed_fit_torch.log")
 
 Source = str | Path | np.ndarray
 
@@ -62,6 +83,8 @@ def prefetched_row_blocks(
     n_rows: int,
     block_rows: int,
     depth: int = 2,
+    *,
+    _into=None,
 ) -> Iterator[tuple[int, np.ndarray]]:
     """Yield (row_start, block) with a background prefetch thread.
 
@@ -69,6 +92,9 @@ def prefetched_row_blocks(
     disk reads overlap the copy to the card and the card's work.  A read
     that fails raises in the consumer (a pass never ends short), and a
     consumer that stops early stops the reader before returning.
+    ``_into``: the destination allocator handed to ``read_packed_rows``
+    (a :class:`CopyRing`'s ``host_buffer``: blocks are read straight into
+    its pinned buffers).
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
     done = object()
@@ -79,7 +105,10 @@ def prefetched_row_blocks(
             for r0 in range(0, n_rows, block_rows):
                 if abandoned.is_set():
                     return
-                q.put((r0, read_packed_rows(path, r0, min(r0 + block_rows, n_rows))))
+                r1 = min(r0 + block_rows, n_rows)
+                blk = (read_packed_rows(path, r0, r1) if _into is None
+                       else read_packed_rows(path, r0, r1, into=_into))
+                q.put((r0, blk))
             q.put(done)
         except Exception as exc:  # the thread's boundary: the consumer re-raises it
             q.put(exc)
@@ -135,17 +164,41 @@ def _u_wire(u_dtype: str | None, bf16: bool) -> torch.dtype:
     raise ValueError(f"u_dtype must be auto/float32/bfloat16, got {u_dtype!r}")
 
 
-def _to_device(blk: np.ndarray, t_cols: int, device, dtype=None) -> torch.Tensor:
+def _to_device(blk: np.ndarray, t_cols: int, device, dtype=None,
+               ring: CopyRing | None = None) -> torch.Tensor:
     """A host block as a contiguous tensor on ``device``: uint16 storage
-    is bf16, trailing columns past ``t_cols`` are sliced off on the host."""
-    if blk.shape[1] > t_cols:
+    is bf16, trailing columns past ``t_cols`` are sliced off.  With
+    ``ring`` the block (read into the ring's next pinned buffer, or
+    staged there) is copied on its copy stream and sliced on the device;
+    without, it is sliced on the host and copied from pageable memory on
+    the current stream, which waits for the card's work queued before it."""
+    if ring is None and blk.shape[1] > t_cols:
         blk = np.ascontiguousarray(blk[:, :t_cols])
     if blk.dtype == np.uint16:
         arr = torch.from_numpy(blk.view(np.int16)).view(torch.bfloat16)
     else:
         arr = torch.from_numpy(blk)
-    arr = arr.to(device)
+    if ring is None:
+        arr = arr.to(device)
+    else:
+        arr = ring.to_device(arr)
+        if arr.shape[1] > t_cols:
+            arr = arr[:, :t_cols].contiguous()
     return arr if dtype is None else arr.to(dtype)
+
+
+def _device_blocks(path, n_rows: int, t_cols: int, block_rows: int, device, dtype=None):
+    """One pass over the artifact: (row_start, block on ``device``).  On a
+    card the reader fills the pinned buffers of a :class:`CopyRing` of the
+    pass's own, whose copy stream takes each block to the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for r0, blk in prefetched_row_blocks(path, n_rows, block_rows):
+            yield r0, _to_device(blk, t_cols, device, dtype)
+        return
+    ring = CopyRing(device)
+    for r0, blk in prefetched_row_blocks(path, n_rows, block_rows, _into=ring.host_buffer):
+        yield r0, _to_device(blk, t_cols, device, dtype, ring)
 
 
 def _stream_lift(path, n_rows, t_cols, block_rows, m_lift, u_wire, u_out, device,
@@ -154,8 +207,8 @@ def _stream_lift(path, n_rows, t_cols, block_rows, m_lift, u_wire, u_out, device
     array, memmap or h5py dataset) or a fresh f32 host array; no (S, k)
     array on the card."""
     dest = u_out if u_out is not None else np.empty((n_rows, m_lift.shape[1]), np.float32)
-    for r0, blk in prefetched_row_blocks(path, n_rows, block_rows):
-        u_blk = (_to_device(blk, t_cols, device, block_dtype).float() @ m_lift).to(u_wire)
+    for r0, blk in _device_blocks(path, n_rows, t_cols, block_rows, device, block_dtype):
+        u_blk = (blk.float() @ m_lift).to(u_wire)
         dest[r0 : r0 + u_blk.shape[0]] = u_blk.cpu().float().numpy()
     return dest
 
@@ -237,8 +290,8 @@ def streamed_randomized_svd_core(
     r = omega.shape[1]
 
     def blocks():
-        for _, blk in prefetched_row_blocks(path, n_rows, block_rows):
-            yield _to_device(blk, t_cols, device, block_dtype)
+        for _, blk in _device_blocks(path, n_rows, t_cols, block_rows, device, block_dtype):
+            yield blk
 
     def sketch(blk, z):
         return matmul(blk, z.to(blk.dtype))  # K6 on the card
@@ -316,8 +369,8 @@ def streamed_exact_gram_svd(
     u_wire = _u_wire(u_dtype, bf16)
 
     def block_grams():
-        for _, blk in prefetched_row_blocks(path, n_rows, block_rows):
-            bf = _to_device(blk, t_cols, device).float()
+        for _, blk in _device_blocks(path, n_rows, t_cols, block_rows, device):
+            bf = blk.float()
             yield bf.T @ bf
 
     logger.info(
@@ -347,3 +400,88 @@ def streamed_exact_gram_svd(
     ).to(device)
     u_host = _stream_lift(path, n_rows, t_cols, block_rows, m_lift, u_wire, u_out, device)
     return SVDResult(u_host, s.astype(np.float32), v_cols.T.astype(np.float32))
+
+
+def streamed_onepass_svd(
+    path: Source,
+    n_components: int,
+    block_rows: int = 1 << 16,
+    n_oversamples: int | None = None,
+    l_sketch: int | None = None,
+    seed: int = 0,
+    center: bool = False,
+    device=None,
+    info: dict | None = None,
+    warn_tail_rel_err: float = 0.1,
+) -> SVDResult:
+    """Randomized truncated SVD of a packed artifact in ONE disk pass.
+
+    Counterpart of ``dmd_era5_tpu/pipeline/streamed_fit.py:485``, the
+    two-sided sketch of ``ops/onepass.py``: the co-range sketch W = Psi X
+    sums beside the range sketch per row block, so the file is never read
+    again.  The (T, r) sketch Omega is drawn from a ``torch.Generator``
+    on ``device`` seeded with ``seed`` (torch's numbers are not JAX's);
+    :func:`streamed_onepass_svd_core` runs the pass.  ``device=None`` is
+    the card.
+    """
+    device = _device(device)
+    (_, t_cols), _ = packed_info(path)
+    omega = draw_omega(t_cols, default_sketch_width(n_components, n_oversamples), seed, device)
+    return streamed_onepass_svd_core(
+        path, omega, n_components, block_rows=block_rows, l_sketch=l_sketch, seed=seed,
+        center=center, device=device, info=info, warn_tail_rel_err=warn_tail_rel_err,
+    )
+
+
+def streamed_onepass_svd_core(
+    path: Source,
+    omega: torch.Tensor,
+    n_components: int,
+    block_rows: int = 1 << 16,
+    l_sketch: int | None = None,
+    seed: int = 0,
+    center: bool = False,
+    device=None,
+    info: dict | None = None,
+    warn_tail_rel_err: float = 0.1,
+) -> SVDResult:
+    """The pass of :func:`streamed_onepass_svd`, given its sketch omega
+    (T, r).  Blocks are taken as f32 on the card (a bf16 artifact is
+    decoded there); Psi's panel of a block is keyed by ``seed`` and the
+    block's first row.  The out-of-core contract: device residency stays
+    O(one block), the range sketch's rows are kept in host memory and U
+    is lifted from them block by block (``y_store="host"``).
+
+    ``info``: an optional dict that receives ``onepass_tail_rel_err_est``,
+    the sketches' estimate of the rank-k relative Frobenius error
+    (``ops.onepass.onepass_core``); a warning is logged and printed when
+    it exceeds ``warn_tail_rel_err``, so the one-pass trade is never
+    silent.  Returns U on the host (a float32 numpy array), s and V on
+    ``device``.
+    """
+    device = _device(device)
+    (n_rows, t_cols), _ = packed_info(path)
+    sk = OnePassSketch(t_cols, n_components, l_sketch=l_sketch, seed=seed, center=center,
+                       device=device, y_store="host", omega=omega)
+    log_and_print(
+        _stage_logger(),
+        f"One-pass streaming SVD: {n_rows} x {t_cols} in {block_rows}-row blocks "
+        "(single disk pass)",
+    )
+    for r0, blk in _device_blocks(path, n_rows, t_cols, block_rows, device, torch.float32):
+        sk.update(r0, blk)
+    res = sk.finalize()
+    err_est = sk.tail_rel_err_est
+    if info is not None:
+        info["onepass_tail_rel_err_est"] = round(err_est, 6)
+    if err_est > warn_tail_rel_err:
+        log_and_print(
+            _stage_logger(),
+            f"One-pass SVD posterior error estimate {err_est:.3f} exceeds "
+            f"{warn_tail_rel_err:.2f}: the trailing components of this "
+            "decomposition are sketch-noise-dominated (the one-pass "
+            "accuracy trade).  Reduce n_components, raise l_sketch, or "
+            "use svd_backend='streamed' for a high-accuracy fit.",
+            "warning",
+        )
+    return res

@@ -119,16 +119,27 @@ def packed_info(source: str | Path | np.ndarray) -> tuple[tuple[int, int], bool]
         return tuple(f["X"].shape), bool(f.attrs.get("bf16", 0))
 
 
-def read_packed_rows(source: str | Path | np.ndarray, r0: int, r1: int) -> np.ndarray:
+def read_packed_rows(source: str | Path | np.ndarray, r0: int, r1: int,
+                     into=None) -> np.ndarray:
     """Rows [r0, r1) of a packed source, read into host memory (a view of
     a writable in-memory array; a copy of a read-only one, such as an
-    ``np.load(..., mmap_mode="r")`` memmap)."""
-    if isinstance(source, np.ndarray):
-        rows = source[r0:r1]
+    ``np.load(..., mmap_mode="r")`` memmap).  ``into``: a callable
+    (shape, dtype) -> array, such as a pinned staging buffer, that the
+    rows are read into and which is returned."""
+    if isinstance(source, np.ndarray) or _is_npy(source):
+        arr = source if isinstance(source, np.ndarray) else np.load(source, mmap_mode="r")
+        rows = arr[r0:r1]
+        if into is not None:
+            dest = into(rows.shape, rows.dtype)
+            np.copyto(dest, rows)
+            return dest
         return rows if rows.flags.writeable else np.array(rows)
-    if _is_npy(source):
-        return np.array(np.load(source, mmap_mode="r")[r0:r1])
     import h5py
 
     with h5py.File(source, "r") as f:
-        return f["X"][r0:r1, :]
+        dset = f["X"]
+        if into is None:
+            return dset[r0:r1, :]
+        dest = into((r1 - r0, dset.shape[1]), dset.dtype)
+        dset.read_direct(dest, np.s_[r0:r1, :])
+        return dest

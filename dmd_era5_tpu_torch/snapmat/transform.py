@@ -23,6 +23,7 @@ Layout contract (load-bearing for every consumer downstream):
 from __future__ import annotations
 
 import functools
+import math
 from itertools import product
 from typing import Any
 
@@ -37,6 +38,7 @@ __all__ = [
     "apply_delay_embedding",
     "delay_embed_np",
     "delay_embedded_coords",
+    "flat_data",
     "flatten_era5_variables",
     "space_coord_to_level_lat_lon",
     "standardize_data",
@@ -128,23 +130,7 @@ def flatten_era5_variables(fs: FieldSet) -> Field:
     space = _space_tuples(level, lat, lon)
     n_space = len(space)
 
-    order = (*SPATIAL_STACK_ORDER, "time") if has_time else SPATIAL_STACK_ORDER
-    if isinstance(sample.data, torch.Tensor):
-        tail = (sample.sizes["time"],) if has_time else ()
-        data = torch.empty((len(variables) * n_space, *tail), dtype=sample.data.dtype,
-                           device=sample.data.device)
-        for i, var in enumerate(variables):
-            field = fs[var]
-            block = data[i * n_space : (i + 1) * n_space]
-            block.view(len(level), len(lat), len(lon), *tail).copy_(
-                field.data.permute([field.axis(d) for d in order]))
-    else:
-        blocks = []
-        for var in variables:
-            arr = fs[var].transpose(*order).data
-            blocks.append(arr.reshape(n_space, arr.shape[-1]) if has_time else arr.reshape(n_space))
-        data = np.concatenate([np.asarray(b) for b in blocks], axis=0)
-
+    data = flat_data(fs)
     coords: dict[str, Any] = {
         "space": Coord("space", np.tile(space, len(variables))),
         "original_variable": Coord(
@@ -159,6 +145,33 @@ def flatten_era5_variables(fs: FieldSet) -> Field:
     attrs["original_variables"] = list(variables)
     attrs["space_coords"] = list(SPATIAL_STACK_ORDER)
     return Field(data, dims, coords, attrs, name="X")
+
+
+def flat_data(fs: FieldSet):
+    """The data of :func:`flatten_era5_variables` alone, without its
+    coordinates: (space[, time]), the variables' blocks stacked in order,
+    each (level, latitude, longitude) row-major.  Tensor fields are
+    flattened where they lie, each copied once into the flat tensor."""
+    variables = fs.variables
+    sample = fs.first()
+    has_time = "time" in sample.dims
+    shape = tuple(sample.sizes[d] for d in SPATIAL_STACK_ORDER)
+    n_space = math.prod(shape)
+    order = (*SPATIAL_STACK_ORDER, "time") if has_time else SPATIAL_STACK_ORDER
+    if isinstance(sample.data, torch.Tensor):
+        tail = (sample.sizes["time"],) if has_time else ()
+        data = torch.empty((len(variables) * n_space, *tail), dtype=sample.data.dtype,
+                           device=sample.data.device)
+        for i, var in enumerate(variables):
+            field = fs[var]
+            block = data[i * n_space : (i + 1) * n_space]
+            block.view(*shape, *tail).copy_(field.data.permute([field.axis(d) for d in order]))
+        return data
+    blocks = []
+    for var in variables:
+        arr = fs[var].transpose(*order).data
+        blocks.append(arr.reshape(n_space, arr.shape[-1]) if has_time else arr.reshape(n_space))
+    return np.concatenate([np.asarray(b) for b in blocks], axis=0)
 
 
 def delay_embed_np(X: np.ndarray, d: int) -> np.ndarray:

@@ -1,11 +1,14 @@
-"""Inputs as tensors: the models take tensors or host arrays alike."""
+"""Inputs as tensors: the models take tensors or host arrays alike, and
+host blocks reach a card through a ring of pinned staging buffers."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "home_device"]
+__all__ = ["as_tensor", "home_device", "CopyRing"]
 
 
 def as_tensor(a, dtype: torch.dtype, device: torch.device | str | None = None) -> torch.Tensor:
@@ -34,3 +37,66 @@ def home_device(a, device: torch.device | str | None = None) -> torch.device:
             "(or CPU tensors) to run it on the host"
         )
     return torch.device("cuda")
+
+
+class CopyRing:
+    """Host blocks to one CUDA device through ``slots`` pinned buffers and
+    a copy stream of their own.
+
+    A reader fills the next buffer in place (:meth:`host_buffer`, from any
+    thread); :meth:`to_device` then queues the buffer's copy to the device
+    on the copy stream and makes the caller's current stream wait for that
+    copy alone, so the copy of block i + 1 runs while the card still works
+    on block i (a copy from pageable memory on the caller's stream waits
+    for that work and holds the host until it is done).  A block that is
+    not the next filled buffer is first copied into one (a host copy).  A
+    buffer is handed out again only once the copy that last read it has
+    finished, so a reader that runs ahead needs ``slots`` at least its
+    lead plus two.  The device tensor is allocated on the copy stream and
+    recorded on the caller's, so its memory is reused only after the
+    caller's work on it.  Feed a ring from one reader, or through
+    :meth:`to_device` alone, not both.
+    """
+
+    def __init__(self, device, slots: int = 4):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self._buffers: list[torch.Tensor | None] = [None] * slots
+        self._copied: list[torch.cuda.Event | None] = [None] * slots
+        self._fill = self._send = 0
+
+    def host_buffer(self, shape: tuple[int, ...], dtype) -> np.ndarray:
+        """The next buffer as a numpy array of ``shape`` and ``dtype``, once
+        the copy that last read it is done."""
+        slot = self._fill
+        self._fill = (slot + 1) % len(self._buffers)
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+        dtype = np.dtype(dtype)
+        nbytes = math.prod(shape) * dtype.itemsize
+        buf = self._buffers[slot]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._buffers[slot] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return buf.numpy()[:nbytes].view(dtype).reshape(shape)
+
+    def to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """``host`` on the device: the next filled buffer, or any host tensor."""
+        buf = self._buffers[self._send]
+        if buf is None or host.data_ptr() != buf.data_ptr() or not host.is_contiguous():
+            # not the buffer a reader filled: stage it in the next one
+            # (numpy's copy: one thread, which leaves the cores to a reader)
+            staged = self.host_buffer((host.numel() * host.element_size(),), np.uint8)
+            np.copyto(staged, host.contiguous().reshape(-1).view(torch.uint8).numpy())
+            host = torch.from_numpy(staged).view(host.dtype).view(host.shape)
+        slot = self._send
+        self._send = (slot + 1) % len(self._buffers)
+        consumer = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            out.copy_(host, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        self._copied[slot] = copied
+        consumer.wait_event(copied)
+        out.record_stream(consumer)
+        return out

@@ -25,7 +25,10 @@ of the kernels: K4 at the streamed mrDMD refit's block and at mrDMD
 windows copied from a residual's column blocks (against the f64 sums
 and one TF32 pass), ``fit_mrdmd`` (K4 once a window) and
 ``fit_mrdmd_streamed`` (once a block), DMDc (K4 and K1 twice) and the
-ensemble (K1 once a member) against their CPU runs.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
+ensemble (K1 once a member) against their CPU runs; K3 with the one-pass
+sketch's +-1 panel generated on the card, the streamed passes' pinned
+ring under a slow reader, and the one-pass SVD and the rank update
+against their CPU runs.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
 is not needed, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -721,3 +724,118 @@ def test_dmdc_and_ensemble_on_card(cuda):
     assert _launches() == (before[0], before[1] + 2)
     fit_cpu = fit_per_variable_level(fs, 3, omega=omega, device="cpu")
     np.testing.assert_allclose(fit.state.s.cpu().numpy(), fit_cpu.state.s.numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t", [(65_536, 168), (5_000, 96)])
+def test_project_with_rademacher_panel_on_card(cuda, m, t):
+    """K3 as the one-pass sketch calls it, W = Psi^T X with the (m, 256)
+    +-1 panel generated on the card: the panel equal to the CPU one bit
+    for bit, W within 1e-6 max|W| of the f64 sums (3xTF32) and of the
+    plain version, a limit one TF32 pass misses."""
+    from dmd_era5_tpu_torch.ops.onepass import psi_panel
+
+    psi = psi_panel(11, 2**31 - 77, m, 256, cuda)
+    assert torch.equal(psi.cpu(), psi_panel(11, 2**31 - 77, m, 256))
+    x = torch.randn((m, t), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    before = matmul.project.launches
+    w = matmul.project(x, psi)
+    torch.cuda.synchronize()
+    assert matmul.project.launches == before + 1
+    exact = psi.double().T @ x.double()
+    scale = float(exact.abs().max())
+    assert float((w.double() - exact).abs().max()) <= 1e-6 * scale
+    assert float((w - matmul._project_plain(x, psi)).abs().max()) <= 2e-6 * scale
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = psi.T @ x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((one_pass.double() - exact).abs().max()) > 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_pinned_ring_keeps_order_under_a_slow_reader(cuda, tmp_path, monkeypatch):
+    """The streamed passes' pinned ring: with a reader slower than the
+    card and more blocks than buffers, every block (read into the ring's
+    pinned buffers) reaches the card in order and equal to the file's
+    rows, trailing columns sliced off on the card; a bf16 artifact's
+    blocks too.  The streaming sketch, whose host blocks the ring stages,
+    equals its CPU run."""
+    import time
+
+    from dmd_era5_tpu_torch.pipeline import streamed_fit
+    from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
+
+    x = torch.randn((10_000, 40), generator=torch.Generator().manual_seed(5))
+    real = streamed_fit.read_packed_rows
+
+    def slow(p, r0, r1, **kw):
+        time.sleep(0.01)
+        return real(p, r0, r1, **kw)
+
+    monkeypatch.setattr(streamed_fit, "read_packed_rows", slow)
+    for bf16 in (False, True):
+        path = tmp_path / f"x{int(bf16)}.npy"
+        save_packed_matrix(path, x, bf16=bf16)
+        want = x.to(torch.bfloat16) if bf16 else x
+        for t_cols in (40, 33):
+            starts, blocks = [], []
+            for r0, blk in streamed_fit._device_blocks(path, 10_000, t_cols, 700, cuda):
+                torch.cuda._sleep(1 << 20)  # the card busy past the next copy's start
+                starts.append(r0)
+                blocks.append(blk * 1)  # consumed on the compute stream
+            torch.cuda.synchronize()
+            assert starts == list(range(0, 10_000, 700))
+            assert torch.equal(torch.cat(blocks).cpu(), want[:, :t_cols])
+
+    from dmd_era5_tpu_torch.ops.streaming import StreamingSketch
+
+    omega = torch.randn((40, 8), generator=torch.Generator().manual_seed(6))
+    on_card = StreamingSketch(10_000, omega.to(cuda))
+    on_host = StreamingSketch(10_000, omega)
+    for c0 in range(0, 40, 7):
+        on_card.update(x[:, c0:c0 + 7].numpy())
+        on_host.update(x[:, c0:c0 + 7].numpy())
+    y = on_host.result()
+    assert float((on_card.result().cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+@pytest.mark.cuda
+def test_onepass_and_rank_update_on_card(cuda, tmp_path):
+    """The one-pass route and the rank update on the card against their
+    CPU runs with the same sketch: streamed_onepass_svd over an .npy in
+    5 blocks (K6 10, K3 5, K4 5), s within 1e-5 relative and U within
+    1e-4 of max, on a full-rank X whose sketch Gram sits well above f32
+    resolution (where it does not, as past a rank-12 X's twelve
+    directions, its noise directions are rounding in both sums, and the
+    two runs' s part by percent); svd_rank_update (K3 1, K6 1 + lift
+    chunks), s within 1e-5."""
+    from dmd_era5_tpu_torch.ops.onepass import default_sketch_width
+    from dmd_era5_tpu_torch.ops.streaming import svd_rank_update
+    from dmd_era5_tpu_torch.ops.svd import exact_truncated_svd
+    from dmd_era5_tpu_torch.pipeline import streamed_onepass_svd_core
+
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((5000, 64)) * np.geomspace(10, 1, 64)).astype(np.float32)
+    path = tmp_path / "x.npy"
+    np.save(path, x)
+    omega = torch.from_numpy(rng.standard_normal((64, default_sketch_width(8, None))).astype(np.float32))
+    launches = lambda: (matmul.matmul.launches, matmul.project.launches,  # noqa: E731
+                        qr_panel.gram.launches["highest"])
+    before = launches()
+    got = streamed_onepass_svd_core(path, omega, 8, block_rows=1000, device=cuda)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(launches(), before)) == (10, 5, 5)
+    ref = streamed_onepass_svd_core(path, omega, 8, block_rows=1000, device="cpu")
+    np.testing.assert_allclose(got.s.cpu().numpy(), ref.s.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(got.U, ref.U, atol=1e-4 * np.abs(ref.U).max())
+
+    base = exact_truncated_svd(torch.from_numpy(x[:, :48]), 8)
+    new = torch.from_numpy(x[:, 48:])
+    before = launches()
+    upd = svd_rank_update(type(base)(*(a.to(cuda) for a in base)), new.to(cuda))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(launches(), before)) == (2, 1, 0)
+    upd_cpu = svd_rank_update(base, new)
+    np.testing.assert_allclose(upd.s.cpu().numpy(), upd_cpu.s.numpy(), rtol=1e-5)

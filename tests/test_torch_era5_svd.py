@@ -144,7 +144,6 @@ def test_resolve_svd_backend_matches_one_device_mesh(
     (dict(mesh_shape="time=8"), "device mesh"),
     (dict(dcn_mesh_shape="data=2"), "device mesh"),
     (dict(svd_backend="grid2d", delay_embedding=1), "device mesh"),
-    (dict(svd_backend="onepass"), "10.1"),
 ])
 def test_svd_on_era5_refuses_what_needs_a_mesh(overrides, message):
     parsed = parse_torch({**BASE, **overrides}, "era5-svd")

@@ -14,7 +14,11 @@ import torch
 
 from dmd_era5_tpu_torch.ops import matmul, qr_panel
 from dmd_era5_tpu_torch.ops.tsqr import _local_factor, in_householder_kernel_envelope, qr_positive
-from dmd_era5_tpu_torch.pipeline import streamed_exact_gram_svd, streamed_randomized_svd
+from dmd_era5_tpu_torch.pipeline import (
+    streamed_exact_gram_svd,
+    streamed_onepass_svd,
+    streamed_randomized_svd,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "dmd_era5_tpu_torch"
@@ -45,6 +49,9 @@ _NEW_MODULES = (
     "import dmd_era5_tpu_torch.models.dmdc, dmd_era5_tpu_torch.models.mrdmd\n"
     "import dmd_era5_tpu_torch.models.analysis, dmd_era5_tpu_torch.pipeline.ensemble\n"
     "import dmd_era5_tpu_torch.utils.checkpoint\n"
+    "import dmd_era5_tpu_torch.ops.onepass, dmd_era5_tpu_torch.ops.streaming\n"
+    "import dmd_era5_tpu_torch.pipeline.incremental, dmd_era5_tpu_torch.pipeline.era5_svd_update\n"
+    "import dmd_era5_tpu_torch.utils.profiling, dmd_era5_tpu_torch.utils.debug\n"
 )
 
 
@@ -195,7 +202,7 @@ def test_streamed_svd_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
     points raise instead of running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.randn(64, 16, generator=torch.Generator().manual_seed(4)).numpy()
-    for entry in (streamed_randomized_svd, streamed_exact_gram_svd):
+    for entry in (streamed_randomized_svd, streamed_exact_gram_svd, streamed_onepass_svd):
         with pytest.raises(RuntimeError, match="CUDA card"):
             entry(x, 3)
         assert entry(x, 3, block_rows=16, device="cpu").U.shape == (64, 3)
