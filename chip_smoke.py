@@ -135,15 +135,20 @@ of which raises on failure so the script exits non-zero:
    from pageable memory on the compute stream, the same pass through the
    pinned ring, and one pass of 15a: the device's idle share and the
    share of the H2D copies that overlaps kernels, read from the traces;
-   K3 at 15a's block against its bound (``roofline``).  (c) After
+   15a's core on the card beside the same core on the host in f64; K3
+   (W = Psi^T X_blk, the +-1 panel) and K4 (G of a Y block) against
+   their plain versions and the f64 sums at 15a's block shapes; K3 at
+   15a's block against its bound (``roofline``).  (c) After
    phase 13: 13c's SVD (144 hours) updated by the withheld 24 hours and
    the boundary hour (``update_from_slice`` in memory, or with h5py and
    yaml ``era5_svd_update.main`` with the files and the store on the
    stage's own 144-hour base): V over the week's 167 embedded hours, U^T U
    to 2e-3, the leading 6 s within 1e-4 of the exact Hankel SVD of the
    same matrix (phase 7's route, run again on the week centred by the
-   144-hour mean), then the DMD forecast rollout (rank 6, 24 steps) on
-   the updated factors with the planted eigenvalues within 1e-2.  (b)
+   144-hour mean); K3 (U^T C) and K6 (U L, a lift chunk) on the
+   update's own operands against their plain versions and the f64 sums;
+   then the DMD forecast rollout (rank 6, 24 steps) on the updated
+   factors with the planted eigenvalues within 1e-2.  (b)
    Config 1 with ``svd_backend = onepass`` in memory (K6 2, K3 1, K4 1):
    the estimate in the attrs, the reconstruction within 1.6 x optimal.
    Each part prints its prediction before it runs;
@@ -169,7 +174,7 @@ of which raises on failure so the script exits non-zero:
 Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c and 10b-e are the main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f) and 15d's passes are not counted.  The last line is the JSON result; the line before
+10f, 14c-d's, 15c-d's) and 15d's passes are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
@@ -1563,6 +1568,28 @@ def stage_clock(module, *names: str):
             setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def first_operands(module, name: str, keep: int):
+    """The positional arguments of the first ``keep`` calls of
+    ``module.<name>``, into the yielded list (later calls pass through)."""
+    saved = getattr(module, name)
+    calls: list[tuple] = []
+    seen = 0
+
+    def call(*args, **kwargs):
+        nonlocal seen
+        if seen < keep:
+            calls.append(args)
+        seen += 1
+        return saved(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, saved)
+
+
 def phase_wide_sketch(week: dict, seed: int) -> dict:
     """Phase 11: (a) K2 and K3 against their plain versions at the d = 3
     pass's shapes and types; then the randomized Hankel SVD at d = 3
@@ -2914,11 +2941,14 @@ def phase_trace(week: dict, path: Path, seed: int) -> dict:
     it, each block read into the pinned ring and copied on its stream, in
     turns (off, on, on, off), and one
     pass of 15a (the one-pass sketch's block updates), each traced; the
-    orthonormality of that sketch's Q by the Cholesky's ridge; then K3 at
-    15a's block against its bound by ``utils.profiling.roofline``.  Not
-    counted."""
+    orthonormality of that sketch's Q by the Cholesky's ridge, and its
+    core (``onepass_core``) on the card beside the same core run on the
+    host in f64 from the same W, G and Omega; then K3 and K4 against
+    their plain versions at 15a's block shapes (W = Psi^T X_blk with the
+    +-1 panel, G of a Y block) and K3 against its bound by
+    ``utils.profiling.roofline``.  Not counted."""
     from dmd_era5_tpu_torch.ops.matmul import matmul, project
-    from dmd_era5_tpu_torch.ops.onepass import OnePassSketch, psi_panel
+    from dmd_era5_tpu_torch.ops.onepass import OnePassSketch, onepass_core, psi_panel
     from dmd_era5_tpu_torch.ops.tsqr import qr_positive
     from dmd_era5_tpu_torch.pipeline import streamed_fit
     from dmd_era5_tpu_torch.utils.profiling import roofline
@@ -2970,10 +3000,31 @@ def phase_trace(week: dict, path: Path, seed: int) -> dict:
         ridge: q_orthonormality(sketch.g, ridge) for ridge in (1e-7, 1e-10, 1e-13)}
     log(f"    15a's Q = Y R^-1 from its G: max|Q^T Q - I| by the Cholesky's ridge (of G's mean "
         f"diagonal) {json.dumps(out['q_orthonormality_by_ridge'])}")
+    # the same core on the host in f64 from the same sums: U^T U = lift^T G lift
+    g_host = sketch.g.cpu()
+    cores = {}
+    for where, args in (("card", (sketch.w, sketch.g, sketch.omega)),
+                        ("host_f64", (sketch.w.cpu(), g_host, sketch.omega.cpu()))):
+        lift, s_core, _, est = onepass_core(*args, 100)
+        lift = lift.cpu().double()  # (r, k)
+        eye = torch.eye(lift.shape[1], dtype=torch.float64)
+        cores[where] = {"s": s_core.cpu().double(), "est": float(est),
+                        "u_orth_from_g": float((lift.T @ g_host @ lift - eye).abs().max())}
+    out["core_card_vs_host_f64"] = {
+        "s_rel": float((cores["card"]["s"] / cores["host_f64"]["s"] - 1).abs().max()),
+        **{f"u_orth_from_g_{w}": c["u_orth_from_g"] for w, c in cores.items()},
+        **{f"tail_rel_err_est_{w}": c["est"] for w, c in cores.items()}}
+    log(f"    15a's core on the card and on the host in f64 from the same W, G, Omega: "
+        f"{json.dumps(out['core_card_vs_host_f64'])}")
 
-    # K3 at 15a's block: W = Psi^T X_blk, 3xTF32 (three TF32 products)
+    # K3 and K4 against their plain versions at 15a's block shapes: W =
+    # Psi^T X_blk with the +-1 panel (3xTF32), G of the block's Y = X_blk Omega
     blk = x[:RAND_BLOCK]
     psi = psi_panel(seed + 15, 0, RAND_BLOCK, 256, dev)
+    out["k3_block"] = compare_project("15a block", blk, psi)
+    y_blk = matmul(blk, sketch.omega)
+    out["k4_y_block"] = compare_gram("15a Y block", y_blk, "highest", reps=20)
+    del y_blk
     ms = device_ms(lambda: project(blk, psi))
     m, n = blk.shape[0], psi.shape[1]
     flops, nbytes = 3 * 2.0 * m * n * t_cols, 4.0 * (m * t_cols + m * n + n * t_cols)
@@ -3040,11 +3091,14 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     ``update_from_slice`` in memory.  V's time is held to the week's 167
     embedded hours, U^T U to UPDATE_ORTH, the leading 6 s to the exact
     Hankel SVD of the same matrix (phase 7's route on the week centred by
-    the 144-hour mean) within UPDATE_LEAD6; then config 5's DMD forecast
-    rollout (rank 6, 24 steps) on the updated results, the planted
-    eigenvalues within 1e-2.  Then 15b.  Returns the launch counts."""
+    the 144-hour mean) within UPDATE_LEAD6.  The update's own operands
+    then hold K3 (U^T C) and K6 (U L, the first lift chunk [U, J] U_m)
+    against their plain versions and the f64 sums.  Then config 5's DMD
+    forecast rollout (rank 6, 24 steps) on the updated results, the
+    planted eigenvalues within 1e-2.  Then 15b.  Returns the launch
+    counts."""
     from dmd_era5_tpu_torch.core import config_parser
-    from dmd_era5_tpu_torch.ops import hankel_exact_svd
+    from dmd_era5_tpu_torch.ops import hankel_exact_svd, streaming
     from dmd_era5_tpu_torch.ops.streaming import LIFT_ROWS
     from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd, era5_svd_update, incremental
     from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
@@ -3072,7 +3126,9 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
-    with stage_root(), stage_clock(incremental, "svd_rank_update") as clock:
+    with (stage_root(), stage_clock(incremental, "svd_rank_update") as clock,
+          first_operands(streaming, "project", 1) as k3_args,
+          first_operands(streaming, "matmul", 2) as k6_args):
         parsed = config_parser(dict(cfg), "era5-svd")
         if missing:
             log(f"    {' and '.join(missing)} not installed on this machine: the update runs "
@@ -3115,6 +3171,13 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
         f"to {float(rel.max()):.2e} (at {int(rel.argmax())}); launches {launches}; wall (s) "
         f"{json.dumps({a: round(b, 3) for a, b in times.items()})} (peak_gb: device memory "
         "over the update's start)")
+    # K3 and K6 on the update's own operands: U^T C (project(C, U)), U L
+    # and the first lift chunk
+    log("    K3 and K6 at the update's shapes against their plain versions and the f64 sums")
+    compare_project("15c U^T C", *k3_args[0])
+    for label, (a, b) in zip(("15c U L", "15c lift chunk"), k6_args):
+        compare_matmul(label, a, b, f64_gate=True)
+    del k3_args, k6_args
 
     # config 5's DMD forecast rollout on the updated factors
     parsed_dmd = config_parser(stage_config("era5-dmd", **WEEK_CONFIG, **WEEK_SVD,

@@ -4,11 +4,11 @@ PyTorch counterpart of ``dmd_era5_tpu/ops/streaming.py`` (north-star
 config 5 of ``BASELINE.json``: a streaming/updating rank-k SVD):
 
 - :class:`StreamingSketch`: Y += X_blk Omega_blk as column blocks of the
-  snapshot matrix stream to the device.  On a card each host block goes
-  through a ring of pinned buffers (``utils.tensors.CopyRing``) and is
-  copied with ``non_blocking=True`` on a copy stream, so the copy of
-  block i + 1 overlaps the product of block i, the overlap the JAX
-  package took from its asynchronous dispatch.
+  snapshot matrix stream to the device.  On a card each host block is
+  copied into pinned memory and from there with ``non_blocking=True`` on
+  a copy stream, so the copy of block i + 1 overlaps the product of
+  block i, the overlap the JAX package took from its asynchronous
+  dispatch.
 - :func:`svd_rank_update`: Brand's incremental SVD, which appends new
   columns to a truncated factorization without refactoring the history.
   Its S-sized products run on the port's kernels (the plain PyTorch
@@ -27,7 +27,6 @@ import torch
 from dmd_era5_tpu_torch.ops.matmul import matmul, project
 from dmd_era5_tpu_torch.ops.svd import SVDResult
 from dmd_era5_tpu_torch.ops.tsqr import qr_positive
-from dmd_era5_tpu_torch.utils.tensors import CopyRing
 
 __all__ = ["StreamingSketch", "svd_rank_update", "LIFT_ROWS"]
 
@@ -52,7 +51,7 @@ class StreamingSketch:
         self._col = 0
         self._y = None
         self._s_rows = s_rows
-        self._ring: CopyRing | None = None
+        self._copies: torch.cuda.Stream | None = None
 
     @property
     def columns_seen(self) -> int:
@@ -62,9 +61,16 @@ class StreamingSketch:
         blk = torch.as_tensor(x_block, dtype=torch.float32)
         if self.device.type != "cuda" or blk.device.type != "cpu":
             return blk.to(self.device)
-        if self._ring is None:
-            self._ring = CopyRing(self.device)
-        return self._ring.to_device(blk)
+        if self._copies is None:
+            self._copies = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+        # the pinned copy is kept by the host allocator until the copy ends
+        pinned = blk.contiguous().pin_memory()
+        with torch.cuda.stream(self._copies):
+            out = pinned.to(self.device, non_blocking=True)
+        consumer.wait_stream(self._copies)
+        out.record_stream(consumer)
+        return out
 
     def update(self, x_block) -> None:
         """Fold in the next (S, c) column block (host or device array)."""

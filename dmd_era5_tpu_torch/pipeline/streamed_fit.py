@@ -168,8 +168,8 @@ def _to_device(blk: np.ndarray, t_cols: int, device, dtype=None,
                ring: CopyRing | None = None) -> torch.Tensor:
     """A host block as a contiguous tensor on ``device``: uint16 storage
     is bf16, trailing columns past ``t_cols`` are sliced off.  With
-    ``ring`` the block (read into the ring's next pinned buffer, or
-    staged there) is copied on its copy stream and sliced on the device;
+    ``ring`` the block (read into the ring's next pinned buffer) is
+    copied on its copy stream and sliced on the device;
     without, it is sliced on the host and copied from pageable memory on
     the current stream, which waits for the card's work queued before it."""
     if ring is None and blk.shape[1] > t_cols:
@@ -187,17 +187,21 @@ def _to_device(blk: np.ndarray, t_cols: int, device, dtype=None,
     return arr if dtype is None else arr.to(dtype)
 
 
-def _device_blocks(path, n_rows: int, t_cols: int, block_rows: int, device, dtype=None):
-    """One pass over the artifact: (row_start, block on ``device``).  On a
-    card the reader fills the pinned buffers of a :class:`CopyRing` of the
-    pass's own, whose copy stream takes each block to the card."""
+def _device_blocks(path, n_rows: int, t_cols: int, block_rows: int, device, dtype=None,
+                   depth: int = 2):
+    """One pass over the artifact: (row_start, block on ``device``), the
+    reader ``depth`` blocks ahead.  On a card the reader fills the pinned
+    buffers of a :class:`CopyRing` of the pass's own, ``depth + 2`` of
+    them (what a reader that far ahead needs), whose copy stream takes
+    each block to the card."""
     device = torch.device(device)
     if device.type != "cuda":
-        for r0, blk in prefetched_row_blocks(path, n_rows, block_rows):
+        for r0, blk in prefetched_row_blocks(path, n_rows, block_rows, depth):
             yield r0, _to_device(blk, t_cols, device, dtype)
         return
-    ring = CopyRing(device)
-    for r0, blk in prefetched_row_blocks(path, n_rows, block_rows, _into=ring.host_buffer):
+    ring = CopyRing(device, slots=depth + 2)
+    for r0, blk in prefetched_row_blocks(path, n_rows, block_rows, depth,
+                                         _into=ring.host_buffer):
         yield r0, _to_device(blk, t_cols, device, dtype, ring)
 
 

@@ -760,8 +760,8 @@ def test_pinned_ring_keeps_order_under_a_slow_reader(cuda, tmp_path, monkeypatch
     card and more blocks than buffers, every block (read into the ring's
     pinned buffers) reaches the card in order and equal to the file's
     rows, trailing columns sliced off on the card; a bf16 artifact's
-    blocks too.  The streaming sketch, whose host blocks the ring stages,
-    equals its CPU run."""
+    blocks too.  The streaming sketch, whose host blocks reach the card
+    through pinned memory, equals its CPU run."""
     import time
 
     from dmd_era5_tpu_torch.pipeline import streamed_fit
@@ -799,6 +799,107 @@ def test_pinned_ring_keeps_order_under_a_slow_reader(cuda, tmp_path, monkeypatch
         on_host.update(x[:, c0:c0 + 7].numpy())
     y = on_host.result()
     assert float((on_card.result().cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_pinned_ring_holds_blocks_under_a_slow_consumer(cuda, tmp_path, monkeypatch, depth):
+    """The pinned ring with the reader ahead of the card: each block's
+    copy held back on the ring's copy stream and the consumer's work
+    slowed on the compute stream, so the reader laps the ring and must
+    wait for a slot's last copy before it refills it.  Every block
+    reaches the card equal to the file's rows at each reader depth (the
+    pass's ring takes depth + 2 slots).  A ring of depth + 1 slots, which
+    a reader that far ahead laps, raises in the consumer rather than
+    overwrite a block not yet sent."""
+    import time
+
+    from dmd_era5_tpu_torch.pipeline import streamed_fit
+    from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
+    from dmd_era5_tpu_torch.utils.tensors import CopyRing
+
+    class SlowCopies(CopyRing):
+        def to_device(self, host):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(1 << 22)  # the copy stream busy: this copy lags the reader
+            return super().to_device(host)
+
+    x = torch.randn((20_000, 40), generator=torch.Generator().manual_seed(7))
+    path = tmp_path / "x.npy"
+    save_packed_matrix(path, x)
+    with monkeypatch.context() as patch:
+        patch.setattr(streamed_fit, "CopyRing", SlowCopies)
+        blocks = []
+        for _, blk in streamed_fit._device_blocks(path, 20_000, 40, 500, cuda, depth=depth):
+            torch.cuda._sleep(1 << 22)  # the consumer's work slow on the card
+            blocks.append(blk * 1)
+        torch.cuda.synchronize()
+    assert torch.equal(torch.cat(blocks).cpu(), x)
+
+    ring = CopyRing(cuda, slots=depth + 1)
+    with pytest.raises(RuntimeError, match="lapped"):
+        for _, blk in streamed_fit.prefetched_row_blocks(path, 20_000, 500, depth,
+                                                         _into=ring.host_buffer):
+            time.sleep(0.05)  # the reader fills the ring meanwhile
+            streamed_fit._to_device(blk, 40, cuda, ring=ring)
+
+
+@pytest.mark.cuda
+def test_onepass_rank_deficient_on_card_against_numpy(cuda):
+    """The one-pass sketch of a rank-12 X (5000 x 64) at k = 8 under
+    r = 18 in 5 blocks, the same Omega on the card and the host, each
+    held to numpy's f64 SVD of X.  Six of G's eigenvalues are the block
+    Grams' rounding, so either side's G may not factor under the core's
+    tight ridge, and the core then falls back to 1e-3 of its mean
+    diagonal (``utils.linalg.safe_cholesky``, as the JAX package's),
+    which moves s by up to percent.  Held: each side's W and G within
+    1e-6 of max of the f64 sums of the stored X; the core on the f64
+    sums within 1e-4 of numpy's s; each side's s equal (1e-6) to the
+    host's f64 core on that side's sums; each side's s within test_17's
+    tolerances of numpy's (leading 6 within 2e-2, all 8 within 1e-1).
+    Printed: each side's readings and whether its G took the tight
+    ridge."""
+    import json
+
+    from dmd_era5_tpu_torch.ops.onepass import OnePassSketch, onepass_core, psi_panel
+
+    rng = np.random.default_rng(2)
+    x = ((rng.standard_normal((5000, 12)) * np.geomspace(10, 1, 12))
+         @ rng.standard_normal((12, 64))).astype(np.float32)
+    omega = torch.from_numpy(rng.standard_normal((64, 18)).astype(np.float32))
+    s_np = np.linalg.svd(x.astype(np.float64), compute_uv=False)[:8]
+    x64 = torch.from_numpy(x).double()
+    y64 = x64 @ omega.double()
+    w64, g64 = psi_panel(0, 0, 5000, 36).double().T @ x64, y64.T @ y64
+    eye = torch.eye(18, dtype=torch.float64)
+
+    def tight(g):
+        return int(torch.linalg.cholesky_ex(g + 1e-7 * g.diagonal().mean() * eye).info) == 0
+
+    _, s_exact, _, _ = onepass_core(w64, g64, omega, 8)
+    readings = {"f64_sums": {"tight_ridge": tight(g64),
+                             "rel": float(np.abs(s_exact.numpy() / s_np - 1).max())}}
+    sides = {}
+    for name, dev in (("card", cuda), ("host", "cpu")):
+        sk = OnePassSketch(64, 8, device=dev, omega=omega)
+        for r0 in range(0, 5000, 1000):
+            sk.update(r0, torch.from_numpy(x[r0:r0 + 1000]))
+        w, g = sk.w.cpu(), sk.g.cpu()
+        s = sk.finalize().s.cpu().numpy()
+        _, s_core, _, _ = onepass_core(w, g, omega, 8)
+        rel = np.abs(s / s_np - 1)
+        sides[name] = (w, g, s, s_core.numpy())
+        readings[name] = {"tight_ridge": tight(g), "lead6": float(rel[:6].max()),
+                          "all8": float(rel.max()),
+                          "w_vs_f64": float((w - w64).abs().max() / w64.abs().max()),
+                          "g_vs_f64": float((g - g64).abs().max() / g64.abs().max())}
+    print(json.dumps(readings))
+    np.testing.assert_allclose(s_exact.numpy(), s_np, rtol=1e-4)
+    for name, (w, g, s, s_core) in sides.items():
+        assert readings[name]["w_vs_f64"] <= 1e-6 and readings[name]["g_vs_f64"] <= 1e-6, name
+        np.testing.assert_allclose(s, s_core, rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(s[:6], s_np[:6], rtol=2e-2, err_msg=name)
+        np.testing.assert_allclose(s, s_np, rtol=1e-1, err_msg=name)
 
 
 @pytest.mark.cuda

@@ -162,6 +162,56 @@ def test_onepass_core_matches_jax(rng):
     assert float(est) == pytest.approx(float(est_j), rel=1e-3)
 
 
+def _rank12():
+    """A rank-12 X (5000 x 64), s ~5600 down to ~1100 in its leading 8."""
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((5000, 12)) * np.geomspace(10, 1, 12)
+    return (a @ rng.standard_normal((12, 64))).astype(np.float32)
+
+
+def _exact_sums(x: np.ndarray, sk) -> tuple[torch.Tensor, torch.Tensor]:
+    """W = Psi^T X and G = (X Omega)^T (X Omega) in f64 from the stored X."""
+    x64 = torch.from_numpy(x).double()
+    psi = top.psi_panel(sk.seed, 0, x.shape[0], sk.l_sketch).double()
+    y64 = x64 @ sk.omega.double()
+    return psi.T @ x64, y64.T @ y64
+
+
+def _factors_tight(g: torch.Tensor) -> bool:
+    """G + 1e-7 mean(diag G) I factors: the core's first (tight) ridge."""
+    eye = torch.eye(g.shape[0], dtype=torch.float64)
+    return int(torch.linalg.cholesky_ex(g + 1e-7 * g.diagonal().mean() * eye).info) == 0
+
+
+def test_onepass_rank_deficient_takes_the_fallback_ridge():
+    """A rank-12 X at k = 8 under r = 18, in 5 blocks, JAX's Omega (seed
+    1): six of G's eigenvalues are the f32 block Grams' rounding, the
+    tight ridge does not factor the port's G, and the core falls back to
+    1e-3 of its mean diagonal (utils.linalg.safe_cholesky, as the JAX
+    package's).  The sums are right (W and G within 1e-6 of max of the
+    f64 sums of the stored X), the f64 sums factor under the tight ridge
+    and through the core give s within 1e-4 of numpy's: what the fallback
+    costs is the core's.  The port's and the JAX package's s each held to
+    numpy's at test_17's tolerances (leading 6 within 2e-2, all 8 within
+    1e-1)."""
+    x = _rank12()
+    port = _port(64, 8, seed=1)
+    ref = jop.OnePassSketch(64, 8, seed=1)
+    for r0 in range(0, 5000, 1000):
+        port.update(r0, torch.from_numpy(x[r0:r0 + 1000]))
+        ref.update(r0, jnp.asarray(x[r0:r0 + 1000]))
+    w64, g64 = _exact_sums(x, port)
+    for got, want in ((port.w, w64), (port.g, g64)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert not _factors_tight(port.g) and _factors_tight(g64)
+    s_np = np.linalg.svd(x.astype(np.float64), compute_uv=False)[:8]
+    _, s_exact, _, _ = top.onepass_core(w64, g64, port.omega, 8)
+    np.testing.assert_allclose(s_exact.numpy(), s_np, rtol=1e-4)
+    for s in (port.finalize().s.numpy(), np.asarray(ref.finalize().s)):
+        np.testing.assert_allclose(s[:6], s_np[:6], rtol=2e-2)
+        np.testing.assert_allclose(s, s_np, rtol=1e-1)
+
+
 def test_onepass_recovers_dominant_subspace(rng):
     """test_17:33: subspace gap < 1e-3, s[:6] rtol 2e-2, s rtol 1e-1 of
     numpy's; against the JAX result with the same Omega, s within
