@@ -169,12 +169,39 @@ of which raises on failure so the script exits non-zero:
    ``fit_step_fused`` and ``fit_step_lean`` (k = 100, sketch 128)
    against each other, against the exact loss and a control; (b), (d)
    and (e)'s singular values are held below the exact ones; (f) K1 and
-   the two-pass route timed on the same X and sketch.
+   the two-pass route timed on the same X and sketch;
+16. (run last, on the card freed) config.ini's real-data source path on
+   a Zarr store laid out as ARCO-ERA5's (the committed
+   ``tests/fixtures/arco_era5_fullscale.zmetadata.json``): (a) variable
+   ``temperature`` (99, 37, 721, 1440) f32 in chunks of one hour (153.7 MB
+   each, 15.2 GB), the levels in ARCO's order, CF time, fill NaN,
+   consolidated metadata, 2018-12-31T23 to 2019-01-05T01, each hour made
+   on the card by ``make_era5``'s recipe with its own offset a level and
+   stored as a blosc memcpy frame, in a temporary directory (``TMPDIR``,
+   which must hold ~17.1 GB; the phase fails, never skips, when it does
+   not), deleted at the end; (b) ``config.ini``'s ``[era5-download]`` with
+   source_path the store (``_open_remote_era5``, slicing, the config
+   attributes; saved only with h5py): exactly the window's 97 chunks read
+   (the store's gets counted), bytes read against kept (~37), the slice
+   equal bit for bit to the generated 1000 hPa hours; (c)
+   ``era5_svd.compute_svd_results`` on ``[era5-svd]`` (K1 5) and
+   ``era5_dmd``'s fit and forecast on ``[era5-dmd]``: the planted
+   eigenvalues within 1e-2, s within the interlace of the f64 exact s of
+   H_2 of the centred X; (d) ``zarr_to_packed`` to a ``.npy``, equal bit for
+   bit to ``build_snapshot_matrix``, and ``streamed_randomized_svd`` (k 10)
+   over it (K6 and K7 held exactly), s against the f64 exact s of the same
+   X; (e) the unfused ``hankel_randomized_svd`` (d 2, k 10: K6, K3 and the
+   split CholQR2 leaf's K5 held exactly) against
+   ``hankel_randomized_svd_fused`` and the f64 exact SVD of H_2(X); then
+   K1, K3, K6 and K7 against their plain versions on the operands (c)-(e)
+   gave them; (f) the decode rate of one shuffled blosc-zlib chunk at
+   ARCO's size.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c and 10b-e are the main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 10b-e and 16c-e are the
+main path:
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f, 14c-d's, 15c-d's) and 15d's passes are not counted.  The last line is the JSON result; the line before
+10f, 14c-d's, 15c-d's, 16's) and 15d's passes are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
@@ -190,10 +217,12 @@ import contextlib
 import json
 import math
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -926,17 +955,19 @@ def subspace_cos_min(u1: torch.Tensor, u2: torch.Tensor) -> float:
     return float(torch.linalg.svdvals(m).min())
 
 
-def check_interlace(label: str, s_rand: torch.Tensor, s_exact: torch.Tensor) -> dict:
+def check_interlace(label: str, s_rand: torch.Tensor, s_exact: torch.Tensor,
+                    n_lead: int = 6) -> dict:
     """Rayleigh-Ritz values of a sketched subspace stay below the exact
-    singular values: s_rand <= s_exact (1 + 1e-4); the planted 6, well
-    above the noise floor, agree to 1e-4."""
-    ratio = (s_rand.double() / s_exact.double()).cpu()
-    lead = float((ratio[:6] - 1).abs().max())
+    singular values: s_rand <= s_exact (1 + 1e-4); the leading ``n_lead``
+    (the planted 6, and an uncentred X's mean before them), well above
+    the noise floor, agree to 1e-4."""
+    ratio = (s_rand.double().cpu() / s_exact.double().cpu())
+    lead = float((ratio[:n_lead] - 1).abs().max())
     check(float(ratio.max()) <= 1 + 1e-4,
           f"{label}: randomized s above exact s, max ratio {float(ratio.max()):.8f}")
-    check(lead <= 1e-4, f"{label}: leading 6 singular values differ by {lead:.3e} > 1e-4")
+    check(lead <= 1e-4, f"{label}: leading {n_lead} singular values differ by {lead:.3e} > 1e-4")
     return {"max_ratio": float(ratio.max()), "at": int(ratio.argmax()),
-            "min_ratio": float(ratio.min()), "lead6_rel": lead}
+            "min_ratio": float(ratio.min()), f"lead{n_lead}_rel": lead}
 
 
 def phase_standard(week: dict) -> dict:
@@ -1248,7 +1279,7 @@ def write_artifact(x: torch.Tensor, directory: Path) -> tuple[Path, float]:
     check(free >= need + GIB, f"no room for the {need / 1e9:.2f} GB artifact in {directory} "
           f"({free / 1e9:.2f} GB free); point TMPDIR at a larger disk")
     shape, secs = synced(save_packed_matrix, path, x)
-    check(packed_info(path) == (tuple(x.shape), False) and shape == tuple(x.shape),
+    check(packed_info(path)[::2] == (tuple(x.shape), False) and shape == tuple(x.shape),
           f"artifact shape {shape}")
     log(f"    written in {secs:.2f} s ({need / secs / 1e9:.2f} GB/s), {path.stat().st_size} bytes")
     return path, secs
@@ -3199,6 +3230,431 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     return out
 
 
+# phase 16: config.ini's real-data source path on a store laid out as ARCO-ERA5
+# (tests/fixtures/arco_era5_fullscale.zmetadata.json): one hour of all 37
+# levels a chunk, so one level costs 37 levels' bytes
+ARCO_METADATA = "tests/fixtures/arco_era5_fullscale.zmetadata.json"
+ARCO_LEVELS = (1, 2, 3, 5, 7, 10, 20, 30, 50, 70, 100, 125, 150, 175, 200, 225, 250, 300,
+               350, 400, 450, 500, 550, 600, 650, 700, 750, 775, 800, 825, 850, 875, 900,
+               925, 950, 975, 1000)
+# config.ini's 97-hour window (2019-01-01T00 to 2019-01-05T00) and one hour
+# past each end, which the read must skip
+ARCO_START, ARCO_HOURS = "2018-12-31T23", 99
+ARCO_LEVEL_OFFSET_K = 1.0  # each level's own offset, its index times this
+ARCO_PACKED_BLOCK = 1 << 16  # the streamed SVD's row block over the packed X
+
+
+def arco_hours(seed: int):
+    """The store's hours, one at a time on the card: a generator of
+    (37 * 721 * 1440,) f32 fields in the store's (level, latitude,
+    longitude) order, made by ``make_era5``'s recipe -- per row the mock
+    temperature's mean (265 - lapse) cos(latitude), plus the level's
+    index times ``ARCO_LEVEL_OFFSET_K`` (so that a wrong level index
+    shows), the planted damped pairs with random complex patterns, and
+    noise at 1% of the signal's rms -- and, first, the planted
+    eigenvalues."""
+    dev = torch.device("cuda")
+    n_lev, block = len(ARCO_LEVELS), N_LAT * N_LON
+    s_rows = n_lev * block
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hours = torch.arange(ARCO_HOURS, dtype=torch.float64, device=dev)
+    alpha = torch.tensor([complex(d, 2 * math.pi / p) for d, p, _ in PAIRS],
+                         dtype=torch.complex128, device=dev)
+    amps = torch.tensor([a for *_, a in PAIRS], dtype=torch.float64, device=dev)
+    dyn = (amps[:, None] * torch.exp(alpha[:, None] * hours[None, :])).to(torch.complex64)
+    noise_std = NOISE_FRACTION * float(torch.sqrt((dyn.abs() ** 2).sum(0).mean()))
+    rows = torch.arange(s_rows, device=dev)
+    level = torch.tensor(ARCO_LEVELS, dtype=torch.float32, device=dev)[rows // block]
+    lat = 90.0 - 0.25 * ((rows // N_LON) % N_LAT).float()
+    row_mean = ((265.0 - (1000.0 - level) / 100.0) * torch.cos(torch.deg2rad(lat))
+                + ARCO_LEVEL_OFFSET_K * (rows // block).float())
+    del rows, level, lat
+    p_re = torch.randn((s_rows, len(PAIRS)), generator=gen, device=dev)
+    p_im = torch.randn((s_rows, len(PAIRS)), generator=gen, device=dev)
+    yield torch.cat([alpha, alpha.conj()]).to(torch.complex64)
+    for h in range(ARCO_HOURS):
+        x = torch.addmv(row_mean, p_re, dyn[:, h].real.contiguous())
+        x.addmv_(p_im, dyn[:, h].imag.contiguous(), alpha=-1.0)
+        x.add_(torch.randn(s_rows, generator=gen, device=dev), alpha=noise_std)
+        yield x
+
+
+def write_arco_store(root: Path, seed: int) -> dict:
+    """Phase 16 (a): the store under ``root``, written one hour at a time.
+
+    Variable ``temperature`` (ARCO_HOURS, 37, 721, 1440) f32 in chunks of
+    one hour, the levels in ARCO-ERA5's order, CF int64 time in hours
+    since 1900-01-01, ``_ARRAY_DIMENSIONS``, fill NaN, consolidated
+    ``.zmetadata``: the committed full-scale metadata with the shapes of
+    this window.  Every chunk is a blosc frame flagged memcpy (0x2, the
+    shuffle bit clear), which c-blosc and both packages' readers decode
+    alike.  Returns the planted eigenvalues, the window's hours of the
+    1000 hPa level (host, (97, 721 * 1440)), the last hour's raw bytes
+    and the write's wall time."""
+    fixture = json.loads((ROOT / ARCO_METADATA).read_text())["metadata"]
+    n_lev = len(ARCO_LEVELS)
+    epoch_hours = int((np.datetime64(ARCO_START, "h") - np.datetime64("1900-01-01", "h"))
+                      .astype(np.int64))
+    coords = {
+        "time": np.arange(epoch_hours, epoch_hours + ARCO_HOURS, dtype="<i8"),
+        "level": np.asarray(ARCO_LEVELS, dtype="<i8"),
+        "latitude": (90.0 - 0.25 * np.arange(N_LAT)).astype("<f4"),
+        "longitude": (0.25 * np.arange(N_LON)).astype("<f4"),
+    }
+    meta = {".zgroup": {"zarr_format": 2}, ".zattrs": fixture[".zattrs"]}
+    for name, values in coords.items():
+        meta[f"{name}/.zarray"] = {**fixture[f"{name}/.zarray"], "shape": [len(values)],
+                                   "chunks": [len(values)]}
+        meta[f"{name}/.zattrs"] = fixture[f"{name}/.zattrs"]
+        (root / name).mkdir(parents=True)
+        (root / name / "0").write_bytes(values.tobytes())
+    meta["temperature/.zarray"] = {**fixture["temperature/.zarray"],
+                                   "shape": [ARCO_HOURS, n_lev, N_LAT, N_LON],
+                                   "chunks": [1, n_lev, N_LAT, N_LON]}
+    meta["temperature/.zattrs"] = fixture["temperature/.zattrs"]
+    (root / "temperature").mkdir()
+    (root / ".zgroup").write_text(json.dumps(meta[".zgroup"]))
+    (root / ".zmetadata").write_text(json.dumps({"metadata": meta,
+                                                 "zarr_consolidated_format": 1}))
+
+    block = N_LAT * N_LON
+    level_1000 = ARCO_LEVELS.index(1000)
+    truth = np.empty((ARCO_HOURS - 2, block), dtype=np.float32)
+    host = torch.empty(n_lev * block, dtype=torch.float32, pin_memory=True)
+    nbytes = host.numel() * 4
+    # blosc1 header: version, versionlz, flags (memcpy), typesize, nbytes,
+    # blocksize, cbytes (the 16-byte header plus the raw bytes)
+    header = struct.pack("<BBBBIII", 2, 1, 0x2, 4, nbytes, nbytes, 16 + nbytes)
+    t0 = time.perf_counter()
+    hours = arco_hours(seed)
+    planted = next(hours)
+    for h, field in enumerate(hours):
+        host.copy_(field)
+        with open(root / "temperature" / f"{h}.0.0.0", "wb") as f:
+            f.write(header)
+            f.write(host.numpy().data)
+        if 1 <= h <= ARCO_HOURS - 2:
+            truth[h - 1] = host.numpy()[level_1000 * block:(level_1000 + 1) * block]
+    secs = time.perf_counter() - t0
+    return {"planted": planted, "truth": truth, "last_hour": host.numpy().tobytes(),
+            "seconds": secs, "chunk_bytes": nbytes + 16}
+
+
+@contextlib.contextmanager
+def store_gets():
+    """Every key a local Zarr store is asked for, with the bytes it gave,
+    into the yielded list."""
+    from dmd_era5_tpu_torch.snapmat import zarr_reader
+
+    saved, gets = zarr_reader._LocalStore.get, []
+
+    def get(self, key):
+        data = saved(self, key)
+        gets.append((key, 0 if data is None else len(data)))
+        return data
+
+    zarr_reader._LocalStore.get = get
+    try:
+        yield gets
+    finally:
+        zarr_reader._LocalStore.get = saved
+
+
+def arco_read(store: Path, info: dict, missing: list[str]):
+    """Phase 16 (b): config.ini's [era5-download] as it is but for its
+    source_path, the store: with h5py, ``download_era5_data`` (the slice
+    saved under the stage root); without it, the same steps but the save:
+    ``_open_remote_era5``, slicing and ``add_config_attributes``.  Holds
+    the chunks read (exactly the window's 97) and the slice bit for bit
+    against the generated 1000 hPa hours.  Returns the slice and its
+    numbers."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download
+    from dmd_era5_tpu_torch.snapmat import slice_era5_dataset
+
+    parsed = config_parser(stage_config("era5-download", source_path=str(store)),
+                           "era5-download")
+
+    def read():
+        if "h5py" not in missing:
+            return era5_download.download_era5_data(parsed)
+        full = era5_download._open_remote_era5(parsed)[parsed["variables"]]
+        fs = slice_era5_dataset(full, parsed["start_datetime"], parsed["end_datetime"],
+                                parsed["levels"])
+        return era5_download.add_config_attributes(fs, parsed)
+
+    with store_gets() as gets:
+        t0 = time.perf_counter()
+        fs = read()
+        secs = time.perf_counter() - t0
+    n_window = ARCO_HOURS - 2
+    chunks = [(key, n) for key, n in gets if key.startswith("temperature/")]
+    check([key for key, _ in chunks] == [f"temperature/{h}.0.0.0" for h in range(1, n_window + 1)],
+          f"the read fetched {len(chunks)} chunks, not the window's {n_window}: "
+          f"{[key for key, _ in chunks][:3]}...")
+    data = fs["temperature"].data
+    check(data.shape == (n_window, 1, N_LAT, N_LON) and data.dtype == np.float32,
+          f"slice {data.shape} {data.dtype}")
+    check(np.array_equal(data.reshape(n_window, -1).view(np.uint32), info["truth"].view(np.uint32)),
+          "the slice differs from the generated 1000 hPa hours")
+    times = fs.coord("time").values
+    check(times[0] == np.datetime64("2019-01-01T00", "ns") and len(times) == n_window
+          and fs.coord("level").values.tolist() == [1000], "the slice's coordinates")
+    read_bytes, kept = sum(n for _, n in chunks), data.nbytes
+    out = {"seconds": secs, "chunks": len(chunks), "bytes_read": read_bytes,
+           "bytes_kept": kept, "read_over_kept": read_bytes / kept,
+           "read_gb_s": read_bytes / secs / 1e9, "saved": "h5py" not in missing}
+    log(f"[16b] config.ini [era5-download] from the store: slice {data.shape}, {len(chunks)} "
+        f"chunks read in {secs:.2f} s ({read_bytes / secs / 1e9:.2f} GB/s), bytes read "
+        f"{read_bytes} / kept {kept} = {read_bytes / kept:.3f}, equal bit for bit to the "
+        f"generated hours; {'saved' if out['saved'] else 'not saved (no h5py)'}")
+    return fs, out
+
+
+def arco_stages(fs, store: Path, info: dict, s_exact_h: torch.Tensor) -> tuple[dict, dict]:
+    """Phase 16 (c): ``era5_svd.compute_svd_results`` on the card on
+    [era5-svd] as it is but for its source_path (randomized, d = 2, 10
+    components, centred; K1 5 launches), then ``era5_dmd``'s fit and
+    forecast on [era5-dmd] (rank 6, 24 steps): the planted eigenvalues
+    within 1e-2, s within the interlace of the f64 exact s of H_2(X),
+    U^T U to 1e-3.  Returns the launch counts and K1's operands."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.ops import hankel as hankel_mod
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd
+
+    parsed_svd = config_parser(stage_config("era5-svd", source_path=str(store)), "era5-svd")
+    parsed_dmd = config_parser(stage_config("era5-dmd", source_path=str(store)), "era5-dmd")
+    times = {}
+    reset_counts()
+    with first_operands(hankel_mod, "sketch_center_gram_project", 1) as k1_ops:
+        svd, times["compute_svd_results"] = synced(era5_svd.compute_svd_results, fs, parsed_svd)
+        res, times["dmd_fit_and_forecast"] = synced(era5_dmd.fit_dmd_from_svd_results, svd,
+                                                    parsed_dmd)
+    launches = launch_counts()
+    check(launches == counts(K1=5), f"16c launched {launches}, expected K1 5 and no other")
+    k, n_rows = parsed_svd["n_components"], N_LAT * N_LON
+    s = torch.from_numpy(np.asarray(svd["s"].values))
+    check(tuple(svd["U"].shape) == (2 * n_rows, k) and len(s) == k, f"16c U {svd['U'].shape}")
+    inter = check_interlace("16c vs the f64 exact s of H_2(X)", s, s_exact_h.cpu())
+    orth = orthonormality(torch.from_numpy(np.asarray(svd["U"].values)).cuda())
+    check(orth <= 1e-3, f"16c: U^T U - I max {orth:.3e} > 1e-3")
+    eig_err = check_dmd_fit("16c", res, {"alpha_true": info["planted"]})
+    check(tuple(res["forecast"].shape) == (n_rows, ARCO_HOURS - 2 - 1 + FORECAST_STEPS),
+          f"16c forecast {tuple(res['forecast'].shape)}")
+    check(bool(torch.isfinite(res["forecast"].data).all()), "16c forecast not finite")
+    log(f"[16c] the SVD and DMD stages on the slice: s[:7] {[round(float(a), 2) for a in s[:7]]}, "
+        f"{json.dumps(inter)}, max|U^T U - I| {orth:.2e}, eigenvalues "
+        f"{[complex(round(a.real, 5), round(a.imag, 5)) for a in res['eigenvalues'].values]}, "
+        f"matched error vs planted {eig_err:.2e}, forecast {tuple(res['forecast'].shape)}, "
+        f"launches {launches}; wall (s) {json.dumps(times)}")
+    return launches, {"k1": k1_ops[0], "times": times}
+
+
+def arco_packed(store: Path, fs, directory: Path, seed: int) -> tuple[dict, dict]:
+    """Phase 16 (d): ``zarr_to_packed`` from the store to a ``.npy``,
+    equal bit for bit to ``build_snapshot_matrix`` of (b)'s slice; then
+    ``streamed_randomized_svd`` (k 10) over it, K6 and K7 launches held
+    exactly, s within the interlace of the f64 exact s of the same X on
+    the card (its leading 7, the raw X's mean and the planted 6, within
+    1e-4).  Returns the launch counts, the operands of K6's first block
+    and K7's first leaf, X on the card and the times."""
+    import importlib
+
+    from dmd_era5_tpu_torch.ops import sklearn_n_iter
+    from dmd_era5_tpu_torch.pipeline import streamed_fit, streamed_randomized_svd
+    from dmd_era5_tpu_torch.snapmat import build_snapshot_matrix, zarr_to_packed
+
+    tsqr_mod = importlib.import_module("dmd_era5_tpu_torch.ops.tsqr")  # ops.tsqr is a function
+    path, times, k = directory / "arco_x.npy", {}, 10
+    window = [fs.attrs["start_datetime"], fs.attrs["end_datetime"]]
+    start, end = (np.datetime64(w).astype("datetime64[s]").item() for w in window)
+    shape, times["zarr_to_packed"] = synced(zarr_to_packed, store, path, ["temperature"],
+                                            start, end, [1000])
+    x_host, _ = build_snapshot_matrix(fs)
+    packed = np.load(path, mmap_mode="r")
+    check(shape == x_host.shape and np.array_equal(packed.view(np.uint32), x_host.view(np.uint32)),
+          "zarr_to_packed's X differs from build_snapshot_matrix's")
+    del packed
+    n_iter = sklearn_n_iter(k, shape)
+    n_blocks = -(-shape[0] // ARCO_PACKED_BLOCK)
+    reset_counts()
+    with first_operands(streamed_fit, "matmul", 1) as k6_ops, \
+            first_operands(tsqr_mod, "householder_panel", 1) as k7_ops:
+        res, times["streamed_randomized"], times["passes"], _ = streamed_run(
+            "16d streamed_randomized_svd", streamed_randomized_svd, path, k,
+            block_rows=ARCO_PACKED_BLOCK, seed=seed + 16)
+    launches = launch_counts()
+    expect = counts(K6=(n_iter + 1) * n_blocks, K7=n_iter)
+    check(launches == expect, f"16d launched {launches}, expected {expect}")
+    s_exact = torch.linalg.eigvalsh(gram_f64(torch.from_numpy(x_host).cuda())).flip(0)
+    s_exact = s_exact.clamp_min(0).sqrt()[:k]
+    inter = check_interlace("16d vs the f64 exact s of X", res.s, s_exact, n_lead=7)
+    orth7 = orthonormality(torch.from_numpy(res.U[:, :7]).cuda())
+    check(orth7 <= 1e-3, f"16d: leading 7 columns of U off orthonormal by {orth7:.3e}")
+    log(f"[16d] zarr_to_packed -> {path.name} {shape} in {times['zarr_to_packed']:.2f} s, equal bit "
+        f"for bit to build_snapshot_matrix; streamed_randomized_svd (k {k}, n_iter {n_iter}, "
+        f"{n_blocks} blocks): s[:8] {[round(float(a), 2) for a in res.s[:8]]}, {json.dumps(inter)}, "
+        f"leading-7 max|U^T U - I| {orth7:.2e}, launches {launches}")
+    return launches, {"k6": k6_ops[0], "k7": k7_ops[0], "times": times}
+
+
+def arco_unfused(xc: torch.Tensor, s_exact_h: torch.Tensor, v_exact_h: torch.Tensor,
+                 seed: int) -> tuple[dict, dict]:
+    """Phase 16 (e): ``hankel_randomized_svd`` (the unfused operators:
+    K6 sketches, K3 projections, the card's default leaf, the split
+    CholQR2 on K5) on (b)'s X centred as [era5-svd] centres it, d = 2,
+    k = 10, launches held exactly; then, uncounted,
+    ``hankel_randomized_svd_fused`` on the same X.  test_08_kernels.py
+    :133-155's tolerances on the planted 6: s within 1e-4 of the fused
+    SVD's and of the f64 exact s of H_2(X), U and V within 1e-3 of the
+    fused SVD's, V within 1e-3 of the exact right singular vectors (each
+    up to sign); every s within the exact s' interlace.  Returns the
+    launch counts and the operands of K6's and K3's first calls."""
+    from dmd_era5_tpu_torch.ops import hankel as hankel_mod
+    from dmd_era5_tpu_torch.ops import (hankel_randomized_svd, hankel_randomized_svd_fused,
+                                        sklearn_n_iter)
+
+    d, k, lead = 2, 10, 6
+    t_out = xc.shape[1] - d + 1
+    n_iter = sklearn_n_iter(k, (xc.shape[0] * d, t_out))
+    times = {}
+    reset_counts()
+    with first_operands(hankel_mod, "matmul", 1) as k6_ops, \
+            first_operands(hankel_mod, "project", 1) as k3_ops:
+        res, times["hankel_randomized_svd"] = synced(
+            hankel_randomized_svd, xc, d, k,
+            generator=torch.Generator(device="cuda").manual_seed(seed + 17))
+    launches = launch_counts()
+    expect = counts(K6=n_iter + 1, K3=n_iter + 1, K5=2 * (n_iter + 1))
+    check(launches == expect, f"16e launched {launches}, expected {expect}")
+    fused, times["fused"] = synced(hankel_randomized_svd_fused, xc, d, k,
+                                   generator=torch.Generator(device="cuda").manual_seed(seed + 17),
+                                   gemm_dtype=torch.float32)
+    out = {}
+    for name, other in (("unfused", res), ("fused", fused)):
+        out[name] = check_interlace(f"16e {name} vs the f64 exact s of H_2(X)", other.s,
+                                    s_exact_h.cpu())
+    s_rel = float((res.s[:lead].double() / fused.s[:lead].double() - 1).abs().max())
+    u_gap = float((res.U[:, :lead] - fused.U[:, :lead]).abs().max())
+    v_gap = float((res.V[:lead] - fused.V[:lead]).abs().max())
+    v_ex = v_exact_h[:lead].to(res.V.dtype)
+    signs = torch.sign((res.V[:lead] * v_ex).sum(1, keepdim=True))
+    v_exact_gap = float((res.V[:lead] - signs * v_ex).abs().max())
+    orth = orthonormality(res.U)
+    out.update(s_vs_fused=s_rel, u_vs_fused=u_gap, v_vs_fused=v_gap, v_vs_exact=v_exact_gap,
+               orth=orth)
+    check(s_rel <= 1e-4, f"16e: planted s differ from the fused SVD's by {s_rel:.3e} > 1e-4")
+    check(max(u_gap, v_gap, v_exact_gap) <= 1e-3,
+          f"16e: U / V off the fused SVD's by {u_gap:.3e} / {v_gap:.3e}, V off the exact "
+          f"by {v_exact_gap:.3e} (> 1e-3)")
+    check(orth <= 1e-3, f"16e: U^T U - I max {orth:.3e} > 1e-3")
+    log(f"[16e] hankel_randomized_svd (unfused, d {d}, k {k}, n_iter {n_iter}) on the centred "
+        f"slice: s[:7] {[round(float(a), 2) for a in res.s[:7]]}, {json.dumps(out)}, launches "
+        f"{launches}; wall (s) {json.dumps(times)}")
+    return launches, {"k6": k6_ops[0], "k3": k3_ops[0], "times": times}
+
+
+def blosc_zlib_rate(raw: bytes) -> dict:
+    """Phase 16 (f): one chunk at ARCO-ERA5's size as a single-block
+    blosc frame, byte-shuffled and zlib-compressed (level 1), decoded by
+    the port's reader: its rate, the ingest cost that the memcpy store
+    leaves out."""
+    from dmd_era5_tpu_torch.snapmat.zarr_reader import _decode_chunk
+
+    shuffled = np.frombuffer(raw, np.uint8).reshape(-1, 4).T.tobytes()
+    comp = zlib.compress(shuffled, 1)
+    del shuffled
+    header = struct.pack("<BBBBIII", 2, 1, 0x1 | (3 << 5), 4, len(raw), len(raw),
+                         16 + 8 + len(comp))
+    frame = header + struct.pack("<ii", 16 + 4, len(comp)) + comp
+    t0 = time.perf_counter()
+    out = _decode_chunk(frame, {"id": "blosc", "cname": "zlib", "shuffle": 1})
+    secs = time.perf_counter() - t0
+    check(out == raw, "the shuffled blosc-zlib frame did not decode to its bytes")
+    res = {"bytes": len(raw), "compressed": len(frame), "seconds": secs,
+           "decode_gb_s": len(raw) / secs / 1e9}
+    log(f"[16f] one {len(raw) / 1e6:.1f} MB chunk as shuffled blosc-zlib (ratio "
+        f"{len(raw) / len(frame):.3f}): decoded in {secs:.3f} s, {res['decode_gb_s']:.3f} GB/s")
+    return res
+
+
+def centred_hankel_reference(fs, k: int = 10):
+    """(b)'s X on the card, centred along time in place as [era5-svd]'s
+    mean_center centres it, with the f64 exact singular values and right
+    singular vectors (rows) of H_2 of it, from its f64 Gram by the banded
+    identity (H^T H)[i, j] = G[i, j] + G[i+1, j+1]."""
+    from dmd_era5_tpu_torch.snapmat import build_snapshot_matrix
+
+    x_host, _ = build_snapshot_matrix(fs)
+    xc = torch.from_numpy(x_host).cuda()
+    del x_host
+    xc -= xc.mean(dim=1, keepdim=True)
+    g_raw = gram_f64(xc)
+    t_out = xc.shape[1] - 1
+    evals, evecs = torch.linalg.eigh(g_raw[:t_out, :t_out] + g_raw[1:, 1:])
+    return xc, evals.flip(0).clamp_min(0).sqrt()[:k], evecs.flip(1)[:, :k].T.contiguous()
+
+
+def phase_ingest(seed: int) -> dict:
+    """Phase 16: config.ini's real-data source path on an ARCO-ERA5-layout
+    store, (a)-(f).  The store (~15.2 GB) and the packed X are written in
+    a temporary directory (``TMPDIR``), which must hold them (checked
+    first: the phase fails, never skips), and deleted at the end.  After
+    the counted parts, K1, K3, K6 and K7 against their plain versions on
+    the operands the path gave them (uncounted).  Returns the main path's
+    launch counts, those of (c), (d) and (e)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    missing = missing_file_packages()
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_arco_"))
+    launches, times = counts(), {}
+    try:
+        chunk = len(ARCO_LEVELS) * N_LAT * N_LON * 4 + 16
+        need = ARCO_HOURS * chunk + 2 * (ARCO_HOURS - 2) * N_LAT * N_LON * 4 + GIB
+        free = shutil.disk_usage(directory).free
+        log(f"[16a] ARCO-ERA5-layout store in {directory}: {ARCO_HOURS} chunks of "
+            f"{chunk / 1e6:.1f} MB; {need / 1e9:.2f} GB to write with the packed X and the "
+            f"slice, {free / 1e9:.2f} GB free there")
+        check(free >= need, f"no room for the store in {directory} ({free / 1e9:.2f} GB free, "
+              f"{need / 1e9:.2f} GB needed); point TMPDIR at a larger disk")
+        store = directory / "arco.zarr"
+        info = write_arco_store(store, seed)
+        times["store_write"] = info["seconds"]
+        log(f"    written in {info['seconds']:.2f} s "
+            f"({ARCO_HOURS * chunk / info['seconds'] / 1e9:.2f} GB/s), each hour made on the card")
+        with stage_root():
+            fs, read_info = arco_read(store, info, missing)
+            times["read"] = read_info["seconds"]
+            xc, s_exact_h, v_exact_h = centred_hankel_reference(fs)
+            parts = [arco_stages(fs, store, info, s_exact_h),
+                     arco_packed(store, fs, directory, seed),
+                     arco_unfused(xc, s_exact_h, v_exact_h, seed)]
+        for part_launches, ops in parts:
+            times.update(ops.pop("times"))
+            for key, n in part_launches.items():
+                launches[key] += n
+        (_, c_ops), (_, d_ops), (_, e_ops) = parts
+        log("[16] K1, K3, K6 and K7 against their plain versions on the operands phase 16 "
+            "gave them (uncounted; CUDA-event ms)")
+        compare_kernel("ingest_hankel_pass", *c_ops["k1"], torch.float32, centred=True,
+                       center=False)
+        compare_project("16e hankel_project", *e_ops["k3"])
+        compare_matmul("16e hankel_sketch", *e_ops["k6"], f64_gate=True)
+        compare_matmul("16d streamed block", *d_ops["k6"], f64_gate=True)
+        compare_householder("16d streamed leaf", *d_ops["k7"], gate_q=False)
+        del parts, c_ops, d_ops, e_ops, xc
+        rate = blosc_zlib_rate(info["last_hour"])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"[16] wall times (s): {json.dumps(times)} (peak_gb: device memory over the phase's "
+        f"start); read {read_info['read_over_kept']:.3f} bytes a kept byte at "
+        f"{read_info['read_gb_s']:.2f} GB/s; blosc-zlib decode {rate['decode_gb_s']:.3f} GB/s; "
+        f"launches {launches}")
+    return launches
+
+
 def kernel_line(key: str, launches: int, res: dict) -> dict:
     name, source, replaces = KERNELS[key]
     max_abs = res["max_abs_err"]
@@ -3260,6 +3716,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     year_launches, two_pass_cmp = phase_year(args.seed)
     for key, n in year_launches.items():
+        launches[key] += n
+    torch.cuda.empty_cache()
+    for key, n in phase_ingest(args.seed).items():
         launches[key] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s (the build included)")

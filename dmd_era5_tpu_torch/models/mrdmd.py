@@ -413,7 +413,7 @@ def fit_mrdmd_streamed(
     from dmd_era5_tpu_torch.snapmat.loader import packed_info
 
     device = streamed_fit._device(device)
-    (n_rows, t_cols), _ = packed_info(path)
+    (n_rows, t_cols), _, _ = packed_info(path)
     gx = torch.zeros((t_cols, t_cols), dtype=torch.float64, device=device)
     for _, blk in streamed_fit._device_blocks(path, n_rows, t_cols, block_rows, device):
         gx += gram(blk, "highest").double()

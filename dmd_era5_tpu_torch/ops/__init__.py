@@ -1,5 +1,5 @@
 """Operators over the snapshot matrix: the fused kernel pass and its
-two-pass fallback, the tiled
+two-pass fallback, the Hankel operators, the tiled
 matmul (``ops.matmul.matmul``; not re-exported here, where its name
 would hide the module), the Gram kernel, the Householder panel,
 tall-skinny QR and the SVDs on them, the one-pass (two-sided sketch)
@@ -7,8 +7,11 @@ SVD, the streaming sketch and the rank update."""
 
 from dmd_era5_tpu_torch.ops.hankel import (
     hankel_exact_svd,
+    hankel_project,
+    hankel_randomized_svd,
     hankel_randomized_svd_fused,
     hankel_randomized_svd_fused_core,
+    hankel_sketch,
     stacked_sketch_matrix,
 )
 from dmd_era5_tpu_torch.ops.matmul import project, sketch_center_gram, sketch_center_gram_project
@@ -43,8 +46,11 @@ __all__ = [
     "exact_truncated_svd_gram",
     "gram",
     "hankel_exact_svd",
+    "hankel_project",
+    "hankel_randomized_svd",
     "hankel_randomized_svd_fused",
     "hankel_randomized_svd_fused_core",
+    "hankel_sketch",
     "householder_panel",
     "onepass_core",
     "onepass_finalize",

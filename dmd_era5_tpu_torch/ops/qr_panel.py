@@ -13,9 +13,10 @@ each takes the plain PyTorch version beside it.  There is no fallback
 between the two.  ``lax.Precision`` has no torch counterpart,
 so the precisions are the strings ``"highest"`` and ``"bf16_split"``.
 
-The whitening Q = A R^-1 is one ``torch.linalg.solve_triangular``: the
-JAX package's Newton-refined ``tri_inv`` worked around an inexact
-triangular solve on the TPU, which a GPU does not have.
+The whitening Q = A R^-1 is ``torch.linalg.solve_triangular``, over
+``SOLVE_ROWS`` rows of A at a time: the JAX package's Newton-refined
+``tri_inv`` worked around an inexact triangular solve on the TPU, which
+a GPU does not have.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ __all__ = ["gram", "cholqr", "cholqr2", "cholqr2_split", "householder_panel",
            "householder_shares", "PRECISIONS"]
 
 PRECISIONS = ("highest", "bf16_split")
+# rows of A one triangular solve of cholqr takes: the library's solve on a
+# narrow R (n <= 40) over 2^20 or more right-hand sides takes seconds on an
+# H100 (11.1-12.2 s at 2,076,480 x 20), in blocks of 2^16 rows 2.2-2.6 ms
+# in all; Q the same bit for bit there, within rounding at other widths
+# (scripts/torch_trsm_rows.py)
+SOLVE_ROWS = 1 << 16
 
 
 def _check(a: torch.Tensor, precision: str) -> None:
@@ -167,10 +174,14 @@ def cholqr(a: torch.Tensor, gram_precision: str = "highest") -> tuple[torch.Tens
     rounding is amplified by cond(R) in Q R - A).
     """
     r = _chol_r(gram(a, precision=gram_precision))
-    # solved as R^T Q^T = A^T: the solver writes its result column-major,
-    # so Q^T comes back with Q row-major, as the next Gram pass needs
-    q = torch.linalg.solve_triangular(r.T, a.float().T, upper=False).T
-    return q.contiguous(), r
+    # solved as R^T Q^T = A^T a row block at a time: the solver writes its
+    # result column-major, so each block of Q^T comes back with Q row-major,
+    # as the next Gram pass needs
+    q = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for r0 in range(0, a.shape[0], SOLVE_ROWS):
+        block = a[r0 : r0 + SOLVE_ROWS].float()
+        q[r0 : r0 + SOLVE_ROWS] = torch.linalg.solve_triangular(r.T, block.T, upper=False).T
+    return q, r
 
 
 def cholqr2(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

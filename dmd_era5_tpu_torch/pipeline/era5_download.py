@@ -1,12 +1,11 @@
 """Ingest stage: ERA5 slice acquisition.
 
 The port's counterpart of ``dmd_era5_tpu/pipeline/era5_download.py``:
-retrieve from the store or acquire (the mock backend, or a local HDF5
-source: the no-network ingest path), slice by time and levels, resample
-when delta > 1h, stamp config attributes, persist, version.  Host numpy
-throughout.  A Zarr store (a local directory or a ``gs://`` URL) raises
-``NotImplementedError``: its reader is not ported yet (ROADMAP Queue 1
-step 5, item 14).
+retrieve from the store or acquire (the mock backend, a local HDF5
+source, or a Zarr store: a local directory or a ``gs://`` URL, read with
+slice pushdown by ``snapmat/era5_zarr.py``), slice by time and levels,
+resample when delta > 1h, stamp config attributes, persist, version.
+Host numpy throughout.
 
 Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_download``.
 """
@@ -48,10 +47,17 @@ def add_config_attributes(fs: FieldSet, parsed_config: dict) -> FieldSet:
 
 
 def _open_remote_era5(parsed_config: dict) -> FieldSet:
-    raise NotImplementedError(
-        f"reading the ERA5 Zarr store {parsed_config['source_path']!r}: the Zarr "
-        "reader is not ported yet (ROADMAP Queue 1 step 5, item 14); stage the "
-        "data as a local HDF5 file and point source_path at it"
+    """The window's variables and levels from an ERA5 Zarr store (a local
+    directory or an fsspec URL such as ARCO-ERA5's ``gs://`` store):
+    only the chunks covering them are read."""
+    from dmd_era5_tpu_torch.snapmat.era5_zarr import read_era5_zarr_slice
+
+    return read_era5_zarr_slice(
+        parsed_config["source_path"],
+        parsed_config["variables"],
+        parsed_config["start_datetime"],
+        parsed_config["end_datetime"],
+        parsed_config["levels"],
     )
 
 
@@ -81,7 +87,7 @@ def download_era5_data(parsed_config: dict, use_mock_data: bool = False) -> Fiel
             if os.path.isfile(source):
                 full = load_fieldset(source)  # a local HDF5 source
             else:
-                full = _open_remote_era5(parsed_config)
+                full = _open_remote_era5(parsed_config)  # a Zarr store
             full = full[parsed_config["variables"]]
 
         log_and_print(_logger(), "Slicing ERA5 Dataset...")

@@ -144,7 +144,7 @@ def _device(device) -> torch.device:
 
 def _columns(path: Source, col_limit: int | None) -> tuple[int, int, bool]:
     """(rows, columns decomposed, bf16 storage) of the artifact."""
-    (n_rows, t_cols), bf16 = packed_info(path)
+    (n_rows, t_cols), _, bf16 = packed_info(path)
     if col_limit is not None:
         if not 0 < col_limit <= t_cols:
             raise ValueError(f"col_limit must be in (0, {t_cols}]; got {col_limit}")
@@ -429,7 +429,7 @@ def streamed_onepass_svd(
     the card.
     """
     device = _device(device)
-    (_, t_cols), _ = packed_info(path)
+    (_, t_cols), _, _ = packed_info(path)
     omega = draw_omega(t_cols, default_sketch_width(n_components, n_oversamples), seed, device)
     return streamed_onepass_svd_core(
         path, omega, n_components, block_rows=block_rows, l_sketch=l_sketch, seed=seed,
@@ -464,7 +464,7 @@ def streamed_onepass_svd_core(
     ``device``.
     """
     device = _device(device)
-    (n_rows, t_cols), _ = packed_info(path)
+    (n_rows, t_cols), _, _ = packed_info(path)
     sk = OnePassSketch(t_cols, n_components, l_sketch=l_sketch, seed=seed, center=center,
                        device=device, y_store="host", omega=omega)
     log_and_print(

@@ -28,7 +28,10 @@ and one TF32 pass), ``fit_mrdmd`` (K4 once a window) and
 ensemble (K1 once a member) against their CPU runs; K3 with the one-pass
 sketch's +-1 panel generated on the card, the streamed passes' pinned
 ring under a slow reader, and the one-pass SVD and the rank update
-against their CPU runs.  Needs a CUDA card and nvcc; elsewhere each case skips.  JAX
+against their CPU runs; CholQR's whitening solve in row blocks against
+one solve, and the unfused Hankel operators and their randomized SVD
+(K6, K3 and the split CholQR2 leaf's K5) against their CPU runs.  Needs
+a CUDA card and nvcc; elsewhere each case skips.  JAX
 is not needed, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -940,3 +943,57 @@ def test_onepass_and_rank_update_on_card(cuda, tmp_path):
     assert tuple(a - b for a, b in zip(launches(), before)) == (2, 1, 0)
     upd_cpu = svd_rank_update(base, new)
     np.testing.assert_allclose(upd.s.cpu().numpy(), upd_cpu.s.numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 110])
+def test_cholqr_solve_in_row_blocks_equals_one_solve_on_card(cuda, n):
+    """cholqr whitens A in ``SOLVE_ROWS``-row blocks (one library solve on
+    a narrow R over 2^20 and more rows takes seconds), over several blocks
+    and a ragged last one: at n 20 Q equals the one solve's bit for bit;
+    at n 110 the library sums the blocks in another order than the whole,
+    and Q is within 1e-6 of it (relative Frobenius, a few ulps)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    m = 3 * qr_panel.SOLVE_ROWS + 123
+    a = torch.randn((m, n), generator=gen, device=cuda)
+    q, r = qr_panel.cholqr(a)
+    one = torch.linalg.solve_triangular(r.T, a.T, upper=False).T
+    if n == 20:
+        assert torch.equal(q, one)
+    assert float((q.double() - one.double()).norm() / one.double().norm()) <= 1e-6
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert float((q.double().T @ q.double() - eye).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_unfused_hankel_operators_and_svd_on_card(cuda):
+    """hankel_sketch (K6) and hankel_project (K3) against their CPU runs
+    (plain versions) on the same operands, and hankel_randomized_svd with
+    the card's default leaf (the split CholQR2, K5 twice a leaf) against
+    the CPU run (the library QR leaf) with the same sketch: launches
+    exact, s within 1e-5 relative, U and V within 1e-4 of max, on a
+    decaying spectrum whose embedded sketch spans several solve blocks."""
+    from dmd_era5_tpu_torch.ops import hankel_project, hankel_randomized_svd, hankel_sketch
+
+    rng = np.random.default_rng(8)
+    s_rows, t_cols, d, k, n_over = 70_000, 40, 2, 6, 10
+    x = ((rng.standard_normal((s_rows, 12)) * np.geomspace(30, 1, 12)) @ rng.standard_normal(
+        (12, t_cols)) + 0.01 * rng.standard_normal((s_rows, t_cols))).astype(np.float32)
+    omega = rng.standard_normal((t_cols - d + 1, k + n_over)).astype(np.float32)
+    xt, ot = torch.from_numpy(x), torch.from_numpy(omega)
+    xc, oc = xt.to(cuda), ot.to(cuda)
+    y, y_cpu = hankel_sketch(xc, oc, d), hankel_sketch(xt, ot, d)
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())
+    b, b_cpu = hankel_project(y, xc, d), hankel_project(y_cpu, xt, d)
+    assert float((b.cpu() - b_cpu).abs().max()) <= 1e-5 * float(b_cpu.abs().max())
+
+    n_iter = 4  # sklearn's auto rule: k >= 0.1 min(S d, T - d + 1)
+    before = (matmul.matmul.launches, matmul.project.launches, qr_panel.gram.launches["bf16_split"])
+    got = hankel_randomized_svd(xc, d, k, omega=oc)
+    torch.cuda.synchronize()
+    after = (matmul.matmul.launches, matmul.project.launches, qr_panel.gram.launches["bf16_split"])
+    assert tuple(a - b for a, b in zip(after, before)) == (n_iter + 1, n_iter + 1, 2 * (n_iter + 1))
+    ref = hankel_randomized_svd(xt, d, k, omega=ot)
+    np.testing.assert_allclose(got.s.cpu().numpy(), ref.s.numpy(), rtol=1e-5)
+    for a, b in ((got.U, ref.U), (got.V, ref.V)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())

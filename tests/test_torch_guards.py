@@ -52,6 +52,9 @@ _NEW_MODULES = (
     "import dmd_era5_tpu_torch.ops.onepass, dmd_era5_tpu_torch.ops.streaming\n"
     "import dmd_era5_tpu_torch.pipeline.incremental, dmd_era5_tpu_torch.pipeline.era5_svd_update\n"
     "import dmd_era5_tpu_torch.utils.profiling, dmd_era5_tpu_torch.utils.debug\n"
+    "import dmd_era5_tpu_torch.snapmat.zarr_reader, dmd_era5_tpu_torch.snapmat.era5_zarr\n"
+    "import dmd_era5_tpu_torch.native, dmd_era5_tpu_torch.snapmat.loader\n"
+    "assert 'fsspec' not in sys.modules, 'fsspec imported with the port'\n"
 )
 
 
