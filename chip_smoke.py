@@ -194,11 +194,35 @@ of which raises on failure so the script exits non-zero:
    split CholQR2 leaf's K5 held exactly) against
    ``hankel_randomized_svd_fused`` and the f64 exact SVD of H_2(X); then
    K1, K3, K6 and K7 against their plain versions on the operands (c)-(e)
-   gave them; (f) the decode rate of one shuffled blosc-zlib chunk at
-   ARCO's size.
+   gave them; (f) one chunk at ARCO's size as c-blosc lays out a zlib
+   frame (1 MiB blocks, each shuffled on its own and split into four
+   streams) decoded and held against its bytes, with its rate; (g) the
+   pure-Python LZ4 decoder's rate on one 153.7 MB blosc-LZ4 chunk in
+   c-blosc's layout for ARCO's codec (512 KiB blocks, four streams a
+   block), its streams built by construction (a 4-byte literal run and a
+   60-byte overlapping match, repeated), held against its chunk;
+17. (inside phase 9, while its artifact exists) the mesh: (a) one rank
+   over NCCL in this process (a ``file://`` store under ``TMPDIR``): the
+   meshed fit step (``make_fit_step`` on a (1, 1, 1) mesh) at f32 and
+   bf16 against phase 4's ``fit_step_fused`` on the same X and Omega (s
+   within 2e-3 of s[0], the loss within 1e-3, the leading U's
+   orthonormality as phase 4 holds it), K1 once a step, every collective
+   within B_loc r T elements; (b) 2 and 3 ranks sharing the card over
+   gloo, spawned after phase 1 built the kernels: each reads its rows of
+   the artifact (``load_row_sharded``), runs the meshed step (K1; held to
+   (a)'s), then tree TSQR of its Yc (the split CholQR2 leaf, K5) and of
+   an 8,192 x 110 panel a rank (the Householder leaf, K7): R on every
+   rank within 2e-4 of max|R| of one-device ``tsqr`` of the whole panel,
+   Q^T Q no further from I than one device's plus 1e-5, log2 P or
+   ceil(log2 P) + 1 exchanges of at most 2 T^2 elements, the ranks'
+   launches counted; (c) the portable step on (1, 2, 2), 4 ranks, on the
+   week's first 2^20 rows (a cut of depth), held to (a)'s step on the
+   same rows; one ``[17] mesh`` line with each part's times, collective
+   calls and bytes by op, and peak device memory, beside the card's name
+   and power limit.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 10b-e and 16c-e are the
-main path:
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 10b-e and 16c-e are
+the main path (17b's on the ranks, reported back):
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
 10f, 14c-d's, 15c-d's, 16's) and 15d's passes are not counted.  The last line is the JSON result; the line before
@@ -353,13 +377,18 @@ def device_ms(fn, reps: int = 20) -> float:
         cycles *= 4
 
 
-def phase_device() -> str:
-    check(torch.cuda.is_available(), "CUDA is not available: this script needs a GPU")
-    check((ROOT / "dmd_era5_tpu_torch").is_dir(), f"no dmd_era5_tpu_torch package beside {__file__}")
-    smi = subprocess.run(
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    check(torch.cuda.is_available(), "CUDA is not available: this script needs a GPU")
+    check((ROOT / "dmd_era5_tpu_torch").is_dir(), f"no dmd_era5_tpu_torch package beside {__file__}")
+    smi = smi_line()
     # a float32 product on the card is full f32 (the JAX package's HIGHEST)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1400,6 +1429,7 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         onepass_launches, times["onepass"] = phase_onepass_streamed(week, path, ref8, orth_9c,
                                                                     seed)
         times["trace"] = phase_trace(week, path, seed)
+        mesh_launches = phase_mesh(week, path, seed)
 
         # where a pass's time goes: the same blocks read only, then read and
         # copied to the card, with no work on them
@@ -1419,7 +1449,344 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
     log(f"    9c {times['streamed_randomized']:.2f} s, 9d {times['streamed_exact']:.2f} s "
         f"(before the pinned ring: {PAGEABLE_STREAMED_S['9c']} and "
         f"{PAGEABLE_STREAMED_S['9d']} s)")
-    return {key: n + mr_launches[key] + onepass_launches[key] for key, n in expect.items()}
+    return {key: n + mr_launches[key] + onepass_launches[key] + mesh_launches[key]
+            for key, n in expect.items()}
+
+
+# phase 17: the ranks that share the card in 17b, 17c's portable mesh and
+# its cut of the week's rows, 17b's per-rank panel inside K7's envelope;
+# the tolerances (tests/test_07_train_step.py's mesh ones, s read relative
+# to s[0]; tests/test_03_svd.py's TSQR atol relative to max|R|; Q^T Q at
+# most the one-device reading plus MESH_ORTH_SLACK)
+MESH_WORLDS = (2, 3)
+MESH_PORTABLE, MESH_PORTABLE_ROWS = "data=1,space=2,time=2", 1 << 20
+MESH_PANEL = (8192, 110)
+MESH_S_RTOL, MESH_LOSS_ATOL, MESH_R_ATOL, MESH_ORTH_SLACK = 2e-3, 1e-3, 2e-4, 1e-5
+
+
+def fit_omega(t_cols: int, seed: int) -> torch.Tensor:
+    """Phase 4's sketch (T x 128), drawn again from its seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    return torch.randn((t_cols, 128), generator=gen, device="cuda")
+
+
+def mesh_panel(world: int, seed: int) -> torch.Tensor:
+    """17b's TSQR panel: MESH_PANEL[0] rows a rank, standard normal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    return torch.randn((world * MESH_PANEL[0], MESH_PANEL[1]), generator=gen, device="cuda")
+
+
+def log_summary(log) -> dict:
+    """A collective log by op (calls, elements, bytes) and its largest
+    payload by axis."""
+    return {"by_op": log.by_op(),
+            "largest": {a: log.largest(a) for a in ("data", "space", "time")},
+            "ppermute": log.count("ppermute"), "all_gather": log.count("all_gather")}
+
+
+def ranks_summary(ranks: list[dict], logs: tuple[str, ...]) -> dict:
+    """The ranks' collective calls and bytes by op summed over the ranks,
+    their largest payload by axis, and their slowest time of each step."""
+    out = {}
+    for key in logs:
+        by_op = {}
+        for res in ranks:
+            for op, row in res[key]["by_op"].items():
+                acc = by_op.setdefault(op, {"calls": 0, "bytes": 0})
+                acc["calls"] += row["calls"]
+                acc["bytes"] += row["bytes"]
+        out[key] = {"by_op": by_op, "largest": {a: max(r[key]["largest"][a] for r in ranks)
+                                                for a in ("data", "space", "time")}}
+    out["slowest_s"] = {k: max(r["times"][k] for r in ranks) for k in ranks[0]["times"]}
+    out["peak_gb"] = [round(r["peak_gb"], 3) for r in ranks]
+    return out
+
+
+def held_to(label: str, s: torch.Tensor, loss: float, ref_s: torch.Tensor, ref_loss: float
+            ) -> dict:
+    """s within MESH_S_RTOL of ref's s[0], the loss within MESH_LOSS_ATOL."""
+    ds = float((s.double().cpu() - ref_s.double().cpu()).abs().max()) / float(ref_s[0])
+    dl = abs(loss - ref_loss)
+    check(ds <= MESH_S_RTOL, f"{label}: s differ by {ds:.3e} of s[0] > {MESH_S_RTOL}")
+    check(dl <= MESH_LOSS_ATOL, f"{label}: loss differs by {dl:.3e} > {MESH_LOSS_ATOL}")
+    return {"s_rel": ds, "loss_abs": dl}
+
+
+def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str, queue) -> None:
+    """One rank of 17b (``kind`` "fused") or 17c ("portable"), a process
+    of its own on the shared card; puts its readings on ``queue``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from dmd_era5_tpu_torch.parallel import initialize_distributed, make_mesh
+        from dmd_era5_tpu_torch.parallel.collectives import collective_log
+        from dmd_era5_tpu_torch.pipeline import fit_step
+
+        t_start = time.perf_counter()
+        backend = initialize_distributed(init, world_size=world, rank=rank)
+        torch.cuda.reset_peak_memory_stats()
+        res = {"backend": backend, "times": {}}
+        if kind == "fused":
+            from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
+            from dmd_era5_tpu_torch.ops.tsqr import tsqr
+            from dmd_era5_tpu_torch.snapmat import load_row_sharded
+
+            mesh = make_mesh()
+            (x_loc, _), res["times"]["load"] = synced(load_row_sharded, path, mesh)
+            omega = fit_omega(x_loc.shape[1], seed)
+            reset_counts()
+            with collective_log() as flog:
+                state, res["times"]["fit"] = synced(fit_step, x_loc[None], omega, mesh, 100)
+            res.update(s=state.s[0].cpu(), loss=float(state.loss), fit_log=log_summary(flog))
+            del state
+            yc = sketch_center_gram_project(x_loc, omega)[0]
+            del x_loc
+            with collective_log() as tlog:
+                (q, r), res["times"]["tsqr_yc"] = synced(tsqr, yc, mesh)
+            res.update(r_yc=r.cpu(), qtq_yc=gram_f64(q).cpu(), tsqr_log=log_summary(tlog))
+            del yc, q
+            panel = mesh_panel(world, seed)[rank * MESH_PANEL[0]:(rank + 1) * MESH_PANEL[0]]
+            with collective_log() as hlog:
+                (q, r), res["times"]["tsqr_panel"] = synced(tsqr, panel.contiguous(), mesh,
+                                                           method="householder")
+            res.update(r_hh=r.cpu(), qtq_hh=gram_f64(q).cpu(), hh_log=log_summary(hlog))
+        else:
+            mesh = make_mesh(MESH_PORTABLE)
+            per, t_loc = MESH_PORTABLE_ROWS // mesh.shape["space"], T_HOURS // mesh.shape["time"]
+            r0, t0 = mesh.coords["space"] * per, mesh.coords["time"] * t_loc
+            rows = np.load(path, mmap_mode="r")[r0:r0 + per, t0:t0 + t_loc]
+            x_loc = torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+            omega = fit_omega(T_HOURS, seed)
+            reset_counts()
+            with collective_log() as flog:
+                state, res["times"]["fit"] = synced(fit_step, x_loc[None], omega, mesh, 100)
+            res.update(s=state.s[0].cpu(), loss=float(state.loss), fit_log=log_summary(flog),
+                       coords=mesh.coords)
+        res["launches"] = launch_counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["times"]["rank"] = time.perf_counter() - t_start
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world: int, kind: str, path: Path, seed: int) -> tuple[list[dict], float]:
+    """``world`` ranks of ``kind`` (spawned processes, gloo through a
+    ``file://`` store under ``TMPDIR``) on the shared card; (their readings
+    by rank, wall time).  Any rank's failure fails the phase."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_mesh_"))
+    init = f"file://{directory / 'store'}"
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, init, str(path), seed, kind, queue))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        results = {}
+        while len(results) < world:  # drained before the joins; stops at a failure
+            rank, res = queue.get(timeout=600)
+            results[rank] = res
+            if "error" in res:
+                break
+        errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(results.items())
+                  if "error" in res]
+        check(not errors, f"17 {kind} ranks failed:\n" + "\n".join(errors))
+        for proc in procs:
+            proc.join(timeout=120)
+        check(all(proc.exitcode == 0 for proc in procs),
+              f"17 {kind} ranks exit codes {[proc.exitcode for proc in procs]}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(directory, ignore_errors=True)
+    return [results[r] for r in range(world)], time.perf_counter() - t0
+
+
+def phase_mesh_one_rank(x: torch.Tensor, omega: torch.Tensor) -> tuple[dict, dict, dict]:
+    """17a: the meshed fit step on a (1, 1, 1) mesh of this process over
+    NCCL (a ``file://`` store), at f32 and bf16, against phase 4's
+    ``fit_step_fused`` on the same X and Omega, and on the first
+    ``MESH_PORTABLE_ROWS`` rows (17c's reference).  Returns (the readings,
+    the launch counts, the f32 step's and the cut's (s, loss))."""
+    import torch.distributed as dist
+
+    from dmd_era5_tpu_torch.parallel import initialize_distributed, make_mesh
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+    from dmd_era5_tpu_torch.pipeline import fit_step_fused, make_fit_step
+
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_mesh_"))
+    out, refs, launches = {}, {}, counts()
+    try:
+        backend = initialize_distributed(f"file://{directory / 'store'}", world_size=1, rank=0)
+        check(backend == "nccl", f"17a: a one-rank group on one card chose {backend}")
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        out["mesh_s"] = time.perf_counter() - t0
+        log(f"[17a] one rank over {backend}: mesh {mesh.shape} on {mesh.device}")
+        bound = x.shape[1] * omega.shape[1]  # B_loc r T with B_loc = 1
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-2)):
+            ref = fit_step_fused(x, omega, 100, gemm_dtype=dtype)
+            ref_s, ref_loss = ref.s.cpu(), float(ref.loss)
+            del ref
+            reset_counts()
+            step = make_fit_step(mesh, 100, gemm_dtype=dtype)
+            with collective_log() as clog:
+                state, secs = synced(step, x[None], omega)
+            got = launch_counts()
+            check(got == counts(K1=1), f"17a {dtype}: launches {got}, expected K1 once")
+            for key, n in got.items():
+                launches[key] += n
+            name = str(dtype)[6:]
+            held = held_to(f"17a {name}", state.s[0], float(state.loss), ref_s, ref_loss)
+            gram = gram_f64(state.u[0])
+            dev = (gram - torch.eye(100, dtype=gram.dtype, device=gram.device)).abs()
+            lead = len(PAIRS) * 2
+            orth = float(dev[:lead, :lead].max())
+            check(orth <= tol, f"17a {name}: leading U^T U - I max {orth:.3e} > {tol}")
+            check(float(dev.max()) <= 1.5e-1, f"17a {name}: U^T U - I max {float(dev.max()):.3e}")
+            largest = clog.largest()
+            check(largest <= bound, f"17a {name}: a collective of {largest} elements > {bound}")
+            out[name] = dict(seconds=secs, loss=float(state.loss), orth_lead=orth,
+                             orth_all=float(dev.max()), **held, collectives=log_summary(clog))
+            log(f"    {name}: {secs:.3f} s, loss {float(state.loss):.4e} (fused step "
+                f"{ref_loss:.4e}), s off by {held['s_rel']:.2e} of s[0], leading U^T U - I "
+                f"{orth:.2e}, collectives {clog.by_op()} (largest {largest} <= {bound})")
+            if dtype == torch.float32:
+                refs["week"] = (state.s[0].cpu(), float(state.loss))
+            del state, gram, dev
+        reset_counts()
+        cut = make_fit_step(mesh, 100)(x[None, :MESH_PORTABLE_ROWS], omega)
+        check(launch_counts() == counts(K1=1), f"17a cut: launches {launch_counts()}")
+        launches["K1"] += 1
+        refs["cut"] = (cut.s[0].cpu(), float(cut.loss))
+        del cut
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
+    return out, launches, refs
+
+
+def phase_mesh(week: dict, path: Path, seed: int) -> dict:
+    """Phase 17: the distributed layer on the card, inside phase 9 while
+    its packed artifact of the week exists.  (a) one rank over NCCL in
+    this process; (b) P = 2 and 3 ranks sharing the card over gloo, each
+    reading its rows of the artifact (``load_row_sharded``): the fused
+    meshed step (K1), tree TSQR of its Yc (the split CholQR2 leaf, K5)
+    and of a panel inside K7's envelope (the Householder leaf, K7); (c)
+    the portable step on (1, 2, 2), 4 ranks on the week's first
+    ``MESH_PORTABLE_ROWS`` rows (a cut of depth), against (a)'s step on
+    the same rows.  The ranks are spawned after phase 1 built every
+    kernel library.  Returns the launch counts of (a)-(c)."""
+    from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
+    from dmd_era5_tpu_torch.ops.tsqr import tsqr
+
+    x = week["x"]
+    t_phase = time.perf_counter()
+    omega = fit_omega(x.shape[1], seed)
+    summary = {"card": smi_line()}
+    (summary["17a"], launches, refs), summary["17a"]["seconds"] = synced(
+        phase_mesh_one_rank, x, omega)
+
+    # 17b's references, uncounted: one-device TSQR of the whole Yc (the
+    # split CholQR2 leaf) and of each world's whole panel (library QR:
+    # past K7's envelope)
+    yc = sketch_center_gram_project(x, omega)[0]
+    q, r_ref = tsqr(yc)
+    del yc
+    ref_yc = (r_ref, orthonormality(q))
+    del q
+    ref_hh = {}
+    for world in MESH_WORLDS:
+        q, r = tsqr(mesh_panel(world, seed), method="householder")
+        ref_hh[world] = (r, orthonormality(q))
+        del q
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[17b] ranks sharing the card over gloo ({free / 1e9:.1f} of {total / 1e9:.1f} GB "
+        f"free on it): the fused meshed step, tree TSQR of Yc (K5 leaf) and of a "
+        f"{MESH_PANEL[0]} x {MESH_PANEL[1]} panel a rank (K7 leaf)")
+    week_s, week_loss = refs["week"]
+    for world in MESH_WORLDS:
+        ranks, wall = run_ranks(world, "fused", path, seed)
+        part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log", "tsqr_log", "hh_log"))}
+        want = (int(math.log2(world)) if world & (world - 1) == 0
+                else math.ceil(math.log2(world)) + 1)
+        for rank, res in enumerate(ranks):
+            label = f"17b P={world} rank {rank}"
+            check(res["backend"] == "gloo", f"{label}: backend {res['backend']}")
+            held = held_to(label, res["s"], res["loss"], week_s, week_loss)
+            for key, value in held.items():
+                part[key] = max(part.get(key, 0.0), value)
+            for key, (r_ref, _), cols in (("yc", ref_yc, 128), ("hh", ref_hh[world], 110)):
+                r = res[f"r_{key}"].to(r_ref.device)
+                err = float((r - r_ref).abs().max()) / float(r_ref.abs().max())
+                check(err <= MESH_R_ATOL, f"{label} {key}: R off by {err:.3e} of max|R|")
+                log_ = res["tsqr_log" if key == "yc" else "hh_log"]
+                check(log_["ppermute"] == want and log_["all_gather"] == 0 and
+                      log_["largest"]["space"] <= 2 * cols * cols,
+                      f"{label} {key}: exchanges {log_} (want {want} ppermute, each <= "
+                      f"{2 * cols * cols})")
+                part[f"r_err_{key}"] = max(part.get(f"r_err_{key}", 0.0), err)
+            check(res["fit_log"]["largest"]["space"] <= 128 * T_HOURS,
+                  f"{label}: fit collectives {res['fit_log']}")
+            check(res["launches"] == counts(K1=2, K5=2, K7=1),
+                  f"{label}: launches {res['launches']}, expected K1 2, K5 2, K7 1")
+            for key, n in res["launches"].items():
+                launches[key] += n
+        for key, (_, orth_ref) in (("yc", ref_yc), ("hh", ref_hh[world])):
+            qtq = sum(res[f"qtq_{key}"] for res in ranks)
+            orth = float((qtq - torch.eye(qtq.shape[0], dtype=qtq.dtype)).abs().max())
+            check(orth <= orth_ref + MESH_ORTH_SLACK,
+                  f"17b P={world} {key}: max|Q^T Q - I| {orth:.3e} > one device's "
+                  f"{orth_ref:.3e} + {MESH_ORTH_SLACK}")
+            part[f"orth_{key}"] = (orth, orth_ref)
+        summary[f"17b_P{world}"] = part
+        log(f"    P = {world}: {wall:.2f} s wall; s off {part['s_rel']:.2e} of s[0], loss off "
+            f"{part['loss_abs']:.2e}; R off {part['r_err_yc']:.2e} (Yc), {part['r_err_hh']:.2e} "
+            f"(panel) of max|R|; "
+            f"Q^T Q - I {part['orth_yc'][0]:.2e} vs {part['orth_yc'][1]:.2e} one device (Yc), "
+            f"{part['orth_hh'][0]:.2e} vs {part['orth_hh'][1]:.2e} (panel); {want} exchanges; "
+            f"peak GB by rank {part['peak_gb']}")
+
+    log(f"[17c] the portable step on {MESH_PORTABLE}: 4 ranks sharing the card over gloo, the "
+        f"week's first {MESH_PORTABLE_ROWS} rows (a cut of depth: 2^20 of "
+        f"{x.shape[0]} rows), against 17a's step on the same rows")
+    ranks, wall = run_ranks(4, "portable", path, seed)
+    cut_s, cut_loss = refs["cut"]
+    part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log",))}
+    for rank, res in enumerate(ranks):
+        label = f"17c rank {rank}"
+        held = held_to(label, res["s"], res["loss"], cut_s, cut_loss)
+        for key, value in held.items():
+            part[key] = max(part.get(key, 0.0), value)
+        check(res["launches"] == counts(), f"{label}: launches {res['launches']}")
+        sketch_sum = MESH_PORTABLE_ROWS // 2 * 128
+        check(res["fit_log"]["largest"]["time"] == sketch_sum
+              and res["fit_log"]["largest"]["space"] <= 128 * T_HOURS,
+              f"{label}: collectives {res['fit_log']}")
+    summary["17c"] = part
+    log(f"    {wall:.2f} s wall; s off {part['s_rel']:.2e} of s[0], "
+        f"loss off {part['loss_abs']:.2e}; the time-axis sketch sum "
+        f"{MESH_PORTABLE_ROWS // 2 * 128} elements a rank through host memory")
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"[17] mesh {json.dumps(summary, default=str)}")
+    log(f"    launches {launches}")
+    return launches
 
 
 def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, center: bool,
@@ -3554,27 +3921,120 @@ def arco_unfused(xc: torch.Tensor, s_exact_h: torch.Tensor, v_exact_h: torch.Ten
     return launches, {"k6": k6_ops[0], "k3": k3_ops[0], "times": times}
 
 
+# c-blosc 1.x's frames of one ARCO-ERA5 chunk (153.7 MB, typesize 4,
+# shuffled, blocksize 0 = its own choice), as c-blosc 1.21 writes them:
+# 1 MiB blocks at zlib clevel 5, 512 KiB at LZ4 clevel 5 (ARCO's codec),
+# each whole block split into 4 streams, the ragged last one not
+BLOSC_ZLIB_BLOCK, BLOSC_LZ4_BLOCK = 1 << 20, 1 << 19
+# 16g's LZ4 streams by construction: a 4-byte literal run, then a match
+# 4 bytes back of LZ4_MATCH bytes (overlapping: decoded byte by byte)
+LZ4_MATCH = 60
+
+
+def blosc_frame(blocks: list[list[bytes]], flags: int, typesize: int, nbytes: int,
+                blocksize: int) -> bytes:
+    """A blosc1 frame (blosc.h): the 16-byte header, the int32 block
+    starts, then each block's streams, each behind its int32 size."""
+    base = 16 + 4 * len(blocks)
+    starts, body = [], bytearray()
+    for streams in blocks:
+        starts.append(base + len(body))
+        for stream in streams:
+            body += struct.pack("<i", len(stream)) + stream
+    header = struct.pack("<BBBBIII", 2, 1, flags, typesize, nbytes, blocksize,
+                         base + len(body))
+    return header + struct.pack(f"<{len(blocks)}i", *starts) + bytes(body)
+
+
+def shuffled_planes(block: bytes, typesize: int) -> list[bytes]:
+    """A block byte-shuffled on its own, as its typesize streams."""
+    planes = np.frombuffer(block, np.uint8).reshape(-1, typesize).T
+    return [plane.tobytes() for plane in planes]
+
+
 def blosc_zlib_rate(raw: bytes) -> dict:
-    """Phase 16 (f): one chunk at ARCO-ERA5's size as a single-block
-    blosc frame, byte-shuffled and zlib-compressed (level 1), decoded by
-    the port's reader: its rate, the ingest cost that the memcpy store
-    leaves out."""
+    """Phase 16 (f): one chunk at ARCO-ERA5's size as c-blosc lays it out
+    at zlib clevel 5 (``BLOSC_ZLIB_BLOCK`` blocks, each byte-shuffled on
+    its own and split into its four byte planes, each plane a zlib stream
+    at level 1; the last, ragged block one stream), decoded by the port's
+    reader and held against the array that built it: its rate, the
+    ingest cost that the memcpy store leaves out."""
     from dmd_era5_tpu_torch.snapmat.zarr_reader import _decode_chunk
 
-    shuffled = np.frombuffer(raw, np.uint8).reshape(-1, 4).T.tobytes()
-    comp = zlib.compress(shuffled, 1)
-    del shuffled
-    header = struct.pack("<BBBBIII", 2, 1, 0x1 | (3 << 5), 4, len(raw), len(raw),
-                         16 + 8 + len(comp))
-    frame = header + struct.pack("<ii", 16 + 4, len(comp)) + comp
+    blocks = []
+    for b0 in range(0, len(raw), BLOSC_ZLIB_BLOCK):
+        block = raw[b0:b0 + BLOSC_ZLIB_BLOCK]
+        streams = shuffled_planes(block, 4)
+        if len(block) < BLOSC_ZLIB_BLOCK:
+            streams = [b"".join(streams)]
+        blocks.append([zlib.compress(st, 1) for st in streams])
+    check(len(blocks[-1]) == 1 and len(raw) % BLOSC_ZLIB_BLOCK, "16f: no ragged last block")
+    frame = blosc_frame(blocks, 0x1 | (3 << 5), 4, len(raw), BLOSC_ZLIB_BLOCK)
+    del blocks
     t0 = time.perf_counter()
     out = _decode_chunk(frame, {"id": "blosc", "cname": "zlib", "shuffle": 1})
     secs = time.perf_counter() - t0
-    check(out == raw, "the shuffled blosc-zlib frame did not decode to its bytes")
+    check(out == raw, "the shuffled, split blosc-zlib frame did not decode to its bytes")
     res = {"bytes": len(raw), "compressed": len(frame), "seconds": secs,
            "decode_gb_s": len(raw) / secs / 1e9}
-    log(f"[16f] one {len(raw) / 1e6:.1f} MB chunk as shuffled blosc-zlib (ratio "
-        f"{len(raw) / len(frame):.3f}): decoded in {secs:.3f} s, {res['decode_gb_s']:.3f} GB/s")
+    log(f"[16f] one {len(raw) / 1e6:.1f} MB chunk as c-blosc's zlib frame "
+        f"({-(-len(raw) // BLOSC_ZLIB_BLOCK)} blocks of {BLOSC_ZLIB_BLOCK} bytes, shuffled a block at a time, 4 streams a block; "
+        f"ratio {len(raw) / len(frame):.3f}): decoded in {secs:.3f} s, "
+        f"{res['decode_gb_s']:.3f} GB/s, equal to the chunk")
+    return res
+
+
+def lz4_constructed_chunk(nbytes: int, seed: int, blocksize: int = BLOSC_LZ4_BLOCK
+                          ) -> tuple[bytes, bytes]:
+    """(frame, chunk): a blosc-LZ4 frame of ``nbytes`` laid out as c-blosc
+    writes ARCO-ERA5's chunks (``blocksize``-byte blocks, each shuffled
+    on its own and split into four streams, the ragged last one a single
+    stream), with every stream built, not searched: a 4-byte pattern as
+    literals, then a match of ``LZ4_MATCH`` bytes at offset 4 (which
+    repeats it, byte by byte in the decoder), over and over, and 64
+    literal bytes to end it.  The chunk is the bytes the frame holds,
+    put together from the patterns with numpy alone."""
+    rng = np.random.default_rng(seed)
+    period = 4 + LZ4_MATCH
+    seq_tail = struct.pack("<H", 4) + bytes([LZ4_MATCH - 4 - 15])
+    blocks, chunk = [], np.empty(nbytes, np.uint8)
+    for b0 in range(0, nbytes, blocksize):
+        size = min(blocksize, nbytes - b0)
+        nsplits = 4 if size == blocksize else 1
+        patterns = rng.integers(0, 256, (nsplits, 4), dtype=np.uint8)
+        streams = []
+        for pat in patterns:
+            n = size // nsplits
+            check(n % period == 0, f"16g: a {n}-byte stream is not whole sequences")
+            lit = pat.tobytes()
+            streams.append((bytes([0x4F]) + lit + seq_tail) * (n // period - 1)
+                           + bytes([0xF0, period - 15]) + lit * (period // 4))
+        blocks.append(streams)
+        planes = np.tile(patterns, (1, size // nsplits // 4))  # each stream's bytes
+        chunk[b0:b0 + size] = planes.reshape(4, size // 4).T.ravel()
+    frame = blosc_frame(blocks, 0x1 | (1 << 5), 4, nbytes, blocksize)
+    return frame, chunk.tobytes()
+
+
+def lz4_rate(nbytes: int, seed: int) -> dict:
+    """Phase 16 (g): the pure-Python LZ4 decoder's rate on one chunk of
+    ``nbytes`` built by :func:`lz4_constructed_chunk`, decoded through the
+    port's reader (``_decode_chunk``) and held against its chunk (the
+    whole chunk: ~18 s on one Xeon core)."""
+    from dmd_era5_tpu_torch.snapmat.zarr_reader import _decode_chunk
+
+    frame, chunk = lz4_constructed_chunk(nbytes, seed)
+    t0 = time.perf_counter()
+    out = _decode_chunk(frame, {"id": "blosc", "cname": "lz4", "shuffle": 1})
+    secs = time.perf_counter() - t0
+    check(out == chunk, "16g: the constructed blosc-LZ4 frame did not decode to its chunk")
+    res = {"bytes": nbytes, "compressed": len(frame), "seconds": secs,
+           "decode_gb_s": nbytes / secs / 1e9}
+    log(f"[16g] {nbytes / 1e6:.1f} MB of blosc-LZ4 (one chunk; "
+        f"{-(-nbytes // BLOSC_LZ4_BLOCK)} blocks of {BLOSC_LZ4_BLOCK} bytes, 4 streams a whole "
+        f"block, each {4 + LZ4_MATCH}-byte run a 4-byte literal and a {LZ4_MATCH}-byte "
+        f"overlapping match; ratio {nbytes / len(frame):.3f}) through the pure-Python LZ4 "
+        f"decoder: {secs:.3f} s, {res['decode_gb_s'] * 1e3:.2f} MB/s, equal to its chunk")
     return res
 
 
@@ -3645,12 +4105,14 @@ def phase_ingest(seed: int) -> dict:
         compare_householder("16d streamed leaf", *d_ops["k7"], gate_q=False)
         del parts, c_ops, d_ops, e_ops, xc
         rate = blosc_zlib_rate(info["last_hour"])
+        rate_lz4 = lz4_rate(len(info["last_hour"]), seed)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     log(f"[16] wall times (s): {json.dumps(times)} (peak_gb: device memory over the phase's "
         f"start); read {read_info['read_over_kept']:.3f} bytes a kept byte at "
-        f"{read_info['read_gb_s']:.2f} GB/s; blosc-zlib decode {rate['decode_gb_s']:.3f} GB/s; "
+        f"{read_info['read_gb_s']:.2f} GB/s; blosc-zlib decode {rate['decode_gb_s']:.3f} GB/s, "
+        f"blosc-LZ4 {rate_lz4['decode_gb_s'] * 1e3:.2f} MB/s; "
         f"launches {launches}")
     return launches
 

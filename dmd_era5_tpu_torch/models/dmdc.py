@@ -14,7 +14,8 @@ operators are r x r and r x q, and the eigendecomposition runs on the
 device.  The modes stay on the device.
 
 The JAX package's ``mesh`` argument (space-sharded Grams) is not
-ported: the port has no device mesh yet (ROADMAP Queue 1 item 12).
+ported yet (ROADMAP Queue 1 item 12, step 9c, on the port's mesh in
+``parallel``).
 """
 
 from __future__ import annotations

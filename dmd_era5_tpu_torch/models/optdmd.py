@@ -26,8 +26,8 @@ the solver state a checkpoint file holds, and
 batched loop.
 
 The JAX package's ``mesh`` argument (the bag sharded over the ``data``
-axis) is not ported: the port has no device mesh yet (ROADMAP Queue 1
-item 12), and a mesh raises ``NotImplementedError``.
+axis) is not ported yet (ROADMAP Queue 1 item 12, step 9c, on the
+port's mesh in ``parallel``), and a mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ __all__ = [
 _LAMBDA0, _LAMBDA_UP, _LAMBDA_DOWN, _LAMBDA_CAP = 1.0, 4.0, 5.0, 1e12
 # relative ridge on the equilibrated normal equations of B
 _RIDGE = 1e-7
-NO_MESH = "the port has no device mesh yet (ROADMAP Queue 1 item 12)"
+NO_MESH = ("the DMD models on a device mesh are not ported yet (ROADMAP Queue 1 item 12, step 9c; "
+           "the mesh itself is dmd_era5_tpu_torch.parallel)")
 
 
 class OptDMDResult(NamedTuple):

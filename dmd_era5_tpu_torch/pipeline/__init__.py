@@ -36,10 +36,13 @@ from dmd_era5_tpu_torch.pipeline.streamed_fit import (
 )
 from dmd_era5_tpu_torch.pipeline.train_step import (
     FitState,
+    example_batch,
     fit_ingest_pass,
     fit_reduce_lift,
+    fit_step,
     fit_step_fused,
     fit_step_lean,
+    make_fit_step,
 )
 
 __all__ = [
@@ -56,7 +59,10 @@ __all__ = [
     "fit_ingest_pass",
     "fit_per_variable_level",
     "fit_reduce_lift",
+    "example_batch",
+    "fit_step",
     "fit_step_fused",
+    "make_fit_step",
     "fit_step_lean",
     "prefetched_row_blocks",
     "resolve_svd_backend",

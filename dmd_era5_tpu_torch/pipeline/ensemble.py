@@ -9,8 +9,8 @@ package batches the members over its mesh's ``data`` axis.  With
 ``solve_dmd`` every member then goes through one batched LM
 (``models.optdmd.optdmd_from_svd_batched``).
 
-A device mesh is not ported (ROADMAP Queue 1 item 12) and raises
-``NotImplementedError``.
+A mesh (the JAX ensemble's meshed ``make_fit_step``) is not taken yet
+(ROADMAP Queue 1 item 12, step 9c) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

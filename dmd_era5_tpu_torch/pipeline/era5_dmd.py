@@ -25,7 +25,7 @@ there row block by row block, so no (S*d, T') rollout is formed.  They
 are tensors in the returned FieldSet, which ``save_fieldset`` writes slab
 by slab; the small fields are host arrays, as in the JAX stage.
 
-Not ported yet: a device mesh (ROADMAP Queue 1 item 12).
+Not ported yet: the stage on a mesh (ROADMAP Queue 1 item 12, step 9c).
 
 Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_dmd``.
 """

@@ -13,11 +13,12 @@ to the device once and flattened and standardized there, and the
 factors come back as host (numpy) arrays, as the JAX function returns
 them.
 
-The port has no device mesh yet: the stage runs on one device and
-resolves as the JAX one does on a one-device mesh (space = time = 1).
-A ``mesh_shape`` over more than one device, a multislice
+The stage runs on one device and resolves as the JAX one does on a
+one-device mesh (space = time = 1).  The port's mesh (``parallel``), its
+tree TSQR and the meshed fit step exist, but the SVD layer on a mesh
+does not yet: a ``mesh_shape`` over more than one device, a multislice
 ``dcn_mesh_shape``, the ``grid2d`` backend and a multi-process group
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 12, step 9b).
 
 The snapshot matrix comes in a ``Field`` whose data is a numpy array or
 a tensor; a tensor on the chosen device is used where it lies, never
@@ -42,6 +43,7 @@ from dmd_era5_tpu_torch.core import config_parser, config_reader
 from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.ops.hankel import hankel_exact_svd, hankel_randomized_svd_fused
 from dmd_era5_tpu_torch.ops.svd import truncated_svd
+from dmd_era5_tpu_torch.parallel.mesh import parse_mesh_shape
 from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store, retrieve_data_from_store
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
     streamed_exact_gram_svd,
@@ -80,8 +82,8 @@ __all__ = [
 # way the JAX package does (ROADMAP Queue 3).
 HBM_BUDGET_ENV = "DMD_ERA5_TPU_HBM_BUDGET_GB"
 _HBM_BUDGET_GB = 12.0
-_MESH_AXES = ("data", "space", "time")
-_NO_MESH = "the port has no device mesh yet (ROADMAP Queue 1 item 12)"
+_NO_MESH = ("the SVD stage on a device mesh is not ported yet (ROADMAP Queue 1 item 12, step 9b; "
+            "the mesh itself is dmd_era5_tpu_torch.parallel)")
 
 
 @functools.cache
@@ -92,15 +94,9 @@ def _logger():
 def _check_single_device(parsed_config: dict) -> None:
     """Raise unless the configuration asks for one device."""
     spec = parsed_config.get("mesh_shape", "auto")
-    if spec not in (None, "auto"):
-        sizes = []
-        for part in str(spec).split(","):
-            name, _, value = part.partition("=")
-            if name.strip() not in _MESH_AXES:
-                raise ValueError(f"Unknown mesh axis {name.strip()!r}; supported axes: {_MESH_AXES}")
-            sizes.append(int(value))
-        if math.prod(sizes) != 1:
-            raise NotImplementedError(f"mesh_shape={spec!r}: {_NO_MESH}")
+    shape = parse_mesh_shape(spec)
+    if shape is not None and math.prod(shape.values()) != 1:
+        raise NotImplementedError(f"mesh_shape={spec!r}: {_NO_MESH}")
     if parsed_config.get("dcn_mesh_shape") not in (None, "none", ""):
         raise NotImplementedError(f"dcn_mesh_shape={parsed_config['dcn_mesh_shape']!r}: {_NO_MESH}")
     dist = torch.distributed

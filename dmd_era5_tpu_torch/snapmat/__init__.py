@@ -6,6 +6,7 @@ from dmd_era5_tpu_torch.snapmat.loader import (
     SnapshotMeta,
     build_snapshot_matrix,
     host_row_stats,
+    load_row_sharded,
     packed_info,
     read_packed_rows,
     save_packed_matrix,
@@ -39,6 +40,7 @@ __all__ = [
     "delay_embedded_coords",
     "flatten_era5_variables",
     "host_row_stats",
+    "load_row_sharded",
     "open_zarr_group",
     "packed_info",
     "read_era5_zarr_slice",

@@ -5,8 +5,9 @@ device: :class:`SnapshotMeta` (:42), :func:`build_snapshot_matrix` (:60),
 :func:`save_packed_snapshot` (:90), :func:`save_packed_matrix` (:115),
 :func:`packed_info` (:159), :func:`read_packed_rows` (:181) and
 :func:`host_row_stats` (:255).  The out-of-core SVD backends
-(``pipeline/streamed_fit.py``) stream what these write.  The mesh's
-``load_row_sharded`` (:187) comes with the distributed layer.
+(``pipeline/streamed_fit.py``) stream what these write, and
+:func:`load_row_sharded` (:187) reads a rank's row block of it onto the
+mesh.
 
 A source is one of
 
@@ -44,6 +45,7 @@ __all__ = [
     "save_packed_matrix",
     "packed_info",
     "read_packed_rows",
+    "load_row_sharded",
     "host_row_stats",
 ]
 
@@ -264,6 +266,42 @@ def read_packed_rows(source: str | Path | np.ndarray, r0: int, r1: int,
         dest = into((r1 - r0, dset.shape[1]), dset.dtype)
         dset.read_direct(dest, np.s_[r0:r1, :])
         return dest
+
+
+def load_row_sharded(
+    source: str | Path | np.ndarray,
+    mesh,
+    axis: str = "space",
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, int]:
+    """This rank's row block of a packed snapshot matrix on the mesh's
+    device (``dmd_era5_tpu/snapmat/loader.py:187``).
+
+    The rows are zero-padded up to a multiple of the ``axis`` size and cut
+    into equal blocks, block i on the ranks at index i of the axis; each
+    rank reads only its own rows (an HDF5 hyperslab, a ``.npy`` memmap
+    slice) straight into a host buffer that holds the padding too (pinned
+    when the device is a card).  A bf16 source (uint16 words) stays bf16,
+    any other is cast to ``dtype``.  Returns (local block, original rows).
+    """
+    (n_rows, n_cols), _, bf16 = packed_info(source)
+    n_shards = mesh.shape[axis]
+    per = -(-n_rows // n_shards)
+    r0 = mesh.coords[axis] * per
+    r1 = min(r0 + per, n_rows)
+    host = []
+
+    def into(shape, stored):  # the buffer in the source's own element type
+        host.append(torch.zeros((per, n_cols), dtype=torch.from_numpy(np.empty(0, stored)).dtype,
+                                pin_memory=mesh.device.type == "cuda"))
+        return host[0].numpy()[: shape[0]]
+
+    if r1 > r0:
+        read_packed_rows(source, r0, r1, into=into)
+    else:  # a block wholly of padding
+        host.append(torch.zeros((per, n_cols), dtype=torch.int16 if bf16 else torch.float32))
+    block = host[0].view(torch.bfloat16) if bf16 else host[0]
+    return block.to(mesh.device, dtype=torch.bfloat16 if bf16 else dtype), n_rows
 
 
 def host_row_stats(x: np.ndarray, ddof: int = 0) -> tuple[np.ndarray, np.ndarray]:

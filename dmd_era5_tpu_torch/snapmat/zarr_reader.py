@@ -13,20 +13,22 @@ needs, on top of plain bytes storage:
   machine without it gets an error that names the package;
 - codecs: raw, zlib, gzip, zstd, and the blosc1 container (byte
   shuffle + memcpy/zlib/zstd/LZ4 internals, the LZ4 block format decoded
-  in pure Python, which is byte-serial on overlapping matches and so far
-  too slow for a full 153.7 MB ARCO-ERA5 chunk);
+  in pure Python, which is byte-serial on overlapping matches);
 - indexing: orthogonal selection (ints / slices / 1-D integer arrays)
   with chunk-level pushdown: only the chunks covering the requested
   region are fetched and decoded, which is what makes a time/level
   slice of a multi-TB store cheap;
 - CF time decoding (``<unit> since <epoch>``) for the time coordinate.
 
-The blosc container is read as the JAX package reads it: the whole
-chunk unshuffled at once and one compressed stream a block.  c-blosc
-shuffles each block on its own and may split a block into ``typesize``
-streams (flag ``0x10`` clear), so a frame of several blocks, or a split
-one, is misread by both readers (ROADMAP Queue 3, R8); single-block
-unsplit frames and memcpy frames without the shuffle flag read right.
+A blosc frame is read as c-blosc 1.x writes it: block by block, each
+block byte-shuffled on its own and, unless header flag ``0x10`` is set,
+split into ``typesize`` streams, each behind its own size word; a memcpy
+frame holds the chunk's bytes as they are.  Here the port departs from
+the JAX package's reader, which unshuffles the whole chunk at once and
+reads one stream a block, and so misreads a frame of several shuffled
+blocks or of split streams (every real ARCO-ERA5 chunk; ROADMAP Queue 3,
+R8, pinned by ``tests/test_torch_zarr.py``).  Every other codec decodes
+the same bytes in both packages.
 
 It is a *reader*: the pipeline never writes Zarr.  ``write_zarr_array``
 below exists for tests and local fixtures only.
@@ -170,58 +172,84 @@ def _lz4_block_decompress(src: bytes, dest_size: int) -> bytes:
 
 
 _BLOSC_CODECS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
+# c-blosc 1.x splits a block into typesize streams only for typesize <=
+# _BLOSC_MAX_SPLITS and at least _BLOSC_MIN_SPLIT elements a block (blosc.h,
+# MAX_SPLITS and MIN_BUFFERSIZE), and never its last, ragged block.
+_BLOSC_MAX_SPLITS = 16
+_BLOSC_MIN_SPLIT = 128
 
 
-def _blosc_decompress(data: bytes) -> tuple[bytes, int, bool]:
-    """Decode a blosc1 chunk; returns (bytes, typesize, shuffled).
+def _blosc_stream(codec: str, payload: bytes, size: int) -> bytes:
+    """One compressed stream of a blosc block, decoded to ``size`` bytes."""
+    if codec == "zlib":
+        out = zlib.decompress(payload)
+    elif codec == "zstd":
+        import zstandard
 
-    Header layout (c-blosc blosc.h): version, versionlz, flags,
-    typesize, then uint32 nbytes / blocksize / cbytes.
+        out = zstandard.ZstdDecompressor().decompress(payload, max_output_size=size)
+    elif codec == "lz4":
+        return _lz4_block_decompress(payload, size)
+    else:
+        raise ValueError(f"blosc internal codec {codec!r} not supported by this reader")
+    if len(out) != size:
+        raise ValueError(f"blosc {codec} stream decoded to {len(out)} bytes, expected {size}")
+    return out
+
+
+def _byte_unshuffle(raw: bytes, typesize: int) -> bytes:
+    """Invert blosc's byte shuffle of one block: the (typesize, n_elems)
+    planes interleaved back into elements.  The bytes past the last whole
+    element stay where they are, as c-blosc leaves them."""
+    n = len(raw) // typesize
+    if typesize <= 1 or n == 0:
+        return raw
+    whole = np.frombuffer(raw, dtype=np.uint8, count=n * typesize)
+    return whole.reshape(typesize, n).T.tobytes() + raw[n * typesize:]
+
+
+def _blosc_decompress(data: bytes) -> bytes:
+    """Decode a blosc1 frame to the chunk's bytes.
+
+    Header layout (c-blosc blosc.h): version, versionlz, flags, typesize,
+    then uint32 nbytes / blocksize / cbytes; flags 0x1 byte shuffle, 0x2
+    memcpy, 0x4 bit shuffle, 0x10 "blocks not split", bits 5-7 the
+    internal codec.  A memcpy frame holds the chunk raw after the header,
+    unshuffled whatever its flags say.  Otherwise a table of int32 block
+    starts follows, and each block (``blocksize`` bytes, the last one
+    ragged) is ``nsplits`` streams of an int32 size word and the stream;
+    a size word equal to the stream's decoded length marks it stored raw.
+    Each block is unshuffled on its own.
     """
     if len(data) < 16:
         raise ValueError("Truncated blosc header")
     flags, typesize = data[2], data[3]
     nbytes, blocksize, _cbytes = struct.unpack_from("<III", data, 4)
-    shuffled = bool(flags & 0x1)
     if flags & 0x4:
         raise ValueError("blosc bit-shuffle not supported by this reader")
-    if flags & 0x2:  # memcpy: stored raw after the header
-        return data[16 : 16 + nbytes], typesize, shuffled
-
+    if flags & 0x2:
+        return data[16 : 16 + nbytes]
+    shuffled = bool(flags & 0x1) and typesize > 1
+    splittable = not flags & 0x10 and typesize <= _BLOSC_MAX_SPLITS
     codec = _BLOSC_CODECS.get((flags >> 5) & 0x7, "?")
     n_blocks = -(-nbytes // blocksize)
     bstarts = struct.unpack_from(f"<{n_blocks}i", data, 16)
-    out = bytearray()
-    for b, start in enumerate(bstarts):
-        neblock = min(blocksize, nbytes - b * blocksize)
-        (csize,) = struct.unpack_from("<i", data, start)
-        payload = data[start + 4 : start + 4 + abs(csize)]
-        if csize == neblock:  # stored uncompressed
-            out += payload
-        elif codec == "zlib":
-            out += zlib.decompress(payload)
-        elif codec == "zstd":
-            import zstandard
-
-            out += zstandard.ZstdDecompressor().decompress(
-                payload, max_output_size=neblock
-            )
-        elif codec == "lz4":
-            out += _lz4_block_decompress(payload, neblock)
-        else:
-            raise ValueError(
-                f"blosc internal codec {codec!r} not supported by this reader"
-            )
-    return bytes(out), typesize, shuffled
-
-
-def _byte_unshuffle(raw: bytes, typesize: int) -> bytes:
-    """Invert blosc byte-shuffle: (typesize, n_elems) -> interleaved."""
-    if typesize <= 1 or len(raw) % typesize:
-        return raw
-    arr = np.frombuffer(raw, dtype=np.uint8)
-    n = len(raw) // typesize
-    return arr.reshape(typesize, n).T.tobytes()
+    out = bytearray(nbytes)
+    for b, pos in enumerate(bstarts):
+        bsize = min(blocksize, nbytes - b * blocksize)
+        split = splittable and bsize == blocksize and bsize // typesize >= _BLOSC_MIN_SPLIT
+        nsplits = typesize if split else 1
+        neblock = bsize // nsplits
+        streams = []
+        for _ in range(nsplits):
+            (csize,) = struct.unpack_from("<i", data, pos)
+            payload = data[pos + 4 : pos + 4 + csize]
+            pos += 4 + csize
+            streams.append(payload if csize == neblock else _blosc_stream(codec, payload, neblock))
+        block = b"".join(streams)
+        if shuffled:
+            block = _byte_unshuffle(block, typesize)
+        out[b * blocksize : b * blocksize + bsize] = block
+    return bytes(out)
 
 
 def _decode_chunk(data: bytes, compressor: Mapping[str, Any] | None) -> bytes:
@@ -239,8 +267,7 @@ def _decode_chunk(data: bytes, compressor: Mapping[str, Any] | None) -> bytes:
             data, max_output_size=1 << 31
         )
     if cid == "blosc":
-        raw, typesize, shuffled = _blosc_decompress(data)
-        return _byte_unshuffle(raw, typesize) if shuffled else raw
+        return _blosc_decompress(data)
     raise ValueError(f"Unsupported Zarr compressor: {cid!r}")
 
 

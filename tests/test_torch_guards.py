@@ -54,6 +54,7 @@ _NEW_MODULES = (
     "import dmd_era5_tpu_torch.utils.profiling, dmd_era5_tpu_torch.utils.debug\n"
     "import dmd_era5_tpu_torch.snapmat.zarr_reader, dmd_era5_tpu_torch.snapmat.era5_zarr\n"
     "import dmd_era5_tpu_torch.native, dmd_era5_tpu_torch.snapmat.loader\n"
+    "import dmd_era5_tpu_torch.parallel, dmd_era5_tpu_torch.parallel.collectives\n"
     "assert 'fsspec' not in sys.modules, 'fsspec imported with the port'\n"
 )
 

@@ -6,8 +6,9 @@ codecs, slice pushdown, the committed ARCO-ERA5 fixtures, the download
 stage against the JAX ``download_era5_data``, and ``zarr_to_packed`` to
 HDF5 (read by either package) and to ``.npy``.  Readers and packed files
 agree bit for bit.  Then config.ini's three stages on a local Zarr
-store in the port, and the blosc frames neither reader decodes right
-(ROADMAP Queue 3, R8).  No case opens a remote URL.
+store in the port, and the blosc frames as c-blosc 1.x lays them out,
+which the port decodes and the JAX reader misreads (ROADMAP Queue 3, R8;
+pinned).  No case opens a remote URL.
 """
 
 from __future__ import annotations
@@ -335,12 +336,13 @@ def test_lz4_corrupt_blocks_raise():
 
 
 def _make_blosc(raw: bytes, typesize: int, codec: int, shuffle: bool) -> bytes:
-    """Hand-build a single-block blosc1 chunk (test_19's encoder)."""
+    """Hand-build a single-block blosc1 chunk (test_19's encoder) of one
+    stream: flag 0x10 says the block is not split."""
     nbytes = len(raw)
     body = raw
     if shuffle:
         body = np.frombuffer(raw, np.uint8).reshape(-1, typesize).T.tobytes()
-    flags = (0x1 if shuffle else 0) | (codec << 5)
+    flags = (0x1 if shuffle else 0) | 0x10 | (codec << 5)
     if codec == 3:
         comp = zlib.compress(body)
     elif codec == 1:
@@ -356,18 +358,16 @@ def _make_blosc(raw: bytes, typesize: int, codec: int, shuffle: bool) -> bytes:
 def test_blosc_single_block_roundtrip(codec, shuffle):
     data = np.arange(512, dtype=np.float32)
     chunk = _make_blosc(data.tobytes(), 4, codec=codec, shuffle=shuffle)
-    out, ts, sh = treader._blosc_decompress(chunk)
-    assert (sh, ts) == (shuffle, 4)
-    assert (treader._byte_unshuffle(out, ts) if sh else out) == data.tobytes()
-    assert (out, ts, sh) == jreader._blosc_decompress(chunk)
+    assert treader._blosc_decompress(chunk) == data.tobytes()
     assert treader._decode_chunk(chunk, {"id": "blosc"}) == data.tobytes()
+    # one block of one stream: the JAX reader reads it right too
+    assert jreader._decode_chunk(chunk, {"id": "blosc"}) == data.tobytes()
 
 
 def test_blosc_memcpy():
     raw = b"0123456789abcdef"
     header = struct.pack("<BBBBIII", 2, 1, 0x2, 1, len(raw), len(raw), 16 + len(raw))
-    out, _, _ = treader._blosc_decompress(header + raw)
-    assert out == raw
+    assert treader._blosc_decompress(header + raw) == raw
 
 
 def test_blosc_rejects_bitshuffle_and_unknown_codecs():
@@ -403,29 +403,23 @@ def _blosc_two_block_shuffled(raw: bytes, typesize: int) -> bytes:
 
 def test_two_block_shuffled_frame_is_misread_as_by_the_jax_reader():
     """R8 (ROADMAP Queue 3): c-blosc shuffles each block of a frame on its
-    own, but both readers unshuffle the whole chunk at once, so a frame
+    own, but the JAX reader unshuffles the whole chunk at once, so a frame
     of two shuffled blocks (every real ARCO-ERA5 chunk has many) decodes
-    to the right number of bytes in the wrong order: the same wrong
-    bytes in both packages.  A per-block unshuffle of the same decoded
-    streams gives the data back, which shows the frame itself is sound."""
+    there to the right number of bytes in the wrong order.  The port
+    unshuffles block by block and gets the data back."""
     data = np.arange(1024, dtype=np.float32) * 1.5 + 7.0
     frame = _blosc_two_block_shuffled(data.tobytes(), 4)
-    got = treader._decode_chunk(frame, {"id": "blosc"})
-    assert got == jreader._decode_chunk(frame, {"id": "blosc"})
-    assert len(got) == data.nbytes and got != data.tobytes()
-    raw, typesize, shuffled = treader._blosc_decompress(frame)
-    half = len(raw) // 2
-    fixed = b"".join(treader._byte_unshuffle(raw[b * half:(b + 1) * half], typesize)
-                     for b in range(2))
-    assert shuffled and fixed == data.tobytes()
+    misread = jreader._decode_chunk(frame, {"id": "blosc"})
+    assert len(misread) == data.nbytes and misread != data.tobytes()
+    assert treader._decode_chunk(frame, {"id": "blosc"}) == data.tobytes()
 
 
 def test_split_stream_frame_is_read_short_as_by_the_jax_reader():
     """R8's second half: with flag 0x10 clear c-blosc splits a shuffled
     block into ``typesize`` streams, each behind its own size word (the
-    LZ4 frames of ARCO-ERA5).  Both readers take the first stream for the
-    whole block, so the chunk decodes to a quarter of its bytes, the same
-    in both packages."""
+    LZ4 frames of ARCO-ERA5).  The JAX reader takes the first stream for
+    the whole block, so the chunk decodes there to a quarter of its
+    bytes; the port reads the four streams and interleaves them."""
     data = np.arange(256, dtype=np.float32) - 100.0
     planes = np.frombuffer(data.tobytes(), np.uint8).reshape(-1, 4).T
     streams = [zlib.compress(plane.tobytes()) for plane in planes]
@@ -433,12 +427,169 @@ def test_split_stream_frame_is_read_short_as_by_the_jax_reader():
     header = struct.pack("<BBBBIII", 2, 1, 0x1 | (3 << 5), 4, data.nbytes, data.nbytes,
                          16 + 4 + len(body))
     frame = header + struct.pack("<i", 16 + 4) + body
-    got = treader._decode_chunk(frame, {"id": "blosc"})
-    assert got == jreader._decode_chunk(frame, {"id": "blosc"})
-    assert len(got) == data.nbytes // 4
-    # the streams themselves hold the data: the four byte planes, interleaved
-    assert np.stack([np.frombuffer(zlib.decompress(c), np.uint8) for c in streams]).T.tobytes() \
-        == data.tobytes()
+    assert len(jreader._decode_chunk(frame, {"id": "blosc"})) == data.nbytes // 4
+    assert treader._decode_chunk(frame, {"id": "blosc"}) == data.tobytes()
+
+
+def _lz4_sequence(out: bytearray, literals: bytes, offset: int = 0, match: int = 0) -> None:
+    """One LZ4 sequence: the literals, then (offset > 0) a match of
+    ``match`` >= 4 bytes ``offset`` back."""
+    extra = match - 4 if offset else 0
+    out.append((min(len(literals), 15) << 4) | min(extra, 15))
+    if len(literals) >= 15:
+        out += _lz4_extension(len(literals) - 15)
+    out += literals
+    if offset:
+        out += struct.pack("<H", offset)
+        if extra >= 15:
+            out += _lz4_extension(extra - 15)
+
+
+def _lz4_greedy(raw: bytes) -> bytes:
+    """A greedy LZ4 block encoder: at each position the last earlier one
+    with the same four bytes, extended as far as the bytes agree.  On
+    runs that match starts one byte back and runs on past its offset:
+    the overlapping copy the decoder does byte by byte.  The format's end
+    rules hold: no match starts within 12 bytes of the end, the last 5
+    bytes are literals."""
+    out, table, n = bytearray(), {}, len(raw)
+    i = anchor = 0
+    while i < n - 12:
+        cand = table.get(raw[i : i + 4])
+        table[raw[i : i + 4]] = i
+        if cand is None or i - cand > 0xFFFF:
+            i += 1
+            continue
+        length = 4
+        while i + length < n - 5 and raw[cand + length] == raw[i + length]:
+            length += 1
+        _lz4_sequence(out, raw[anchor:i], i - cand, length)
+        i = anchor = i + length
+    _lz4_sequence(out, raw[anchor:])
+    return bytes(out)
+
+
+def test_greedy_lz4_encoder_emits_overlapping_matches():
+    raw = bytes(100) + bytes(range(40)) * 3 + b"tail-bytes!"
+    enc = _lz4_greedy(raw)
+    assert len(enc) < len(raw) // 2
+    assert treader._lz4_block_decompress(enc, len(raw)) == raw
+    assert jreader._lz4_block_decompress(enc, len(raw)) == raw
+
+
+_STREAM_CODECS = {"zlib": (3, lambda b: zlib.compress(b, 6)), "lz4": (1, _lz4_greedy)}
+
+
+def _blosc_frame(raw: bytes, typesize: int, blocksize: int, codec: str, split: bool,
+                 shuffle: bool = True) -> bytes:
+    """A blosc1 frame as c-blosc 1.x's compressor lays it out, written
+    from its description (blosc.h, blosc_c) rather than from the reader:
+    the chunk cut into ``blocksize``-byte blocks, the last one ragged;
+    each block byte-shuffled on its own; where ``split``, each whole
+    block of typesize <= 16 and at least 128 elements cut into
+    ``typesize`` equal streams (flag 0x10 clear), else one stream (flag
+    0x10 set); each stream behind an int32 size word, stored raw where
+    its code would not be shorter."""
+    code, encode = _STREAM_CODECS[codec]
+    nbytes = len(raw)
+    n_blocks = -(-nbytes // blocksize)
+    flags = (0x1 if shuffle else 0) | (0 if split else 0x10) | (code << 5)
+    base = 16 + 4 * n_blocks
+    starts, body = [], bytearray()
+    for b in range(n_blocks):
+        block = raw[b * blocksize : (b + 1) * blocksize]
+        n = len(block) // typesize
+        if shuffle:
+            planes = np.frombuffer(block, np.uint8, count=n * typesize).reshape(n, typesize)
+            block = planes.T.tobytes() + block[n * typesize :]
+        whole = len(block) == blocksize
+        nsplits = typesize if split and whole and typesize <= 16 and n >= 128 else 1
+        size = len(block) // nsplits
+        starts.append(base + len(body))
+        for j in range(nsplits):
+            stream = block[j * size : (j + 1) * size]
+            comp = encode(stream)
+            comp = comp if len(comp) < len(stream) else stream
+            body += struct.pack("<i", len(comp)) + comp
+    header = struct.pack("<BBBBIII", 2, 1, flags, typesize, nbytes, blocksize, base + len(body))
+    return header + struct.pack(f"<{n_blocks}i", *starts) + bytes(body)
+
+
+def _field_with_noise(rng, shape, dtype) -> np.ndarray:
+    """A smooth field (compressible planes, runs in the high bytes) with
+    one stretch of random bits (incompressible: raw streams)."""
+    t = np.arange(int(np.prod(shape)), dtype=np.float64)
+    out = (250.0 + 10.0 * np.sin(t / 50.0)).astype(dtype)
+    bits = out.view(np.uint16 if out.itemsize == 2 else np.uint32)
+    cut = bits.size // 3
+    bits[cut : cut + 300] = rng.integers(0, 1 << (8 * out.itemsize - 2), 300)
+    return out.reshape(shape)
+
+
+def _jax_misreads(frame: bytes, chunk: bytes) -> bool:
+    """Whether the JAX reader gets ``frame`` wrong: other bytes, or an
+    error where it takes a split block's first stream for the block."""
+    try:
+        return jreader._decode_chunk(frame, {"id": "blosc"}) != chunk
+    except (zlib.error, ValueError, IndexError):
+        return True
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "0x10"])
+@pytest.mark.parametrize("typesize", [4, 2])
+@pytest.mark.parametrize("codec", ["zlib", "lz4"])
+def test_multi_block_frames_decode_through_the_store(tmp_path, codec, typesize, split):
+    """R8's fix: frames of several blocks, the last ragged, shuffled block
+    by block, with split streams (flag 0x10 clear) or not, compressed and
+    raw streams, typesize 4 and 2, read through ``open_era5_zarr`` on a
+    small store, decode to the array that built them.  The JAX reader
+    misreads every such frame."""
+    rng = np.random.default_rng(typesize + 2 * split)
+    dtype = np.float32 if typesize == 4 else np.float16
+    data = _field_with_noise(rng, (16, 1, 9, 10), dtype)
+    root = tmp_path / "store"
+    chunks = (8, 1, 9, 10)
+    treader.write_zarr_array(root, "temperature", data, chunks=chunks,
+                             dims=("time", "level", "latitude", "longitude"), compressor=None)
+    meta_path = root / "temperature" / ".zarray"
+    meta = json.loads(meta_path.read_text())
+    meta["compressor"] = {"id": "blosc", "cname": codec, "clevel": 5, "shuffle": 1,
+                          "blocksize": 0}
+    meta_path.write_text(json.dumps(meta))
+    blocksize = 256 * typesize  # 256 elements a block: three blocks a chunk
+    for c in range(2):
+        chunk = data[8 * c : 8 * (c + 1)].tobytes()
+        assert len(chunk) % blocksize
+        frame = _blosc_frame(chunk, typesize, blocksize, codec, split)
+        (root / "temperature" / f"{c}.0.0.0").write_bytes(frame)
+        assert _jax_misreads(frame, chunk)
+    got = tzarr.open_era5_zarr(root)["temperature"][:]
+    assert got.dtype == data.dtype
+    np.testing.assert_array_equal(got, data)
+
+
+def test_frames_built_by_c_blosc_decode(tmp_path):
+    """Frames that c-blosc itself wrote (tensorstore's bundled c-blosc 1.x,
+    where that package is installed): LZ4, zlib and zstd, shuffled or
+    not, default and small blocks, an incompressible chunk (a memcpy frame
+    whose shuffle flag stays set over raw bytes), decode to their arrays
+    in the port."""
+    ts = pytest.importorskip("tensorstore")
+    rng = np.random.default_rng(3)
+    smooth = _field_with_noise(rng, (300_000,), np.float32)
+    noise = rng.integers(0, 1 << 32, 300_000, dtype=np.uint32).view(np.float32)
+    cases = [(smooth, cname, shuffle, bs) for cname in ("lz4", "zlib", "zstd")
+             for shuffle in (0, 1) for bs in (0, 4096)] + [(noise, "lz4", 1, 0)]
+    for i, (data, cname, shuffle, bs) in enumerate(cases):
+        path = tmp_path / f"s{i}"
+        spec = {"driver": "zarr", "kvstore": {"driver": "file", "path": str(path)},
+                "metadata": {"shape": [data.size], "chunks": [data.size], "dtype": "<f4",
+                             "compressor": {"id": "blosc", "cname": cname, "clevel": 5,
+                                            "shuffle": shuffle, "blocksize": bs}},
+                "create": True}
+        ts.open(spec).result().write(data).result()
+        frame = (path / "0").read_bytes()
+        assert treader._decode_chunk(frame, {"id": "blosc"}) == data.tobytes(), (cname, shuffle, bs)
 
 
 # ------------------------------------------------------- ingest parity
@@ -594,10 +745,44 @@ def test_zarr_to_packed_matches_inmem_pack(tmp_path, bf16, time_chunk, monkeypat
 # ------------------------------------------ the committed ARCO fixtures
 
 
+@pytest.fixture()
+def arco_mini(tmp_path) -> Path:
+    """The committed mini store with flag 0x10 set on every blosc chunk.
+    Its encoder (``fixtures/make_arco_fixture.py``) writes each chunk as
+    one block of ONE stream but leaves 0x10 ("not split") clear, so
+    c-blosc, and the port, expect four streams there and refuse the
+    frame; with the flag the frame says what it holds, and the JAX
+    reader, which ignores the flag, reads the same bytes as before."""
+    import shutil
+
+    root = tmp_path / "arco_era5_mini"
+    shutil.copytree(FIXTURES / "arco_era5_mini", root)
+    meta = json.loads((root / ".zmetadata").read_text())["metadata"]
+    blosc = [key.split("/")[0] for key, node in meta.items()
+             if key.endswith(".zarray") and (node["compressor"] or {}).get("id") == "blosc"]
+    assert blosc
+    for chunk in (c for name in blosc for c in (root / name).glob("[0-9]*")):
+        frame = bytearray(chunk.read_bytes())
+        frame[2] |= 0x10
+        chunk.write_bytes(bytes(frame))
+    return root
+
+
+def test_committed_mini_frames_are_refused_as_c_blosc_refuses_them():
+    """The committed mini store's frames (one stream, 0x10 clear): the JAX
+    reader reads them; the port, like c-blosc, expects a split block and
+    refuses them."""
+    frame = (FIXTURES / "arco_era5_mini" / "temperature" / "0.0.0.0").read_bytes()
+    assert frame[2] & 0x10 == 0
+    assert len(jreader._decode_chunk(frame, {"id": "blosc"})) == 5 * 7 * 12 * 4
+    with pytest.raises(ValueError, match="expected 420"):
+        treader._decode_chunk(frame, {"id": "blosc"})
+
+
 @pytest.mark.parametrize("reader", ["jax", "port"])
-def test_arco_mini_store_slice_values(reader):
+def test_arco_mini_store_slice_values(reader, arco_mini):
     module = {"jax": jzarr, "port": tzarr}[reader]
-    fs = module.read_era5_zarr_slice(FIXTURES / "arco_era5_mini",
+    fs = module.read_era5_zarr_slice(FIXTURES / "arco_era5_mini" if reader == "jax" else arco_mini,
                                      ["temperature", "v_component_of_wind"],
                                      datetime(1959, 1, 1, 1), datetime(1959, 1, 1, 3),
                                      levels=[200, 1000])
@@ -617,11 +802,11 @@ def test_arco_mini_store_slice_values(reader):
     assert fs["v_component_of_wind"].data[0, 0, 0, 0] == 2 * 100000 + 1 * 10000 + 1 * 1000
 
 
-def test_arco_mini_missing_chunk_is_nan_fill_in_both_and_in_the_packed_bf16():
+def test_arco_mini_missing_chunk_is_nan_fill_in_both_and_in_the_packed_bf16(arco_mini):
     """A missing chunk reads as the NaN fill (times t=3,4,5; chunk t=4 is
     absent), the canonical quiet NaN bit for bit in both readers, and
     packs to the same bf16 word 0x7FC0 as the JAX package's packer."""
-    args = (FIXTURES / "arco_era5_mini", ["temperature"], datetime(1959, 1, 1, 3),
+    args = (arco_mini, ["temperature"], datetime(1959, 1, 1, 3),
             datetime(1959, 1, 1, 5), [50])
     fs, fs_j = tzarr.read_era5_zarr_slice(*args), jzarr.read_era5_zarr_slice(*args)
     data = fs["temperature"].data
@@ -635,8 +820,8 @@ def test_arco_mini_missing_chunk_is_nan_fill_in_both_and_in_the_packed_bf16():
     assert set(words[:, 1].tolist()) == {0x7FC0}
 
 
-def test_arco_mini_packed_to_npy_equals_the_jax_packed_h5(tmp_path):
-    args = (FIXTURES / "arco_era5_mini", ["u_component_of_wind", "temperature"],
+def test_arco_mini_packed_to_npy_equals_the_jax_packed_h5(tmp_path, arco_mini):
+    args = (arco_mini, ["u_component_of_wind", "temperature"],
             datetime(1959, 1, 1, 0), datetime(1959, 1, 1, 5))
     tzarr.zarr_to_packed(args[0], tmp_path / "p.npy", *args[1:])
     jzarr.zarr_to_packed(args[0], tmp_path / "j.h5", *args[1:])
