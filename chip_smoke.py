@@ -1616,6 +1616,35 @@ def run_ranks(world: int, kind: str, path: Path, seed: int) -> tuple[list[dict],
     return [results[r] for r in range(world)], time.perf_counter() - t0
 
 
+def mesh_kernels_vs_plain(x: torch.Tensor, omega: torch.Tensor, world: int, seed: int) -> dict:
+    """17b's kernels against their plain versions at the shapes a rank of
+    ``world`` gives them, on rank 0's rows of the week (``row_block``, as
+    ``load_row_sharded`` cuts them) and its panel, with the smoke's gates:
+    K1 as the meshed step launches it, K5 on that block's Yc (the split
+    CholQR2 leaf's Gram), K7 on the rank's 8,192 x 110 panel.  Uncounted;
+    returns each kernel's errors and times."""
+    from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
+    from dmd_era5_tpu_torch.parallel.sharding import row_block
+
+    r0, r1, _ = row_block(x.shape[0], world, 0)
+    x_loc = x[r0:r1]
+    label = f"17b P={world} rank 0"
+    k1 = compare_kernel(label, x_loc, omega, torch.float32, centred=True)
+    yc = sketch_center_gram_project(x_loc, omega)[0]
+    k5 = compare_gram(label, yc, "bf16_split")
+    del yc
+    k7 = compare_householder(label, mesh_panel(world, seed)[:MESH_PANEL[0]])
+    torch.cuda.empty_cache()
+    times = ("ms", "plain_ms", "bound_ms", "library_ms")
+    return {"K1": {"m": k1["m"], "rel_err": k1["rel_err"],
+                   "G_vs_f64": k1["kernel_G_vs_f64"], "C_vs_f64": k1["kernel_C_vs_f64"],
+                   **{key: k1.get(key) for key in times}},
+            "K5": {"m": k5["m"], "G_vs_f64_over_max": k5["kernel_max_abs_vs_f64_over_max"],
+                   **{key: k5.get(key) for key in times}},
+            "K7": {"r_vs_plain_over_max": k7["r_max_abs_over_max"], "q_rel": k7["q_rel"],
+                   "orth": k7["kernel_orth"], **{key: k7.get(key) for key in times}}}
+
+
 def phase_mesh_one_rank(x: torch.Tensor, omega: torch.Tensor) -> tuple[dict, dict, dict]:
     """17a: the meshed fit step on a (1, 1, 1) mesh of this process over
     NCCL (a ``file://`` store), at f32 and bf16, against phase 4's
@@ -1687,7 +1716,9 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
     this process; (b) P = 2 and 3 ranks sharing the card over gloo, each
     reading its rows of the artifact (``load_row_sharded``): the fused
     meshed step (K1), tree TSQR of its Yc (the split CholQR2 leaf, K5)
-    and of a panel inside K7's envelope (the Householder leaf, K7); (c)
+    and of a panel inside K7's envelope (the Householder leaf, K7), the
+    three kernels first held against their plain versions at a rank's
+    shapes in this process (``mesh_kernels_vs_plain``); (c)
     the portable step on (1, 2, 2), 4 ranks on the week's first
     ``MESH_PORTABLE_ROWS`` rows (a cut of depth), against (a)'s step on
     the same rows.  The ranks are spawned after phase 1 built every
@@ -1722,8 +1753,11 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
         f"{MESH_PANEL[0]} x {MESH_PANEL[1]} panel a rank (K7 leaf)")
     week_s, week_loss = refs["week"]
     for world in MESH_WORLDS:
+        log(f"    P = {world}: K1, K5 and K7 against their plain versions at a rank's shapes")
+        kernels = mesh_kernels_vs_plain(x, omega, world, seed)
         ranks, wall = run_ranks(world, "fused", path, seed)
-        part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log", "tsqr_log", "hh_log"))}
+        part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log", "tsqr_log", "hh_log")),
+                "kernels": kernels}
         want = (int(math.log2(world)) if world & (world - 1) == 0
                 else math.ceil(math.log2(world)) + 1)
         for rank, res in enumerate(ranks):
@@ -1761,7 +1795,9 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
             f"(panel) of max|R|; "
             f"Q^T Q - I {part['orth_yc'][0]:.2e} vs {part['orth_yc'][1]:.2e} one device (Yc), "
             f"{part['orth_hh'][0]:.2e} vs {part['orth_hh'][1]:.2e} (panel); {want} exchanges; "
-            f"peak GB by rank {part['peak_gb']}")
+            f"peak GB by rank {part['peak_gb']}; at a rank's shapes "
+            + ", ".join(f"{key} {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, bound "
+                        f"{k['bound_ms']:.4f})" for key, k in kernels.items()))
 
     log(f"[17c] the portable step on {MESH_PORTABLE}: 4 ranks sharing the card over gloo, the "
         f"week's first {MESH_PORTABLE_ROWS} rows (a cut of depth: 2^20 of "

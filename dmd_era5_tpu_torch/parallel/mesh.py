@@ -67,6 +67,34 @@ _CLUSTER_ENV_MARKERS = {
 }
 
 
+def _tasks_on_node(spec: str, node: int) -> int:
+    """Node ``node``'s task count in SLURM's ``SLURM_TASKS_PER_NODE``
+    (``"4(x2),3"``: 4 on each of two nodes, then 3)."""
+    counts = []
+    for part in spec.split(","):
+        n, _, repeat = part.partition("(x")
+        counts += [int(n)] * int(repeat.rstrip(")") or 1)
+    return counts[node]
+
+
+def _local_layout(world_size: int, rank: int) -> tuple[int, int]:
+    """(this host's rank count, this rank's place among them), from the
+    launcher: torchrun's ``LOCAL_WORLD_SIZE`` / ``LOCAL_RANK``, SLURM's
+    ``SLURM_TASKS_PER_NODE`` (this ``SLURM_NODEID``'s entry) /
+    ``SLURM_LOCALID``, OpenMPI's ``OMPI_COMM_WORLD_LOCAL_SIZE`` /
+    ``OMPI_COMM_WORLD_LOCAL_RANK``; else every rank on this host."""
+    env = os.environ
+    if env.get("LOCAL_WORLD_SIZE") or env.get("LOCAL_RANK"):
+        return int(env.get("LOCAL_WORLD_SIZE", world_size)), int(env.get("LOCAL_RANK", rank))
+    if env.get("SLURM_LOCALID") and env.get("SLURM_TASKS_PER_NODE"):
+        node = int(env.get("SLURM_NODEID", 0))
+        return _tasks_on_node(env["SLURM_TASKS_PER_NODE"], node), int(env["SLURM_LOCALID"])
+    if env.get("OMPI_COMM_WORLD_LOCAL_SIZE"):
+        return (int(env["OMPI_COMM_WORLD_LOCAL_SIZE"]),
+                int(env.get("OMPI_COMM_WORLD_LOCAL_RANK", rank)))
+    return world_size, rank
+
+
 def _choose_backend(device: str | None, local_ranks: int) -> str:
     """``"gloo"`` on the CPU or where this host's ranks outnumber its
     cards, else ``"nccl"``; raises where a card is wanted and none is."""
@@ -100,10 +128,10 @@ def initialize_distributed(
     4. otherwise a single process: nothing to do.
 
     The backend follows the layout (module docstring); ``device="cpu"``
-    asks for the host.  ``LOCAL_WORLD_SIZE`` counts this host's ranks
-    (else all ranks are taken to share it) and ``LOCAL_RANK`` this one's
-    place among them (else its rank).  On NCCL each rank's card is made
-    the current one before the group starts.
+    asks for the host.  The launcher's local variables count this host's
+    ranks and give this one's place among them (:func:`_local_layout`;
+    without them all ranks are taken to share the host).  On NCCL each
+    rank's card is made the current one before the group starts.
     """
     if dist.is_initialized():
         return None
@@ -125,10 +153,10 @@ def initialize_distributed(
         init_method = "env://"
     if world_size is None or rank is None:
         raise ValueError("an explicit init_method needs world_size and rank")
-    local_ranks = int(env.get("LOCAL_WORLD_SIZE", world_size))
+    local_ranks, local_rank = _local_layout(world_size, rank)
     backend = _choose_backend(device, local_ranks)
     if backend == "nccl":
-        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(local_rank)
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
@@ -194,8 +222,8 @@ def _mesh_device(device: str | torch.device | None) -> torch.device:
             "the mesh runs on CUDA cards and none is available; pass device='cpu' "
             "to build it on the host"
         )
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    local = int(os.environ.get("LOCAL_RANK", rank))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    _, local = _local_layout(world, dist.get_rank() if dist.is_initialized() else 0)
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
@@ -317,12 +345,12 @@ def make_hybrid_mesh(
     (only scalar losses cross it), ``space`` takes each host's ranks.
 
     ``n_slices`` splits the ranks into that many contiguous equal groups
-    (the tests' virtual hosts); by default a group is a host's ranks,
-    ``LOCAL_WORLD_SIZE`` of them (all ranks when it is unset).
+    (the tests' virtual hosts); by default a group is a host's ranks, as
+    many as the launcher says (:func:`_local_layout`; all ranks without it).
     """
     ranks = _world_ranks(ranks)
     if n_slices is None:
-        n_slices = len(ranks) // int(os.environ.get("LOCAL_WORLD_SIZE", len(ranks)))
+        n_slices = len(ranks) // _local_layout(len(ranks), 0)[0]
     if n_slices < 1 or len(ranks) % n_slices:
         raise ValueError(f"{len(ranks)} devices not divisible into {n_slices} slices")
     per = len(ranks) // n_slices

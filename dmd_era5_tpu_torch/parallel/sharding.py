@@ -26,6 +26,7 @@ __all__ = [
     "col_sharded",
     "grid_sharded",
     "pad_rows_to_multiple",
+    "row_block",
     "shard_rows",
     "reshard",
 ]
@@ -95,15 +96,22 @@ def pad_rows_to_multiple(x, multiple: int):
     return np.pad(x, [(0, target - rows)] + [(0, 0)] * (x.ndim - 1)), rows
 
 
+def row_block(rows: int, n_shards: int, index: int) -> tuple[int, int, int]:
+    """Block ``index`` of ``rows`` rows zero-padded to a multiple of
+    ``n_shards`` and cut into equal blocks: (r0, r1, per), its rows
+    [r0, r1) of the original and the padded block's length ``per``."""
+    per = -(-rows // n_shards)
+    r0 = min(index * per, rows)
+    return r0, min(r0 + per, rows), per
+
+
 def shard_rows(x, mesh: Mesh, axis: str = AXIS_SPACE) -> tuple[torch.Tensor, int]:
     """This rank's row block of the global (S, ...) array x on the mesh's
-    device, the rows zero-padded to a multiple of the axis's size; returns
-    (local block, original rows)."""
-    n = mesh.shape[axis]
+    device, the rows zero-padded to a multiple of the axis's size
+    (:func:`row_block`); returns (local block, original rows)."""
     rows = x.shape[0]
-    per = -(-rows // n)
-    r0 = mesh.coords[axis] * per
-    block = x[r0 : min(r0 + per, rows)]
+    r0, r1, per = row_block(rows, mesh.shape[axis], mesh.coords[axis])
+    block = x[r0:r1]
     block = torch.as_tensor(block).to(mesh.device)
     if block.shape[0] < per:
         block = torch.cat([block, block.new_zeros((per - block.shape[0], *block.shape[1:]))])

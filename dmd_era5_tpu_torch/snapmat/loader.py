@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dmd_era5_tpu_torch.native import bf16_words_of, pack_space_time, row_stats
+from dmd_era5_tpu_torch.parallel.sharding import row_block
 from dmd_era5_tpu_torch.utils.labels import FieldSet
 
 __all__ = [
@@ -278,17 +279,15 @@ def load_row_sharded(
     device (``dmd_era5_tpu/snapmat/loader.py:187``).
 
     The rows are zero-padded up to a multiple of the ``axis`` size and cut
-    into equal blocks, block i on the ranks at index i of the axis; each
+    into equal blocks (``parallel.sharding.row_block``), block i on the
+    ranks at index i of the axis; each
     rank reads only its own rows (an HDF5 hyperslab, a ``.npy`` memmap
     slice) straight into a host buffer that holds the padding too (pinned
     when the device is a card).  A bf16 source (uint16 words) stays bf16,
     any other is cast to ``dtype``.  Returns (local block, original rows).
     """
     (n_rows, n_cols), _, bf16 = packed_info(source)
-    n_shards = mesh.shape[axis]
-    per = -(-n_rows // n_shards)
-    r0 = mesh.coords[axis] * per
-    r1 = min(r0 + per, n_rows)
+    r0, r1, per = row_block(n_rows, mesh.shape[axis], mesh.coords[axis])
     host = []
 
     def into(shape, stored):  # the buffer in the source's own element type

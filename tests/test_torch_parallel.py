@@ -257,6 +257,41 @@ def test_initialize_distributed_needs_a_rendezvous_under_slurm(monkeypatch):
         tpar.initialize_distributed(device="cpu")
 
 
+_LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_WORLD_SIZE",
+                "LOCAL_RANK", "SLURM_JOB_ID", "SLURM_NTASKS", "SLURM_PROCID", "SLURM_NODEID",
+                "SLURM_LOCALID", "SLURM_TASKS_PER_NODE", "OMPI_COMM_WORLD_SIZE",
+                "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_LOCAL_SIZE", "OMPI_COMM_WORLD_LOCAL_RANK")
+
+
+@pytest.mark.parametrize("launch", [
+    {"SLURM_JOB_ID": "12345", "SLURM_NTASKS": "8", "SLURM_PROCID": "6", "SLURM_NODEID": "1",
+     "SLURM_LOCALID": "2", "SLURM_TASKS_PER_NODE": "4(x2)"},
+    {"OMPI_COMM_WORLD_SIZE": "8", "OMPI_COMM_WORLD_RANK": "6",
+     "OMPI_COMM_WORLD_LOCAL_SIZE": "4", "OMPI_COMM_WORLD_LOCAL_RANK": "2"},
+], ids=["slurm", "openmpi"])
+def test_two_host_launch_takes_nccl_the_local_card_and_two_slices(launch, monkeypatch):
+    """Rank 6 of a 2-host x 4-card SLURM or OpenMPI launch (host 1's third
+    rank), without torchrun's variables: NCCL, card 2 made current and
+    taken by the mesh, and a hybrid mesh of one slice a host."""
+    for var in _LAUNCH_VARS:
+        monkeypatch.delenv(var, raising=False)
+    for var, value in {**launch, "MASTER_ADDR": "localhost", "MASTER_PORT": "29500"}.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards, groups = [], []
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    monkeypatch.setattr(tmesh.dist, "init_process_group",
+                        lambda backend, **kw: groups.append(dict(kw, backend=backend)))
+    assert tpar.initialize_distributed() == "nccl"
+    assert cards == [2]
+    assert [(g["backend"], g["init_method"], g["world_size"], g["rank"]) for g in groups] == [
+        ("nccl", "env://", 8, 6)]
+    assert tmesh._mesh_device(None) == torch.device("cuda", 2)
+    mesh = tpar.make_hybrid_mesh(ranks=range(8), device="cpu")
+    assert mesh.shape == {"data": 2, "space": 4, "time": 1}
+
+
 def test_mesh_needs_a_card_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
