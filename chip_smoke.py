@@ -220,12 +220,41 @@ of which raises on failure so the script exits non-zero:
    same rows; one ``[17] mesh`` line with each part's times, collective
    calls and bytes by op, and peak device memory, beside the card's name
    and power limit.
+18. (riding in 17's worlds) the SVD layer on the mesh: (a) after 17a, on
+   a (1, 1, 1) mesh over NCCL in this process, the fused sharded Hankel
+   SVD (phase 3's sketch; K1) and the sharded exact Hankel SVD (K5 + K1)
+   on the week, held to phases 3 and 7 (s within 1e-5 of s[0], the
+   leading 6 columns of U spanning theirs); (b) in 17b's ranks (P = 2, 3)
+   on their rows of the artifact: the sharded Hankel SVD at d = 2 fused
+   (K1) and unfused (K6, K3, the split CholQR2 leaf K5 under tree TSQR),
+   the sharded exact Hankel SVD, ``truncated_svd`` by its Gram route
+   (K5 + K1), its TSQR route (the centred fault held in
+   ``TSQR_CENTRED_FAULT``'s bracket) and its randomized route, each held
+   to its one-device run (phases 3, 7 and 8, and the unfused SVD run
+   here on the same sketch): s, the ranks' U blocks' summed Gram, every
+   rank's collectives within tests/test_21_comm_pattern.py's bounds,
+   exact launches; K1, K6, K5 (on the rows and on the sketch) and K3
+   first held to their plain versions at a rank's shapes in this process; (c) in 17c's ranks on (1, 2, 2),
+   the same 2^20 rows: ``randomized_svd_2d``, ``hankel_randomized_svd_2d``
+   (d = 2), ``hankel_sketch_time_sharded`` (against the f64 product) and
+   ``delay_embed_time_sharded`` (bit for bit), against one device on the
+   same rows (s within 1e-5 of s[0]; a control with the projection's
+   right halo dropped must miss that), K6, K3 and K5 first held to their
+   plain versions at rank 0's shapes in this process; (d) in 17b's two ranks, config 1 (``config.ini``) with
+   ``mesh_shape = space=2`` by three routes (the sharded randomized
+   Hankel SVD, the standard one, and ``svd_backend = inmem``: rank 0
+   writes the packed ``.npy``, each rank reads its rows): ``era5_svd.main``
+   with h5py, else ``compute_svd_results`` in memory, against the same
+   one-device run in this process.  ``[18a]``-``[18d]`` lines carry each
+   part's times, each rank's times and peak memory, the collectives.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 10b-e and 16c-e are
-the main path (17b's on the ranks, reported back):
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 18a-d, 10b-e and 16c-e
+are the main path (17b's, 17c's and 18b-d's on the ranks, reported back):
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f, 14c-d's, 15c-d's, 16's) and 15d's passes are not counted.  The last line is the JSON result; the line before
+10f, 14c-d's, 15c-d's, 16's, 17b's, 18b's and 18c's at a rank's shapes), 15d's
+passes, 18's one-device references and 18c's halo-dropped control are not
+counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
@@ -240,6 +269,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import shutil
 import struct
 import subprocess
@@ -829,6 +859,7 @@ def phase_slice(seed: int) -> dict:
     log(f"    stage wall times (s): {json.dumps({a: round(b, 3) for a, b in times.items()})}; "
         f"peak device memory {peak:.2f} GB")
     week["s_rand"] = s.clone()
+    week["u6_rand"], week["orth_rand"] = u[:, :6].clone(), orthonormality(u)  # 18's references
     del u, s, v, svd, gram
     return week
 
@@ -1020,6 +1051,7 @@ def phase_standard(week: dict) -> dict:
     log(f"    randomized s (phase 3) / exact s: {json.dumps(inter)}")
     dmd_and_forecast("standard", svd, week, times, d)
     week["s_exact"] = s.clone()  # phase 12 holds the SVD stage's s below these
+    week["u6_exact"], week["orth_exact"] = u[:, :6].clone(), orth  # 18's references
     launches = launch_counts()
     check(launches == counts(K1=1, K5=1),
           f"standard path launches {launches}, expected K1 1, K5 1, no other")
@@ -1114,7 +1146,10 @@ def phase_truncated(x: torch.Tensor, seed: int) -> tuple[dict, dict]:
     log(f"    randomized s / exact s ({ref}): "
         f"{json.dumps(check_interlace('randomized vs exact', s_of[rand], s_of[ref]))}")
     ref_b = routes[1][0]
-    return total, {"s": s_of[ref_b], "u6": lead_u[ref_b]}
+    # phase 18 holds the meshed routes to (a), (c) and (d): (s, U^T U - I)
+    mesh_refs = {name: (s_of[label].cpu(), orth_of[label]) for name, label in
+                 (("gram", routes[0][0]), ("tsqr", tsqr_route), ("randomized", rand))}
+    return total, {"s": s_of[ref_b], "u6": lead_u[ref_b], "routes": mesh_refs}
 
 
 def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool) -> dict:
@@ -1154,11 +1189,12 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
     rel, max_abs = rel_err(got, ref)
     check(rel <= 1e-5, f"{label}: K6 relative error {rel:.3e} > 1e-5")
     w64 = w.double()
-    exact = torch.cat([xc.double() @ w64 for xc in _chunks(x)])
-    scale = float(exact.abs().max())
+    rows = _chunk_rows(x, ref)  # the f64 product a row chunk at a time
+    scale = max(float((xc.double() @ w64).abs().max()) for xc in _chunks(x, rows))
 
     def vs_f64(out: torch.Tensor) -> float:
-        return float((out.double() - exact).abs().max()) / scale
+        return max(float((oc.double() - xc.double() @ w64).abs().max())
+                   for oc, xc in zip(_chunks(out, rows), _chunks(x, rows))) / scale
 
     (m, k), n = x.shape, w.shape[1]
     res = dict(label=label, m=m, k=k, n=n, dtype=str(x.dtype)[6:], rel_err=rel,
@@ -1179,7 +1215,6 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
         check(res["one_tf32_pass_vs_f64_over_max"] > limit,
               f"{label} K6: one TF32 pass reads {res['one_tf32_pass_vs_f64_over_max']:.3e} "
               f"max|out|, within {limit:.3e}: the limit does not tell 3xTF32 from it")
-    del exact
     try:
         library()
     except (RuntimeError, TypeError, NotImplementedError):
@@ -1429,7 +1464,7 @@ def phase_streamed(week: dict, ref8: dict, seed: int) -> dict:
         onepass_launches, times["onepass"] = phase_onepass_streamed(week, path, ref8, orth_9c,
                                                                     seed)
         times["trace"] = phase_trace(week, path, seed)
-        mesh_launches = phase_mesh(week, path, seed)
+        mesh_launches = phase_mesh(week, path, seed, ref8)
 
         # where a pass's time goes: the same blocks read only, then read and
         # copied to the card, with no work on them
@@ -1512,9 +1547,51 @@ def held_to(label: str, s: torch.Tensor, loss: float, ref_s: torch.Tensor, ref_l
     return {"s_rel": ds, "loss_abs": dl}
 
 
+@contextlib.contextmanager
+def off_card(x: torch.Tensor):
+    """x's card memory freed inside, its values kept in pinned host memory
+    and put back after, in the same storage (every reference to x stays
+    valid): room for the ranks that share the card with this process."""
+    storage = x.untyped_storage()
+    check(storage.resizable() and x.storage_offset() == 0 and x.is_contiguous()
+          and storage.nbytes() == x.numel() * x.element_size(),
+          "off_card: x is not the whole of a storage of its own")
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    nbytes = storage.nbytes()
+    storage.resize_(0)
+    torch.cuda.empty_cache()
+    try:
+        yield
+    finally:
+        storage.resize_(nbytes)
+        x.copy_(host)
+        del host
+
+
+def _minus(a: dict, b: dict) -> dict:
+    return {key: a[key] - b[key] for key in a}
+
+
+def _by_value(obj, back: bool = False):
+    """A rank's readings with every tensor as a numpy array (``back``: the
+    reverse), so that they cross the queue by value: a tensor would cross
+    as a file descriptor that a rank which has exited no longer serves."""
+    if isinstance(obj, dict):
+        return {key: _by_value(value, back) for key, value in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_by_value(value, back) for value in obj)
+    if not back and isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if back and isinstance(obj, np.ndarray) and obj.dtype != object:
+        return torch.from_numpy(obj)
+    return obj
+
+
 def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str, queue) -> None:
-    """One rank of 17b (``kind`` "fused") or 17c ("portable"), a process
-    of its own on the shared card; puts its readings on ``queue``."""
+    """One rank of 17b and 18b (and at P = 2 18d) (``kind`` "fused") or of
+    17c and 18c ("portable"), a process of its own on the shared card;
+    puts its readings on ``queue``, 17's launches apart from 18's."""
     import traceback
 
     import torch.distributed as dist
@@ -1543,6 +1620,15 @@ def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str,
                 state, res["times"]["fit"] = synced(fit_step, x_loc[None], omega, mesh, 100)
             res.update(s=state.s[0].cpu(), loss=float(state.loss), fit_log=log_summary(flog))
             del state
+            # 18b on the rank's rows, its launches and peak memory apart
+            peak, before = torch.cuda.max_memory_allocated(), launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res["svd"], res["times"]["svd_18b"] = synced(
+                run_svd_mesh_routes, tuple(SVD_MESH_LAUNCHES), x_loc, mesh, seed)
+            res["peak_gb_18b"] = torch.cuda.max_memory_allocated() / 1e9
+            svd_launches = _minus(launch_counts(), before)
+            torch.cuda.reset_peak_memory_stats()
             yc = sketch_center_gram_project(x_loc, omega)[0]
             del x_loc
             with collective_log() as tlog:
@@ -1554,6 +1640,12 @@ def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str,
                 (q, r), res["times"]["tsqr_panel"] = synced(tsqr, panel.contiguous(), mesh,
                                                            method="householder")
             res.update(r_hh=r.cpu(), qtq_hh=gram_f64(q).cpu(), hh_log=log_summary(hlog))
+            del q, r, panel
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            res["launches"] = _minus(launch_counts(), svd_launches)
+            if world == 2:  # 18d: config 1's stage over these two ranks
+                torch.cuda.empty_cache()
+                res["stage"], res["times"]["stage_18d"] = synced(stage_mesh_routes, seed)
         else:
             mesh = make_mesh(MESH_PORTABLE)
             per, t_loc = MESH_PORTABLE_ROWS // mesh.shape["space"], T_HOURS // mesh.shape["time"]
@@ -1566,10 +1658,14 @@ def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str,
                 state, res["times"]["fit"] = synced(fit_step, x_loc[None], omega, mesh, 100)
             res.update(s=state.s[0].cpu(), loss=float(state.loss), fit_log=log_summary(flog),
                        coords=mesh.coords)
-        res["launches"] = launch_counts()
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del state
+            res["launches"], peak = launch_counts(), torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res["grid"], res["times"]["grid_18c"] = synced(grid_mesh_rank, x_loc, mesh, path, seed)
+            res["peak_gb_18c"] = torch.cuda.max_memory_allocated() / 1e9
+        res["peak_gb"] = peak / 1e9
         res["times"]["rank"] = time.perf_counter() - t_start
-        queue.put((rank, res))
+        queue.put((rank, _by_value(res)))
     except BaseException:
         queue.put((rank, {"error": traceback.format_exc()}))
         raise
@@ -1583,6 +1679,7 @@ def run_ranks(world: int, kind: str, path: Path, seed: int) -> tuple[list[dict],
     ``file://`` store under ``TMPDIR``) on the shared card; (their readings
     by rank, wall time).  Any rank's failure fails the phase."""
     import multiprocessing
+    import queue as queue_module
 
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
@@ -1590,14 +1687,28 @@ def run_ranks(world: int, kind: str, path: Path, seed: int) -> tuple[list[dict],
     init = f"file://{directory / 'store'}"
     procs = [ctx.Process(target=mesh_rank, args=(r, world, init, str(path), seed, kind, queue))
              for r in range(world)]
+    # the ranks share the card with this process: segments that grow in
+    # place keep each rank's freed blocks from fragmenting its share
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    free, total = torch.cuda.mem_get_info()
+    log(f"    {world} {kind} ranks: the card before them: {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated in this process, {free / 1e9:.1f} of {total / 1e9:.1f} GB free")
     t0 = time.perf_counter()
     try:
         for proc in procs:
             proc.start()
-        results = {}
+        results, deadline = {}, time.monotonic() + 600
         while len(results) < world:  # drained before the joins; stops at a failure
-            rank, res = queue.get(timeout=600)
-            results[rank] = res
+            try:
+                rank, res = queue.get(timeout=5)
+            except queue_module.Empty:
+                dead = [r for r, proc in enumerate(procs) if r not in results
+                        and proc.exitcode not in (None, 0)]
+                check(not dead and time.monotonic() < deadline,
+                      f"17 {kind} ranks {dead} died before their readings (exit codes "
+                      f"{[proc.exitcode for proc in procs]}), or 600 s passed")
+                continue
+            results[rank] = _by_value(res, back=True)
             if "error" in res:
                 break
         errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(results.items())
@@ -1608,6 +1719,7 @@ def run_ranks(world: int, kind: str, path: Path, seed: int) -> tuple[list[dict],
         check(all(proc.exitcode == 0 for proc in procs),
               f"17 {kind} ranks exit codes {[proc.exitcode for proc in procs]}")
     finally:
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         for proc in procs:
             if proc.is_alive():
                 proc.kill()
@@ -1710,9 +1822,12 @@ def phase_mesh_one_rank(x: torch.Tensor, omega: torch.Tensor) -> tuple[dict, dic
     return out, launches, refs
 
 
-def phase_mesh(week: dict, path: Path, seed: int) -> dict:
-    """Phase 17: the distributed layer on the card, inside phase 9 while
-    its packed artifact of the week exists.  (a) one rank over NCCL in
+def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
+    """Phases 17 and 18: the distributed layer and the SVD layer on it,
+    on the card, inside phase 9 while its packed artifact of the week
+    exists.  18's parts ride in 17's worlds (a spawn costs ~8 s): 18a
+    after 17a in this process, 18b (and 18d at P = 2) in 17b's ranks,
+    18c in 17c's (``phase_svd_mesh_one_rank``, ``mesh_rank``).  Phase 17:  (a) one rank over NCCL in
     this process; (b) P = 2 and 3 ranks sharing the card over gloo, each
     reading its rows of the artifact (``load_row_sharded``): the fused
     meshed step (K1), tree TSQR of its Yc (the split CholQR2 leaf, K5)
@@ -1722,7 +1837,7 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
     the portable step on (1, 2, 2), 4 ranks on the week's first
     ``MESH_PORTABLE_ROWS`` rows (a cut of depth), against (a)'s step on
     the same rows.  The ranks are spawned after phase 1 built every
-    kernel library.  Returns the launch counts of (a)-(c)."""
+    kernel library.  Returns the launch counts of 17a-c and 18a-d."""
     from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
     from dmd_era5_tpu_torch.ops.tsqr import tsqr
 
@@ -1732,6 +1847,14 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
     summary = {"card": smi_line()}
     (summary["17a"], launches, refs), summary["17a"]["seconds"] = synced(
         phase_mesh_one_rank, x, omega)
+    (summary["18a"], launches_18a), secs = synced(phase_svd_mesh_one_rank, week, seed)
+    summary["18a"]["seconds"] = secs
+    del week["u6_rand"], week["u6_exact"]  # 18a's alone: room for the ranks
+    for key, n in launches_18a.items():
+        launches[key] += n
+    svd_refs, summary["18b_refs_s"] = synced(svd_mesh_refs, week, ref8, seed)
+    bounds = svd_mesh_bounds(x.shape[1])
+    own18 = secs + summary["18b_refs_s"]  # 18's seconds in this process
 
     # 17b's references, uncounted: one-device TSQR of the whole Yc (the
     # split CholQR2 leaf) and of each world's whole panel (library QR:
@@ -1755,7 +1878,21 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
     for world in MESH_WORLDS:
         log(f"    P = {world}: K1, K5 and K7 against their plain versions at a rank's shapes")
         kernels = mesh_kernels_vs_plain(x, omega, world, seed)
-        ranks, wall = run_ranks(world, "fused", path, seed)
+        log(f"    P = {world}: 18b's K1, K6, K5 and K3 against their plain versions at a rank's "
+            "shapes")
+        svd_kernels, secs = synced(svd_kernels_vs_plain, x, world, seed)
+        own18 += secs
+        # the ranks read their rows from the artifact: the week's X leaves
+        # the card while they run (two ranks' 18b take ~52 GB of it)
+        if world == 2:  # 18d's world: config 1 one device here first, under one stage root
+            with stage_root():
+                stage_ref, stage_ref_s = synced(stage_mesh_routes, seed)
+                own18 += stage_ref_s
+                with off_card(x):
+                    ranks, wall = run_ranks(world, "fused", path, seed)
+        else:
+            with off_card(x):
+                ranks, wall = run_ranks(world, "fused", path, seed)
         part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log", "tsqr_log", "hh_log")),
                 "kernels": kernels}
         want = (int(math.log2(world)) if world & (world - 1) == 0
@@ -1798,10 +1935,44 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
             f"peak GB by rank {part['peak_gb']}; at a rank's shapes "
             + ", ".join(f"{key} {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, bound "
                         f"{k['bound_ms']:.4f})" for key, k in kernels.items()))
+        label = f"18b P={world}"
+        part18 = {"routes": held_svd_routes(label, [r["svd"] for r in ranks], svd_refs, bounds,
+                                            SVD_MESH_LAUNCHES),
+                  "kernels": svd_kernels, "rank_s": [round(r["times"]["svd_18b"], 3) for r in ranks],
+                  "peak_gb": [round(r["peak_gb_18b"], 3) for r in ranks]}
+        for res in ranks:
+            for route in res["svd"].values():
+                for key, n in route["launches"].items():
+                    launches[key] += n
+        summary[f"18b_P{world}"] = part18
+        log(f"    {label}: by route (s off one device's, of s[0]; max|U^T U - I| vs one device's; "
+            f"largest collective) "
+            + "; ".join(f"{name} {r['s_rel']:.2e}, {r['orth']:.2e} vs {r['orth_one_device']:.2e}, "
+                        f"{r['largest']}, {r['seconds']} s" for name, r in part18["routes"].items())
+            + f"; the rank's 18b {part18['rank_s']} s, peak GB by rank {part18['peak_gb']}; at a "
+            "rank's shapes " + ", ".join(
+                f"{key} {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library {k['library_ms']}, "
+                f"bound {k['bound_ms']:.4f})" for key, k in svd_kernels.items()))
+        if world == 2:
+            summary["18d"] = held_stage_routes(ranks, stage_ref)
+            summary["18d"]["one_device_s"] = stage_ref_s
+            summary["18d"]["rank_s"] = [round(r["times"]["stage_18d"], 3) for r in ranks]
+            for res in ranks:
+                for route in res["stage"].values():
+                    for key, n in route["launches"].items():
+                        launches[key] += n
+            log(f"[18d] config 1 over 2 ranks (mesh_shape space=2, "
+                f"{'compute_svd_results in memory: no h5py' if missing_file_packages() else 'era5_svd.main with the files'}): "
+                f"{json.dumps(summary['18d'], default=str)}")
 
     log(f"[17c] the portable step on {MESH_PORTABLE}: 4 ranks sharing the card over gloo, the "
         f"week's first {MESH_PORTABLE_ROWS} rows (a cut of depth: 2^20 of "
         f"{x.shape[0]} rows), against 17a's step on the same rows")
+    grid_refs, secs = synced(grid_mesh_refs, x, seed)
+    own18 += secs
+    log("    18c's K6, K3 and K5 against their plain versions at rank 0's shapes")
+    grid_kernels, secs = synced(grid_kernels_vs_plain, x, seed)
+    own18 += secs
     ranks, wall = run_ranks(4, "portable", path, seed)
     cut_s, cut_loss = refs["cut"]
     part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log",))}
@@ -1819,10 +1990,525 @@ def phase_mesh(week: dict, path: Path, seed: int) -> dict:
     log(f"    {wall:.2f} s wall; s off {part['s_rel']:.2e} of s[0], "
         f"loss off {part['loss_abs']:.2e}; the time-axis sketch sum "
         f"{MESH_PORTABLE_ROWS // 2 * 128} elements a rank through host memory")
+    summary["18c"] = held_grid_ranks(ranks, grid_refs)
+    summary["18c"]["kernels"] = grid_kernels
+    for res in ranks:
+        for key, n in res["grid"]["launches"].items():
+            launches[key] += n
+    log(f"[18c] on {MESH_PORTABLE} (17c's ranks, the same {MESH_PORTABLE_ROWS} rows): "
+        f"{json.dumps(summary['18c'], default=str)}")
     summary["seconds"] = time.perf_counter() - t_phase
-    log(f"[17] mesh {json.dumps(summary, default=str)}")
+    summary["18_own_seconds"] = own18  # 18a, its references and kernel checks in this process
+    log(f"[17] mesh and [18] SVD on the mesh {json.dumps(summary, default=str)}")
     log(f"    launches {launches}")
     return launches
+
+
+# phase 18: the SVD layer on the mesh.  The one-device runs each route is
+# held to: phase 3 (fused Hankel, the same sketch), 7 (exact Hankel), 8's
+# routes (a) Gram, (c) TSQR and (d) randomized (the same sketch), and the
+# unfused Hankel SVD on 18's own sketch, run here.  s read relative to
+# s[0] within SVD_MESH_S_TOL: every route but the TSQR one runs the same
+# algorithm on the same sketch as one device (only the psums' order
+# differs, or tree TSQR replaces the one-device leaf; the readings are
+# 1e-7-2e-6).  A halo column dropped at 18c's time boundary (one window
+# in 167) moves s by ~1e-3 of s[0]: 18c runs that control and it must
+# miss the limit.  U's summed Gram no further from I than one device's
+# plus MESH_ORTH_SLACK, or 1e-3 (the smoke's limit) where the leaf
+# differs; the TSQR route in the centred fault's bracket.  Collective
+# bounds: tests/test_21_comm_pattern.py's.
+SVD_MESH_K, SVD_MESH_D = 100, 2
+SVD_MESH_S_TOL = 1e-5
+SVD_MESH_LAUNCHES = {  # in the ranks' order: the largest footprint first
+    "unfused": counts(K3=5, K5=10, K6=5), "fused": counts(K1=5), "exact": counts(K1=1, K5=1),
+    "gram": counts(K1=1, K5=1), "tsqr": counts(K5=2), "randomized": counts(K5=10),
+}
+# 18c on (1, 2, 2) and 18d's three routes of config 1 (config.ini's
+# [era5-svd] with mesh_shape space=2 and these overrides)
+SVD_GRID_LAUNCHES = counts(K3=5, K5=20, K6=6)
+STAGE_MESH_ROUTES = (("randomized", {}), ("standard", {"svd_type": "standard"}),
+                     ("inmem", {"svd_backend": "inmem"}))
+
+
+def svd_mesh_omegas(t_cols: int, seed: int) -> dict:
+    """18's sketches, drawn alike in every process from their seeds:
+    phase 3's (fused Hankel, 128 columns) and the unfused Hankel SVD's
+    (110 = k + 10 columns, as the JAX sharded default)."""
+    def draw(cols, offset):
+        gen = torch.Generator(device="cuda").manual_seed(seed + offset)
+        return torch.randn((t_cols - SVD_MESH_D + 1, cols), generator=gen, device="cuda")
+
+    return {"fused": draw(128, 1), "unfused": draw(SVD_MESH_K + 10, 18)}
+
+
+def svd_mesh_bounds(t_cols: int) -> dict:
+    """Each route's largest collective payload (elements) allowed by
+    tests/test_21_comm_pattern.py: the (r, T-d+1) projection or 4 r^2
+    for the randomized routes (r = k + 10, or 128 fused), T^2 for the
+    exact Hankel SVD's raw Gram, 2 T^2 for the exact routes at d = 1."""
+    t_out, r = t_cols - SVD_MESH_D + 1, SVD_MESH_K + 10
+    rand = max(2 * r * t_cols, 4 * r * r)
+    return {"fused": 128 * t_out, "unfused": rand, "exact": t_cols * t_cols,
+            "gram": 2 * t_cols * t_cols, "tsqr": 2 * t_cols * t_cols, "randomized": rand}
+
+
+def svd_mesh_route(name: str, x: torch.Tensor, mesh, omegas: dict, seed: int):
+    """One of 18's SVDs on this rank's rows x of the week, on ``mesh``."""
+    from dmd_era5_tpu_torch.ops import hankel
+    from dmd_era5_tpu_torch.ops.svd import truncated_svd
+
+    d, k = SVD_MESH_D, SVD_MESH_K
+    if name == "fused":
+        return hankel.hankel_randomized_svd_sharded(x, d, k, mesh, n_oversamples=28,
+                                                    omega=omegas["fused"])
+    if name == "unfused":
+        return hankel.hankel_randomized_svd_sharded(x, d, k, mesh, fused=False,
+                                                    omega=omegas["unfused"])
+    if name == "exact":
+        return hankel.hankel_exact_svd(x, d, k, mesh=mesh)
+    if name == "randomized":
+        return truncated_svd(x, k, svd_type="randomized", seed=seed + 5, mesh=mesh)
+    return truncated_svd(x, k, svd_type="standard", mesh=mesh,
+                         exact_method="tsqr" if name == "tsqr" else "auto")
+
+
+def run_svd_mesh_routes(names, x: torch.Tensor, mesh, seed: int) -> dict:
+    """18's routes ``names`` on this rank's rows x: each one's s, its U
+    block's Gram in f64 (summed over the ranks by the caller), seconds,
+    collective log and launches, U freed before the next."""
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    omegas = svd_mesh_omegas(x.shape[1], seed)
+    out = {}
+    for name in names:
+        before = launch_counts()
+        with collective_log() as clog:
+            (u, s, _), secs = synced(svd_mesh_route, name, x, mesh, omegas, seed)
+        after = launch_counts()
+        out[name] = {"s": s.cpu(), "gram": gram_f64(u).cpu(), "seconds": secs,
+                     "log": log_summary(clog),
+                     "launches": {key: after[key] - before[key] for key in after}}
+        del u, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def svd_mesh_refs(week: dict, ref8: dict, seed: int) -> dict:
+    """18b's one-device references: (s, max|U^T U - I|) by route; the
+    unfused Hankel SVD on 18's sketch run here (uncounted)."""
+    from dmd_era5_tpu_torch.ops.hankel import hankel_randomized_svd
+
+    omega = svd_mesh_omegas(week["x"].shape[1], seed)["unfused"]
+    u, s, _ = hankel_randomized_svd(week["x"], SVD_MESH_D, SVD_MESH_K, omega=omega)
+    refs = {"unfused": (s.cpu(), orthonormality(u)), **ref8["routes"],
+            "fused": (week["s_rand"].cpu(), week["orth_rand"]),
+            "exact": (week["s_exact"].cpu(), week["orth_exact"])}
+    del u, s
+    torch.cuda.empty_cache()
+    return refs
+
+
+def svd_kernels_vs_plain(x: torch.Tensor, world: int, seed: int) -> dict:
+    """18b's kernels against their plain versions at the shapes a rank of
+    ``world`` gives them, on rank 0's rows of the week: K1 as the fused
+    sharded pass launches it (stacked W of phase 3's sketch, N 256, no
+    centring), K5 on the rows (the exact, Gram and TSQR routes' raw Gram),
+    K6 as ``hankel_sketch`` (W of 18's unfused sketch, N 220), K3 as
+    ``hankel_project`` (Q' of that sketch's Y side by side, (S_loc, 220)),
+    K5 on that Y (the split CholQR2 leaf's Gram).
+    Uncounted; returns each kernel's errors and times."""
+    from dmd_era5_tpu_torch.ops.hankel import hankel_sketch, stacked_sketch_matrix
+    from dmd_era5_tpu_torch.parallel.sharding import row_block
+
+    r0, r1, _ = row_block(x.shape[0], world, 0)
+    x_loc = x[r0:r1]
+    t = x.shape[1]
+    omegas = svd_mesh_omegas(t, seed)
+    label = f"18b P={world} rank 0"
+    k1 = compare_kernel(label, x_loc, stacked_sketch_matrix(omegas["fused"], SVD_MESH_D, t),
+                        torch.float32, centred=True, center=False)
+    k5x = compare_gram(label, x_loc, "bf16_split")  # the exact routes' raw Gram
+    w = stacked_sketch_matrix(omegas["unfused"], SVD_MESH_D, t)
+    k6 = compare_matmul(label, x_loc, w, f64_gate=True)
+    y = hankel_sketch(x_loc, omegas["unfused"], SVD_MESH_D)
+    k5 = compare_gram(label, y, "bf16_split")
+    s_loc, r = x_loc.shape[0], omegas["unfused"].shape[1]
+    q_wide = y.view(SVD_MESH_D, s_loc, r).transpose(0, 1).reshape(s_loc, SVD_MESH_D * r)
+    del y
+    k3 = compare_project(label, x_loc, q_wide)
+    del q_wide
+    torch.cuda.empty_cache()
+    times = ("ms", "plain_ms", "bound_ms", "library_ms")
+    return {"K1": {"m": k1["m"], "rel_err": k1["rel_err"], "G_vs_f64": k1["kernel_G_vs_f64"],
+                   "C_vs_f64": k1["kernel_C_vs_f64"], **{key: k1.get(key) for key in times}},
+            "K6": {key: k6.get(key) for key in ("rel_err", "kernel_vs_f64_over_max", *times)},
+            "K5": {"G_vs_f64_over_max": k5["kernel_max_abs_vs_f64_over_max"],
+                   **{key: k5.get(key) for key in times}},
+            "K5_x": {"G_vs_f64_over_max": k5x["kernel_max_abs_vs_f64_over_max"],
+                     **{key: k5x.get(key) for key in times}},
+            "K3": {key: k3.get(key) for key in ("C_vs_plain_over_max", "kernel_C_vs_f64_over_max",
+                                                 *times)}}
+
+
+def grid_kernels_vs_plain(x: torch.Tensor, seed: int) -> dict:
+    """18c's kernels against their plain versions at the shapes rank 0 of
+    (1, 2, 2) gives them on the week's first MESH_PORTABLE_ROWS rows, its
+    (S_loc, L) = (2^19, 84) block: K6 as the time-sharded sketch launches
+    it (the block @ its (L, d r) segment of 18's unfused sketch, N 220),
+    K3 as ``_hankel_project_grid`` (the block against Q' (S_loc, d r), the
+    rank's sketch Y side by side), K5 on that Y (d S_loc, r), the
+    ``hankel_randomized_svd_2d`` TSQR leaf's Gram, and on its first
+    (S_loc, r) rows, the ``randomized_svd_2d`` leaf's shape.  Uncounted;
+    returns each kernel's errors and times."""
+    from dmd_era5_tpu_torch.ops.hankel import _time_segment, hankel_sketch
+
+    d, s_loc, l_cols = SVD_MESH_D, MESH_PORTABLE_ROWS // 2, T_HOURS // 2
+    rows = x[:s_loc]
+    block = rows[:, :l_cols].contiguous()
+    omega = svd_mesh_omegas(T_HOURS, seed)["unfused"]
+    label = "18c rank 0"
+    segment = _time_segment(torch.nn.functional.pad(omega, (0, 0, d - 1, d - 1)), d, l_cols, 0)
+    k6 = compare_matmul(label, block, segment.contiguous(), f64_gate=True)
+    y = hankel_sketch(rows, omega, d)  # (d S_loc, r): the rank's sketch summed over time
+    k5 = {"hankel2d": compare_gram(label, y, "bf16_split"),
+          "svd2d": compare_gram(label, y[:s_loc], "bf16_split")}
+    r = omega.shape[1]
+    q_wide = y.view(d, s_loc, r).transpose(0, 1).reshape(s_loc, d * r)
+    del y
+    k3 = compare_project(label, block, q_wide)
+    del q_wide, block
+    torch.cuda.empty_cache()
+    times = ("ms", "plain_ms", "bound_ms", "library_ms")
+    out = {"K6": {key: k6.get(key) for key in ("rel_err", "kernel_vs_f64_over_max", *times)},
+           "K3": {key: k3.get(key) for key in ("C_vs_plain_over_max", "kernel_C_vs_f64_over_max",
+                                                *times)}}
+    for name, k in k5.items():
+        out[f"K5_{name}"] = {"m": k["m"], "G_vs_f64_over_max": k["kernel_max_abs_vs_f64_over_max"],
+                             **{key: k.get(key) for key in times}}
+    return out
+
+
+def held_svd_routes(label: str, parts: list[dict], refs: dict, bounds: dict,
+                    expect: dict) -> dict:
+    """Phase 18's checks on the ranks' readings of each route (``parts``,
+    one dict by route a rank): s alike on every rank and held to the
+    one-device run (``refs``: (s, orthonormality)), U's summed Gram,
+    each rank's collective log within ``bounds`` and its launches
+    ``expect`` exactly.  Returns the readings by route."""
+    out = {}
+    exact = refs.get("gram", (None,))[0]
+    for name in parts[0]:
+        rows = [p[name] for p in parts]
+        s = rows[0]["s"]
+        check(all(torch.equal(r["s"], s) for r in rows), f"{label} {name}: s differ across ranks")
+        ref_s, ref_orth = refs[name]
+        s_rel = float((s.double() - ref_s.double()).abs().max() / ref_s.double()[0])
+        gram = sum(r["gram"] for r in rows)
+        orth = float((gram - torch.eye(gram.shape[0], dtype=gram.dtype)).abs().max())
+        largest = max(r["log"]["largest"]["space"] for r in rows)
+        read = {"s_rel": s_rel, "orth": orth, "orth_one_device": ref_orth, "largest": largest,
+                "seconds": [round(r["seconds"], 4) for r in rows],
+                "collectives": rows[0]["log"]["by_op"]}
+        if name == "tsqr":
+            lo, hi = TSQR_CENTRED_FAULT["orth"]
+            rel = (s.double() / exact.double() - 1).abs()
+            read.update(lead6_vs_gram=float(rel[:6].max()), all_vs_gram=float(rel.max()))
+            check(lo < orth <= hi, f"{label} tsqr: known fault, split CholQR2 leaf on row-"
+                  f"centred X (ROADMAP Queue 3): U^T U - I max {orth:.3e} outside ({lo}, {hi}]")
+            check(read["lead6_vs_gram"] <= TSQR_CENTRED_FAULT["lead6"]
+                  and read["all_vs_gram"] <= 2e-3, f"{label} tsqr: s vs the Gram route {read}")
+        elif name in ("fused", "exact", "gram"):
+            check(s_rel <= SVD_MESH_S_TOL, f"{label} {name}: s off one device's by {s_rel:.3e} "
+                  f"of s[0] > {SVD_MESH_S_TOL}")
+            check(orth <= ref_orth + MESH_ORTH_SLACK, f"{label} {name}: max|U^T U - I| "
+                  f"{orth:.3e} > one device's {ref_orth:.3e} + {MESH_ORTH_SLACK}")
+        else:
+            check(s_rel <= SVD_MESH_S_TOL, f"{label} {name}: s off one device's by {s_rel:.3e} "
+                  f"of s[0] > {SVD_MESH_S_TOL}")
+            check(orth <= 1e-3, f"{label} {name}: max|U^T U - I| {orth:.3e} > 1e-3")
+        check(largest <= bounds[name], f"{label} {name}: a collective of {largest} elements > "
+              f"{bounds[name]} (tests/test_21_comm_pattern.py)")
+        for rank, r in enumerate(rows):
+            check(r["launches"] == expect[name], f"{label} {name} rank {rank}: launches "
+                  f"{r['launches']}, expected {expect[name]}")
+        out[name] = read
+    return out
+
+
+def phase_svd_mesh_one_rank(week: dict, seed: int) -> tuple[dict, dict]:
+    """18a: the fused sharded Hankel SVD (phase 3's sketch) and the
+    sharded exact Hankel SVD on a (1, 1, 1) mesh of this process over
+    NCCL, against phases 3 and 7 on the same X: s within SVD_MESH_S_TOL
+    of s[0], U's leading 6 columns spanning phase 3's and 7's (cosine
+    above 1 - 1e-6), launches exact.  Returns (readings, launches)."""
+    import torch.distributed as dist
+
+    from dmd_era5_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_mesh_"))
+    x = week["x"]
+    launches, out = counts(), {}
+    try:
+        backend = initialize_distributed(f"file://{directory / 'store'}", world_size=1, rank=0)
+        check(backend == "nccl", f"18a: a one-rank group on one card chose {backend}")
+        mesh = make_mesh()
+        omegas = svd_mesh_omegas(x.shape[1], seed)
+        bounds = svd_mesh_bounds(x.shape[1])
+        for name, (ref_s, ref_u6) in (("fused", (week["s_rand"], week["u6_rand"])),
+                                      ("exact", (week["s_exact"], week["u6_exact"]))):
+            from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+            reset_counts()
+            with collective_log() as clog:
+                (u, s, _), secs = synced(svd_mesh_route, name, x, mesh, omegas, seed)
+            got = launch_counts()
+            check(got == SVD_MESH_LAUNCHES[name], f"18a {name}: launches {got}")
+            for key, n in got.items():
+                launches[key] += n
+            s_rel = float((s.double() - ref_s.double()).abs().max() / ref_s.double()[0])
+            cos = subspace_cos_min(u[:, :6], ref_u6)
+            orth = orthonormality(u)
+            del u
+            check(s_rel <= SVD_MESH_S_TOL, f"18a {name}: s off one device's by {s_rel:.3e}")
+            check(cos > 1 - 1e-6, f"18a {name}: leading-6 subspace cos min {cos:.9f}")
+            check(orth <= 1e-3, f"18a {name}: max|U^T U - I| {orth:.3e}")
+            check(clog.largest() <= bounds[name], f"18a {name}: collectives {clog.by_op()}")
+            out[name] = dict(seconds=secs, s_rel=s_rel, lead6_cos=cos, orth=orth,
+                             collectives=log_summary(clog))
+            log(f"[18a] {name} on one rank over {backend}: {secs:.3f} s, s off one device's "
+                f"{s_rel:.2e} of s[0], leading-6 cos 1 - {1 - cos:.2e}, max|U^T U - I| "
+                f"{orth:.2e}, collectives {clog.by_op()}, launches {got}")
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
+    return out, launches
+
+
+def grid_mesh_rank(x_loc: torch.Tensor, mesh, path: str, seed: int) -> dict:
+    """18c on this rank's (S/2, T/2) block of the week's first
+    MESH_PORTABLE_ROWS rows: ``randomized_svd_2d`` and
+    ``hankel_randomized_svd_2d`` (d = 2, 18's unfused sketch), s and U's
+    block Gram back; ``hankel_sketch_time_sharded`` and
+    ``delay_embed_time_sharded`` held here against the rank's whole rows
+    (the f64 product; the embedding bit for bit); then, after the
+    launches are read, ``hankel_randomized_svd_2d`` again with the right
+    halo dropped (a control: its s must miss the limit)."""
+    from dmd_era5_tpu_torch.ops import hankel
+    from dmd_era5_tpu_torch.ops.svd import randomized_svd_2d
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    d, k = SVD_MESH_D, SVD_MESH_K
+    omega = svd_mesh_omegas(T_HOURS, seed)["unfused"]
+    out, before = {}, launch_counts()
+    for name, fn in (("svd2d", lambda: randomized_svd_2d(x_loc, k, mesh, seed=seed + 18)),
+                     ("hankel2d", lambda: hankel.hankel_randomized_svd_2d(x_loc, d, k, mesh,
+                                                                          omega=omega))):
+        with collective_log() as clog:
+            (u, s, _), secs = synced(fn)
+        out[name] = {"s": s.cpu(), "gram": gram_f64(u).cpu(), "seconds": secs,
+                     "log": log_summary(clog)}
+        del u, s
+        torch.cuda.empty_cache()
+    per = MESH_PORTABLE_ROWS // mesh.shape["space"]
+    r0, t_loc = mesh.coords["space"] * per, x_loc.shape[1]
+    t0 = mesh.coords["time"] * t_loc
+    rows = torch.from_numpy(np.ascontiguousarray(np.load(path, mmap_mode="r")[r0:r0 + per]))
+    rows = rows.cuda()
+    with collective_log() as clog:
+        y, secs = synced(hankel.hankel_sketch_time_sharded, x_loc, omega, d, mesh)
+    w = hankel.stacked_sketch_matrix(omega.double(), d, T_HOURS)
+    y_ref = (rows.double() @ w).view(per, d, -1).transpose(0, 1).reshape(d * per, -1)
+    err = float((y.double() - y_ref).abs().max() / y_ref.abs().max())
+    out["sketch"] = {"err": err, "seconds": secs, "log": log_summary(clog)}
+    del y, y_ref
+    with collective_log() as clog:
+        emb, secs = synced(hankel.delay_embed_time_sharded, x_loc, d, mesh)
+    want = torch.zeros_like(emb)
+    for j in range(d):  # block j at global column t holds X[:, t - (d - 1) + j]
+        lo = max(0, d - 1 - j - t0)
+        want[j * per:(j + 1) * per, lo:] = rows[:, t0 + lo - (d - 1) + j:t0 + t_loc - (d - 1) + j]
+    out["embed"] = {"equal": bool(torch.equal(emb, want)), "seconds": secs,
+                    "log": log_summary(clog)}
+    del emb, want, rows
+    after = launch_counts()
+    out["launches"] = {key: after[key] - before[key] for key in after}
+
+    def dropped_halo(c, axis_name, mesh_, halo, axis):  # the neighbour's columns never arrive
+        return torch.nn.functional.pad(c, (0, halo))
+
+    # the control, uncounted: hankel2d with the projection's right halo dropped
+    saved = hankel.halo_exchange_right
+    hankel.halo_exchange_right = dropped_halo
+    try:
+        (u, s, _), secs = synced(hankel.hankel_randomized_svd_2d, x_loc, d, k, mesh, omega=omega)
+    finally:
+        hankel.halo_exchange_right = saved
+    out["halo_dropped"] = {"s": s.cpu(), "seconds": secs}
+    del u, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_mesh_routes(seed: int) -> dict:
+    """18d's config 1 (config.ini's [era5-svd] on the mock, mesh_shape
+    from the caller's world: space=2 over 2 ranks, auto for one process)
+    by STAGE_MESH_ROUTES: ``era5_svd.main`` with the files where h5py
+    is installed (the slice staged first by the one-device run), else ``compute_svd_results``
+    on the mock slice in memory (the global numpy state seeded, alike in
+    every process).  Returns each route's factors, backend, X, seconds
+    and launches."""
+    import torch.distributed as dist
+
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
+
+    meshed = dist.is_initialized()
+    missing = missing_file_packages()
+    if not (missing or meshed):  # the one-device run stages the slice the ranks read
+        from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+
+        np.random.seed(seed)
+        dl = config_parser(stage_config("era5-download"), "era5-download")
+        save_fieldset(era5_download.download_era5_data(dl, use_mock_data=True), dl["save_path"])
+    out = {}
+    for name, overrides in STAGE_MESH_ROUTES:
+        cfg = stage_config("era5-svd", source_path="mock_data",
+                           mesh_shape="space=2" if meshed else "auto", **overrides)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        if missing:
+            np.random.seed(seed)
+            dl = config_parser(stage_config("era5-download"), "era5-download")
+            fs = era5_download.download_era5_data(dl, use_mock_data=True)
+            res = era5_svd.compute_svd_results(fs, config_parser(dict(cfg), "era5-svd"))
+        else:
+            res = era5_svd.main(dict(cfg), write_artifact=False)[0]
+        torch.cuda.synchronize()
+        after = launch_counts()
+        out[name] = {"u": np.asarray(res["U"].values), "s": np.asarray(res["s"].values),
+                     "x": np.asarray(res["X"].values), "backend": res.attrs["svd_backend"],
+                     "svd_seconds": res.attrs["svd_seconds"], "wall": time.perf_counter() - t0,
+                     "launches": {key: after[key] - before[key] for key in after}}
+    return out
+
+
+def held_stage_routes(ranks: list[dict], ref: dict) -> dict:
+    """18d's checks: each route's U and s alike on both ranks, U^T U to
+    1e-3, s at most the f64 s of the stage's X (1 + 1e-4, as 12a), the
+    launches of a rank those of the one-device run; s held to one
+    device's: the standard route's within 1e-4 (tests/test_20_svd_backends.py:154),
+    the inmem route's within 1e-3 (the same sketch; tests/test_03_svd.py:265).
+    The randomized route's sketch (k + 10 columns, the JAX sharded
+    default) is narrower than the one-device fused SVD's (k + 28) and the
+    same as the inmem route's (drawn alike from seed 0), whose subspace
+    iteration it is: its s within 1e-3 of the one-device inmem route's."""
+    out = {}
+    for name, _ in STAGE_MESH_ROUTES:
+        got, one = ranks[0]["stage"][name], ref[name]
+        for r in ranks[1:]:
+            check(np.array_equal(np.asarray(r["stage"][name]["u"]), np.asarray(got["u"]))
+                  and np.array_equal(np.asarray(r["stage"][name]["s"]), np.asarray(got["s"])),
+                  f"18d {name}: the ranks' U or s differ")
+        want = {"randomized": "hankel", "standard": "hankel", "inmem": "inmem"}[name]
+        check(got["backend"] == want == one["backend"],
+              f"18d {name}: backend {got['backend']} (one device {one['backend']}), want {want}")
+        s = np.asarray(got["s"], dtype=np.float64)
+        held = np.asarray((ref["inmem"] if name == "randomized" else one)["s"], dtype=np.float64)
+        s_f64 = np.linalg.svd(np.asarray(got["x"], dtype=np.float64), compute_uv=False)[: len(s)]
+        u = np.asarray(got["u"], dtype=np.float64)
+        orth = float(np.abs(u.T @ u - np.eye(u.shape[1])).max())
+        ratio = s / s_f64
+        read = {"s_rel_held": float(np.abs(s / held - 1).max()),
+                "ratio_f64": (float(ratio.min()), float(ratio.max())),
+                "ratio_f64_one_device": (float((one["s"] / s_f64).min()),
+                                         float((one["s"] / s_f64).max())),
+                "orth": orth, "svd_seconds": [r["stage"][name]["svd_seconds"] for r in ranks],
+                "wall": [round(r["stage"][name]["wall"], 3) for r in ranks],
+                "one_device_svd_seconds": one["svd_seconds"], "launches": got["launches"]}
+        check(orth <= 1e-3, f"18d {name}: max|U^T U - I| {orth:.3e} > 1e-3")
+        check(float(ratio.max()) <= 1 + 1e-4, f"18d {name}: s above the f64 s of X {read}")
+        for rank, r in enumerate(ranks):
+            check(r["stage"][name]["launches"] == one["launches"],
+                  f"18d {name} rank {rank}: launches {r['stage'][name]['launches']}, one "
+                  f"device {one['launches']}")
+        limit = 1e-4 if name == "standard" else 1e-3
+        check(read["s_rel_held"] <= limit, f"18d {name}: s off one device's by "
+              f"{read['s_rel_held']:.3e} > {limit}")
+        out[name] = read
+    return out
+
+
+def grid_mesh_refs(x: torch.Tensor, seed: int) -> dict:
+    """18c's one-device references on the week's first MESH_PORTABLE_ROWS
+    rows, on the same sketches (uncounted): the randomized SVD (18c's
+    seed) and the unfused Hankel SVD at d = 2 (18's unfused sketch)."""
+    from dmd_era5_tpu_torch.ops.hankel import hankel_randomized_svd
+    from dmd_era5_tpu_torch.ops.svd import randomized_svd
+
+    cut = x[:MESH_PORTABLE_ROWS]
+    omega = svd_mesh_omegas(x.shape[1], seed)["unfused"]
+    out = {}
+    for name, fn in (("svd2d", lambda: randomized_svd(cut, SVD_MESH_K, seed=seed + 18)),
+                     ("hankel2d", lambda: hankel_randomized_svd(cut, SVD_MESH_D, SVD_MESH_K,
+                                                                omega=omega))):
+        u, s, _ = fn()
+        out[name] = (s.cpu(), orthonormality(u))
+        del u, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_grid_ranks(ranks: list[dict], refs: dict) -> dict:
+    """18c's checks: the grid SVDs' s alike on every rank and within
+    SVD_MESH_S_TOL of s[0] of one device's on the same rows and sketch
+    (the halo-dropped control's outside it), U's
+    Gram summed over the space ranks (U is alike across time) within
+    1e-3 of I; the time-sharded sketch within SVD_MESH_S_TOL of the f64
+    product (of its max), the embedding bit for bit; the collectives of
+    tests/test_21_comm_pattern.py:91,123 (only the sketch's (d S_loc, r)
+    sum over time scales with rows) and the launches exactly."""
+    s_loc, r, d = MESH_PORTABLE_ROWS // 2, SVD_MESH_K + 10, SVD_MESH_D
+    bounds = {"svd2d": s_loc * r, "hankel2d": d * s_loc * r, "sketch": d * s_loc * r,
+              "embed": s_loc * (d - 1)}
+    out = {}
+    for name in ("svd2d", "hankel2d"):
+        rows = [res["grid"][name] for res in ranks]
+        s = rows[0]["s"]
+        check(all(torch.equal(row["s"], s) for row in rows), f"18c {name}: s differ across ranks")
+        ref_s, ref_orth = refs[name]
+        s_rel = float((s.double() - ref_s.double()).abs().max() / ref_s.double()[0])
+        gram = sum(row["gram"] for row, res in zip(rows, ranks) if res["coords"]["time"] == 0)
+        orth = float((gram - torch.eye(gram.shape[0], dtype=gram.dtype)).abs().max())
+        check(s_rel <= SVD_MESH_S_TOL, f"18c {name}: s off one device's by {s_rel:.3e} of s[0] "
+              f"> {SVD_MESH_S_TOL}")
+        check(orth <= 1e-3, f"18c {name}: max|U^T U - I| {orth:.3e} > 1e-3")
+        out[name] = {"s_rel": s_rel, "orth": orth, "orth_one_device": ref_orth,
+                     "seconds": [round(row["seconds"], 3) for row in rows]}
+    ref_s = refs["hankel2d"][0].double()
+    dropped = max(float((res["grid"]["halo_dropped"]["s"].double() - ref_s).abs().max() / ref_s[0])
+                  for res in ranks)
+    check(dropped > SVD_MESH_S_TOL, f"18c control: hankel2d with its right halo dropped reads "
+          f"s off by {dropped:.3e} of s[0], within {SVD_MESH_S_TOL}: the limit does not tell it")
+    out["halo_dropped_s_rel"] = dropped
+    for rank, res in enumerate(ranks):
+        grid = res["grid"]
+        check(grid["sketch"]["err"] <= SVD_MESH_S_TOL,
+              f"18c rank {rank}: time-sharded sketch off the f64 product by {grid['sketch']['err']:.3e}")
+        check(grid["embed"]["equal"], f"18c rank {rank}: the time-sharded embedding differs")
+        for name, bound_ in bounds.items():
+            largest = grid[name]["log"]["largest"]
+            check(max(largest.values()) <= bound_,
+                  f"18c rank {rank} {name}: collectives {grid[name]['log']} over {bound_}")
+        check(grid["launches"] == SVD_GRID_LAUNCHES,
+              f"18c rank {rank}: launches {grid['launches']}, expected {SVD_GRID_LAUNCHES}")
+    out["sketch_err"] = max(res["grid"]["sketch"]["err"] for res in ranks)
+    out["rank_s"] = [round(res["times"]["grid_18c"], 3) for res in ranks]
+    out["peak_gb"] = [round(res["peak_gb_18c"], 3) for res in ranks]
+    out["collectives"] = {name: ranks[0]["grid"][name]["log"]["by_op"]
+                          for name in ("svd2d", "hankel2d", "sketch", "embed")}
+    return out
 
 
 def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, center: bool,

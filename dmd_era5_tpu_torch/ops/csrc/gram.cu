@@ -57,6 +57,10 @@
 //   so K4 and K1's G stage take 64-wide blocks for 128 < K <= 192
 //   (atb_tc::gram_edge), 128 elsewhere; a 64 x 64 block costs ~0.45 of a
 //   128 x 128 one for a quarter of its MMAs (twice the loads an output).
+//   At the bench's shape (M 2^19, K 128, the fit step's Yc at T 512;
+//   --parts bench, the same card): K4 0.283 / 0.375 ms at edge 128 / 64,
+//   K1's G stage 0.284 / 0.373, a.T @ a 0.338; bf16 0.161 (128 only): the
+//   table stands.
 //   bf16 A: 128 x 128 (the bf16 kernel's one shape).
 //   K5, K <= 256  64 x 64  K 110: 3 blocks, 2.0x the upper half's entries;
 //                          K 168: 6 blocks, 1.7x (128-wide blocks: 2.7x and

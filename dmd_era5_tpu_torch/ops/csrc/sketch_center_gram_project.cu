@@ -64,7 +64,10 @@
 //   so 112 where one 112-wide column holds N, else 128.  A 128-wide pass
 //   reads ~12% under a 112-wide one though its MMAs are 14% wider and its
 //   ring 2 chunks deep (its f32 planes take 168 KB at T 168): the pass is
-//   not bound by its MMAs (matmul_tc.cuh's note).
+//   not bound by its MMAs (matmul_tc.cuh's note).  At the bench's shape
+//   (M 2^19, T 512, N 128, where the TPU sweeps ran; --parts bench, the
+//   same card): f32 1.165 / 1.163 ms at 112 / 128 columns (W held: 1.801;
+//   the table streams it, 1.160), bf16 1.020 / 0.480: the table stands.
 //
 // The table's T axis, streams_w: an f32 sketch holds W (resident up to 176
 // rows of K, past that restaged in 160-row panels every tile and panel) or

@@ -162,12 +162,15 @@ def _tsqr_body(x_block: torch.Tensor, axis_name: str, mesh: Mesh, method: str):
     return q1 @ chain, r
 
 
-def tsqr_orthonormalize(y_block: torch.Tensor, axis_name: str, mesh: Mesh,
+def tsqr_orthonormalize(y_block: torch.Tensor, axis_name: str, mesh: Mesh | None,
                         method: str) -> torch.Tensor:
     """Orthonormalize a row-sharded tall-skinny matrix, Q only: the local
     factor, the tree-reduced R combine, the rank-local Q recovery
-    (``dmd_era5_tpu/ops/tsqr.py:227``)."""
+    (``dmd_era5_tpu/ops/tsqr.py:227``).  Without a mesh, or on an axis of
+    one rank, the local factor's Q."""
     q1, r1 = _local_factor(y_block, method)
+    if mesh is None or mesh.shape[axis_name] == 1:
+        return q1
     chain, _ = _combine(r1, axis_name, mesh)
     return q1 @ chain
 

@@ -17,6 +17,7 @@ from dmd_era5_tpu_torch.parallel.mesh import (
 )
 from dmd_era5_tpu_torch.parallel.sharding import (
     Layout,
+    assemble_rows,
     col_sharded,
     grid_sharded,
     pad_rows_to_multiple,
@@ -46,4 +47,5 @@ __all__ = [
     "pad_rows_to_multiple",
     "shard_rows",
     "reshard",
+    "assemble_rows",
 ]

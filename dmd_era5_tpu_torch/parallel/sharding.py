@@ -29,6 +29,7 @@ __all__ = [
     "row_block",
     "shard_rows",
     "reshard",
+    "assemble_rows",
 ]
 
 
@@ -136,3 +137,19 @@ def reshard(x: torch.Tensor, src: Layout, dst: Layout) -> torch.Tensor:
             step = x.shape[d_dst] // mesh.shape[axis]
             x = x.narrow(d_dst, mesh.coords[axis] * step, step)
     return x
+
+
+def assemble_rows(block: torch.Tensor, mesh: Mesh, axis: str = AXIS_SPACE, d: int = 1,
+                  rows: int | None = None) -> np.ndarray:
+    """The global (d*rows, k) matrix on this rank's host, from each rank's
+    row block along ``axis`` (the counterpart of ``np.asarray`` on a JAX
+    array sharded over rows): the blocks all-gathered in axis order, and
+    for an interleaved Hankel block (d blocks of S_loc rows a rank,
+    ``ops.hankel``) put delay-major (``dmd_era5_tpu/ops/hankel.py:356-360``);
+    the zero padding past ``rows`` cut inside each delay block.  Every
+    rank of the line calls it."""
+    parts = all_gather(block, axis, mesh)  # (P, d*S_loc, k)
+    n_shards, s_loc = parts.shape[0], parts.shape[1] // d
+    out = parts.reshape(n_shards, d, s_loc, -1).transpose(0, 1).reshape(d, n_shards * s_loc, -1)
+    rows = n_shards * s_loc if rows is None else rows
+    return out[:, :rows].reshape(d * rows, -1).cpu().numpy()

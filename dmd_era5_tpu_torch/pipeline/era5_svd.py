@@ -1,8 +1,8 @@
-"""The SVD stage on one device: its dispatcher and its ``main``.
+"""The SVD stage: its dispatcher and its ``main``, on one device or a mesh.
 
 The port's counterpart of ``dmd_era5_tpu/pipeline/era5_svd.py``:
-:func:`resolve_svd_backend`, the single-device branches of the
-``hankel``, ``streamed``, ``onepass`` and ``inmem`` backends behind
+:func:`resolve_svd_backend` against the mesh, the ``hankel``,
+``grid2d``, ``streamed``, ``onepass`` and ``inmem`` backends behind
 :func:`svd_on_era5`, :func:`combine_svd_results`, and the stage's
 :func:`main` with its cache ladder (workdir attr match, then the
 artifact store, then compute) and artifact write.  :func:`main` calls
@@ -13,12 +13,14 @@ to the device once and flattened and standardized there, and the
 factors come back as host (numpy) arrays, as the JAX function returns
 them.
 
-The stage runs on one device and resolves as the JAX one does on a
-one-device mesh (space = time = 1).  The port's mesh (``parallel``), its
-tree TSQR and the meshed fit step exist, but the SVD layer on a mesh
-does not yet: a ``mesh_shape`` over more than one device, a multislice
-``dcn_mesh_shape``, the ``grid2d`` backend and a multi-process group
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12, step 9b).
+The stage mesh is ``parallel.mesh_from_config`` over the process
+group's world (one process: a (1, 1, 1) mesh; a ``mesh_shape`` whose
+product is not the world's size raises ``ValueError``).  Every rank runs
+the stage on the whole slice, as every JAX process does; the SVD then
+runs on the rank's block (``shard_rows``, a grid block, or its rows of a
+packed file for the multi-process ``inmem`` route), and U is gathered to
+each rank's host (``parallel.assemble_rows``) only here.  In a world of
+several ranks rank 0 alone writes the packed files and the artifact.
 
 The snapshot matrix comes in a ``Field`` whose data is a numpy array or
 a tensor; a tensor on the chosen device is used where it lies, never
@@ -41,16 +43,22 @@ import torch
 
 from dmd_era5_tpu_torch.core import config_parser, config_reader
 from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
-from dmd_era5_tpu_torch.ops.hankel import hankel_exact_svd, hankel_randomized_svd_fused
-from dmd_era5_tpu_torch.ops.svd import truncated_svd
-from dmd_era5_tpu_torch.parallel.mesh import parse_mesh_shape
+from dmd_era5_tpu_torch.ops.hankel import (
+    hankel_exact_svd,
+    hankel_randomized_svd_2d,
+    hankel_randomized_svd_fused,
+    hankel_randomized_svd_sharded,
+)
+from dmd_era5_tpu_torch.ops.svd import randomized_svd_2d, truncated_svd
+from dmd_era5_tpu_torch.parallel.mesh import AXIS_SPACE, AXIS_TIME, Mesh, mesh_from_config
+from dmd_era5_tpu_torch.parallel.sharding import Layout, assemble_rows, reshard, shard_rows
 from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store, retrieve_data_from_store
 from dmd_era5_tpu_torch.pipeline.streamed_fit import (
     streamed_exact_gram_svd,
     streamed_onepass_svd,
     streamed_randomized_svd,
 )
-from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
+from dmd_era5_tpu_torch.snapmat.loader import load_row_sharded, save_packed_matrix
 from dmd_era5_tpu_torch.snapmat.slicing import resample_era5_dataset, slice_era5_dataset
 from dmd_era5_tpu_torch.snapmat.transform import (
     apply_delay_embedding,
@@ -82,8 +90,6 @@ __all__ = [
 # way the JAX package does (ROADMAP Queue 3).
 HBM_BUDGET_ENV = "DMD_ERA5_TPU_HBM_BUDGET_GB"
 _HBM_BUDGET_GB = 12.0
-_NO_MESH = ("the SVD stage on a device mesh is not ported yet (ROADMAP Queue 1 item 12, step 9b; "
-            "the mesh itself is dmd_era5_tpu_torch.parallel)")
 
 
 @functools.cache
@@ -91,29 +97,55 @@ def _logger():
     return setup_logger("ERA5-SVD-torch", "era5_svd_torch.log")
 
 
-def _check_single_device(parsed_config: dict) -> None:
-    """Raise unless the configuration asks for one device."""
-    spec = parsed_config.get("mesh_shape", "auto")
-    shape = parse_mesh_shape(spec)
-    if shape is not None and math.prod(shape.values()) != 1:
-        raise NotImplementedError(f"mesh_shape={spec!r}: {_NO_MESH}")
-    if parsed_config.get("dcn_mesh_shape") not in (None, "none", ""):
-        raise NotImplementedError(f"dcn_mesh_shape={parsed_config['dcn_mesh_shape']!r}: {_NO_MESH}")
+def _world() -> tuple[int, int]:
+    """(this process's rank, the world's size): (0, 1) without a group."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(f"a multi-process SVD stage: {_NO_MESH}")
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
-def _over_hbm_budget(parsed_config: dict, have_flat: bool, d: int) -> bool:
-    """Whether the f32 matrix and its factor arrays exceed the per-device
-    budget (``dmd_era5_tpu/pipeline/era5_svd.py:253-285``, one device)."""
+def _barrier() -> None:
+    if _world()[1] > 1:
+        torch.distributed.barrier()
+
+
+def _on_rank0(fn):
+    """``fn()`` on rank 0 alone; in a world of several ranks every rank
+    then learns its outcome (one ``broadcast_object_list``, which the
+    others wait on as on a barrier) and raises if it failed, so no rank
+    is left waiting on one that has stopped.  Returns fn's result on
+    rank 0, None on the others."""
+    rank, size = _world()
+    result, failure = None, None
+    if rank == 0:
+        try:
+            result = fn()
+        except Exception as err:
+            if size == 1:
+                raise
+            failure = err
+    if size > 1:
+        box = [None if failure is None else f"{type(failure).__name__}: {failure}"]
+        torch.distributed.broadcast_object_list(box, src=0)
+        if failure is not None:
+            raise failure
+        if box[0] is not None:
+            raise RuntimeError(f"rank 0 failed: {box[0]}")
+    return result
+
+
+def _over_hbm_budget(parsed_config: dict, have_flat: bool, d: int, space_shards: int) -> bool:
+    """Whether a space shard's part of the f32 matrix and its factor
+    arrays exceed the per-device budget
+    (``dmd_era5_tpu/pipeline/era5_svd.py:253-285``)."""
     n_rows = parsed_config.get("_matrix_rows")
     t_cols = parsed_config.get("_matrix_cols")
     if not (have_flat and n_rows and t_cols):
         return False
     budget = float(os.environ.get(HBM_BUDGET_ENV, _HBM_BUDGET_GB))
     k = parsed_config.get("n_components", 0) + 28
-    if n_rows * d * (t_cols + 2 * k) * 4 <= budget * 1e9:
+    if n_rows * d / space_shards * (t_cols + 2 * k) * 4 <= budget * 1e9:
         return False
     route = "(2-pass exact Gram route)." if parsed_config["svd_type"] != "randomized" \
         else "(power-iteration schedule)."
@@ -126,18 +158,25 @@ def _over_hbm_budget(parsed_config: dict, have_flat: bool, d: int) -> bool:
     return True
 
 
-def resolve_svd_backend(parsed_config: dict, have_flat: bool = True) -> str:
-    """Resolve ``svd_backend = auto`` against the config, on one device.
+def resolve_svd_backend(parsed_config: dict, have_flat: bool = True,
+                        mesh: Mesh | None = None) -> str:
+    """Resolve ``svd_backend = auto`` against the config and the mesh
+    (``dmd_era5_tpu/pipeline/era5_svd.py:214``; no mesh: one device).
 
     auto picks the Hankel-operator path for delay d > 1 (both svd
-    types; the embedded matrix never exists), else the out-of-core
-    streamed backend past the memory budget, else inmem.  An explicit
-    grid2d with d > 1 (randomized, flat matrix given) reroutes to the
-    Hankel path, as in the JAX package.
+    types; the embedded matrix never exists), else for a randomized SVD
+    on a time-sharded mesh ``grid2d``, else the out-of-core streamed
+    backend past the memory budget of a space shard, else inmem.  A
+    standard SVD on a time-sharded mesh warns: it shards over space
+    only.  An explicit grid2d with d > 1 (randomized, flat matrix given)
+    reroutes to the Hankel path, as in the JAX package.
     """
     backend = parsed_config.get("svd_backend", "auto")
     svd_type = parsed_config["svd_type"]
     d = int(parsed_config.get("delay_embedding", 1))
+    shape = mesh.shape if mesh is not None else {}
+    time_shards = shape.get(AXIS_TIME, 1)
+    space_shards = max(shape.get(AXIS_SPACE, 1), 1)
     if backend != "auto":
         if backend == "grid2d" and d > 1 and have_flat and svd_type == "randomized":
             log_and_print(
@@ -147,9 +186,19 @@ def resolve_svd_backend(parsed_config: dict, have_flat: bool = True) -> str:
             )
             return "hankel"
         return backend
+    if svd_type != "randomized" and time_shards > 1:
+        log_and_print(
+            _logger(),
+            f"mesh has time={time_shards} but svd_type='standard' only shards over "
+            "space — the time axis computes replicated work. Use "
+            "svd_type='randomized' (backend grid2d) to use a time-sharded mesh.",
+            "warning",
+        )
     if d > 1 and have_flat:
         return "hankel"
-    if _over_hbm_budget(parsed_config, have_flat, d):
+    if svd_type == "randomized" and time_shards > 1:
+        return "grid2d"
+    if _over_hbm_budget(parsed_config, have_flat, d, space_shards):
         return "streamed"
     return "inmem"
 
@@ -189,15 +238,86 @@ def _host(*arrays) -> tuple[np.ndarray, ...]:
     )
 
 
-def _svd_backend_hankel(da_flat: Field, parsed_config: dict, device, d: int, k: int):
-    """Operator-form SVD of H_d(X), the embedded matrix never built:
-    ``hankel_randomized_svd_fused`` (GEMMs in the stage's precision) or,
-    for ``svd_type = standard``, ``hankel_exact_svd``."""
-    x = _as_tensor(da_flat.data, device)
-    if parsed_config["svd_type"] != "randomized":
-        return _host(*hankel_exact_svd(x, d, k))
+def _svd_backend_hankel(da_flat: Field, parsed_config: dict, mesh: Mesh, d: int, k: int):
+    """Operator-form SVD of H_d(X), the embedded matrix never built
+    (``dmd_era5_tpu/pipeline/era5_svd.py:313``).
+
+    randomized: one space shard -> ``hankel_randomized_svd_fused`` (GEMMs
+    in the stage's precision); a time-sharded mesh ->
+    ``hankel_randomized_svd_2d`` on the rank's grid block (zero-padded
+    rows and columns, the columns cut by ``t_valid``); else
+    ``hankel_randomized_svd_sharded`` (fused, the stage's precision) on
+    the rank's row block.  standard: ``hankel_exact_svd``, one device or
+    space-sharded (time shards compute alike).  Zero pad rows drop out
+    of every product; their rows of U are cut inside each delay block
+    (``parallel.assemble_rows``)."""
+    x = _as_tensor(da_flat.data, mesh.device)
+    s_rows, t_cols = x.shape
+    n_space, n_time = mesh.shape[AXIS_SPACE], mesh.shape[AXIS_TIME]
     gemm_dtype = torch.bfloat16 if parsed_config.get("precision") == "bfloat16" else torch.float32
-    return _host(*hankel_randomized_svd_fused(x, d, k, gemm_dtype=gemm_dtype))
+    if parsed_config["svd_type"] != "randomized":
+        if n_space == 1:
+            return _host(*hankel_exact_svd(x, d, k))
+        res = hankel_exact_svd(shard_rows(x, mesh)[0], d, k, mesh=mesh)
+    elif n_time > 1:
+        x_pad = torch.nn.functional.pad(x, (0, (-t_cols) % n_time, 0, (-s_rows) % n_space))
+        x_loc = Layout(mesh, (AXIS_SPACE, AXIS_TIME)).local_block(x_pad).contiguous()
+        del x_pad
+        res = hankel_randomized_svd_2d(x_loc, d, k, mesh, t_valid=t_cols)
+    elif n_space == 1:
+        return _host(*hankel_randomized_svd_fused(x, d, k, gemm_dtype=gemm_dtype))
+    else:
+        res = hankel_randomized_svd_sharded(shard_rows(x, mesh)[0], d, k, mesh,
+                                            gemm_dtype=gemm_dtype)
+    return (assemble_rows(res.U, mesh, d=d, rows=s_rows), *_host(res.s, res.V))
+
+
+def _svd_backend_grid2d(x: np.ndarray, mesh: Mesh, k: int, gemm_dtype: torch.dtype):
+    """The (space x time) grid-sharded randomized SVD of the embedded
+    host matrix x (``dmd_era5_tpu/pipeline/era5_svd.py:396``).
+
+    Ingest lands row-sharded: each rank reads its 1/(space * time) of
+    the rows (``load_row_sharded`` over the time ranks of its space
+    block), and one ``all_to_all`` over time (``parallel.reshard``, the
+    Ulysses swap) turns that into the rank's grid block.  Rows and
+    columns are zero-padded up to the mesh; zero columns add nothing to
+    any product, so the padded tail of V is zero and is cut.
+    """
+    n_rows, t_cols = x.shape
+    sp, tp = mesh.shape[AXIS_SPACE], mesh.shape[AXIS_TIME]
+    x = np.pad(x, ((0, (-n_rows) % (sp * tp)), (0, (-t_cols) % tp)))
+    per = x.shape[0] // sp
+    block = x[mesh.coords[AXIS_SPACE] * per : (mesh.coords[AXIS_SPACE] + 1) * per]
+    rows, _ = load_row_sharded(block, mesh, axis=AXIS_TIME)
+    x_loc = reshard(rows, Layout(mesh, (AXIS_TIME, None)), Layout(mesh, (None, AXIS_TIME)))
+    del rows
+    res = randomized_svd_2d(x_loc, k, mesh, gemm_dtype=gemm_dtype)
+    return assemble_rows(res.U, mesh, rows=n_rows), *_host(res.s, res.V[:, :t_cols])
+
+
+def _svd_backend_inmem_multihost(da_flat: Field, parsed_config: dict, mesh: Mesh, d: int,
+                                 k: int, svd_type: str, gemm_dtype: torch.dtype):
+    """The multi-process ``inmem`` route
+    (``dmd_era5_tpu/pipeline/era5_svd.py:487``): rank 0 writes the packed
+    delay-slab matrix (``<save_path>.packed.npy``; if that fails, every
+    rank raises with it), every rank reads only
+    its rows of it (``load_row_sharded``), the meshed ``truncated_svd``
+    runs over space, and U is gathered so that every rank packages it."""
+    packed = Path(str(parsed_config["save_path"]) + ".packed.npy")
+    rank, _ = _world()
+    _on_rank0(lambda: save_packed_matrix(packed, da_flat.data, d=d))
+    try:
+        xs, n_rows = load_row_sharded(packed, mesh, axis=AXIS_SPACE)
+        res = truncated_svd(xs, k, svd_type=svd_type, gemm_dtype=gemm_dtype, mesh=mesh,
+                            axis_name=AXIS_SPACE)
+        del xs
+        u = assemble_rows(res.U, mesh, rows=n_rows)
+        s, v = _host(res.s, res.V)
+        _barrier()  # every rank has read the file
+    finally:
+        if rank == 0:
+            packed.unlink(missing_ok=True)
+    return u, s, v
 
 
 def _svd_backend_streamed(
@@ -210,7 +330,9 @@ def _svd_backend_streamed(
     Gram route (``svd_type = standard``) or the randomized power
     schedule, and remove it.  Returns (U, s, V, info): ``info`` holds the
     one-pass route's ``onepass_tail_rel_err_est``."""
-    packed_path = Path(str(parsed_config["save_path"]) + ".packed.npy")
+    rank, world = _world()
+    suffix = f".rank{rank}" if world > 1 else ""  # every rank streams its own copy
+    packed_path = Path(str(parsed_config["save_path"]) + f"{suffix}.packed.npy")
     src = da_flat if da_flat is not None else da
     x = src.data if isinstance(src.data, torch.Tensor) else _as_tensor(src.data, torch.device("cpu"))
     save_packed_matrix(packed_path, x, d=d if da_flat is not None else 1)
@@ -248,33 +370,38 @@ def svd_on_era5(
     parsed_config: dict,
     device: torch.device | str | None = None,
     da_flat: Field | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Truncated SVD of the preprocessed snapshot matrix on one device.
+    """Truncated SVD of the preprocessed snapshot matrix on the mesh.
 
     ``da`` is the materialized embedded matrix (may be None when
     ``da_flat``, the un-embedded (S, T) matrix, is given).  Backends:
-    ``inmem`` (``truncated_svd`` of the embedded matrix), ``hankel``
-    (delay operators on ``da_flat``), ``streamed`` (out-of-core),
-    ``onepass`` (out-of-core in one pass over the packed matrix; its
-    ``onepass_tail_rel_err_est`` joins the metrics).
-    ``device``: the card unless given, or unless the matrix is a tensor
-    on another device.  Returns host arrays (U, s, V) and records
-    ``svd_backend``, ``svd_seconds`` (after the device synchronizes)
-    and ``svd_gelem_per_s`` in ``parsed_config["metrics"]``.
+    ``inmem`` (``truncated_svd`` of the embedded matrix; over several
+    ranks each reads its rows of a packed file), ``hankel`` (delay
+    operators on ``da_flat``), ``grid2d`` (the (space x time) grid),
+    ``streamed`` (out-of-core), ``onepass`` (out-of-core in one pass over
+    the packed matrix; its ``onepass_tail_rel_err_est`` joins the
+    metrics).  ``mesh``: default ``parallel.mesh_from_config`` over the
+    world on ``device`` (the card unless given, or unless the matrix is a
+    tensor on another device); every rank of the world calls this.
+    Returns host arrays (U, s, V), alike on every rank, and records
+    ``svd_backend``, ``svd_seconds`` (after the device synchronizes) and
+    ``svd_gelem_per_s`` in ``parsed_config["metrics"]``.
     """
-    _check_single_device(parsed_config)
     svd_type = parsed_config["svd_type"]
     n_components = parsed_config["n_components"]
     d = int(parsed_config.get("delay_embedding", 1))
     gemm_dtype = torch.bfloat16 if parsed_config.get("precision") == "bfloat16" else torch.float32
-    device = _device(device, da_flat if da_flat is not None else da)
+    if mesh is None:
+        device = _device(device, da_flat if da_flat is not None else da)
+        mesh = mesh_from_config(parsed_config, device=device)
+    device = mesh.device
     if da_flat is not None:
         parsed_config["_matrix_rows"] = int(da_flat.data.shape[0])
         parsed_config["_matrix_cols"] = int(da_flat.data.shape[1])
-    backend = resolve_svd_backend(parsed_config, have_flat=da_flat is not None)
-    if backend == "grid2d":
-        raise NotImplementedError(f"svd_backend='grid2d': {_NO_MESH}")
-    log_and_print(_logger(), f"Performing {svd_type} SVD (backend={backend}) on {device}...")
+    backend = resolve_svd_backend(parsed_config, have_flat=da_flat is not None, mesh=mesh)
+    log_and_print(_logger(), f"Performing {svd_type} SVD (backend={backend}) on mesh "
+                             f"{mesh.shape} ({device})...")
 
     def synchronize():
         if device.type == "cuda":
@@ -288,12 +415,24 @@ def svd_on_era5(
                 "svd_backend='hankel' needs the un-embedded matrix (da_flat); "
                 "the stage main provides it."
             )
-        u, s, v = _svd_backend_hankel(da_flat, parsed_config, device, d, n_components)
+        u, s, v = _svd_backend_hankel(da_flat, parsed_config, mesh, d, n_components)
+    elif backend == "grid2d":
+        if svd_type != "randomized":
+            raise ValueError("svd_backend='grid2d' requires svd_type='randomized'")
+        x_host = _host(_embedded(da, da_flat, d, device))[0]
+        u, s, v = _svd_backend_grid2d(x_host, mesh, n_components, gemm_dtype)
+        del x_host
     elif backend in ("streamed", "onepass"):
         if da is None and da_flat is None:
             raise ValueError("svd_on_era5 needs da or da_flat")
         u, s, v, stream_info = _svd_backend_streamed(
             da, da_flat, parsed_config, device, d, n_components, onepass=backend == "onepass")
+    elif backend == "inmem" and _world()[1] > 1:
+        if da_flat is None:
+            raise ValueError("multi-process inmem SVD needs the un-embedded matrix "
+                             "(da_flat); the stage main provides it.")
+        u, s, v = _svd_backend_inmem_multihost(da_flat, parsed_config, mesh, d, n_components,
+                                               svd_type, gemm_dtype)
     elif backend == "inmem":
         x_embedded = _embedded(da, da_flat, d, device)
         u, s, v = _host(*truncated_svd(
@@ -592,6 +731,7 @@ def compute_svd_results(
     ds: FieldSet,
     parsed_config: dict,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> FieldSet:
     """The stage's compute body on an ERA5 slice: select the variables,
     slice the levels, resample, withhold the forecast holdout, flatten
@@ -601,13 +741,13 @@ def compute_svd_results(
     and metrics, and split the space coordinate for HDF5.
 
     ``device``: the card unless given, or unless the slice's fields hold
-    tensors on another device.
+    tensors on another device; ``mesh``: the SVD's (its device then the
+    stage's), default ``parallel.mesh_from_config`` over the world.
     """
-    _check_single_device(parsed_config)
     ds = ds[parsed_config["variables"]]
     ds = slice_era5_dataset(ds, levels=parsed_config["levels"])
     ds = resample_era5_dataset(ds, parsed_config["delta_time"])
-    device = _device(device, ds.first())
+    device = mesh.device if mesh is not None else _device(device, ds.first())
 
     # ---- forecast holdout: withhold the trailing snapshots from
     # everything downstream (standardization statistics, factors) so the
@@ -636,7 +776,7 @@ def compute_svd_results(
 
     da_flat, da_mean, da_std = _preprocess_on_device(ds, parsed_config, device)
     d = parsed_config["delay_embedding"]
-    U, s, V = svd_on_era5(None, parsed_config, device=device, da_flat=da_flat)
+    U, s, V = svd_on_era5(None, parsed_config, device=device, da_flat=da_flat, mesh=mesh)
     embedded_coords = delay_embedded_coords(da_flat, d)
     da = None
     if parsed_config["save_data_matrix"]:
@@ -652,19 +792,50 @@ def compute_svd_results(
     return space_coord_to_level_lat_lon(svd_results)
 
 
+def _write_results(svd_results: FieldSet, parsed_config: dict, use_store: bool,
+                   logger) -> bool:
+    """The artifact written and (with ``use_store``) versioned; True
+    when it was added to the store."""
+    try:
+        log_and_print(logger, "Writing SVD results...")
+        save_fieldset(svd_results, parsed_config["save_path"])
+        log_and_print(logger, f"SVD results written to {parsed_config['save_path']}")
+    except Exception as err:
+        msg = f"Error writing SVD results: {err}"
+        log_and_print(logger, msg, "error")
+        raise Exception(msg) from err
+    if not use_store:
+        return False
+    try:
+        log_and_print(logger, "Versioning SVD results...")
+        add_data_to_store(parsed_config["save_path"], svd_results.attrs)
+        log_and_print(logger, "SVD results versioned.")
+    except Exception as err:
+        msg = f"Error versioning SVD results: {err}"
+        log_and_print(logger, msg, "error")
+        raise Exception(msg) from err
+    return True
+
+
 def main(
     config: dict | None = None,
     write_artifact: bool = False,
     use_store: bool = False,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[FieldSet, bool, bool]:
     """SVD stage orchestration: the cached results if the workdir or the
     store holds a match, else :func:`compute_svd_results` on the slice
     from the workdir or the store, then (with ``write_artifact``) the
-    artifact written and (with ``use_store``) versioned.
+    artifact written and (with ``use_store``) versioned, by rank 0 alone
+    in a world of several ranks (the others wait for it, and raise with
+    it if it fails).
 
     Returns (svd_results, added_to_store, retrieved_from_store).
-    ``device``: where a computation runs, the card unless given.
+    ``device``: where a computation runs, the card unless given;
+    ``mesh``: the stage mesh (default: ``mesh_shape`` and
+    ``dcn_mesh_shape`` over the world, ``parallel.mesh_from_config``).
+    Every rank of the world calls it.
     """
     if config is None:
         config = config_reader("era5-svd")
@@ -698,31 +869,15 @@ def main(
             raise Exception(msg) from err
 
         try:
-            svd_results = compute_svd_results(ds, parsed_config, device=device)
+            svd_results = compute_svd_results(ds, parsed_config, device=device, mesh=mesh)
         except Exception as err:
             msg = f"Error in the SVD on ERA5 process: {err}"
             log_and_print(logger, msg, "error")
             raise Exception(msg) from err
 
         if write_artifact:
-            try:
-                log_and_print(logger, "Writing SVD results...")
-                save_fieldset(svd_results, parsed_config["save_path"])
-                log_and_print(logger, f"SVD results written to {parsed_config['save_path']}")
-            except Exception as err:
-                msg = f"Error writing SVD results: {err}"
-                log_and_print(logger, msg, "error")
-                raise Exception(msg) from err
-            if use_store:
-                try:
-                    log_and_print(logger, "Versioning SVD results...")
-                    add_data_to_store(parsed_config["save_path"], svd_results.attrs)
-                    log_and_print(logger, "SVD results versioned.")
-                    added_to_store = True
-                except Exception as err:
-                    msg = f"Error versioning SVD results: {err}"
-                    log_and_print(logger, msg, "error")
-                    raise Exception(msg) from err
+            added_to_store = bool(_on_rank0(
+                lambda: _write_results(svd_results, parsed_config, use_store, logger)))
 
     return svd_results, added_to_store, retrieved_from_store
 

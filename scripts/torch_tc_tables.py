@@ -1,6 +1,6 @@
 """The tile tables of K4, K1 and K2 on the card, measured.
 
-    python scripts/torch_tc_tables.py [--parts gram,sketch,long_t,project]
+    python scripts/torch_tc_tables.py [--parts gram,sketch,long_t,project,bench]
 
 Each table lives in its library (``atb_tc::gram_edge`` in
 ``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, ``sketch_columns``
@@ -52,6 +52,16 @@ Yc at N 256 and 128 (f32), the d = 3 pass (the week's X, 15,573,600 x
 31,147,200 x 100, C 24 columns) and 16e's ``hankel_project`` (1,038,240
 rows, N 40, T 97); C of each edge against the f64 sums.
 
+The bench's shape (``bench``), where the TPU tile sweeps ran
+(``scripts/kernel_tune.py``, ``pass1_tune.py``, ``fused_tune2.py``,
+``pass1_variants.py``: S = 2^19, T = 512, r = 128), in f32 and bf16: K1
+as the fit step launches it (centred, scalar statistics) with its sketch
+at 112 and 128 columns a CTA and, in f32, W held and streamed (the table
+streams it past T 176), Yc the same bit for bit; K1's G stage alone and
+K4 (``gram(yc, "highest")``) on its Yc at block edge 128 and 64 (f32; the
+bf16 kernels have 128 only), G against the f64 sums, beside one library
+product (``yc.T @ yc``).
+
 Device ms by ``chip_smoke.device_ms`` (launches queued behind a sleep of
 the card).  Prints one JSON line a shape and the card's name and power
 limit.  Needs one CUDA card, nvcc and about 36 GB of the card's memory;
@@ -97,8 +107,9 @@ PROJECT_SHAPES = (  # label, rows, N (Y's columns), T (X's columns), dtype
     ("16e_hankel_project", 721 * 1440, 40, 97, torch.float32),
 )
 YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
+BENCH = (1 << 19, 512, 128)  # S, T, r of the TPU sweeps and of the fit-step bench
 SCG = ("sketch_center_gram_project", "sketch_center_gram_project.cu")
-# variant name: (library, source, header inlined, [(table, fixed choice), ...])
+# variant name: (library, source, header(s) inlined, [(table, fixed choice), ...])
 VARIANTS = {
     f"gram_edge{e}": ("gram", "gram.cu", "row_share_atb_tc.cuh", [(GRAM_TABLE, (
         f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
@@ -107,6 +118,10 @@ VARIANTS = {
     f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE,
                                          f"int sketch_columns(int n) {{ return {c}; }}")])
     for c in (112, 128)
+} | {
+    f"scg_gram_edge{e}": (*SCG, ("matmul_tc.cuh", "row_share_atb_tc.cuh"), [(GRAM_TABLE, (
+        f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
+    for e in (128, 64)
 } | {
     "w_held": (*SCG, None, [(W_TABLE, W_HELD)]),
     "w_streamed": (*SCG, None, [(W_TABLE, W_TABLE.replace("&& t > 176", ""))]),
@@ -122,9 +137,10 @@ VARIANTS = {
 
 def build(name: str):
     """The variant's library, built."""
-    _, source, header, edits = VARIANTS[name]
+    _, source, headers, edits = VARIANTS[name]
     src = (_build.CSRC_DIR / source).read_text()
-    if header is not None:
+    for header in (headers,) if isinstance(headers, str) else headers or ():
+        # in order: a header inlined may include the next one
         src = src.replace(f'#include "{header}"', (_build.CSRC_DIR / header).read_text())
     for table, fixed in edits:
         if table not in src:
@@ -271,8 +287,53 @@ def project_part(libs, tables, gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def bench_part(libs, tables, gen, dev) -> None:
+    m, t, n = BENCH
+    scg = "sketch_center_gram_project"
+    x = torch.randn((m, t), generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        xt = x.to(dtype)
+        w = torch.randn((t, n), generator=gen, device=dev).to(dtype)
+        row = {"shape": "bench", "m": m, "t": t, "n": n, "dtype": str(dtype)[6:]}
+        variants = [("112", "sketch_columns112"), ("128", "sketch_columns128"), ("table", None)]
+        if not bf16:
+            variants += [("w_held", "w_held"), ("w_streamed", "w_streamed")]
+        ycs = {}
+        for name, key in variants:
+            use(scg, libs[key] if key else tables[scg])
+            out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
+            run(7)
+            ycs[name] = out["yc"].clone()
+            row[f"sketch_device_ms_{name}"] = device_ms(lambda run=run: run(1), reps=5)
+            del out, run
+        row["yc_equal"] = all(torch.equal(ycs["table"], yc) for yc in ycs.values())
+        yc = ycs["table"]
+        del ycs
+        exact = gram_f64(yc)
+        edges = [("edge128", 128), ("table", None)] + ([] if bf16 else [("edge64", 64)])
+        for name, e in edges:  # K1's G stage alone: mask 2 of one plan's buffers
+            use(scg, libs[f"scg_gram_edge{e}"] if e else tables[scg])
+            out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
+            run(7)
+            row[f"k1_G_rel_vs_f64_{name}"] = rel_err(out["g"], gram_f64(out["yc"]))[0]
+            row[f"k1_G_device_ms_{name}"] = device_ms(lambda run=run: run(2), reps=5)
+            del out, run
+            use("gram", libs[f"gram_edge{e}"] if e else tables["gram"])
+            g = qr_panel.gram(yc, "highest")
+            row[f"k4_rel_vs_f64_{name}"] = rel_err(g, exact)[0]
+            row[f"k4_device_ms_{name}"] = device_ms(lambda: qr_panel.gram(yc, "highest"), reps=5)
+        use("gram", tables["gram"])
+        use(scg, tables[scg])
+        yf = yc.float()
+        row["library_device_ms"] = device_ms(lambda: yf.T @ yf, reps=5)
+        print(json.dumps(row), flush=True)
+        del xt, w, yc, yf, exact
+        torch.cuda.empty_cache()
+
+
 PARTS = {"gram": gram_part, "sketch": sketch_part, "long_t": long_t_part,
-         "project": project_part}
+         "project": project_part, "bench": bench_part}
 
 
 def main() -> None:

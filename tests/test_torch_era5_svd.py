@@ -139,17 +139,39 @@ def test_resolve_svd_backend_matches_one_device_mesh(
     assert got == ref == expected
 
 
-@pytest.mark.parametrize("overrides,message", [
-    (dict(mesh_shape="space=2,time=4"), "device mesh"),
-    (dict(mesh_shape="time=8"), "device mesh"),
-    (dict(dcn_mesh_shape="data=2"), "device mesh"),
-    (dict(svd_backend="grid2d", delay_embedding=1), "device mesh"),
+@pytest.mark.parametrize("overrides,expected", [
+    (dict(mesh_shape="space=2,time=4"), ValueError),
+    (dict(mesh_shape="time=8"), ValueError),
+    (dict(dcn_mesh_shape="data=2"), ValueError),
+    (dict(svd_backend="grid2d", delay_embedding=1), "jax"),
 ])
-def test_svd_on_era5_refuses_what_needs_a_mesh(overrides, message):
-    parsed = parse_torch({**BASE, **overrides}, "era5-svd")
-    field = Field(np.zeros((16, 12), np.float32), ("space", "time"))
-    with pytest.raises(NotImplementedError, match=message):
-        svd_torch.svd_on_era5(None, parsed, device="cpu", da_flat=field)
+def test_svd_on_era5_refuses_what_needs_a_mesh(mock_flat, overrides, expected):
+    """What needs more ranks than the world has: a ``mesh_shape`` or a
+    ``dcn_mesh_shape`` that one process cannot cover raises ``ValueError``
+    (as ``parallel.make_mesh`` does; the JAX package's "incompatible with
+    N devices").  The ``grid2d`` backend on the one-rank mesh runs, and
+    matches the JAX package's on ``single_device_mesh()`` at test_20's
+    randomized tolerances (the packages draw different sketches)."""
+    cfg = {**BASE, **overrides}
+    if expected is ValueError:
+        parsed = parse_torch(cfg, "era5-svd")
+        field = Field(np.zeros((16, 12), np.float32), ("space", "time"))
+        with pytest.raises(ValueError, match="devices"):
+            svd_torch.svd_on_era5(None, parsed, device="cpu", da_flat=field)
+        return
+    flat_j, flat_t = mock_flat
+    cfg.update(start_datetime="2021-01-01T00", end_datetime="2021-01-02T00")
+    parsed_j, parsed_t = parse_jax(dict(cfg), "era5-svd"), parse_torch(dict(cfg), "era5-svd")
+    u_j, s_j, _ = svd_jax.svd_on_era5(None, parsed_j, mesh=single_device_mesh(), da_flat=flat_j)
+    u, s, v = svd_torch.svd_on_era5(None, parsed_t, device="cpu", da_flat=flat_t)
+    assert parsed_t["metrics"]["svd_backend"] == parsed_j["metrics"]["svd_backend"] == "grid2d"
+    k = BASE["n_components"]
+    assert u.shape == np.shape(u_j) and v.shape == (k, flat_t.shape[1])
+    np.testing.assert_allclose(s, np.asarray(s_j), rtol=2e-3)
+    np.testing.assert_allclose(u.T @ u, np.eye(k), atol=1e-3)
+    qa, _ = np.linalg.qr(u.astype(np.float64))
+    qb, _ = np.linalg.qr(np.asarray(u_j, dtype=np.float64))
+    assert np.linalg.svd(qa.T @ qb, compute_uv=False).min() > np.cos(5e-2)
 
 
 # ------------------------------------------------------- the dispatcher

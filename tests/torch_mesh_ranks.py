@@ -28,10 +28,11 @@ class Ranks:
     """``world`` rank processes running ``cases`` ({"name", "fn", "args"});
     :meth:`wait` returns each rank's outputs ({"<name>/<key>": array}).
     ``env_of_rank``: a function of the rank giving launcher variables;
-    the ranks then start their group from the environment alone."""
+    the ranks then start their group from the environment alone.
+    ``extra_env``: variables for every rank (such as the stage's root)."""
 
     def __init__(self, world: int, cases: list[dict], inputs: dict, directory: Path,
-                 timeout: float = 120.0, env_of_rank=None):
+                 timeout: float = 120.0, env_of_rank=None, extra_env: dict | None = None):
         directory.mkdir(parents=True, exist_ok=True)
         np.savez(directory / "inputs.npz", **inputs)
         init = "env" if env_of_rank else f"file://{directory / 'store'}"
@@ -42,7 +43,7 @@ class Ranks:
         env = {key: value for key, value in os.environ.items()
                if key not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
                               "LOCAL_WORLD_SIZE", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE")}
-        env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+        env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", **(extra_env or {}))
         self.logs = [open(directory / f"rank{r}.log", "w+") for r in range(world)]
         self.procs = [
             subprocess.Popen([sys.executable, __file__, str(directory / "job.json"), str(r)],
@@ -178,6 +179,183 @@ def env_case(inputs) -> dict:
 
     return {"rank": np.asarray(dist.get_rank()), "world": np.asarray(dist.get_world_size()),
             "backend": np.asarray(dist.get_backend())}
+
+
+# ------------------------------------------------- the SVD layer (9b)
+
+
+def _tensor(inputs, key: str | None):
+    import torch
+
+    return None if key is None else torch.from_numpy(np.ascontiguousarray(inputs[key]))
+
+
+def _result(res, mesh, rows: int, d: int = 1, log=None) -> dict:
+    """An SVDResult with U gathered to the host, delay-major."""
+    from dmd_era5_tpu_torch.parallel import assemble_rows
+
+    out = {"u": assemble_rows(res.U, mesh, d=d, rows=rows), "s": res.s.numpy(),
+           "v": res.V.numpy()}
+    return {**out, **(_log_arrays(log) if log is not None else {})}
+
+
+def svd_case(inputs, op: str, x: str, k: int = 0, shape: str | None = None,
+             omega: str | None = None, seed: int = 0, gemm: str = "float32",
+             method: str | None = None, own_rows: bool = False) -> dict:
+    """``ops.svd`` on this rank's row block (``shard_rows``, or with
+    ``own_rows`` the rank's equal share, as the multi-process demo's
+    processes hold theirs): ``op`` exact, gram, standard (the
+    dispatcher), randomized, or tsqr (Q gathered, R, at ``method``)."""
+    import torch
+
+    from dmd_era5_tpu_torch.ops import svd as tsvd
+    from dmd_era5_tpu_torch.ops.tsqr import tsqr
+    from dmd_era5_tpu_torch.parallel import assemble_rows, shard_rows
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    mesh = _mesh(shape)
+    arr = inputs[x]
+    if own_rows:
+        per = arr.shape[0] // mesh.shape["space"]
+        i = mesh.coords["space"]
+        x_loc, rows = torch.from_numpy(arr[i * per:(i + 1) * per].copy()), arr.shape[0]
+    else:
+        x_loc, rows = shard_rows(arr, mesh)
+    with collective_log() as log:
+        if op == "tsqr":
+            q, r = tsqr(x_loc, mesh, method=method)
+        elif op == "exact":
+            res = tsvd.exact_truncated_svd(x_loc, k, mesh)
+        elif op == "gram":
+            res = tsvd.exact_truncated_svd_gram(x_loc, k, mesh=mesh)
+        elif op == "standard":
+            res = tsvd.truncated_svd(x_loc, k, "standard", mesh=mesh)
+        else:
+            res = tsvd.randomized_svd(x_loc, k, seed=seed, gemm_dtype=getattr(torch, gemm),
+                                      mesh=mesh, omega=_tensor(inputs, omega))
+    if op == "tsqr":
+        return {"q": assemble_rows(q, mesh, rows=rows), "r": r.numpy(), **_log_arrays(log)}
+    return _result(res, mesh, rows, log=log)
+
+
+def grid_case(inputs, op: str, x: str, k: int, shape: str, omega: str | None = None,
+              d: int = 1, t_valid: int | None = None, ingest: bool = False) -> dict:
+    """The grid-sharded SVDs on this rank's (space, time) block:
+    ``randomized_svd_2d`` (op svd2d) or ``hankel_randomized_svd_2d``
+    (op hankel2d).  With ``ingest`` the block arrives as the stage's
+    grid2d route makes it: the rank's rows of its space block
+    (``load_row_sharded`` over time), then one ``all_to_all``."""
+    import torch
+
+    from dmd_era5_tpu_torch.ops.hankel import hankel_randomized_svd_2d
+    from dmd_era5_tpu_torch.ops.svd import randomized_svd_2d
+    from dmd_era5_tpu_torch.parallel import Layout, reshard
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+    from dmd_era5_tpu_torch.snapmat.loader import load_row_sharded
+
+    mesh = _mesh(shape)
+    arr = inputs[x]
+    with collective_log() as log:
+        if ingest:
+            per = arr.shape[0] // mesh.shape["space"]
+            block = arr[mesh.coords["space"] * per:(mesh.coords["space"] + 1) * per]
+            rows, _ = load_row_sharded(block, mesh, axis="time")
+            x_loc = reshard(rows, Layout(mesh, ("time", None)), Layout(mesh, (None, "time")))
+        else:
+            x_loc = Layout(mesh, ("space", "time")).local_block(torch.from_numpy(arr)).contiguous()
+        if op == "svd2d":
+            res = randomized_svd_2d(x_loc, k, mesh, omega=_tensor(inputs, omega))
+        else:
+            res = hankel_randomized_svd_2d(x_loc, d, k, mesh, t_valid=t_valid,
+                                           omega=_tensor(inputs, omega))
+    return _result(res, mesh, arr.shape[0], d=d, log=log)
+
+
+def hankel_case(inputs, op: str, x: str, d: int, k: int = 0, shape: str | None = None,
+                omega: str | None = None, fused: bool = True, oversamples: int = 10) -> dict:
+    """The space-sharded Hankel SVDs on this rank's row block (op
+    sharded, exact), or the time-sharded operators on its column block
+    (op sketch: Y, alike on every rank; op embed: the rank's block)."""
+    import torch
+
+    from dmd_era5_tpu_torch.ops import hankel
+    from dmd_era5_tpu_torch.parallel import Layout, shard_rows
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    mesh = _mesh(shape)
+    arr = inputs[x]
+    if op in ("sketch", "embed"):
+        x_loc = Layout(mesh, (None, "time")).local_block(torch.from_numpy(arr)).contiguous()
+        with collective_log() as log:
+            if op == "sketch":
+                out = hankel.hankel_sketch_time_sharded(x_loc, _tensor(inputs, omega), d, mesh)
+            else:
+                out = hankel.delay_embed_time_sharded(x_loc, d, mesh)
+        return {"out": out.numpy(), "index": np.asarray(mesh.coords["time"]), **_log_arrays(log)}
+    x_loc, rows = shard_rows(arr, mesh)
+    with collective_log() as log:
+        if op == "sharded":
+            res = hankel.hankel_randomized_svd_sharded(
+                x_loc, d, k, mesh, n_oversamples=oversamples, fused=fused,
+                omega=_tensor(inputs, omega))
+        else:
+            res = hankel.hankel_exact_svd(x_loc, d, k, mesh=mesh)
+    return _result(res, mesh, rows, d=d, log=log)
+
+
+def stage_case(inputs, config: str, stage_slice: str | None = None,
+               resolve_only: bool = False) -> dict:
+    """``era5_svd.main`` of the port on the CPU over the world (its mesh
+    from the config, ``parallel.mesh_from_config``), under the root the
+    job's environment names.  ``stage_slice``: rank 0 first writes the
+    mock slice of that seed into the workdir (the port's mock and HDF5
+    writer), and every rank waits for it, as the JAX multi-process stage
+    demo does.  ``resolve_only``: the backend ``resolve_svd_backend``
+    picks on the stage mesh, nothing computed."""
+    import torch.distributed as dist
+
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.parallel import mesh_from_config
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
+
+    cfg = json.loads(config)
+    parsed = config_parser(dict(cfg), "era5-svd")
+    if resolve_only:
+        mesh = mesh_from_config(parsed, device="cpu")
+        return {"backend": np.asarray(era5_svd.resolve_svd_backend(parsed, mesh=mesh))}
+    if stage_slice is not None:
+        if dist.get_rank() == 0:
+            from dmd_era5_tpu_torch.snapmat import create_mock_era5
+            from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+
+            fs = create_mock_era5(parsed["start_datetime"], parsed["end_datetime"],
+                                  parsed["variables"], parsed["levels"], seed=int(stage_slice))
+            save_fieldset(era5_download.add_config_attributes(fs, parsed),
+                          parsed["era5_slice_path"])
+        dist.barrier()
+    res, _, _ = era5_svd.main(cfg, write_artifact=False, device="cpu")
+    out = {key: np.asarray(res[key].values) for key in ("U", "s", "V", "X")
+           if key in res.data_vars}
+    return {**out, "backend": np.asarray(res.attrs["svd_backend"])}
+
+
+def stage_fails_case(inputs, config: str, root: str, write_artifact: bool = False) -> dict:
+    """``era5_svd.main`` of the port under ``root``, where the test has put
+    a file in the place of the stage's directory, so that rank 0's write
+    (the artifact, or the inmem route's packed matrix) fails: the error
+    this rank raised, '' if none."""
+    before = os.environ.get("DMD_ERA5_TPU_ROOT")
+    os.environ["DMD_ERA5_TPU_ROOT"] = root
+    try:
+        from dmd_era5_tpu_torch.pipeline import era5_svd
+
+        era5_svd.main(json.loads(config), write_artifact=write_artifact, device="cpu")
+        error = ""
+    except Exception as err:
+        error = f"{type(err).__name__}: {err}"
+    finally:
+        os.environ["DMD_ERA5_TPU_ROOT"] = before
+    return {"error": np.asarray(error)}
 
 
 def main(job_path: str, rank: int) -> None:
