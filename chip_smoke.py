@@ -247,14 +247,57 @@ of which raises on failure so the script exits non-zero:
    with h5py, else ``compute_svd_results`` in memory, against the same
    one-device run in this process.  ``[18a]``-``[18d]`` lines carry each
    part's times, each rank's times and peak memory, the collectives.
+19. (riding in 17's worlds) the DMD models on the mesh, each part's
+   one-device reference first in this process, and K1 (on a member, N
+   110, and on rank 0's 34 rows of DMDc's stack, N 128) and K4 (on DMDc's
+   two stacks' rank 0 blocks) against their plain versions at the ranks'
+   shapes: (a) in 17b's P = 3 ranks, ``fit_per_variable_level`` over
+   data=3 on the week's 15 members (5 a rank, each rank reading its
+   members' rows of the artifact through memmaps; ``solve_dmd`` at rank
+   6), the state gathered whole to every rank, held to the same ensemble
+   on a (1, 1, 1) mesh here (each member's s within 1e-5 of its s[0],
+   the eigenvalues of a_red's leading 6 x 6 block and the DMD
+   eigenvalues as matched sets within 1e-5, a_red within
+   ``MODELS_A_REC_TOL`` of its recompute from the member's own s and V,
+   U's orthonormality within 17a's 1e-3 (leading 6) and twice one
+   device's (all), each member's leading-6 span within
+   ``MODELS_SPAN_TOL``; each reading also with members 0 and 1 swapped,
+   a planted gather fault); (b) in
+   the P = 2 ranks, the ensemble over data=2 (15 members padded to 16,
+   no DMD solve) as (a), then BOP-DMD over data=2 (8 trials of 80%) on
+   the ranks' own 18b fused Hankel SVD (d = 2, k = 100; U made whole on
+   each rank's card through a file in the page cache), held to one
+   device's bag on phase 3's sketch (eigenvalues within 1e-5 as matched
+   sets, amplitudes 1e-4) and the planted eigenvalues (1e-2), its own
+   collectives one gather over data; (c) in the P = 3 ranks, DMDc
+   (diurnal, rank 6) over space=3 on the same factors (Z's 100 rows do
+   not divide 3: zero rows pad them), held to one device's (discrete
+   eigenvalues within ``DMDC_GRAM_ROUTE_GAP``, b^T b and b^T a b within
+   1e-2), its own collectives the Gram route's 6 psums and U's 2 gathers
+   over space; (d) in 17c's 4 ranks on data=2,space=2, config 1's
+   settings, grid and window through ``compute_svd_results`` and
+   ``fit_dmd_from_svd_results`` in memory (bagged, 8 trials, with the
+   diurnal DMDc) on its mock slice with three planted waves
+   (``planted_slice``): every rank's results alike, s within 1e-5 of
+   s[0] of one device's ``inmem`` route, the fit held to the one-device
+   fit on the same factors (the bag as (b), DMDc as (c)), the bag to
+   the planted waves within 2e-3 and to the one-device fit with its LM
+   in the ranks' blocks; the witness (``lm_witness``): config 1's own
+   mock, one device's bag as one batch and in the ranks' blocks, and the
+   same trials solved on the mesh held to the blocks' run.  K1 and K4
+   are first held against their plain versions at rank 0's shapes of
+   (a)-(d) here (a member; DMDc's row blocks at P = 3 and of config 1
+   at space=2; config 1's Hankel row block).
+   ``[19a]``-``[19d]`` lines carry each part's readings, each rank's
+   seconds and peak memory, the collectives and launches.
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 18a-d, 10b-e and 16c-e
-are the main path (17b's, 17c's and 18b-d's on the ranks, reported back):
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 18a-d, 19a-d, 10b-e
+and 16c-e are the main path (17b's, 17c's, 18b-d's and 19's on the ranks, reported back):
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f, 14c-d's, 15c-d's, 16's, 17b's, 18b's and 18c's at a rank's shapes), 15d's
-passes, 18's one-device references and 18c's halo-dropped control are not
-counted.  The last line is the JSON result; the line before
+10f, 14c-d's, 15c-d's, 16's, 17b's, 18b's, 18c's and 19's at a rank's shapes),
+15d's passes, 18's and 19's one-device references (19d's fits on the ranks'
+factors and its witness too) and 18c's halo-dropped control are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
@@ -1589,9 +1632,10 @@ def _by_value(obj, back: bool = False):
 
 
 def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str, queue) -> None:
-    """One rank of 17b and 18b (and at P = 2 18d) (``kind`` "fused") or of
-    17c and 18c ("portable"), a process of its own on the shared card;
-    puts its readings on ``queue``, 17's launches apart from 18's."""
+    """One rank of 17b, 18b and 19a-c (and at P = 2 18d) (``kind``
+    "fused") or of 17c, 18c and 19d ("portable"), a process of its own on
+    the shared card; puts its readings on ``queue``, 17's launches apart
+    from 18's and 19's."""
     import traceback
 
     import torch.distributed as dist
@@ -1628,6 +1672,12 @@ def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str,
                 run_svd_mesh_routes, tuple(SVD_MESH_LAUNCHES), x_loc, mesh, seed)
             res["peak_gb_18b"] = torch.cuda.max_memory_allocated() / 1e9
             svd_launches = _minus(launch_counts(), before)
+            # 19 on the same rows, its launches apart from 17's with 18b's
+            before = launch_counts()
+            res["models"], res["times"]["models_19"] = synced(models_mesh_rank, x_loc, mesh,
+                                                               world, path, seed)
+            svd_launches = {key: n + m for (key, n), m in
+                            zip(svd_launches.items(), _minus(launch_counts(), before).values())}
             torch.cuda.reset_peak_memory_stats()
             yc = sketch_center_gram_project(x_loc, omega)[0]
             del x_loc
@@ -1663,6 +1713,10 @@ def mesh_rank(rank: int, world: int, init: str, path: str, seed: int, kind: str,
             torch.cuda.reset_peak_memory_stats()
             res["grid"], res["times"]["grid_18c"] = synced(grid_mesh_rank, x_loc, mesh, path, seed)
             res["peak_gb_18c"] = torch.cuda.max_memory_allocated() / 1e9
+            del x_loc
+            torch.cuda.empty_cache()
+            res["stage_models"], res["times"]["models_19d"] = synced(stage_models_rank, seed,
+                                                                     Path(path).parent)
         res["peak_gb"] = peak / 1e9
         res["times"]["rank"] = time.perf_counter() - t_start
         queue.put((rank, _by_value(res)))
@@ -1823,11 +1877,13 @@ def phase_mesh_one_rank(x: torch.Tensor, omega: torch.Tensor) -> tuple[dict, dic
 
 
 def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
-    """Phases 17 and 18: the distributed layer and the SVD layer on it,
-    on the card, inside phase 9 while its packed artifact of the week
-    exists.  18's parts ride in 17's worlds (a spawn costs ~8 s): 18a
-    after 17a in this process, 18b (and 18d at P = 2) in 17b's ranks,
-    18c in 17c's (``phase_svd_mesh_one_rank``, ``mesh_rank``).  Phase 17:  (a) one rank over NCCL in
+    """Phases 17, 18 and 19: the distributed layer, the SVD layer and the
+    DMD models on it, on the card, inside phase 9 while its packed
+    artifact of the week exists.  18's and 19's parts ride in 17's worlds
+    (a spawn costs ~8 s): 18a after 17a in this process, 18b (and 18d at
+    P = 2) and 19a-c in 17b's ranks, 18c and 19d in 17c's
+    (``phase_svd_mesh_one_rank``, ``mesh_rank``, ``models_mesh_rank``,
+    ``stage_models_rank``).  Phase 17:  (a) one rank over NCCL in
     this process; (b) P = 2 and 3 ranks sharing the card over gloo, each
     reading its rows of the artifact (``load_row_sharded``): the fused
     meshed step (K1), tree TSQR of its Yc (the split CholQR2 leaf, K5)
@@ -1837,9 +1893,10 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
     the portable step on (1, 2, 2), 4 ranks on the week's first
     ``MESH_PORTABLE_ROWS`` rows (a cut of depth), against (a)'s step on
     the same rows.  The ranks are spawned after phase 1 built every
-    kernel library.  Returns the launch counts of 17a-c and 18a-d."""
+    kernel library.  Returns the launch counts of 17a-c, 18a-d and 19a-d."""
     from dmd_era5_tpu_torch.ops.matmul import sketch_center_gram_project
     from dmd_era5_tpu_torch.ops.tsqr import tsqr
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd
 
     x = week["x"]
     t_phase = time.perf_counter()
@@ -1855,6 +1912,11 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
     svd_refs, summary["18b_refs_s"] = synced(svd_mesh_refs, week, ref8, seed)
     bounds = svd_mesh_bounds(x.shape[1])
     own18 = secs + summary["18b_refs_s"]  # 18's seconds in this process
+    log("[19] the models on the mesh: one-device references in this process first (the "
+        "ensemble on a (1, 1, 1) mesh, the fused Hankel SVD with the bag and DMDc), K1 and "
+        "K4 at the ranks' shapes")
+    models_refs, own19 = synced(models_mesh_refs, week, seed, path.parent)
+    log(f"    references: {json.dumps({k: models_refs[k] for k in ('times', 'kernels')})}")
 
     # 17b's references, uncounted: one-device TSQR of the whole Yc (the
     # split CholQR2 leaf) and of each world's whole panel (library QR:
@@ -1953,6 +2015,14 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
             "rank's shapes " + ", ".join(
                 f"{key} {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library {k['library_ms']}, "
                 f"bound {k['bound_ms']:.4f})" for key, k in svd_kernels.items()))
+        part19 = held_models(ranks, models_refs, world)
+        for res in ranks:
+            for name in part19:
+                for key, n in res["models"][name]["launches"].items():
+                    launches[key] += n
+        summary[f"19_P{world}"] = part19
+        for name, read in part19.items():
+            log(f"[{name[:3]}] P = {world}, {name}: {json.dumps(read, default=str)}")
         if world == 2:
             summary["18d"] = held_stage_routes(ranks, stage_ref)
             summary["18d"]["one_device_s"] = stage_ref_s
@@ -1973,7 +2043,20 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
     log("    18c's K6, K3 and K5 against their plain versions at rank 0's shapes")
     grid_kernels, secs = synced(grid_kernels_vs_plain, x, seed)
     own18 += secs
-    ranks, wall = run_ranks(4, "portable", path, seed)
+    with stage_root():  # 19d's config 1: one device here first, then the ranks
+        with first_call(era5_svd, "svd_on_era5") as flat, \
+                first_call(era5_dmd, "dmdc_from_svd") as dmdc_call:
+            (stage19_ref, _), secs = synced(stage_models_fit, None, seed)
+        own19 += secs
+        log("    19d's K1 and K4 against their plain versions at rank 0's shapes on "
+            f"{MODELS_MESH}; the LM witness on config 1's i.i.d. mock")
+        stage19_kernels, secs = synced(stage_models_kernels, flat["kwargs"]["da_flat"].data,
+                                       dmdc_call["args"])
+        own19 += secs
+        del flat, dmdc_call
+        witness, secs = synced(lm_witness, seed, path.parent)
+        own19 += secs
+        ranks, wall = run_ranks(4, "portable", path, seed)
     cut_s, cut_loss = refs["cut"]
     part = {"wall_s": wall, **ranks_summary(ranks, ("fit_log",))}
     for rank, res in enumerate(ranks):
@@ -1997,9 +2080,17 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
             launches[key] += n
     log(f"[18c] on {MESH_PORTABLE} (17c's ranks, the same {MESH_PORTABLE_ROWS} rows): "
         f"{json.dumps(summary['18c'], default=str)}")
+    summary["19d"] = held_stage_models([res["stage_models"] for res in ranks], stage19_ref, witness)
+    summary["19d"]["kernels"] = stage19_kernels
+    for res in ranks:
+        for key, n in res["stage_models"]["launches"].items():
+            launches[key] += n
+    log(f"[19d] config 1 on {MODELS_MESH} over 17c's 4 ranks (compute_svd_results and "
+        f"fit_dmd_from_svd_results in memory: no h5py): {json.dumps(summary['19d'], default=str)}")
     summary["seconds"] = time.perf_counter() - t_phase
     summary["18_own_seconds"] = own18  # 18a, its references and kernel checks in this process
-    log(f"[17] mesh and [18] SVD on the mesh {json.dumps(summary, default=str)}")
+    summary["19_own_seconds"] = own19  # 19's references and kernel checks in this process
+    log(f"[17] mesh, [18] SVD and [19] models on the mesh {json.dumps(summary, default=str)}")
     log(f"    launches {launches}")
     return launches
 
@@ -2511,6 +2602,741 @@ def held_grid_ranks(ranks: list[dict], refs: dict) -> dict:
     return out
 
 
+# phase 19: the DMD models on the mesh, riding in 17's worlds: 19a (P = 3)
+# and 19b (P = 2) the ensemble over data=P, 19b the bag over data=2 and 19c
+# (P = 3) DMDc over the world's space=3, both on the ranks' own 18b fused
+# Hankel SVD, U made whole on each rank's card (``whole_u``); 19d (17c's 4 ranks)
+# config 1 through the stage's compute body and fit on data=2,space=2.
+# Each part's one-device reference is computed first in this process,
+# uncounted (``models_mesh_refs``, ``stage_models_fit``).  The ensemble is
+# held to the same ensemble on a (1, 1, 1) mesh of this process: the same
+# algebra, where the mesh-free loop's ``fit_step_fused`` takes s from an
+# f32 eigh of B B^T (~2e-5 of s[0] off at the noise floor, phase 14f's
+# FIT_STEP_EIGH_SLACK); the data split changes the batches of the small
+# algebra, and so its roundoff (s 5.4e-6 of s[0] apart on an H100), which
+# moves the noise-floor components of V: not only among themselves, as
+# the top-100 boundary lies inside the noise floor, so all of a_red's
+# eigenvalues are read but not held (0.85 apart on an H100, as far as
+# two members' are).  a_red is held through the eigenvalues of its
+# leading 6 x 6 block (the planted dynamics' regression) and against its
+# recompute from the member's own gathered s and V in the ranks'
+# batches; U by its orthonormality and each member's leading-6 span
+# against the reference's (whose leading columns go to the ranks in a
+# file beside the artifact).  Each gate's reading with members 0 and 1
+# swapped is logged beside it: the members share their planted
+# dynamics, so s, the span and the recompute tell them apart, the
+# eigenvalues do not.  The bag (tests/test_23_bopdmd.py :141-147's tolerances)
+# and DMDc are held to one device's on phase 3's sketch: their fits see
+# only S V, and the factors are ~1.7e-6 of s[0] apart (18b); DMDc's
+# discrete eigenvalues within DMDC_GRAM_ROUTE_GAP (its Gram route's known
+# ridge choice, R5), a_red and b_red through b^T b and b^T a b, which a
+# rotation of the output basis leaves alone, within MODELS_INVARIANT_TOL.
+MODELS_OMEGA_SEED = 19
+MODELS_S_TOL = 1e-5  # a member's s against one device's, of its s[0]
+BAG_EIG_ATOL, BAG_AMP_RTOL = 1e-5, 1e-4
+MODELS_INVARIANT_TOL = 1e-2
+MODELS_SPAN_TOL = 1e-6  # a member's leading-6 U span: 1 - cos min, 18a's limit
+MODELS_A_REC_TOL = 1e-6  # a_red against its recompute from s and V, of max|a_red|
+MODELS_MESH = "data=2,space=2"  # 19d's mesh
+MODELS_MESH_AXES = {axis: int(n) for axis, n in (part.split("=") for part in MODELS_MESH.split(","))}
+U_LEAD_FILE, LM_WITNESS_FILE = "u_lead_19.npy", "lm_witness_19d.pt"  # beside the artifact
+# 19d's slice: config 1's mock fields replaced by three damped travelling
+# waves (rank 6, config 1's dmd_rank; frequency 1/h, damping 1/h,
+# wavenumber) under 0.1% noise, as the CPU tests plant test_11's slice:
+# on the mock's i.i.d. noise the LM fits chase noise, and the card's
+# batched products round a batch of 4 trials (a rank's share of the
+# bag) otherwise than one of 8, so the fits stop elsewhere.  Both are
+# witnessed on one device (``lm_witness``): the bag on config 1's own
+# mock solved as one batch and in the ranks' blocks, and 19d's ranks
+# solve the same trials on the mesh, held to the blocks' run; 19d's bag
+# is held to the one-device fit on its own factors both ways
+PLANTED_WAVES = ((0.35, 0.005, 1), (0.8, 0.02, 3), (0.15, 0.01, 2))
+# each part's launches a rank (19d's one-device fit on the ranks' factors
+# apart, uncounted); 19b's ensemble takes no DMD solve (19a's does)
+MODELS_LAUNCHES = {"19a": counts(K1=5), "19b_ensemble": counts(K1=8), "19b_bag": counts(K1=5),
+                   "19c": counts(K1=5 + 2, K4=2), "19d": counts(K1=5 + 2, K4=2)}
+
+
+def week_times() -> np.ndarray:
+    """The week's hourly stamps (config 3's window)."""
+    start = np.datetime64(WEEK_CONFIG["start_datetime"], "ns")
+    return start + np.arange(T_HOURS) * np.timedelta64(1, "h")
+
+
+def week_members(x):
+    """The week's X (S, T) as the ensemble's FieldSet: one (level,
+    latitude, longitude, time) field a variable, views of x's rows
+    (``make_era5``'s order: variable, level, latitude, longitude), x a
+    tensor or a memmap (a rank then reads only its members' rows)."""
+    from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
+
+    coords = {"level": Coord("level", np.asarray(LEVELS)),
+              "latitude": Coord("latitude", 90.0 - 0.25 * np.arange(N_LAT)),
+              "longitude": Coord("longitude", 0.25 * np.arange(N_LON)),
+              "time": Coord("time", week_times())}
+    block = len(LEVELS) * N_LAT * N_LON
+    return FieldSet({var: Field(x[i * block:(i + 1) * block].reshape(len(LEVELS), N_LAT, N_LON,
+                                                                     x.shape[1]),
+                                ("level", "latitude", "longitude", "time"), coords, name=var)
+                     for i, var in enumerate(WEEK_VARIABLES)})
+
+
+def models_omega(seed: int) -> torch.Tensor:
+    """The ensemble's sketch (T x 110: k + the default 10), alike in every
+    process from its seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + MODELS_OMEGA_SEED)
+    return torch.randn((T_HOURS, SVD_MESH_K + 10), generator=gen, device="cuda")
+
+
+def week_control() -> torch.Tensor:
+    """The diurnal series at the embedded week's transitions (q = 2, T - d)."""
+    from dmd_era5_tpu_torch.pipeline.era5_dmd import _control_series
+
+    return torch.from_numpy(_control_series("diurnal", week_times()[SVD_MESH_D - 1:])).cuda()
+
+
+def whole_u(u_loc: torch.Tensor, mesh, rows: int, path: Path) -> torch.Tensor:
+    """The whole (d S, k) U of the ranks' interleaved blocks on this
+    rank's card, delay-major, the padding cut, through the page cache:
+    every rank writes its rows of each delay block into one raw f32 file
+    at ``path`` (rank 0 sizes it), then reads all of it through a pinned
+    buffer, a chunk of rows at a time.  Gloo's host path moves ~0.5 GB/s
+    on the card's machine (23.3 s a rank for this U, all-gathered 25
+    columns at a time), a memmap of the file 13.5-18.5 s (its page faults
+    and pageable copies)."""
+    import torch.distributed as dist
+
+    from dmd_era5_tpu_torch.parallel.sharding import row_block
+
+    d, k = SVD_MESH_D, u_loc.shape[1]
+    s_loc, row_bytes = u_loc.shape[0] // d, 4 * k
+    if dist.get_rank() == 0:
+        with open(path, "wb") as f:
+            f.truncate(d * rows * row_bytes)
+    dist.barrier()
+    r0, r1, _ = row_block(rows, mesh.shape["space"], mesh.coords["space"])
+    with open(path, "r+b") as f:
+        for j in range(d):
+            f.seek((j * rows + r0) * row_bytes)
+            f.write(u_loc[j * s_loc : j * s_loc + r1 - r0].cpu().numpy())
+    dist.barrier()
+    out = torch.empty((d * rows, k), dtype=torch.float32, device=u_loc.device)
+    buf = torch.empty((CHUNK, k), dtype=torch.float32, pin_memory=True)
+    with open(path, "rb") as f:
+        for c0 in range(0, d * rows, CHUNK):
+            n = min(CHUNK, d * rows - c0)
+            check(f.readinto(memoryview(buf[:n].numpy()).cast("B")) == n * row_bytes,
+                  f"whole_u: a short read of {path}")
+            out[c0 : c0 + n].copy_(buf[:n])
+    del buf
+    dist.barrier()
+    if dist.get_rank() == 0:
+        path.unlink()
+    return out
+
+
+def dmdc_invariants(res) -> dict:
+    """DMDc's discrete eigenvalues and b^T b, b^T a b (q x q): a rotation
+    of the output basis (a_red -> R^T a R, b_red -> R^T b) leaves them."""
+    a, b = res.a_red.double().cpu(), res.b_red.double().cpu()
+    return {"eigenvalues": res.eigenvalues.cpu(), "btb": b.T @ b, "btab": b.T @ a @ b}
+
+
+def held_dmdc(label: str, got: dict, ref: dict) -> dict:
+    """DMDc's eigenvalues within DMDC_GRAM_ROUTE_GAP and its invariants
+    within MODELS_INVARIANT_TOL (relative Frobenius) of ref's."""
+    err = matched_eig_error(got["eigenvalues"].to(torch.complex128),
+                            ref["eigenvalues"].to(torch.complex128))
+    inv = {key: float((got[key] - ref[key]).norm() / ref[key].norm()) for key in ("btb", "btab")}
+    check(err <= DMDC_GRAM_ROUTE_GAP, f"{label}: DMDc eigenvalues off one device's by {err:.3e}")
+    check(max(inv.values()) <= MODELS_INVARIANT_TOL,
+          f"{label}: DMDc's b^T b, b^T a b off one device's by {inv}")
+    return {"eig_err": err, **{f"{key}_rel": value for key, value in inv.items()}}
+
+
+def held_bag(label: str, got: dict, ref: dict) -> dict:
+    """The bag's trial-mean eigenvalues within BAG_EIG_ATOL of ref's as
+    matched sets, its amplitudes (matched the same way) within
+    BAG_AMP_RTOL, the trials used equal."""
+    err = matched_eig_error(got["eigenvalues"], ref["eigenvalues"])
+    found, want = got["eigenvalues"].numpy(), ref["eigenvalues"].numpy()
+    order = [int(np.argmin(np.abs(found - w))) for w in want]
+    amp = float(np.abs(got["amplitudes"].numpy()[order] / ref["amplitudes"].numpy() - 1).max())
+    check(err <= BAG_EIG_ATOL and amp <= BAG_AMP_RTOL and got["used"] == ref["used"],
+          f"{label}: bag off one device's: eigenvalues {err:.3e}, amplitudes {amp:.3e}, "
+          f"trials used {got['used']} vs {ref['used']}")
+    return {"eig_err": err, "amp_rel": amp, "used": got["used"]}
+
+
+def a_red_in_batches(st, n_data: int) -> torch.Tensor:
+    """Each member's a_red recomputed from its own s and V by the step's
+    ``_reduced_operator``, in the batches that a data axis of ``n_data``
+    ranks ran it in (zero members padding the last, as in the step)."""
+    from dmd_era5_tpu_torch.pipeline.train_step import _reduced_operator
+
+    n = st.s.shape[0]
+    per = -(-n // n_data)
+    s, v = (torch.cat([a, a.new_zeros((per * n_data - n, *a.shape[1:]))]) for a in (st.s, st.v))
+    return torch.cat([_reduced_operator(s[i * per:(i + 1) * per], v[i * per:(i + 1) * per])
+                      for i in range(n_data)])[:n]
+
+
+def ensemble_readings(fit, n_data: int, u_ref_lead: torch.Tensor | None = None) -> dict:
+    """An ensemble's s, the eigenvalues of each member's a_red (all, and
+    its leading 6 x 6 block's), a_red against its recompute from the
+    member's own s and V in the ranks' batches (``a_red_in_batches``;
+    largest |difference| over max|a_red|), the loss, the labels and U's
+    orthonormality as 17a reads it (the leading 6 columns' and all
+    100's, the worst member's).  Given the reference's leading 6 columns
+    of U (B, S, 6): each member's leading-6 span against its own
+    (``subspace_cos_min``, the least).  The recompute's and the span's
+    readings also with members 0 and 1 swapped, a planted gather fault
+    (member 1's against member 0's)."""
+    lead = len(PAIRS) * 2
+    st = fit.state
+    a_rec = a_red_in_batches(st, n_data)
+    a_max = float(st.a_red.abs().max())
+    orth_lead = orth_all = 0.0
+    for u in st.u:
+        dev = (gram_f64(u) - torch.eye(u.shape[1], dtype=torch.float64, device=u.device)).abs()
+        orth_lead = max(orth_lead, float(dev[:lead, :lead].max()))
+        orth_all = max(orth_all, float(dev.max()))
+    out = {"s": st.s.cpu(), "a_eig": torch.linalg.eigvals(st.a_red.double()).cpu(),
+           "a_lead_eig": torch.linalg.eigvals(st.a_red[:, :lead, :lead].double()).cpu(),
+           "a_rec": float((st.a_red - a_rec).abs().max()) / a_max,
+           "a_rec_swapped": float((st.a_red[1] - a_rec[0]).abs().max()) / a_max,
+           "loss": float(st.loss), "labels": fit.labels, "orth_lead": orth_lead,
+           "orth_all": orth_all, "u_shape": tuple(st.u.shape)}
+    if u_ref_lead is not None:
+        out["u_span"] = min(subspace_cos_min(u[:, :lead], ref) for u, ref in zip(st.u, u_ref_lead))
+        out["u_span_swapped"] = subspace_cos_min(st.u[1, :, :lead], u_ref_lead[0])
+    return out
+
+
+def kernel_readings(kernels: dict) -> dict:
+    """Each compare_kernel / compare_gram result's errors and times."""
+    return {name: {key: k.get(key) for key in (
+        "m", "n", "k", "rel_err", "kernel_rel_vs_f64", "kernel_G_vs_f64", "kernel_C_vs_f64",
+        "ms", "plain_ms", "bound_ms", "library_ms")} for name, k in kernels.items()}
+
+
+def dmdc_kernels_vs_plain(label: str, z: torch.Tensor, u_ctrl: torch.Tensor, rank: int,
+                          rank_omega: int, n_space: int) -> dict:
+    """K4 and K1 against their plain versions on rank 0's row blocks of
+    DMDc's two Gram-route SVDs over space=n_space (``models.dmdc``):
+    [Z1; gamma U] (k + q rows, ``rank_omega`` components) and Z2 (k rows,
+    ``rank``), each zero-padded to a multiple of n_space as ``shard_rows``
+    pads it; K1 uncentred on V_k of the whole matrix's f64 Gram, as wide
+    as ``ops.svd._lane_width`` makes it.  Uncounted."""
+    from dmd_era5_tpu_torch.ops.svd import _lane_width
+    from dmd_era5_tpu_torch.parallel.sharding import row_block
+
+    x1, x2 = z[:, :-1], z[:, 1:]
+    gamma = torch.sqrt(torch.mean(x1 * x1)) / torch.sqrt(torch.mean(u_ctrl * u_ctrl))
+    out = {}
+    for name, a, k in (("stack", torch.cat([x1, gamma * u_ctrl]), rank_omega), ("z2", x2, rank)):
+        r0, r1, per = row_block(a.shape[0], n_space, 0)
+        block = torch.zeros((per, a.shape[1]), dtype=torch.float32, device=a.device)
+        block[: r1 - r0] = a[r0:r1]
+        _, vecs = torch.linalg.eigh(gram_f64(a))
+        v_k = vecs.flip(-1)[:, :_lane_width(k, a.shape[1])].float().contiguous()
+        out[f"K4_{name}"] = compare_gram(f"{label} {name} rank 0", block, "highest")
+        out[f"K1_{name}"] = compare_kernel(f"{label} {name} rank 0", block, v_k, torch.float32,
+                                           center=False)
+    return out
+
+
+def models_mesh_refs(week: dict, seed: int, directory: Path) -> dict:
+    """Phase 19's one-device references in this process, uncounted: the
+    ensemble of the week's 15 members on a (1, 1, 1) mesh (19a-b; its U's
+    leading 6 columns written to ``directory`` for the ranks), the fused
+    Hankel SVD on phase 3's sketch with the bag (19b) and DMDc (19c) on
+    it; and K1 and K4 against their plain versions at the shapes a rank
+    gives them: K1 on a member (1,038,240 x 168, N 110, centring: the
+    ensemble's step), and DMDc's K4 and K1 on rank 0's row blocks at
+    P = 3 (``dmdc_kernels_vs_plain``: 34 of [Z1; gamma U]'s 102 rows, 34
+    of Z2's 100 padded to 102)."""
+    from dmd_era5_tpu_torch.models import bopdmd_from_svd, dmdc_from_svd
+    from dmd_era5_tpu_torch.ops.hankel import hankel_randomized_svd_fused_core
+    from dmd_era5_tpu_torch.parallel import single_device_mesh
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+
+    x = week["x"]
+    out, times = {"alpha_true": week["alpha_true"].cpu()}, {}
+    omega = models_omega(seed)
+    fit, times["ensemble"] = synced(fit_per_variable_level, week_members(x), SVD_MESH_K,
+                                    mesh=single_device_mesh("cuda"), omega=omega,
+                                    solve_dmd=True, dmd_rank=DMD_RANK)
+    out["ensemble"] = {**ensemble_readings(fit, 1), "alpha": fit.dmd.alpha.cpu()}
+    np.save(directory / U_LEAD_FILE, fit.state.u[:, :, : len(PAIRS) * 2].cpu().numpy())
+    del fit
+    torch.cuda.empty_cache()
+    omegas = svd_mesh_omegas(x.shape[1], seed)
+    (u, s, v), times["fused_svd"] = synced(hankel_randomized_svd_fused_core, x, SVD_MESH_D,
+                                           SVD_MESH_K, omegas["fused"], torch.float32)
+    t = torch.arange(v.shape[1], dtype=torch.float32, device="cuda")
+    bag, times["bag"] = synced(bopdmd_from_svd, u, s, v, t, rank=DMD_RANK, n_trials=BAG_TRIALS,
+                               trial_fraction=BAG_FRACTION)
+    out["bag"] = {"eigenvalues": bag.eigenvalues.cpu(), "amplitudes": bag.amplitudes.cpu(),
+                  "used": len(bag.trial_eigenvalues)}
+    del bag
+    u_ctrl = week_control()
+    dmdc, times["dmdc"] = synced(dmdc_from_svd, u, s, v, u_ctrl, rank=DMD_RANK, dt=1.0)
+    out["dmdc"] = dmdc_invariants(dmdc)
+    del dmdc, u
+    torch.cuda.empty_cache()
+    # the kernels at a rank's shapes
+    block = len(LEVELS) * N_LAT * N_LON // len(LEVELS)
+    kernels = {"K1_member": compare_kernel("19a member", x[:block], omega, torch.float32,
+                                           centred=True)}
+    kernels.update(dmdc_kernels_vs_plain("19c DMDc", s[:, None] * v, u_ctrl, DMD_RANK,
+                                         DMD_RANK + u_ctrl.shape[0], 3))
+    out["kernels"] = kernel_readings(kernels)
+    out["times"] = times
+    torch.cuda.empty_cache()
+    return out
+
+
+def models_mesh_rank(x_loc: torch.Tensor, mesh, world: int, path: str, seed: int) -> dict:
+    """Phase 19 in a fused world, on this rank: the ensemble over
+    data=P from the artifact's members (19a at P = 3, 19b at P = 2), then
+    on the rank's own 18b fused Hankel SVD (K1 5), U made whole on its
+    card (``whole_u``), the bag over data=2 (19b) or DMDc over the world's space=3
+    (19c).  Each part's readings, seconds, peak memory, collective log
+    (the bag's and DMDc's own apart) and launches."""
+    from dmd_era5_tpu_torch.models import bopdmd_from_svd, dmdc_from_svd
+    from dmd_era5_tpu_torch.parallel import make_mesh
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+
+    out = {}
+    data_mesh = make_mesh(f"data={world}")
+
+    def part(name, fn):
+        before = launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with collective_log() as clog:
+            res, secs = synced(fn)
+        res.update(seconds=secs, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   log=log_summary(clog), launches=_minus(launch_counts(), before))
+        out[name] = res
+
+    def ensemble():
+        from dmd_era5_tpu_torch.pipeline import ensemble as ens
+
+        fs = week_members(np.load(path, mmap_mode="r"))
+        solve = world == 3
+        with stage_clock(ens, "_local_members", "fit_step", "_whole_state",
+                         "optdmd_from_svd_batched") as clock:
+            fit = fit_per_variable_level(fs, SVD_MESH_K, mesh=data_mesh, omega=models_omega(seed),
+                                         solve_dmd=solve, dmd_rank=DMD_RANK)
+        steps = {"read": clock["_local_members"], "step": clock["fit_step"],
+                 "gather": clock["_whole_state"], "lm": clock["optdmd_from_svd_batched"]}
+        u_ref_lead = torch.from_numpy(np.load(Path(path).parent / U_LEAD_FILE)).cuda()
+        return {**ensemble_readings(fit, world, u_ref_lead),
+                **({"alpha": fit.dmd.alpha.cpu()} if solve else {}),
+                "steps": {key: round(sum(v), 3) for key, v in steps.items()}}
+
+    part("19a" if world == 3 else "19b_ensemble", ensemble)
+    rows = N_BLOCKS * N_LAT * N_LON
+    omegas = svd_mesh_omegas(x_loc.shape[1], seed)
+
+    def on_factors(fn):
+        steps = {}
+        (u_loc, s, v), steps["svd"] = synced(svd_mesh_route, "fused", x_loc, mesh, omegas, seed)
+        u, steps["whole_u"] = synced(whole_u, u_loc, mesh, rows,
+                                     Path(path).parent / "u_19.f32")
+        del u_loc
+        with collective_log() as own:
+            res, steps["fit"] = synced(fn, u, s, v)
+        return {**res, "own_log": log_summary(own), "s_factors": s.cpu(),
+                "steps": {key: round(v, 3) for key, v in steps.items()}}
+
+    def bag(u, s, v):
+        t = torch.arange(v.shape[1], dtype=torch.float32, device="cuda")
+        res = bopdmd_from_svd(u, s, v, t, rank=DMD_RANK, n_trials=BAG_TRIALS,
+                              trial_fraction=BAG_FRACTION, mesh=data_mesh)
+        return {"eigenvalues": res.eigenvalues.cpu(), "amplitudes": res.amplitudes.cpu(),
+                "used": len(res.trial_eigenvalues),
+                "modes_finite": bool(torch.isfinite(res.modes).all())}
+
+    def dmdc(u, s, v):
+        res = dmdc_from_svd(u, s, v, week_control(), rank=DMD_RANK, dt=1.0, mesh=mesh)
+        norms = torch.linalg.vector_norm(res.modes, dim=0)
+        return {**dmdc_invariants(res), "modes_unit": float((norms - 1).abs().max())}
+
+    if world == 2:
+        part("19b_bag", lambda: on_factors(bag))
+    else:
+        part("19c", lambda: on_factors(dmdc))
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_models_config(meshed: bool) -> tuple[dict, dict]:
+    """19d's config 1: config.ini's [era5-svd] and [era5-dmd] on the mock,
+    the DMD fit bagged (BAG_TRIALS) with the diurnal control, the mesh
+    MODELS_MESH over 17c's ranks; for one device the SVD's ``inmem``
+    route, whose sketch (k + 10 columns from seed 0) is the meshed
+    Hankel route's (18d)."""
+    from dmd_era5_tpu_torch.core import config_parser
+
+    extra = {"mesh_shape": MODELS_MESH} if meshed else {"svd_backend": "inmem"}
+    svd = config_parser(stage_config("era5-svd", source_path="mock_data", **extra), "era5-svd")
+    dmd = config_parser(stage_config("era5-dmd", source_path="mock_data", bagging_trials=BAG_TRIALS,
+                                     control_input="diurnal", **extra), "era5-dmd")
+    return svd, dmd
+
+
+def planted_slice(fs, seed: int):
+    """19d's slice: each field of config 1's mock slice replaced by
+    250 + 10 x (PLANTED_WAVES' damped travelling waves, each
+    cos(lat) cos(phase) + sin(2 lat) sin(phase), phase = f t - k lon)
+    plus 0.01 of standard normal noise drawn from ``seed``."""
+    t = np.arange(fs.sizes["time"], dtype=np.float64)
+    lat = np.deg2rad(fs.coord("latitude").values.astype(np.float64))[:, None]
+    lon = np.deg2rad(fs.coord("longitude").values.astype(np.float64))[None, :]
+    rng = np.random.default_rng(seed)
+    for name in fs.variables:
+        field = fs[name].transpose("time", "level", "latitude", "longitude")
+        sig = np.zeros(field.shape)
+        for freq, damp, klon in PLANTED_WAVES:
+            phase = freq * t[:, None, None] - klon * lon[None]
+            pattern = np.cos(lat)[None] * np.cos(phase) + np.sin(2 * lat)[None] * np.sin(phase)
+            sig += (np.exp(-damp * t)[:, None, None] * pattern)[:, None]
+        data = 250.0 + 10.0 * sig + 0.01 * rng.standard_normal(sig.shape)
+        fs.data_vars[name] = field.copy(data=data.astype(np.float32))
+    return fs
+
+
+def stage_models_fit(mesh, seed: int, planted: bool = True) -> tuple[dict, object]:
+    """19d's stage in memory (the machine has no h5py): config 1's mock
+    slice (the global numpy state seeded, alike in every process), with
+    the planted waves (``planted_slice``) unless ``planted`` is False,
+    ``compute_svd_results`` and ``fit_dmd_from_svd_results`` on ``mesh``
+    (None: one device), each step timed.  Returns the readings and the
+    SVD results."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+
+    svd_cfg, dmd_cfg = stage_models_config(mesh is not None)
+    np.random.seed(seed)
+    fs = era5_download.download_era5_data(
+        config_parser(stage_config("era5-download"), "era5-download"), use_mock_data=True)
+    if planted:
+        fs = planted_slice(fs, seed)
+    with stage_clock(era5_dmd, "bopdmd_from_svd", "dmdc_from_svd", "_forecast_field") as clock:
+        svd_res, t_svd = synced(era5_svd.compute_svd_results, fs, svd_cfg, mesh=mesh)
+        res = era5_dmd.fit_dmd_from_svd_results(svd_res, dmd_cfg, mesh=mesh)
+    readings = stage_models_readings(res, svd_res)
+    readings["steps"] = {"svd": round(t_svd, 3),
+                         **{key: round(sum(v), 3) for key, v in clock.items()}}
+    return readings, svd_res
+
+
+def varpro_in_blocks(h, t, alpha0, n_blocks: int, **kwargs) -> tuple:
+    """``varpro_lm_batched`` on one device in the blocks that a ``data``
+    axis of ``n_blocks`` ranks solves (the members padded with copies of
+    member 0, as the meshed call pads them), the blocks' results
+    concatenated and the padding cut: the meshed solve without its
+    gather."""
+    from dmd_era5_tpu_torch.models.optdmd import varpro_lm_batched
+
+    n = h.shape[0]
+    per = -(-n // n_blocks)
+    pad = per * n_blocks - n
+    if t.ndim == 1:
+        t = t.expand(n, -1)
+    h, t, alpha0 = (torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a
+                    for a in (h, t, alpha0))
+    parts = [varpro_lm_batched(h[i * per:(i + 1) * per], t[i * per:(i + 1) * per],
+                               alpha0[i * per:(i + 1) * per], **kwargs) for i in range(n_blocks)]
+    return tuple(np.concatenate([part[j] for part in parts])[:n] for j in range(4))
+
+
+@contextlib.contextmanager
+def bag_lm_in_blocks(n_blocks: int):
+    """The bag's batched LM (``models.bopdmd.varpro_lm_batched``) solved
+    by :func:`varpro_in_blocks` over ``n_blocks`` inside the block."""
+    from dmd_era5_tpu_torch.models import bopdmd as bop_mod
+
+    saved = bop_mod.varpro_lm_batched
+
+    def call(h, t, alpha0, mesh=None, **kwargs):
+        check(mesh is None, "bag_lm_in_blocks: a meshed call")
+        return varpro_in_blocks(h, t, alpha0, n_blocks, **kwargs)
+
+    bop_mod.varpro_lm_batched = call
+    try:
+        yield
+    finally:
+        bop_mod.varpro_lm_batched = saved
+
+
+def lm_gap(a: tuple, b: tuple) -> dict:
+    """Two ``varpro_lm_batched`` results (alpha, B, residual, n_iters)
+    trial by trial: bit for bit equal, the non-finite entries alike, the
+    largest |alpha_a - alpha_b| over the finite ones, the trials whose
+    step counts differ (numpy arrays or host tensors)."""
+    a, b = ([np.asarray(x) for x in res] for res in (a, b))
+    fin_a, fin_b = np.isfinite(a[0]), np.isfinite(b[0])
+    both = fin_a & fin_b
+    return {"bit_equal": all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b)),
+            "finite_alike": bool((fin_a == fin_b).all()),
+            "alpha": float(np.abs(a[0][both] - b[0][both]).max()) if both.any() else 0.0,
+            "iters_differ": int((a[3] != b[3]).sum())}
+
+
+def lm_witness(seed: int, directory: Path) -> dict:
+    """19d's witness on config 1's own mock (i.i.d. noise), one device,
+    uncounted: the stage's fit with the bag's LM solved as one batch of
+    BAG_TRIALS and in the blocks of MODELS_MESH's data axis
+    (``bag_lm_in_blocks``), and the trials' LM alone both ways; the
+    trials' LM inputs are saved to ``directory`` for 19d's ranks, which
+    solve them on the mesh (``stage_models_rank``)."""
+    from dmd_era5_tpu_torch.models import bopdmd as bop_mod
+    from dmd_era5_tpu_torch.models.optdmd import varpro_lm_batched
+    from dmd_era5_tpu_torch.pipeline import era5_dmd
+
+    n_data = MODELS_MESH_AXES["data"]
+    with first_call(bop_mod, "varpro_lm_batched") as call:
+        whole, svd_res = stage_models_fit(None, seed, planted=False)
+    with bag_lm_in_blocks(n_data):
+        split = stage_models_readings(era5_dmd.fit_dmd_from_svd_results(
+            svd_res, stage_models_config(False)[1]), svd_res)
+    kwargs = {key: v for key, v in call["kwargs"].items() if key != "mesh"}
+    lm_whole = varpro_lm_batched(*call["args"], **kwargs)
+    lm_split = varpro_in_blocks(*call["args"], n_data, **kwargs)
+    torch.save({"args": [a.cpu() for a in call["args"]], "kwargs": kwargs},
+               directory / LM_WITNESS_FILE)
+    return {"bag_gap": matched_eig_error(whole["bag"]["eigenvalues"], split["bag"]["eigenvalues"]),
+            "used": (whole["bag"]["used"], split["bag"]["used"]),
+            "lm_whole_vs_split": lm_gap(lm_whole, lm_split), "lm_split": lm_split}
+
+
+def stage_models_kernels(flat: torch.Tensor, dmdc_args: tuple) -> dict:
+    """19d's kernels against their plain versions at rank 0's shapes on
+    MODELS_MESH (space=2), uncounted: K1 as the stage's fused Hankel pass
+    launches it on the row block of config 1's flat X (its first sketch,
+    stacked, uncentred, f32; 18d's randomized route runs the same pass at
+    the same shape), and DMDc's K4 and K1 (``dmdc_kernels_vs_plain``) on
+    Z = S V of one device's factors (the ranks' have the same shapes)."""
+    from dmd_era5_tpu_torch.ops.hankel import _sketch_of, stacked_sketch_matrix
+    from dmd_era5_tpu_torch.parallel.sharding import row_block
+
+    svd_cfg, dmd_cfg = stage_models_config(True)
+    d, k = svd_cfg["delay_embedding"], svd_cfg["n_components"]
+    n_space = MODELS_MESH_AXES["space"]
+    r0, r1, per = row_block(flat.shape[0], n_space, 0)
+    block = torch.zeros((per, flat.shape[1]), dtype=torch.float32, device=flat.device)
+    block[: r1 - r0] = flat[r0:r1]
+    t = flat.shape[1]
+    w = stacked_sketch_matrix(_sketch_of(block, t - d + 1, k + 10, None, 0), d, t)
+    kernels = {"K1_hankel": compare_kernel("19d Hankel row block rank 0", block, w,
+                                           torch.float32, centred=True, center=False)}
+    del block
+    s, v, u_ctrl = (torch.as_tensor(a).float().to(flat.device) for a in dmdc_args[1:4])
+    rank = dmd_cfg["dmd_rank"]
+    rank_omega = dmd_cfg.get("dmdc_rank_omega") or rank + u_ctrl.shape[0]
+    kernels.update(dmdc_kernels_vs_plain("19d DMDc", s[:, None] * v, u_ctrl, rank, rank_omega,
+                                         n_space))
+    return kernel_readings(kernels)
+
+
+def stage_models_readings(res, svd_res) -> dict:
+    """19d's readings of a DMD FieldSet: the SVD's s, the bag's and DMDc's."""
+    a = torch.from_numpy(res["dmdc_a_red"].values).double()
+    b = torch.from_numpy(res["dmdc_b_red"].values).double()
+    omega = torch.from_numpy(res["dmdc_eigenvalues"].values)
+    return {"s": torch.from_numpy(np.asarray(svd_res["s"].values)),
+            "bag": {"eigenvalues": torch.from_numpy(res["eigenvalues"].values),
+                    "amplitudes": torch.from_numpy(res["amplitudes"].values),
+                    "used": res.attrs["bagging_trials_used"]},
+            "dmdc": {"eigenvalues": torch.exp(omega.to(torch.complex128)), "btb": b.T @ b,
+                     "btab": b.T @ a @ b},
+            "finite": all(bool(torch.isfinite(torch.as_tensor(res[name].data)).all())
+                          for name in ("modes", "modes_std", "dmdc_modes", "forecast"))}
+
+
+def stage_models_rank(seed: int, directory: Path) -> dict:
+    """19d on this rank of 17c's world: config 1's stage on MODELS_MESH,
+    its launches and collectives; then, uncounted, the one-device fit on
+    this rank's own SVD results (the fit's reference on the same
+    factors), once as one device runs it and once with the bag's LM in
+    the blocks this rank's data axis solves (``bag_lm_in_blocks``); and
+    the witness's i.i.d. trials (``lm_witness``) solved on the mesh."""
+    from dmd_era5_tpu_torch.models.optdmd import varpro_lm_batched
+    from dmd_era5_tpu_torch.parallel import make_mesh
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+    from dmd_era5_tpu_torch.pipeline import era5_dmd
+
+    mesh = make_mesh(MODELS_MESH)
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with collective_log() as clog:
+        (res, svd_res), secs = synced(stage_models_fit, mesh, seed)
+    res.update(seconds=secs, launches=_minus(launch_counts(), before), log=log_summary(clog),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    dmd_cfg = stage_models_config(True)[1]
+    one = era5_dmd.fit_dmd_from_svd_results(svd_res, dmd_cfg)
+    res["same_factors"] = stage_models_readings(one, svd_res)
+    with bag_lm_in_blocks(mesh.shape["data"]):
+        one = era5_dmd.fit_dmd_from_svd_results(svd_res, dmd_cfg)
+    res["split_factors"] = stage_models_readings(one, svd_res)["bag"]
+    witness = torch.load(directory / LM_WITNESS_FILE)
+    res["iid_lm"] = varpro_lm_batched(*(a.cuda() for a in witness["args"]), **witness["kwargs"],
+                                      mesh=mesh)
+    return res
+
+
+def held_models(ranks: list[dict], refs: dict, world: int) -> dict:
+    """Phase 19's checks on a fused world's ranks: every rank's readings
+    alike; the ensemble's s (of each member's s[0]) and a_red's
+    leading block's eigenvalues against the (1, 1, 1) mesh's and a_red
+    against its recompute from the member's s and V, its DMD eigenvalues
+    as matched sets, U orthonormal (17a's leading limit, twice one
+    device's reading for all columns) and each member's leading-6 span
+    within MODELS_SPAN_TOL of the reference's (each reading also logged
+    with members 0 and 1 swapped, a planted gather fault; all of a_red's
+    eigenvalues read, not held); the bag (19b) or DMDc (19c) against one
+    device's;
+    the collectives (the bag's own: one gather over data; DMDc's own: the
+    Gram route's psums and U's gathers over space) and launches exactly."""
+    out = {}
+    ens = "19a" if world == 3 else "19b_ensemble"
+    ref = refs["ensemble"]
+    got = ranks[0]["models"][ens]
+    keys = ("s", "a_eig", "a_lead_eig") + (("alpha",) if "alpha" in got else ())
+    for rank, res in enumerate(ranks):
+        mine = res["models"][ens]
+        check(all(torch.equal(mine[key], got[key]) for key in keys)
+              and mine["labels"] == got["labels"] == ref["labels"],
+              f"{ens} rank {rank}: readings differ from rank 0's")
+        check(mine["u_span"] >= 1 - MODELS_SPAN_TOL,
+              f"{ens} rank {rank}: a member's leading-6 U span off the reference's: cos min "
+              f"{mine['u_span']:.9f}")
+
+    def s_off(a, b):  # of each member's s[0]
+        return float(((a.double() - b.double()).abs() / b.double()[..., :1]).max())
+
+    def eig_off(a, b):
+        return max(matched_eig_error(x, y) for x, y in zip(a, b))
+
+    s_rel = s_off(got["s"], ref["s"])
+    a_eig = eig_off(got["a_lead_eig"], ref["a_lead_eig"])
+    a_all = eig_off(got["a_eig"], ref["a_eig"])  # read, not held: see the comment above
+    eig = eig_off(got["alpha"], ref["alpha"]) if "alpha" in got else None
+    check(s_rel <= MODELS_S_TOL and a_eig <= BAG_EIG_ATOL and got["a_rec"] <= MODELS_A_REC_TOL
+          and (eig is None or eig <= BAG_EIG_ATOL),
+          f"{ens}: off one device's ensemble: s {s_rel:.3e} of s[0], a_red's leading block's "
+          f"eigenvalues {a_eig:.3e}, DMD eigenvalues {eig}; a_red off its recompute from the "
+          f"member's s and V by {got['a_rec']:.3e} of max|a_red|")
+    check(got["orth_lead"] <= 1e-3 and got["orth_all"] <= 2 * ref["orth_all"],
+          f"{ens}: U^T U - I leading {got['orth_lead']:.3e} (1e-3, 17a's), all "
+          f"{got['orth_all']:.3e} (twice one device's {ref['orth_all']:.3e})")
+    # a planted fault's readings: members 0 and 1 swapped in the gather
+    swapped = {"s_rel": s_off(got["s"][1], ref["s"][0]),
+               "a_lead_eig_err": matched_eig_error(got["a_lead_eig"][1], ref["a_lead_eig"][0]),
+               "a_eig_err": matched_eig_error(got["a_eig"][1], ref["a_eig"][0]),
+               "a_rec": got["a_rec_swapped"], "u_span": got["u_span_swapped"]}
+    if eig is not None:
+        swapped["eig_err"] = matched_eig_error(got["alpha"][1], ref["alpha"][0])
+    out[ens] = {"s_rel": s_rel, "a_lead_eig_err": a_eig, "a_eig_err": a_all, "eig_err": eig,
+                "a_rec": got["a_rec"], "u_span": min(r["models"][ens]["u_span"] for r in ranks),
+                "swapped": swapped, "orth_lead": (got["orth_lead"], ref["orth_lead"]),
+                "orth_all": (got["orth_all"], ref["orth_all"]), "loss": got["loss"],
+                "loss_one_device": ref["loss"], "u_shape": got["u_shape"],
+                "steps": [r["models"][ens]["steps"] for r in ranks]}
+    fit = "19b_bag" if world == 2 else "19c"
+    got = ranks[0]["models"][fit]
+    for rank, res in enumerate(ranks):
+        mine = res["models"][fit]
+        check(all(torch.equal(mine[key], got[key]) for key in mine
+                  if isinstance(mine[key], torch.Tensor)),
+              f"{fit} rank {rank}: readings differ from rank 0's")
+    if world == 2:
+        out[fit] = held_bag(fit, got, refs["bag"])
+        out[fit]["planted"] = matched_eig_error(got["eigenvalues"], refs["alpha_true"])
+        check(out[fit]["planted"] < 1e-2, f"{fit}: planted eigenvalues off by {out[fit]['planted']}")
+        check(got["modes_finite"], f"{fit}: modes not finite")
+        own = [res["models"][fit]["own_log"] for res in ranks]
+        check(all(o["by_op"].keys() == {"all_gather"} and o["all_gather"] == 1
+                  and o["largest"]["space"] == 0 for o in own),
+              f"{fit}: the bag's collectives {own}, want one gather over data")
+    else:
+        out[fit] = held_dmdc(fit, got, refs["dmdc"])
+        check(got["modes_unit"] < 1e-5, f"{fit}: modes not unit columns ({got['modes_unit']})")
+        out[fit]["planted"] = matched_eig_error(torch.log(got["eigenvalues"].to(torch.complex128)),
+                                                refs["alpha_true"].to(torch.complex128))
+        check(out[fit]["planted"] < 1e-2, f"{fit}: planted eigenvalues off by {out[fit]['planted']}")
+        own = [res["models"][fit]["own_log"] for res in ranks]
+        check(all(o["by_op"].get("psum", {}).get("calls") == 6
+                  and o["by_op"].get("all_gather", {}).get("calls") == 2
+                  and len(o["by_op"]) == 2 and o["largest"]["data"] == 0 for o in own),
+              f"{fit}: DMDc's collectives {own}, want 6 psums and 2 gathers over space")
+    out[fit]["steps"] = [r["models"][fit]["steps"] for r in ranks]
+    for name in (ens, fit):
+        for rank, res in enumerate(ranks):
+            check(res["models"][name]["launches"] == MODELS_LAUNCHES[name],
+                  f"{name} rank {rank}: launches {res['models'][name]['launches']}, expected "
+                  f"{MODELS_LAUNCHES[name]}")
+        out[name].update(
+            rank_s=[round(r["models"][name]["seconds"], 3) for r in ranks],
+            peak_gb=[round(r["models"][name]["peak_gb"], 3) for r in ranks],
+            collectives=ranks[0]["models"][name]["log"]["by_op"],
+            own_collectives=ranks[0]["models"][name].get("own_log", {}).get("by_op"))
+    return out
+
+
+def held_stage_models(ranks: list[dict], ref: dict, witness: dict) -> dict:
+    """19d's checks: every rank's readings alike; the SVD's s within
+    SVD_MESH_S_TOL of s[0] of one device's ``inmem`` route on the same
+    sketch (18b's limit; the planted slice's noise-floor components move
+    by more than 18d's 1e-3 of their own size); the fit against the
+    one-device fit on the same factors: the bag (BAG_EIG_ATOL,
+    BAG_AMP_RTOL; the planted eigenvalues within 2e-3, test_11's), DMDc
+    (``held_dmdc``); the bag against the one-device fit with its LM in
+    the ranks' blocks, and the witness's i.i.d. trials solved on the mesh
+    against the same blocks on one device (``lm_witness``), both within
+    BAG_EIG_ATOL with the same step counts; the S-sized fields finite;
+    the launches of a rank exactly."""
+    got = ranks[0]
+    for rank, res in enumerate(ranks):
+        check(torch.equal(res["s"], got["s"])
+              and all(torch.equal(res[p][key], got[p][key]) for p in ("bag", "dmdc")
+                      for key in got[p] if isinstance(got[p][key], torch.Tensor)),
+              f"19d rank {rank}: results differ from rank 0's")
+        check(res["launches"] == MODELS_LAUNCHES["19d"] and res["finite"],
+              f"19d rank {rank}: launches {res['launches']}, expected {MODELS_LAUNCHES['19d']}; "
+              f"finite {res['finite']}")
+    s_rel = float((got["s"].double() - ref["s"].double()).abs().max() / ref["s"].double()[0])
+    check(s_rel <= SVD_MESH_S_TOL, f"19d: s off one device's inmem route by {s_rel:.3e} of s[0] "
+          f"> {SVD_MESH_S_TOL}")
+    same = got["same_factors"]
+    planted = torch.tensor([complex(-damp, sign * freq) for freq, damp, _ in PLANTED_WAVES
+                            for sign in (1, -1)], dtype=torch.complex64)
+    err = matched_eig_error(got["bag"]["eigenvalues"], planted)
+    check(err <= 2e-3, f"19d: the bag's eigenvalues off the planted waves' by {err:.3e}")
+    split = held_bag("19d (the LM in the ranks' blocks)", got["bag"], got["split_factors"])
+    split["bit_equal"] = all(torch.equal(got["bag"][key], got["split_factors"][key])
+                             for key in ("eigenvalues", "amplitudes"))
+    iid = [lm_gap(res["iid_lm"], witness["lm_split"]) for res in ranks]
+    for rank, gap in enumerate(iid):
+        check(gap["finite_alike"] and gap["alpha"] <= BAG_EIG_ATOL and not gap["iters_differ"],
+              f"19d rank {rank}: the i.i.d. trials on the mesh off one device's blocks: {gap}")
+    return {"s_rel": s_rel, "planted": err, "bag": held_bag("19d", got["bag"], same["bag"]),
+            "bag_vs_split": split, "iid_mesh_vs_split": iid[0],
+            "iid_witness": {key: witness[key] for key in ("bag_gap", "used", "lm_whole_vs_split")},
+            "dmdc": held_dmdc("19d", got["dmdc"], same["dmdc"]),
+            "bag_vs_one_device_stage": matched_eig_error(got["bag"]["eigenvalues"],
+                                                         ref["bag"]["eigenvalues"]),
+            "rank_s": [round(r["seconds"], 3) for r in ranks],
+            "steps": [r["steps"] for r in ranks], "one_device_steps": ref["steps"],
+            "peak_gb": [round(r["peak_gb"], 3) for r in ranks],
+            "collectives": got["log"]["by_op"], "largest": got["log"]["largest"]}
+
+
 def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, center: bool,
                                out_dtype: torch.dtype = torch.float32) -> tuple[dict, torch.Tensor]:
     """K2 against its plain version on the card, on the same x and w
@@ -2706,6 +3532,25 @@ def first_operands(module, name: str, keep: int):
     setattr(module, name, call)
     try:
         yield calls
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def first_call(module, name: str):
+    """The first call's arguments of ``module.<name>``, into the yielded
+    dict ("args", "kwargs"; later calls pass through)."""
+    saved = getattr(module, name)
+    seen: dict = {}
+
+    def call(*args, **kwargs):
+        if not seen:
+            seen.update(args=args, kwargs=kwargs)
+        return saved(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield seen
     finally:
         setattr(module, name, saved)
 

@@ -12,7 +12,9 @@ so one seed gives this package and the JAX one the same subsets.  The
 modes are lifted, phase-aligned and summed one trial at a time (the sum
 of the modes and of their squared magnitude, in float64), so no
 (n_trials, S, r) array is formed: device memory is U plus five (S, r)
-complex64-sized arrays, whatever the bag size.
+complex64-sized arrays, whatever the bag size.  On a mesh the trials
+split over its ``data`` axis (:func:`varpro_lm_batched`); the anchor
+fit, the alignment and the aggregation run whole on every rank.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import numpy as np
 import torch
 
 from dmd_era5_tpu_torch.models.optdmd import (
-    NO_MESH,
     OptDMDResult,
     _lift_modes,
     optdmd_from_svd,
@@ -141,9 +142,13 @@ def bopdmd_from_svd(
     full-data fit's eigenvalues, so the bag explores the resampling,
     not the optimizer's basins.  Trials whose fit diverged (non-finite
     eigenvalues or coefficients) are dropped; if all did, RuntimeError.
+
+    ``mesh``: the trials' LM solves split over its ``data`` axis, with
+    one gather over it (:func:`varpro_lm_batched`); every rank draws the
+    same subsets from ``seed`` and returns the same result.  U, s and V
+    are whole on every rank, and the full-data anchor fit runs on each
+    rank's one device, as in every JAX process.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"bopdmd_from_svd with a mesh: {NO_MESH}")
     k = s.shape[-1]
     rank = rank or int(k)
     if not (0.0 < trial_fraction <= 1.0):
@@ -168,7 +173,7 @@ def bopdmd_from_svd(
     h_full = (s[:, None] * v).T  # (T, k) projected snapshots
     alpha0 = full.alpha[None, :].expand(n_trials, -1)
     alpha_t, b_t, _rel, n_iters = varpro_lm_batched(
-        h_full[idx], t[idx], alpha0, max_iter=max_iter, tol=tol
+        h_full[idx], t[idx], alpha0, max_iter=max_iter, tol=tol, mesh=mesh
     )
 
     # drop diverged trials: a fit on a hard subset can run a growth rate
@@ -220,7 +225,8 @@ def fit_bopdmd(
     mesh=None,
 ) -> BOPDMDResult:
     """Bagged optimized DMD of a (S, T) snapshot matrix on its device,
-    through its full f32 SVD truncated to ``rank``."""
+    through its full f32 SVD truncated to ``rank``; ``mesh`` as in
+    :func:`bopdmd_from_svd` (x whole on every rank)."""
     u, sv, vt = torch.linalg.svd(x.float(), full_matrices=False)
     return bopdmd_from_svd(
         u[:, :rank], sv[:rank], vt[:rank, :], t, rank=rank, n_trials=n_trials,

@@ -13,9 +13,13 @@ other S-sized contraction is a full-f32 ``torch.matmul``, the reduced
 operators are r x r and r x q, and the eigendecomposition runs on the
 device.  The modes stay on the device.
 
-The JAX package's ``mesh`` argument (space-sharded Grams) is not
-ported yet (ROADMAP Queue 1 item 12, step 9c, on the port's mesh in
-``parallel``).
+On a mesh the two Gram-route SVDs run over its ``space`` axis: each rank
+takes its row block of [X1; gamma U] and of X2 (``parallel.shard_rows``,
+zero rows padding a count that does not divide the axis: they add
+nothing to a Gram), the T x T Grams and the Rayleigh-Ritz sums are
+psum'd, and Ut and Uh are gathered back whole
+(``parallel.assemble_rows``, the padding cut).  The rest of the algebra
+runs whole on every rank, as on one device.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from typing import NamedTuple
 
 import torch
 
-from dmd_era5_tpu_torch.models.optdmd import NO_MESH, _lift_modes
+from dmd_era5_tpu_torch.models.optdmd import _lift_modes
 from dmd_era5_tpu_torch.ops.svd import exact_truncated_svd_gram
+from dmd_era5_tpu_torch.parallel.mesh import AXIS_SPACE
+from dmd_era5_tpu_torch.parallel.sharding import assemble_rows, shard_rows
 from dmd_era5_tpu_torch.utils.linalg import eig_sorted
 from dmd_era5_tpu_torch.utils.tensors import as_tensor, home_device
 
@@ -56,6 +62,20 @@ def _unit_columns(m: torch.Tensor) -> torch.Tensor:
     return m / torch.where(norms == 0, torch.ones_like(norms), norms)[None, :]
 
 
+def _gram_svd(a: torch.Tensor, rank: int, mesh):
+    """The Gram-route SVD of a at ``"highest"``: on one device, or over the
+    mesh's ``space`` axis on the rank's row block with U gathered whole
+    to a's device."""
+    if mesh is None:
+        return exact_truncated_svd_gram(a, rank, gram_precision="highest")
+    block, rows = shard_rows(a, mesh, AXIS_SPACE)
+    u, s, vt = exact_truncated_svd_gram(block, rank, gram_precision="highest", mesh=mesh,
+                                        axis_name=AXIS_SPACE)
+    del block
+    u = torch.from_numpy(assemble_rows(u, mesh, AXIS_SPACE, rows=rows)).to(a.device)
+    return u, s.to(a.device), vt.to(a.device)
+
+
 def fit_dmdc(
     x,
     u_ctrl,
@@ -70,7 +90,9 @@ def fit_dmdc(
     x (S, T) snapshots; u_ctrl (q, T-1) inputs, u_k acting on the step
     x_k -> x_{k+1}; rank r of the output basis; rank_omega p of the
     stacked input SVD (default r + q).  ``device``: where the fit runs,
-    by default where x lies (the card for a host array).
+    by default where x lies (the card for a host array); on a ``mesh``
+    its device.  ``mesh``: the two SVDs over its ``space`` axis (module
+    docstring), x whole on every rank.
 
     The control block is row-balanced to the state block's RMS before
     stacking (gamma), so state magnitudes that dwarf the controls do not
@@ -81,9 +103,7 @@ def fit_dmdc(
     dropped), A_red = Uh^T K Ut1^T Uh, B_red = gamma Uh^T K Ut2^T, and
     the exact modes of A are K Ut1^T Uh W.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"fit_dmdc with a mesh: {NO_MESH}")
-    device = home_device(x, device)
+    device = home_device(x, device) if mesh is None else mesh.device
     x = as_tensor(x, torch.float32, device)
     u_ctrl = as_tensor(u_ctrl, torch.float32, device)
     s_rows, t_total = x.shape
@@ -102,9 +122,9 @@ def fit_dmdc(
     gamma = torch.where((u_rms > 0) & (x1_rms > 0), x1_rms / torch.clamp(u_rms, min=1e-30),
                         torch.ones_like(u_rms))
     omega_mat = torch.cat([x1, gamma * u_ctrl], dim=0)  # (S + q, T - 1), row-major
-    ut, st, vtt = exact_truncated_svd_gram(omega_mat, p, gram_precision="highest")
+    ut, st, vtt = _gram_svd(omega_mat, p, mesh)
     del omega_mat
-    uh, _, _ = exact_truncated_svd_gram(x2.contiguous(), rank, gram_precision="highest")
+    uh, _, _ = _gram_svd(x2.contiguous(), rank, mesh)
     ut1, ut2 = ut[:s_rows], ut[s_rows:]
 
     st_inv = torch.where(st > 1e-3 * st[0], 1.0 / torch.clamp(st, min=1e-30),
@@ -143,14 +163,16 @@ def dmdc_from_svd(
     The forced dynamics are fit on the projected snapshots Z = S V^T (k,
     T), so both factorizations are k-sized, and the modes and the lift
     basis return to full space with one real GEMM each against U.
-    u (S, k), s (k,), v (k, T); u_ctrl (q, T-1); rank <= k.
+    u (S, k), s (k,), v (k, T); u_ctrl (q, T-1); rank <= k.  ``mesh``:
+    the k-sized fit's two SVDs over its ``space`` axis (:func:`fit_dmdc`);
+    the lift by U, whole on every rank, stays on U's device.
     """
     device = home_device(u)
     u = as_tensor(u, torch.float32, device)
     z = as_tensor(s, torch.float32, device)[:, None] * as_tensor(v, torch.float32, device)
     res = fit_dmdc(z, u_ctrl, rank=rank, rank_omega=rank_omega, dt=dt, mesh=mesh)
     modes = _unit_columns(_lift_modes(u, res.modes))
-    return res._replace(modes=modes, u_hat=u @ res.u_hat)  # orthonormal, since U is
+    return res._replace(modes=modes, u_hat=u @ res.u_hat.to(device))  # orthonormal, since U is
 
 
 def dmdc_rollout(result: DMDcResult, x0, u_ctrl) -> torch.Tensor:

@@ -25,9 +25,11 @@ the solver state a checkpoint file holds, and
 :func:`optdmd_from_svd_batched` fits the members of an ensemble in one
 batched loop.
 
-The JAX package's ``mesh`` argument (the bag sharded over the ``data``
-axis) is not ported yet (ROADMAP Queue 1 item 12, step 9c, on the
-port's mesh in ``parallel``), and a mesh raises ``NotImplementedError``.
+On a mesh (:func:`varpro_lm_batched`'s ``mesh``), the members split
+over the ``data`` axis: each rank solves its own share with no
+collective, and one ``all_gather`` over ``data`` returns the whole
+batch to every rank, as every JAX process sees the ``shard_map``
+result.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from typing import NamedTuple
 
 import torch
 
+from dmd_era5_tpu_torch.parallel.collectives import all_gather_packed
+from dmd_era5_tpu_torch.parallel.mesh import AXIS_DATA
 from dmd_era5_tpu_torch.utils.linalg import complex_lstsq, eig_sorted, spd_solve
 from dmd_era5_tpu_torch.utils.tensors import as_tensor
 
@@ -57,8 +61,6 @@ __all__ = [
 _LAMBDA0, _LAMBDA_UP, _LAMBDA_DOWN, _LAMBDA_CAP = 1.0, 4.0, 5.0, 1e12
 # relative ridge on the equilibrated normal equations of B
 _RIDGE = 1e-7
-NO_MESH = ("the DMD models on a device mesh are not ported yet (ROADMAP Queue 1 item 12, step 9c; "
-           "the mesh itself is dmd_era5_tpu_torch.parallel)")
 
 
 class OptDMDResult(NamedTuple):
@@ -307,19 +309,42 @@ def varpro_lm_batched(
     h: (B, T, k) complex; t: (T,) sample times shared by the members, or
     (B, T), one row per member (the BOP-DMD case: every trial fits its
     own snapshot subset); alpha0: (B, r).  Tensors or arrays; the fits
-    run on h's device (the host for an array).
+    run on h's device (the host for an array), or on a mesh on its
+    device.
+
+    ``mesh``: with a ``data`` axis of more than one rank the members are
+    padded to a multiple of it with copies of member 0 (a per-member t
+    too; a shared t is not) and split over it in blocks; each rank solves
+    its block (ranks of one ``data`` index solve the same members), with
+    no collective, and one ``all_gather`` over ``data`` of the packed
+    results returns every member to every rank, the padding dropped
+    (``dmd_era5_tpu/models/optdmd.py:367-395``).  A diverged member's
+    non-finite values cross the gather as they are.
 
     Returns (alpha (B, r) complex64, B (B, r, k) complex64, rel_residual
-    (B,) float32, n_iters (B,) int32) as host numpy arrays.
+    (B,) float32, n_iters (B,) int32) as host numpy arrays, alike on
+    every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"varpro_lm_batched with a mesh: {NO_MESH}")
-    h = as_tensor(h, torch.complex64)
+    device = None if mesh is None else mesh.device
+    h = as_tensor(h, torch.complex64, device)
     t = as_tensor(t, torch.float32, h.device)
     alpha0 = as_tensor(alpha0, torch.complex64, h.device)
     if t.ndim == 1:
         t = t.expand(h.shape[0], -1)
-    return tuple(a.cpu().numpy() for a in _varpro(h, t, alpha0, max_iter, tol)[:4])
+    n_data = 1 if mesh is None else mesh.shape[AXIS_DATA]
+    if n_data == 1:
+        return tuple(a.cpu().numpy() for a in _varpro(h, t, alpha0, max_iter, tol)[:4])
+
+    n_batch = h.shape[0]
+    per = -(-n_batch // n_data)
+    pad = per * n_data - n_batch
+    h, t, alpha0 = (torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a
+                    for a in (h, t, alpha0))
+    mine = slice(mesh.coords[AXIS_DATA] * per, (mesh.coords[AXIS_DATA] + 1) * per)
+    alpha, b, rel, n_iters, _ = _varpro(h[mine], t[mine], alpha0[mine], max_iter, tol)
+    gathered = all_gather_packed([alpha, b, rel, n_iters], AXIS_DATA, mesh)
+    alpha, b, rel, n_iters = (a[:n_batch] for a in gathered)
+    return tuple(a.cpu().numpy() for a in (alpha, b, rel, n_iters))
 
 
 def _eig_init(z: torch.Tensor, t: torch.Tensor, rank: int) -> torch.Tensor:

@@ -23,6 +23,7 @@ that test reads it (for ``all_gather`` the gathered tensor).
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -38,6 +39,7 @@ __all__ = [
     "psum",
     "pmean",
     "all_gather",
+    "all_gather_packed",
     "axis_index",
     "axis_size",
     "ppermute",
@@ -159,6 +161,32 @@ def all_gather(x: torch.Tensor, axis_name: str, mesh: Mesh, axis: int = 0,
     out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
     _record("all_gather", axis_name, out)
     return out.to(x.device)
+
+
+def all_gather_packed(tensors: list[torch.Tensor], axis_name: str, mesh: Mesh
+                      ) -> list[torch.Tensor]:
+    """``all_gather(t, axis_name, mesh, tiled=True)`` of each of ``tensors``
+    in ONE call: each block, flattened past its leading dimension (all
+    alike), goes as columns of one real tensor of the blocks' widest
+    real dtype (a complex one as its real and imaginary parts, an
+    integer one as floats: exact below 2^24), and comes back cut and in
+    its own dtype and shape."""
+    n = tensors[0].shape[0]
+    parts = [torch.view_as_real(t) if t.is_complex() else t for t in tensors]
+    dtype = torch.float32
+    for part in parts:
+        if part.is_floating_point():
+            dtype = torch.promote_types(dtype, part.dtype)
+    packed = torch.cat([part.reshape(n, -1).to(dtype) for part in parts], dim=1)
+    packed = all_gather(packed, axis_name, mesh, tiled=True)
+    out, c0 = [], 0
+    for t, part in zip(tensors, parts):
+        width = math.prod(part.shape[1:])
+        block = packed[:, c0:c0 + width].reshape(-1, *part.shape[1:])
+        c0 += width
+        out.append(torch.view_as_complex(block.to(part.dtype).contiguous()) if t.is_complex()
+                   else block.to(t.dtype))
+    return out
 
 
 def ppermute(x: torch.Tensor, axis_name: str, mesh: Mesh,

@@ -1,8 +1,8 @@
 """The DMD stage: optimized, exact or bagged DMD, mrDMD, DMDc and the
 forecast.
 
-The port's counterpart of ``dmd_era5_tpu/pipeline/era5_dmd.py`` on one
-device.  :func:`main` runs the cache ladder (workdir attr match, then the
+The port's counterpart of ``dmd_era5_tpu/pipeline/era5_dmd.py``, on one
+device or a mesh of ranks.  :func:`main` runs the cache ladder (workdir attr match, then the
 artifact store), else the SVD stage (``era5_svd.main``, with its own
 ladder) and :func:`fit_dmd_from_svd_results`, then writes and versions
 the artifact.  The fit takes one of three paths on the SVD factors:
@@ -25,7 +25,14 @@ there row block by row block, so no (S*d, T') rollout is formed.  They
 are tensors in the returned FieldSet, which ``save_fieldset`` writes slab
 by slab; the small fields are host arrays, as in the JAX stage.
 
-Not ported yet: the stage on a mesh (ROADMAP Queue 1 item 12, step 9c).
+On a mesh (SPMD, one process a rank, every rank calling :func:`main`):
+the SVD stage runs on it (``era5_svd.main``), the bag's trials split
+over its ``data`` axis and DMDc's two Gram-route SVDs over its
+``space`` axis; every other fit (optDMD, mrDMD, the scores, the
+forecast) runs whole on each rank's one device, as in every JAX
+process, and every rank returns the same FieldSet.  In a world of
+several ranks rank 0 alone writes and versions the artifact; the others
+wait for it and raise with it if it fails.
 
 Run as ``python -m dmd_era5_tpu_torch.pipeline.era5_dmd``.
 """
@@ -46,13 +53,11 @@ from dmd_era5_tpu_torch.models.bopdmd import bopdmd_from_svd
 from dmd_era5_tpu_torch.models.dmdc import dmdc_from_svd
 from dmd_era5_tpu_torch.models.forecast import iter_forecast_blocks, streamed_forecast_scores
 from dmd_era5_tpu_torch.models.mrdmd import _fro, fit_mrdmd, fit_mrdmd_streamed, mrdmd_from_svd
-from dmd_era5_tpu_torch.models.optdmd import NO_MESH, optdmd_from_svd
+from dmd_era5_tpu_torch.models.optdmd import optdmd_from_svd
 from dmd_era5_tpu_torch.models.verification import ScoreAccumulator, _space_weights
 from dmd_era5_tpu_torch.pipeline import era5_svd
-from dmd_era5_tpu_torch.pipeline.artifacts import add_data_to_store
 from dmd_era5_tpu_torch.snapmat import resample_era5_dataset, slice_era5_dataset
 from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
-from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = ["check_dmd_results", "fit_dmd_from_svd_results", "retrieve_dmd_results", "main"]
@@ -264,9 +269,10 @@ def _mrdmd(factors, svd_results: FieldSet, parsed_config: dict, dt_hours: float,
 
 
 def _dmdc(factors, times: np.ndarray, dt_hours: float, parsed_config: dict,
-          rank_coord: Coord, space_coords: dict) -> tuple[dict, dict]:
+          rank_coord: Coord, space_coords: dict, mesh=None) -> tuple[dict, dict]:
     """The DMDc fit beside the main fit, on the SVD factors under the
-    configured control series.  Returns its fields (the continuous-time
+    configured control series (its SVDs over the ``mesh``'s ``space``
+    axis where one is given).  Returns its fields (the continuous-time
     eigenvalues, the modes where they lie, the reduced operators and the
     series) and attrs."""
     control_input = parsed_config["control_input"]
@@ -276,7 +282,7 @@ def _dmdc(factors, times: np.ndarray, dt_hours: float, parsed_config: dict,
     log_and_print(_logger(), f"Fitting DMDc (control='{control_input}', q={q_ctrl}) "
                              f"at rank {rank}...")
     res = dmdc_from_svd(*factors, u_ctrl, rank=rank,
-                        rank_omega=parsed_config.get("dmdc_rank_omega"), dt=dt_hours)
+                        rank_omega=parsed_config.get("dmdc_rank_omega"), dt=dt_hours, mesh=mesh)
     ctrl_coord = Coord("control", np.arange(q_ctrl))
     rank_in = Coord("rank_in", np.arange(rank))
     fields = {
@@ -404,15 +410,15 @@ def fit_dmd_from_svd_results(
     """Fit (opt)DMD on the SVD factors and package the results.
 
     ``device``: where the fit runs, the card unless given, or unless U
-    is a tensor on another device.  Returns a FieldSet of the JAX
-    stage's schema whose S-sized fields (``modes``, ``modes_std``,
-    ``mr_modes_L*``, ``dmdc_modes``, ``forecast``) are tensors on that
-    device.
+    is a tensor on another device; on a ``mesh`` its device.  ``mesh``:
+    the bag over its ``data`` axis and DMDc's SVDs over its ``space``
+    axis (module docstring); every rank of the mesh calls this with the
+    whole results.  Returns a FieldSet of the JAX stage's schema whose
+    S-sized fields (``modes``, ``modes_std``, ``mr_modes_L*``,
+    ``dmdc_modes``, ``forecast``) are tensors on that device.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"fit_dmd_from_svd_results with a mesh: {NO_MESH}")
     u_field = svd_results["U"]
-    device = era5_svd._device(device, u_field)
+    device = mesh.device if mesh is not None else era5_svd._device(device, u_field)
     u, s, v = _svd_factors(svd_results, device)
     times = np.asarray(svd_results["V"].coords["time"].values)
     t_hours = _hours_since_start(times)
@@ -434,6 +440,7 @@ def fit_dmd_from_svd_results(
         bop = bopdmd_from_svd(
             u, s, v, t_fit, rank=rank, n_trials=n_trials,
             trial_fraction=parsed_config.get("bagging_fraction", 0.8), max_iter=max_iter,
+            mesh=mesh,
         )
         # point estimates for packaging and rollout: the trial means; the
         # full-data fit gives the residual and iteration diagnostics
@@ -479,7 +486,7 @@ def fit_dmd_from_svd_results(
     dmdc_fields, dmdc_attrs = {}, {}
     if control_input != "none":  # before a raw mrDMD refit, which frees U
         dmdc_fields, dmdc_attrs = _dmdc(factors, times, dt_hours, parsed_config, rank_coord,
-                                        space_coords)
+                                        space_coords, mesh)
     if mr_levels == 0 or parsed_config.get("mr_refit_rank", 0) > 0:
         factors = None  # no fit below reads U
     attrs: dict = {}
@@ -536,10 +543,14 @@ def main(
     the artifact written and (with ``use_store``) versioned.
 
     Returns (dmd_results, added_to_store, retrieved_from_store).
-    ``device``: where a computation runs, the card unless given.
+    ``device``: where a computation runs, the card unless given;
+    ``mesh``: the SVD stage's mesh and the fit's (module docstring;
+    without one the SVD stage takes its default mesh over the world and
+    the fit runs on one device).  Every rank of the world calls it; in a
+    world of several ranks rank 0 alone writes and versions the
+    artifact (``era5_svd._on_rank0``: the others wait for its outcome
+    and raise with it if it failed).
     """
-    if mesh is not None:
-        raise NotImplementedError(f"era5_dmd.main with a mesh: {NO_MESH}")
     if config is None:
         config = config_reader("era5-dmd")
     logger = _logger()
@@ -556,7 +567,8 @@ def main(
     if dmd_results is None:
         try:
             svd_results, _, _ = era5_svd.main(
-                config, write_artifact=write_artifact, use_store=use_store, device=device
+                config, write_artifact=write_artifact, use_store=use_store, device=device,
+                mesh=mesh,
             )
         except Exception as err:
             msg = f"Error obtaining SVD results for DMD: {err}"
@@ -564,28 +576,17 @@ def main(
             raise Exception(msg) from err
 
         try:
-            dmd_results = fit_dmd_from_svd_results(svd_results, parsed_config, device=device)
+            dmd_results = fit_dmd_from_svd_results(svd_results, parsed_config, mesh=mesh,
+                                                   device=device)
         except Exception as err:
             msg = f"Error in the DMD fit: {err}"
             log_and_print(logger, msg, "error")
             raise Exception(msg) from err
 
         if write_artifact:
-            try:
-                save_fieldset(dmd_results, parsed_config["save_path"])
-                log_and_print(logger, f"DMD results written to {parsed_config['save_path']}")
-            except Exception as err:
-                msg = f"Error writing DMD results: {err}"
-                log_and_print(logger, msg, "error")
-                raise Exception(msg) from err
-            if use_store:
-                try:
-                    add_data_to_store(parsed_config["save_path"], dmd_results.attrs)
-                    added_to_store = True
-                except Exception as err:
-                    msg = f"Error versioning DMD results: {err}"
-                    log_and_print(logger, msg, "error")
-                    raise Exception(msg) from err
+            added_to_store = bool(era5_svd._on_rank0(
+                lambda: era5_svd._write_results(dmd_results, parsed_config, use_store, logger,
+                                                "DMD")))
 
     return dmd_results, added_to_store, retrieved_from_store
 

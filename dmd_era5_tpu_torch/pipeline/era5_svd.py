@@ -792,26 +792,26 @@ def compute_svd_results(
     return space_coord_to_level_lat_lon(svd_results)
 
 
-def _write_results(svd_results: FieldSet, parsed_config: dict, use_store: bool,
-                   logger) -> bool:
-    """The artifact written and (with ``use_store``) versioned; True
-    when it was added to the store."""
+def _write_results(results: FieldSet, parsed_config: dict, use_store: bool, logger,
+                   kind: str = "SVD") -> bool:
+    """A stage's artifact (``kind``: SVD or DMD results) written and (with
+    ``use_store``) versioned; True when it was added to the store."""
     try:
-        log_and_print(logger, "Writing SVD results...")
-        save_fieldset(svd_results, parsed_config["save_path"])
-        log_and_print(logger, f"SVD results written to {parsed_config['save_path']}")
+        log_and_print(logger, f"Writing {kind} results...")
+        save_fieldset(results, parsed_config["save_path"])
+        log_and_print(logger, f"{kind} results written to {parsed_config['save_path']}")
     except Exception as err:
-        msg = f"Error writing SVD results: {err}"
+        msg = f"Error writing {kind} results: {err}"
         log_and_print(logger, msg, "error")
         raise Exception(msg) from err
     if not use_store:
         return False
     try:
-        log_and_print(logger, "Versioning SVD results...")
-        add_data_to_store(parsed_config["save_path"], svd_results.attrs)
-        log_and_print(logger, "SVD results versioned.")
+        log_and_print(logger, f"Versioning {kind} results...")
+        add_data_to_store(parsed_config["save_path"], results.attrs)
+        log_and_print(logger, f"{kind} results versioned.")
     except Exception as err:
-        msg = f"Error versioning SVD results: {err}"
+        msg = f"Error versioning {kind} results: {err}"
         log_and_print(logger, msg, "error")
         raise Exception(msg) from err
     return True

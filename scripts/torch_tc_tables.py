@@ -60,7 +60,8 @@ at 112 and 128 columns a CTA and, in f32, W held and streamed (the table
 streams it past T 176), Yc the same bit for bit; K1's G stage alone and
 K4 (``gram(yc, "highest")``) on its Yc at block edge 128 and 64 (f32; the
 bf16 kernels have 128 only), G against the f64 sums, beside one library
-product (``yc.T @ yc``).
+product (``yc.T @ yc``); the sketch stage beside one ``torch.mm(x, w)``,
+and both stages' bounds (``chip_smoke.bound``'s formulas).
 
 Device ms by ``chip_smoke.device_ms`` (launches queued behind a sleep of
 the card).  Prints one JSON line a shape and the card's name and power
@@ -83,7 +84,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import device_ms, gram_f64, rel_err  # noqa: E402
+from chip_smoke import PEAK_BF16, PEAK_TF32, bound, device_ms, gram_f64, rel_err  # noqa: E402
 from dmd_era5_tpu_torch.ops import _build, _occupancy, matmul, qr_panel  # noqa: E402
 
 M = 721 * 1440 * 15  # the ERA5 week's rows
@@ -308,6 +309,14 @@ def bench_part(libs, tables, gen, dev) -> None:
             row[f"sketch_device_ms_{name}"] = device_ms(lambda run=run: run(1), reps=5)
             del out, run
         row["yc_equal"] = all(torch.equal(ycs["table"], yc) for yc in ycs.values())
+        # the sketch stage's bound (chip_smoke.bound: X W, three TF32 passes
+        # in f32, one bf16 pass; X and W read, Yc written) and one library
+        # product of the same operands
+        size = xt.element_size()
+        row["sketch_bound_ms"], row["sketch_bound_by"] = bound(
+            (1 if bf16 else 3) * 2 * m * n * t, PEAK_BF16 if bf16 else PEAK_TF32,
+            size * (m * t + t * n + m * n))
+        row["sketch_library_device_ms"] = device_ms(lambda: torch.mm(xt, w), reps=5)
         yc = ycs["table"]
         del ycs
         exact = gram_f64(yc)
@@ -327,6 +336,10 @@ def bench_part(libs, tables, gen, dev) -> None:
         use(scg, tables[scg])
         yf = yc.float()
         row["library_device_ms"] = device_ms(lambda: yf.T @ yf, reps=5)
+        # the G stage's and K4's bound (chip_smoke's K4 formula on Yc)
+        row["gram_bound_ms"], row["gram_bound_by"] = bound(
+            (1 if bf16 else 3) * m * n * (n + 1), PEAK_BF16 if bf16 else PEAK_TF32,
+            yc.element_size() * m * n + 4 * n * n)
         print(json.dumps(row), flush=True)
         del xt, w, yc, yf, exact
         torch.cuda.empty_cache()

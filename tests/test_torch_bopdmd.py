@@ -195,7 +195,3 @@ def test_bopdmd_arguments_raise():
     for bad in (0.0, 1.5):
         with pytest.raises(ValueError, match="trial_fraction"):
             fit_bopdmd(xt, tt, rank=4, trial_fraction=bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        fit_bopdmd(xt, tt, rank=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        varpro_lm_batched(np.zeros((2, 5, 3), np.complex64), t[:5], np.zeros((2, 2)), mesh=object())

@@ -473,25 +473,6 @@ def test_dmd_stage_dmdc_from_file(root, dmd_config, tmp_path, kind):
         era5_dmd._control_series(str(bad), np.arange(t_emb).astype("datetime64[h]"))
 
 
-# ----------------------------------------------- what the port lacks
-
-
-@pytest.mark.parametrize("branch", ["mesh"])
-def test_unported_branches_raise(root, dmd_config, branch):
-    """A device mesh (ROADMAP Queue 1 item 12) raises NotImplementedError
-    before anything is computed.  (The mrDMD and DMDc cases went with the
-    refusals they tested: both branches are ported.)"""
-    _stage_slice(dict(dmd_config))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        era5_dmd.main(dict(dmd_config), device="cpu", mesh=object())
-    # nothing was computed: no SVD artifact in the workdir
-    assert not os.path.exists(config_parser(dict(dmd_config), "era5-svd")["save_path"])
-    svd, _, _ = era5_svd.main(dict(dmd_config), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        era5_dmd.fit_dmd_from_svd_results(svd, config_parser(dict(dmd_config), "era5-dmd"),
-                                          device="cpu", mesh=object())
-
-
 def test_main_needs_a_card_unless_told_otherwise(root, dmd_config, monkeypatch):
     """``era5_dmd.main`` without ``device`` computes on the card: without
     CUDA it raises instead of running on the host, also when the SVD

@@ -99,8 +99,6 @@ def test_fit_per_variable_level_matches_separate_fits():
     # the seed draws the port's own sketch: a valid fit, not the JAX one's
     own = fit_per_variable_level(fs, n_components=3, seed=9, device="cpu")
     np.testing.assert_allclose(own.state.s.numpy(), fit.state.s.numpy(), rtol=5e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        fit_per_variable_level(fs, n_components=3, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("data", ["mock", "planted"])

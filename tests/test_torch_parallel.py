@@ -130,6 +130,23 @@ def test_single_device_mesh_collectives_are_the_identity():
     assert log.calls == []
 
 
+def test_all_gather_packed_keeps_each_tensor_its_dtype_and_shape():
+    from dmd_era5_tpu_torch.parallel import collectives as c
+
+    mesh = tpar.single_device_mesh("cpu")
+    gen = torch.Generator().manual_seed(0)
+    tensors = [torch.randn((3, 2), dtype=torch.complex64, generator=gen),
+               torch.randn((3, 2, 4), dtype=torch.complex64, generator=gen),
+               torch.tensor([1.5, float("nan"), float("inf")]),
+               torch.tensor([7, 0, 50], dtype=torch.int32),
+               torch.randn((3, 5), dtype=torch.float64, generator=gen)]
+    out = c.all_gather_packed(tensors, "data", mesh)
+    for got, want in zip(out, tensors, strict=True):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.equal(got.isnan(), want.isnan())
+
+
 def test_layout_without_a_group_refuses_collectives():
     from dmd_era5_tpu_torch.parallel import collectives as c
 

@@ -358,6 +358,127 @@ def stage_fails_case(inputs, config: str, root: str, write_artifact: bool = Fals
     return {"error": np.asarray(error)}
 
 
+# ------------------------------------------------ the models on a mesh (9c)
+
+
+def bag_case(inputs, shape: str, u: str, s: str, v: str, t: str, rank: int, n_trials: int,
+             trial_fraction: float, seed: int = 0, max_iter: int = 50) -> dict:
+    """``bopdmd_from_svd`` with the trials over the mesh's ``data`` axis,
+    on the whole factors (alike on every rank), and its collective log."""
+    from dmd_era5_tpu_torch.models import bopdmd_from_svd
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    mesh = _mesh(shape)
+    args = [_tensor(inputs, key) for key in (u, s, v, t)]
+    with collective_log() as log:
+        res = bopdmd_from_svd(*args, rank=rank, n_trials=n_trials, trial_fraction=trial_fraction,
+                              seed=seed, max_iter=max_iter, mesh=mesh)
+    out = {key: getattr(res, key).numpy() for key in (
+        "eigenvalues", "eigenvalues_std", "amplitudes", "amplitudes_std", "modes", "modes_std",
+        "trial_eigenvalues", "n_iters")}
+    return {**out, **_log_arrays(log)}
+
+
+def _member_fieldset(inputs, fields: str, memmap: str | None):
+    """The port's FieldSet of the test's fields: (time, level, lat, lon)
+    arrays named ``<fields>.var.<variable>`` (coordinates
+    ``<fields>.coord.<dim>``), or with ``memmap`` the
+    (level, lat, lon, time) ``.npy`` files ``<memmap>/<variable>.npy``
+    opened read-only as memmaps."""
+    from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
+
+    coords = {name: Coord(name, inputs[f"{fields}.coord.{name}"])
+              for name in ("time", "level", "latitude", "longitude")}
+    names = ([key.split(".var.", 1)[1] for key in inputs if key.startswith(f"{fields}.var.")]
+             if memmap is None else sorted(path.stem for path in Path(memmap).glob("*.npy")))
+    out = {}
+    for name in names:
+        if memmap is None:
+            out[name] = Field(inputs[f"{fields}.var.{name}"],
+                              ("time", "level", "latitude", "longitude"), coords, name=name)
+        else:
+            out[name] = Field(np.load(f"{memmap}/{name}.npy", mmap_mode="r"),
+                              ("level", "latitude", "longitude", "time"), coords, name=name)
+    return FieldSet(out)
+
+
+def ensemble_case(inputs, shape: str, fields: str, k: int, omega: str,
+                  memmap: str | None = None, solve_dmd: bool = False,
+                  dmd_max_iter: int = 50) -> dict:
+    """``fit_per_variable_level`` on the mesh (the test's sketch), the
+    state whole on every rank, and its collective log."""
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+    from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
+
+    mesh = _mesh(shape)
+    fs = _member_fieldset(inputs, fields, memmap)
+    with collective_log() as log:
+        fit = fit_per_variable_level(fs, k, mesh=mesh, omega=inputs[omega], solve_dmd=solve_dmd,
+                                     dmd_max_iter=dmd_max_iter)
+    out = {key: value.float().numpy() for key, value in fit.state._asdict().items()}
+    out["labels"] = np.asarray([f"{var}:{lev}" for var, lev in fit.labels])
+    if solve_dmd:
+        out.update({f"dmd_{key}": getattr(fit.dmd, key).numpy()
+                    for key in ("alpha", "amplitudes", "residual")})
+    return {**out, **_log_arrays(log)}
+
+
+def dmdc_case(inputs, shape: str, x: str, u: str, rank: int, factors: bool = False) -> dict:
+    """``fit_dmdc`` (or with ``factors`` ``dmdc_from_svd`` on the test's
+    u, s and v of ``x``) with its SVDs over the mesh's ``space`` axis."""
+    from dmd_era5_tpu_torch.models import dmdc_from_svd, fit_dmdc
+    from dmd_era5_tpu_torch.parallel.collectives import collective_log
+
+    mesh = _mesh(shape)
+    with collective_log() as log:
+        if factors:
+            res = dmdc_from_svd(*(_tensor(inputs, f"{x}_{key}") for key in ("u", "s", "v")),
+                                inputs[u], rank=rank, mesh=mesh)
+        else:
+            res = fit_dmdc(inputs[x], inputs[u], rank=rank, mesh=mesh)
+    out = {key: getattr(res, key).numpy() for key in (
+        "eigenvalues", "modes", "a_red", "b_red", "u_hat")}
+    return {**out, "residual": np.asarray(res.residual), **_log_arrays(log)}
+
+
+def lm_case(inputs, shape: str, h: str, t: str, alpha0: str, max_iter: int) -> dict:
+    """``varpro_lm_batched`` with the members over the mesh's ``data`` axis."""
+    from dmd_era5_tpu_torch.models import varpro_lm_batched
+
+    out = varpro_lm_batched(inputs[h], inputs[t], inputs[alpha0], max_iter=max_iter,
+                            mesh=_mesh(shape))
+    return dict(zip(("alpha", "b", "rel", "n_iters"), out))
+
+
+def dmd_stage_case(inputs, config: str, shape: str | None, write_artifact: bool = True,
+                   use_store: bool = False, root: str | None = None) -> dict:
+    """``era5_dmd.main`` of the port on the mesh ``shape`` over the world
+    (None: the SVD stage's default mesh, the fit on one device), under
+    ``root`` or the root the job's environment names (the slice staged
+    there by the test): its results' small fields and modes, whether this
+    rank added to the store, the error it raised ('' if none)."""
+    from dmd_era5_tpu_torch.pipeline import era5_dmd
+
+    before = os.environ.get("DMD_ERA5_TPU_ROOT")
+    if root is not None:
+        os.environ["DMD_ERA5_TPU_ROOT"] = root
+    try:
+        mesh = None if shape is None else _mesh(shape)
+        res, added, _ = era5_dmd.main(json.loads(config), write_artifact=write_artifact,
+                                      use_store=use_store, mesh=mesh, device="cpu")
+    except Exception as err:
+        return {"error": np.asarray(f"{type(err).__name__}: {err}")}
+    finally:
+        if before is not None:
+            os.environ["DMD_ERA5_TPU_ROOT"] = before
+    out = {key: np.asarray(res[key].values) for key in (
+        "eigenvalues", "amplitudes", "eigenvalues_std", "amplitudes_std", "modes", "modes_std",
+        "dmdc_eigenvalues", "dmdc_a_red", "dmdc_b_red", "dmdc_modes", "forecast")
+        if key in res.data_vars}
+    return {**out, "trials_used": np.asarray(res.attrs["bagging_trials_used"]),
+            "added": np.asarray(added), "error": np.asarray("")}
+
+
 def main(job_path: str, rank: int) -> None:
     import torch.distributed as dist
 
