@@ -290,12 +290,36 @@ of which raises on failure so the script exits non-zero:
    at space=2; config 1's Hankel row block).
    ``[19a]``-``[19d]`` lines carry each part's readings, each rank's
    seconds and peak memory, the collectives and launches.
+20. (run last, after 16) the port's tools and examples on the card: (a)
+   ``scripts/torch_verify.py`` in this process, its fifteen oracle checks
+   (``scripts/tpu_verify.py``'s, through the port; each check's launches
+   held to ``VERIFY_LAUNCHES``) and its seven kernel checks (K1-K7
+   against their plain versions and f64 sums, one launch each), all 22
+   passed; (b) ``examples/torch_demo_out_of_core.py``'s ``main`` (its
+   ``.npy`` of bf16 words under ``TMPDIR``; its three streamed routes held
+   to its own limits against numpy); (c) ``examples/torch_demo_pipeline.py``:
+   with h5py and yaml its ``main`` under a temporary root, else its
+   ``CONFIG`` through ``download_era5_data`` -> ``compute_svd_results`` ->
+   ``fit_dmd_from_svd_results`` in memory (one line says which), s at most
+   the f64 s of the stage's X times 1 + 1e-4 (12a's gate), 10 finite
+   eigenvalues, the forecast's shape, the holdout scores; (d)
+   ``utils.linalg.lstsq_implicit``'s forward Jacobian (``torch.func.jacfwd``
+   through its rule) against the same through ``complex_lstsq``, on
+   tests/test_13_checkpoint.py:78-115's case (rtol 1e-3, atol 1e-4).
+   The launches of (a)'s oracle checks, (b) and (c) are held to
+   ``TOOLS_LAUNCHES`` and counted; (a)'s kernel checks are comparisons.
+   After each of (a), (b) and (c), every distinct kernel call it made (by
+   kernel, shapes, dtypes and flags; recorded by ``kernel_operands``) is
+   held against its plain version and the f64 sums on its own operands,
+   by the compare helper of its kernel with its limits and controls
+   (``hold_operands``, uncounted).
 
-Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 18a-d, 19a-d, 10b-e
-and 16c-e are the main path (17b's, 17c's, 18b-d's and 19's on the ranks, reported back):
+Phases 3-4, 7, each call of 8, 9c-e, 9d, 11, 12, 13, 14, 15a-c, 17a-c, 18a-d, 19a-d, 10b-e,
+16c-e and 20a-c (20a's oracle checks) are the main path (17b's, 17c's, 18b-d's and 19's on the ranks, reported back):
 every kernel's launch count is set to 0 just before each and read just
 after, and checked exactly.  The comparisons (2, 5, 6, 9a, 11a, 10a,
-10f, 14c-d's, 15c-d's, 16's, 17b's, 18b's, 18c's and 19's at a rank's shapes),
+10f, 14c-d's, 15c-d's, 16's, 17b's, 18b's, 18c's and 19's at a rank's shapes,
+20a's kernel checks and 20a-c's held calls),
 15d's passes, 18's and 19's one-device references (19d's fits on the ranks'
 factors and its witness too) and 18c's halo-dropped control are not counted.  The last line is the JSON result; the line before
 it the card's name and power limit; before that one JSON line with every
@@ -493,15 +517,9 @@ def phase_build() -> None:
 
 def launch_counts() -> dict:
     """The kernels' launch counts, by key of KERNELS."""
-    from dmd_era5_tpu_torch.ops import matmul, qr_panel
+    from dmd_era5_tpu_torch.ops.launches import launch_counts as counts_now
 
-    return {"K1": matmul.sketch_center_gram_project.launches,
-            "K2": matmul.sketch_center_gram.launches,
-            "K3": matmul.project.launches,
-            "K4": qr_panel.gram.launches["highest"],
-            "K5": qr_panel.gram.launches["bf16_split"],
-            "K6": matmul.matmul.launches,
-            "K7": qr_panel.householder_panel.launches}
+    return counts_now()
 
 
 def counts(**nonzero: int) -> dict:
@@ -510,14 +528,9 @@ def counts(**nonzero: int) -> dict:
 
 
 def reset_counts() -> None:
-    from dmd_era5_tpu_torch.ops import matmul, qr_panel
+    from dmd_era5_tpu_torch.ops.launches import reset_launch_counts
 
-    matmul.sketch_center_gram_project.launches = 0
-    matmul.sketch_center_gram.launches = 0
-    matmul.project.launches = 0
-    matmul.matmul.launches = 0
-    qr_panel.gram.launches.update({p: 0 for p in qr_panel.gram.launches})
-    qr_panel.householder_panel.launches = 0
+    reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -530,6 +543,48 @@ def one_tf32_pass():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# set inside ``emulated_tf32``: ``tf32_mm`` then emulates its pass
+TF32_EMULATED = [False]
+
+
+@contextlib.contextmanager
+def emulated_tf32():
+    """``tf32_mm`` emulates one TF32 pass inside, the setting restored."""
+    saved = TF32_EMULATED[0]
+    TF32_EMULATED[0] = True
+    try:
+        yield
+    finally:
+        TF32_EMULATED[0] = saved
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """t in f32 rounded to TF32's 10 mantissa bits, to nearest even."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x0FFF + ((bits >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def tf32_exact(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor is exact in TF32 (bf16 values, signs): one
+    TF32 pass of their product is then as exact as three, and no limit
+    tells the two apart.  Read a row chunk at a time (the operands may
+    be tens of GB), stopping at the first chunk with a low mantissa bit."""
+    return all(bool(((c.float().contiguous().view(torch.int32) & 0x1FFF) == 0).all())
+               for t in tensors for c in _chunks(t))
+
+
+def tf32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass, the control that a 3xTF32 kernel's accuracy
+    limit must tell apart: the library product with TF32 allowed, or
+    inside ``emulated_tf32`` a and b rounded to TF32 and multiplied in
+    full f32 (the library takes no TF32 path at some small or unaligned
+    shapes: a 4,096 x 128 by 128 x 22 product of f32 reads as full f32)."""
+    if TF32_EMULATED[0]:
+        return tf32_round(a) @ tf32_round(b)
+    with one_tf32_pass():
+        return a @ b
 
 
 def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -601,16 +656,17 @@ def gram_f64(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     return out
 
 
-def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
+def compare_kernel(label, x, w, dtype, centred=False, f64_limit=1e-5, **flags) -> dict:
     """K1 against its plain version on the card, on the same x and w.
 
     Tolerances: f32 outputs relative Frobenius error <= 1e-5; bf16 Yc
     within one bf16 ulp; the f32 stats <= 1e-5.  G and C: the plain
     version sums them in f32, which over millions of rows is itself off
     by up to ~1e-5 of |G|, so both are also read against the f64 sums of
-    the plain version's stored Yc.  The kernel must be within 1e-5 of
-    those and within 1e-5 plus the plain version's own error of the
-    plain version.  With ``centred`` (x's rows already have zero mean)
+    the plain version's stored Yc.  The kernel must be within
+    ``f64_limit`` (1e-5; tests/test_torch_cuda.py's 1e-6 where a small X
+    lets one TF32 pass come within 1e-5) of those and within 1e-5 plus
+    the plain version's own error of the plain version.  With ``centred`` (x's rows already have zero mean)
     each row sum cancels to roundoff in both versions, where a relative
     error means nothing; the row sums are then read against the sum of
     their terms' magnitudes, sum_t |x|, the scale of a sum's forward
@@ -618,7 +674,7 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
     held to the same 1e-5.  On f32 operands a control, one TF32 pass
     (the library products Yc^T Yc and Yc^T X of the plain version's Yc
     with TF32 allowed, the flag restored), must miss the 1e-5 that G and
-    C meet against the f64 sums.  Times are CUDA-event ms; outputs are
+    C meet against the f64 sums (``f64_limit``).  Times are CUDA-event ms; outputs are
     freed before timing, as at ERA5 size each Yc is up to 16 GB.  Each
     stage's device ms (sketch, G, C) is read alone on the same buffers
     and kept in ``K1_STAGES``.
@@ -655,13 +711,12 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
                                 ("plain", ref[names.index(name)]))}
     bf16 = dtype == torch.bfloat16
     if not bf16:
-        with one_tf32_pass():
-            one_pass = {"G": ref[0].T @ ref[0], "C": ref[0].T @ x}
+        one_pass = {"G": tf32_mm(ref[0].T, ref[0]), "C": tf32_mm(ref[0].T, x)}
         for name, out in one_pass.items():
             err_exact[f"one_tf32_pass_{name}_vs_f64"] = rel_err(out, exact[name])[0]
-            check(err_exact[f"one_tf32_pass_{name}_vs_f64"] > 1e-5,
-                  f"{label}: one TF32 pass reads {name} within 1e-5 of the f64 sums: the "
-                  "limit does not tell 3xTF32 from it")
+            check(err_exact[f"one_tf32_pass_{name}_vs_f64"] > f64_limit,
+                  f"{label}: one TF32 pass reads {name} within {f64_limit} of the f64 sums: "
+                  "the limit does not tell 3xTF32 from it")
         del one_pass
     if bf16:
         check(within_bf16_ulp(got[0], ref[0]), f"{label}: bf16 Yc beyond one ulp")
@@ -669,7 +724,8 @@ def compare_kernel(label, x, w, dtype, centred=False, **flags) -> dict:
         if name in ("G", "C"):
             limit = 1e-5 + err_exact[f"plain_{name}_vs_f64"]
             e_k = err_exact[f"kernel_{name}_vs_f64"]
-            check(e_k <= 1e-5, f"{label}: {name} relative error vs f64 sums {e_k:.3e} > 1e-5")
+            check(e_k <= f64_limit,
+                  f"{label}: {name} relative error vs f64 sums {e_k:.3e} > {f64_limit}")
         elif name == "yc" and bf16:
             continue  # held to one ulp above
         else:
@@ -984,9 +1040,10 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
         limit = 1e-6
         check(res["kernel_rel_vs_f64"] <= limit,
               f"{label} K4: G relative error vs f64 {res['kernel_rel_vs_f64']:.3e} > {limit}")
-        if a.dtype == torch.float32:
-            with one_tf32_pass():
-                res["one_tf32_pass_rel_vs_f64"] = rel_err(a.T @ a, exact)[0]
+        if a.dtype == torch.float32 and tf32_exact(a):
+            res["one_tf32_pass_rel_vs_f64"] = None  # nothing to tell apart
+        elif a.dtype == torch.float32:
+            res["one_tf32_pass_rel_vs_f64"] = rel_err(tf32_mm(a.T, a), exact)[0]
             check(res["one_tf32_pass_rel_vs_f64"] > limit,
                   f"{label} K4: one TF32 pass reads {res['one_tf32_pass_rel_vs_f64']:.3e}, within "
                   f"{limit}: the limit does not tell 3xTF32 from it")
@@ -1245,17 +1302,13 @@ def compare_matmul(label: str, x: torch.Tensor, w: torch.Tensor, f64_gate: bool)
                plain_vs_f64_over_max=vs_f64(ref))
     del got, ref
     if f64_gate:
-        saved = torch.backends.cuda.matmul.allow_tf32
-        try:
-            torch.backends.cuda.matmul.allow_tf32 = True
-            res["one_tf32_pass_vs_f64_over_max"] = vs_f64(torch.mm(x, w))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = saved
+        control = not tf32_exact(x, w)  # else nothing to tell apart
+        res["one_tf32_pass_vs_f64_over_max"] = vs_f64(tf32_mm(x, w)) if control else None
         limit = K6_F64_FACTOR * res["plain_vs_f64_over_max"]
         check(res["kernel_vs_f64_over_max"] <= limit,
               f"{label} K6: out vs f64 {res['kernel_vs_f64_over_max']:.3e} max|out| > "
               f"{K6_F64_FACTOR} x the plain f32 product's ({limit:.3e})")
-        check(res["one_tf32_pass_vs_f64_over_max"] > limit,
+        check(not control or res["one_tf32_pass_vs_f64_over_max"] > limit,
               f"{label} K6: one TF32 pass reads {res['one_tf32_pass_vs_f64_over_max']:.3e} "
               f"max|out|, within {limit:.3e}: the limit does not tell 3xTF32 from it")
     try:
@@ -3390,9 +3443,8 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
     if x.dtype == out_dtype == torch.float32:
         colw = w.sum(dim=0)
         inv_t = 1.0 / x.shape[1] if center else 0.0
-        with one_tf32_pass():
-            y1 = (x @ w).sub_((ref[1] * inv_t)[:, None] * colw[None, :])
-            g1 = got[0].T @ got[0]
+        y1 = tf32_mm(x, w).sub_((ref[1] * inv_t)[:, None] * colw[None, :])
+        g1 = tf32_mm(got[0].T, got[0])
         res["one_tf32_pass_yc_rel"] = rel_err(y1, ref[0])[0]
         res["one_tf32_pass_G_vs_f64_over_max"] = float((g1.double() - exact).abs().max()) / scale
         del y1, g1
@@ -3431,8 +3483,8 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     allowed, the flag restored), must miss that limit, so that it tells
     3xTF32 from one pass.  Library call: one ``torch.matmul(y.T, x)`` (f32
     with TF32 off), on bf16 operands ``torch.mm(y.T, x,
-    out_dtype=torch.float32)``, the same function; the port never makes
-    it.  Bound: on the tensor cores, 3xTF32 for f32 operands (three
+    out_dtype=torch.float32)``, the same function, on one of each none
+    (``library_ms`` None); the port never makes it.  Bound: on the tensor cores, 3xTF32 for f32 operands (three
     passes of 2MNT), two passes for bf16 x f32, one bf16 pass for bf16."""
     from dmd_era5_tpu_torch.ops.matmul import _project_plain, project, _project_row_shares
 
@@ -3447,6 +3499,8 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     def library():
         return torch.mm(y.T, x, out_dtype=torch.float32) if bf16 == 2 else torch.matmul(y.T, x)
 
+    mixed = x.dtype != y.dtype  # no one library call takes bf16 by f32
+
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     exact = gram_f64(y, x)
@@ -3456,22 +3510,20 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
                row_shares=_project_row_shares(x, y))
     for who, c in (("kernel", got), ("plain", ref)):
         res[f"{who}_C_vs_f64_over_max"] = float((c.double() - exact).abs().max()) / scale
-    if not bf16:
-        saved = torch.backends.cuda.matmul.allow_tf32
-        try:
-            torch.backends.cuda.matmul.allow_tf32 = True
-            one_pass = torch.matmul(y.T, x)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = saved
+    control = not bf16 and not tf32_exact(x, y)  # else nothing to tell apart
+    if control:
+        one_pass = tf32_mm(y.T, x)
         res["one_tf32_pass_C_vs_f64_over_max"] = (
             float((one_pass.double() - exact).abs().max()) / scale)
         del one_pass
+    elif not bf16:
+        res["one_tf32_pass_C_vs_f64_over_max"] = None
     diff = (got.double() - ref.double()).abs().max()
     res["max_abs_err"], res["C_vs_plain_over_max"] = float(diff), float(diff) / scale
     log(f"    {json.dumps(res)}")
     check(res["kernel_C_vs_f64_over_max"] <= K3_F64_LIMIT,
           f"{label} K3: C vs f64 {res['kernel_C_vs_f64_over_max']:.3e} max|C| > {K3_F64_LIMIT}")
-    if not bf16:
+    if control:
         check(res["one_tf32_pass_C_vs_f64_over_max"] > K3_F64_LIMIT,
               f"{label} K3: one TF32 pass reads {res['one_tf32_pass_C_vs_f64_over_max']:.3e} "
               f"max|C|, within {K3_F64_LIMIT}: the limit does not tell 3xTF32 from it")
@@ -3480,13 +3532,14 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
           f"{label} K3: C vs plain {res['C_vs_plain_over_max']:.3e} > {limit:.3e}")
     del got, ref, exact
     p1, k1, k2, p2 = event_ms(plain), event_ms(kernel), event_ms(kernel), event_ms(plain)
-    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=event_ms(library))
+    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               library_ms=None if mixed else event_ms(library))
     passes, peak = ((3, PEAK_TF32), (2, PEAK_TF32), (1, PEAK_BF16))[bf16]
     res["bound_ms"], res["bound_by"] = bound(
         passes * 2 * m * n * t, peak,
         x.element_size() * m * t + y.element_size() * m * n + 4 * n * t)
     log(f"    K3 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, library "
-        f"{res['library_ms']:.3f}, bound {res['bound_ms']:.3f} by {res['bound_by']}), "
+        f"{res['library_ms']}, bound {res['bound_ms']:.3f} by {res['bound_by']}), "
         f"{res['row_shares']} row shares")
     return res
 
@@ -5684,6 +5737,337 @@ def phase_ingest(seed: int) -> dict:
     return launches
 
 
+# phase 20: each torch_verify oracle check's launches on the card, by its
+# name (a check absent here launches none: optDMD, BOP-DMD, the second
+# reading of a result), and the demos' launches
+VERIFY_LAUNCHES = {
+    "exact SVD singular values": {"K5": 2},  # the TSQR leaf: split CholQR2
+    "exact SVD Gram route (bf16_split)": {"K1": 1, "K5": 1},
+    "randomized SVD vs sklearn": {"K5": 10},  # 5 range bases, CholQR2 each
+    "Hankel operator SVD == materialized": {"K3": 5, "K5": 20, "K6": 5},
+    "exact Hankel SVD vs materialized numpy": {"K1": 1, "K5": 1},
+    "mock-ERA5 pipeline oracle": {"K5": 2},
+    "fused fit step loss": {"K1": 1},
+    "stats-from-sketch fit step": {"K1": 2},  # the step and the bare K1 call
+    "mrDMD identity + residual decay": {"K4": 7},  # once a window, 1 + 2 + 4
+    "DMDc forced-trajectory recovery": {"K1": 2, "K4": 2},  # two Gram-route SVDs
+}
+TOOLS_LAUNCHES = {"20b": counts(K3=8, K4=8, K6=80, K7=7), "20c": counts(K1=5)}
+
+
+# each kernel's launcher in its module, by the kernel key of its launches
+# (``gram``'s by its precision argument: K4 "highest", K5 "bf16_split")
+LAUNCHERS = (("matmul", "_sketch_center_gram_project_cuda", "K1"),
+             ("matmul", "_sketch_center_gram_cuda", "K2"),
+             ("matmul", "_project_cuda", "K3"),
+             ("qr_panel", "_gram_cuda", None),
+             ("matmul", "_matmul_cuda", "K6"),
+             ("qr_panel", "_householder_cuda", "K7"))
+
+
+@contextlib.contextmanager
+def kernel_operands():
+    """The operands of every distinct kernel call made inside (distinct by
+    kernel, the operands' shapes and dtypes and the call's flags), a copy
+    of the first call of each, into the yielded dict (signature -> (key,
+    arguments)).  Each launcher is wrapped in its module, where its
+    wrapper looks it up at each call, so calls from every caller are
+    seen; the launches themselves go on as before."""
+    from dmd_era5_tpu_torch.ops import matmul, qr_panel
+
+    modules = {"matmul": matmul, "qr_panel": qr_panel}
+    calls: dict = {}
+    saved = []
+
+    def recording(launcher, key):
+        def call(*args):
+            kernel = key or ("K4" if args[1] == "highest" else "K5")
+            sig = (kernel,) + tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+                                    for a in args)
+            if sig not in calls:
+                calls[sig] = (kernel, tuple(a.clone() if torch.is_tensor(a) else a
+                                            for a in args))
+            return launcher(*args)
+        return call
+
+    for module, name, key in LAUNCHERS:
+        launcher = getattr(modules[module], name)
+        saved.append((modules[module], name, launcher))
+        setattr(modules[module], name, recording(launcher, key))
+    try:
+        yield calls
+    finally:
+        for module, name, launcher in saved:
+            setattr(module, name, launcher)
+
+
+def rows_cancel(x: torch.Tensor) -> bool:
+    """Whether every row of x sums to within 1e-4 of the sum of its
+    magnitudes (centred rows): their sums are then roundoff, and
+    ``compare_kernel`` reads them against sum_t |x| (``centred``)."""
+    x64 = x.double()
+    return bool((x64.sum(dim=1).abs() <= 1e-4 * x64.abs().sum(dim=1)).all())
+
+
+# the readings of each kernel's comparison that PERF.md keeps: against the
+# plain version, against the f64 sums (K7: Q's orthogonality, QR - A)
+HELD_FIELDS = {"K1": ("rel_err", "kernel_G_vs_f64", "kernel_C_vs_f64"),
+               "K2": ("yc_rel", "G_vs_plain_over_max", "kernel_G_vs_f64_over_max"),
+               "K3": ("C_vs_plain_over_max", "kernel_C_vs_f64_over_max"),
+               "K4": ("rel_vs_plain", "kernel_rel_vs_f64"),
+               "K5": ("rel_vs_plain", "kernel_max_abs_vs_f64_over_max"),
+               "K6": ("rel_err", "kernel_vs_f64_over_max", "plain_vs_f64_over_max"),
+               "K7": ("r_max_abs_over_max", "kernel_orth", "kernel_recon")}
+
+
+def hold_call(label: str, key: str, args: tuple) -> dict:
+    """One recorded call of kernel ``key`` against its plain version and
+    the f64 sums by its compare helper (see :func:`hold_operands`)."""
+    if key == "K1":
+        x, w, out_dtype, center, stats_col, scalar_stats, t_valid, _ = args
+        return compare_kernel(label, x, w, out_dtype, centred=rows_cancel(x), f64_limit=1e-6,
+                              center=center, stats_col=stats_col, scalar_stats=scalar_stats,
+                              t_valid=t_valid)
+    if key == "K2":
+        x, w, out_dtype, center, t_valid = args
+        check(t_valid is None, f"{label}: K2 held only without t_valid")
+        return compare_sketch_center_gram(label, x, w, center, out_dtype)[0]
+    if key == "K3":
+        return compare_project(label, *args)
+    if key in ("K4", "K5"):
+        return compare_gram(label, *args)
+    if key == "K6":
+        x, w, out_dtype = args
+        check(out_dtype == torch.float32, f"{label}: K6 held only with an f32 product")
+        return compare_matmul(label, x, w, f64_gate=x.dtype == torch.float32)
+    return compare_householder(label, *args, gate_q=False)
+
+
+# each kernel's one-TF32-pass control, as its compare helper reads it (None
+# where the operands are exact in TF32)
+CONTROLS = {"K3": "one_tf32_pass_C_vs_f64_over_max", "K4": "one_tf32_pass_rel_vs_f64",
+            "K6": "one_tf32_pass_vs_f64_over_max"}
+
+
+def hold_operands(part: str, calls: dict) -> list[dict]:
+    """Each kernel call recorded by :func:`kernel_operands` against its
+    plain version and the f64 sums, on its own operands and flags, by the
+    compare helper of its kernel at that helper's limits and controls
+    (uncounted).  K1 is held with Yc emitted (the function of X is the
+    same without it), its rows read as centred where they cancel
+    (:func:`rows_cancel`), G and C within 1e-6 of the f64 sums
+    (tests/test_torch_cuda.py's limit: at these few thousand rows one
+    TF32 pass comes within 1e-5); K7 without Q's limit against the plain
+    version, as a panel from a path is not a Gaussian one.  The controls'
+    TF32 passes are emulated (``emulated_tf32``); where a call's operands
+    are exact in TF32 (bf16 values, a +-1 panel), so that one pass is as
+    exact as three, the same call is held again on Gaussian operands of
+    its shapes and dtypes, whose control must miss.  Returns one line of
+    readings a call."""
+    readings = []
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    with emulated_tf32():
+        for key, args in calls.values():
+            shape = "x".join(str(n) for n in args[0].shape)
+            label = f"{part} {key} {shape}"
+            res = hold_call(label, key, args)
+            reading = dict(kernel=key, shapes=[list(a.shape) for a in args if torch.is_tensor(a)],
+                           dtypes=[str(a.dtype)[6:] for a in args if torch.is_tensor(a)],
+                           **{f: res.get(f) for f in HELD_FIELDS[key]}, ms=res.get("ms"),
+                           plain_ms=res.get("plain_ms"), bound_ms=res.get("bound_ms"))
+            if key in CONTROLS and res.get(CONTROLS[key], 0.0) is None:
+                # operands exact in TF32: the same call on Gaussian ones reads the control
+                twin = tuple(torch.randn(a.shape, generator=gen, device=a.device).to(a.dtype)
+                             if torch.is_tensor(a) else a for a in args)
+                res = hold_call(f"{label} Gaussian twin", key, twin)
+                reading["gaussian_twin_one_tf32_pass"] = res[CONTROLS[key]]
+            readings.append(reading)
+    log(f"[{part}] {len(readings)} distinct kernel calls held against their plain versions "
+        f"and the f64 sums (uncounted): {json.dumps(readings)}")
+    return readings
+
+
+def load_tool(relative: str):
+    """A script of the checkout (``scripts/``, ``examples/``) as a module,
+    its ``__main__`` block not run."""
+    import importlib.util
+
+    path = ROOT / relative
+    spec = importlib.util.spec_from_file_location(f"tool_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def verify_on_card() -> dict:
+    """Phase 20 (a): ``scripts/torch_verify.py``'s 22 checks in this
+    process.  Each oracle check's launches are held to
+    ``VERIFY_LAUNCHES`` and returned; each kernel check launches its
+    kernel once (a comparison: not returned)."""
+    verify = load_tool("scripts/torch_verify.py")
+    device = torch.device("cuda")
+
+    def report(c) -> None:
+        log(f"    {'PASS' if c.ok else 'FAIL'}  {c.name}  {c.detail}  launches {c.launches}")
+
+    t0 = time.perf_counter()
+    with kernel_operands() as calls:
+        oracle = verify.oracle_checks(device, report)
+    t_oracle = time.perf_counter() - t0
+    kernels = verify.kernel_checks(device, report)
+    t_kernels = time.perf_counter() - t0 - t_oracle
+    check(len(oracle) == 15 and len(kernels) == verify.N_KERNEL_CHECKS == 7,
+          f"torch_verify ran {len(oracle)} oracle and {len(kernels)} kernel checks, not 15 and 7")
+    launched = counts()
+    for c in oracle:
+        check(c.ok, f"[20a] torch_verify: {c.name} failed: {c.detail}")
+        want = VERIFY_LAUNCHES.get(c.name, {})
+        check(c.launches == want, f"[20a] {c.name} launched {c.launches}, expected {want}")
+        for key, n in c.launches.items():
+            launched[key] += n
+    for key, c in zip(KERNELS, kernels):
+        check(c.ok, f"[20a] torch_verify: {c.name} failed: {c.detail}")
+        check(c.launches == {key: 1}, f"[20a] {c.name} launched {c.launches}, expected {key} 1")
+    log(f"[20a] torch_verify on the card: {len(oracle) + len(kernels)}/22 passed in "
+        f"{t_oracle:.2f} s (oracle checks) + {t_kernels:.2f} s (kernel checks); the oracle "
+        f"checks launched {launched}")
+    hold_operands("20a", calls)
+    return launched
+
+
+def demo_out_of_core() -> dict:
+    """Phase 20 (b): the out-of-core demo's ``main`` on the card (its
+    packed file under ``TMPDIR``, its own limits against numpy)."""
+    demo = load_tool("examples/torch_demo_out_of_core.py")
+    before = launch_counts()
+    with kernel_operands() as calls:
+        out, seconds = synced(demo.main, [])
+    launched = {key: n - before[key] for key, n in launch_counts().items()}
+    check(launched == TOOLS_LAUNCHES["20b"],
+          f"[20b] out-of-core demo launched {launched}, expected {TOOLS_LAUNCHES['20b']}")
+    log(f"[20b] out-of-core demo: s rel err streamed {out['streamed']:.3e}, one-pass (head 8) "
+        f"{out['onepass']:.3e}, exact Gram {out['exact_gram']:.3e}; wall (s) "
+        f"{json.dumps({a: round(b, 3) for a, b in out['seconds'].items()})}, {seconds:.2f} in "
+        f"all; launches {launched}")
+    hold_operands("20b", calls)
+    return launched
+
+
+def demo_pipeline(seed: int) -> dict:
+    """Phase 20 (c): the pipeline demo on the card, its ``main`` with the
+    files and the store where h5py and yaml are installed, else its
+    ``CONFIG`` through the stages' compute bodies in memory; s held below
+    the f64 s of the stage's X (the same mock slice, drawn again from the
+    seeded global state, through ``compute_svd_results`` with X kept)."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+
+    demo = load_tool("examples/torch_demo_pipeline.py")
+    cfg = demo.CONFIG
+    missing = missing_file_packages()
+    before = launch_counts()
+    with stage_root(), kernel_operands() as calls:
+        np.random.seed(seed)
+        if missing:
+            log(f"[20c] no {' or '.join(missing)} here: the pipeline demo's CONFIG through "
+                "download_era5_data -> compute_svd_results -> fit_dmd_from_svd_results in memory")
+            fs = era5_download.download_era5_data(config_parser(dict(cfg), "era5-download"),
+                                                  use_mock_data=True)
+            svd, t_svd = synced(era5_svd.compute_svd_results, fs,
+                                config_parser(dict(cfg, save_data_matrix=True), "era5-svd"))
+            res, t_fit = synced(era5_dmd.fit_dmd_from_svd_results, svd,
+                                config_parser(dict(cfg), "era5-dmd"))
+            launched = _minus(launch_counts(), before)
+            demo.report(res, False, False)
+            times = {"svd_stage": t_svd, "dmd_fit": t_fit}
+        else:
+            log("[20c] the pipeline demo's main with the files and the store")
+            res, t_main = synced(demo.main, [])
+            launched = _minus(launch_counts(), before)
+            calls = dict(calls)  # the demo's own calls: not the recomputation of X below
+            (svd, _, _), t_hit = synced(era5_svd.main, dict(cfg), device="cuda")
+            np.random.seed(seed)  # the same slice again, for its X
+            fs = era5_download.download_era5_data(config_parser(dict(cfg), "era5-download"),
+                                                  use_mock_data=True)
+            with_x = era5_svd.compute_svd_results(
+                fs, config_parser(dict(cfg, save_data_matrix=True), "era5-svd"))
+            svd = dict(s=svd["s"], X=with_x["X"])
+            times = {"main": t_main, "svd_cache_hit": t_hit}
+    check(launched == TOOLS_LAUNCHES["20c"],
+          f"[20c] pipeline demo launched {launched}, expected {TOOLS_LAUNCHES['20c']}")
+    x = np.asarray(svd["X"].values, dtype=np.float64)
+    s = np.asarray(svd["s"].values, dtype=np.float64)
+    ratio = s / np.linalg.svd(x, compute_uv=False)[: len(s)]
+    check(float(ratio.max()) <= 1 + 1e-4, f"[20c] s above the f64 s of X, max ratio {ratio.max()}")
+    eigs = np.asarray(res["eigenvalues"].values)
+    check(eigs.shape == (cfg["dmd_rank"],) and bool(np.isfinite(eigs).all()),
+          f"[20c] eigenvalues {eigs}")
+    n_space = 2 * 2 * 36 * 72  # two variables at two levels on the 5-degree mock grid
+    n_fit = 49 - cfg["forecast_holdout"] - cfg["delay_embedding"] + 1  # 49 hours
+    fc = res["forecast"]
+    check(tuple(fc.shape) == (n_space, n_fit + cfg["forecast_steps"]) and fc.data.is_cuda
+          and bool(torch.isfinite(fc.data).all()), f"[20c] forecast {fc.shape} on {fc.data.device}")
+    scores = {key: np.asarray(res.attrs.get(key, [])) for key in
+              ("forecast_rmse", "persistence_rmse", "forecast_acc")}
+    check(all(v.shape == (cfg["forecast_holdout"],) and np.isfinite(v).all()
+              for v in scores.values()), f"[20c] holdout scores {scores}")
+    log(f"[20c] pipeline demo: X {x.shape}, s / f64 s of X from {float(ratio.min()):.6f} to "
+        f"{float(ratio.max()):.6f}, {len(eigs)} finite eigenvalues, forecast {tuple(fc.shape)} "
+        f"on the card, RMSE at lead 1 / {cfg['forecast_holdout']} "
+        f"{scores['forecast_rmse'][0]:.3f} / {scores['forecast_rmse'][-1]:.3f}; launches "
+        f"{launched}; wall (s) {json.dumps({a: round(b, 3) for a, b in times.items()})}")
+    hold_operands("20c", calls)
+    return launched
+
+
+def lstsq_implicit_on_card() -> dict:
+    """Phase 20 (d): ``lstsq_implicit``'s forward Jacobian on the card
+    against forward mode straight through ``complex_lstsq``, on
+    tests/test_13_checkpoint.py:78-115's case, at its rtol 1e-3 and
+    atol 1e-4."""
+    from dmd_era5_tpu_torch.models.optdmd import _func
+    from dmd_era5_tpu_torch.utils.linalg import complex_lstsq, lstsq_implicit
+
+    rng = np.random.default_rng(0)
+    tt = torch.arange(20, dtype=torch.float32, device="cuda") * 0.1
+    h = torch.from_numpy((rng.standard_normal((20, 4)) + 1j * rng.standard_normal((20, 4)))
+                         .astype(np.complex64)).cuda()
+    theta = torch.tensor([-0.1, -0.2, -0.05, 1.0, -0.5, 2.0], device="cuda")
+
+    def b_of(solve):
+        def f(th):
+            a = torch.complex(th[:3], th[3:])
+            b = solve(torch.exp(torch.outer(tt.to(a.dtype), a)), h)
+            return torch.cat([b.real.reshape(-1), b.imag.reshape(-1)])
+        return f
+
+    func = _func()
+    j_i, t_i = synced(func.jacfwd(b_of(lstsq_implicit)), theta)
+    j_d, t_d = synced(func.jacfwd(b_of(complex_lstsq)), theta)
+    err = (j_i - j_d).abs()
+    worst = float((err - 1e-3 * j_d.abs()).max())
+    check(j_i.is_cuda and worst <= 1e-4, f"[20d] lstsq_implicit's Jacobian off complex_lstsq's "
+          f"by {float(err.max()):.3e} (rtol 1e-3, atol 1e-4)")
+    log(f"[20d] lstsq_implicit on the card: jacfwd {tuple(j_i.shape)} max|diff| "
+        f"{float(err.max()):.3e} of max|J| {float(j_d.abs().max()):.3f} against forward mode "
+        f"through complex_lstsq; {t_i * 1e3:.1f} / {t_d * 1e3:.1f} ms")
+    return {"max_abs": float(err.max())}
+
+
+def phase_tools(seed: int) -> dict:
+    """Phase 20: the port's verify script and examples on the card, and
+    ``lstsq_implicit``.  Returns the launches of its main-path parts
+    ((a)'s oracle checks, (b), (c))."""
+    t0 = time.perf_counter()
+    launched = counts()
+    for part in (verify_on_card(), demo_out_of_core(), demo_pipeline(seed)):
+        for key, n in part.items():
+            launched[key] += n
+    lstsq_implicit_on_card()
+    log(f"[20] tools and examples: {time.perf_counter() - t0:.1f} s, launches {launched}")
+    return launched
+
+
 def kernel_line(key: str, launches: int, res: dict) -> dict:
     name, source, replaces = KERNELS[key]
     max_abs = res["max_abs_err"]
@@ -5748,6 +6132,8 @@ def main() -> None:
         launches[key] += n
     torch.cuda.empty_cache()
     for key, n in phase_ingest(args.seed).items():
+        launches[key] += n
+    for key, n in phase_tools(args.seed).items():
         launches[key] += n
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s (the build included)")

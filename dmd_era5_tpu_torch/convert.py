@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 Turn the JAX package's outputs, as numpy arrays, into this package's
-result types on a chosen device: an SVD artifact written by the JAX
+result types on a device: the card unless ``device`` names another (no
+card and no ``device`` raises).  An SVD artifact written by the JAX
 ``era5_svd`` stage can feed :func:`models.optdmd.optdmd_from_svd` here,
 and the parity tests hand one side's state to the other.
 """
@@ -19,6 +20,7 @@ from dmd_era5_tpu_torch.models.optdmd import _STATE_DTYPES, BatchedOptDMDResult,
 from dmd_era5_tpu_torch.ops.svd import SVDResult
 from dmd_era5_tpu_torch.pipeline.ensemble import EnsembleFit
 from dmd_era5_tpu_torch.pipeline.train_step import FitState
+from dmd_era5_tpu_torch.utils.tensors import home_device
 
 __all__ = [
     "svd_result_from_numpy",
@@ -35,16 +37,16 @@ __all__ = [
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     # a copy: arrays from JAX are read-only, which torch will not wrap
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=home_device(None, device))
 
 
-def svd_result_from_numpy(U, s, V, device: torch.device | str = "cpu") -> SVDResult:
+def svd_result_from_numpy(U, s, V, device: torch.device | str | None = None) -> SVDResult:
     """(U (S, k), s (k,), V (k, T)) -> float32 :class:`SVDResult`."""
     return SVDResult(*(_tensor(a, device, torch.float32) for a in (U, s, V)))
 
 
 def fit_state_from_numpy(
-    u, s, v, a_red, loss, device: torch.device | str = "cpu"
+    u, s, v, a_red, loss, device: torch.device | str | None = None
 ) -> FitState:
     """The unbatched leaves of a JAX ``FitState`` -> float32 :class:`FitState`."""
     return FitState(*(_tensor(a, device, torch.float32) for a in (u, s, v, a_red, loss)))
@@ -52,7 +54,7 @@ def fit_state_from_numpy(
 
 def optdmd_result_from_numpy(
     alpha, modes, amplitudes, b_proj, residual, n_iters,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> OptDMDResult:
     """A JAX ``OptDMDResult`` -> :class:`OptDMDResult` (complex64 alpha,
     modes and b_proj; float32 amplitudes and residual)."""
@@ -67,7 +69,7 @@ def optdmd_result_from_numpy(
 
 
 def dmd_result_from_numpy(
-    eigenvalues, omega, modes, amplitudes, dt, device: torch.device | str = "cpu"
+    eigenvalues, omega, modes, amplitudes, dt, device: torch.device | str | None = None
 ) -> DMDResult:
     """A JAX ``DMDResult`` -> :class:`DMDResult` (complex64 eigenvalues,
     omega, modes and amplitudes)."""
@@ -79,7 +81,7 @@ def dmd_result_from_numpy(
 
 def bopdmd_result_from_numpy(
     eigenvalues, eigenvalues_std, modes, modes_std, amplitudes, amplitudes_std, full,
-    trial_eigenvalues, n_iters, device: torch.device | str = "cpu",
+    trial_eigenvalues, n_iters, device: torch.device | str | None = None,
 ) -> BOPDMDResult:
     """A JAX ``BOPDMDResult`` -> :class:`BOPDMDResult`; ``full`` is the
     JAX ``OptDMDResult`` (or its six arrays in order)."""
@@ -98,7 +100,7 @@ def bopdmd_result_from_numpy(
 
 def dmdc_result_from_numpy(
     eigenvalues, omega, modes, a_red, b_red, u_hat, dt, residual=float("nan"),
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> DMDcResult:
     """A JAX ``DMDcResult`` -> :class:`DMDcResult` (complex64 eigenvalues,
     omega and modes; float32 a_red, b_red and u_hat)."""
@@ -112,12 +114,13 @@ def dmdc_result_from_numpy(
 
 def mrdmd_result_from_numpy(
     levels, residual, dt, t_used, residual_fro=None, x_fro=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MrDMDResult:
     """A JAX ``MrDMDResult`` -> :class:`MrDMDResult`: each level's modes
     and the residual as tensors (complex64, float32), its spectra,
     amplitudes, masks and mode maps host arrays as they are.  ``levels``
     holds JAX ``MrDMDLevel``s (or their fields in order)."""
+    device = home_device(None, device)  # the card, even with no modes to place
     out = []
     for lv in levels:
         lv = MrDMDLevel(*lv)
@@ -128,7 +131,7 @@ def mrdmd_result_from_numpy(
 
 
 def ensemble_fit_from_numpy(labels, state, dmd=None,
-                            device: torch.device | str = "cpu") -> EnsembleFit:
+                            device: torch.device | str | None = None) -> EnsembleFit:
     """A JAX ``EnsembleFit`` -> :class:`EnsembleFit`: ``state`` the
     batched FitState's five leaves, ``dmd`` the six of a
     ``BatchedOptDMDResult`` or None."""
@@ -144,7 +147,7 @@ def ensemble_fit_from_numpy(labels, state, dmd=None,
 
 
 def lm_state_from_numpy(theta, lam, rnorm, n_iters, done,
-                        device: torch.device | str = "cpu") -> tuple:
+                        device: torch.device | str | None = None) -> tuple:
     """The LM solver state of a JAX checkpoint tree (theta, lambda,
     residual norm, steps, done) -> the tensors ``varpro_lm(state0=...)``
     takes and ``return_state=True`` gives."""

@@ -15,7 +15,7 @@ import torch
 from dmd_era5_tpu_torch.models.dmd import DMDResult
 from dmd_era5_tpu_torch.models.optdmd import OptDMDResult
 from dmd_era5_tpu_torch.models.verification import ScoreAccumulator, _space_weights
-from dmd_era5_tpu_torch.utils.tensors import as_tensor
+from dmd_era5_tpu_torch.utils.tensors import as_tensor, home_device
 
 __all__ = [
     "rollout",
@@ -56,10 +56,12 @@ def rollout(result: DMDResult | OptDMDResult, t) -> torch.Tensor:
 
 
 def forecast_times(
-    n_history: int, n_future: int, dt: float, device: torch.device | str = "cpu"
+    n_history: int, n_future: int, dt: float, device: torch.device | str | None = None
 ) -> torch.Tensor:
-    """Times covering the training window plus ``n_future`` extra steps."""
-    return torch.arange(n_history + n_future, device=device) * dt
+    """Times covering the training window plus ``n_future`` extra steps,
+    on the card unless ``device`` names another (no card and no
+    ``device`` raises)."""
+    return torch.arange(n_history + n_future, device=home_device(None, device)) * dt
 
 
 def undo_preprocessing(

@@ -13,6 +13,7 @@ from dmd_era5_tpu_torch.utils.linalg import (
     complex_solve,
     eig_sorted,
     gram_whiten,
+    lstsq_implicit,
     orth_small,
     safe_cholesky,
     spd_solve,
@@ -42,6 +43,7 @@ __all__ = [
     "device_peaks",
     "eig_sorted",
     "gram_whiten",
+    "lstsq_implicit",
     "measure",
     "orth_small",
     "roofline",

@@ -27,6 +27,7 @@ __all__ = [
     "spd_solve",
     "complex_solve",
     "complex_lstsq",
+    "lstsq_implicit",
 ]
 
 
@@ -133,3 +134,77 @@ def complex_lstsq(
     rhs = ah @ (b[..., None] if squeeze else b)
     x = complex_solve(gram, rhs, hpd=True)
     return x[..., 0] if squeeze else x
+
+
+# ---- least squares with an implicit-differentiation rule ---------------
+#
+# Counterpart of the JAX ``custom_jvp`` (``dmd_era5_tpu/utils/linalg.py:
+# 283-314``).  Differentiate the normal equations instead of the solve:
+#
+#     G X = A^H B,  G = A^H A + rho I
+#  => G dX = dA^H B + A^H dB - (dA^H A + A^H dA) X
+#          = dA^H R + A^H (dB - dA X),   R = B - A X,
+#
+# one more solve with the primal G a tangent.  The rule is real-linear in
+# dA, so it is the forward derivative of complex inputs as they are.  Its
+# adjoint under Re<u, v> = Re tr(u^H v) (PyTorch's convention for complex
+# gradients, and what JAX's transposed JVP gives) is, with W = G^-1 gX,
+#
+#     gA = R W^H - A W X^H,   gB = A W.
+
+
+def _as_columns(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return b if b.ndim == a.ndim else b[..., None]
+
+
+def _normal_gram(a: torch.Tensor, ridge: float) -> torch.Tensor:
+    gram = a.mH @ a
+    return gram + ridge * _eye_like(gram) if ridge else gram
+
+
+class _LstsqImplicit(torch.autograd.Function):
+    generate_vmap_rule = True  # torch.func.jacfwd and vmap run the rules batched
+
+    @staticmethod
+    def forward(a, b, ridge):
+        return complex_lstsq(a, b, rcond_ridge=ridge)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, ridge = inputs
+        ctx.ridge = ridge
+        ctx.save_for_forward(a, b, output)
+        ctx.save_for_backward(a, b, output)
+
+    @staticmethod
+    def jvp(ctx, da, db, _):
+        a, b, x = ctx.saved_tensors
+        b2, x2 = _as_columns(b, a), _as_columns(x, a)
+        rhs = []  # an input without a tangent comes as None
+        if da is not None:
+            rhs.append(da.mH @ (b2 - a @ x2) - a.mH @ (da @ x2))
+        if db is not None:
+            rhs.append(a.mH @ _as_columns(db, a))
+        dx = complex_solve(_normal_gram(a, ctx.ridge), sum(rhs), hpd=True)
+        return dx if b.ndim == a.ndim else dx[..., 0]
+
+    @staticmethod
+    def backward(ctx, gx):
+        a, b, x = ctx.saved_tensors
+        b2, x2 = _as_columns(b, a), _as_columns(x, a)
+        w = complex_solve(_normal_gram(a, ctx.ridge), _as_columns(gx, a), hpd=True)
+        aw = a @ w
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (b2 - a @ x2) @ w.mH - aw @ x2.mH
+        if ctx.needs_input_grad[1]:
+            gb = aw if b.ndim == a.ndim else aw[..., 0]
+        return ga, gb, None
+
+
+def lstsq_implicit(a: torch.Tensor, b: torch.Tensor, ridge: float = 0.0) -> torch.Tensor:
+    """``complex_lstsq(a, b, ridge)`` whose derivatives come from the
+    normal equations (the rule above): forward mode (``torch.func.jvp``,
+    ``jacfwd``) solves once more with the primal Gram a tangent, reverse
+    mode once a cotangent.  ``b`` (..., M, K) or (..., M)."""
+    return _LstsqImplicit.apply(a, b, ridge)

@@ -111,7 +111,7 @@ def test_bopdmd_from_svd_matches_the_jax_bag():
     np.testing.assert_allclose(np.linalg.norm(res.modes.numpy(), axis=0), 1.0, rtol=1e-5)
     assert res.n_iters.shape == (10,) and len(res.trial_eigenvalues) == 10
     # the JAX bag's state crosses to the port's types unchanged
-    back = convert.bopdmd_result_from_numpy(*res_j)
+    back = convert.bopdmd_result_from_numpy(*res_j, device="cpu")
     np.testing.assert_array_equal(back.modes.numpy(), res_j.modes)
     np.testing.assert_array_equal(back.full.alpha.numpy(), res_j.full.alpha)
 

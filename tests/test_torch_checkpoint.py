@@ -94,7 +94,7 @@ def test_checkpointed_resumes_from_file(tmp_path, rng, writer):
     assert meta["iteration"] >= 1 and int(state[3]) == meta["iteration"]
     # the state as the solver takes it: resuming it directly continues the count
     resumed = varpro_lm(h, t, alpha0, max_iter=meta["iteration"] + 1,
-                        state0=lm_state_from_numpy(*state), return_state=True)
+                        state0=lm_state_from_numpy(*state, device="cpu"), return_state=True)
     assert resumed[3] == meta["iteration"] + 1 or bool(resumed[4][4])
     other = str(tmp_path / "lm_other.h5")
     shutil.copy(path, other)

@@ -997,3 +997,37 @@ def test_unfused_hankel_operators_and_svd_on_card(cuda):
     np.testing.assert_allclose(got.s.cpu().numpy(), ref.s.numpy(), rtol=1e-5)
     for a, b in ((got.U, ref.U), (got.V, ref.V)):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_lstsq_implicit_jvp_and_vjp_on_card(cuda):
+    """``lstsq_implicit`` on CUDA tensors: ``torch.func.jacfwd`` through its
+    rule and ``torch.func.vjp`` through its backward against the same
+    transforms straight through ``complex_lstsq``, on
+    tests/test_13_checkpoint.py:78-115's case (rtol 1e-3, atol 1e-4)."""
+    from dmd_era5_tpu_torch.models.optdmd import _func
+    from dmd_era5_tpu_torch.utils.linalg import complex_lstsq, lstsq_implicit
+
+    func = _func()
+    rng = np.random.default_rng(0)
+    tt = torch.arange(20, dtype=torch.float32, device=cuda) * 0.1
+    h = torch.from_numpy((rng.standard_normal((20, 4)) + 1j * rng.standard_normal((20, 4)))
+                         .astype(np.complex64)).to(cuda)
+    theta = torch.tensor([-0.1, -0.2, -0.05, 1.0, -0.5, 2.0], device=cuda)
+
+    def b_of(solve):
+        def f(th):
+            a = torch.complex(th[:3], th[3:])
+            b = solve(torch.exp(torch.outer(tt.to(a.dtype), a)), h)
+            return torch.cat([b.real.reshape(-1), b.imag.reshape(-1)])
+        return f
+
+    implicit, direct = b_of(lstsq_implicit), b_of(complex_lstsq)
+    j_i, j_d = func.jacfwd(implicit)(theta), func.jacfwd(direct)(theta)
+    assert j_i.is_cuda and j_i.shape == (24, 6)
+    torch.testing.assert_close(j_i, j_d, rtol=1e-3, atol=1e-4)
+    c = torch.from_numpy(rng.standard_normal(24).astype(np.float32)).to(cuda)
+    g_i = func.vjp(implicit, theta)[1](c)[0]
+    g_d = func.vjp(direct, theta)[1](c)[0]
+    torch.testing.assert_close(g_i, g_d, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(g_i, c @ j_d, rtol=1e-3, atol=1e-4)

@@ -34,10 +34,11 @@ def _model(kind: str, d: int):
     t = t[:n]
     if kind == "exact":
         res_j = jm.exact_dmd(jnp.asarray(x_emb), rank=4, dt=float(t[1] - t[0]))
-        res_t = convert.dmd_result_from_numpy(*(np.asarray(a) for a in res_j[:4]), res_j.dt)
+        res_t = convert.dmd_result_from_numpy(*(np.asarray(a) for a in res_j[:4]), res_j.dt,
+                                              device="cpu")
     else:
         res_j = jm.fit_optdmd(jnp.asarray(x_emb), jnp.asarray(t), rank=4)
-        res_t = convert.optdmd_result_from_numpy(*res_j)
+        res_t = convert.optdmd_result_from_numpy(*res_j, device="cpu")
     return res_j, res_t, t, x_emb
 
 

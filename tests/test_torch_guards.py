@@ -243,3 +243,90 @@ def test_dmd_models_need_a_card_unless_told_otherwise(tmp_path, monkeypatch):
         assert call(device="cpu") is not None, name
     assert fit_mrdmd(torch.from_numpy(x), rank=3, max_levels=2).residual.device.type == "cpu"
     assert (dict(qr_panel.gram.launches), matmul.sketch_center_gram_project.launches) == before
+
+
+def test_carried_state_and_forecast_times_need_a_card_unless_told_otherwise(monkeypatch):
+    """``convert``'s functions and ``forecast_times`` place their tensors
+    on the card unless ``device`` is given: without CUDA they raise."""
+    import numpy as np
+
+    from dmd_era5_tpu_torch import convert
+    from dmd_era5_tpu_torch.models import forecast_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    u, s, v = np.ones((6, 2), np.float32), np.ones(2, np.float32), np.ones((2, 5), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        convert.svd_result_from_numpy(u, s, v)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        convert.mrdmd_result_from_numpy([], None, 1.0, 5)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        forecast_times(5, 3, 1.0)
+    assert convert.svd_result_from_numpy(u, s, v, device="cpu").U.device.type == "cpu"
+    assert forecast_times(5, 3, 0.5, device="cpu").tolist() == [0.5 * i for i in range(8)]
+
+
+TOOLS = ["scripts/torch_verify.py", "examples/torch_demo_pipeline.py",
+         "examples/torch_demo_out_of_core.py"]
+
+
+@pytest.mark.parametrize("path", TOOLS)
+def test_tools_import_neither_jax_nor_the_jax_package(path):
+    """The verify script and the examples load with JAX hidden and bring in
+    nothing of ``dmd_era5_tpu``; the notebook's cells import only the port."""
+    code = (
+        "import sys, runpy; sys.modules['jax'] = None\n"
+        f"runpy.run_path({str(ROOT / path)!r}, run_name='not_main')\n"
+        "assert not any(m == 'dmd_era5_tpu' or m.startswith('dmd_era5_tpu.')"
+        " for m in sys.modules), 'the JAX package was imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_notebook_imports_only_the_port():
+    import json
+
+    nb = json.loads((ROOT / "examples" / "torch_quickstart.ipynb").read_text())
+    src = "\n".join("".join(c["source"]) for c in nb["cells"] if c["cell_type"] == "code")
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", src, re.M)
+    assert imports and all(m.split(".")[0] in ("dmd_era5_tpu_torch", "numpy") for m in imports)
+
+
+# Public top-level names of the JAX package with no counterpart in the
+# port, each for its reason
+NOT_PORTED = {
+    "native_available": "the C++ packer's build probe: the port packs in torch on the host "
+                        "(dmd_era5_tpu_torch/native), with nothing to build",
+    "pallas_ok": "probes whether Pallas lowers on the TPU backend; the port's kernels are "
+                 "CUDA C++ built by nvcc, chosen by the tensor's device",
+    "enable_float64": "switches JAX's x64 mode; torch has f64 tensors without a switch",
+    "eig_host": "the TPU's host callback for a general eigensolver; the port's eig_sorted "
+                "runs torch.linalg.eig on the device",
+    "tri_inv": "the TPU's iteratively refined triangular inverse; the port solves with "
+               "torch.linalg.solve_triangular in row blocks",
+}
+
+
+def _public_top_level_names(package: Path) -> dict:
+    """Every public function and class defined at the top level of a
+    module of ``package``, by name, read from the source (not imported)."""
+    import ast
+
+    names: dict = {}
+    for path in sorted(package.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) \
+                    and not node.name.startswith("_"):
+                names.setdefault(node.name, []).append(str(path.relative_to(ROOT)))
+    return names
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    jax_names = _public_top_level_names(ROOT / "dmd_era5_tpu")
+    port_names = _public_top_level_names(PACKAGE)
+    missing = {name: where for name, where in jax_names.items()
+               if name not in port_names and name not in NOT_PORTED}
+    assert not missing
+    assert set(NOT_PORTED) <= set(jax_names)  # no stale exclusion
+    assert not set(NOT_PORTED) & set(port_names)

@@ -129,3 +129,98 @@ def test_complex_lstsq_parity(rng, ridge):
     x_j = np.asarray(jl.complex_lstsq(jnp.asarray(a), jnp.asarray(b), ridge))
     assert np.allclose(x_t, x_true, atol=1e-3)
     assert np.allclose(x_t, x_j, atol=1e-3)
+
+
+# ---- lstsq_implicit: the implicit-differentiation rule ----------------
+#
+# tests/test_13_checkpoint.py:78-115's case, theta (2r,) -> B = lstsq(Phi,
+# H) with Phi = exp(t alpha^T), B flattened to its real and imaginary
+# parts, through both packages' lstsq_implicit.
+
+LSTSQ_CASES = [pytest.param(0.0, False, id="test13"), pytest.param(0.5, False, id="ridge"),
+               pytest.param(0.0, True, id="1d-b")]
+
+
+def _theta_case(one_column: bool):
+    rng = np.random.default_rng(0)  # test_13's fixture
+    t, k = 20, 4
+    tt = np.arange(t, dtype=np.float32) * 0.1
+    h = (rng.standard_normal((t, k)) + 1j * rng.standard_normal((t, k))).astype(np.complex64)
+    if one_column:
+        h = h[:, 0].copy()
+    alpha = np.array([-0.1 + 1.0j, -0.2 - 0.5j, -0.05 + 2.0j], dtype=np.complex64)
+    theta = np.concatenate([alpha.real, alpha.imag]).astype(np.float32)
+    return tt, h, theta
+
+
+def _n_out(h) -> int:
+    """Entries of theta -> B's output: B is (r, k) or (r,), real and
+    imaginary parts."""
+    return 2 * 3 * (h.shape[1] if h.ndim == 2 else 1)
+
+
+def _b_of_theta_jax(tt, h, ridge):
+    r = 3
+
+    def f(theta):
+        a = theta[:r] + 1j * theta[r:]
+        b = jl.lstsq_implicit(jnp.exp(jnp.outer(jnp.asarray(tt), a)), jnp.asarray(h), ridge)
+        return jnp.concatenate([jnp.real(b).ravel(), jnp.imag(b).ravel()])
+    return f
+
+
+def _b_of_theta_torch(tt, h, ridge, solve=None):
+    r = 3
+    solve = solve or (lambda phi, hh: tl.lstsq_implicit(phi, hh, ridge))
+    tt_t, h_t = torch.from_numpy(tt), torch.from_numpy(h)
+
+    def f(theta):
+        a = torch.complex(theta[:r], theta[r:])
+        b = solve(torch.exp(torch.outer(tt_t.to(a.dtype), a)), h_t)
+        return torch.cat([b.real.reshape(-1), b.imag.reshape(-1)])
+    return f
+
+
+@pytest.mark.parametrize("ridge,one_column", LSTSQ_CASES)
+def test_lstsq_implicit_primal_parity(ridge, one_column):
+    tt, h, theta = _theta_case(one_column)
+    got = _b_of_theta_torch(tt, h, ridge)(torch.from_numpy(theta)).numpy()
+    want = np.asarray(_b_of_theta_jax(tt, h, ridge)(jnp.asarray(theta)))
+    direct = _b_of_theta_torch(tt, h, ridge, lambda p, hh: tl.complex_lstsq(p, hh, ridge))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(got, direct(torch.from_numpy(theta)).numpy())
+
+
+@pytest.mark.parametrize("ridge,one_column", LSTSQ_CASES)
+def test_lstsq_implicit_jacfwd_matches_jax(ridge, one_column):
+    """``torch.func.jacfwd`` through the rule (vmapped) against JAX's
+    jacfwd through its custom_jvp, at test_13's rtol 1e-3, atol 1e-4;
+    and against forward mode straight through the port's solve."""
+    import jax
+
+    from dmd_era5_tpu_torch.models.optdmd import _func
+
+    tt, h, theta = _theta_case(one_column)
+    j_t = _func().jacfwd(_b_of_theta_torch(tt, h, ridge))(torch.from_numpy(theta)).numpy()
+    j_j = np.asarray(jax.jacfwd(_b_of_theta_jax(tt, h, ridge))(jnp.asarray(theta)))
+    direct = _b_of_theta_torch(tt, h, ridge, lambda p, hh: tl.complex_lstsq(p, hh, ridge))
+    j_d = _func().jacfwd(direct)(torch.from_numpy(theta)).numpy()
+    assert j_t.shape == j_j.shape == (_n_out(h), 6)
+    np.testing.assert_allclose(j_t, j_j, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(j_t, j_d, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("ridge,one_column", LSTSQ_CASES)
+def test_lstsq_implicit_reverse_mode_is_the_transposed_jacobian(ridge, one_column):
+    """``torch.autograd.grad`` of c . B(theta) through the rule's backward
+    equals c^T J with J JAX's forward Jacobian (reverse mode as JAX's
+    transposed JVP)."""
+    import jax
+
+    tt, h, theta = _theta_case(one_column)
+    c = np.random.default_rng(1).standard_normal(_n_out(h)).astype(np.float32)
+    th = torch.from_numpy(theta).requires_grad_(True)
+    out = _b_of_theta_torch(tt, h, ridge)(th)
+    (grad,) = torch.autograd.grad(out, th, torch.from_numpy(c))
+    j_j = np.asarray(jax.jacfwd(_b_of_theta_jax(tt, h, ridge))(jnp.asarray(theta)))
+    np.testing.assert_allclose(grad.numpy(), c @ j_j, rtol=1e-3, atol=1e-4 * np.abs(c @ j_j).max())

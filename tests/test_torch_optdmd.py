@@ -73,9 +73,9 @@ def test_rollout_parity_on_one_model(rng):
     res_j = jm.optdmd_from_svd(
         jnp.asarray(u), jnp.asarray(s), jnp.asarray(vt), jnp.asarray(t), rank=4
     )
-    res_t = convert.optdmd_result_from_numpy(*res_j)
+    res_t = convert.optdmd_result_from_numpy(*res_j, device="cpu")
     t_f = np.asarray(jm.forecast_times(len(t), 24, float(t[1] - t[0])))
-    t_t = tm.forecast_times(len(t), 24, float(t[1] - t[0]))
+    t_t = tm.forecast_times(len(t), 24, float(t[1] - t[0]), device="cpu")
     np.testing.assert_allclose(t_t.numpy(), t_f, rtol=1e-6)
     out_t = tm.rollout(res_t, t_t).numpy()
     out_j = np.asarray(jm.rollout(res_j, jnp.asarray(t_f)))

@@ -82,7 +82,7 @@ def _chains(svd_jax, svd_torch_of):
     opt_t = tm.optdmd_from_svd(*svd_t, torch.from_numpy(t_fit), rank=RANK)
     mean_emb_t = mean_t.float().repeat(D)
     fc_t = tm.undo_preprocessing(
-        tm.rollout(opt_t, tm.forecast_times(len(t_fit), STEPS, 1.0)), mean_emb_t, None, delay=D
+        tm.rollout(opt_t, tm.forecast_times(len(t_fit), STEPS, 1.0, device="cpu")), mean_emb_t, None, delay=D
     ).numpy()
     assert svd_t.U.shape == (D * x.shape[0], K)
     assert fc_t.shape == (x.shape[0], len(t_all)) and np.all(np.isfinite(fc_t))
@@ -128,7 +128,7 @@ def test_slice_matches_jax_path():
     # the JAX SVD artifact, carried across, feeds the port's optDMD:
     # identical inputs, so only the two LM implementations differ
     opt_c = tm.optdmd_from_svd(
-        *convert.svd_result_from_numpy(svd_j.U, svd_j.s, svd_j.V),
+        *convert.svd_result_from_numpy(svd_j.U, svd_j.s, svd_j.V, device="cpu"),
         torch.from_numpy(t_fit), rank=RANK,
     )
     a_c, a_j = opt_c.alpha.numpy(), np.asarray(opt_j.alpha)

@@ -64,7 +64,7 @@ def test_fit_step_fused_parity(method, variant):
 
 
 def _assert_states_agree(st, sj, bf16=False, k=K):
-    sj = fit_state_from_numpy(*sj)  # the JAX state as the port's type
+    sj = fit_state_from_numpy(*sj, device="cpu")  # the JAX state as the port's type
     u_t, s_t, v_t, a_t = (o.float().numpy() for o in st[:4])
     u_j, s_j, v_j, a_j = (o.numpy() for o in sj[:4])
     assert u_t.shape == u_j.shape and v_t.shape == v_j.shape
