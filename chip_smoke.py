@@ -50,8 +50,9 @@ of which raises on failure so the script exits non-zero:
    ``project``), then optDMD and the forecast;
 12. (run next, on the week still on the card) the SVD stage's entry
    points, with ``DMD_ERA5_TPU_ROOT`` and ``DMD_ERA5_TPU_REMOTE`` in a
-   temporary directory (``TMPDIR``), removed at the end.  With h5py and
-   yaml installed: (a) north-star config 1, ``config.ini``'s
+   temporary directory (``TMPDIR``), removed at the end; every file goes
+   through the port's own HDF5 codec and store log (no h5py, no yaml).
+   (a) north-star config 1, ``config.ini``'s
    ``[era5-download]`` and ``[era5-svd]`` on the mock backend (the global
    numpy state seeded): ``era5_download.main`` and ``era5_svd.main`` with
    the store, then ``era5_svd.main`` again as a workdir cache hit; s held
@@ -64,28 +65,24 @@ of which raises on failure so the script exits non-zero:
    saved (the sliced fields moved to the card once, flattened and
    standardized there; K1 5 launches; a 12.46 GB U written), then again
    as a workdir cache hit whose U is the first run's bit for bit.
-   Without h5py or yaml, one line names the missing package, (a) is
-   skipped and (b) runs the stage's compute body
-   (``era5_svd.compute_svd_results``) on the in-memory slice.  Either
-   way (b)'s s are held within the interlace of phase 7's exact Hankel s,
+   (b)'s s are held within the interlace of phase 7's exact Hankel s,
    the leading 6 within 1e-5 of phase 3's, U^T U to 1e-3 (on the
-   artifact read back where there is one) and X_mean against phase 3's
-   row means, with each step's wall time, the phase's peak device memory
-   and the bytes written to disk;
+   artifact read back) and X_mean against phase 3's row means, with each
+   step's wall time, the phase's peak device memory, the bytes written
+   to disk and each file step's GB/s;
 13. (run next, on the week still on the card) the DMD stage's entry
    points.  (a) North-star config 1, ``config.ini``'s ``[era5-dmd]`` as
    it is but for the mock's source_path (rank 6, optimized, 24 forecast
-   steps): with h5py and yaml, ``era5_dmd.main`` with the files and the
-   store, then again as a workdir cache hit; without them,
-   ``download_era5_data``'s mock slice in memory ->
-   ``compute_svd_results`` -> ``fit_dmd_from_svd_results``; shapes,
+   steps): ``era5_dmd.main`` with the files and the store, then again as
+   a workdir cache hit; shapes,
    finite values, the attrs, K1 5 launches.  (b) The week's optDMD from
    12b's results (rank 6, 24 forecast steps): the planted eigenvalues
    within 1e-2, the 24 future columns within 5e-2 of the noise-free
    signal, the field filled block by block on the card equal to the
    one-shot ``undo_preprocessing(rollout(...))`` in row chunks (1e-5 of
    max|field|), no kernel launch.  (c) The week with a 24-hour holdout:
-   ``compute_svd_results`` on the slice (144 train hours; K1 5
+   ``compute_svd_results`` on the slice as 12b read it back (144 train
+   hours; K1 5
    launches), then the fit scored on the withheld day: RMSE, ACC and
    bias per lead, DMD's and persistence's, within 1e-5 of an f64
    one-shot over the same forecast and weights, and DMD's RMSE at lead
@@ -121,8 +118,8 @@ of which raises on failure so the script exits non-zero:
    the leading 6 within 1e-4, its planted eigenvalues within 1e-2; (g) ``mode_spectrum``
    and ``modes_to_grid`` on 13b's result: the planted periods, grid
    entries equal to the flat modes' rows; (h) ``varpro_lm_checkpointed``
-   resuming from its own file where h5py is installed (else one line
-   says it is skipped).  Each part prints its wall time and device
+   resuming from its own file (the file's bytes and read time logged).
+   Each part prints its wall time and device
    memory rise, the phase the host's RSS;
 15. the one-pass and updating SVD (north-star config 5's half on one
    card).  (a) Inside phase 9, while its artifact exists:
@@ -140,9 +137,10 @@ of which raises on failure so the script exits non-zero:
    their plain versions and the f64 sums at 15a's block shapes; K3 at
    15a's block against its bound (``roofline``).  (c) After
    phase 13: 13c's SVD (144 hours) updated by the withheld 24 hours and
-   the boundary hour (``update_from_slice`` in memory, or with h5py and
-   yaml ``era5_svd_update.main`` with the files and the store on the
-   stage's own 144-hour base): V over the week's 167 embedded hours, U^T U
+   the boundary hour by ``era5_svd_update.update_from_slice`` on the
+   slice as 12b's main read it back from its file (the week goes through
+   its files once, in 12b: its own files would pass the machine's 45 GiB
+   cap on a call's disk writes): V over the week's 167 embedded hours, U^T U
    to 2e-3, the leading 6 s within 1e-4 of the exact Hankel SVD of the
    same matrix (phase 7's route, run again on the week centred by the
    144-hour mean); K3 (U^T C) and K6 (U L, a lift chunk) on the
@@ -180,8 +178,8 @@ of which raises on failure so the script exits non-zero:
    stored as a blosc memcpy frame, in a temporary directory (``TMPDIR``,
    which must hold ~17.1 GB; the phase fails, never skips, when it does
    not), deleted at the end; (b) ``config.ini``'s ``[era5-download]`` with
-   source_path the store (``_open_remote_era5``, slicing, the config
-   attributes; saved only with h5py): exactly the window's 97 chunks read
+   source_path the store (``download_era5_data``: ``_open_remote_era5``,
+   slicing, the config attributes, the slice saved): exactly the window's 97 chunks read
    (the store's gets counted), bytes read against kept (~37), the slice
    equal bit for bit to the generated 1000 hPa hours; (c)
    ``era5_svd.compute_svd_results`` on ``[era5-svd]`` (K1 5) and
@@ -190,7 +188,10 @@ of which raises on failure so the script exits non-zero:
    H_2 of the centred X; (d) ``zarr_to_packed`` to a ``.npy``, equal bit for
    bit to ``build_snapshot_matrix``, and ``streamed_randomized_svd`` (k 10)
    over it (K6 and K7 held exactly), s against the f64 exact s of the same
-   X; (e) the unfused ``hankel_randomized_svd`` (d 2, k 10: K6, K3 and the
+   X; then the same to an HDF5 ``.h5`` written by the port's codec, X read
+   back bit for bit and the streamed SVD from it (K6 and K7 again) with U
+   and s bit for bit the ``.npy`` route's, each pass timed beside the
+   ``.npy`` one; (e) the unfused ``hankel_randomized_svd`` (d 2, k 10: K6, K3 and the
    split CholQR2 leaf's K5 held exactly) against
    ``hankel_randomized_svd_fused`` and the f64 exact SVD of H_2(X); then
    K1, K3, K6 and K7 against their plain versions on the operands (c)-(e)
@@ -244,8 +245,8 @@ of which raises on failure so the script exits non-zero:
    ``mesh_shape = space=2`` by three routes (the sharded randomized
    Hankel SVD, the standard one, and ``svd_backend = inmem``: rank 0
    writes the packed ``.npy``, each rank reads its rows): ``era5_svd.main``
-   with h5py, else ``compute_svd_results`` in memory, against the same
-   one-device run in this process.  ``[18a]``-``[18d]`` lines carry each
+   with the files (the slice staged by the one-device run), against the
+   same one-device run in this process.  ``[18a]``-``[18d]`` lines carry each
    part's times, each rank's times and peak memory, the collectives.
 19. (riding in 17's worlds) the DMD models on the mesh, each part's
    one-device reference first in this process, and K1 (on a member, N
@@ -275,9 +276,10 @@ of which raises on failure so the script exits non-zero:
    eigenvalues within ``DMDC_GRAM_ROUTE_GAP``, b^T b and b^T a b within
    1e-2), its own collectives the Gram route's 6 psums and U's 2 gathers
    over space; (d) in 17c's 4 ranks on data=2,space=2, config 1's
-   settings, grid and window through ``compute_svd_results`` and
-   ``fit_dmd_from_svd_results`` in memory (bagged, 8 trials, with the
-   diurnal DMDc) on its mock slice with three planted waves
+   settings, grid and window through ``era5_svd.main`` with the files
+   (the slice staged by the one-device run) and
+   ``fit_dmd_from_svd_results`` (bagged, 8 trials, with the diurnal
+   DMDc) on its mock slice with three planted waves
    (``planted_slice``): every rank's results alike, s within 1e-5 of
    s[0] of one device's ``inmem`` route, the fit held to the one-device
    fit on the same factors (the bag as (b), DMDc as (c)), the bag to
@@ -296,11 +298,10 @@ of which raises on failure so the script exits non-zero:
    held to ``VERIFY_LAUNCHES``) and its seven kernel checks (K1-K7
    against their plain versions and f64 sums, one launch each), all 22
    passed; (b) ``examples/torch_demo_out_of_core.py``'s ``main`` (its
-   ``.npy`` of bf16 words under ``TMPDIR``; its three streamed routes held
+   HDF5 file of bf16 words under ``TMPDIR``; its three streamed routes held
    to its own limits against numpy); (c) ``examples/torch_demo_pipeline.py``:
-   with h5py and yaml its ``main`` under a temporary root, else its
-   ``CONFIG`` through ``download_era5_data`` -> ``compute_svd_results`` ->
-   ``fit_dmd_from_svd_results`` in memory (one line says which), s at most
+   its ``main`` with the files and the store under a temporary root, s
+   at most
    the f64 s of the stage's X times 1 + 1e-4 (12a's gate), 10 finite
    eigenvalues, the forecast's shape, the holdout scores; (d)
    ``utils.linalg.lstsq_implicit``'s forward Jacobian (``torch.func.jacfwd``
@@ -2085,7 +2086,7 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
                     for key, n in route["launches"].items():
                         launches[key] += n
             log(f"[18d] config 1 over 2 ranks (mesh_shape space=2, "
-                f"{'compute_svd_results in memory: no h5py' if missing_file_packages() else 'era5_svd.main with the files'}): "
+                "era5_svd.main with the files): "
                 f"{json.dumps(summary['18d'], default=str)}")
 
     log(f"[17c] the portable step on {MESH_PORTABLE}: 4 ranks sharing the card over gloo, the "
@@ -2138,8 +2139,8 @@ def phase_mesh(week: dict, path: Path, seed: int, ref8: dict) -> dict:
     for res in ranks:
         for key, n in res["stage_models"]["launches"].items():
             launches[key] += n
-    log(f"[19d] config 1 on {MODELS_MESH} over 17c's 4 ranks (compute_svd_results and "
-        f"fit_dmd_from_svd_results in memory: no h5py): {json.dumps(summary['19d'], default=str)}")
+    log(f"[19d] config 1 on {MODELS_MESH} over 17c's 4 ranks (era5_svd.main with the files, "
+        f"then fit_dmd_from_svd_results): {json.dumps(summary['19d'], default=str)}")
     summary["seconds"] = time.perf_counter() - t_phase
     summary["18_own_seconds"] = own18  # 18a, its references and kernel checks in this process
     summary["19_own_seconds"] = own19  # 19's references and kernel checks in this process
@@ -2498,19 +2499,17 @@ def grid_mesh_rank(x_loc: torch.Tensor, mesh, path: str, seed: int) -> dict:
 def stage_mesh_routes(seed: int) -> dict:
     """18d's config 1 (config.ini's [era5-svd] on the mock, mesh_shape
     from the caller's world: space=2 over 2 ranks, auto for one process)
-    by STAGE_MESH_ROUTES: ``era5_svd.main`` with the files where h5py
-    is installed (the slice staged first by the one-device run), else ``compute_svd_results``
-    on the mock slice in memory (the global numpy state seeded, alike in
-    every process).  Returns each route's factors, backend, X, seconds
-    and launches."""
+    by STAGE_MESH_ROUTES: ``era5_svd.main`` with the files, the slice
+    staged first by the one-device run (the global numpy state seeded)
+    under the stage root the ranks inherit.  Returns each route's factors,
+    backend, X, seconds and launches."""
     import torch.distributed as dist
 
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
 
     meshed = dist.is_initialized()
-    missing = missing_file_packages()
-    if not (missing or meshed):  # the one-device run stages the slice the ranks read
+    if not meshed:  # the one-device run stages the slice the ranks read
         from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
 
         np.random.seed(seed)
@@ -2522,13 +2521,7 @@ def stage_mesh_routes(seed: int) -> dict:
                            mesh_shape="space=2" if meshed else "auto", **overrides)
         before = launch_counts()
         t0 = time.perf_counter()
-        if missing:
-            np.random.seed(seed)
-            dl = config_parser(stage_config("era5-download"), "era5-download")
-            fs = era5_download.download_era5_data(dl, use_mock_data=True)
-            res = era5_svd.compute_svd_results(fs, config_parser(dict(cfg), "era5-svd"))
-        else:
-            res = era5_svd.main(dict(cfg), write_artifact=False)[0]
+        res = era5_svd.main(dict(cfg), write_artifact=False)[0]
         torch.cuda.synchronize()
         after = launch_counts()
         out[name] = {"u": np.asarray(res["U"].values), "s": np.asarray(res["s"].values),
@@ -3028,15 +3021,15 @@ def models_mesh_rank(x_loc: torch.Tensor, mesh, world: int, path: str, seed: int
 
 
 def stage_models_config(meshed: bool) -> tuple[dict, dict]:
-    """19d's config 1: config.ini's [era5-svd] and [era5-dmd] on the mock,
-    the DMD fit bagged (BAG_TRIALS) with the diurnal control, the mesh
-    MODELS_MESH over 17c's ranks; for one device the SVD's ``inmem``
-    route, whose sketch (k + 10 columns from seed 0) is the meshed
-    Hankel route's (18d)."""
+    """19d's config 1: config.ini's [era5-svd] (raw, for ``era5_svd.main``)
+    and [era5-dmd] (parsed) on the mock, the DMD fit bagged (BAG_TRIALS)
+    with the diurnal control, the mesh MODELS_MESH over 17c's ranks; for
+    one device the SVD's ``inmem`` route, whose sketch (k + 10 columns
+    from seed 0) is the meshed Hankel route's (18d)."""
     from dmd_era5_tpu_torch.core import config_parser
 
     extra = {"mesh_shape": MODELS_MESH} if meshed else {"svd_backend": "inmem"}
-    svd = config_parser(stage_config("era5-svd", source_path="mock_data", **extra), "era5-svd")
+    svd = stage_config("era5-svd", source_path="mock_data", **extra)
     dmd = config_parser(stage_config("era5-dmd", source_path="mock_data", bagging_trials=BAG_TRIALS,
                                      control_input="diurnal", **extra), "era5-dmd")
     return svd, dmd
@@ -3064,26 +3057,32 @@ def planted_slice(fs, seed: int):
 
 
 def stage_models_fit(mesh, seed: int, planted: bool = True) -> tuple[dict, object]:
-    """19d's stage in memory (the machine has no h5py): config 1's mock
-    slice (the global numpy state seeded, alike in every process), with
-    the planted waves (``planted_slice``) unless ``planted`` is False,
-    ``compute_svd_results`` and ``fit_dmd_from_svd_results`` on ``mesh``
-    (None: one device), each step timed.  Returns the readings and the
-    SVD results."""
+    """19d's stage through its files: on one device (``mesh`` None)
+    config 1's mock slice (the global numpy state seeded), with the
+    planted waves (``planted_slice``) unless ``planted`` is False, is
+    saved as the stage's slice under the stage root, which the ranks
+    inherit and read; then ``era5_svd.main`` (no artifact written) and
+    ``fit_dmd_from_svd_results`` on ``mesh``, each step timed.  Returns
+    the readings and the SVD results."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+    from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
 
     svd_cfg, dmd_cfg = stage_models_config(mesh is not None)
-    np.random.seed(seed)
-    fs = era5_download.download_era5_data(
-        config_parser(stage_config("era5-download"), "era5-download"), use_mock_data=True)
-    if planted:
-        fs = planted_slice(fs, seed)
+    steps = {}
+    if mesh is None:
+        np.random.seed(seed)
+        fs = era5_download.download_era5_data(
+            config_parser(stage_config("era5-download"), "era5-download"), use_mock_data=True)
+        if planted:
+            fs = planted_slice(fs, seed)
+        _, steps["slice_write"] = synced(save_fieldset, fs, config_parser(
+            dict(svd_cfg), "era5-svd")["era5_slice_path"])
     with stage_clock(era5_dmd, "bopdmd_from_svd", "dmdc_from_svd", "_forecast_field") as clock:
-        svd_res, t_svd = synced(era5_svd.compute_svd_results, fs, svd_cfg, mesh=mesh)
+        (svd_res, _, _), t_svd = synced(era5_svd.main, dict(svd_cfg), write_artifact=False)
         res = era5_dmd.fit_dmd_from_svd_results(svd_res, dmd_cfg, mesh=mesh)
     readings = stage_models_readings(res, svd_res)
-    readings["steps"] = {"svd": round(t_svd, 3),
+    readings["steps"] = {"svd_main": round(t_svd, 3), **{k: round(v, 3) for k, v in steps.items()},
                          **{key: round(sum(v), 3) for key, v in clock.items()}}
     return readings, svd_res
 
@@ -3153,7 +3152,7 @@ def lm_witness(seed: int, directory: Path) -> dict:
     from dmd_era5_tpu_torch.pipeline import era5_dmd
 
     n_data = MODELS_MESH_AXES["data"]
-    with first_call(bop_mod, "varpro_lm_batched") as call:
+    with first_call(bop_mod, "varpro_lm_batched") as call, stage_root():  # its own slice file
         whole, svd_res = stage_models_fit(None, seed, planted=False)
     with bag_lm_in_blocks(n_data):
         split = stage_models_readings(era5_dmd.fit_dmd_from_svd_results(
@@ -3175,10 +3174,12 @@ def stage_models_kernels(flat: torch.Tensor, dmdc_args: tuple) -> dict:
     stacked, uncentred, f32; 18d's randomized route runs the same pass at
     the same shape), and DMDc's K4 and K1 (``dmdc_kernels_vs_plain``) on
     Z = S V of one device's factors (the ranks' have the same shapes)."""
+    from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.ops.hankel import _sketch_of, stacked_sketch_matrix
     from dmd_era5_tpu_torch.parallel.sharding import row_block
 
-    svd_cfg, dmd_cfg = stage_models_config(True)
+    raw, dmd_cfg = stage_models_config(True)
+    svd_cfg = config_parser(dict(raw), "era5-svd")
     d, k = svd_cfg["delay_embedding"], svd_cfg["n_components"]
     n_space = MODELS_MESH_AXES["space"]
     r0, r1, per = row_block(flat.shape[0], n_space, 0)
@@ -3608,6 +3609,25 @@ def first_call(module, name: str):
         setattr(module, name, saved)
 
 
+@contextlib.contextmanager
+def first_result(module, name: str):
+    """The first call's return value of ``module.<name>``, into the
+    yielded dict ("value"; later calls pass through)."""
+    saved = getattr(module, name)
+    seen: dict = {}
+
+    def call(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        seen.setdefault("value", out)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, saved)
+
+
 def phase_wide_sketch(week: dict, seed: int) -> dict:
     """Phase 11: (a) K2 and K3 against their plain versions at the d = 3
     pass's shapes and types; then the randomized Hankel SVD at d = 3
@@ -3671,20 +3691,22 @@ def stage_config(section: str, **overrides) -> dict:
     return {**config_reader(section, ROOT / "config.ini"), **overrides}
 
 
-def missing_file_packages() -> list[str]:
-    """Which of the stage's file packages (h5py for HDF5, yaml for the
-    store's logs) this machine lacks."""
-    import importlib.util
+def gb_per_s(nbytes: int, secs: float) -> float:
+    """A file step's rate: its bytes over its wall time, in GB/s."""
+    return nbytes / secs / 1e9 if secs > 0 else float("nan")
 
-    return [name for name in ("h5py", "yaml") if importlib.util.find_spec(name) is None]
+
+def file_sizes(directory: Path) -> int:
+    """The bytes of the files under ``directory``."""
+    return sum(p.stat().st_size for p in directory.rglob("*") if p.is_file())
 
 
 @contextlib.contextmanager
 def stage_root():
     """DMD_ERA5_TPU_ROOT and DMD_ERA5_TPU_REMOTE pointed into a new
     temporary directory (under TMPDIR), so that the stages' data/,
-    store/ and logs/ land there; removed, and the variables restored,
-    at the end."""
+    store/ and logs/ land there; removed, and the variables restored, at
+    the end."""
     import os
 
     names = ("DMD_ERA5_TPU_ROOT", "DMD_ERA5_TPU_REMOTE")
@@ -3810,53 +3832,58 @@ def phase_stage(week: dict, seed: int):
     the week, at full size: its raw X written as the ERA5 slice, then
     ``era5_svd.main`` on [era5-svd] with the week's overrides
     (``n_components`` 100, X not saved) and again as a workdir cache
-    hit.  Without h5py or yaml, (a) is skipped and (b) runs the stage's
-    compute body on the in-memory slice.  Returns the launch counts, the
-    slice and (b)'s results, which phase 13 takes on."""
+    hit.  Each file step logs its wall time, bytes and GB/s.  Returns
+    the launch counts, the slice (its fields views of X on the card),
+    the slice as the first main read it back from its file (which 13c and
+    15c take) and (b)'s results, read back on the hit."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_svd
     from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
 
-    missing = missing_file_packages()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
     fs = week_slice(week)
     cfg = stage_config("era5-svd", **WEEK_CONFIG, **WEEK_SVD)
-    times = {}
+    times, io = {}, {}
     with stage_root() as directory:
         parsed = config_parser(dict(cfg), "era5-svd")  # its paths under the stage root
-        if missing:
-            log(f"[12] {' and '.join(missing)} not installed on this machine: (a) config 1's "
-                "download/store/cache ladder skipped, (b) runs compute_svd_results on the "
-                "in-memory slice (no slice or results file)")
-            with stage_clock(era5_svd, "_preprocess_on_device", "svd_on_era5") as clock:
-                res, times["stage_compute"] = synced(era5_svd.compute_svd_results, fs, parsed)
-            disk = 0
-        else:
-            times["config1"] = phase_stage_config1(seed)
-            k1_a = launch_counts()["K1"]
-            _, times["slice_write"] = synced(save_fieldset, fs, parsed["era5_slice_path"])
-            with stage_clock(era5_svd, "load_fieldset", "_preprocess_on_device", "svd_on_era5",
-                             "save_fieldset") as clock:
-                (res, added, retrieved), times["stage_main"] = synced(
-                    era5_svd.main, dict(cfg), write_artifact=True)
-                check(not added and not retrieved, "week: main added to or retrieved from a store")
-                check(launch_counts()["K1"] - k1_a == 5, "week: K1 launches of main != 5")
-                (hit, _, _), times["cache_hit_main"] = synced(era5_svd.main, dict(cfg),
-                                                               write_artifact=True)
-            check(launch_counts()["K1"] - k1_a == 5, "week: the second main computed again")
-            check(np.array_equal(hit["U"].values.view(np.uint32), res["U"].values.view(np.uint32)),
-                  "week: the cache hit's U is not the first run's bit for bit")
-            res = hit  # the artifact read back
-            disk = sum(p.stat().st_size for p in (directory / "root").rglob("*") if p.is_file())
-            times["slice_load"], times["cache_hit_load"] = clock.pop("load_fieldset")
-            (times["results_write"],) = clock.pop("save_fieldset")
+        times["config1"] = phase_stage_config1(seed)
+        k1_a = launch_counts()["K1"]
+        _, times["slice_write"] = synced(save_fieldset, fs, parsed["era5_slice_path"])
+        with stage_clock(era5_svd, "load_fieldset", "_preprocess_on_device", "svd_on_era5",
+                         "save_fieldset") as clock, \
+                first_result(era5_svd, "load_fieldset") as loaded:
+            (res, added, retrieved), times["stage_main"] = synced(
+                era5_svd.main, dict(cfg), write_artifact=True)
+            check(not added and not retrieved, "week: main added to or retrieved from a store")
+            check(launch_counts()["K1"] - k1_a == 5, "week: K1 launches of main != 5")
+            # the first run's U waits on the card, so the host holds one U at a time
+            u_first = torch.from_numpy(res["U"].values).cuda()
+            del res
+            (hit, _, _), times["cache_hit_main"] = synced(era5_svd.main, dict(cfg),
+                                                           write_artifact=True)
+        check(launch_counts()["K1"] - k1_a == 5, "week: the second main computed again")
+        u_hit = hit["U"].values
+        same = all(torch.equal(u_first[r0:r0 + CHUNK].view(torch.int32), torch.from_numpy(
+            u_hit[r0:r0 + CHUNK]).cuda().view(torch.int32)) for r0 in range(0, len(u_hit), CHUNK))
+        check(same, "week: the cache hit's U is not the first run's bit for bit")
+        del u_first
+        res = hit  # the artifact read back
+        fs_back = loaded["value"]  # the slice as the first main read it from its file
+        disk = file_sizes(directory / "root")
+        times["slice_load"], times["cache_hit_load"] = clock.pop("load_fieldset")
+        (times["results_write"],) = clock.pop("save_fieldset")
         times.update({f"{name}_s": v for name, v in clock.items()})
+        slice_bytes = Path(parsed["era5_slice_path"]).stat().st_size
+        results_bytes = Path(parsed["save_path"]).stat().st_size
+    for step, nbytes in (("slice_write", slice_bytes), ("slice_load", slice_bytes),
+                         ("results_write", results_bytes), ("cache_hit_load", results_bytes)):
+        io[step] = {"gb": nbytes / 1e9, "s": times[step], "gb_s": gb_per_s(nbytes, times[step])}
     out = check_week_results("week (12b)", res, week)
     launches = launch_counts()
-    expect = counts(K1=5 if missing else 10)
+    expect = counts(K1=10)
     check(launches == expect, f"phase 12 launched {launches}, expected {expect}")
     times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     log(f"[12b] config 3 week through the SVD stage: U {res['U'].shape}, s[:8] "
@@ -3864,7 +3891,10 @@ def phase_stage(week: dict, seed: int):
         f"metrics svd_seconds {res.attrs['svd_seconds']}, launches {launches}, disk bytes {disk}")
     log(f"    stage wall times (s): {json.dumps(times)} (peak_gb: device memory over the "
         "phase's start)")
-    return launches, fs, res
+    log(f"    [12b files] the week's slice and results through the port's HDF5 codec: "
+        f"{json.dumps(io)} (bytes of the file over the step's wall time; the loads read the "
+        "page cache's copy where it holds one)")
+    return launches, fs, fs_back, res
 
 
 # north-star config 1's DMD stage takes config.ini's [era5-dmd] as it is but for
@@ -3967,20 +3997,16 @@ def check_scores(label: str, got: dict, want: dict) -> float:
     return worst
 
 
-def phase_dmd_config1(seed: int, missing: list[str], label: str = "13a",
-                      expect: dict | None = None, **overrides):
+def phase_dmd_config1(seed: int, label: str = "13a", expect: dict | None = None, **overrides):
     """Phase 13 (a): north-star config 1, config.ini's [era5-dmd] (rank
     6, optimized, 24 forecast steps) on the mock backend; phase 14 (a)
-    the same with ``overrides``.  With h5py and yaml: the mock slice
-    downloaded into the store, ``era5_dmd.main`` with the files and the
-    store, then again (a workdir cache hit).  Without them:
-    ``download_era5_data``'s mock slice in memory ->
-    ``compute_svd_results`` -> ``fit_dmd_from_svd_results``.  Checks
-    shapes, finite values, the attrs and the launches (``expect``, by
-    default K1 exactly 5), and logs each step's wall time.  Returns the
-    results."""
+    the same with ``overrides``.  The mock slice downloaded into the
+    store, ``era5_dmd.main`` with the files and the store, then again (a
+    workdir cache hit).  Checks shapes, finite values, the attrs and the
+    launches (``expect``, by default K1 exactly 5), and logs each step's
+    wall time and the artifacts' bytes.  Returns the results."""
     from dmd_era5_tpu_torch.core import config_parser
-    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download
 
     cfg = stage_config("era5-dmd", source_path="mock_data", **overrides)
     parsed = config_parser(dict(cfg), "era5-dmd")
@@ -3989,26 +4015,20 @@ def phase_dmd_config1(seed: int, missing: list[str], label: str = "13a",
     before = launch_counts()
     steps = ("_svd_factors", "optdmd_from_svd", "_mrdmd", "_dmdc", "_forecast_field")
     with stage_clock(era5_dmd, *steps) as clock:
-        if missing:
-            dl = config_parser(stage_config("era5-download"), "era5-download")
-            fs, times["mock"] = synced(era5_download.download_era5_data, dl, use_mock_data=True)
-            svd, times["svd_stage"] = synced(era5_svd.compute_svd_results, fs,
-                                             config_parser(dict(cfg), "era5-svd"))
-            res, times["dmd_fit"] = synced(era5_dmd.fit_dmd_from_svd_results, svd, parsed)
-            del fs, svd
-        else:
-            synced(era5_download.main, stage_config("era5-download"), use_mock_data=True,
-                   use_store=True)
-            (res, added, retrieved), times["dmd_main"] = synced(
-                era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
-            check(added and not retrieved,
-                  f"config 1 DMD stage: added {added}, retrieved {retrieved}")
-            (hit, added2, retrieved2), times["cache_hit"] = synced(
-                era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
-            check(not added2 and not retrieved2,
-                  "config 1: the second DMD stage was not a cache hit")
-            check(np.array_equal(hit["modes"].values, res["modes"].data.cpu().numpy()),
-                  "config 1: the cache hit's modes differ")
+        _, times["download"] = synced(era5_download.main, stage_config("era5-download"),
+                                      use_mock_data=True, use_store=True)
+        (res, added, retrieved), times["dmd_main"] = synced(
+            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+        check(added and not retrieved,
+              f"config 1 DMD stage: added {added}, retrieved {retrieved}")
+        (hit, added2, retrieved2), times["cache_hit"] = synced(
+            era5_dmd.main, dict(cfg), write_artifact=True, use_store=True)
+        check(not added2 and not retrieved2,
+              "config 1: the second DMD stage was not a cache hit")
+        check(np.array_equal(hit["modes"].values, res["modes"].data.cpu().numpy()),
+              "config 1: the cache hit's modes differ")
+    times["artifact_gb"] = Path(parsed["save_path"]).stat().st_size / 1e9
+    times["cache_hit_gb_s"] = gb_per_s(Path(parsed["save_path"]).stat().st_size, times["cache_hit"])
     times.update({f"{name}_s": round(sum(v), 3) for name, v in clock.items() if v})
     launched = {key: n - before[key] for key, n in launch_counts().items()}
     expect = expect or counts(K1=5)
@@ -4045,7 +4065,8 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     optDMD from 12b's results (rank 6, 24 forecast steps); (c) the week
     with a 24-hour holdout: ``compute_svd_results`` on the slice (144
     train hours), then the fit scored on the withheld day against an f64
-    one-shot; (d) the week bagged (8 trials of 80%).  Returns the launch
+    one-shot; (d) the week bagged (8 trials of 80%).  ``fs`` is the slice
+    as phase 12's main read it back from its file.  Returns the launch
     counts, (b)'s results without the forecast field and (c)'s SVD, which
     phase 15 (c) updates."""
     from dmd_era5_tpu_torch.core import config_parser
@@ -4053,12 +4074,11 @@ def phase_dmd_stage(week: dict, fs, week_res, seed: int) -> dict:
     from dmd_era5_tpu_torch.models.verification import latitude_weights
     from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd
 
-    missing = missing_file_packages()
     reset_counts()
     launches = counts()
     host_start = host_memory()
     with stage_root():
-        phase_dmd_config1(seed, missing)
+        phase_dmd_config1(seed)
     for key, n in launch_counts().items():
         launches[key] += n
 
@@ -4331,8 +4351,8 @@ def phase_multires(week: dict, week_res, res_b, seed: int) -> dict:
     (c) the raw refit (rank 6) of the centred d = 2 embedding
     (31,147,200 x 167, 20.8 GB) on the card, K4 once a window, the
     identity in full space in row blocks within 1e-5 of ||X||; (h)
-    ``varpro_lm_checkpointed`` resuming from its own file, where h5py is
-    installed.  Returns the launch counts."""
+    ``varpro_lm_checkpointed`` resuming from its own file.  Returns the
+    launch counts."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.models import (
         dmdc_from_svd,
@@ -4347,7 +4367,6 @@ def phase_multires(week: dict, week_res, res_b, seed: int) -> dict:
     from dmd_era5_tpu_torch.pipeline import fit_per_variable_level
     from dmd_era5_tpu_torch.pipeline.era5_dmd import _control_series
 
-    missing = missing_file_packages()
     launches = counts()
     host_start = host_memory()
 
@@ -4368,7 +4387,7 @@ def phase_multires(week: dict, week_res, res_b, seed: int) -> dict:
     # (a) config 1 with both branches
     with stage_root():
         reset_counts()
-        res_a = phase_dmd_config1(seed, missing, "14a", counts(K1=5 + 2, K4=3 + 2),
+        res_a = phase_dmd_config1(seed, "14a", counts(K1=5 + 2, K4=3 + 2),
                                   multiresolution_levels=2, control_input="diurnal")
     for key, n in launch_counts().items():
         launches[key] += n
@@ -4446,11 +4465,7 @@ def phase_multires(week: dict, week_res, res_b, seed: int) -> dict:
           f"(plain versions {err_plain_f64:.3e}) > {DMDC_GRAM_ROUTE_GAP}")
     check(roll_err < 1e-1, f"14e: forced rollout off Z by {roll_err:.3e}")
     # (h) the checkpointed LM on the week's projected data, resumed from its own file
-    if "h5py" in missing:
-        log("[14h] h5py not installed on this machine: varpro_lm_checkpointed skipped (its "
-            "checkpoints are HDF5)")
-    else:
-        phase_checkpointed(z, week)
+    phase_checkpointed(z, week)
     del res_k, roll, u, s, v, z
     torch.cuda.empty_cache()
 
@@ -4578,8 +4593,10 @@ def phase_checkpointed(z: torch.Tensor, week: dict) -> None:
     directory = Path(tempfile.mkdtemp(prefix="dmd_era5_ckpt_"))
     try:
         path = str(directory / "lm.h5")
-        varpro_lm_checkpointed(h, t, alpha0, path, max_iter=4, chunk_iters=2)
-        _, meta = load_pytree(path)
+        _, first_s = synced(varpro_lm_checkpointed, h, t, alpha0, path, max_iter=4,
+                            chunk_iters=2)
+        (_, meta), load_s = synced(load_pytree, path)
+        ckpt_bytes = Path(path).stat().st_size
         (alpha, _, rel, n_iters), secs = synced(varpro_lm_checkpointed, h, t, alpha0, path,
                                                 max_iter=50, chunk_iters=10)
     finally:
@@ -4592,7 +4609,8 @@ def phase_checkpointed(z: torch.Tensor, week: dict) -> None:
           f"the direct solve {gap:.3e}")
     log(f"[14h] varpro_lm_checkpointed resumed from step {meta['iteration']} to {n_iters}: "
         f"planted within {err:.2e}, the direct solve within {gap:.2e}, residual "
-        f"{float(rel):.3e}; {secs:.3f} s")
+        f"{float(rel):.3e}; {secs:.3f} s (the first 4 steps with their 2 checkpoints "
+        f"{first_s:.3f} s; the checkpoint file {ckpt_bytes} bytes, read back in {load_s:.4f} s)")
 
 
 def year_config(**overrides) -> dict:
@@ -5103,10 +5121,13 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     update of 13c's SVD (the first 144 hours, d = 2, k = 100) by the
     withheld 24 hours and the boundary hour, ``update_svd_results`` on the
     card (31,147,200 x 24 new columns: K3 once, K6 once for U L and once
-    a LIFT_ROWS chunk of the lift).  With h5py and yaml through
-    ``era5_svd_update.main`` with the files and the store (its base then
-    the stage's own 144-hour SVD, K1 5 more); without them,
-    ``update_from_slice`` in memory.  V's time is held to the week's 167
+    a LIFT_ROWS chunk of the lift), ``era5_svd_update.update_from_slice``
+    (the stage's compute body) on 13c's results and ``fs``, the slice as
+    phase 12's main read it back from its file.  Its own files (a base
+    slice and artifact, the week's slice, the updated artifact, the
+    store's copies: ~70 GB) would pass the card machine's 45 GiB cap on
+    what one call writes to its disk, which reads back at 0.2-0.7 GB/s
+    (12b): the week goes through its files once, in 12b.  V's time is held to the week's 167
     embedded hours, U^T U to UPDATE_ORTH, the leading 6 s to the exact
     Hankel SVD of the same matrix (phase 7's route on the week centred by
     the 144-hour mean) within UPDATE_LEAD6.  The update's own operands
@@ -5118,14 +5139,12 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.ops import hankel_exact_svd, streaming
     from dmd_era5_tpu_torch.ops.streaming import LIFT_ROWS
-    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd, era5_svd_update, incremental
-    from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset
+    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_svd_update, incremental
 
     d, k = 2, 100
     x = week["x"]  # the raw week: phase 12's slice added the row means in place
     n_rows = x.shape[0]
     n_lift = -(-n_rows * d // LIFT_ROWS)
-    missing = missing_file_packages()
     log(f"[15c] update of 13c's SVD (144 h, d = {d}, k = {k}) by the withheld {HOLDOUT} hours + "
         f"the boundary hour: {n_rows * d} x {HOLDOUT} new columns (K3 1, K6 1 + {n_lift}).  "
         "Predicted (H100): the update 0.1-0.5 s on the card plus U's moves (12.46 GB each way "
@@ -5144,30 +5163,15 @@ def phase_incremental(week: dict, fs, svd_c, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
-    with (stage_root(), stage_clock(incremental, "svd_rank_update") as clock,
+    with (stage_clock(incremental, "svd_rank_update") as clock,
           first_operands(streaming, "project", 1) as k3_args,
           first_operands(streaming, "matmul", 2) as k6_args):
         parsed = config_parser(dict(cfg), "era5-svd")
-        if missing:
-            log(f"    {' and '.join(missing)} not installed on this machine: the update runs "
-                "era5_svd_update.update_from_slice on 13c's results and the in-memory slice "
-                "(no files, no store)")
-            updated, times["update_from_slice"] = synced(era5_svd_update.update_from_slice,
-                                                         svd_c, fs, parsed)
-            expect = counts(K3=1, K6=1 + n_lift)
-        else:
-            # the base: the stage's own SVD of the first 144 hours, versioned
-            base_cfg = {**cfg, "end_datetime": "2019-01-06T23"}
-            base_parsed = config_parser(dict(base_cfg), "era5-svd")
-            save_fieldset(fs.isel(time=slice(0, T_HOURS - HOLDOUT)),
-                          base_parsed["era5_slice_path"])
-            _, times["base_main"] = synced(era5_svd.main, dict(base_cfg), write_artifact=True,
-                                           use_store=True)
-            save_fieldset(fs, parsed["era5_slice_path"])
-            (updated, added, did), times["update_main"] = synced(
-                era5_svd_update.main, dict(cfg), write_artifact=True, use_store=True)
-            check(did and added, f"15c: era5_svd_update.main updated {did}, added {added}")
-            expect = counts(K1=5, K3=1, K6=1 + n_lift)
+        log("    the update takes 13c's results and the slice as 12b's main read it back from its "
+            "file (the week's files once, in 12b: the machine's disk-write cap)")
+        updated, times["update_from_slice"] = synced(era5_svd_update.update_from_slice,
+                                                     svd_c, fs, parsed)
+        expect = counts(K3=1, K6=1 + n_lift)
     times["svd_rank_update"] = sum(clock["svd_rank_update"])
     times["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     launches = launch_counts()
@@ -5347,33 +5351,23 @@ def store_gets():
         zarr_reader._LocalStore.get = saved
 
 
-def arco_read(store: Path, info: dict, missing: list[str]):
+def arco_read(store: Path, info: dict):
     """Phase 16 (b): config.ini's [era5-download] as it is but for its
-    source_path, the store: with h5py, ``download_era5_data`` (the slice
-    saved under the stage root); without it, the same steps but the save:
-    ``_open_remote_era5``, slicing and ``add_config_attributes``.  Holds
+    source_path, the store: ``download_era5_data`` (the slice saved under
+    the stage root).  Holds
     the chunks read (exactly the window's 97) and the slice bit for bit
     against the generated 1000 hPa hours.  Returns the slice and its
     numbers."""
     from dmd_era5_tpu_torch.core import config_parser
     from dmd_era5_tpu_torch.pipeline import era5_download
-    from dmd_era5_tpu_torch.snapmat import slice_era5_dataset
 
     parsed = config_parser(stage_config("era5-download", source_path=str(store)),
                            "era5-download")
-
-    def read():
-        if "h5py" not in missing:
-            return era5_download.download_era5_data(parsed)
-        full = era5_download._open_remote_era5(parsed)[parsed["variables"]]
-        fs = slice_era5_dataset(full, parsed["start_datetime"], parsed["end_datetime"],
-                                parsed["levels"])
-        return era5_download.add_config_attributes(fs, parsed)
-
-    with store_gets() as gets:
+    with store_gets() as gets, stage_clock(era5_download, "save_fieldset") as clock:
         t0 = time.perf_counter()
-        fs = read()
-        secs = time.perf_counter() - t0
+        fs = era5_download.download_era5_data(parsed)
+        (save_s,) = clock["save_fieldset"]
+        secs = time.perf_counter() - t0 - save_s  # the read alone
     n_window = ARCO_HOURS - 2
     chunks = [(key, n) for key, n in gets if key.startswith("temperature/")]
     check([key for key, _ in chunks] == [f"temperature/{h}.0.0.0" for h in range(1, n_window + 1)],
@@ -5388,13 +5382,16 @@ def arco_read(store: Path, info: dict, missing: list[str]):
     check(times[0] == np.datetime64("2019-01-01T00", "ns") and len(times) == n_window
           and fs.coord("level").values.tolist() == [1000], "the slice's coordinates")
     read_bytes, kept = sum(n for _, n in chunks), data.nbytes
+    saved = Path(parsed["save_path"]).stat().st_size
     out = {"seconds": secs, "chunks": len(chunks), "bytes_read": read_bytes,
            "bytes_kept": kept, "read_over_kept": read_bytes / kept,
-           "read_gb_s": read_bytes / secs / 1e9, "saved": "h5py" not in missing}
+           "read_gb_s": read_bytes / secs / 1e9, "slice_bytes": saved, "save_s": save_s,
+           "save_gb_s": gb_per_s(saved, save_s)}
     log(f"[16b] config.ini [era5-download] from the store: slice {data.shape}, {len(chunks)} "
         f"chunks read in {secs:.2f} s ({read_bytes / secs / 1e9:.2f} GB/s), bytes read "
         f"{read_bytes} / kept {kept} = {read_bytes / kept:.3f}, equal bit for bit to the "
-        f"generated hours; {'saved' if out['saved'] else 'not saved (no h5py)'}")
+        f"generated hours; the slice saved ({saved} bytes) in {save_s:.3f} s "
+        f"({out['save_gb_s']:.2f} GB/s)")
     return fs, out
 
 
@@ -5443,8 +5440,11 @@ def arco_packed(store: Path, fs, directory: Path, seed: int) -> tuple[dict, dict
     ``streamed_randomized_svd`` (k 10) over it, K6 and K7 launches held
     exactly, s within the interlace of the f64 exact s of the same X on
     the card (its leading 7, the raw X's mean and the planted 6, within
-    1e-4).  Returns the launch counts, the operands of K6's first block
-    and K7's first leaf, X on the card and the times."""
+    1e-4).  Then the same to an HDF5 ``.h5`` (the port's codec): X read
+    back bit for bit, and the streamed SVD from it with the same seed,
+    U and s equal bit for bit to the ``.npy`` route's, each pass timed
+    beside the ``.npy`` one.  Returns the launch counts, the operands of
+    K6's first block and K7's first leaf, X on the card and the times."""
     import importlib
 
     from dmd_era5_tpu_torch.ops import sklearn_n_iter
@@ -5482,7 +5482,69 @@ def arco_packed(store: Path, fs, directory: Path, seed: int) -> tuple[dict, dict
         f"for bit to build_snapshot_matrix; streamed_randomized_svd (k {k}, n_iter {n_iter}, "
         f"{n_blocks} blocks): s[:8] {[round(float(a), 2) for a in res.s[:8]]}, {json.dumps(inter)}, "
         f"leading-7 max|U^T U - I| {orth7:.2e}, launches {launches}")
+    npy_passes = times["passes"]
+    launches_h5, h5_times = arco_packed_h5(store, x_host, res, window, k, seed)
+    times.update(h5_times)
+    for key, n in launches_h5.items():
+        launches[key] += n
+    log(f"    16d passes (s): .npy {[round(t, 3) for t in npy_passes]}, .h5 "
+        f"{[round(t, 3) for t in h5_times['h5_passes']]}")
     return launches, {"k6": k6_ops[0], "k7": k7_ops[0], "times": times}
+
+
+def arco_packed_h5(store: Path, x_host: np.ndarray, res_npy, window, k: int,
+                   seed: int) -> tuple[dict, dict]:
+    """16d's HDF5 route: ``zarr_to_packed`` to an ``.h5`` beside the
+    ``.npy`` (the port's codec: X contiguous, the coordinates, ``bf16``),
+    X read back bit for bit by ``read_packed_rows`` and the coordinates
+    by ``packed_info``, then ``streamed_randomized_svd`` from it with the
+    ``.npy`` route's seed: U and s bit for bit the ``.npy`` route's, its
+    K6 and K7 launches held as the ``.npy`` route's.  Returns the launch
+    counts and the times (the write's and the read-back's GB/s)."""
+    from dmd_era5_tpu_torch.ops import sklearn_n_iter
+    from dmd_era5_tpu_torch.pipeline import streamed_randomized_svd
+    from dmd_era5_tpu_torch.snapmat import packed_info, read_packed_rows, zarr_to_packed
+
+    directory = Path(tempfile.mkdtemp(prefix="dmd_era5_h5_"))
+    times = {}
+    try:
+        path = directory / "arco_x.h5"
+        start, end = (np.datetime64(w).astype("datetime64[s]").item() for w in window)
+        shape, times["zarr_to_packed_h5"] = synced(zarr_to_packed, store, path, ["temperature"],
+                                                   start, end, [1000])
+        nbytes = path.stat().st_size
+        back, times["h5_read_back"] = synced(read_packed_rows, str(path), 0, shape[0])
+        (info_shape, meta, bf16), times["h5_info"] = synced(packed_info, str(path))
+        check(shape == x_host.shape and info_shape == shape and not bf16
+              and np.array_equal(back.view(np.uint32), x_host.view(np.uint32)),
+              "16d .h5: zarr_to_packed's X read back differs from build_snapshot_matrix's")
+        check(meta.variables == ["temperature"] and meta.levels.tolist() == [1000]
+              and len(meta.times) == shape[1], f"16d .h5: meta {meta.variables} {meta.levels}")
+        del back
+        n_iter = sklearn_n_iter(k, shape)
+        n_blocks = -(-shape[0] // ARCO_PACKED_BLOCK)
+        reset_counts()
+        res, times["h5_streamed_randomized"], times["h5_passes"], _ = streamed_run(
+            "16d streamed_randomized_svd from the .h5", streamed_randomized_svd, str(path), k,
+            block_rows=ARCO_PACKED_BLOCK, seed=seed + 16)
+        launches = launch_counts()
+        expect = counts(K6=(n_iter + 1) * n_blocks, K7=n_iter)
+        check(launches == expect, f"16d .h5 launched {launches}, expected {expect}")
+        same = (np.array_equal(res.U.view(np.uint32), res_npy.U.view(np.uint32))
+                and torch.equal(res.s.cpu(), res_npy.s.cpu()))
+        check(same, "16d: the .h5 route's U and s are not the .npy route's bit for bit")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    times["h5_write_gb_s"] = gb_per_s(nbytes, times["zarr_to_packed_h5"])
+    times["h5_read_back_gb_s"] = gb_per_s(nbytes, times["h5_read_back"])
+    log(f"[16d .h5] zarr_to_packed -> arco_x.h5 ({nbytes} bytes) in "
+        f"{times['zarr_to_packed_h5']:.2f} s (the store's read included: {times['h5_write_gb_s']:.3f}"
+        f" GB of file a second), read back bit "
+        f"for bit in {times['h5_read_back']:.3f} s ({times['h5_read_back_gb_s']:.2f} GB/s; the "
+        f"page cache's copy); streamed_randomized_svd from it in "
+        f"{times['h5_streamed_randomized']:.2f} s, U and s bit for bit the .npy route's, "
+        f"launches {launches}")
+    return launches, times
 
 
 def arco_unfused(xc: torch.Tensor, s_exact_h: torch.Tensor, v_exact_h: torch.Tensor,
@@ -5686,16 +5748,15 @@ def phase_ingest(seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    missing = missing_file_packages()
     directory = Path(tempfile.mkdtemp(prefix="dmd_era5_arco_"))
     launches, times = counts(), {}
     try:
         chunk = len(ARCO_LEVELS) * N_LAT * N_LON * 4 + 16
-        need = ARCO_HOURS * chunk + 2 * (ARCO_HOURS - 2) * N_LAT * N_LON * 4 + GIB
+        need = ARCO_HOURS * chunk + 3 * (ARCO_HOURS - 2) * N_LAT * N_LON * 4 + GIB
         free = shutil.disk_usage(directory).free
         log(f"[16a] ARCO-ERA5-layout store in {directory}: {ARCO_HOURS} chunks of "
-            f"{chunk / 1e6:.1f} MB; {need / 1e9:.2f} GB to write with the packed X and the "
-            f"slice, {free / 1e9:.2f} GB free there")
+            f"{chunk / 1e6:.1f} MB; {need / 1e9:.2f} GB to write with the packed X (.npy and "
+            f".h5) and the slice, {free / 1e9:.2f} GB free there")
         check(free >= need, f"no room for the store in {directory} ({free / 1e9:.2f} GB free, "
               f"{need / 1e9:.2f} GB needed); point TMPDIR at a larger disk")
         store = directory / "arco.zarr"
@@ -5704,7 +5765,7 @@ def phase_ingest(seed: int) -> dict:
         log(f"    written in {info['seconds']:.2f} s "
             f"({ARCO_HOURS * chunk / info['seconds'] / 1e9:.2f} GB/s), each hour made on the card")
         with stage_root():
-            fs, read_info = arco_read(store, info, missing)
+            fs, read_info = arco_read(store, info)
             times["read"] = read_info["seconds"]
             xc, s_exact_h, v_exact_h = centred_hankel_reference(fs)
             parts = [arco_stages(fs, store, info, s_exact_h),
@@ -5955,44 +6016,30 @@ def demo_out_of_core() -> dict:
 
 def demo_pipeline(seed: int) -> dict:
     """Phase 20 (c): the pipeline demo on the card, its ``main`` with the
-    files and the store where h5py and yaml are installed, else its
-    ``CONFIG`` through the stages' compute bodies in memory; s held below
-    the f64 s of the stage's X (the same mock slice, drawn again from the
-    seeded global state, through ``compute_svd_results`` with X kept)."""
+    files and the store; s held below the f64 s of the stage's X (the
+    same mock slice, drawn again from the seeded global state, through
+    ``compute_svd_results`` with X kept)."""
     from dmd_era5_tpu_torch.core import config_parser
-    from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+    from dmd_era5_tpu_torch.pipeline import era5_download, era5_svd
 
     demo = load_tool("examples/torch_demo_pipeline.py")
     cfg = demo.CONFIG
-    missing = missing_file_packages()
     before = launch_counts()
-    with stage_root(), kernel_operands() as calls:
+    with stage_root() as directory, kernel_operands() as calls:
         np.random.seed(seed)
-        if missing:
-            log(f"[20c] no {' or '.join(missing)} here: the pipeline demo's CONFIG through "
-                "download_era5_data -> compute_svd_results -> fit_dmd_from_svd_results in memory")
-            fs = era5_download.download_era5_data(config_parser(dict(cfg), "era5-download"),
-                                                  use_mock_data=True)
-            svd, t_svd = synced(era5_svd.compute_svd_results, fs,
-                                config_parser(dict(cfg, save_data_matrix=True), "era5-svd"))
-            res, t_fit = synced(era5_dmd.fit_dmd_from_svd_results, svd,
-                                config_parser(dict(cfg), "era5-dmd"))
-            launched = _minus(launch_counts(), before)
-            demo.report(res, False, False)
-            times = {"svd_stage": t_svd, "dmd_fit": t_fit}
-        else:
-            log("[20c] the pipeline demo's main with the files and the store")
-            res, t_main = synced(demo.main, [])
-            launched = _minus(launch_counts(), before)
-            calls = dict(calls)  # the demo's own calls: not the recomputation of X below
-            (svd, _, _), t_hit = synced(era5_svd.main, dict(cfg), device="cuda")
-            np.random.seed(seed)  # the same slice again, for its X
-            fs = era5_download.download_era5_data(config_parser(dict(cfg), "era5-download"),
-                                                  use_mock_data=True)
-            with_x = era5_svd.compute_svd_results(
-                fs, config_parser(dict(cfg, save_data_matrix=True), "era5-svd"))
-            svd = dict(s=svd["s"], X=with_x["X"])
-            times = {"main": t_main, "svd_cache_hit": t_hit}
+        log("[20c] the pipeline demo's main with the files and the store")
+        res, t_main = synced(demo.main, [])
+        launched = _minus(launch_counts(), before)
+        calls = dict(calls)  # the demo's own calls: not the recomputation of X below
+        disk = file_sizes(directory)
+        (svd, _, _), t_hit = synced(era5_svd.main, dict(cfg), device="cuda")
+        np.random.seed(seed)  # the same slice again, for its X
+        fs = era5_download.download_era5_data(config_parser(dict(cfg), "era5-download"),
+                                              use_mock_data=True)
+        with_x = era5_svd.compute_svd_results(
+            fs, config_parser(dict(cfg, save_data_matrix=True), "era5-svd"))
+        svd = dict(s=svd["s"], X=with_x["X"])
+        times = {"main": t_main, "svd_cache_hit": t_hit, "disk_bytes": disk}
     check(launched == TOOLS_LAUNCHES["20c"],
           f"[20c] pipeline demo launched {launched}, expected {TOOLS_LAUNCHES['20c']}")
     x = np.asarray(svd["X"].values, dtype=np.float64)
@@ -6108,15 +6155,15 @@ def main() -> None:
         launches[key] += n
     for key, n in phase_wide_sketch(week, args.seed).items():
         launches[key] += n
-    stage_launches, stage_fs, week_res = phase_stage(week, args.seed)
+    stage_launches, stage_fs, slice_back, week_res = phase_stage(week, args.seed)
     for key, n in stage_launches.items():
         launches[key] += n
-    dmd_launches, res_b, svd_c = phase_dmd_stage(week, stage_fs, week_res, args.seed)
+    dmd_launches, res_b, svd_c = phase_dmd_stage(week, slice_back, week_res, args.seed)
     for key, n in dmd_launches.items():
         launches[key] += n
-    for key, n in phase_incremental(week, stage_fs, svd_c, args.seed).items():
+    for key, n in phase_incremental(week, slice_back, svd_c, args.seed).items():
         launches[key] += n
-    del svd_c
+    del svd_c, slice_back
     # phase 14 frees the week's X once it is done with the slice: it holds
     # the only references to both
     week["fs"] = stage_fs

@@ -8,7 +8,8 @@ config attributes that produced it, append-ordered, each entry stamped
 ``_store_logged_at`` for ``as_of`` time travel), and retrieval only
 copies bytes into the workdir path.  ``DMD_ERA5_TPU_REMOTE`` names a
 second object directory that ``add`` pushes to and retrieval falls back
-to.  ``yaml`` is imported when a log is read or written.
+to.  The logs are written and read by ``pipeline/store_log.py``, the
+subset of YAML they use, so either package reads the other's logs.
 ``add_data_to_dvc`` / ``retrieve_data_from_dvc`` are aliases.
 """
 
@@ -25,6 +26,7 @@ import numpy as np
 
 from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.core.paths import repo_root
+from dmd_era5_tpu_torch.pipeline import store_log
 
 __all__ = [
     "file_md5",
@@ -102,13 +104,17 @@ def _log_path(data_path: str | Path) -> Path:
     return Path(str(data_path) + ".yaml")
 
 
+def _read_log(log_file: Path) -> list:
+    """The documents of a version log (each a dict md5 -> attrs, or None)."""
+    with open(log_file, encoding="utf-8") as f:
+        return store_log.load_all(f.read())
+
+
 def add_data_to_store(data_path: str | Path, data_attrs: dict) -> str:
     """Version an artifact: copy into the object store and log its attrs.
 
     Returns the content md5.
     """
-    import yaml
-
     data_path = Path(data_path)
     md5 = file_md5(data_path)
     obj = _objects_dir() / md5
@@ -136,8 +142,8 @@ def add_data_to_store(data_path: str | Path, data_attrs: dict) -> str:
     serializable["_store_logged_at"] = (
         datetime.now(timezone.utc).isoformat()
     )
-    with open(log_file, "a") as f:
-        yaml.safe_dump({md5: serializable}, f, sort_keys=False)
+    with open(log_file, "a", encoding="utf-8") as f:
+        f.write(store_log.dump({md5: serializable}))
     log_and_print(_logger(), f"Versioned {data_path.name} as {md5}")
     push_to_remote(md5)
     return md5
@@ -246,8 +252,6 @@ def retrieve_data_from_store(
     append ordinal or an ISO timestamp/datetime; later log entries are
     invisible to the match.
     """
-    import yaml
-
     if data_type == "era5_slice":
         target = Path(parsed_config["era5_slice_path"])
         keys = _SLICE_MATCH_KEYS
@@ -264,8 +268,7 @@ def retrieve_data_from_store(
     if not log_file.exists():
         raise FileNotFoundError(f"No version log found at {log_file}")
 
-    with open(log_file) as f:
-        entries = list(yaml.safe_load_all(f))
+    entries = _read_log(log_file)
 
     best_md5 = None
     index = 0
@@ -314,13 +317,10 @@ def list_versions(
     order — optionally filtered to entries matching a config.  Every
     historical version remains addressable, not just the newest match.
     """
-    import yaml
-
     log_file = _log_path(data_path)
     if not log_file.exists():
         return []
-    with open(log_file) as f:
-        docs = list(yaml.safe_load_all(f))
+    docs = _read_log(log_file)
     out = []
     keys = _type_keys(data_type)
     for doc in docs:
@@ -360,8 +360,6 @@ def retrieve_latest_from_store(
     matching version wins, and places the artifact at the config's own
     workdir path.
     """
-    import yaml
-
     if data_type == "era5_slice":
         target = Path(parsed_config["era5_slice_path"])
     elif data_type == "era5_svd":
@@ -377,9 +375,7 @@ def retrieve_latest_from_store(
     )
     best_md5 = None
     for log_file in logs:
-        with open(log_file) as f:
-            docs = list(yaml.safe_load_all(f))
-        for doc in docs:
+        for doc in _read_log(log_file):
             for md5, attrs in (doc or {}).items():
                 if _entry_matches(attrs or {}, parsed_config, keys):
                     best_md5 = md5

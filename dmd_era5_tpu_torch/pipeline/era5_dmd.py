@@ -58,6 +58,7 @@ from dmd_era5_tpu_torch.models.verification import ScoreAccumulator, _space_weig
 from dmd_era5_tpu_torch.pipeline import era5_svd
 from dmd_era5_tpu_torch.snapmat import resample_era5_dataset, slice_era5_dataset
 from dmd_era5_tpu_torch.snapmat.loader import save_packed_matrix
+from dmd_era5_tpu_torch.utils import hdf5
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = ["check_dmd_results", "fit_dmd_from_svd_results", "retrieve_dmd_results", "main"]
@@ -120,7 +121,7 @@ def _control_series(control_input: str, times: np.ndarray) -> np.ndarray:
     tropical year, at the transition times in absolute hours since the
     epoch (a real clock, not the window's start).  A path: a ``.npy``
     file, or an ``.h5`` / ``.hdf5`` file with a ``control`` dataset
-    (h5py imported here), shaped (q, T-1), (q, T) (the last column
+    (read by the port's HDF5 codec), shaped (q, T-1), (q, T) (the last column
     dropped) or 1-D of either length.
     """
     n_expected = len(times) - 1
@@ -132,9 +133,7 @@ def _control_series(control_input: str, times: np.ndarray) -> np.ndarray:
     if control_input.endswith(".npy"):
         series = np.load(control_input)
     else:
-        import h5py
-
-        with h5py.File(control_input, "r") as f:
+        with hdf5.File(control_input, "r") as f:
             if "control" not in f:
                 raise ValueError(f"control file {control_input} has no 'control' dataset")
             series = f["control"][:]

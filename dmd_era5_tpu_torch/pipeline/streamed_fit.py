@@ -208,7 +208,7 @@ def _device_blocks(path, n_rows: int, t_cols: int, block_rows: int, device, dtyp
 def _stream_lift(path, n_rows, t_cols, block_rows, m_lift, u_wire, u_out, device,
                  block_dtype=None):
     """One pass: U = X m_lift, block by block into ``u_out`` (a numpy
-    array, memmap or h5py dataset) or a fresh f32 host array; no (S, k)
+    array, memmap or ``utils.hdf5`` dataset) or a fresh f32 host array; no (S, k)
     array on the card."""
     dest = u_out if u_out is not None else np.empty((n_rows, m_lift.shape[1]), np.float32)
     for r0, blk in _device_blocks(path, n_rows, t_cols, block_rows, device, block_dtype):

@@ -26,6 +26,7 @@ from dmd_era5_tpu_torch.core.logging import log_and_print, setup_logger
 from dmd_era5_tpu_torch.native import pack_space_time
 from dmd_era5_tpu_torch.snapmat.loader import SnapshotMeta, write_meta
 from dmd_era5_tpu_torch.snapmat.zarr_reader import ZarrGroup, decode_cf_time, open_zarr_group
+from dmd_era5_tpu_torch.utils import hdf5
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = ["read_era5_zarr_slice", "zarr_to_packed", "open_era5_zarr"]
@@ -192,10 +193,11 @@ def zarr_to_packed(
     ``build_snapshot_matrix`` of ``read_era5_zarr_slice``'s FieldSet.
 
     A ``.npy`` ``out_path`` is written through ``np.lib.format.
-    open_memmap`` and holds X alone; any other path is HDF5 as the JAX
-    package writes it (dataset ``X`` in ``(row_chunk, 512)`` chunks, the
-    ``bf16`` attribute, and the coordinates).  Returns (n_rows, n_cols)
-    of the packed matrix.
+    open_memmap`` and holds X alone; any other path is HDF5 with the JAX
+    package's datasets (``X``, contiguous where the JAX package chunks it
+    by ``(row_chunk, 512)``, so ``row_chunk`` goes unused; the ``bf16``
+    attribute, and the coordinates).  Returns (n_rows, n_cols) of the
+    packed matrix.
     """
     group = open_era5_zarr(source)
     times, level_values, lats, lons, t0, t1, lev_idx = _selection(
@@ -244,13 +246,8 @@ def zarr_to_packed(
         finally:
             del dest
     else:
-        import h5py
-
-        with h5py.File(out_path, "w") as f:
-            dset = f.create_dataset(
-                "X", shape=(n_rows, n_cols), dtype=dtype,
-                chunks=(min(row_chunk, n_rows), min(n_cols, 512)),
-            )
+        with hdf5.File(out_path, "w") as f:
+            dset = f.create_dataset("X", shape=(n_rows, n_cols), dtype=dtype)
             f.attrs["bf16"] = int(bf16)
             write_meta(f, meta)
             write_all(dset)

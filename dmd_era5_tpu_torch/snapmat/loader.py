@@ -15,8 +15,8 @@ A source is one of
   attribute ``bf16`` and, when written from a FieldSet, the datasets
   ``variables``, ``levels``, ``latitudes``, ``longitudes`` and ``times``:
   the JAX package's format, dataset for dataset, so either package reads
-  what the other writes.  ``h5py`` is imported by the functions that
-  touch such a file, never with this module;
+  what the other writes.  The port writes X contiguous and reads it
+  contiguous or chunked, through its own HDF5 codec (``utils/hdf5.py``);
 - a ``.npy`` file, opened with ``np.load(..., mmap_mode="r")``; it holds
   X alone, so its meta is the empty :class:`SnapshotMeta`, as for a
   coordinate-free HDF5 file;
@@ -37,6 +37,7 @@ import torch
 
 from dmd_era5_tpu_torch.native import bf16_words_of, pack_space_time, row_stats
 from dmd_era5_tpu_torch.parallel.sharding import row_block
+from dmd_era5_tpu_torch.utils import hdf5
 from dmd_era5_tpu_torch.utils.labels import FieldSet
 
 __all__ = [
@@ -118,9 +119,9 @@ def build_snapshot_matrix(
 def write_meta(f, meta: SnapshotMeta) -> None:
     """Write meta as the JAX package's coordinate datasets into an open
     packed HDF5 file ``f``."""
-    import h5py
-
-    f.create_dataset("variables", data=np.asarray(meta.variables, dtype=h5py.string_dtype()))
+    variables = np.empty(len(meta.variables), object)
+    variables[:] = list(meta.variables)
+    f.create_dataset("variables", data=variables)
     f.create_dataset("levels", data=meta.levels)
     f.create_dataset("latitudes", data=meta.latitudes)
     f.create_dataset("longitudes", data=meta.longitudes)
@@ -135,19 +136,19 @@ def save_packed_snapshot(
 ) -> None:
     """Persist a packed matrix from :func:`build_snapshot_matrix`.
 
-    HDF5 as the JAX package writes it: X in ``row_chunk``-row chunks of
-    whole rows, ``bf16`` set for uint16 words, and the coordinates of
-    ``meta``.  A ``.npy`` path holds X alone (its meta reads back empty).
+    HDF5 with the JAX package's datasets: X (contiguous; the JAX package
+    chunks it by ``row_chunk`` rows, which the port's reader reads as
+    well, so ``row_chunk`` is accepted and unused), ``bf16`` set for
+    uint16 words, and the coordinates of ``meta``.  A ``.npy`` path holds
+    X alone (its meta reads back empty).
     """
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     if _is_npy(path):
         np.save(path, x)
         return
-    import h5py
-
-    with h5py.File(path, "w") as f:
-        f.create_dataset("X", data=x, chunks=(min(row_chunk, x.shape[0]), x.shape[1]))
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("X", data=x)
         f.attrs["bf16"] = int(x.dtype == np.uint16)
         write_meta(f, meta)
 
@@ -168,9 +169,9 @@ def save_packed_matrix(
     array or a tensor on any device; each chunk is converted (to bf16
     bit patterns with ``bf16=True``) on x's device and copied to the
     host.  A ``.npy`` path is written through ``np.lib.format.
-    open_memmap``; any other path as HDF5 (dataset ``X`` in
-    ``row_chunk``-row chunks, attributes ``bf16`` and
-    ``delay_embedding``).
+    open_memmap``; any other path as HDF5 (dataset ``X``, contiguous and
+    written slab by slab, attributes ``bf16`` and ``delay_embedding``;
+    ``row_chunk`` is the JAX package's chunking, unused here).
 
     Returns the packed (rows, cols).
     """
@@ -202,13 +203,8 @@ def save_packed_matrix(
         finally:
             del dest
     else:
-        import h5py
-
-        with h5py.File(path, "w") as f:
-            dset = f.create_dataset(
-                "X", shape=(n_rows, t_out), dtype=dtype,
-                chunks=(min(row_chunk, n_rows), t_out),
-            )
+        with hdf5.File(path, "w") as f:
+            dset = f.create_dataset("X", shape=(n_rows, t_out), dtype=dtype)
             f.attrs["bf16"] = int(bf16)
             f.attrs["delay_embedding"] = d
             write_all(dset)
@@ -227,14 +223,12 @@ def packed_info(
     if _is_npy(source):
         arr = np.load(source, mmap_mode="r")
         return tuple(arr.shape), _empty_meta(), arr.dtype == np.uint16
-    import h5py
-
-    with h5py.File(source, "r") as f:
+    with hdf5.File(source, "r") as f:
         shape, bf16 = tuple(f["X"].shape), bool(f.attrs.get("bf16", 0))
         if "variables" not in f:
             return shape, _empty_meta(), bf16
         meta = SnapshotMeta(
-            variables=[v.decode() for v in f["variables"][()]],
+            variables=list(f["variables"][()]),
             levels=f["levels"][()],
             latitudes=f["latitudes"][()],
             longitudes=f["longitudes"][()],
@@ -258,9 +252,7 @@ def read_packed_rows(source: str | Path | np.ndarray, r0: int, r1: int,
             np.copyto(dest, rows)
             return dest
         return rows if rows.flags.writeable else np.array(rows)
-    import h5py
-
-    with h5py.File(source, "r") as f:
+    with hdf5.File(source, "r") as f:
         dset = f["X"]
         if into is None:
             return dset[r0:r1, :]

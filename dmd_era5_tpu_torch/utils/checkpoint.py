@@ -6,8 +6,8 @@ attributes ``treedef`` (the tree's structure as JAX prints it),
 ``n_leaves`` and ``metadata`` (JSON), so a checkpoint written by either
 package loads in the other.  A tree is nested tuples, lists and dicts
 (keys in sorted order, as JAX flattens them) of leaves: tensors (copied
-from their device), arrays or scalars; None is an empty subtree.  h5py
-is imported by the functions, never with this module.
+from their device), arrays or scalars; None is an empty subtree.  The
+file is written and read by the port's HDF5 codec (``utils/hdf5.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from dmd_era5_tpu_torch.utils import hdf5
 
 __all__ = ["save_pytree", "load_pytree"]
 
@@ -57,13 +59,11 @@ def _host(leaf) -> np.ndarray:
 
 def save_pytree(path: str | Path, tree, metadata: dict | None = None) -> None:
     """Write a tree of arrays and scalars to an HDF5 checkpoint."""
-    import h5py
-
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves: list = []
     structure = _flatten(tree, leaves)
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.attrs["treedef"] = f"PyTreeDef({structure})"
         f.attrs["n_leaves"] = len(leaves)
         if metadata:
@@ -77,9 +77,7 @@ def load_pytree(path: str | Path, like=None):
     flatten order; with ``like`` given, (a tree of like's structure, the
     stored arrays as its leaves, metadata).  metadata is None where the
     file has none."""
-    import h5py
-
-    with h5py.File(Path(path), "r") as f:
+    with hdf5.File(Path(path), "r") as f:
         leaves = [f[f"leaf_{i}"][()] for i in range(int(f.attrs["n_leaves"]))]
         meta = json.loads(f.attrs["metadata"]) if "metadata" in f.attrs else None
     if like is not None:

@@ -18,8 +18,10 @@ written by both gives the same bytes:
 ``load_fieldset`` also reads the legacy grouped layout (``/vars`` +
 ``/coords``) and returns numpy arrays.  A data variable that holds a
 tensor (on the card or the host) is written in slabs along its first
-axis, so no host copy of the whole array is made.  ``h5py`` is imported
-when a file is read or written, not with this module.
+axis, so no host copy of the whole array is made.  The files are read
+and written by the port's own HDF5 codec (``utils/hdf5.py``), with no
+HDF5 library: they hold what the JAX writer's hold, name for name and
+value for value, though not at the same offsets.
 
 Tuple-valued coordinates are not serializable: callers run
 ``space_coord_to_level_lat_lon`` first.
@@ -34,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dmd_era5_tpu_torch.utils import hdf5
 from dmd_era5_tpu_torch.utils.labels import Coord, Field, FieldSet
 
 __all__ = ["load_fieldset", "save_fieldset"]
@@ -57,10 +60,10 @@ _RESERVED_ATTRS = {
 _SLAB_BYTES = 1 << 28
 
 
-def _encode_attr(h5py, value: Any):
+def _encode_attr(value: Any):
     if isinstance(value, (list, tuple)):
         if all(isinstance(v, str) for v in value):
-            return np.asarray(value, dtype=h5py.string_dtype())
+            return _str_list_attr(value)
         return np.asarray(value)
     if isinstance(value, bool):
         return int(value)
@@ -71,9 +74,7 @@ def _encode_attr(h5py, value: Any):
     return value
 
 
-def _decode_attr(h5py, value: Any):
-    if isinstance(value, bytes):
-        value = value.decode()
+def _decode_attr(value: Any):
     if isinstance(value, str):
         if value == "__none__":
             return None
@@ -81,43 +82,35 @@ def _decode_attr(h5py, value: Any):
             return json.loads(value[len("__json__") :])
         return value
     if isinstance(value, np.ndarray):
-        if value.dtype.kind in ("S", "O") or h5py.check_string_dtype(value.dtype):
-            return [v.decode() if isinstance(v, bytes) else str(v) for v in value]
-        return value
+        return value.tolist() if value.dtype.kind == "O" else value
     if isinstance(value, np.generic):
         return value.item()
     return value
 
 
-def _encode_array(h5py, values: np.ndarray) -> tuple[np.ndarray, dict]:
+def _encode_array(values: np.ndarray) -> tuple[np.ndarray, dict]:
     meta: dict[str, Any] = {}
     if values.dtype.kind == "M":  # datetime64
         meta["units"] = _TIME_UNIT
         return values.astype("datetime64[ns]").astype(np.int64), meta
+    if values.dtype.kind == "O" and all(issubclass(k, str) for k in set(map(type, values.flat))):
+        return values, meta
     if values.dtype.kind in ("U", "O"):
-        return np.asarray(
-            [str(v) for v in values.ravel()], dtype=h5py.string_dtype()
-        ).reshape(values.shape), meta
+        return _str_list_attr(values.ravel()).reshape(values.shape), meta
     return values, meta
 
 
-def _decode_array(h5py, ds) -> np.ndarray:
+def _decode_array(ds) -> np.ndarray:
     values = ds[()]
-    units = ds.attrs.get("units")
-    if isinstance(units, bytes):
-        units = units.decode()
-    if units == _TIME_UNIT:
+    if ds.attrs.get("units") == _TIME_UNIT:
         return values.astype("datetime64[ns]")
-    if h5py.check_string_dtype(ds.dtype):
-        return np.asarray(
-            [v.decode() if isinstance(v, bytes) else v for v in values.ravel()],
-            dtype=object,
-        ).reshape(values.shape)
     return values
 
 
-def _str_list_attr(h5py, values) -> np.ndarray:
-    return np.asarray(list(values), dtype=h5py.string_dtype())
+def _str_list_attr(values) -> np.ndarray:
+    out = np.empty(len(values), object)
+    out[:] = [str(v) for v in values]
+    return out
 
 
 def _write_tensor(f, name: str, t: torch.Tensor):
@@ -134,13 +127,11 @@ def _write_tensor(f, name: str, t: torch.Tensor):
 
 
 def save_fieldset(fs: FieldSet, path: str | Path) -> None:
-    import h5py
-
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         for key, value in fs.attrs.items():
-            f.attrs[key] = _encode_attr(h5py, value)
+            f.attrs[key] = _encode_attr(value)
 
         # ---- collect coords (consistency-checked) and dim sizes ----
         coords: dict[str, Coord] = {}
@@ -163,9 +154,9 @@ def save_fieldset(fs: FieldSet, path: str | Path) -> None:
             if isinstance(values, torch.Tensor):
                 ds, meta = _write_tensor(f, name, values), {}
             else:
-                arr, meta = _encode_array(h5py, np.asarray(values))
+                arr, meta = _encode_array(np.asarray(values))
                 ds = f.create_dataset(name, data=arr)
-            ds.attrs["dims"] = _str_list_attr(h5py, dims)
+            ds.attrs["dims"] = _str_list_attr(dims)
             for k, v in meta.items():
                 ds.attrs[k] = v
             return ds
@@ -186,7 +177,7 @@ def save_fieldset(fs: FieldSet, path: str | Path) -> None:
 
         def attach(ds, dims) -> None:
             for i, d in enumerate(dims):
-                ds.dims[i].attach_scale(f[d])
+                ds.attach_scale(i, f[d])
 
         # ---- auxiliary coordinates (dims != (name,)) ----
         aux_names: list[str] = []
@@ -206,24 +197,24 @@ def save_fieldset(fs: FieldSet, path: str | Path) -> None:
             if aux_here:
                 ds.attrs["coordinates"] = " ".join(aux_here)
             for k, v in field.attrs.items():
-                ds.attrs[k] = _encode_attr(h5py, v)
+                ds.attrs[k] = _encode_attr(v)
 
 
 def _dims_attr(ds) -> tuple[str, ...]:
-    return tuple(d.decode() if isinstance(d, bytes) else d for d in ds.attrs["dims"])
+    return tuple(ds.attrs["dims"])
 
 
-def _load_legacy(h5py, f) -> FieldSet:
+def _load_legacy(f) -> FieldSet:
     """The pre-netCDF grouped layout (/vars + /coords)."""
-    attrs = {k: _decode_attr(h5py, v) for k, v in f.attrs.items()}
+    attrs = {k: _decode_attr(v) for k, v in f.attrs.items()}
     coords: dict[str, Coord] = {}
     for cname, cds in f["coords"].items():
-        coords[cname] = Coord(_dims_attr(cds), _decode_array(h5py, cds))
+        coords[cname] = Coord(_dims_attr(cds), _decode_array(cds))
     data_vars: dict[str, Field] = {}
     for name, ds in f["vars"].items():
         dims = _dims_attr(ds)
         field_attrs = {
-            k[len("attr_") :]: _decode_attr(h5py, v)
+            k[len("attr_") :]: _decode_attr(v)
             for k, v in ds.attrs.items()
             if k.startswith("attr_")
         }
@@ -232,14 +223,12 @@ def _load_legacy(h5py, f) -> FieldSet:
             for cname, coord in coords.items()
             if all(d in dims for d in coord.dims)
         }
-        data_vars[name] = Field(_decode_array(h5py, ds), dims, field_coords, field_attrs, name)
+        data_vars[name] = Field(_decode_array(ds), dims, field_coords, field_attrs, name)
     return FieldSet(data_vars, attrs=attrs)
 
 
 def _is_hidden_scale(ds) -> bool:
     name = ds.attrs.get("NAME")
-    if isinstance(name, bytes):
-        name = name.decode()
     return isinstance(name, str) and name.startswith(_NC_HIDDEN_DIM)
 
 
@@ -247,46 +236,36 @@ def _dims_of(ds, fallback: str) -> tuple[str, ...]:
     if "dims" in ds.attrs:
         return _dims_attr(ds)
     # pure netCDF files (no "dims" attr): recover from attached scales
-    out = []
-    for i, dim in enumerate(ds.dims):
-        keys = list(dim.keys())
-        out.append(dim[keys[0]].name.lstrip("/") if keys else f"{fallback}_{i}")
-    return tuple(out)
+    return tuple(names[0].lstrip("/") if names else f"{fallback}_{i}"
+                 for i, names in enumerate(ds.scales()))
 
 
 def load_fieldset(path: str | Path) -> FieldSet:
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        if "vars" in f and isinstance(f["vars"], h5py.Group):
-            return _load_legacy(h5py, f)
+    with hdf5.File(path, "r") as f:
+        if "vars" in f and isinstance(f["vars"], hdf5.Group):
+            return _load_legacy(f)
 
         attrs = {
-            k: _decode_attr(h5py, v)
+            k: _decode_attr(v)
             for k, v in f.attrs.items()
             if k not in _RESERVED_ATTRS
         }
-        datasets = {name: obj for name, obj in f.items() if isinstance(obj, h5py.Dataset)}
+        datasets = {name: obj for name, obj in f.items() if isinstance(obj, hdf5.Dataset)}
         # classification: dimension scales -> dim coords; names listed
         # in any CF "coordinates" attr -> aux coords; the rest -> data
         coord_names: set[str] = set()
         for name, ds in datasets.items():
-            cls = ds.attrs.get("CLASS")
-            if isinstance(cls, bytes):
-                cls = cls.decode()
-            if cls == "DIMENSION_SCALE" and not _is_hidden_scale(ds):
+            if ds.attrs.get("CLASS") == "DIMENSION_SCALE" and not _is_hidden_scale(ds):
                 coord_names.add(name)
         for ds in datasets.values():
             listed = ds.attrs.get("coordinates")
             if listed is not None:
-                if isinstance(listed, bytes):
-                    listed = listed.decode()
                 coord_names.update(str(listed).split())
 
         coords: dict[str, Coord] = {}
         for cname in sorted(coord_names):
             ds = datasets[cname]
-            coords[cname] = Coord(_dims_of(ds, cname), _decode_array(h5py, ds))
+            coords[cname] = Coord(_dims_of(ds, cname), _decode_array(ds))
 
         data_vars: dict[str, Field] = {}
         for name, ds in datasets.items():
@@ -294,15 +273,15 @@ def load_fieldset(path: str | Path) -> FieldSet:
                 continue
             dims = _dims_of(ds, name)
             field_attrs = {
-                k: _decode_attr(h5py, v)
+                k: _decode_attr(v)
                 for k, v in ds.attrs.items()
                 if k not in _RESERVED_ATTRS
-                and not (k == "units" and _decode_attr(h5py, v) == _TIME_UNIT)
+                and not (k == "units" and _decode_attr(v) == _TIME_UNIT)
             }
             field_coords = {
                 cname: coord
                 for cname, coord in coords.items()
                 if all(d in dims for d in coord.dims)
             }
-            data_vars[name] = Field(_decode_array(h5py, ds), dims, field_coords, field_attrs, name)
+            data_vars[name] = Field(_decode_array(ds), dims, field_coords, field_attrs, name)
     return FieldSet(data_vars, attrs=attrs)

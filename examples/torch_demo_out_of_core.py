@@ -2,8 +2,8 @@
 without holding it.
 
 The port's counterpart of ``examples/demo_out_of_core.py``: write a packed
-snapshot artifact to disk (a ``.npy`` of bf16 words, which needs no
-h5py), then run
+snapshot artifact to disk (an HDF5 file of bf16 words, as the JAX demo
+writes it, through the port's own HDF5 codec), then run
 
 - the streamed randomized SVD (n_iter + 2 disk passes, the card holds
   one row block at a time, U returns on the host),
@@ -55,7 +55,7 @@ def main(argv: list[str] | None = None) -> dict:
     x += 0.01 * rng.standard_normal(x.shape).astype(np.float32)
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "snapshots.npy"
+        path = Path(tmp) / "snapshots.h5"
         # bf16 packing halves the disk and stream footprint; every
         # streamed backend decodes it
         save_packed_matrix(path, x, d=1, bf16=True)

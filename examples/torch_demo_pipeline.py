@@ -4,7 +4,8 @@ The port's counterpart of ``examples/demo_pipeline.py``, with the same
 configuration: the three stage mains of ``dmd_era5_tpu_torch`` on mock
 data (the ingest on the host, the SVD and the DMD fit on the card), then
 the artifacts inspected.  Writes HDF5 artifacts and a store under
-``DMD_ERA5_TPU_ROOT`` (or the repository), so it needs h5py and yaml.
+``DMD_ERA5_TPU_ROOT`` (or the repository), through the port's own HDF5
+codec and store log: it needs torch and numpy only.
 
 Run from the repo root:
     python examples/torch_demo_pipeline.py                # on the card

@@ -29,6 +29,7 @@ from test_11_dmd_stage import _stage_slice, _stage_slice_dynamic, _stage_slice_f
 from test_torch_io_h5 import to_jax
 from test_torch_optdmd import _match
 from test_torch_stage import root  # noqa: F401  (the fixture)
+from torch_h5_compare import assert_same_to_a_reader
 
 from dmd_era5_tpu.pipeline import era5_dmd as dmd_jax
 from dmd_era5_tpu.utils import io_h5 as io_jax
@@ -494,7 +495,8 @@ def test_main_needs_a_card_unless_told_otherwise(root, dmd_config, monkeypatch):
 def test_dmd_artifacts_cross_between_packages(root, dmd_config, writer):
     """A DMD artifact (complex modes) that one package's stage writes and
     versions serves the other's cache ladder from the store, with the
-    workdir copy gone; and one FieldSet gives both writers one md5."""
+    workdir copy gone; and one FieldSet gives both writers one file to a
+    reader, and the port's writer one md5 each time."""
     mains = {"jax": (dmd_jax.main, {}), "port": (era5_dmd.main, {"device": "cpu"})}
     reader = "port" if writer == "jax" else "jax"
     cfg = planted(dmd_config, forecast_steps=3)
@@ -511,8 +513,10 @@ def test_dmd_artifacts_cross_between_packages(root, dmd_config, writer):
     for name in ("modes", "eigenvalues", "amplitudes", "forecast"):
         np.testing.assert_array_equal(back[name].values, res[name].values)
     assert back.attrs["dmd_rank"] == 4
-    # one FieldSet, both writers: the same bytes
+    # one FieldSet, both writers: the same file to a reader
     fs = back if reader == "port" else load_fieldset(parsed["save_path"])
     save_fieldset(fs, parsed["save_path"] + ".port.h5")
+    save_fieldset(fs, parsed["save_path"] + ".port2.h5")
     io_jax.save_fieldset(to_jax(fs), parsed["save_path"] + ".jax.h5")
-    assert file_md5(parsed["save_path"] + ".port.h5") == file_md5(parsed["save_path"] + ".jax.h5")
+    assert_same_to_a_reader(parsed["save_path"] + ".port.h5", parsed["save_path"] + ".jax.h5")
+    assert file_md5(parsed["save_path"] + ".port.h5") == file_md5(parsed["save_path"] + ".port2.h5")

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_no_jax import python_without_jax
 
 from dmd_era5_tpu_torch.ops import matmul, qr_panel
 from dmd_era5_tpu_torch.ops.tsqr import _local_factor, in_householder_kernel_envelope, qr_positive
@@ -59,9 +60,11 @@ _NEW_MODULES = (
 )
 
 
-def test_package_imports_without_h5py_yaml_or_pandas():
-    """h5py and yaml are imported when a file or a log is touched, and
-    pandas not at all: the whole port imports with all three hidden."""
+def test_package_imports_without_h5py_yaml_or_pandas(tmp_path):
+    """The port needs neither h5py nor yaml (the card's machine has
+    neither) nor pandas: with all three hidden, the whole port imports,
+    and each of its files is written and read back by its own codecs:
+    a FieldSet, a checkpoint, a packed HDF5 matrix, a store's log."""
     code = (
         "import sys\n"
         "for name in ('jax', 'h5py', 'yaml', 'pandas'): sys.modules[name] = None\n"
@@ -69,15 +72,129 @@ def test_package_imports_without_h5py_yaml_or_pandas():
         "import dmd_era5_tpu_torch.ops, dmd_era5_tpu_torch.models, dmd_era5_tpu_torch.core\n"
         "import dmd_era5_tpu_torch.pipeline, dmd_era5_tpu_torch.snapmat, dmd_era5_tpu_torch.utils\n"
         + _NEW_MODULES +
+        "import dmd_era5_tpu_torch.utils.hdf5, dmd_era5_tpu_torch.pipeline.store_log\n"
         "from dmd_era5_tpu_torch.snapmat import create_mock_era5, resample_era5_dataset\n"
         "import datetime\n"
         "fs = create_mock_era5('2020-01-01', '2020-01-01T05', ['temperature'], [1000], seed=0)\n"
         "assert resample_era5_dataset(fs, datetime.timedelta(hours=2)).sizes['time'] == 3\n"
+        "import os, numpy as np, torch\n"
+        f"os.environ['DMD_ERA5_TPU_ROOT'] = {str(tmp_path)!r}\n"
+        "os.environ.pop('DMD_ERA5_TPU_REMOTE', None)\n"
+        f"d = {str(tmp_path)!r}\n"
+        "from dmd_era5_tpu_torch.utils.io_h5 import save_fieldset, load_fieldset\n"
+        "save_fieldset(fs, d + '/fs.h5')\n"
+        "back = load_fieldset(d + '/fs.h5')\n"
+        "assert np.array_equal(back['temperature'].values, fs['temperature'].values)\n"
+        "from dmd_era5_tpu_torch.utils.checkpoint import save_pytree, load_pytree\n"
+        "save_pytree(d + '/ck.h5', {'a': torch.arange(3)}, metadata={'iteration': 2})\n"
+        "leaves, meta = load_pytree(d + '/ck.h5')\n"
+        "assert meta == {'iteration': 2} and leaves[0].tolist() == [0, 1, 2]\n"
+        "from dmd_era5_tpu_torch.snapmat import loader\n"
+        "x = np.arange(60, dtype=np.float32).reshape(12, 5)\n"
+        "assert loader.save_packed_matrix(d + '/x.h5', x) == (12, 5)\n"
+        "assert loader.read_packed_rows(d + '/x.h5', 2, 7).tobytes() == x[2:7].tobytes()\n"
+        "from dmd_era5_tpu_torch.pipeline import artifacts\n"
+        "md5 = artifacts.add_data_to_store(d + '/fs.h5', back.attrs)\n"
+        "assert [m for m, _ in artifacts.list_versions(d + '/fs.h5')] == [md5]\n"
+        "assert not any(m in sys.modules and sys.modules[m] for m in ('h5py', 'yaml'))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_files() -> list[Path]:
+    """The port's sources: the package, the smoke, its scripts and
+    examples (``torch_*``), the quickstart notebook."""
+    files = sorted((ROOT / "dmd_era5_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*"))
+    return files
+
+
+def test_no_h5py_or_yaml_import_lines():
+    """No import of h5py or yaml, anywhere in the port's sources (inside
+    functions too), its smoke, scripts, examples and notebook."""
+    pattern = re.compile(r"(?:^|[\s;\"'])(?:import|from)\s+(?:h5py|yaml)\b"
+                         r"|import_module\(\s*[\"'](?:h5py|yaml)", re.M)
+    files = _port_files()
+    assert any(f.suffix == ".ipynb" for f in files) and len(files) > 60
+    hits = [f"{f.relative_to(ROOT)}" for f in files if pattern.search(f.read_text())]
+    assert not hits
+
+
+def test_config1_stage_mains_run_without_h5py_or_yaml(tmp_path):
+    """North-star config 1 (config.ini on the mock) through
+    era5_download.main -> era5_svd.main -> era5_dmd.main with the store,
+    then each stage's cache hit, with h5py, yaml and JAX hidden."""
+    code = f"""
+import os
+os.environ["DMD_ERA5_TPU_ROOT"] = {str(tmp_path / "root")!r}
+os.environ["DMD_ERA5_TPU_REMOTE"] = {str(tmp_path / "remote")!r}
+import numpy as np
+from dmd_era5_tpu_torch.core import config_parser, config_reader
+from dmd_era5_tpu_torch.pipeline import era5_dmd, era5_download, era5_svd
+from dmd_era5_tpu_torch.pipeline.artifacts import file_md5, list_versions
+
+np.random.seed(0)
+ini = {str(ROOT / "config.ini")!r}
+assert era5_download.main(config_reader("era5-download", ini), use_mock_data=True,
+                          use_store=True) == (True, False)
+svd_cfg = {{**config_reader("era5-svd", ini), "source_path": "mock_data"}}
+svd, added, retrieved = era5_svd.main(dict(svd_cfg), write_artifact=True, use_store=True,
+                                      device="cpu")
+assert added and not retrieved and svd["U"].shape == (2 * 36 * 72, 10)
+hit, added, retrieved = era5_svd.main(dict(svd_cfg), write_artifact=True, use_store=True,
+                                      device="cpu")
+assert not added and not retrieved
+assert np.array_equal(hit["U"].values, svd["U"].values)
+dmd_cfg = {{**config_reader("era5-dmd", ini), "source_path": "mock_data"}}
+res, added, retrieved = era5_dmd.main(dict(dmd_cfg), write_artifact=True, use_store=True,
+                                      device="cpu")
+assert added and not retrieved
+again, added, retrieved = era5_dmd.main(dict(dmd_cfg), write_artifact=True, use_store=True,
+                                        device="cpu")
+assert not added and not retrieved
+assert np.array_equal(again["eigenvalues"].values, res["eigenvalues"].values)
+parsed = config_parser(dict(dmd_cfg), "era5-dmd")
+logged = [m for m, _ in list_versions(parsed["era5_dmd_path"], data_type="era5_dmd")]
+assert logged == [file_md5(parsed["era5_dmd_path"])]
+assert os.listdir({str(tmp_path / "remote")!r})
+"""
+    proc = subprocess.run(python_without_jax(code), cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_checkpointed_lm_resumes_without_h5py_or_yaml(tmp_path):
+    """``varpro_lm_checkpointed`` capped early leaves its HDF5 checkpoint
+    and resumes from it, with h5py, yaml and JAX hidden."""
+    code = f"""
+import numpy as np
+import torch
+from dmd_era5_tpu_torch.models.optdmd import varpro_lm_checkpointed
+from dmd_era5_tpu_torch.utils.checkpoint import load_pytree
+
+rng = np.random.default_rng(0)
+alpha_true = np.array([-0.1 + 1.5j, -0.1 - 1.5j], dtype=np.complex64)
+t = np.arange(48, dtype=np.float32) * 0.1
+b = (rng.standard_normal((2, 6)) + 1j * rng.standard_normal((2, 6))).astype(np.complex64)
+h = (np.exp(np.outer(t, alpha_true)) @ b).astype(np.complex64)
+alpha0 = (alpha_true * 1.05 + 0.02j).astype(np.complex64)
+h, t, alpha0 = torch.from_numpy(h), torch.from_numpy(t), torch.from_numpy(alpha0)
+path = {str(tmp_path / "lm.h5")!r}
+varpro_lm_checkpointed(h, t, alpha0, path, max_iter=4, chunk_iters=2)
+_, meta = load_pytree(path)
+assert meta["iteration"] >= 1
+alpha, _, rel, n = varpro_lm_checkpointed(h, t, alpha0, path, max_iter=40, chunk_iters=10)
+assert n >= meta["iteration"]
+found = sorted(alpha.numpy().tolist(), key=lambda z: z.imag)
+assert np.allclose(found, sorted(alpha_true.tolist(), key=lambda z: z.imag), atol=5e-3), found
+"""
+    proc = subprocess.run(python_without_jax(code), cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stderr[-4000:]
 
 
 def test_stage_main_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):

@@ -30,6 +30,7 @@ from dmd_era5_tpu_torch.ops import matmul as tmatmul
 from dmd_era5_tpu_torch.ops import qr_panel as tqr
 from dmd_era5_tpu_torch.pipeline import streamed_fit as tsf
 from dmd_era5_tpu_torch.snapmat import loader as tloader
+from dmd_era5_tpu_torch.utils import hdf5
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -136,9 +137,9 @@ def test_streamed_bf16_blocks(tmp_path, rng):
 
 def test_streamed_u_wire_dtype_and_u_out(tmp_path, rng):
     """test_10_streaming.py:181-221: the bf16 wire by default on a bf16
-    artifact, a forced f32 wire, U written into an h5py dataset and into
-    a .npy memmap, and a bad ``u_dtype`` refused; the auto U against the
-    JAX package's."""
+    artifact, a forced f32 wire, U written into an h5py dataset, into the
+    port's own HDF5 dataset and into a .npy memmap, and a bad ``u_dtype``
+    refused; the auto U against the JAX package's."""
     s, t, k = 1024, 48, 5
     x = _lowrank(rng, s, t, 8, 1e-3)
     path = tmp_path / "bf16.h5"
@@ -161,6 +162,11 @@ def test_streamed_u_wire_dtype_and_u_out(tmp_path, rng):
         res_out = _port(path, k, seed=2, block_rows=256, u_out=dset)
         assert res_out.U is dset
         np.testing.assert_allclose(dset[:], u_auto, atol=1e-6)
+    with hdf5.File(tmp_path / "u_port.h5", "w") as f:
+        dset = f.create_dataset("U", shape=(s, k), dtype=np.float32)
+        assert _port(path, k, seed=2, block_rows=256, u_out=dset).U is dset
+    with hdf5.File(tmp_path / "u_port.h5", "r") as f:
+        np.testing.assert_allclose(f["U"][()], u_auto, atol=1e-6)
     mm = np.lib.format.open_memmap(tmp_path / "u.npy", mode="w+", dtype=np.float32, shape=(s, k))
     assert _port(path, k, seed=2, block_rows=256, u_out=mm).U is mm
     np.testing.assert_allclose(np.asarray(mm), u_auto, atol=1e-6)
@@ -348,18 +354,22 @@ def test_streamed_npy_equals_h5(tmp_path, rng):
 
 
 def test_loader_imports_and_streams_without_h5py(tmp_path):
-    """h5py is imported only where an HDF5 file is touched: with it
-    blocked, the loader and the streamed SVD import and run on .npy."""
+    """The loader and the streamed SVD need neither h5py nor yaml: with
+    both blocked they import, write the packed matrix as .npy and as
+    HDF5 (the port's codec), and stream both to the same factors."""
     code = (
-        "import sys; sys.modules['h5py'] = None\n"
+        "import sys\n"
+        "for name in ('h5py', 'yaml'): sys.modules[name] = None\n"
         "import numpy as np\n"
         "from dmd_era5_tpu_torch.snapmat import loader\n"
         "from dmd_era5_tpu_torch.pipeline import streamed_exact_gram_svd\n"
-        f"p = {str(tmp_path / 'x.npy')!r}\n"
         "x = np.random.default_rng(0).standard_normal((200, 12)).astype(np.float32)\n"
-        "assert loader.save_packed_matrix(p, x, bf16=True) == (200, 12)\n"
-        "assert loader.packed_info(p)[::2] == ((200, 12), True)\n"
-        "assert streamed_exact_gram_svd(p, 3, block_rows=64, device='cpu').U.shape == (200, 3)\n"
+        "out = []\n"
+        f"for p in ({str(tmp_path / 'x.npy')!r}, {str(tmp_path / 'x.h5')!r}):\n"
+        "    assert loader.save_packed_matrix(p, x, bf16=True) == (200, 12)\n"
+        "    assert loader.packed_info(p)[::2] == ((200, 12), True)\n"
+        "    out.append(streamed_exact_gram_svd(p, 3, block_rows=64, device='cpu'))\n"
+        "assert out[0].U.shape == (200, 3) and np.array_equal(out[0].U, out[1].U)\n"
     )
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -1,14 +1,17 @@
-"""A command line that runs Python code with JAX hidden (``sys.modules['jax']
-= None``, so that any ``import jax`` raises) and fails afterwards if any
-module of the JAX package ``dmd_era5_tpu`` was loaded, even where the code
-exits with ``sys.exit``.  The port's tools and examples run through it in
-their subprocess tests, so a JAX import anywhere on their path, inside a
-function too, fails the test."""
+"""A command line that runs Python code with JAX, h5py and yaml hidden
+(``sys.modules[name] = None``, so that importing any of them raises: the
+card's machine has none of them) and fails afterwards if any module of
+the JAX package ``dmd_era5_tpu`` was loaded, even where the code exits
+with ``sys.exit``.  The port's tools, examples and stage mains run
+through it in their subprocess tests, so such an import anywhere on their
+path, inside a function too, fails the test."""
 
 from __future__ import annotations
 
 import sys
 import textwrap
+
+HIDDEN = ("jax", "h5py", "yaml")
 
 
 def python_without_jax(code: str) -> list[str]:
@@ -16,7 +19,7 @@ def python_without_jax(code: str) -> list[str]:
     body = textwrap.indent(textwrap.dedent(code).strip(), "    ")
     return [sys.executable, "-c", (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        f"for name in {HIDDEN!r}: sys.modules[name] = None\n"
         "try:\n"
         f"{body}\n"
         "finally:\n"
