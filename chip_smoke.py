@@ -201,7 +201,16 @@ of which raises on failure so the script exits non-zero:
    pure-Python LZ4 decoder's rate on one 153.7 MB blosc-LZ4 chunk in
    c-blosc's layout for ARCO's codec (512 KiB blocks, four streams a
    block), its streams built by construction (a 4-byte literal run and a
-   60-byte overlapping match, repeated), held against its chunk;
+   60-byte overlapping match, repeated), held against its chunk; (h)
+   (b)'s slice written as netCDF-C lays out a compressed variable
+   (``tests/torch_nc4_writer.py``: superblock 2, version 2 object headers,
+   new-style groups, one hour a chunk, shuffle + deflate at level 4,
+   chunks compressed in threads), read back by ``load_fieldset`` bit for
+   bit, then ``era5_svd.main`` on ``[era5-svd]`` with that file as the
+   stage's slice (K1 5, each distinct K1 call held on its operands
+   against its plain version and the f64 sums, within 5e-7 of them,
+   which one TF32 pass misses at these rows), U and s bit for bit
+   (c)'s; the file deleted after;
 17. (inside phase 9, while its artifact exists) the mesh: (a) one rank
    over NCCL in this process (a ``file://`` store under ``TMPDIR``): the
    meshed fit step (``make_fit_step`` on a (1, 1, 1) mesh) at f32 and
@@ -5426,12 +5435,88 @@ def arco_stages(fs, store: Path, info: dict, s_exact_h: torch.Tensor) -> tuple[d
     check(tuple(res["forecast"].shape) == (n_rows, ARCO_HOURS - 2 - 1 + FORECAST_STEPS),
           f"16c forecast {tuple(res['forecast'].shape)}")
     check(bool(torch.isfinite(res["forecast"].data).all()), "16c forecast not finite")
+    ref = {"U": np.asarray(svd["U"].values), "s": np.asarray(svd["s"].values)}
     log(f"[16c] the SVD and DMD stages on the slice: s[:7] {[round(float(a), 2) for a in s[:7]]}, "
         f"{json.dumps(inter)}, max|U^T U - I| {orth:.2e}, eigenvalues "
         f"{[complex(round(a.real, 5), round(a.imag, 5)) for a in res['eigenvalues'].values]}, "
         f"matched error vs planted {eig_err:.2e}, forecast {tuple(res['forecast'].shape)}, "
         f"launches {launches}; wall (s) {json.dumps(times)}")
-    return launches, {"k1": k1_ops[0], "times": times}
+    return launches, {"k1": k1_ops[0], "times": times, "svd": ref}
+
+
+def nc4_stage(fs, store: Path, ref: dict) -> tuple[dict, dict]:
+    """Phase 16 (h): (b)'s slice written as netCDF-C lays out a compressed
+    netCDF-4 variable (``tests/torch_nc4_writer.py``) at the SVD stage's
+    slice path, loaded by ``load_fieldset`` and held bit for bit to the
+    slice, then ``era5_svd.main`` on [era5-svd] as (c) takes it (its
+    source_path the store) from that file: K1 5 launches, each distinct
+    K1 call then held on its operands against its plain version and the
+    f64 sums (uncounted; within 5e-7, which one TF32 pass misses at these
+    rows), U and s bit for bit (c)'s.  The file is deleted
+    after.  Returns the launch counts and the times."""
+    from dmd_era5_tpu_torch.core import config_parser
+    from dmd_era5_tpu_torch.pipeline import era5_svd
+    from dmd_era5_tpu_torch.utils.io_h5 import load_fieldset
+
+    writer = load_tool("tests/torch_nc4_writer.py")
+    cfg = stage_config("era5-svd", source_path=str(store))
+    parsed = config_parser(dict(cfg), "era5-svd")
+    path, times = Path(parsed["era5_slice_path"]), {}
+    check(not Path(parsed["save_path"]).exists(), "16h: SVD results already in the stage root")
+    path.unlink(missing_ok=True)
+    try:
+        info, times["nc4_write"] = synced(writer.write_nc4_fieldset, fs, path, chunk_rows=1,
+                                          level=4, threads=os.cpu_count() or 1)
+        with open(path, "rb") as fh:
+            head = fh.read(48)
+            fh.seek(struct.unpack_from("<Q", head, 36)[0])
+            root = fh.read(5)
+        check(head[8] == 2 and root == b"OHDR\x02",
+              "16h: the file is not of superblock 2 with a version 2 root object header")
+        back, times["nc4_load"] = synced(load_fieldset, path)
+        got, want = back["temperature"].data, np.asarray(fs["temperature"].data)
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              "16h: the netCDF-4 file's slice differs from (b)'s")
+        check(all(np.array_equal(back.coord(c).values, fs.coord(c).values)
+                  for c in ("time", "level", "latitude", "longitude")),
+              "16h: the netCDF-4 file's coordinates differ from (b)'s")
+        del back, got
+        reset_counts()
+        with kernel_operands() as calls, \
+                stage_clock(era5_svd, "load_fieldset", "svd_on_era5") as clock:
+            (res, added, retrieved), times["svd_main"] = synced(era5_svd.main, dict(cfg),
+                                                                write_artifact=False)
+        launches = launch_counts()
+        check(not added and not retrieved, "16h: main added to or retrieved from a store")
+        check(launches == counts(K1=5), f"16h launched {launches}, expected K1 5 and no other")
+        (times["main_load"],), (times["main_svd_on_era5"],) = clock["load_fieldset"], \
+            clock["svd_on_era5"]
+        u, s = np.asarray(res["U"].values), np.asarray(res["s"].values)
+        same = (u.shape == ref["U"].shape and np.array_equal(u.view(np.uint32),
+                                                             ref["U"].view(np.uint32))
+                and np.array_equal(s.view(np.uint32), ref["s"].view(np.uint32)))
+        check(same, "16h: U and s from the netCDF-4 file are not (c)'s bit for bit")
+        del res, u
+        # at 1,038,240 rows one emulated TF32 pass comes within 1e-6 of the
+        # f64 sums (9.5e-7 on G): 5e-7 tells 3xTF32 (~2e-7) from it
+        held = hold_operands("16h", calls, k1_limit=5e-7)
+    finally:
+        path.unlink(missing_ok=True)
+    raw = info["raw_bytes"]
+    out = {**info, **times, "ratio": raw / info["compressed_bytes"],
+           "write_gb_s": gb_per_s(raw, times["nc4_write"]),
+           "load_gb_s": gb_per_s(raw, times["nc4_load"]), "k1_held": len(held)}
+    log(f"[16h] {smi_line()} | (b)'s slice as a netCDF-4 file (superblock 2, version 2 object "
+        f"headers, {info['chunks']} chunks of one hour, shuffle + deflate 4): {info['bytes']} "
+        f"bytes on disk for {raw} raw (ratio {out['ratio']:.3f}), written in "
+        f"{times['nc4_write']:.3f} s ({out['write_gb_s']:.3f} GB raw/s, {os.cpu_count()} "
+        f"threads); load_fieldset {times['nc4_load']:.3f} s, decode rate {out['load_gb_s']:.3f} "
+        f"GB raw/s (the page cache's copy), equal bit for bit to (b)'s slice; era5_svd.main from "
+        f"it in {times['svd_main']:.3f} s (its load {times['main_load']:.3f} s, svd_on_era5 "
+        f"{times['main_svd_on_era5']:.3f} s), launches {launches}, U and s bit for bit (c)'s; "
+        f"{len(held)} distinct K1 calls held on their operands")
+    return launches, out
 
 
 def arco_packed(store: Path, fs, directory: Path, seed: int) -> tuple[dict, dict]:
@@ -5739,7 +5824,7 @@ def centred_hankel_reference(fs, k: int = 10):
 
 def phase_ingest(seed: int) -> dict:
     """Phase 16: config.ini's real-data source path on an ARCO-ERA5-layout
-    store, (a)-(f).  The store (~15.2 GB) and the packed X are written in
+    store, (a)-(h).  The store (~15.2 GB) and the packed X are written in
     a temporary directory (``TMPDIR``), which must hold them (checked
     first: the phase fails, never skips), and deleted at the end.  After
     the counted parts, K1, K3, K6 and K7 against their plain versions on
@@ -5752,11 +5837,11 @@ def phase_ingest(seed: int) -> dict:
     launches, times = counts(), {}
     try:
         chunk = len(ARCO_LEVELS) * N_LAT * N_LON * 4 + 16
-        need = ARCO_HOURS * chunk + 3 * (ARCO_HOURS - 2) * N_LAT * N_LON * 4 + GIB
+        need = ARCO_HOURS * chunk + 4 * (ARCO_HOURS - 2) * N_LAT * N_LON * 4 + GIB
         free = shutil.disk_usage(directory).free
         log(f"[16a] ARCO-ERA5-layout store in {directory}: {ARCO_HOURS} chunks of "
             f"{chunk / 1e6:.1f} MB; {need / 1e9:.2f} GB to write with the packed X (.npy and "
-            f".h5) and the slice, {free / 1e9:.2f} GB free there")
+            f".h5), the slice and its netCDF-4 copy, {free / 1e9:.2f} GB free there")
         check(free >= need, f"no room for the store in {directory} ({free / 1e9:.2f} GB free, "
               f"{need / 1e9:.2f} GB needed); point TMPDIR at a larger disk")
         store = directory / "arco.zarr"
@@ -5771,6 +5856,10 @@ def phase_ingest(seed: int) -> dict:
             parts = [arco_stages(fs, store, info, s_exact_h),
                      arco_packed(store, fs, directory, seed),
                      arco_unfused(xc, s_exact_h, v_exact_h, seed)]
+            nc4_launches, nc4 = nc4_stage(fs, store, parts[0][1].pop("svd"))
+        for key, n in nc4_launches.items():
+            launches[key] += n
+        times.update({f"16h_{key}": v for key, v in nc4.items()})
         for part_launches, ops in parts:
             times.update(ops.pop("times"))
             for key, n in part_launches.items():
@@ -5881,12 +5970,12 @@ HELD_FIELDS = {"K1": ("rel_err", "kernel_G_vs_f64", "kernel_C_vs_f64"),
                "K7": ("r_max_abs_over_max", "kernel_orth", "kernel_recon")}
 
 
-def hold_call(label: str, key: str, args: tuple) -> dict:
+def hold_call(label: str, key: str, args: tuple, k1_limit: float = 1e-6) -> dict:
     """One recorded call of kernel ``key`` against its plain version and
     the f64 sums by its compare helper (see :func:`hold_operands`)."""
     if key == "K1":
         x, w, out_dtype, center, stats_col, scalar_stats, t_valid, _ = args
-        return compare_kernel(label, x, w, out_dtype, centred=rows_cancel(x), f64_limit=1e-6,
+        return compare_kernel(label, x, w, out_dtype, centred=rows_cancel(x), f64_limit=k1_limit,
                               center=center, stats_col=stats_col, scalar_stats=scalar_stats,
                               t_valid=t_valid)
     if key == "K2":
@@ -5910,7 +5999,7 @@ CONTROLS = {"K3": "one_tf32_pass_C_vs_f64_over_max", "K4": "one_tf32_pass_rel_vs
             "K6": "one_tf32_pass_vs_f64_over_max"}
 
 
-def hold_operands(part: str, calls: dict) -> list[dict]:
+def hold_operands(part: str, calls: dict, k1_limit: float = 1e-6) -> list[dict]:
     """Each kernel call recorded by :func:`kernel_operands` against its
     plain version and the f64 sums, on its own operands and flags, by the
     compare helper of its kernel at that helper's limits and controls
@@ -5918,7 +6007,8 @@ def hold_operands(part: str, calls: dict) -> list[dict]:
     same without it), its rows read as centred where they cancel
     (:func:`rows_cancel`), G and C within 1e-6 of the f64 sums
     (tests/test_torch_cuda.py's limit: at these few thousand rows one
-    TF32 pass comes within 1e-5); K7 without Q's limit against the plain
+    TF32 pass comes within 1e-5; ``k1_limit`` where a call's rows are so
+    many that one pass comes within 1e-6 too); K7 without Q's limit against the plain
     version, as a panel from a path is not a Gaussian one.  The controls'
     TF32 passes are emulated (``emulated_tf32``); where a call's operands
     are exact in TF32 (bf16 values, a +-1 panel), so that one pass is as
@@ -5931,7 +6021,7 @@ def hold_operands(part: str, calls: dict) -> list[dict]:
         for key, args in calls.values():
             shape = "x".join(str(n) for n in args[0].shape)
             label = f"{part} {key} {shape}"
-            res = hold_call(label, key, args)
+            res = hold_call(label, key, args, k1_limit)
             reading = dict(kernel=key, shapes=[list(a.shape) for a in args if torch.is_tensor(a)],
                            dtypes=[str(a.dtype)[6:] for a in args if torch.is_tensor(a)],
                            **{f: res.get(f) for f in HELD_FIELDS[key]}, ms=res.get("ms"),

@@ -1,39 +1,68 @@
 """HDF5 files in numpy and the standard library.
 
-The port reads and writes the subset of the HDF5 file format that the
-package's own files use, as h5py 3 (libhdf5 1.14, ``libver='earliest'``)
-writes them, with no HDF5 library underneath.  The structures are those
-of the *HDF5 File Format Specification*:
+The port reads the HDF5 files that h5py 3 (libhdf5 1.14) and netCDF-4
+write, and writes the subset of the format that the package's own files
+use, with no HDF5 library underneath.  The structures are those of the
+*HDF5 File Format Specification*.
 
-- superblock version 0 (version 1 is read too), 8-byte offsets and lengths;
-- version 1 object headers, with continuation blocks;
+Read:
+
+- superblocks of versions 0 to 3, 8-byte offsets and lengths (a version 2
+  or 3 superblock's checksum verified; its extension read for what it
+  refuses);
+- object headers of version 1 and version 2 (``OHDR``, with the optional
+  times, attribute-phase limits and creation-order fields, and ``OCHK``
+  continuation blocks), each continuation followed;
 - groups as symbol tables (a version 1 B-tree of type 0, a local heap,
-  symbol-table nodes), nested to any depth;
-- scalar and simple dataspaces;
+  symbol-table nodes) and new-style groups: link info, group info and
+  link messages (compact links), or a fractal heap of links indexed by a
+  version 2 B-tree (dense links, record type 5); hard links are followed;
+- attributes as messages of versions 1 to 3 (compact), or in a fractal
+  heap indexed by a version 2 B-tree (dense, record type 8); the keys of
+  a group or of an object's attributes come in creation order where it
+  is tracked, as h5py lists them, else in the order of their names;
+- fractal heaps (``FRHP``, direct blocks ``FHDB``, indirect blocks
+  ``FHIB``) of managed and unfiltered huge objects, and version 2
+  B-trees (``BTHD``, ``BTIN``, ``BTLF``);
+- scalar and simple dataspaces (versions 1 and 2);
 - datatypes: fixed-point (1, 2, 4, 8 bytes), IEEE floating-point (4, 8
-  bytes), h5py's bool (an int8 enum FALSE/TRUE), h5py's complex (a
-  compound of ``r`` and ``i``), fixed-length strings (NULLTERM, NULLPAD),
-  variable-length strings through global-heap collections, object
-  references, and the two types of dimension scales: ``DIMENSION_LIST``
-  (a variable-length sequence of object references) and
-  ``REFERENCE_LIST`` (a compound of a reference and an int32);
-- compact attributes;
-- contiguous data, and chunked data indexed by a version 1 B-tree of
-  type 1 without filters.
+  bytes) of either byte order, h5py's bool (an int8 enum FALSE/TRUE),
+  h5py's complex (a compound of ``r`` and ``i``), fixed-length strings
+  (NULLTERM, NULLPAD), variable-length strings through global-heap
+  collections, object references, and the two types of dimension scales:
+  ``DIMENSION_LIST`` (a variable-length sequence of object references)
+  and ``REFERENCE_LIST`` (a compound of a reference and an int32);
+- fill values (fill value messages of versions 1 to 3);
+- data layout messages of versions 3 and 4: compact, contiguous and
+  chunked data, the chunks indexed by a version 1 B-tree of type 1, a
+  single chunk, an implicit index, a fixed array (``FAHD``/``FADB``,
+  paged), an extensible array (``EAHD``/``EAIB``/``EASB``/``EADB``) or a
+  version 2 B-tree (record types 10 and 11);
+- the filter pipeline (versions 1 and 2) with deflate, shuffle and
+  fletcher32, undone in reverse order, each chunk's filter mask honoured.
+  A filtered chunk is read whole, decoded (chunks in threads) and its
+  rows copied out.
 
-Anything else is refused with an :class:`HDF5Error` (an ``OSError``) that
-names the structure: a superblock of version 2 or later, a version 2
-object header, dense attribute or link storage, a filter pipeline such as
-deflate, a datatype outside the list above.  A truncated or foreign file
+Every checksum of the structures above is verified: Jenkins' lookup3 on
+each version 2 structure, Fletcher-32 on fletcher32's chunks.  Anything
+else is refused with an :class:`HDF5Error` (an ``OSError``) that names
+the structure: a superblock of version 4 or later, a superblock
+extension's shared-message table, shared or committed messages, soft,
+external and user-defined links, a filter other than the three (szip,
+nbit, scaleoffset, h5py's LZF and any other id), a filtered fractal heap,
+tiny and filtered huge heap objects, virtual layouts, a null dataspace, a
+datatype outside the list above.  A truncated, corrupted or foreign file
 raises the same error; nothing here returns a value it could not read.
 
-The writer writes the same subset.  A dataset's data is contiguous, at
-one offset reserved when it is first written (a slab of rows goes there
-at once, ``ds[r0:r1] = rows``); the metadata (object headers, heaps,
-B-trees, the global heap) is laid out when the file is closed.  Equal
-strings of one file share one global-heap object, and every group's
-entries fit in one symbol-table node (the superblock's group leaf K is
-set for it).  One sequence of calls gives one file, byte for byte.
+The writer writes the first subset only: superblock version 0, version 1
+object headers, groups as symbol tables, compact attributes, contiguous
+data.  A dataset's data is at one offset reserved when it is first
+written (a slab of rows goes there at once, ``ds[r0:r1] = rows``); the
+metadata (object headers, heaps, B-trees, the global heap) is laid out
+when the file is closed.  Equal strings of one file share one
+global-heap object, and every group's entries fit in one symbol-table
+node (the superblock's group leaf K is set for it).  One sequence of
+calls gives one file, byte for byte.
 
 Strings come back as ``str``: a scalar as ``str``, an array as an object
 array of ``str``.
@@ -41,9 +70,12 @@ array of ``str``.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator, NamedTuple
 
 import numpy as np
@@ -51,21 +83,16 @@ import numpy as np
 __all__ = ["HDF5Error", "File", "Group", "Dataset", "Reference"]
 
 _SIGNATURE = b"\x89HDF\r\n\x1a\n"
-_UNDEF = 0xFFFFFFFFFFFFFFFF
+_UNDEF = 0xFFFFFFFFFFFFFFFF  # an undefined address; an unlimited dimension
 _IO_BYTES = 1 << 30  # the most bytes one read or write system call is given
 _HEAP_MIN = 4096  # a global-heap collection's least size (libhdf5 reads that much first)
 _FREE_NULL = 1  # a local heap's "no free block" offset
 _INTERNAL_K = 16  # group B-tree internal node K
-_MSG_NAMES = {
-    0x0002: "link info (new-style group)",
-    0x0006: "link message (compact link storage)",
-    0x000A: "group info (new-style group)",
-    0x000B: "filter pipeline",
-    0x0016: "object reference count (version 2 header)",
-    0x0018: "object header continuation of version 2",
-}
-_FILTERS = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset"}
+_FILTERS = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset",
+            32000: "lzf"}
 _CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 10: "array"}
+_M32 = 0xFFFFFFFF
+_DECODE_THREADS = 8  # the most threads that decode one read's filtered chunks
 
 
 class HDF5Error(OSError):
@@ -79,6 +106,85 @@ class Reference(int):
 
 def _align8(n: int) -> int:
     return (n + 7) & ~7
+
+
+def _parsing(fn):
+    """``fn`` with a malformed structure's parse errors raised as
+    :class:`HDF5Error`: a field past its block's end, a bad name."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except (struct.error, IndexError, ValueError, UnicodeDecodeError, zlib.error,
+                OverflowError) as err:
+            raise HDF5Error(f"malformed structure ({type(err).__name__}: {err})") from err
+
+    return call
+
+
+# ------------------------------------------------------------------ checksums
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M32
+
+
+def _lookup3(data) -> int:
+    """Jenkins' lookup3 ``hashlittle`` of ``data`` with initial value 0:
+    the checksum of every version 2 metadata structure."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & _M32
+    if not n:
+        return c
+    full = (n - 1) // 12  # the last 1-12 bytes take the final mix
+    tail = bytes(data[12 * full:]).ljust(12, b"\0")
+    w = struct.unpack_from(f"<{3 * full}I", data) + struct.unpack("<3I", tail)
+    for i in range(0, 3 * full, 3):
+        a, b, c = (a + w[i]) & _M32, (b + w[i + 1]) & _M32, (c + w[i + 2]) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 4)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 6)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 8)
+        b = (b + a) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 16)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 19)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 4)
+        b = (b + a) & _M32
+    a, b, c = (a + w[-3]) & _M32, (b + w[-2]) & _M32, (c + w[-1]) & _M32
+    c = ((c ^ b) - _rot(b, 14)) & _M32
+    a = ((a ^ c) - _rot(c, 11)) & _M32
+    b = ((b ^ a) - _rot(a, 25)) & _M32
+    c = ((c ^ b) - _rot(b, 16)) & _M32
+    a = ((a ^ c) - _rot(c, 4)) & _M32
+    b = ((b ^ a) - _rot(a, 14)) & _M32
+    return ((c ^ b) - _rot(b, 24)) & _M32
+
+
+def _checksummed(raw: bytes, what: str) -> bytes:
+    """``raw`` less its last 4 bytes, which must hold lookup3 of the rest."""
+    if len(raw) < 4 or _lookup3(raw[:-4]) != struct.unpack_from("<I", raw, len(raw) - 4)[0]:
+        raise HDF5Error(f"{what} fails its checksum")
+    return raw[:-4]
+
+
+def _fletcher32(data) -> int:
+    """libhdf5's Fletcher-32 of ``data`` (big-endian 16-bit words, an odd
+    last byte the high byte of a word): both sums mod 65535, each 65535
+    rather than 0 unless every word is 0, as its 360-word folds give."""
+    raw = np.frombuffer(data, np.uint8)
+    words = raw[:len(raw) & ~1].view(">u2").astype(np.int64)
+    if len(raw) & 1:
+        words = np.append(words, np.int64(raw[-1]) << 8)
+    if not words.any():
+        return 0
+    weights = np.arange(len(words), 0, -1, dtype=np.int64) % 65535
+    s1 = (int(words.sum()) % 65535 - 1) % 65535 + 1
+    s2 = (int(words @ weights) % 65535 - 1) % 65535 + 1
+    return s2 << 16 | s1
 
 
 # ------------------------------------------------------------------ datatypes
@@ -226,6 +332,7 @@ class _Source:
         self.fd = os.open(os.fspath(path), os.O_RDONLY)
         self.size = os.fstat(self.fd).st_size
         self.heaps: dict[int, dict[int, bytes]] = {}
+        self.fractal: dict[int, _FractalHeap] = {}
         self.objects: dict[int, Any] = {}
 
     def read(self, addr: int, n: int) -> bytes:
@@ -247,6 +354,14 @@ class _Source:
                 raise HDF5Error(f"truncated file: read stopped at {addr + done}")
             done += got
 
+    def signed(self, addr: int, n: int, signature: bytes, what: str) -> bytes:
+        """``n`` bytes at ``addr`` that start with ``signature`` and end
+        with their checksum, the checksum verified and dropped."""
+        raw = self.read(addr, n)
+        if raw[:4] != signature:
+            raise HDF5Error(f"no {what} ({signature.decode()}) at {addr}")
+        return _checksummed(raw, f"{what} ({signature.decode()}) at {addr}")
+
     def heap_object(self, addr: int, idx: int) -> bytes:
         heap = self.heaps.get(addr)
         if heap is None:
@@ -267,13 +382,29 @@ class _Source:
         except KeyError:
             raise HDF5Error(f"global heap collection at {addr} has no object {idx}") from None
 
+    def fractal_heap(self, addr: int) -> "_FractalHeap":
+        if addr not in self.fractal:
+            self.fractal[addr] = _FractalHeap(self, addr)
+        return self.fractal[addr]
 
-def _messages(src: _Source, addr: int) -> list[tuple[int, int, bytes]]:
-    """The (type, flags, body) messages of the version 1 object header at
-    ``addr``, continuation blocks followed."""
+
+class _Message(NamedTuple):
+    """An object header message: its type, flags, body and creation
+    order (None where the header does not track it)."""
+
+    type: int
+    flags: int
+    body: bytes
+    order: int | None
+
+
+@_parsing
+def _messages(src: _Source, addr: int) -> list[_Message]:
+    """The messages of the object header at ``addr`` (version 1 or 2),
+    continuation blocks followed."""
     head = src.read(addr, 16)
     if head[:4] == b"OHDR":
-        raise HDF5Error(f"version 2 object header (OHDR) at {addr} is not supported")
+        return _messages_v2(src, addr)
     version, _, n_msgs, _, size = struct.unpack_from("<BBHII", head)
     if version != 1:
         raise HDF5Error(f"object header at {addr} has version {version}")
@@ -290,16 +421,61 @@ def _messages(src: _Source, addr: int) -> list[tuple[int, int, bytes]]:
             if mtype == 0x10:
                 blocks.append(struct.unpack_from("<QQ", body))
             elif mtype:
-                if flags & 0x02:
-                    raise HDF5Error(f"shared object header message (type {mtype}) is not supported")
-                out.append((mtype, flags, body))
+                _unshared(mtype, flags)
+                out.append(_Message(mtype, flags, body, None))
             p += 8 + msize
     if seen != n_msgs:
         raise HDF5Error(f"object header at {addr} holds {seen} of its {n_msgs} messages")
     return out
 
 
-def _dataspace(body: bytes) -> tuple[int, ...]:
+def _unshared(mtype: int, flags: int) -> None:
+    if flags & 0x02:
+        raise HDF5Error(f"shared object header message (type {mtype}) is not supported")
+
+
+def _messages_v2(src: _Source, addr: int) -> list[_Message]:
+    """The messages of the version 2 object header (``OHDR``) at ``addr``
+    and of its continuation blocks (``OCHK``), each checksum verified."""
+    what = f"version 2 object header (OHDR) at {addr}"
+    version, flags = src.read(addr + 4, 2)
+    if version != 2:
+        raise HDF5Error(f"{what} has version {version}")
+    p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+    width = 1 << (flags & 0x03)
+    size = int.from_bytes(src.read(addr + p, width), "little")
+    blocks = [(_checksummed(src.read(addr, p + width + size + 4), what), p + width, what)]
+    tracked = bool(flags & 0x04)
+    head = 6 if tracked else 4
+    out, seen = [], {addr}
+    while blocks:
+        buf, q, where = blocks.pop(0)
+        while q + head <= len(buf):  # fewer bytes than a message header: the gap
+            mtype, msize, mflags = struct.unpack_from("<BHB", buf, q)
+            body = buf[q + head:q + head + msize]
+            if len(body) < msize:
+                raise HDF5Error(f"a message of the {where} runs past its block")
+            if mtype == 0x10:
+                c_addr, c_len = struct.unpack_from("<QQ", body)
+                if c_addr in seen:
+                    raise HDF5Error(f"the {what} continues into itself at {c_addr}")
+                seen.add(c_addr)
+                c_what = f"object header continuation block (OCHK) at {c_addr}"
+                raw = src.read(c_addr, c_len)
+                if raw[:4] != b"OCHK":
+                    raise HDF5Error(f"no {c_what}")
+                blocks.append((_checksummed(raw, c_what), 4, c_what))
+            elif mtype:
+                _unshared(mtype, mflags)
+                order = struct.unpack_from("<H", buf, q + 4)[0] if tracked else None
+                out.append(_Message(mtype, mflags, body, order))
+            q += head + msize
+    return out
+
+
+def _dataspace(body: bytes, with_max: bool = False):
+    """A dataspace message's dimensions (and, ``with_max``, its maximum
+    dimensions: ``_UNDEF`` where unlimited)."""
     version, rank, flags = body[0], body[1], body[2]
     if version == 1:
         p = 8
@@ -309,9 +485,14 @@ def _dataspace(body: bytes) -> tuple[int, ...]:
         p = 4
     else:
         raise HDF5Error(f"dataspace message version {version} is not supported")
-    return struct.unpack_from(f"<{rank}Q", body, p)
+    dims = struct.unpack_from(f"<{rank}Q", body, p)
+    maxdims = struct.unpack_from(f"<{rank}Q", body, p + 8 * rank) if flags & 1 else dims
+    if any(d > m for d, m in zip(dims, maxdims) if m != _UNDEF):
+        raise HDF5Error(f"dataspace of dimensions {dims} past its maximum {maxdims}")
+    return (dims, maxdims) if with_max else dims
 
 
+@_parsing
 def _decode(src: _Source, raw: bytes | np.ndarray, t: _Type, shape: tuple[int, ...]):
     """Stored elements -> values (an array of ``shape``)."""
     n = math.prod(shape)
@@ -376,6 +557,177 @@ def _scalar(values: np.ndarray, shape: tuple[int, ...]):
     return values if shape else values.reshape(())[()]
 
 
+def _in_order(entries: list[tuple]) -> list[tuple]:
+    """(order, name, ...) entries in creation order where every entry
+    has one, else in the order of their names' bytes (h5py's order)."""
+    if entries and all(e[0] is not None for e in entries):
+        return sorted(entries, key=lambda e: e[0])
+    return sorted(entries, key=lambda e: e[1].encode())
+
+
+# ------------------------------------------------------------------ fractal heaps, v2 B-trees
+
+
+def _enc_size(n: int) -> int:
+    """The bytes libhdf5 takes to store counts up to ``n``."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
+
+
+class _FractalHeap:
+    """A fractal heap (``FRHP``): its objects by heap ID.  Managed objects
+    are found through the doubling table of direct (``FHDB``) and
+    indirect (``FHIB``) blocks; huge ones at their own address, found
+    through the heap's version 2 B-tree of huge objects unless the ID
+    holds it.  Tiny objects (in the ID itself) are refused: the heaps of
+    links and attributes never hold one, their IDs being shorter than
+    the least link or attribute message."""
+
+    def __init__(self, src: _Source, addr: int):
+        what = "fractal heap header"
+        head = src.read(addr, 146)
+        if head[:4] != b"FRHP":
+            raise HDF5Error(f"no {what} (FRHP) at {addr}")
+        (_, version, self.id_len, filter_len, flags, self.max_man, _, self.huge_tree, _, _, _,
+         _, _, _, _, _, _, _, self.width, self.start, self.max_direct, self.max_bits,
+         _, self.root, self.root_rows) = struct.unpack_from("<4sBHHBIQQQQQQQQQQQQHQQHHQH", head)
+        if version != 0:
+            raise HDF5Error(f"{what} at {addr} has version {version}")
+        if filter_len:
+            raise HDF5Error(f"filtered fractal heap at {addr} is not supported")
+        _checksummed(head, f"{what} (FRHP) at {addr}")
+        self.src, self.addr, self.check_direct = src, addr, bool(flags & 0x02)
+        self.off_size = (self.max_bits + 7) // 8
+        self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, _enc_size(self.max_man))
+        self.max_direct_rows = (self.max_direct.bit_length() - self.start.bit_length()) + 2
+        self.huge: dict[int, tuple[int, int]] | None = None
+        self.indirect: dict[int, tuple[int, ...]] = {}  # each indirect block's child addresses
+
+    def row_size(self, row: int) -> int:
+        return self.start if row == 0 else self.start << (row - 1)
+
+    def get(self, heap_id: bytes) -> bytes:
+        flag = heap_id[0]
+        if flag >> 6:
+            raise HDF5Error(f"heap ID of version {flag >> 6} in the fractal heap at {self.addr}")
+        kind = (flag >> 4) & 0x03
+        if kind == 0:
+            p = 1 + self.off_size
+            offset = int.from_bytes(heap_id[1:p], "little")
+            length = int.from_bytes(heap_id[p:p + self.len_size], "little")
+            return self._managed(offset, length)
+        if kind == 1:
+            if self.id_len - 1 >= 16:  # the ID holds the object's address and length
+                addr, length = struct.unpack_from("<QQ", heap_id, 1)
+            else:
+                addr, length = self._huge_objects(int.from_bytes(heap_id[1:], "little"))
+            return self.src.read(addr, length)
+        raise HDF5Error(f"{'tiny' if kind == 2 else f'type {kind}'} object in the fractal heap at "
+                        f"{self.addr} is not supported")
+
+    def _huge_objects(self, key: int) -> tuple[int, int]:
+        if self.huge is None:
+            self.huge = {}
+            for rec in _btree2_records(self.src, self.huge_tree, (1,)):
+                addr, length, obj = struct.unpack_from("<QQQ", rec)
+                self.huge[obj] = (addr, length)
+        if key not in self.huge:
+            raise HDF5Error(f"huge object {key} is not in the fractal heap at {self.addr}")
+        return self.huge[key]
+
+    def _managed(self, offset: int, length: int) -> bytes:
+        if self.root == _UNDEF:
+            raise HDF5Error(f"the fractal heap at {self.addr} is empty")
+        block, block_off, rows = self.root, 0, self.root_rows
+        size = self.start
+        while rows:  # down the indirect blocks to the direct block that holds the offset
+            block, block_off, rows, size = self._child(block, block_off, rows, offset)
+        what = f"fractal heap direct block (FHDB) at {block}"
+        raw = bytearray(self.src.read(block, size))
+        if raw[:4] != b"FHDB":
+            raise HDF5Error(f"no {what}")
+        at = 13 + self.off_size
+        if self.check_direct:
+            stored = struct.unpack_from("<I", raw, at)[0]
+            raw[at:at + 4] = bytes(4)
+            if _lookup3(bytes(raw)) != stored:
+                raise HDF5Error(f"{what} fails its checksum")
+        local = offset - block_off
+        if local < at or local + length > size:
+            raise HDF5Error(f"heap object at offset {offset} lies outside the {what}")
+        return bytes(raw[local:local + length])
+
+    def _child(self, block: int, block_off: int, rows: int, offset: int):
+        """The child of the indirect block at ``block`` that holds heap
+        ``offset``: (address, heap offset, rows (0: direct), size)."""
+        direct_rows = min(rows, self.max_direct_rows)
+        addrs = self.indirect.get(block)
+        if addrs is None:
+            entries = rows * self.width
+            raw = self.src.signed(block, 13 + self.off_size + 8 * entries + 4, b"FHIB",
+                                  "fractal heap indirect block")
+            addrs = self.indirect[block] = struct.unpack_from(f"<{entries}Q", raw, 13 + self.off_size)
+        rel, start = offset - block_off, 0
+        for row in range(rows):
+            size = self.row_size(row)
+            if rel < start + self.width * size:
+                col = (rel - start) // size
+                child = addrs[row * self.width + col]
+                if child == _UNDEF:
+                    raise HDF5Error(f"heap offset {offset} falls in an unallocated block")
+                child_off = block_off + start + col * size
+                if row < direct_rows:
+                    return child, child_off, 0, size
+                child_rows = size.bit_length() - (self.start * self.width).bit_length() + 1
+                return child, child_off, child_rows, size
+            start += self.width * size
+        raise HDF5Error(f"heap offset {offset} lies past the fractal heap at {self.addr}")
+
+
+def _btree2_records(src: _Source, addr: int, types: tuple[int, ...]) -> Iterator[bytes]:
+    """The records, in order, of the version 2 B-tree (``BTHD``) at
+    ``addr``, which must be of one of ``types``."""
+    raw = src.signed(addr, 38, b"BTHD", "version 2 B-tree header")
+    version, btype, node_size, rec_size, depth, _, _, root, root_n = struct.unpack_from(
+        "<BBIHHBBQH", raw, 4)
+    if version != 0 or btype not in types:
+        raise HDF5Error(f"version 2 B-tree at {addr} has version {version}, type {btype} "
+                        f"(expected {'/'.join(map(str, types))})")
+    leaf_max = (node_size - 10) // rec_size
+    nrec_size = _enc_size(leaf_max)
+    cum_max, cum_size = [leaf_max], [0]
+    for level in range(1, depth + 1):
+        ptr = 8 + nrec_size + (cum_size[level - 1] if level > 1 else 0)
+        n_max = (node_size - 10 - ptr) // (rec_size + ptr)
+        cum_max.append((n_max + 1) * cum_max[level - 1] + n_max)
+        cum_size.append(_enc_size(cum_max[level]))
+    if root == _UNDEF:
+        return
+
+    def walk(node: int, n: int, level: int) -> Iterator[bytes]:
+        if level == 0:
+            body = src.signed(node, 6 + n * rec_size + 4, b"BTLF", "version 2 B-tree leaf")
+            for i in range(n):
+                yield body[6 + i * rec_size:6 + (i + 1) * rec_size]
+            return
+        total = cum_size[level - 1] if level > 1 else 0
+        ptr = 8 + nrec_size + total
+        body = src.signed(node, 6 + n * rec_size + (n + 1) * ptr + 4, b"BTIN",
+                          "version 2 B-tree internal node")
+        p = 6 + n * rec_size
+        for i in range(n + 1):
+            child = struct.unpack_from("<Q", body, p)[0]
+            child_n = int.from_bytes(body[p + 8:p + 8 + nrec_size], "little")
+            yield from walk(child, child_n, level - 1)
+            if i < n:
+                yield body[6 + i * rec_size:6 + (i + 1) * rec_size]
+            p += ptr
+
+    yield from walk(root, root_n, depth)
+
+
+# ------------------------------------------------------------------ attributes
+
+
 class _Attrs:
     """An object's attributes (read side, or write side when the file
     is being written)."""
@@ -396,6 +748,8 @@ class _Attrs:
         return self[name] if name in self else default
 
     def keys(self):
+        if self._obj._file._mode == "r":
+            return list(self._table())  # in the order h5py lists them
         return sorted(self._table(), key=str.encode)
 
     def __iter__(self):
@@ -426,7 +780,7 @@ class _Object:
     def attrs(self) -> _Attrs:
         return _Attrs(self)
 
-    def _messages(self):
+    def _messages(self) -> list[_Message]:
         if self._msgs is None:
             self._msgs = _messages(self._file._src, self._addr)
         return self._msgs
@@ -436,15 +790,18 @@ class _Object:
             return self._wattrs
         table = getattr(self, "_rattrs", None)
         if table is None:
-            table = {}
-            for mtype, _, body in self._messages():
-                if mtype == 0x0C:
-                    name, rest = _attribute(body)
-                    table[name] = rest
-                elif mtype == 0x15:
-                    _attribute_info(body)
-            self._rattrs = table
+            self._rattrs = table = self._read_attrs()
         return table
+
+    @_parsing
+    def _read_attrs(self) -> dict:
+        entries = []
+        for m in self._messages():
+            if m.type == 0x0C:
+                entries.append((m.order, *_attribute(m.body)))
+            elif m.type == 0x15:
+                entries += _dense_attributes(self._file._src, m.body)
+        return {name: value for _, name, value in _in_order(entries)}
 
     def _attr_value(self, name):
         table = self._attr_table()
@@ -461,7 +818,7 @@ def _attribute(body: bytes) -> tuple[str, tuple]:
     name_size, dt_size, ds_size = struct.unpack_from("<HHH", body, 2)
     if version == 1:
         p = 8
-        name = body[p:p + name_size].split(b"\0", 1)[0].decode()
+        name = _attribute_name(body, p, name_size)
         p += _align8(name_size)
         t, _ = _parse_type(body, p)
         p += _align8(dt_size)
@@ -471,7 +828,7 @@ def _attribute(body: bytes) -> tuple[str, tuple]:
         p = 8 if version == 2 else 9
         if body[1] & 0x03:
             raise HDF5Error("shared datatype or dataspace in an attribute is not supported")
-        name = body[p:p + name_size].split(b"\0", 1)[0].decode()
+        name = _attribute_name(body, p, name_size)
         p += name_size
         t, _ = _parse_type(body, p)
         p += dt_size
@@ -485,12 +842,75 @@ def _attribute(body: bytes) -> tuple[str, tuple]:
     return name, (t, shape, body[p:p + n])
 
 
-def _attribute_info(body: bytes) -> None:
+def _attribute_name(body: bytes, p: int, size: int) -> str:
+    """An attribute's name: ``size`` counts its NUL, and the name is read
+    as libhdf5 reads it, the characters before that place up to a NUL."""
+    if not size:
+        raise HDF5Error("attribute with an empty name field")
+    return body[p:p + size - 1].split(b"\0", 1)[0].decode()
+
+
+def _dense_attributes(src: _Source, body: bytes) -> list[tuple]:
+    """(order, name, value) of the attributes that an attribute info
+    message keeps in a fractal heap (none if it keeps none there), by
+    its name-index B-tree (record type 8: heap ID, message flags,
+    creation order, name hash)."""
     flags = body[1]
-    p = 2 + (2 if flags & 1 else 0)
-    heap = struct.unpack_from("<Q", body, p)[0]
-    if heap != _UNDEF:
-        raise HDF5Error("dense attribute storage (a fractal heap) is not supported")
+    heap, names = struct.unpack_from("<QQ", body, 2 + (2 if flags & 1 else 0))
+    if heap == _UNDEF:
+        return []
+    fheap, out = src.fractal_heap(heap), []
+    for rec in _btree2_records(src, names, (8,)):
+        mflags, order = struct.unpack_from("<BI", rec, 8)
+        _unshared(0x0C, mflags)
+        out.append((order if flags & 1 else None, *_attribute(fheap.get(rec[:8]))))
+    return out
+
+
+# ------------------------------------------------------------------ groups
+
+
+def _link(body: bytes) -> tuple[int | None, str, int]:
+    """(creation order, name, object address) of a link message, a hard
+    link; soft, external and user-defined links are refused by name."""
+    version, flags = body[0], body[1]
+    if version != 1:
+        raise HDF5Error(f"link message version {version} is not supported")
+    p, kind, order = 2, 0, None
+    if flags & 0x08:
+        kind, p = body[p], p + 1
+    if flags & 0x04:
+        order, p = struct.unpack_from("<Q", body, p)[0], p + 8
+    if flags & 0x10:
+        p += 1  # the name's character set: ASCII and UTF-8 names read alike
+    width = 1 << (flags & 0x03)
+    n = int.from_bytes(body[p:p + width], "little")
+    p += width
+    if p + n > len(body):
+        raise HDF5Error("link message cut short")
+    name = body[p:p + n].decode()
+    p += n
+    if kind == 0:
+        return order, name, struct.unpack_from("<Q", body, p)[0]
+    if kind == 1:
+        size = struct.unpack_from("<H", body, p)[0]
+        target = body[p + 2:p + 2 + size].decode(errors="replace")
+        raise HDF5Error(f"soft link {name!r} (to {target!r}) is not supported")
+    if kind == 64:
+        raise HDF5Error(f"external link {name!r} is not supported")
+    raise HDF5Error(f"user-defined link {name!r} of type {kind} is not supported")
+
+
+def _dense_links(src: _Source, body: bytes) -> list[tuple]:
+    """The links that a link info message keeps in a fractal heap (none
+    if it keeps none there), by its name-index B-tree (record type 5:
+    name hash, heap ID)."""
+    flags = body[1]
+    heap, names = struct.unpack_from("<QQ", body, 2 + (8 if flags & 1 else 0))
+    if heap == _UNDEF:
+        return []
+    fheap = src.fractal_heap(heap)
+    return [_link(fheap.get(rec[4:])) for rec in _btree2_records(src, names, (5,))]
 
 
 class Group(_Object):
@@ -504,23 +924,30 @@ class Group(_Object):
 
     # ---- read side
 
+    @_parsing
     def _entries(self) -> dict[str, _Object]:
         if self._links is None:
-            if self._btree is None:
-                table = [m for m in self._messages() if m[0] == 0x11]
-                for mtype, _, _ in self._messages():
-                    if mtype in (0x02, 0x06, 0x0A):
-                        raise HDF5Error(f"{_MSG_NAMES[mtype]} in group {self.name} is not supported")
-                if not table:
-                    raise HDF5Error(f"object {self.name} is not a group")
-                self._btree, self._heap = struct.unpack_from("<QQ", table[0][2])
             src = self._file._src
-            heap = _local_heap(src, self._heap)
-            links = {}
-            for entry_name, addr in _group_entries(src, self._btree, heap):
-                path = f"{self.name.rstrip('/')}/{entry_name}"
-                links[entry_name] = self._file._object(addr, path)
-            self._links = dict(sorted(links.items(), key=lambda kv: kv[0].encode()))
+            if self._btree is None:
+                msgs = self._messages()
+                table = [m for m in msgs if m.type == 0x11]
+                if table:
+                    self._btree, self._heap = struct.unpack_from("<QQ", table[0].body)
+                elif not any(m.type in (0x02, 0x06, 0x0A) for m in msgs):
+                    raise HDF5Error(f"object {self.name} is not a group")
+            if self._btree is not None:
+                heap = _local_heap(src, self._heap)
+                links = [(None, name, addr) for name, addr in _group_entries(src, self._btree, heap)]
+            else:  # a new-style group: link messages, or a fractal heap of them
+                links = []
+                for m in self._messages():
+                    if m.type == 0x06:
+                        links.append(_link(m.body))
+                    elif m.type == 0x02:
+                        links += _dense_links(src, m.body)
+            self._links = {
+                name: self._file._object(addr, f"{self.name.rstrip('/')}/{name}")
+                for _, name, addr in _in_order(links)}
         return self._links
 
     def __getitem__(self, name: str) -> "Group | Dataset":
@@ -617,14 +1044,18 @@ def _heap_name(heap: bytes, offset: int) -> str:
     return heap[offset:end].decode()
 
 
-def _btree_node(src: _Source, addr: int, node_type: int, key_size: int):
-    """(level, [child addresses], [key bytes]) of a version 1 B-tree node."""
+def _btree_node(src: _Source, addr: int, node_type: int, key_size: int, level: int | None = None):
+    """(level, [child addresses], [key bytes]) of a version 1 B-tree node
+    (``level``: the one its parent's level says it has)."""
     head = src.read(addr, 24)
     if head[:4] != b"TREE":
         raise HDF5Error(f"no B-tree node at {addr}")
-    ntype, level, used = head[4], head[5], struct.unpack_from("<H", head, 6)[0]
+    ntype, found, used = head[4], head[5], struct.unpack_from("<H", head, 6)[0]
     if ntype != node_type:
         raise HDF5Error(f"B-tree node at {addr} has type {ntype}, not {node_type}")
+    if level is not None and found != level:
+        raise HDF5Error(f"B-tree node at {addr} has level {found}, not its parent's less 1")
+    level = found
     body = src.read(addr + 24, used * (key_size + 8) + key_size)
     keys, children, p = [], [], 0
     for _ in range(used):
@@ -635,11 +1066,12 @@ def _btree_node(src: _Source, addr: int, node_type: int, key_size: int):
     return level, children, keys
 
 
-def _group_entries(src: _Source, btree: int, heap: bytes) -> Iterator[tuple[str, int]]:
-    level, children, _ = _btree_node(src, btree, 0, 8)
+def _group_entries(src: _Source, btree: int, heap: bytes,
+                   level: int | None = None) -> Iterator[tuple[str, int]]:
+    level, children, _ = _btree_node(src, btree, 0, 8, level)
     for child in children:
         if level:
-            yield from _group_entries(src, child, heap)
+            yield from _group_entries(src, child, heap, level - 1)
             continue
         head = src.read(child, 8)
         if head[:4] != b"SNOD":
@@ -649,6 +1081,37 @@ def _group_entries(src: _Source, btree: int, heap: bytes) -> Iterator[tuple[str,
         for i in range(n):
             name_off, obj = struct.unpack_from("<QQ", raw, 40 * i)
             yield _heap_name(heap, name_off), obj
+
+
+# ------------------------------------------------------------------ datasets
+
+
+class _Layout(NamedTuple):
+    """A dataset's storage: ``kind`` compact (``raw`` its bytes),
+    contiguous (at ``addr``) or chunked (``index`` at ``addr``, chunks
+    of ``chunk``; a single chunk's stored ``size`` and filter ``mask``;
+    ``raw_edges``: partial edge chunks are stored unfiltered)."""
+
+    kind: str
+    addr: int = _UNDEF
+    raw: bytes = b""
+    index: str = ""
+    chunk: tuple[int, ...] = ()
+    size: int | None = None
+    mask: int = 0
+    raw_edges: bool = False
+
+
+class _Filter(NamedTuple):
+    id: int
+    flags: int
+    values: tuple[int, ...]
+    name: str
+
+    @property
+    def label(self) -> str:
+        name = _FILTERS.get(self.id) or self.name or "filter"
+        return name if self.id in (1, 2, 3) else f"{name} (id {self.id})"
 
 
 class Dataset(_Object):
@@ -667,27 +1130,37 @@ class Dataset(_Object):
 
     # ---- metadata
 
-    def _meta(self):
+    @_parsing
+    def _meta(self) -> _Layout:
         if self._layout is None:
-            shape, t, layout, fill = None, None, None, None
-            for mtype, _, body in self._messages():
-                if mtype == 0x01:
-                    shape = _dataspace(body)
-                elif mtype == 0x03:
-                    t = _parse_type(body)[0]
-                elif mtype == 0x08:
-                    layout = body
-                elif mtype == 0x05:
-                    fill = _fill_value(body)
-                elif mtype == 0x0B:
-                    raise HDF5Error(f"filter pipeline ({_filter_names(body)}) on {self.name} "
-                                    "is not supported")
-                elif mtype in _MSG_NAMES:
-                    raise HDF5Error(f"{_MSG_NAMES[mtype]} in {self.name} is not supported")
-            if shape is None or t is None or layout is None:
+            space, t, layout, fill, pipeline = None, None, None, None, ()
+            for m in self._messages():
+                if m.type == 0x01:
+                    space = _dataspace(m.body, with_max=True)
+                elif m.type == 0x03:
+                    t = _parse_type(m.body)[0]
+                elif m.type == 0x08:
+                    layout = m.body
+                elif m.type == 0x05:
+                    fill = _fill_value(m.body)
+                elif m.type == 0x0B:
+                    pipeline = _pipeline(m.body)
+            if space is None or t is None or layout is None:
                 raise HDF5Error(f"dataset {self.name} lacks its dataspace, datatype or layout")
-            self._shape, self._rtype, self._fill = shape, t, fill
+            for f in pipeline:
+                if f.id not in (1, 2, 3):
+                    raise HDF5Error(f"filter pipeline ({', '.join(g.label for g in pipeline)}) "
+                                    f"on {self.name}: {f.label} is not supported")
+            (self._shape, self._maxshape), self._rtype, self._fill = space, t, fill
+            self._pipeline = pipeline
             self._layout = _layout(layout, self.name)
+            if self._layout.kind == "contiguous":  # libhdf5's own check of its storage
+                nbytes = math.prod(self._shape) * t.size
+                if self._layout.size < nbytes:
+                    raise HDF5Error(f"contiguous data of {self.name} holds {self._layout.size} "
+                                    f"bytes, fewer than its {nbytes}")
+                if self._layout.addr != _UNDEF and self._layout.addr + nbytes > self._file._src.size:
+                    raise HDF5Error(f"truncated file: the data of {self.name} ends past its end")
         return self._layout
 
     @property
@@ -764,6 +1237,7 @@ class Dataset(_Object):
         self._read_into(r0, r1, raw)
         return _decode(self._file._src, raw.tobytes(), t, out_shape)
 
+    @_parsing
     def _read_into(self, r0: int, r1: int, dest: np.ndarray) -> None:
         """Rows [r0, r1) of the stored bytes into ``dest`` (C-contiguous)."""
         layout, src, t = self._meta(), self._file._src, self._rtype
@@ -773,50 +1247,122 @@ class Dataset(_Object):
         view = memoryview(dest.reshape(-1).view(np.uint8))
         if not self.shape:
             r0, r1, row = 0, 1, t.size
-        if layout[0] == "contiguous":
-            addr = layout[1]
-            if addr == _UNDEF:
+        if layout.kind == "contiguous":
+            if layout.addr == _UNDEF:
                 self._fill_into(view)
             else:
-                src.read_into(addr + r0 * row, view)
+                src.read_into(layout.addr + r0 * row, view)
+        elif layout.kind == "compact":
+            if len(layout.raw) < r1 * row:
+                raise HDF5Error(f"compact data of {self.name} is cut short")
+            view[:] = layout.raw[r0 * row:r1 * row]
         else:
-            self._read_chunks(r0, r1, dest, layout[1], layout[2])
+            self._read_chunks(r0, r1, dest, layout)
 
     def _fill_into(self, view: memoryview) -> None:
         fill = self._fill or b"\0"
         view[:] = fill * (view.nbytes // len(fill))
 
-    def _read_chunks(self, r0, r1, dest, btree, chunk) -> None:
-        """Rows [r0, r1) from the chunks that hold them, one read a chunk:
-        straight into ``dest`` where a chunk spans whole rows, else
-        through a buffer of the chunk; rows of no chunk read as the fill."""
-        src, size, shape = self._file._src, self._rtype.size, self.shape
+    def _read_chunks(self, r0, r1, dest, layout: _Layout) -> None:
+        """Rows [r0, r1) from the chunks that hold them: an unfiltered
+        chunk in one read, straight into ``dest`` where it spans whole
+        rows, else through a buffer of the chunk; a filtered chunk read
+        whole and decoded (in threads when there are several), then its
+        rows copied; rows of no chunk read as the fill."""
+        src, size, shape, chunk = self._file._src, self._rtype.size, self.shape, layout.chunk
         cells = dest.reshape(-1).view(np.uint8).view(f"V{size}").reshape(r1 - r0, *shape[1:])
         whole_rows = tuple(chunk[1:]) == tuple(shape[1:])
         row = math.prod(shape[1:]) * size
+        nbytes = math.prod(chunk) * size
+        every = (1 << len(self._pipeline)) - 1
         hits, covered = [], 0
-        for offsets, stored, mask, addr in _chunk_index(src, btree, len(shape)):
+        for offsets, stored, mask, addr in self._chunk_entries(layout):
+            if any(o % c or (m != _UNDEF and o >= m)
+                   for o, c, m in zip(offsets, chunk, self._maxshape)):
+                raise HDF5Error(f"a chunk of {self.name} at {offsets} is off the grid of its "
+                                f"{chunk} chunks within {self._maxshape}")
             lo, hi = max(r0, offsets[0]), min(r1, offsets[0] + chunk[0])
-            if lo < hi:
-                if mask:
-                    raise HDF5Error(f"filtered chunk in {self.name} is not supported")
-                extent = [min(c, n - o) for o, c, n in zip(offsets[1:], chunk[1:], shape[1:])]
-                hits.append((offsets, lo, hi, addr, extent))
+            extent = [min(c, n - o) for o, c, n in zip(offsets[1:], chunk[1:], shape[1:])]
+            if lo < hi and all(e > 0 for e in extent):
+                partial = any(o + c > n for o, c, n in zip(offsets, chunk, shape))
+                filtered = mask & every != every and not (layout.raw_edges and partial)
+                hits.append((offsets, lo, hi, addr, extent, stored, mask if filtered else every))
                 covered += (hi - lo) * math.prod(extent)
         if covered < cells.size:
             self._fill_into(memoryview(dest.reshape(-1).view(np.uint8)))
-        for offsets, lo, hi, addr, extent in hits:
-            if whole_rows:
-                src.read_into(addr + (lo - offsets[0]) * row,
-                              memoryview(cells[lo - r0:hi - r0].view(np.uint8).reshape(-1)))
-                continue
-            block = np.empty(math.prod(chunk) * size, np.uint8)
-            src.read_into(addr, memoryview(block))
+
+        def place(block: np.ndarray, offsets, lo, hi, extent) -> None:
             block = block.view(f"V{size}").reshape(chunk)
             part = tuple(slice(0, e) for e in extent)
             target = tuple(slice(o, o + e) for o, e in zip(offsets[1:], extent))
             cells[(slice(lo - r0, hi - r0), *target)] = \
                 block[(slice(lo - offsets[0], hi - offsets[0]), *part)]
+
+        def decode(hit) -> None:
+            offsets, lo, hi, addr, extent, stored, mask = hit
+            raw = _unfilter(src.read(addr, stored), self._pipeline, mask, self.name)
+            if len(raw) != nbytes:
+                raise HDF5Error(f"a chunk of {self.name} decodes to {len(raw)} bytes, "
+                                f"not its {nbytes}")
+            place(np.frombuffer(raw, np.uint8), offsets, lo, hi, extent)
+
+        coded = [h for h in hits if h[6] != every]
+        for offsets, lo, hi, addr, extent, _, mask in hits:
+            if mask != every:
+                continue
+            if whole_rows:
+                src.read_into(addr + (lo - offsets[0]) * row,
+                              memoryview(cells[lo - r0:hi - r0].view(np.uint8).reshape(-1)))
+                continue
+            block = np.empty(nbytes, np.uint8)
+            src.read_into(addr, memoryview(block))
+            place(block, offsets, lo, hi, extent)
+        if len(coded) > 1:
+            with ThreadPoolExecutor(min(len(coded), _DECODE_THREADS, os.cpu_count() or 1)) as pool:
+                list(pool.map(decode, coded))
+        elif coded:
+            decode(coded[0])
+
+    def _chunk_entries(self, layout: _Layout) -> Iterator[tuple]:
+        """(element offsets, stored bytes, filter mask, address) of every
+        allocated chunk, from the dataset's chunk index."""
+        src, shape, chunk = self._file._src, self.shape, layout.chunk
+        nbytes = math.prod(chunk) * self._rtype.size
+        if layout.index == "btree1":
+            yield from _chunk_index(src, layout.addr, len(shape))
+            return
+        if layout.addr == _UNDEF:
+            return
+        if layout.index == "single":
+            size = nbytes if layout.size is None else layout.size
+            yield (0,) * len(shape), size, layout.mask, layout.addr
+            return
+        if layout.index == "btree2":
+            for offsets, size, mask, addr in _btree2_chunks(src, layout.addr, len(shape), nbytes):
+                yield tuple(o * c for o, c in zip(offsets, chunk)), size, mask, addr
+            return
+        # an index by the chunk's place in the grid of the maximum dimensions
+        # (an extensible array's unlimited dimension first)
+        grid = [-(-m // c) if m != _UNDEF else 0 for m, c in zip(self._maxshape, chunk)]
+        order = list(range(len(shape)))
+        if layout.index == "earray":
+            unlimited = [i for i, m in enumerate(self._maxshape) if m == _UNDEF]
+            order = unlimited + [i for i in order if i not in unlimited]
+        down = [math.prod(grid[j] for j in order[k + 1:]) for k in range(len(order))]
+        if layout.index == "implicit":
+            n = math.prod(grid)
+            addrs = layout.addr + nbytes * np.arange(n, dtype=np.uint64)
+            sizes, masks = np.full(n, nbytes), np.zeros(n, np.int64)
+        elif layout.index == "farray":
+            addrs, sizes, masks = _fixed_array(src, layout.addr, nbytes)
+        else:
+            addrs, sizes, masks = _extensible_array(src, layout.addr, nbytes)
+        counts = [-(-n // c) for n, c in zip(shape, chunk)]
+        for scaled in np.ndindex(*counts):
+            i = sum(scaled[j] * d for j, d in zip(order, down))
+            if i < len(addrs) and int(addrs[i]) != _UNDEF:
+                yield (tuple(s * c for s, c in zip(scaled, chunk)), int(sizes[i]), int(masks[i]),
+                       int(addrs[i]))
 
     def scales(self) -> tuple[tuple[str, ...], ...]:
         """The names of the dimension scales attached to each axis."""
@@ -883,61 +1429,250 @@ class Dataset(_Object):
         return f"<hdf5 dataset {self.name!r}>"
 
 
+
 def _fill_value(body: bytes) -> bytes | None:
     """The fill value message's value (None: the default, zeros)."""
-    if body[0] not in (1, 2):
-        raise HDF5Error(f"fill value message version {body[0]} is not supported")
-    if not body[3]:
-        return None
-    size = struct.unpack_from("<I", body, 4)[0]
-    return body[8:8 + size]
+    version = body[0]
+    if version in (1, 2):
+        if not body[3]:
+            return None
+        size = struct.unpack_from("<I", body, 4)[0]
+        return body[8:8 + size] or None
+    if version == 3:
+        if not body[1] & 0x20:  # no value defined (the default, or undefined)
+            return None
+        size = struct.unpack_from("<I", body, 2)[0]
+        return body[6:6 + size] or None
+    raise HDF5Error(f"fill value message version {version} is not supported")
 
 
-def _filter_names(body: bytes) -> str:
+def _pipeline(body: bytes) -> tuple[_Filter, ...]:
+    """The filters of a filter pipeline message (version 1 or 2), in the
+    order they were applied."""
     version, n = body[0], body[1]
-    p, names = (8 if version == 1 else 2), []
+    if version not in (1, 2):
+        raise HDF5Error(f"filter pipeline message version {version} is not supported")
+    p, out = (8 if version == 1 else 2), []
     for _ in range(n):
         fid, = struct.unpack_from("<H", body, p)
-        names.append(_FILTERS.get(fid, f"filter {fid}"))
+        name = ""
         if version == 1 or fid >= 256:
-            name_len, _, n_vals = struct.unpack_from("<HHH", body, p + 2)
-            p += 8 + (_align8(name_len) if version == 1 else name_len)
+            name_len, flags, n_vals = struct.unpack_from("<HHH", body, p + 2)
+            p += 8
+            name = body[p:p + name_len].split(b"\0", 1)[0].decode(errors="replace")
+            p += _align8(name_len) if version == 1 else name_len
         else:
-            _, n_vals = struct.unpack_from("<HH", body, p + 2)
+            flags, n_vals = struct.unpack_from("<HH", body, p + 2)
             p += 6
+        values = struct.unpack_from(f"<{n_vals}I", body, p)
         p += 4 * n_vals + (4 if version == 1 and n_vals % 2 else 0)
-    return ", ".join(names)
+        out.append(_Filter(fid, flags, values, name))
+    return tuple(out)
 
 
-def _layout(body: bytes, name: str):
-    version = body[0]
-    if version != 3:
+def _unfilter(data: bytes, pipeline: tuple[_Filter, ...], mask: int, name: str):
+    """A stored chunk's bytes with the pipeline's filters undone in
+    reverse order, those whose bit ``mask`` sets skipped."""
+    for i in reversed(range(len(pipeline))):
+        if mask >> i & 1:
+            continue
+        f = pipeline[i]
+        if f.id == 1:
+            try:
+                data = zlib.decompress(data)
+            except zlib.error as err:
+                raise HDF5Error(f"a deflate stream of a chunk of {name} is corrupt: {err}") from None
+        elif f.id == 2:
+            width = f.values[0] if f.values else 1
+            raw = np.frombuffer(data, np.uint8)
+            n = len(raw) // width
+            if width > 1 and n > 1:
+                out = np.empty_like(raw)
+                out[:n * width].reshape(n, width)[:] = raw[:n * width].reshape(width, n).T
+                out[n * width:] = raw[n * width:]
+                data = out
+        elif f.id == 3:
+            if len(data) < 4:
+                raise HDF5Error(f"a fletcher32 chunk of {name} is shorter than its checksum")
+            body = memoryview(data)[:-4]
+            stored = struct.unpack("<I", memoryview(data)[-4:])[0]
+            want = struct.pack("<I", _fletcher32(body))
+            # libhdf5 before 1.6.3 stored it with the bytes of each half swapped
+            if stored not in struct.unpack("<2I", want + bytes(want[i] for i in (1, 0, 3, 2))):
+                raise HDF5Error(f"the fletcher32 checksum of a chunk of {name} does not match")
+            data = body
+        else:
+            raise HDF5Error(f"{f.label} filter on {name} is not supported")
+    return bytes(data)
+
+
+def _layout(body: bytes, name: str) -> _Layout:
+    version, cls = body[0], body[1]
+    if version not in (3, 4):
         raise HDF5Error(f"data layout message version {version} in {name} is not supported")
-    cls = body[1]
+    if cls == 0:
+        size = struct.unpack_from("<H", body, 2)[0]
+        return _Layout("compact", raw=body[4:4 + size])
     if cls == 1:
-        return ("contiguous", struct.unpack_from("<Q", body, 2)[0])
-    if cls == 2:
+        addr, size = struct.unpack_from("<QQ", body, 2)
+        return _Layout("contiguous", addr, size=size)
+    if cls == 2 and version == 3:
         rank1 = body[2]
         btree = struct.unpack_from("<Q", body, 3)[0]
         dims = struct.unpack_from(f"<{rank1}I", body, 11)
-        return ("chunked", btree, dims[:-1])
-    raise HDF5Error(f"data layout class {cls} in {name} is not supported")
+        return _Layout("chunked", btree, index="btree1", chunk=dims[:-1])
+    if cls == 2:
+        flags, rank1, width = body[2], body[3], body[4]
+        dims = [int.from_bytes(body[5 + i * width:5 + (i + 1) * width], "little")
+                for i in range(rank1)]
+        p = 5 + rank1 * width
+        kind, p = body[p], p + 1
+        size, mask = None, 0
+        if kind == 1 and flags & 0x02:
+            size, mask = struct.unpack_from("<QI", body, p)
+            p += 12
+        elif kind not in (1, 2, 3, 4, 5):
+            raise HDF5Error(f"chunk index of type {kind} in {name} is not supported")
+        p += {1: 0, 2: 0, 3: 1, 4: 5, 5: 6}[kind]
+        index = {1: "single", 2: "implicit", 3: "farray", 4: "earray", 5: "btree2"}[kind]
+        return _Layout("chunked", struct.unpack_from("<Q", body, p)[0], index=index,
+                       chunk=tuple(dims[:-1]), size=size, mask=mask, raw_edges=bool(flags & 0x01))
+    raise HDF5Error(f"data layout class {cls} ({'virtual' if cls == 3 else 'unknown'}) in {name} "
+                    "is not supported")
 
 
-def _chunk_index(src: _Source, btree: int, rank: int):
+def _chunk_index(src: _Source, btree: int, rank: int, level: int | None = None):
     """(offsets, stored size, filter mask, address) of every allocated
     chunk, from the version 1 B-tree of type 1 at ``btree``."""
     if btree == _UNDEF:
         return
     key_size = 8 + 8 * (rank + 1)
-    level, children, keys = _btree_node(src, btree, 1, key_size)
+    level, children, keys = _btree_node(src, btree, 1, key_size, level)
     for key, child in zip(keys, children):
         if level:
-            yield from _chunk_index(src, child, rank)
+            yield from _chunk_index(src, child, rank, level - 1)
         else:
             size, mask = struct.unpack_from("<II", key)
             offsets = struct.unpack_from(f"<{rank}Q", key, 8)
             yield offsets, size, mask, child
+
+
+def _chunk_records(raw: bytes, n: int, width: int, nbytes: int):
+    """(addresses, stored sizes, filter masks) of ``n`` chunk records of
+    ``width`` bytes: an address, and for filtered chunks its stored size
+    (the bytes between) and a 4-byte filter mask."""
+    rec = np.frombuffer(raw, np.uint8, n * width).reshape(n, width)
+    addrs = rec[:, :8].copy().view("<u8").reshape(n)
+    if width == 8:
+        return addrs, np.full(n, nbytes, np.int64), np.zeros(n, np.int64)
+    sizes = np.zeros(n, np.int64)
+    for j in range(width - 12):
+        sizes |= rec[:, 8 + j].astype(np.int64) << (8 * j)
+    masks = rec[:, width - 4:].copy().view("<u4").reshape(n).astype(np.int64)
+    return addrs, sizes, masks
+
+
+def _btree2_chunks(src: _Source, addr: int, rank: int, nbytes: int):
+    """(scaled offsets, stored size, filter mask, address) of each chunk
+    of a version 2 B-tree chunk index (record type 10 or 11)."""
+    for rec in _btree2_records(src, addr, (10, 11)):
+        scaled = struct.unpack_from(f"<{rank}Q", rec, len(rec) - 8 * rank)
+        width = len(rec) - 8 * rank
+        addrs, sizes, masks = _chunk_records(rec[:width], 1, width, nbytes)
+        yield scaled, int(sizes[0]), int(masks[0]), int(addrs[0])
+
+
+def _paged(src: _Source, start: int, n: int, width: int, page: int, bitmap: bytes | None,
+           what: str) -> bytes:
+    """``n`` elements of ``width`` bytes stored in pages of ``page``
+    elements from ``start``, each page with its checksum; a page whose
+    bit in ``bitmap`` is clear was never written (its elements undefined)."""
+    pieces = []
+    for i in range(-(-n // page)):
+        k = min(page, n - i * page)
+        if bitmap is not None and not bitmap[i // 8] & (0x80 >> (i % 8)):
+            pieces.append(b"\xff" * (k * width))
+            continue
+        at = start + i * (page * width + 4)
+        pieces.append(_checksummed(src.read(at, k * width + 4), f"{what} page at {at}"))
+    return b"".join(pieces)
+
+
+def _fixed_array(src: _Source, addr: int, nbytes: int):
+    """The chunk records of a fixed array index (``FAHD``, its data block
+    ``FADB``, paged past 2^page_bits entries)."""
+    head = src.signed(addr, 28, b"FAHD", "fixed array header")
+    version, _, width, page_bits, n, block = struct.unpack_from("<BBBBQQ", head, 4)
+    if version != 0:
+        raise HDF5Error(f"fixed array header at {addr} has version {version}")
+    if block == _UNDEF:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64), np.zeros(0, np.int64)
+    page = 1 << page_bits
+    what = "fixed array data block"
+    if n <= page:
+        raw = src.signed(block, 14 + n * width + 4, b"FADB", what)[14:]
+    else:
+        bitmap_len = (-(-n // page) + 7) // 8
+        head = src.signed(block, 14 + bitmap_len + 4, b"FADB", what)
+        raw = _paged(src, block + 14 + bitmap_len + 4, n, width, page, head[14:], what)
+    return _chunk_records(raw, n, width, nbytes)
+
+
+def _extensible_array(src: _Source, addr: int, nbytes: int):
+    """The chunk records of an extensible array index (``EAHD``): the
+    index block's (``EAIB``) own elements, then its data blocks
+    (``EADB``) and those of its super blocks (``EASB``), up to the
+    header's largest index set; unallocated blocks as undefined."""
+    head = src.signed(addr, 72, b"EAHD", "extensible array header")
+    (version, _, width, max_bits, iblock_n, dblock_min, sblock_min, page_bits, _, _, _, _, n,
+     _, iblock) = struct.unpack_from("<BBBBBBBBQQQQQQQ", head, 4)
+    if version != 0:
+        raise HDF5Error(f"extensible array header at {addr} has version {version}")
+    if iblock == _UNDEF or not n:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64), np.zeros(0, np.int64)
+    n_sblocks = 1 + max_bits - (dblock_min.bit_length() - 1)
+    in_iblock = 2 * (sblock_min.bit_length() - 1)  # super blocks whose data blocks the index block holds
+    n_daddrs, n_saddrs = 2 * (sblock_min - 1), n_sblocks - in_iblock
+    off_size, page = (max_bits + 7) // 8, 1 << page_bits
+    raw = src.signed(iblock, 14 + iblock_n * width + 8 * (n_daddrs + n_saddrs) + 4, b"EAIB",
+                     "extensible array index block")
+    pieces = [raw[14:14 + iblock_n * width]]
+    p = 14 + iblock_n * width
+    daddrs = struct.unpack_from(f"<{n_daddrs}Q", raw, p)
+    saddrs = struct.unpack_from(f"<{n_saddrs}Q", raw, p + 8 * n_daddrs)
+    have, u, d_first = iblock_n, 0, 0
+    while have < n and u < n_sblocks:
+        n_dblocks, per = 1 << (u // 2), (1 << ((u + 1) // 2)) * dblock_min
+        paged = per > page
+        bitmap_len = (per // page + 7) // 8 if paged else 0
+        if u < in_iblock:
+            dblocks, bitmaps = daddrs[d_first:d_first + n_dblocks], [None] * n_dblocks
+        elif saddrs[u - in_iblock] == _UNDEF:
+            dblocks, bitmaps = [_UNDEF] * n_dblocks, [None] * n_dblocks
+        else:
+            sraw = src.signed(saddrs[u - in_iblock], 14 + off_size + n_dblocks * (bitmap_len + 8)
+                              + 4, b"EASB", "extensible array super block")
+            q = 14 + off_size
+            bitmaps = [sraw[q + i * bitmap_len:q + (i + 1) * bitmap_len] if paged else None
+                       for i in range(n_dblocks)]
+            dblocks = struct.unpack_from(f"<{n_dblocks}Q", sraw, q + n_dblocks * bitmap_len)
+        for dblock, bitmap in zip(dblocks, bitmaps):
+            if have >= n:
+                break
+            what = "extensible array data block"
+            if dblock == _UNDEF:
+                pieces.append(b"\xff" * (per * width))
+            elif paged:
+                src.signed(dblock, 14 + off_size + 4, b"EADB", what)
+                pieces.append(_paged(src, dblock + 14 + off_size + 4, per, width, page, bitmap,
+                                     what))
+            else:
+                pieces.append(src.signed(dblock, 14 + off_size + per * width + 4, b"EADB",
+                                         what)[14 + off_size:])
+            have += per
+        d_first += n_dblocks
+        u += 1
+    return _chunk_records(b"".join(pieces), min(n, have), width, nbytes)
 
 
 # ------------------------------------------------------------------ writing
@@ -1148,15 +1883,29 @@ class File(Group):
 
     # ---- reading
 
+    @_parsing
     def _superblock(self):
         src = self._src
-        if src.size < 96 or src.read(0, 8) != _SIGNATURE:
+        if src.size < 48 or src.read(0, 8) != _SIGNATURE:
             raise HDF5Error(f"{self.filename} is not an HDF5 file (no signature at its start)")
         head = src.read(0, 24)
         version = head[8]
-        if version > 1:
-            raise HDF5Error(f"superblock version {version} (libver 'latest' or v110+) "
-                            "is not supported")
+        if version > 3:
+            raise HDF5Error(f"superblock version {version} is not supported")
+        if version >= 2:  # sizes, flags, four addresses and a checksum
+            raw = _checksummed(src.read(0, 48), f"superblock version {version}")
+            if raw[9] != 8 or raw[10] != 8:
+                raise HDF5Error(f"offsets of {raw[9]} and lengths of {raw[10]} bytes "
+                                "are not supported")
+            base, extension, _, root = struct.unpack_from("<QQQQ", raw, 12)
+            if base != 0:
+                raise HDF5Error("a superblock base address other than 0 is not supported")
+            if extension != _UNDEF and any(m.type == 0x0F for m in _messages(src, extension)):
+                raise HDF5Error("shared object header messages (the superblock extension's "
+                                "table) are not supported")
+            return root, None, None
+        if src.size < 96:
+            raise HDF5Error(f"truncated file: its superblock ends past its end ({src.size})")
         if head[13] != 8 or head[14] != 8:
             raise HDF5Error(f"offsets of {head[13]} and lengths of {head[14]} bytes "
                             "are not supported")
@@ -1173,7 +1922,7 @@ class File(Group):
         objects = self._src.objects
         if addr not in objects:
             msgs = _messages(self._src, addr)
-            types = {m[0] for m in msgs}
+            types = {m.type for m in msgs}
             if 0x08 in types:
                 obj = Dataset(self, addr, path)
             elif types & {0x11, 0x02, 0x06, 0x0A}:
@@ -1191,7 +1940,9 @@ class File(Group):
             while stack:
                 g = stack.pop()
                 for obj in g.values():
-                    self._paths.setdefault(obj._addr, obj.name)
+                    if obj._addr in self._paths:  # a group seen on another path
+                        continue
+                    self._paths[obj._addr] = obj.name
                     if isinstance(obj, Group):
                         stack.append(obj)
         if ref not in self._paths:

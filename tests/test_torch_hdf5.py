@@ -6,9 +6,11 @@ default ``libver='earliest'``) and the port reads them bit for bit.  The
 cases: every datatype of the subset, scalar and 0-length datasets, nested
 groups, more entries than one symbol-table node holds by default,
 attributes that need a continuation block, chunked datasets with ragged
-last chunks, dimension scales; then the refusals: a superblock of
-version 3 (``libver='latest'``), deflate, version 2 object headers, a truncated
-file, a foreign one.
+last chunks, dimension scales; then the refusals: a superblock of a
+version past 3, filters outside deflate, shuffle and fletcher32 beside
+them, a version 2 object header that fails its checksum, a truncated
+file, a foreign one.  (The structures of netCDF-4 and ``libver='latest'``
+files are held to h5py in tests/test_torch_hdf5_nc4.py.)
 """
 
 from __future__ import annotations
@@ -332,26 +334,52 @@ def test_one_input_gives_one_file(tmp_path):
 
 
 def test_superblock_of_a_later_version_is_refused(tmp_path):
+    """Superblocks of versions 0 to 3 are read; a version past them is
+    refused by number."""
     with h5py.File(tmp_path / "late.h5", "w", libver="latest") as f:
         f.create_dataset("x", data=np.arange(3))
-    with pytest.raises(hdf5.HDF5Error, match="superblock version 3"):
+    raw = bytearray((tmp_path / "late.h5").read_bytes())
+    assert raw[8] == 3
+    with hdf5.File(tmp_path / "late.h5", "r") as f:
+        assert f["x"][()].tolist() == [0, 1, 2]
+    raw[8] = 4
+    (tmp_path / "late.h5").write_bytes(bytes(raw))
+    with pytest.raises(hdf5.HDF5Error, match="superblock version 4"):
         hdf5.File(tmp_path / "late.h5", "r")
 
 
 @pytest.mark.parametrize("filters", [{"compression": "gzip"}, {"shuffle": True}],
                          ids=["deflate", "shuffle"])
 def test_filters_are_refused_by_name(tmp_path, filters):
+    """Deflate and shuffle are read; in a pipeline with a filter outside
+    the three (scaleoffset, LZF) the pipeline is refused, every filter
+    named."""
+    name, other = ("deflate", {"scaleoffset": 0}) if "compression" in filters else \
+        ("shuffle", {"compression": "lzf"})
+    values = np.arange(100, dtype="i4")
     with h5py.File(tmp_path / "z.h5", "w") as f:
-        f.create_dataset("x", data=np.arange(100.0), chunks=(10,), **filters)
-    name = "deflate" if "compression" in filters else "shuffle"
-    with hdf5.File(tmp_path / "z.h5", "r") as f, pytest.raises(hdf5.HDF5Error, match=name):
-        f["x"][()]
+        f.create_dataset("x", data=values, chunks=(10,), **filters)
+        f.create_dataset("y", data=values, chunks=(10,), **filters, **other)
+    refused = "lzf (id 32000)" if "compression" in other else "scaleoffset (id 6)"
+    with hdf5.File(tmp_path / "z.h5", "r") as f:
+        assert f["x"][()].tolist() == values.tolist()
+        with pytest.raises(hdf5.HDF5Error, match="filter pipeline") as err:
+            f["y"][()]
+    assert name in str(err.value) and f"{refused} is not supported" in str(err.value)
 
 
 def test_version_2_object_headers_are_refused_by_name(tmp_path):
-    """h5py's ``track_order`` groups take version 2 object headers."""
+    """h5py's ``track_order`` groups take version 2 object headers: they
+    are read, and one whose bytes changed is refused by name, its
+    checksum failed."""
     with h5py.File(tmp_path / "o.h5", "w", track_order=True) as f:
         f.create_dataset("x", data=np.arange(3))
+        f.attrs["stamp"] = np.int64(0x0102030405060708)
+    with hdf5.File(tmp_path / "o.h5", "r") as f:
+        assert f.keys() == ["x"] and f.attrs["stamp"] == 0x0102030405060708
+    raw = bytearray((tmp_path / "o.h5").read_bytes())
+    raw[raw.index(np.int64(0x0102030405060708).tobytes())] ^= 0x10
+    (tmp_path / "o.h5").write_bytes(bytes(raw))
     with pytest.raises(hdf5.HDF5Error, match=r"version 2 object header \(OHDR\)"):
         with hdf5.File(tmp_path / "o.h5", "r") as f:
             f.keys()
