@@ -1009,7 +1009,12 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
     f64 sums, which on f32 A one TF32 pass (the library product with TF32
     allowed, the control) must miss; ``"bf16_split"`` within
     3e-5 max|G| of them (tests/test_25_linalg.py:102: the split drops
-    L^T L and rounds L to bf16, ~1e-6 relative).  Against the plain
+    L^T L and rounds L to bf16, ~1e-6 relative), read beside one bf16
+    pass (bf16(A)^T bf16(A) summed in f64, the control): its rounding
+    errors are unbiased and may average out below the limit over
+    millions of rows, so where it does the control is logged and not
+    held (tests/test_torch_cuda.py holds it on data built to miss).  Two
+    calls must give G bit for bit.  Against the plain
     version, whose f32 library sums over millions of rows are off by up
     to ~1e-5 themselves: within the kernel's own limit plus the plain
     version's error.  G must be exactly symmetric.  Times are CUDA-event
@@ -1032,8 +1037,11 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
     with_plain = exact is None
     exact = gram_f64(a) if exact is None else exact
     got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
     check(torch.equal(got, got.T), f"{label} {precision}: G not exactly symmetric")
+    check(torch.equal(got, again), f"{label} {precision}: two calls differ")
+    del again
     scale = float(exact.abs().max())
     res = dict(label=label, precision=precision, m=a.shape[0], k=a.shape[1])
     res["kernel_rel_vs_f64"] = rel_err(got, exact)[0]
@@ -1062,6 +1070,16 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
         check(res["kernel_max_abs_vs_f64_over_max"] <= limit,
               f"{label} K5: G max error vs f64 {res['kernel_max_abs_vs_f64_over_max']:.3e} "
               f"max|G| > {limit}")
+        ctrl = torch.zeros_like(exact)
+        for ac in _chunks(a):
+            h = ac.bfloat16().double()
+            ctrl += h.T @ h
+        res["one_bf16_pass_max_abs_vs_f64_over_max"] = float((ctrl - exact).abs().max()) / scale
+        del ctrl, h
+        if res["one_bf16_pass_max_abs_vs_f64_over_max"] <= limit:
+            log(f"    {label} K5: one bf16 pass reads "
+                f"{res['one_bf16_pass_max_abs_vs_f64_over_max']:.3e} max|G|, within {limit} on "
+                "this data (unbiased roundings average out): not held here")
     if with_plain:
         if precision == "highest":
             limit_plain = limit + res["plain_rel_vs_f64"]

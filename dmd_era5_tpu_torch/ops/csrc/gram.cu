@@ -8,10 +8,11 @@
 //                           G ~= H^T H + H^T L + (H^T L)^T (L^T L dropped)
 //
 // The Pallas grid runs in order and sums G into one resident block.  Here
-// both run on the tensor-core row-share mainloop of row_share_atb_tc.cuh
-// with `upper`: a CTA owns one upper block (bi <= bj) of G (G is symmetric,
-// so the blocks below the diagonal are never computed) and one share of the
-// rows of A, which it walks in 128-row tiles (grid-stride over tiles).
+// both run on tensor-core row-share kernels (row_share_atb_tc.cuh, and
+// gram_split_wgmma.cuh for K5) with `upper`: a CTA owns one upper block (bi
+// <= bj) of G (G is symmetric, so the blocks below the diagonal are never
+// computed) and one share of the rows of A, which it walks in 128-row
+// tiles (grid-stride over tiles).
 // Each tile's contribution is summed in f32 from zero (the MMAs restart
 // every 8-32 rows: the tensor core rounds toward zero) and then added into
 // an f64 sum: an f32 running sum over the ~118k rows a CTA sees at
@@ -32,15 +33,29 @@
 // neither: the CTA's loads, splits, MMAs and f64 sums run in turn (as K3's,
 // PERF.md), ~40% of the TF32 rate on the blocks.
 //
-// K5 (the bf16 split) runs on atb_split_bf16 (mma.sync on a cp.async ring):
-// H and L are formed in registers once per element a warp loads, and each
-// upper block takes three bf16 MMAs, H_i^T H_j + H_i^T L_j + L_i^T H_j,
-// into one f32 accumulator; their sum over the blocks is H^T H + H^T L +
-// (H^T L)^T.  A bf16 x bf16 product is exact in f32.  What bounds it on an
-// H100: 3 M K^2 bf16 operations (the upper half of three products) at 989
-// TFLOP/s against 4 M K bytes at 3.35 TB/s; at K 110 and 168 the bytes (~3
-// bf16 operations per byte of A), at the year's K 8,760 the operations
-// (2.25e14, 228 ms).
+// K5 (the bf16 split) runs on atb_split_wgmma (gram_split_wgmma.cuh, the
+// same work split and reduction): each slab of A's block rows and columns
+// is split once a CTA into bf16 H and L planes in shared memory, and each
+// k16 step takes three warpgroup MMAs, L_i^T H_j + H_i^T L_j + H_i^T H_j,
+// from zero, into f32 and every 128 rows into f64; their sum over the upper
+// blocks is H^T H + H^T L + (H^T L)^T.  A bf16 x bf16 product is exact in
+// f32.  Rows 16-byte aligned come by TMA from a producer warpgroup, others
+// through registers.  What bounds it on an H100: 3 M K^2 bf16 operations
+// (the upper half of three products) at 989 TFLOP/s against 4 M K bytes at
+// 3.35 TB/s.
+//   K <= 256 (the sketches, X, the CholQR leaves): the bytes, ~3 bf16
+//   operations a byte of A.  One 128-wide block reads A once (96 < K <=
+//   128).  What the card reads is the CTA's own chain a slab (loads,
+//   split, MMAs, sums): 3.1x the bound at K 110 (scripts/torch_k5_phases.py).
+//   K > 256 (the year's X, K 8,760: 2.25e14 operations, 228 ms): the
+//   operations, at 128 x 128 blocks (4x the MMAs a staged byte of 64-wide
+//   ones; 2,415 blocks at K 8,760, 1.03x the upper half).  What the card
+//   reads is shared memory: a 16-row slab of a block moves ~112 KB through
+//   it (the TMA copy 16, the split's read and write 32, the A fragments 8,
+//   the MMAs' B operands 24, the f64 sums' read and write 32), ~875 clocks
+//   at 128 bytes a clock against 384 clocks of MMAs, so the design overlaps
+//   what it can: the split beside the MMAs, the fold spread over a tile's
+//   slabs, the copies behind a producer warpgroup.  4.0x the bound.
 //
 // Block edges by K (the table that replaces the TPU tile sweep of
 // scripts/kernel_tune.py).  K4, f32 A, device ms at the week's 15,573,600
@@ -62,12 +77,19 @@
 //   K1's G stage 0.284 / 0.373, a.T @ a 0.338; bf16 0.161 (128 only): the
 //   table stands.
 //   bf16 A: 128 x 128 (the bf16 kernel's one shape).
-//   K5, K <= 256  64 x 64  K 110: 3 blocks, 2.0x the upper half's entries;
-//                          K 168: 6 blocks, 1.7x (128-wide blocks: 2.7x and
-//                          3.5x for the same L2 traffic, 3 KB a row at 168)
-//   K5, K > 256 128 x 128  four times the MMAs per staged byte; at K 8,760
-//                          2,415 blocks, 1.03x; a CTA row of blocks shares
-//                          its A slice from L2
+//   K5 (split_edge), device ms at the week's rows and at the year's
+//   977,400 (scripts/torch_tc_tables.py --parts split, the same card):
+//
+//   K            128 x 128   64 x 64   a.T @ a   edge
+//   64           5.04        1.97      3.06      64   one block against one
+//   96           5.10        6.76      8.87      64   for the CholQR2 leaf,
+//   96 (4,096 rows) 0.0201   0.0138    0.0110         K5's one width here on
+//                                                     the main path
+//   110          6.30        10.83     8.88      128  one block read once
+//   168          17.02       13.14     25.93     64   three blocks against six
+//   256          17.71       22.30     36.37     128  three against ten
+//   8,760        921.1       1,710.4   2,897.4   128  four times the MMAs a
+//                                                     staged byte
 //
 // Ranges: any K (the JAX kernel stops at 1024, where its K x K accumulator
 // no longer fits VMEM).  The f64 scratch in device memory is n_share * K * K
@@ -75,22 +97,25 @@
 // in-kernel (zero rows and columns add nothing), so A is never padded or
 // copied.
 
-#include "row_share_atb_tc.cuh"
+#include "gram_split_wgmma.cuh"
 
 namespace {
 
 using atb_tc::bf16;
 
 // K5's block edge at width k (the table above; K4's is atb_tc::gram_edge).
-int split_edge(int k) { return k <= 256 ? 64 : 128; }
+int split_edge(int k) { return k <= 96 || (k > 128 && k <= 192) ? 64 : 128; }
 
 // The main kernel at width k, at the block edge of the table above: K4
-// (split 0) for f32 or bf16 a, K5 (split 1) for f32 a.
+// (split 0) for f32 or bf16 a, K5 (split 1) for f32 a, by TMA where a's
+// rows allow it (op.split<BT, TMA>()).
 template <typename Op>
 cudaError_t with_main(int a_bf16, int split, int k, const Op& op) {
   if (split) {
     if (a_bf16) return cudaErrorInvalidValue;
-    return split_edge(k) == 64 ? op(atb_tc::split_main<64>()) : op(atb_tc::split_main<128>());
+    const bool tma = op.tma();
+    if (split_edge(k) == 64) return tma ? op.template split<64, true>() : op.template split<64, false>();
+    return tma ? op.template split<128, true>() : op.template split<128, false>();
   }
   return a_bf16 ? atb_tc::with_gram_main<bf16>(op.aligned_bf16(), k, op)
                 : atb_tc::with_gram_main<float>(op.aligned_f32(), k, op);
@@ -112,10 +137,15 @@ struct Launch {
     const bf16* ab = static_cast<const bf16*>(a);
     return atb_tc::wgmma_rows_aligned(ab, k, ab, k);
   }
+  bool tma() const { return k5::tma_rows(static_cast<const float*>(a), m, k); }
   template <typename T>
   cudaError_t operator()(const atb_tc::Main<T, T>& main) const {
     const T* at = static_cast<const T*>(a);
     return atb_tc::launch(main, at, at, part, g, m, k, k, 1, n_share, stream);
+  }
+  template <int BT, bool TMA>
+  cudaError_t split() const {
+    return k5::launch<BT, TMA>(static_cast<const float*>(a), part, g, m, k, n_share, stream);
   }
 };
 
@@ -123,9 +153,14 @@ struct Occupancy {
   int* out;
   bool aligned_f32() const { return true; }  // the aligned kernel's; the other takes the same
   bool aligned_bf16() const { return true; }  // shared memory and registers within one bound
+  bool tma() const { return true; }           // K5: as many CTAs an SM by either load
   template <typename T>
   cudaError_t operator()(const atb_tc::Main<T, T>& main) const {
     return atb_tc::ctas_per_sm(main, out);
+  }
+  template <int BT, bool TMA>
+  cudaError_t split() const {
+    return k5::ctas_per_sm<BT>(out);
   }
 };
 

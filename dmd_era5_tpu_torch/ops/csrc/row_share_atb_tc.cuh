@@ -1,7 +1,8 @@
 // C = A^T B over the rows of two tall matrices on the tensor cores,
 // f64-grade: the mainloop of K3 (C = Y^T X, project.cu), K4 (G = A^T A at
-// "highest", gram.cu), K5 (the bf16-split Gram, gram.cu) and the G and C
-// stages of K1 and K2 (sketch_center_gram_project.cu).
+// "highest", gram.cu) and the G and C stages of K1 and K2
+// (sketch_center_gram_project.cu); K5's Gram (gram_split_wgmma.cuh) shares
+// its work split, block order, reduction and helpers.
 //
 // A is M x NA and B is M x NB, both row-major.  The reduction runs over the
 // rows, the slow axis of both: each operand is MN-major for the MMA.
@@ -33,7 +34,7 @@
 // terms first, and their sum is added into the tile's f32 accumulators with
 // round-to-nearest.
 //
-// Three kernels:
+// Two kernels:
 //   atb_wgmma_tf32x3  K3, K4 and K1's G and C on f32 operands, or one f32
 //                     and one bf16: 3xTF32 on warpgroup MMAs, 128 x 128
 //                     blocks.  A bf16 operand is widened to f32 as it is
@@ -41,12 +42,6 @@
 //                     dropped (two products).
 //   atb_wgmma_bf16    the same on bf16 operands: one bf16 warpgroup MMA,
 //                     128 x 128 blocks; the products are exact in f32.
-//   atb_split_bf16    K5, f32 x f32 split in bf16: H = bf16(a), L = bf16(a -
-//                     H), formed in registers as the fragments are loaded;
-//                     L_i^T H_j + H_i^T L_j + H_i^T H_j by mma.sync m16n8k16
-//                     bf16 (L^T L dropped, as in the JAX kernel); 64- or
-//                     128-wide blocks, slabs staged by cp.async in a
-//                     four-deep ring.
 // The wgmma kernels read each slab into registers a slab ahead and store it
 // into shared memory at the end of a slab: one instantiation in 16-byte (8
 // for a bf16 operand of the 3xTF32 kernel) loads for rows aligned to them,
@@ -108,44 +103,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copies of 16, 8 or 4 bytes that zero-fill the destination when !ok.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
                                               uint32_t& r2, uint32_t& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // tf32(v) rounded to nearest, ties away from zero: bit for bit what
@@ -183,32 +145,6 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uin
   lo = pack_bf16(v0 - __uint_as_float(hi << 16), v1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-// ------------------------------------------------- K5's split (mma.sync)
-
-namespace split {
-constexpr int WARPS_B = 4;  // warps along B's columns; 2 along A's
-constexpr int STAGES = 4;   // slabs in the shared-memory ring
-
-template <int BT>
-struct Cfg {
-  // rows per slab: 8 KB of A at BT 128; 64-wide blocks take twice the rows
-  static constexpr int BK = BT == 64 ? 32 : 16;
-  static constexpr int S = BT + 4;  // row stride of a slab, floats: see the fragment loads
-  static constexpr int WARPS_A = THREADS / 32 / WARPS_B;
-  static constexpr int WM = BT / WARPS_A;
-  static constexpr int WN = BT / WARPS_B;
-  static constexpr int MI = WM / 16;  // m16 tiles a warp
-  static constexpr int NI = WN / 8;   // n8 tiles a warp
-  static constexpr int ACC = MI * NI * 4;  // f32 accumulators a thread
-  static constexpr int A_BYTES = BK * S * 4;
-  static constexpr int STAGE_BYTES = 2 * A_BYTES;
-  static constexpr int SUM_BYTES = ACC * THREADS * 8;
-  static constexpr int SMEM = SUM_BYTES + STAGES * STAGE_BYTES;
-  static_assert(MT % BK == 0 && A_BYTES % 16 == 0, "slab layout");
-  static_assert(SMEM <= 232448, "shared memory of one CTA");
-};
-}  // namespace split
-
 // Block (bi, bj) of C that CTA blockIdx.x owns, nbb blocks along B: with
 // `upper` the pairs bi <= bj in row-major order (0,0), (0,1), ...,
 // (0,nbb-1), (1,1), ...; else bi = idx / nbb, bj = idx % nbb.
@@ -226,196 +162,11 @@ __device__ __forceinline__ void block_of(int idx, int nbb, int upper, int& bi, i
   }
 }
 
-// Rows [r0, r0 + BK) and columns [c0, c0 + BT) of src (ncols wide) into a
-// slab of row stride S, in cp.async copies of BYTES (16 or 8) that are
-// wholly in or out of range (ncols is a multiple of BYTES / 4);
-// out-of-range elements are zero.
-template <int BYTES, int BT, int BK, int S>
-__device__ __forceinline__ void stage_runs(float* dst, const float* __restrict__ src, long long r0,
-                                           long long m, int ncols, int c0, int tid) {
-  constexpr int VEC = BYTES / 4;
-  constexpr int CPR = BT / VEC;
-#pragma unroll(BYTES == 16 ? 8 : 1)  // the 8-byte path rolled: K5's 64-wide kernel has 128 registers
-  for (int i = tid; i < BK * CPR; i += THREADS) {
-    const int k = i / CPR;
-    const int c = (i % CPR) * VEC;
-    const long long gr = r0 + k;
-    const bool ok = gr < m && c0 + c < ncols;
-    const float* p = ok ? src + gr * ncols + c0 + c : src;
-    if constexpr (BYTES == 16) {
-      cp_async16(smem_u32(dst + k * S + c), p, ok);
-    } else {
-      cp_async8(smem_u32(dst + k * S + c), p, ok);
-    }
-  }
-}
-
-// The same with copies as wide as the rows' alignment allows: `width` is
-// 16, 8, or 0 for single elements.
-template <int BT, int BK, int S>
-__device__ __forceinline__ void stage_slab(float* dst, const float* __restrict__ src, long long r0,
-                                           long long m, int ncols, int c0, int width, int tid) {
-  if (width == 16) {
-    stage_runs<16, BT, BK, S>(dst, src, r0, m, ncols, c0, tid);
-  } else if (width == 8) {
-    stage_runs<8, BT, BK, S>(dst, src, r0, m, ncols, c0, tid);
-  } else {
-#pragma unroll 4
-    for (int i = tid; i < BK * BT; i += THREADS) {
-      const int k = i / BT;
-      const int c = i % BT;
-      const long long gr = r0 + k;
-      const bool ok = gr < m && c0 + c < ncols;
-      cp_async4(smem_u32(dst + k * S + c), ok ? src + gr * ncols + c0 + c : src, ok);
-    }
-  }
-}
-
-// One slab's split products into acc.  as / bs: the slabs, [BK][S]; the
-// warp's tile starts at row wm0 of A's block and column wn0 of B's.
-// m16n8k16 fragments, k in pairs (2t, 2t+1) and (2t+8, 2t+9): with S % 32
-// == 4 the lanes' (k = 2t or 2t+1, col g) hit 32 distinct banks.  Each
-// k16 step's MMAs start from zero, the small terms first, and only their
-// sum enters acc, in f32 rounded to nearest.
-template <int BT>
-__device__ __forceinline__ void split_products(
-    float (&acc)[split::Cfg<BT>::MI][split::Cfg<BT>::NI][4], const float* as, const float* bs,
-    int wm0, int wn0, int lane) {
-  using C = split::Cfg<BT>;
-  constexpr int S = C::S;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < C::BK; k0 += 16) {
-    uint32_t bh[C::NI][2], bl[C::NI][2];
-#pragma unroll
-    for (int ni = 0; ni < C::NI; ++ni) {
-      const float* p = bs + (k0 + 2 * t) * S + wn0 + ni * 8 + g;
-      split_bf16(p[0], p[S], bh[ni][0], bl[ni][0]);
-      split_bf16(p[8 * S], p[9 * S], bh[ni][1], bl[ni][1]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < C::MI; ++mi) {
-      const float* p = as + (k0 + 2 * t) * S + wm0 + mi * 16 + g;
-      uint32_t ah[4], al[4];
-      split_bf16(p[0], p[S], ah[0], al[0]);
-      split_bf16(p[8], p[S + 8], ah[1], al[1]);
-      split_bf16(p[8 * S], p[9 * S], ah[2], al[2]);
-      split_bf16(p[8 * S + 8], p[9 * S + 8], ah[3], al[3]);
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) {
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(d, al, bh[ni]);
-        mma_bf16(d, ah, bl[ni]);
-        mma_bf16(d, ah, bh[ni]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += d[q];
-      }
-    }
-  }
-}
-
-// Two CTAs an SM at BT = 64 (at most 128 registers a thread), one at 128.
-template <int BT>
-__global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
-    atb_split_bf16(const float* __restrict__ a, const float* __restrict__ b,
-                   double* __restrict__ part, long long m, int na, int nb, int upper,
-                   int n_share, int width_a, int width_b) {
-  using C = split::Cfg<BT>;
-  constexpr int SPT = MT / C::BK;  // slabs a tile
-  constexpr int STAGES = split::STAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* sums = reinterpret_cast<double*>(smem);  // [ACC][THREADS]
-  unsigned char* ring = smem + C::SUM_BYTES;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm0 = (warp / split::WARPS_B) * C::WM;
-  const int wn0 = (warp % split::WARPS_B) * C::WN;
-  const int nbb = (nb + BT - 1) / BT;
-  int bi, bj;
-  block_of(blockIdx.x, nbb, upper, bi, bj);
-  const int a0 = bi * BT;
-  const int b0 = bj * BT;
-  const int share = blockIdx.y;
-  const long long n_tiles = (m + MT - 1) / MT;
-  const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
-  const long long n_slabs = my_tiles * SPT;
-
-#pragma unroll
-  for (int i = 0; i < C::ACC; ++i) sums[i * THREADS + tid] = 0.0;
-  float acc[C::MI][C::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < C::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < C::NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-
-  // slab s of this share: tile share + (s / SPT) n_share, rows (s % SPT) BK on
-  auto stage = [&](long long s) {
-    const long long r0 = (share + (s / SPT) * n_share) * MT + (s % SPT) * C::BK;
-    unsigned char* st = ring + (int)(s % STAGES) * C::STAGE_BYTES;
-    stage_slab<BT, C::BK, C::S>(reinterpret_cast<float*>(st), a, r0, m, na, a0, width_a, tid);
-    stage_slab<BT, C::BK, C::S>(reinterpret_cast<float*>(st + C::A_BYTES), b, r0, m, nb, b0,
-                                width_b, tid);
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_slabs) stage(s);
-    cp_async_commit();
-  }
-  int in_tile = 0;  // s % SPT
-  int slot = 0;     // s % STAGES
-  for (long long s = 0; s < n_slabs; ++s) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of slab s have landed
-    __syncthreads();              // ... everyone's; and slab s - 1 is consumed
-    if (s + STAGES - 1 < n_slabs) stage(s + STAGES - 1);
-    cp_async_commit();
-    const unsigned char* st = ring + slot * C::STAGE_BYTES;
-    split_products<BT>(acc, reinterpret_cast<const float*>(st),
-                       reinterpret_cast<const float*>(st + C::A_BYTES), wm0, wn0, lane);
-    if (++in_tile == SPT) {  // end of a 128-row tile: into the f64 sums
-      in_tile = 0;
-#pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < C::NI; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            sums[((mi * C::NI + ni) * 4 + q) * THREADS + tid] += (double)acc[mi][ni][q];
-            acc[mi][ni][q] = 0.f;
-          }
-    }
-    if (++slot == STAGES) slot = 0;
-  }
-  cp_async_wait<0>();
-
-  // accumulator q of tile (mi, ni): row g (+8 for q >= 2), column 2t + (q & 1)
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  double* dst = part + (size_t)share * na * nb;
-#pragma unroll
-  for (int mi = 0; mi < C::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < C::NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = a0 + wm0 + mi * 16 + g + (q >> 1) * 8;
-        const int c = b0 + wn0 + ni * 8 + 2 * t + (q & 1);
-        if (r < na && c < nb) {
-          dst[(size_t)r * nb + c] = sums[((mi * C::NI + ni) * 4 + q) * THREADS + tid];
-        }
-      }
-}
-
 // ------------------------------------- 3xTF32 on wgmma (atb_wgmma_tf32x3)
 //
 // K3's, K4's and K1's f32 products: 3xTF32 on warpgroup MMAs, which run
-// asynchronously beside the splitting and at twice the tf32 rate mma.sync
-// reaches.  Each warpgroup holds its A operand in registers (a warp's 16
+// asynchronously beside the splitting and at twice the tf32 rate of the
+// synchronous warp-level MMAs.  Each warpgroup holds its A operand in registers (a warp's 16
 // rows, loaded from the MN-major raw slab and split there, lo left to the
 // tensor core's truncation), and B comes from shared memory, where tf32
 // wgmma wants it K-major: each 16-row slab of B is split once a CTA into hi
@@ -967,12 +718,6 @@ struct Main {
   int edge;
   bool upper;
 };
-
-// K5's split product at block edge BT (64 or 128).
-template <int BT>
-Main<float, float> split_main() {
-  return {atb_split_bf16<BT>, split::Cfg<BT>::SMEM, BT, true};
-}
 
 // Whether every row of a and b is aligned to one load of the wgmma kernels
 // for these types: 16 bytes, 8 for a bf16 operand beside an f32 one.

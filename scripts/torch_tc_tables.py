@@ -1,6 +1,6 @@
-"""The tile tables of K4, K1 and K2 on the card, measured.
+"""The tile tables of K4, K5, K1 and K2 on the card, measured.
 
-    python scripts/torch_tc_tables.py [--parts gram,sketch,long_t,project,bench]
+    python scripts/torch_tc_tables.py [--parts gram,split,sketch,long_t,project,bench]
 
 Each table lives in its library (``atb_tc::gram_edge`` in
 ``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, ``sketch_columns``
@@ -18,6 +18,15 @@ it and K1's G stage: K 110 (the 110-column sketch), 128 and 256 (the fit
 step's and the Hankel pass's Yc) and 168 (the week's X), at block edge
 128 and 64, beside one ``a.T @ a`` (f32, TF32 off); G of each edge
 against the f64 sums.
+
+K5's block edge (``split``): ``gram(a, "bf16_split")`` (the wgmma kernel
+of ``csrc/gram_split_wgmma.cuh``, table ``split_edge`` in ``gram.cu``) at
+block edge 128 and 64 on f32 panels at K 64, 96, 110 (the sketch; its
+rows through registers), 168 (the week's X, by TMA) and 256 at the week's
+row count, K 96 at a CholQR2 leaf's 4,096 rows (phase 20) and K 8,760 at
+the hourly year's (977,400 rows, by TMA), beside
+``table`` and one ``a.T @ a``; G of each edge against the f64 sums (not at
+the year, where the f64 sums take seconds).
 
 K1's sketch columns: K1's sketch stage alone (the wrapper's plan,
 ``_scgp_plan``) on an X of the week's shape at N 100, 128, 224 and 256 in
@@ -100,6 +109,7 @@ RESTAGE = "    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {"
 PROJECT_MAIN = "atb_tc::launch(atb_tc::wgmma_main<TY, TX>(aligned)"
 PROJECT_EDGE = "(sizeof(TY) == 2 && sizeof(TX) == 2 ? atb_tc::wg::BT : {e})"
 PROJECT_EDGE_FN = "int project_block_edge() { return atb_tc::wg::BT; }"
+SPLIT_TABLE = "int split_edge(int k) { return k <= 96 || (k > 128 && k <= 192) ? 64 : 128; }"
 PROJECT_SHAPES = (  # label, rows, N (Y's columns), T (X's columns), dtype
     ("year_n256", 181 * 360 * 15, 256, 8760, torch.float32),
     ("year_n128", 181 * 360 * 15, 128, 8760, torch.float32),
@@ -112,8 +122,13 @@ BENCH = (1 << 19, 512, 128)  # S, T, r of the TPU sweeps and of the fit-step ben
 SCG = ("sketch_center_gram_project", "sketch_center_gram_project.cu")
 # variant name: (library, source, header(s) inlined, [(table, fixed choice), ...])
 VARIANTS = {
-    f"gram_edge{e}": ("gram", "gram.cu", "row_share_atb_tc.cuh", [(GRAM_TABLE, (
+    f"gram_edge{e}": ("gram", "gram.cu", ("gram_split_wgmma.cuh", "matmul_tc.cuh",
+                                          "row_share_atb_tc.cuh"), [(GRAM_TABLE, (
         f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
+    for e in (128, 64)
+} | {
+    f"split_edge{e}": ("gram", "gram.cu", None, [(SPLIT_TABLE, (
+        f"int split_edge(int k) {{ return {e}; }}"))])
     for e in (128, 64)
 } | {
     f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE,
@@ -181,6 +196,28 @@ def gram_part(libs, tables, gen, dev) -> None:
         row["library_device_ms"] = device_ms(lambda: a.T @ a, reps=5)
         print(json.dumps(row), flush=True)
         del a, exact
+
+
+def split_part(libs, tables, gen, dev) -> None:
+    for m, k in ((M, 64), (M, 96), (4096, 96), (M, 110), (M, 168), (M, 256), YEAR):
+        a = torch.randn((m, k), generator=gen, device=dev)
+        exact = gram_f64(a) if k <= 256 else None
+        reps = 2 if exact is None else 5
+        row = {"m": m, "k": k}
+        for name, lib in (("edge128", libs["split_edge128"]), ("edge64", libs["split_edge64"]),
+                          ("table", tables["gram"])):
+            use("gram", lib)
+            g = qr_panel.gram(a, "bf16_split")
+            if exact is not None:
+                row[f"max_abs_vs_f64_over_max_{name}"] = float(
+                    (g.double() - exact).abs().max() / exact.abs().max())
+            row[f"symmetric_{name}"] = bool(torch.equal(g, g.T))
+            del g
+            row[f"device_ms_{name}"] = device_ms(lambda: qr_panel.gram(a, "bf16_split"), reps=reps)
+        row["library_device_ms"] = device_ms(lambda: a.T @ a, reps=reps)
+        print(json.dumps(row), flush=True)
+        del a, exact
+        torch.cuda.empty_cache()
 
 
 def sketch_part(libs, tables, gen, dev) -> None:
@@ -345,7 +382,7 @@ def bench_part(libs, tables, gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
-PARTS = {"gram": gram_part, "sketch": sketch_part, "long_t": long_t_part,
+PARTS = {"gram": gram_part, "split": split_part, "sketch": sketch_part, "long_t": long_t_part,
          "project": project_part, "bench": bench_part}
 
 

@@ -11,8 +11,10 @@ resident depth in K2's sketch, and on rows not 16-byte aligned), K2 and
 K3 against one TF32 pass, and their route through
 ``sketch_center_gram_project``; ``gram`` at both
 precisions, float32 and bfloat16 input, ragged row counts and panel
-widths on both sides of K4's and K5's block edges and past the JAX
-kernel's 1024, K4 against one TF32 pass; ``matmul`` (K6) over operand
+widths on both sides of K4's and K5's block edges, K5's rows by TMA and
+through registers (K % 4, an unaligned base), and past the JAX kernel's
+1024, K4 against one TF32 pass, K5 against one bf16 pass, two calls bit
+for bit at both precisions; ``matmul`` (K6) over operand
 and output dtypes, ragged M, N and K on both sides of its tile, column
 and MMA-depth edges and past its resident depth of w, and against one
 TF32 pass; ``householder_panel`` (K7) at
@@ -152,11 +154,14 @@ GRAM_CASES = [
     pytest.param(precision, dtype, m, k, id=f"{precision}-{dtype}-m{m}-k{k}")
     for precision, dtype in [("highest", "float32"), ("highest", "bfloat16"),
                              ("bf16_split", "float32")]
-    # K5's blocks are 64 wide up to K = 256, 128 past it, K4's (f32) 64 wide
-    # for 128 < K <= 192, 128 elsewhere: widths on both sides of each edge,
-    # one column, M no multiple of a 16-row slab
+    # K5's blocks are 64 wide up to K = 64, 128 past it (gram.cu's table),
+    # its rows by TMA where K % 4 == 0 and through registers elsewhere (110
+    # beside 112, 97, 257, 1030); K4's (f32) 64 wide for 128 < K <= 192, 128
+    # elsewhere: widths on both sides of each edge, one column, M no
+    # multiple of a 16-row slab, K past the JAX kernel's 1024
     for m, k in [(1000, 8), (1000, 110), (4099, 168), (1000, 1024), (300, 1030), (1001, 1),
-                 (777, 65), (1000, 256), (1001, 257), (133, 300), (1000, 129), (1000, 193)]
+                 (777, 65), (1000, 256), (1001, 257), (133, 300), (1000, 129), (1000, 193),
+                 (1000, 112), (1003, 97), (1000, 64), (999, 60), (1000, 128), (4097, 1028)]
 ]
 
 
@@ -176,6 +181,54 @@ def test_gram_kernel_matches_plain_on_card(cuda, precision, dtype, m, k):
     # in another order: f32 roundoff of sums of m terms
     rel = float((got.double() - ref.double()).norm() / ref.double().norm())
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1000, 112), (1000, 168), (4097, 300)])
+def test_gram_split_on_unaligned_base_on_card(cuda, m, k):
+    """K5 on rows whose stride is 16-byte aligned but whose base is not
+    (a view one entry into its storage): the register-staged loads, one
+    entry at a time, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    a = (torch.randn(m * k + 1, generator=gen, device=cuda) + 0.5)[1:].view(m, k)
+    got = qr_panel.gram(a, "bf16_split")
+    ref = qr_panel._gram_plain(a, "bf16_split")
+    assert torch.equal(got, got.T)
+    rel = float((got.double() - ref.double()).norm() / ref.double().norm())
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16_split"])
+@pytest.mark.parametrize("m,k", [(70_000, 110), (70_000, 112), (20_000, 300)])
+def test_gram_run_to_run_identity_on_card(cuda, precision, m, k):
+    """Two calls give G bit for bit (row shares summed in a fixed order, no
+    atomics), by TMA (K % 4 == 0) and through registers."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    first = qr_panel.gram(a, precision)
+    assert torch.equal(first, qr_panel.gram(a, precision))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(200_000, 64), (200_000, 110), (20_000, 300)])
+def test_gram_split_is_not_one_bf16_pass_on_card(cuda, m, k):
+    """K5 within 3e-5 max|G| of the f64 sums (chip_smoke's limit) on
+    columns of 1/3 + 1e-4 noise: every entry rounds to the same bf16
+    value, so one bf16 pass (bf16(A)^T bf16(A) summed in f64) errs
+    coherently, by ~4e-3 of max|G|, and misses the limit; the split's L
+    carries that rounding and its own errors average out."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    a = 1.0 / 3.0 + 1e-4 * torch.randn((m, k), generator=gen, device=cuda)
+    exact = a.double().T @ a.double()
+    scale = float(exact.abs().max())
+    g = qr_panel.gram(a, "bf16_split")
+    assert torch.equal(g, g.T)
+    err = float((g.double() - exact).abs().max()) / scale
+    assert err <= 3e-5, err
+    h = a.bfloat16().double()
+    one_pass = float((h.T @ h - exact).abs().max()) / scale
+    assert one_pass > 3e-5, one_pass
 
 
 @pytest.mark.cuda

@@ -38,12 +38,14 @@ def _ill_conditioned(rng, m=2048, n=48):
 
 
 @pytest.mark.parametrize("precision", ["highest", "bf16_split"])
-@pytest.mark.parametrize("m,k", [(300, 32), (1037, 24), (2048, 64), (1000, 168), (1000, 129)])
+@pytest.mark.parametrize("m,k", [(300, 32), (1037, 24), (2048, 64), (1000, 168), (1000, 129),
+                                 (1000, 110), (1001, 257), (300, 300)])
 def test_gram_parity(rng, precision, m, k):
     """Against f64 and the JAX ``gram`` (test_25_linalg.py:91-103: 1e-5
     of max|G| for HIGHEST, 3e-5 for the split); M = 1037 is ragged for
     the JAX kernel's 1024-row blocks; K 168 is the week's X, 129 one past
-    the card's 128-wide blocks of G."""
+    the card's 128-wide blocks of G, 110 the sketch's width, 257 and 300
+    past the split kernel's 256 (two and three of its 128-wide blocks)."""
     a = rng.standard_normal((m, k)).astype(np.float32)
     g_t = qr_panel.gram(_t(a), precision=precision).numpy()
     g_j = np.asarray(jqr.gram(jnp.asarray(a), precision=JAX_PRECISION[precision]))
