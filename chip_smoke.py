@@ -3513,8 +3513,16 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     with TF32 off), on bf16 operands ``torch.mm(y.T, x,
     out_dtype=torch.float32)``, the same function, on one of each none
     (``library_ms`` None); the port never makes it.  Bound: on the tensor cores, 3xTF32 for f32 operands (three
-    passes of 2MNT), two passes for bf16 x f32, one bf16 pass for bf16."""
-    from dmd_era5_tpu_torch.ops.matmul import _project_plain, project, _project_row_shares
+    passes of 2MNT), two passes for bf16 x f32, one bf16 pass for bf16.
+    The line names K3's block (``project_block``: the mainloop, the
+    orientation, m, n, the blocks along each side, where the f64 sums
+    live)."""
+    from dmd_era5_tpu_torch.ops.matmul import (
+        _project_plain,
+        _project_row_shares,
+        project,
+        project_block,
+    )
 
     def kernel():
         return project(x, y)
@@ -3534,8 +3542,13 @@ def compare_project(label: str, x: torch.Tensor, y: torch.Tensor) -> dict:
     exact = gram_f64(y, x)
     scale = float(exact.abs().max())
     (m, t), n = x.shape, y.shape[1]
+    block = project_block(m, n, t, y.dtype, x.dtype)
     res = dict(label=label, m=m, t=t, n=n, dtypes=[str(a.dtype).replace("torch.", "") for a in (x, y)],
-               row_shares=_project_row_shares(x, y))
+               row_shares=_project_row_shares(x, y),
+               block=dict(mainloop=block.mainloop,
+                          orientation="C^T (X on m)" if block.transposed else "C (Y on m)",
+                          m=block.m, n=block.n, blocks=[block.m_blocks, block.n_blocks],
+                          sums=block.sums))
     for who, c in (("kernel", got), ("plain", ref)):
         res[f"{who}_C_vs_f64_over_max"] = float((c.double() - exact).abs().max()) / scale
     control = not bf16 and not tf32_exact(x, y)  # else nothing to tell apart

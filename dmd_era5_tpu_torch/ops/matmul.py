@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +38,8 @@ __all__ = [
     "sketch_center_gram_project",
     "sketch_center_gram",
     "project",
+    "project_block",
+    "ProjectBlock",
     "takes_two_pass",
     "matmul",
     "N_MAX",
@@ -465,6 +468,57 @@ def _project_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return c
 
 
+# K3's blocks (csrc/project.cu's table): 128 columns of the m side's
+# operand (two m64 warpgroups) by n columns of the other, n a multiple of 8
+# up to _PROJECT_N_MAX; the f64 sums in registers up to _PROJECT_REG_N,
+# past it in shared memory (_PROJECT_SMEM_WIDTHS).  f32 x f32 with a side
+# of C wider than _PROJECT_ROW_SHARE_WIDE (the hourly year's 8,760) stays
+# on the row-share mainloop, 128 x 128 blocks, where project_wgmma was
+# measured slower (csrc/project_wgmma.cuh's tile table).
+_PROJECT_BM = 128
+_PROJECT_N_MAX = 88
+_PROJECT_REG_N = 64
+_PROJECT_SMEM_WIDTHS = (72, 80, 88)
+_PROJECT_ROW_SHARE_WIDE = 2048
+
+
+class ProjectBlock(NamedTuple):
+    """K3's block of C for one call: ``transposed`` puts X on the MMA's m
+    side (the kernel computes blocks of C^T), ``m`` and ``n`` are the
+    block's edges on the m and n sides, ``m_blocks`` and ``n_blocks`` how
+    many of them cover C, ``sums`` where their f64 sums live, ``mainloop``
+    the kernel: ``project_wgmma`` or ``row_share`` (Y on m, 128 x 128)."""
+
+    transposed: bool
+    m: int
+    n: int
+    m_blocks: int
+    n_blocks: int
+    sums: str  # "registers" or "shared"
+    mainloop: str = "project_wgmma"
+
+
+def project_block(m: int, n: int, t: int, y_dtype: torch.dtype, x_dtype: torch.dtype
+                  ) -> ProjectBlock:
+    """K3's block for C = Y^T X with X (m, t) and Y (m, n): C's narrow side
+    on the MMA's n, rounded up to 8, or cut into the fewest equal pieces
+    of at most ``_PROJECT_N_MAX``; the f64 sums in registers up to
+    ``_PROJECT_REG_N``, past it in shared memory; the wide side in blocks
+    of 128.  An f32 x bf16 pair puts its f32 operand on the m side whatever
+    the shape (the kernel's one mixed instantiation).  f32 x f32 with a
+    side past ``_PROJECT_ROW_SHARE_WIDE`` takes the row-share mainloop."""
+    y_bf16, x_bf16 = y_dtype == torch.bfloat16, x_dtype == torch.bfloat16
+    if not (y_bf16 or x_bf16) and max(n, t) > _PROJECT_ROW_SHARE_WIDE:
+        return ProjectBlock(False, _PROJECT_BM, 128, -(-n // _PROJECT_BM), -(-t // 128), "shared",
+                            "row_share")
+    transposed = y_bf16 if y_bf16 != x_bf16 else n < t
+    wide, narrow = (t, n) if transposed else (n, t)
+    pieces = -(-narrow // _PROJECT_N_MAX)
+    bn = 8 * -(-(-(-narrow // pieces)) // 8)
+    return ProjectBlock(transposed, _PROJECT_BM, bn, -(-wide // _PROJECT_BM), -(-narrow // bn),
+                        "registers" if bn <= _PROJECT_REG_N else "shared")
+
+
 _PROJECT_LIB = None
 
 
@@ -475,47 +529,61 @@ def _project_library():
 
         lib = load_kernel_library("project")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # y, x, per-share f64 partials, C, m, n, t, y_bf16, x_bf16, n_share, stream
+        # y, x, per-share f64 partials, C, m, n, t, y_bf16, x_bf16, transposed,
+        # block n, sums in shared memory, n_share, stream
         lib.project_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, ptr,
+            ptr, ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, flag, flag, flag,
+            ptr,
         ]
         lib.project_launch.restype = ctypes.c_int
-        lib.project_ctas_per_sm.argtypes = [flag, flag, ptr]  # y_bf16, x_bf16, &out
+        # y_bf16, x_bf16, transposed, block n, sums in shared memory, &out
+        lib.project_ctas_per_sm.argtypes = [flag, flag, flag, flag, flag, ptr]
         lib.project_ctas_per_sm.restype = ctypes.c_int
-        lib.project_block_edge.argtypes = []
-        lib.project_block_edge.restype = ctypes.c_int
         _PROJECT_LIB = lib
     return _PROJECT_LIB
 
 
-def _project_row_shares(x: torch.Tensor, y: torch.Tensor) -> int:
-    """Row shares K3 takes for C = Y^T X on the card: whole waves of its
-    CTAs over the blocks of C, its f64 scratch (n_share N T doubles) held
-    within 1 GiB."""
-    (m, t_cols), n, dev = x.shape, y.shape[1], x.device
-    y_bf16, x_bf16 = int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16)
+def _project_args(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock) -> tuple:
+    """The operand and block flags of project_launch and project_ctas_per_sm
+    (block n 0: the row-share mainloop)."""
+    return (int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16), int(block.transposed),
+            block.n if block.mainloop == "project_wgmma" else 0, int(block.sums == "shared"))
+
+
+def _project_wave(dev, flags: tuple) -> int:
+    """CTAs of K3's kernel for these flags that run at once on the card."""
     lib = _project_library()
     with torch.cuda.device(dev):
-        wave = resident_ctas(dev, ("project", y_bf16, x_bf16),
-                              lambda out: lib.project_ctas_per_sm(y_bf16, x_bf16, out))
-    edge = lib.project_block_edge()
-    return wave_row_shares(wave, -(-n // edge) * -(-t_cols // edge), m, 8 * n * t_cols)
+        return resident_ctas(dev, ("project", *flags),
+                             lambda out: lib.project_ctas_per_sm(*flags, out))
 
 
-def _project_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _project_row_shares(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None) -> int:
+    """Row shares K3 takes for C = Y^T X on the card: whole waves of its
+    CTAs over the blocks of C (``block``, by default
+    :func:`project_block`'s), its f64 scratch (n_share N T doubles) held
+    within 1 GiB."""
+    (m, t_cols), n = x.shape, y.shape[1]
+    block = block or project_block(m, n, t_cols, y.dtype, x.dtype)
+    wave = _project_wave(x.device, _project_args(x, y, block))
+    return wave_row_shares(wave, block.m_blocks * block.n_blocks, m, 8 * n * t_cols)
+
+
+def _project_cuda(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None
+                  ) -> torch.Tensor:
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous (row-major)")
     (m, t_cols), n, dev = x.shape, y.shape[1], x.device
-    n_share = _project_row_shares(x, y)
-    logger.debug("project: %d row shares, %.1f MB of f64 scratch", n_share,
+    block = block or project_block(m, n, t_cols, y.dtype, x.dtype)
+    n_share = _project_row_shares(x, y, block)
+    logger.debug("project: %s, %d row shares, %.1f MB of f64 scratch", block, n_share,
                  8 * n_share * n * t_cols / 1e6)
     with torch.cuda.device(dev):
         c = torch.empty((n, t_cols), dtype=torch.float32, device=dev)
         part = torch.empty((n_share, n, t_cols), dtype=torch.float64, device=dev)
         rc = _project_library().project_launch(
             y.data_ptr(), x.data_ptr(), part.data_ptr(), c.data_ptr(), m, n, t_cols,
-            int(y.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16), n_share,
-            torch.cuda.current_stream(dev).cuda_stream,
+            *_project_args(x, y, block), n_share, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"project kernel: CUDA error {rc}")
@@ -530,7 +598,8 @@ def project(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     x: (M, T); y: (M, N), each float32 or bfloat16.  Any M, T and N.  A
     CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    the Hopper kernel (``csrc/project.cu``) and counts it in
+    the Hopper kernel (``csrc/project.cu`` on ``csrc/project_wgmma.cuh``,
+    its block from :func:`project_block`) and counts it in
     ``project.launches``.
     """
     _check_project(x, y)

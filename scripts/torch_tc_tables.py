@@ -1,6 +1,6 @@
 """The tile tables of K4, K5, K1 and K2 on the card, measured.
 
-    python scripts/torch_tc_tables.py [--parts gram,split,sketch,long_t,project,bench]
+    python scripts/torch_tc_tables.py [--parts gram,split,sketch,long_t,bench]
 
 Each table lives in its library (``atb_tc::gram_edge`` in
 ``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, ``sketch_columns``
@@ -49,17 +49,8 @@ The held and streamed Yc must be the same bit for bit.  Then held against
 streamed over T from 168 to 2,048 at the week's elements (M T about
 2.6e9, N 128 and 256), which sets the table's edge.
 
-K3's block edge (``project``): ``project.cu`` launches the row-share
-mainloop at the one edge ``atb_tc::wg::BT`` (``project_block_edge``,
-128).  Its f32 (3xTF32) kernel also builds at 64 (the Gram's other
-edge); the bf16 kernel only at 128.  ``project(x, y)`` at edge 128 and 64
-beside ``table`` and the library call (``torch.matmul(y.T, x)``, f32 with
-TF32 off; ``torch.mm(..., out_dtype=torch.float32)`` on bf16) at the
-smoke's shapes where K3 runs: the hourly year's X (977,400 x 8,760) with
-Yc at N 256 and 128 (f32), the d = 3 pass (the week's X, 15,573,600 x
-168, and its 384-wide Yc, bf16: edge 128 alone), 15c's U^T C (U
-31,147,200 x 100, C 24 columns) and 16e's ``hankel_project`` (1,038,240
-rows, N 40, T 97); C of each edge against the f64 sums.
+K3's block table (``project.cu``, ``ops/matmul.py::project_block``) is
+timed by ``scripts/torch_k3_phases.py`` and ``scripts/torch_k3_times.py``.
 
 The bench's shape (``bench``), where the TPU tile sweeps ran
 (``scripts/kernel_tune.py``, ``pass1_tune.py``, ``fused_tune2.py``,
@@ -104,19 +95,7 @@ SKETCH_TABLE = "int sketch_columns(int n) { return n <= 112 ? 112 : 128; }"
 W_TABLE = "bool streams_w(int x_bf16, int t) { return !x_bf16 && t > 176; }"
 W_HELD = "bool streams_w(int x_bf16, int t) { return false; }"
 RESTAGE = "    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {"
-# K3's launch and its block edge in project.cu; a bf16 x bf16 product keeps
-# the 128-wide blocks, the only ones its kernel has
-PROJECT_MAIN = "atb_tc::launch(atb_tc::wgmma_main<TY, TX>(aligned)"
-PROJECT_EDGE = "(sizeof(TY) == 2 && sizeof(TX) == 2 ? atb_tc::wg::BT : {e})"
-PROJECT_EDGE_FN = "int project_block_edge() { return atb_tc::wg::BT; }"
 SPLIT_TABLE = "int split_edge(int k) { return k <= 96 || (k > 128 && k <= 192) ? 64 : 128; }"
-PROJECT_SHAPES = (  # label, rows, N (Y's columns), T (X's columns), dtype
-    ("year_n256", 181 * 360 * 15, 256, 8760, torch.float32),
-    ("year_n128", 181 * 360 * 15, 128, 8760, torch.float32),
-    ("d3_pass", M, 384, 168, torch.bfloat16),
-    ("15c_UtC", 2 * M, 100, 24, torch.float32),
-    ("16e_hankel_project", 721 * 1440, 40, 97, torch.float32),
-)
 YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
 BENCH = (1 << 19, 512, 128)  # S, T, r of the TPU sweeps and of the fit-step bench
 SCG = ("sketch_center_gram_project", "sketch_center_gram_project.cu")
@@ -143,11 +122,6 @@ VARIANTS = {
     "w_streamed": (*SCG, None, [(W_TABLE, W_TABLE.replace("&& t > 176", ""))]),
     "restage_skipped": (*SCG, "matmul_tc.cuh", [(W_TABLE, W_HELD),
                                                 (RESTAGE, "    if (!STREAM && j == 0) {")]),
-} | {
-    f"project_edge{e}": ("project", "project.cu", None, [
-        (PROJECT_MAIN, PROJECT_MAIN.replace("<TY, TX>", f"<TY, TX, {PROJECT_EDGE.format(e=e)}>")),
-        (PROJECT_EDGE_FN, PROJECT_EDGE_FN.replace("atb_tc::wg::BT", str(e)))])
-    for e in (128, 64)
 }
 
 
@@ -299,32 +273,6 @@ def long_t_part(libs, tables, gen, dev) -> None:
         del x
 
 
-def project_part(libs, tables, gen, dev) -> None:
-    for label, m, n, t, dtype in PROJECT_SHAPES:
-        x = torch.randn((m, t), generator=gen, device=dev).to(dtype)
-        y = torch.randn((m, n), generator=gen, device=dev).to(dtype)
-        exact = gram_f64(y, x)
-        row = {"shape": label, "m": m, "n": n, "t": t, "dtype": str(dtype)[6:]}
-        edges = (("edge128", libs["project_edge128"]), ("edge64", libs["project_edge64"]),
-                 ("table", tables["project"]))
-        for name, lib in edges:
-            if dtype == torch.bfloat16 and name == "edge64":
-                continue  # the bf16 kernel has 128-wide blocks only
-            use("project", lib)
-            c = matmul.project(x, y)
-            row[f"rel_vs_f64_{name}"] = rel_err(c, exact)[0]
-            row[f"device_ms_{name}"] = device_ms(lambda: matmul.project(x, y), reps=5)
-        use("project", tables["project"])
-        if dtype == torch.bfloat16:
-            row["library_device_ms"] = device_ms(
-                lambda: torch.mm(y.T, x, out_dtype=torch.float32), reps=5)
-        else:
-            row["library_device_ms"] = device_ms(lambda: torch.matmul(y.T, x), reps=5)
-        print(json.dumps(row), flush=True)
-        del x, y, exact
-        torch.cuda.empty_cache()
-
-
 def bench_part(libs, tables, gen, dev) -> None:
     m, t, n = BENCH
     scg = "sketch_center_gram_project"
@@ -383,7 +331,7 @@ def bench_part(libs, tables, gen, dev) -> None:
 
 
 PARTS = {"gram": gram_part, "split": split_part, "sketch": sketch_part, "long_t": long_t_part,
-         "project": project_part, "bench": bench_part}
+         "bench": bench_part}
 
 
 def main() -> None:
@@ -397,7 +345,7 @@ def main() -> None:
     dev = torch.device("cuda")
     with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
         tables = {lib: pool.submit(_build.load_kernel_library, lib)
-                  for lib in ("gram", "sketch_center_gram_project", "project")}
+                  for lib in ("gram", "sketch_center_gram_project")}
         libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
         tables = {lib: fut.result() for lib, fut in tables.items()}
     gen = torch.Generator(device=dev).manual_seed(0)

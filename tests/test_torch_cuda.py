@@ -6,9 +6,10 @@ depth, on both sides of the sketch stage's 112-wide CTA columns, and
 against one TF32 pass; the
 two-pass fallback, ``sketch_center_gram`` (K2: K1's sketch and G stages)
 and ``project`` (K3), over operand and output dtypes at ragged M, T and N
-up to 2048 (on both sides of K3's 128-wide tensor-core blocks, of W's
-resident depth in K2's sketch, and on rows not 16-byte aligned), K2 and
-K3 against one TF32 pass, and their route through
+up to 2048 (at the edges of K3's block rule in both orientations, of W's
+resident depth in K2's sketch, on rows not 16-byte aligned and on views
+whose base is not), K3 twice bit for bit, K2 and K3 against one TF32
+pass, and their route through
 ``sketch_center_gram_project``; ``gram`` at both
 precisions, float32 and bfloat16 input, ragged row counts and panel
 widths on both sides of K4's and K5's block edges, K5's rows by TMA and
@@ -501,6 +502,20 @@ def test_sketch_center_gram_is_not_one_tf32_pass_on_card(cuda, t, n):
         assert err > 1e-6, (name, err)
 
 
+# The edges of K3's block rule (ops/matmul.py::project_block): C's narrow
+# side at n 8, 24 and 40, at the widest n whose f64 sums stay in registers
+# (88) and 8 short of and past it, at 168 (two pieces), 256 and 257 (three),
+# each in both orientations (N < T puts X on the MMA's m side); 97- and
+# 133-wide rows on an aligned base (f32: one bulk copy a slab of rows that
+# are not 16-byte aligned); a ragged last tile and slab, M < 128 and M = 1
+PROJECT_BLOCK_EDGES = [
+    (1000, 300, 8), (1000, 8, 300), (1000, 24, 100), (1000, 100, 24), (1000, 97, 40),
+    (1000, 40, 97), (1000, 200, 80), (1000, 80, 200), (1000, 200, 88), (1000, 88, 200),
+    (1000, 200, 96), (1000, 96, 200), (1000, 384, 168), (1000, 220, 168), (1037, 1000, 256),
+    (1037, 256, 1000), (300, 600, 257), (300, 257, 600), (1000, 133, 97), (1000, 97, 133),
+    (130, 97, 40), (100, 168, 100), (1, 97, 40), (17, 24, 100),
+]
+
 PROJECT_CASES = [
     pytest.param(y_dtype, x_dtype, m, t, n, id=f"y{y_dtype}-x{x_dtype}-m{m}-t{t}-n{n}")
     for y_dtype, x_dtype in [("float32", "float32"), ("bfloat16", "bfloat16"),
@@ -510,7 +525,7 @@ PROJECT_CASES = [
     # the d = 3 pass's aligned widths (16-byte copies)
     for m, t, n in [(1000, 168, 100), (1031, 8760, 256), (300, 50, 384), (129, 65, 512),
                     (1, 1, 1), (1037, 133, 77), (257, 130, 1), (300, 1, 129), (515, 300, 260),
-                    (1000, 168, 384)]
+                    (1000, 168, 384)] + PROJECT_BLOCK_EDGES
 ]
 
 
@@ -531,6 +546,45 @@ def test_project_kernel_matches_plain_on_card(cuda, y_dtype, x_dtype, m, t, n):
     exact = y.double().T @ x.double()
     _f64_close(c, exact, "C")
     _f64_close(c, ref.double(), "C vs plain", rel=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y_dtype,x_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                             ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("m,t,n", [(1000, 97, 40), (1000, 133, 97), (1000, 168, 384),
+                                   (300, 600, 257), (1037, 24, 100)])
+def test_project_on_unaligned_views_on_card(cuda, y_dtype, x_dtype, m, t, n):
+    """K3 on X and Y that are views one element into their buffers, so
+    that neither base is 16-byte aligned: the element-wise loads, for an
+    operand that one block spans and for one that it cuts.  C within 1e-5
+    max|C| of the f64 sums and of the plain version, as the aligned cases."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def view(rows, cols, dtype):
+        buf = torch.randn(rows * cols + 1, generator=gen, device=cuda).to(getattr(torch, dtype))
+        return buf[1:].view(rows, cols)
+
+    x, y = view(m, t, x_dtype), view(m, n, y_dtype)
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    c = matmul.project(x, y)
+    ref = matmul._project_plain(x, y)
+    torch.cuda.synchronize()
+    assert c.shape == (n, t)
+    _f64_close(c, y.double().T @ x.double(), "C")
+    _f64_close(c, ref.double(), "C vs plain", rel=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y_dtype,x_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+@pytest.mark.parametrize("m,t,n", [(20_000, 168, 384), (20_000, 24, 100), (5_000, 8760, 256)])
+def test_project_is_identical_run_to_run_on_card(cuda, y_dtype, x_dtype, m, t, n):
+    """K3 reduces its row shares in a fixed order, with no atomics: two
+    calls on the same operands give C bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn((m, t), generator=gen, device=cuda).to(getattr(torch, x_dtype))
+    y = torch.randn((m, n), generator=gen, device=cuda).to(getattr(torch, y_dtype))
+    assert torch.equal(matmul.project(x, y), matmul.project(x, y))
 
 
 @pytest.mark.cuda
