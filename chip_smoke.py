@@ -133,8 +133,9 @@ of which raises on failure so the script exits non-zero:
    pinned ring, and one pass of 15a: the device's idle share and the
    share of the H2D copies that overlaps kernels, read from the traces;
    15a's core on the card beside the same core on the host in f64; K3
-   (W = Psi^T X_blk, the +-1 panel) and K4 (G of a Y block) against
-   their plain versions and the f64 sums at 15a's block shapes; K3 at
+   (W = Psi^T X_blk, the +-1 panel), K6 (Y = X_blk Omega, 128 columns a
+   CTA) and K4 (G of a Y block) against their plain versions and the f64
+   sums at 15a's block shapes; K3 at
    15a's block against its bound (``roofline``).  (c) After
    phase 13: 13c's SVD (144 hours) updated by the withheld 24 hours and
    the boundary hour by ``era5_svd_update.update_from_slice`` on the
@@ -5093,11 +5094,13 @@ def phase_trace(week: dict, path: Path, seed: int) -> dict:
     log(f"    15a's core on the card and on the host in f64 from the same W, G, Omega: "
         f"{json.dumps(out['core_card_vs_host_f64'])}")
 
-    # K3 and K4 against their plain versions at 15a's block shapes: W =
-    # Psi^T X_blk with the +-1 panel (3xTF32), G of the block's Y = X_blk Omega
+    # K3, K6 and K4 against their plain versions at 15a's block shapes: W =
+    # Psi^T X_blk with the +-1 panel (3xTF32), the block's Y = X_blk Omega
+    # (K6 at 128 columns a CTA) and its G
     blk = x[:RAND_BLOCK]
     psi = psi_panel(seed + 15, 0, RAND_BLOCK, 256, dev)
     out["k3_block"] = compare_project("15a block", blk, psi)
+    out["k6_block"] = compare_matmul("15a Y block", blk, sketch.omega, f64_gate=True)
     y_blk = matmul(blk, sketch.omega)
     out["k4_y_block"] = compare_gram("15a Y block", y_blk, "highest", reps=20)
     del y_blk

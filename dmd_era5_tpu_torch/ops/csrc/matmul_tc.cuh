@@ -13,89 +13,111 @@
 // The output is f32, or bf16 rounded from the f32 sum.
 //
 // - Persistent CTAs, about one an SM (the wrapper sizes the grid from the
-//   occupancy query), in columns of BN output columns: 112 for K6 (N 110
-//   padded to the next valid wgmma width, not to 128), 112 or 128 for K1
-//   (its table, sketch_center_gram_project.cu).  A CTA loads its column of w
+//   occupancy query), in columns of BN output columns, BN a wgmma width of
+//   the tile table below.  ops/matmul.py::matmul_block chooses BN, the copy
+//   path, w's rows held and the ring's depth from the shape; the launchers
+//   pass them in and `launch` checks them.  A CTA loads its column of w
 //   once, splits it into K-major tf32 hi and lo planes (transposed on the
 //   way in, as K3's B) or, for bf16, stores it MN-major for wgmma's
 //   transpose bit (as K3-bf16's B), and then walks 128-row tiles of x,
 //   grid-stride, until the rows run out.
 // - x is the A operand: its rows are K-contiguous, as tf32 wgmma wants.  It
-//   streams through a ring of STAGES chunks of 128 rows x 128 bytes (32 f32
-//   or 64 bf16 columns of K), each one TMA copy with the 128-byte swizzle,
-//   whose out-of-range rows and columns the copy engine fills with zeros.
-//   One thread keeps up to STAGES chunks in flight; a chunk's slot is refilled
-//   as soon as every warp has its A fragments in registers, while that
-//   chunk's MMAs run.  Rows whose stride or base is not 16-byte aligned
-//   (K % 4 for f32, K % 8 for bf16) take the element-wise instantiation,
-//   which fills the same swizzled slots by ordinary loads.
+//   streams through a ring of `stages` slots, as many as the shared memory
+//   beside w holds up to 4 (the kernel takes up to MAX_STAGES), on one of
+//   three copy paths:
+//     TMA   rows and base 16-byte aligned (K % 4 == 0 in f32, K % 8 in
+//           bf16): chunks of 128 rows x 128 bytes (32 f32 or 64 bf16
+//           columns of K), each one TMA copy with the 128-byte swizzle,
+//           out-of-range rows and columns filled with zeros by the copy
+//           engine;
+//     BULK  f32 rows that are not (K 97) on an aligned base: a tile's 128
+//           rows are one contiguous span of 512 K bytes, 16-byte aligned,
+//           so one bulk copy (cp.async.bulk, no tensor map) brings the whole
+//           tile into its slot, dense (row r at word r K), and ordinary
+//           loads the last tile's final partial 16 bytes.  Each whole
+//           32-column group is read in the order of dense_col, and w's
+//           planes are staged in it, so that a warp's fragment loads from
+//           rows K words apart meet no bank twice (a partial last group in
+//           K's order: its fewest k-steps);
+//     ELEM  the rest (a base not 16-byte aligned, bf16 rows not aligned, f32
+//           ones where two tile slots do not fit, or at 112 and 128
+//           columns): the TMA path's swizzled chunks filled by ordinary
+//           loads and a CTA barrier.  On the smoke's main paths only 19c-d's
+//           small DMDc blocks take it (34 x 166 and 6 x 95 rows).
+//   One thread keeps the ring full; a slot is refilled as soon as every warp
+//   has its A fragments of it in registers, while that chunk's MMAs run.
 // - Two consumer warpgroups own rows 0-63 and 64-127 of a tile.  f32: each
-//   warp reads its 16 rows' fragments from the swizzled chunk (conflict
-//   free), splits them in registers, and issues per chunk the small terms
-//   A_lo B_hi + A_hi B_lo of its four k8 steps, then A_hi B_hi
-//   (m64n112k8); bf16: ldmatrix fragments, four m64n112k16 MMAs.
+//   warp reads its 16 rows' fragments from the slot, splits them in
+//   registers, and issues per chunk the small terms A_lo B_hi + A_hi B_lo of
+//   its four k8 steps, then A_hi B_hi (m64nBNk8); bf16: ldmatrix fragments,
+//   four m64nBNk16 MMAs.
 // - Accumulation: the tensor core rounds its sums toward zero, so the MMAs
 //   of each chunk (4 k-steps; every k-step in K1's bf16 sketch) start from
-//   zero and their sum is added into f32 accumulators rounded to nearest (chained over a tile instead, out
-//   read 2.2-3.8x the plain f32 product's error against the f64 product:
-//   the `chained` variant of scripts/torch_k6_phases.py, PERF.md).
-// - Epilogue: a tile's sums go through shared memory 32 rows at a time, so
-//   that each warp stores 128 contiguous bytes of one row of out (f32 or
-//   bf16, masked on ragged M and N), while the ring already holds the next
-//   tile's first chunks.
+//   zero and their sum is added into f32 accumulators rounded to nearest
+//   (chained over a tile instead, out read 2.2-3.8x the plain f32 product's
+//   error against the f64 product: the `chained` variant of
+//   scripts/torch_k6_phases.py, PERF.md).
+// - Epilogue: a tile's sums go through shared memory (the whole tile where
+//   BN <= 80, else 32 rows at a time), and each warp stores whole rows of
+//   out, as 16-byte runs where out's rows allow them, else element by
+//   element (f32 or bf16, masked on ragged M and N), while the ring already
+//   holds the next tile's first chunks.
 //
-// What the card showed (H100, phase 9a's shapes; scripts/torch_k6_phases.py
-// times variants without one phase each, PERF.md has the numbers): the
-// phases of a CTA do not overlap one another -- the x stream, the 3xTF32
-// MMAs (at the TF32 peak) and the stores of out add up, and a ring of 2
-// chunks reads as 4 does.  With one CTA an SM (the f32 planes take 150.5
-// KB) nothing else runs beside them; warp-specialised stores or a second
-// CTA an SM need the shared memory that w takes.  Stores straight from the
-// accumulator registers (32 bytes of each of 8 rows a warp) read slower
-// than the staged ones, and w's staging with its loads unrolled 8 deep
-// faster than rolled.
+// What the card showed (PERF.md, PR 24): the phases of a CTA still run one
+// after another -- copies, MMAs, stores -- and in this design none holds
+// more than 45% of a call.  Before it the element-wise copies of rows that are not
+// 16-byte aligned took 54-60% (16e, config 2's sketch), the 112-wide MMAs at
+// N 24 and the element stores 68% of 15c; now no copy saves 18-30% there and
+// no MMA 27-44%.  K1's bf16 sketch loses to one library call (2.0x at the
+// bench's shape) with no phase above 15%: two MMAs in flight and slots
+// released by per-slot barriers both read slower.
 //
-// Shared-memory budget (227 KB a CTA): the ring takes 4 x 16 KB = 64 KB,
-// the staged rows of out 14 KB and K1's row means 0.5 KB; w takes K x 112 x 8 bytes for f32 (hi and
-// lo planes: 150.5 KB at K 168) and K x 112 x 2 for bf16 (37.6 KB), K padded
-// with zeros to the MMA's depth (8 tf32, 16 bf16) in shared memory only.
-// So w is resident for K <= 168 (f32) or 672 (bf16); past that it is
-// walked in panels of 160 or 640 rows of K, restaged once a tile and panel
-// (from L2: w is small).  N > BN takes more CTA columns.  At BN 128 the
-// f32 planes take 168 KB at K 168 and the staged rows 16 KB, so the ring
-// is 2 chunks deep (Tile): w resident for K <= 176 (f32) or 704 (bf16).
+// Tile table (each choice and what decided it on an H100, NVIDIA H100 80GB
+// HBM3 at 700 W, scripts/torch_k6_phases.py and scripts/torch_k6_times.py;
+// PERF.md has the numbers.  It stands in for the TPU tile sweep of the
+// nearest product, scripts/kernel_tune.py:218-225):
 //
-// Streamed w (STREAM; K1's and K2's sketch past the resident depth, f32 x
-// by TMA, BN 128): a panel's restage is two CTA-wide barriers and a tf32
-// split of as many elements of w as the tile streams of x, and took 40% of
-// the sketch at the hourly year (T 8,760).  So split_w splits w once a call
-// into device memory (w_stream_bytes: 18 MB at the year's N 256, held in
-// L2), as the chunks the kernel reads -- per CTA column and KC rows of K,
-// the hi plane then the lo plane, each in stage_w's layout at kw = KC --
-// and each chunk of w rides the ring beside its chunk of x: one bulk copy
-// of 32 KB on the same barrier as x's 16 KB, four slots (192 KB).  No
-// barrier, split or restage stands between the MMAs; a slot is refilled
-// once the MMAs that read its w have completed.  The product is the held
-// one bit for bit (the same splits, the same MMA order).
-//
-// Tile table (each choice and what decided it on an H100; it stands in for
-// the TPU tile sweep of the nearest product, scripts/kernel_tune.py:218-225):
-//
-//   rows a tile       128   two m64 warpgroups; 512 tiles of the streamed
-//                           block over 132 SMs fill 97% of 4 rounds
-//   columns a CTA     112   N 110 -> one n112 MMA, 2% padding (n128: 14%);
-//                           K1's sketch: 112 or 128 by N (its table)
+//   rows a tile       128   two m64 warpgroups
+//   columns a CTA     24, 40, 80, 112, 128: the narrowest that holds N (15c's
+//                     and 16d's N 24 and 20 -> 24, 16e's 40 -> 40, K1's 76 at
+//                     config 2 -> 80, the streamed block's 110 -> 112, 15a's
+//                     128 -> 128); wider N in columns of 112 (K6) or 128
+//                     (K1's sketch: 128 read 12% under 112 at N 224, PR 9).
+//                     At N 24 a 112-wide column did 4.7x the useful MMAs.
 //   chunk of K        128 B the 128-byte swizzle's row; 4 MMA k-steps
-//   ring              4     64 KB beside the 150.5 KB of f32 planes; 2
-//                           reads the same
-//   MMA chain         4     k-steps between restarts from zero (one chunk):
-//                           chained over a tile, out read 2.2-3.8x the
-//                           plain f32 product's error against the f64
-//                           product, restarted 0.32-0.42x (chip_smoke.py;
-//                           scripts/torch_k6_phases.py's `chained`)
-//   rows staged       32    the 14 KB left beside the f32 planes
+//   ring              2-4   what the shared memory beside w holds, at most 4:
+//                           8 read within 3% at 15c, the lift chunk and K1's
+//                           bf16 sketch, 5% slower at the bf16 block (ring_8)
+//   MMA chain         4     k-steps between restarts from zero (one chunk);
+//                           K1's bf16 sketch: 1, one MMA at a time (two in
+//                           flight in halves or n32 quarters read 5-30%
+//                           slower at the bench's shape, the fit step, d = 3)
+//   rows staged       128 where BN <= 80, else 32 (the room beside w)
 //   threads           256   two consumer warpgroups, no producer warp: one
 //                           thread issues the copies between its MMAs
+//
+// Shared-memory budget (227 KB a CTA; ops/matmul.py::_mm_smem is the same
+// sum): w takes K x BN x 8 bytes for f32 (hi and lo planes: 150.5 KB at K
+// 168, BN 112) and K x BN x 2 for bf16, K padded to the MMA's depth (BULK:
+// to 32) in shared memory only; the staged rows of out 128 or 32 x BN x 4,
+// K1's row means 0.5 KB, the barriers 64 bytes; the ring the rest, 16 KB a
+// chunk slot (BULK: 512 K bytes a tile slot), at least 2 slots.  Where w's
+// rows do not fit beside two slots they are walked in panels of 160 (f32)
+// or 640 (bf16) rows of K, restaged once a tile and panel (from L2: w is
+// small).  N > BN takes more CTA columns.
+//
+// Streamed w (STREAM; K1's and K2's sketch past 176 rows of K, f32 x by
+// TMA, BN 128): a panel's restage is two CTA-wide barriers and a tf32
+// split of as many elements of w as the tile streams of x, and took 40% of
+// the sketch at the hourly year (T 8,760).  So split_w splits w once a call
+// into device memory (18 MB at the year's N 256, held in L2), as the chunks
+// the kernel reads -- per CTA column and KC rows of K, the hi plane then
+// the lo plane, each in stage_w's layout at kw = KC -- and each chunk of w
+// rides the ring beside its chunk of x: one bulk copy of 32 KB on the same
+// barrier as x's 16 KB, four slots (192 KB).  No barrier, split or restage
+// stands between the MMAs; a slot is refilled once the MMAs that read its w
+// have completed.  The product is the held one bit for bit (the same
+// splits, the same MMA order).
 //
 // K1's epilogue (CENTER): every CTA sums its tile's rows of x (and their
 // squares) from the chunks already in the ring, between its MMAs' issue and
@@ -116,94 +138,159 @@
 
 #include "row_share_atb_tc.cuh"
 
-namespace mm_tc {
+// ------------------------------------------- warpgroup MMAs at width 8 C
+//
+// TC_WGMMA(C, N) defines wgmma_tf32 and wgmma_bf16 at n = N = 8 C in the
+// namespace where it is expanded: d (+)= a b, 64 x N, a a warp's 16 rows in
+// registers (the m16n8k8 tf32 or m16n8k16 bf16 fragment), b from a
+// descriptor (bf16: MN-major, through the transpose bit); d as C n8 tiles
+// of the m16n8 accumulator layout; scale_d 0 ignores d's old value.  This
+// kernel's widths below, K3's in project_wgmma.cuh.
 
+#define TC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define TC_OPS1 TC_D4(0)
+#define TC_OPS2 TC_OPS1, TC_D4(4)
+#define TC_OPS3 TC_OPS2, TC_D4(8)
+#define TC_OPS4 TC_OPS3, TC_D4(12)
+#define TC_OPS5 TC_OPS4, TC_D4(16)
+#define TC_OPS6 TC_OPS5, TC_D4(20)
+#define TC_OPS7 TC_OPS6, TC_D4(24)
+#define TC_OPS8 TC_OPS7, TC_D4(28)
+#define TC_OPS9 TC_OPS8, TC_D4(32)
+#define TC_OPS10 TC_OPS9, TC_D4(36)
+#define TC_OPS11 TC_OPS10, TC_D4(40)
+#define TC_OPS12 TC_OPS11, TC_D4(44)
+#define TC_OPS13 TC_OPS12, TC_D4(48)
+#define TC_OPS14 TC_OPS13, TC_D4(52)
+#define TC_OPS15 TC_OPS14, TC_D4(56)
+#define TC_OPS16 TC_OPS15, TC_D4(60)
+#define TC_REG1 "%0, %1, %2, %3"
+#define TC_REG2 TC_REG1 ", %4, %5, %6, %7"
+#define TC_REG3 TC_REG2 ", %8, %9, %10, %11"
+#define TC_REG4 TC_REG3 ", %12, %13, %14, %15"
+#define TC_REG5 TC_REG4 ", %16, %17, %18, %19"
+#define TC_REG6 TC_REG5 ", %20, %21, %22, %23"
+#define TC_REG7 TC_REG6 ", %24, %25, %26, %27"
+#define TC_REG8 TC_REG7 ", %28, %29, %30, %31"
+#define TC_REG9 TC_REG8 ", %32, %33, %34, %35"
+#define TC_REG10 TC_REG9 ", %36, %37, %38, %39"
+#define TC_REG11 TC_REG10 ", %40, %41, %42, %43"
+#define TC_REG12 TC_REG11 ", %44, %45, %46, %47"
+#define TC_REG13 TC_REG12 ", %48, %49, %50, %51"
+#define TC_REG14 TC_REG13 ", %52, %53, %54, %55"
+#define TC_REG15 TC_REG14 ", %56, %57, %58, %59"
+#define TC_REG16 TC_REG15 ", %60, %61, %62, %63"
+#define TC_IN1 "{%4, %5, %6, %7}, %8"
+#define TC_SC1 "%9"
+#define TC_IN2 "{%8, %9, %10, %11}, %12"
+#define TC_SC2 "%13"
+#define TC_IN3 "{%12, %13, %14, %15}, %16"
+#define TC_SC3 "%17"
+#define TC_IN4 "{%16, %17, %18, %19}, %20"
+#define TC_SC4 "%21"
+#define TC_IN5 "{%20, %21, %22, %23}, %24"
+#define TC_SC5 "%25"
+#define TC_IN6 "{%24, %25, %26, %27}, %28"
+#define TC_SC6 "%29"
+#define TC_IN7 "{%28, %29, %30, %31}, %32"
+#define TC_SC7 "%33"
+#define TC_IN8 "{%32, %33, %34, %35}, %36"
+#define TC_SC8 "%37"
+#define TC_IN9 "{%36, %37, %38, %39}, %40"
+#define TC_SC9 "%41"
+#define TC_IN10 "{%40, %41, %42, %43}, %44"
+#define TC_SC10 "%45"
+#define TC_IN11 "{%44, %45, %46, %47}, %48"
+#define TC_SC11 "%49"
+#define TC_IN12 "{%48, %49, %50, %51}, %52"
+#define TC_SC12 "%53"
+#define TC_IN13 "{%52, %53, %54, %55}, %56"
+#define TC_SC13 "%57"
+#define TC_IN14 "{%56, %57, %58, %59}, %60"
+#define TC_SC14 "%61"
+#define TC_IN15 "{%60, %61, %62, %63}, %64"
+#define TC_SC15 "%65"
+#define TC_IN16 "{%64, %65, %66, %67}, %68"
+#define TC_SC16 "%69"
+
+#define TC_WGMMA(C, N)                                                                       \
+  __device__ __forceinline__ void wgmma_tf32(float(&d)[4 * C], const uint32_t(&a)[4],       \
+                                             uint64_t desc, int scale_d) {                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " TC_SC##C ", 0;\n"                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" TC_REG##C "}, "  \
+                 TC_IN##C ", p, 1, 1;\n}\n"                                                   \
+                 : TC_OPS##C                                                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));    \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_bf16(float(&d)[4 * C], const uint32_t(&a)[4],       \
+                                             uint64_t desc, int scale_d) {                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " TC_SC##C ", 0;\n"                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" TC_REG##C "}, " \
+                 TC_IN##C ", p, 1, 1, 1;\n}\n"                                                \
+                 : TC_OPS##C                                                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));    \
+  }
+
+namespace mm_tc {
 
 using atb_tc::bf16;
 using atb_tc::smem_u32;
 
+TC_WGMMA(3, 24)
+TC_WGMMA(5, 40)
+TC_WGMMA(10, 80)
+TC_WGMMA(14, 112)
+TC_WGMMA(16, 128)
+
 constexpr int THREADS = 256;
-constexpr int BM = 128;                        // rows of x a tile
-constexpr int CHUNK_ROW = 128;                 // bytes of a chunk's row: the swizzle's
-constexpr int STAGE_BYTES = BM * CHUNK_ROW;    // 16 KB
-constexpr int SMEM_CAP = 232448;               // shared memory of one CTA
-constexpr int ALIGN = 1024;                    // the 128-byte swizzle's period
-constexpr int OUT_ROWS = 32;                   // rows of a tile staged at once for the stores
-constexpr int MU_BYTES = BM * 4;               // the tile's row means (K1's epilogue)
+constexpr int BM = 128;                      // rows of x a tile
+constexpr int CHUNK_ROW = 128;               // bytes of a chunk's row: the swizzle's
+constexpr int STAGE_BYTES = BM * CHUNK_ROW;  // 16 KB: a chunk slot (TMA, ELEM)
+constexpr int SMEM_CAP = 232448;             // shared memory of one CTA
+constexpr int ALIGN = 1024;                  // the 128-byte swizzle's period
+constexpr int MAX_STAGES = 8;                // ring slots, at most
+constexpr int BAR_BYTES = MAX_STAGES * 8;
+constexpr int MU_BYTES = BM * 4;             // the tile's row means (K1's epilogue)
 
-// What depends on the columns of out a CTA: BN 112 (K6: N 110 in one
-// column) or 128 (K1: N 128 in one column, 256 in two), whose f32 planes
-// leave room for a 2-deep ring only; and on whether w streams (STREAM: its
-// chunks ride the ring beside x's, 4 deep).
-template <int BN_, bool STREAM = false>
-struct Tile {
-  static constexpr int BN = BN_;
-  static constexpr int NACC = BN / 2;                            // f32 accumulators a thread
-  static constexpr int STAGES = STREAM || BN == 112 ? 4 : 2;     // x chunks in the ring
-  static constexpr int BAR_BYTES = STAGES * 8;
-  static constexpr int OUT_BYTES = OUT_ROWS * BN * 4;  // 14 or 16 KB
-  static constexpr int FREE =
-      SMEM_CAP - ALIGN - STAGES * STAGE_BYTES - BAR_BYTES - OUT_BYTES - MU_BYTES;  // for w
-  static_assert(BN == 112 || BN == 128, "a wgmma width the kernel has");
-};
+// x's copy path (the note above); ops/matmul.py passes its number.
+enum Load : int { TMA = 0, BULK = 1, ELEM = 2 };
 
-template <typename T, int BN>
+__host__ __device__ constexpr bool is_width(int bn) {
+  return bn == 24 || bn == 40 || bn == 80 || bn == 112 || bn == 128;
+}
+// Rows of a tile staged at once for the stores.
+__host__ __device__ constexpr int out_rows(int bn) { return bn <= 80 ? BM : 32; }
+
+template <typename T>
 struct Cfg;
-template <int BN>
-struct Cfg<float, BN> {
-  static constexpr int KC = CHUNK_ROW / 4;   // columns of K a chunk
-  static constexpr int KSTEP = 8;            // K of one MMA
-  static constexpr int ROW_BYTES = 8 * BN;   // a row of K in the hi and lo planes
-  static constexpr int PANEL = 160;          // rows of K a panel, where K does not fit
+template <>
+struct Cfg<float> {
+  static constexpr int KC = CHUNK_ROW / 4;  // columns of K a chunk
+  static constexpr int KSTEP = 8;           // K of one MMA
+  static constexpr int W_BYTES = 8;         // w's bytes a row of K and column: hi and lo planes
 };
-template <int BN>
-struct Cfg<bf16, BN> {
+template <>
+struct Cfg<bf16> {
   static constexpr int KC = CHUNK_ROW / 2;
   static constexpr int KSTEP = 16;
-  static constexpr int ROW_BYTES = 2 * BN;
-  static constexpr int PANEL = 640;
+  static constexpr int W_BYTES = 2;
 };
 
-// Deepest K of w resident at once, a multiple of the MMA's depth.
-template <typename T, int BN>
-constexpr int kmax() {
-  return Tile<BN>::FREE / Cfg<T, BN>::ROW_BYTES / Cfg<T, BN>::KSTEP * Cfg<T, BN>::KSTEP;
-}
-static_assert(kmax<float, 112>() == 168 && kmax<bf16, 112>() == 672 && kmax<float, 128>() == 176 &&
-                  kmax<bf16, 128>() == 704,
-              "the budget in the note");
-static_assert(Cfg<float, 112>::PANEL % Cfg<float, 112>::KC == 0 &&
-                  Cfg<float, 112>::PANEL <= kmax<float, 112>() &&
-                  Cfg<bf16, 112>::PANEL % Cfg<bf16, 112>::KC == 0 &&
-                  Cfg<bf16, 112>::PANEL <= kmax<bf16, 112>(),
-              "a panel is whole chunks and fits");
-
-// Rows of K of w a CTA holds: all of K, padded to the MMA's depth, where it
-// fits; else a panel.
-template <typename T, int BN>
-int panel_rows(int k) {
-  constexpr int S = Cfg<T, BN>::KSTEP;
-  const int padded = (k + S - 1) / S * S;
-  return padded <= kmax<T, BN>() ? padded : Cfg<T, BN>::PANEL;
+// Bytes of a ring slot: a chunk of x, or (BULK) a tile of f32 rows of depth
+// k, rounded up to 128.
+inline long long slot_bytes(int load, int k) {
+  return load == BULK ? ((long long)BM * k * 4 + 127) / 128 * 128 : STAGE_BYTES;
 }
 
-// Shared memory of a CTA holding `rows` of K of w: the planes, or with
-// STREAM a chunk of KC rows in each slot of the ring.
+// Shared memory of a CTA: the ring, w (kw rows of K held, or with STREAM a
+// chunk of KC rows in each slot), the barriers, the staged rows of out and
+// K1's row means.
 template <typename T, int BN, bool STREAM = false>
-constexpr int smem_bytes(int rows) {
-  using L = Tile<BN, STREAM>;
-  return ALIGN + L::STAGES * STAGE_BYTES + (STREAM ? L::STAGES : 1) * rows * Cfg<T, BN>::ROW_BYTES +
-         L::BAR_BYTES + L::OUT_BYTES + MU_BYTES;
-}
-static_assert(smem_bytes<float, 128, true>(Cfg<float, 128>::KC) <= SMEM_CAP,
-              "four slots of x's and w's chunks fit");
-
-// Bytes of w's chunks as the streamed kernel reads them (split_w): for each
-// CTA column and chunk of KC rows of K, its tf32 hi plane, then its lo plane.
-template <int BN>
-long long w_stream_bytes(int k, int n) {
-  using C = Cfg<float, BN>;
-  return (long long)((n + BN - 1) / BN) * ((k + C::KC - 1) / C::KC) * C::KC * C::ROW_BYTES;
+long long smem_bytes(int load, int k, int kw, int stages) {
+  const long long w_area = STREAM ? (long long)stages * Cfg<T>::KC * Cfg<T>::W_BYTES * BN
+                                  : (long long)kw * Cfg<T>::W_BYTES * BN;
+  return ALIGN + stages * slot_bytes(load, k) + w_area + BAR_BYTES + out_rows(BN) * BN * 4 +
+         MU_BYTES;
 }
 
 // What K1's epilogue (sketch_center_gram_project.cu) takes beside out.
@@ -273,35 +360,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t saddr, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32);
 }
 
-// d (+)= a b, 64 x 112: a a warp's 16 rows in registers (the m16n8k8 tf32 or
-// m16n8k16 bf16 fragment), b from a descriptor; d as 14 n8 tiles of the
-// m16n8 accumulator layout.  scale_d 0 ignores d's old value.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[56], const uint32_t (&a)[4], uint64_t desc,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-// B MN-major, read through the transpose bit
-__device__ __forceinline__ void wgmma_bf16(float (&d)[56], const uint32_t (&a)[4], uint64_t desc,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// The same at n 128: atb_tc's, the same instructions.
-using atb_tc::wgmma_bf16;
-using atb_tc::wgmma_tf32;
-
 // Registers that an in-flight wgmma reads or writes: atb_tc::hold, and a
 // fragment of each k-step of a chunk.
 using atb_tc::hold;
@@ -315,6 +373,23 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
 // swizzled by the row's index mod 8 (CU_TENSOR_MAP_SWIZZLE_128B).
 __device__ __forceinline__ int swz(int r, int cbytes) {
   return r * CHUNK_ROW + ((((cbytes >> 4) ^ r) & 7) << 4) + (cbytes & 15);
+}
+
+// BULK: the column of its 32-column group (0-31) that virtual column kk of
+// the group holds, k-step kk / 8 and A column kk % 8; gap: 1 where k is
+// odd, 2 where k = 2 mod 4, 8 where k = 4 mod 8 (the first column of k-step
+// q is gap q).  A warp's fragment load reads A column t (or t + 4) of rows g
+// = 0-7 at word g k + col: with k odd, the columns 8 t (+ q, + 4) put the
+// four t in four different sets of 8 banks and g k covers the 8 of each
+// set; with k = 2 mod 4, g k covers 8 of the 16 even banks and g k + 16 the
+// other 8, so the columns t % 2 + 16 (t / 2) (+ 2 q, + 8) do; with k = 4 mod
+// 8, g k covers the 8 multiples of 4 and t the rest, in order.  Each order
+// is a permutation of the group, and w's planes are staged in it.
+__device__ __forceinline__ int dense_col(int kk, int gap) {
+  const int q = kk >> 3, t = kk & 3, hi = (kk >> 2) & 1;
+  return gap == 1   ? 8 * t + q + 4 * hi
+         : gap == 2 ? (t & 1) + 16 * (t >> 1) + 2 * q + 8 * hi
+                    : kk;
 }
 
 // K1's row statistics from a chunk in the ring: row tid / 2, the half tid % 2
@@ -350,33 +425,50 @@ __device__ __forceinline__ void chunk_row_stats(const unsigned char* st, int tid
   }
 }
 
-// T: the operands' type.  TMA: x's rows and base are 16-byte aligned, and
-// its chunks come by TMA; else element by element.  BN: columns of out a CTA
-// (Tile).  CENTER: K1's epilogue --
-// the row sums and sums of squares of x from the chunks in the ring, out =
-// x w - (rs inv_t) colw rounded to its dtype, the row statistics (CTA column
-// 0 only) as (m, 2) or as a CTA's f64 sums of rs^2 and ss.  STREAM (f32, TMA):
-// w is split_w's chunks (kw = KC), each copied into its ring slot beside x's
-// chunk, none held; else w is row-major, held whole or in panels of kw rows.
-template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
+// The same from a BULK tile (f32, row r at word r k): row tid / 2, the 16
+// columns from col0 + 16 (tid % 2) that lie below k, in order.  Rows past M
+// hold stale words: their sums are never stored.
+__device__ __forceinline__ void dense_row_stats(const float* tile, int k, int col0, int tid,
+                                                float& rs, float& ss) {
+  const float* row = tile + (tid >> 1) * k;
+  const int c0 = col0 + (tid & 1) * 16;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float v = c0 + i < k ? row[c0 + i] : 0.f;
+    rs += v;
+    ss += v * v;
+  }
+}
+
+// T: the operands' type.  LOAD: x's copy path (Load).  BN: columns of out a
+// CTA.  CENTER: K1's epilogue -- the row sums and sums of squares of x from
+// the chunks in the ring, out = x w - (rs inv_t) colw rounded to its dtype,
+// the row statistics (CTA column 0 only) as (m, 2) or as a CTA's f64 sums of
+// rs^2 and ss.  STREAM (f32, TMA): w is split_w's chunks (kw = KC), each
+// copied into its ring slot beside x's chunk, none held; else w is
+// row-major, held whole or in panels of kw rows.  stages: the ring's slots;
+// slot: the bytes of one (slot_bytes).
+template <typename T, int LOAD, bool CENTER, int BN, bool STREAM = false>
 __global__ void __launch_bounds__(THREADS, 1)
     matmul_tc(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
               const T* __restrict__ w, void* __restrict__ out, int out_bf16, long long m, int k,
-              int n, int kw, const CenterArgs ca) {
-  using C = Cfg<T, BN>;
-  static_assert(!STREAM || (sizeof(T) == 4 && TMA), "w streams for f32 x by TMA");
-  constexpr int NACC = Tile<BN, STREAM>::NACC;
-  constexpr int STAGES = Tile<BN, STREAM>::STAGES;
+              int n, int kw, int stages, int slot, const CenterArgs ca) {
+  using C = Cfg<T>;
+  static_assert(is_width(BN), "a wgmma width of the table");
+  static_assert(!STREAM || (sizeof(T) == 4 && LOAD == TMA), "w streams for f32 x by TMA");
+  static_assert(LOAD != BULK || sizeof(T) == 4, "BULK tiles are f32 rows");
+  constexpr int NACC = BN / 2;  // f32 accumulators a thread: m64 x nBN a warpgroup
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int STEPS = C::KC / C::KSTEP;  // MMA k-steps a chunk: 4
-  constexpr int W_STAGE = STREAM ? C::KC * C::ROW_BYTES : 0;  // w's chunk a slot
+  constexpr int W_STAGE = STREAM ? C::KC * C::W_BYTES * BN : 0;  // w's chunk a slot
+  constexpr int OUT_ROWS = out_rows(BN);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
-  unsigned char* planes = ring + STAGES * STAGE_BYTES;  // STREAM: w's slots
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(planes + (STREAM ? STAGES * W_STAGE : kw * C::ROW_BYTES));
-  float* staged = reinterpret_cast<float*>(bars + STAGES);  // OUT_ROWS x BN sums
-  float* mu = staged + OUT_ROWS * BN;                        // K1: the tile's row means
+  unsigned char* planes = ring + (long long)stages * slot;  // STREAM: w's slots
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      planes + (STREAM ? stages * W_STAGE : kw * C::W_BYTES * BN));
+  float* staged = reinterpret_cast<float*>(bars + MAX_STAGES);  // OUT_ROWS x BN sums
+  float* mu = staged + OUT_ROWS * BN;                            // K1: the tile's row means
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -387,37 +479,67 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n0 = blockIdx.y * BN;
   const long long row_tiles = (m + BM - 1) / BM;
   const int cpt = (k + C::KC - 1) / C::KC;  // chunks a tile
-  const long long jobs = ((row_tiles - 1 - blockIdx.x) / gridDim.x + 1) * cpt;
+  const long long tiles = (row_tiles - 1 - blockIdx.x) / gridDim.x + 1;  // this CTA's
+  const long long jobs = tiles * cpt;
+  const long long ring_jobs = LOAD == BULK ? tiles : jobs;  // the ring's uses: tiles or chunks
   const bool paneled = k > kw;
+  const int gap = k & 1 ? 1 : (k & 3) == 2 ? 2 : 8;  // BULK's column order (dense_col)
+  // BULK: the order of the 32-column group from col0 on: gap where it is
+  // whole; in k's order where k cuts it, so that its k-steps are the fewest
+  // that hold its columns (a permuted partial group spreads them over all
+  // four, and each more step is one more of the tensor core's truncated
+  // sums: at 4,096 x 22 @ 22 x 12, 2.2x the plain f32 product's error)
+  auto order = [&](int col0) { return col0 + 32 <= k ? gap : 8; };
+  // stores of 16 bytes: out's base, rows and this CTA's columns 16-byte aligned
+  const int vec = out_bf16 ? 8 : 4;  // elements of out in 16 bytes
+  const bool vec_out = reinterpret_cast<uintptr_t>(out) % 16 == 0 && n % vec == 0 &&
+                       min(BN, n - n0) % vec == 0;
 
-  // chunk j of this CTA: tile j / cpt of its grid-stride walk, columns
-  // (j % cpt) KC on
+  // use j of the ring, into slot j % stages: chunk j of this CTA's
+  // grid-stride walk (tile j / cpt, columns (j % cpt) KC on), or with BULK
+  // its tile j
   auto issue = [&](long long j) {
-    const long long it = j / cpt;
-    const int c = (int)(j - it * cpt);
-    const int s = (int)(j % STAGES);
+    const int s = (int)(j % stages);
     const uint32_t bar = smem_u32(bars + s);
-    mbar_expect_tx(bar, STAGE_BYTES + W_STAGE);
-    tma_load(smem_u32(ring + s * STAGE_BYTES), &xmap, c * C::KC,
-             (int)((blockIdx.x + it * gridDim.x) * BM), bar);
-    if constexpr (STREAM) {  // the chunk's rows of w's CTA column, split
-      bulk_load(smem_u32(planes + s * W_STAGE),
-                reinterpret_cast<const unsigned char*>(w) +
-                    ((long long)blockIdx.y * cpt + c) * W_STAGE,
-                W_STAGE, bar);
+    unsigned char* dst = ring + (long long)s * slot;
+    if constexpr (LOAD == BULK) {
+      const long long row0 = (blockIdx.x + j * gridDim.x) * BM;
+      const long long bytes = min((long long)BM, m - row0) * k * 4;
+      const long long whole = bytes & ~15LL;  // the bulk copy's: a multiple of 16
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(x) + row0 * k * 4;
+      if (whole < bytes) {  // the span's last partial 16 bytes, by ordinary loads
+        for (long long b = whole; b < bytes; b += 4) {
+          *reinterpret_cast<float*>(dst + b) = *reinterpret_cast<const float*>(src + b);
+        }
+        atb_tc::fence_proxy_async();
+      }
+      mbar_expect_tx(bar, (uint32_t)whole);  // its arrive releases the stores above
+      if (whole > 0) bulk_load(smem_u32(dst), src, (uint32_t)whole, bar);
+    } else {
+      const long long it = j / cpt;
+      const int c = (int)(j - it * cpt);
+      mbar_expect_tx(bar, STAGE_BYTES + W_STAGE);
+      tma_load(smem_u32(dst), &xmap, c * C::KC, (int)((blockIdx.x + it * gridDim.x) * BM), bar);
+      if constexpr (STREAM) {  // the chunk's rows of w's CTA column, split
+        bulk_load(smem_u32(planes + s * W_STAGE),
+                  reinterpret_cast<const unsigned char*>(w) +
+                      ((long long)blockIdx.y * cpt + c) * W_STAGE,
+                  W_STAGE, bar);
+      }
     }
   };
-  if constexpr (TMA) {
+  if constexpr (LOAD != ELEM) {
     if (tid == 0) {
-      for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(bars + s));
+      for (int s = 0; s < stages; ++s) mbar_init(smem_u32(bars + s));
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int s = 0; s < STAGES && s < jobs; ++s) issue(s);
+      for (int s = 0; s < stages && s < ring_jobs; ++s) issue(s);  // copy
     }
   }  // the barrier before the first stage_w (STREAM: the one below) orders the
      // inits before any wait
   if constexpr (STREAM) __syncthreads();
 
   // rows [kp0, kp0 + kwp) of w's CTA column into the planes, zero-padded
+  // (BULK: each 32-row group in dense_col's order)
   auto stage_w = [&](int kp0, int kwp) {
     if constexpr (F32) {
       // element (kk, nn) in core matrix (nn / 8, kk / 4) of 8 n x 16 bytes
@@ -436,7 +558,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kk = 4 * kb + i;
-          const float v = (kk < kwp && gc < n) ? w[(long long)(kp0 + kk) * n + gc] : 0.f;
+          const int kr = LOAD == BULK ? (kk & ~31) + dense_col(kk & 31, order(kk & ~31)) : kk;
+          const float v = (kr < kwp && gc < n) ? w[(long long)(kp0 + kr) * n + gc] : 0.f;
           atb_tc::split_tf32(v, h[i], l[i]);
         }
         const int word = ((nn >> 3) * nkb + kb) * 32 + (nn & 7) * 4;
@@ -489,34 +612,39 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < NACC; ++i) acc[i] = d[i] = 0.f;
   float rsum = 0.f, ssum = 0.f;     // K1: this thread's half of row tid / 2 of the tile
   double st_rs2 = 0.0, st_ss = 0.0;  // K1: its rows' rs^2 and ss, scalar statistics
-  const uint32_t plane_hi = smem_u32(planes);  // held w
-  int ci = 0;        // chunk of the current tile
-  long long it = 0;  // tiles done
-  for (long long j = 0; j < jobs; ++j) {
-    const int col0 = ci * C::KC;
-    const long long row0 = (blockIdx.x + it * gridDim.x) * BM;
-    const int kp0 = paneled ? col0 / kw * kw : 0;
-    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {
-      __syncthreads();  // every MMA on the old panel has completed
-      stage_w(kp0, min(kw, k - kp0));
-      atb_tc::fence_proxy_async();  // the planes, to wgmma's reads
-      __syncthreads();
-    }
-    const int s = (int)(j % STAGES);
-    unsigned char* st = ring + s * STAGE_BYTES;
-    if constexpr (TMA) {
-      mbar_wait(smem_u32(bars + s), (uint32_t)((j / STAGES) & 1));
+  // K1's row statistics of the chunk at column col0 in slot st
+  auto row_stats = [&](const unsigned char* st, int col0) {
+    if constexpr (LOAD == BULK) {
+      dense_row_stats(reinterpret_cast<const float*>(st), k, col0, tid, rsum, ssum);
     } else {
-      fill(st, row0, col0);
-      __syncthreads();
+      chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
     }
-    const int steps = min(STEPS, (k - col0 + C::KSTEP - 1) / C::KSTEP);
-    const int kk0 = (col0 - kp0) / C::KSTEP;  // the chunk's first k-step in the planes (STREAM: 0)
-    if constexpr (F32) {
-      const uint32_t w_hi = STREAM ? smem_u32(planes + s * W_STAGE) : plane_hi;
-      const uint32_t w_lo = w_hi + kw * BN * 4;
-      // A fragment of k8 step q: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-      uint32_t ah[STEPS][4], al[STEPS][4];
+  };
+  // the chunk at column col0's k-steps that hold columns below k
+  auto steps_of = [&](int col0) {
+    const int first = LOAD == BULK ? order(col0) : C::KSTEP;  // columns a k-step's first moves on
+    return min(STEPS, (k - col0 + first - 1) / first);
+  };
+  // f32: the A fragments of the chunk at column col0 in slot st, split into
+  // tf32 hi and lo; k8 step q: (row g, k t), (g + 8, t), (g, t + 4), (g + 8,
+  // t + 4)
+  auto frags = [&](const unsigned char* st, int col0, int steps, uint32_t (&ah)[STEPS][4],
+                   uint32_t (&al)[STEPS][4]) {
+    if constexpr (LOAD == BULK) {
+      const float* r0p = reinterpret_cast<const float*>(st) + (wrow + g) * k;
+      const float* r1p = r0p + 8 * k;
+#pragma unroll
+      for (int q = 0; q < STEPS; ++q) {
+        if (q < steps) {
+          const int c0 = col0 + dense_col(8 * q + t, order(col0));
+          const int c1 = col0 + dense_col(8 * q + t + 4, order(col0));
+          atb_tc::split_tf32(c0 < k ? r0p[c0] : 0.f, ah[q][0], al[q][0]);
+          atb_tc::split_tf32(c0 < k ? r1p[c0] : 0.f, ah[q][1], al[q][1]);
+          atb_tc::split_tf32(c1 < k ? r0p[c1] : 0.f, ah[q][2], al[q][2]);
+          atb_tc::split_tf32(c1 < k ? r1p[c1] : 0.f, ah[q][3], al[q][3]);
+        }
+      }
+    } else {
       const float* a = reinterpret_cast<const float*>(st);
 #pragma unroll
       for (int q = 0; q < STEPS; ++q) {
@@ -529,6 +657,41 @@ __global__ void __launch_bounds__(THREADS, 1)
           atb_tc::split_tf32(a[swz(r + 8, c + 16) / 4], ah[q][3], al[q][3]);
         }
       }
+    }
+  };
+  const uint32_t plane_hi = smem_u32(planes);  // held w
+  int ci = 0;        // chunk of the current tile
+  long long it = 0;  // tiles done
+  int s = 0;           // the ring's slot of this chunk
+  uint32_t phase = 0;  // the parity of the slot's current use
+  for (long long j = 0; j < jobs; ++j) {
+    const int col0 = ci * C::KC;
+    const long long row0 = (blockIdx.x + it * gridDim.x) * BM;
+    const int kp0 = paneled ? col0 / kw * kw : 0;
+    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {
+      __syncthreads();  // every MMA on the old panel has completed
+      stage_w(kp0, min(kw, k - kp0));
+      atb_tc::fence_proxy_async();  // the planes, to wgmma's reads
+      __syncthreads();
+    }
+    const long long ring_j = LOAD == BULK ? it : j;  // this chunk's use of the ring, in slot s
+    const long long nxt = ring_j + stages;            // the use that refills slot s
+    // the slot is refilled after this chunk (BULK: the tile's last chunk)
+    const bool last_use = LOAD == TMA || (LOAD == BULK && ci == cpt - 1);
+    unsigned char* st = ring + (long long)s * slot;
+    if constexpr (LOAD == ELEM) {
+      fill(st, row0, col0);  // copy
+      __syncthreads();
+    } else if (LOAD == TMA || ci == 0) {
+      mbar_wait(smem_u32(bars + s), phase);  // copy
+    }
+    const int steps = steps_of(col0);
+    const int kk0 = (col0 - kp0) / C::KSTEP;  // the chunk's first k-step in the planes (STREAM: 0)
+    if constexpr (F32) {
+      const uint32_t w_hi = STREAM ? smem_u32(planes + s * W_STAGE) : plane_hi;
+      const uint32_t w_lo = w_hi + kw * BN * 4;
+      uint32_t ah[STEPS][4], al[STEPS][4];
+      frags(st, col0, steps, ah, al);
       // K-major planes: the next core matrix along K 128 bytes on, the next
       // 8 n kw / 4 of them; a k8 step is two along K
       const uint32_t sbo = kw / 4 * 128;
@@ -550,11 +713,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       atb_tc::wgmma_commit();
-      if constexpr (CENTER) chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
+      if constexpr (CENTER) row_stats(st, col0);
       if constexpr (STREAM) atb_tc::wgmma_wait<0>();  // the MMAs read w's chunk in slot s
-      __syncthreads();  // every warp's fragments of slot s are in registers
-      if constexpr (TMA) {
-        if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
+      if (LOAD != ELEM && last_use) {
+        __syncthreads();  // every warp's fragments of slot s are in registers
+        if (tid == 0 && nxt < ring_jobs) issue(nxt);  // copy
       }
       atb_tc::wgmma_wait<0>();
       hold(d);
@@ -577,7 +740,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         // K1 rounds Y to bf16 after centring: every k16 step starts from
         // zero and its sum goes into acc rounded to nearest, so Y keeps the
         // accuracy of an f32 sum (PERF.md), where a sum chained over a
-        // chunk is truncated by the tensor core
+        // chunk is truncated by the tensor core.  One step at a time: two in
+        // flight need a second set of outputs (64 registers at 128 columns:
+        // ptxas spilled) or the step in column parts, which read 5-30%
+        // slower (PERF.md §6, PR 24's design runs).
 #pragma unroll
         for (int q = 0; q < STEPS; ++q) {
           if (q < steps) {
@@ -586,10 +752,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             wgmma_bf16(d, af[q], smem_desc(plane_hi + (kk0 + q) * 2 * KSTRIDE, KSTRIDE, 128), 0);
             atb_tc::wgmma_commit();
             if (q == 0) {
-              chunk_row_stats<T>(st, tid, ca.square_in_storage, rsum, ssum);
-              __syncthreads();
-              if constexpr (TMA) {
-                if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
+              if constexpr (CENTER) row_stats(st, col0);
+              if (LOAD != ELEM && last_use) {
+                __syncthreads();  // every warp's fragments of slot s are in registers
+                if (tid == 0 && nxt < ring_jobs) issue(nxt);  // copy
               }
             }
             atb_tc::wgmma_wait<0>();
@@ -610,9 +776,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
         atb_tc::wgmma_commit();
-        __syncthreads();
-        if constexpr (TMA) {
-          if (tid == 0 && j + STAGES < jobs) issue(j + STAGES);
+        if (LOAD != ELEM && last_use) {
+          __syncthreads();  // every warp's fragments of slot s are in registers
+          if (tid == 0 && nxt < ring_jobs) issue(nxt);  // copy
         }
         atb_tc::wgmma_wait<0>();
         hold(d);
@@ -622,13 +788,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the chunk's MMAs started from zero: their sum into acc, rounded to nearest
     if constexpr (F32 || !CENTER) {
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] += d[i];
+      for (int i = 0; i < NACC; ++i) acc[i] += d[i];  // restart
+    }
+    if (LOAD != BULK || ci == cpt - 1) {  // the next chunk's (BULK: tile's) slot
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
     }
     if (++ci == cpt) {  // the tile's last chunk: store it
-      // Through shared memory, OUT_ROWS rows at a time (the rows of warps
-      // 2 h and 2 h + 1), so that a warp's stores are 128 contiguous bytes
-      // of out, not 32 bytes of each of 8 rows: accumulator 4 jn + q is row
-      // g (+8 for q >= 2), column 8 jn + 2 t + (q & 1) of the warp's 16.
+      // Through shared memory, OUT_ROWS rows at a time (written by the
+      // warps whose 16 rows fall in them): accumulator 4 jn + q is row g
+      // (+8 for q >= 2), column 8 jn + 2 t + (q & 1) of the warp's 16.
       const int rows = (int)min((long long)BM, m - row0);
       const int cols = min(BN, n - n0);
       if constexpr (CENTER) {  // the row's two halves; read after the barrier below
@@ -649,27 +820,70 @@ __global__ void __launch_bounds__(THREADS, 1)
         rsum = ssum = 0.f;
       }
       for (int h = 0; h * OUT_ROWS < rows; ++h) {
-        if ((warp >> 1) == h) {
+        if (wrow / OUT_ROWS == h) {
 #pragma unroll
           for (int i = 0; i < NACC; i += 2) {
-            const int r = (warp & 1) * 16 + g + ((i & 3) >> 1) * 8;
+            const int r = wrow - h * OUT_ROWS + g + ((i & 3) >> 1) * 8;
             *reinterpret_cast<float2*>(staged + r * BN + (i >> 2) * 8 + 2 * t) =
                 make_float2(acc[i], acc[i + 1]);
           }
         }
         __syncthreads();
-        // a warp a row: 128 contiguous bytes of out a store
+        // 16-byte stores where out's rows allow them: a warp's lanes on
+        // 32 / cv rows of cv 16-byte runs; else a warp a row, its lanes on
+        // consecutive elements
         const long long base = (row0 + h * OUT_ROWS) * n + n0;  // out's element (row, n0)
         const int nr = min(OUT_ROWS, rows - h * OUT_ROWS);
-        for (int r = warp; r < nr; r += THREADS / 32) {
-          for (int c = lane; c < cols; c += 32) {
-            float val = staged[r * BN + c];
-            if constexpr (CENTER) val -= __fmul_rn(mu[h * OUT_ROWS + r], __ldg(ca.colw + n0 + c));
+        if (vec_out) {
+          const int cv = cols / vec;  // 16-byte runs a row: at most 32
+          const int rpi = 32 / cv;    // rows a warp stores at once
+          const int r_off = lane / cv;
+          const int c = (lane - r_off * cv) * vec;
+          for (int r = warp * rpi + r_off; r_off < rpi && r < nr; r += THREADS / 32 * rpi) {
+            const float* src = staged + r * BN + c;
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 8; i += 4) {
+              if (i < vec) {
+                const float4 f = *reinterpret_cast<const float4*>(src + i);
+                v[i] = f.x;
+                v[i + 1] = f.y;
+                v[i + 2] = f.z;
+                v[i + 3] = f.w;
+              }
+            }
+            if constexpr (CENTER) {
+              const float m_r = mu[h * OUT_ROWS + r];
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                if (i < vec) v[i] -= __fmul_rn(m_r, __ldg(ca.colw + n0 + c + i));
+              }
+            }
             const long long o = base + (long long)r * n + c;
             if (out_bf16) {
-              static_cast<bf16*>(out)[o] = __float2bfloat16_rn(val);
+              uint32_t p[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                p[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+                       ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16);
+              }
+              *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = make_uint4(p[0], p[1], p[2], p[3]);
             } else {
-              static_cast<float*>(out)[o] = val;
+              *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            }
+          }
+        } else {
+          for (int r = warp; r < nr; r += THREADS / 32) {
+            for (int c = lane; c < cols; c += 32) {
+              float val = staged[r * BN + c];
+              if constexpr (CENTER) val -= __fmul_rn(mu[h * OUT_ROWS + r], __ldg(ca.colw + n0 + c));
+              const long long o = base + (long long)r * n + c;
+              if (out_bf16) {
+                static_cast<bf16*>(out)[o] = __float2bfloat16_rn(val);
+              } else {
+                static_cast<float*>(out)[o] = val;
+              }
             }
           }
         }
@@ -703,6 +917,37 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// w (k x n, f32, row-major) into the chunks the streamed kernel copies: for
+// CTA column ct and chunk c of KC rows of K, at chunk ct cpt + c, the tf32
+// hi plane and then the lo plane (KC BN 8 bytes), each in stage_w's K-major
+// core-matrix layout at kw = KC and split as stage_w splits (so the
+// streamed product is the held one, bit for bit); zero past k and n.  One
+// thread a (chunk, 4 rows of K, column).
+template <int BN>
+__global__ void __launch_bounds__(256) split_w(const float* __restrict__ w,
+                                               uint32_t* __restrict__ out, int k, int n, int cpt) {
+  constexpr int KC = Cfg<float>::KC;
+  constexpr int NKB = KC / 4;
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)((n + BN - 1) / BN) * cpt * NKB * BN;
+  if (q >= total) return;
+  const int nn = (int)(q % BN);
+  const int kb = (int)(q / BN % NKB);
+  const long long chunk = q / BN / NKB;  // ct cpt + c
+  const int gc = (int)(chunk / cpt) * BN + nn;
+  const int k0 = (int)(chunk % cpt) * KC + 4 * kb;
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = (k0 + i < k && gc < n) ? w[(long long)(k0 + i) * n + gc] : 0.f;
+    atb_tc::split_tf32(v, h[i], l[i]);
+  }
+  uint32_t* hi = out + chunk * 2 * KC * BN;
+  const int word = ((nn >> 3) * NKB + kb) * 32 + (nn & 7) * 4;
+  *reinterpret_cast<uint4*>(hi + word) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(hi + KC * BN + word) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
 // ------------------------------------------------------------ host side
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -727,14 +972,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Let the instantiation take the most dynamic shared memory any K asks of
-// it (w's planes at their deepest), once on each device: not at every
-// launch, where the call is host time beside a ~0.04 ms kernel.  Static, so
-// that each library that includes this header keeps its own flag: a flag
-// of external linkage is one object in the whole process (a unique
-// symbol), and a second build of a source loaded beside the first would
-// find it set and leave its own kernel at the default limit.
-template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
+// Let the instantiation take all the dynamic shared memory a CTA may have,
+// once on each device: not at every launch, where the call is host time
+// beside a ~0.04 ms kernel.  Static, so that each library that includes
+// this header keeps its own flag: a flag of external linkage is one object
+// in the whole process (a unique symbol), and a second build of a source
+// loaded beside the first would find it set and leave its own kernel at
+// the default limit.
+template <typename T, int LOAD, bool CENTER, int BN, bool STREAM = false>
 static cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};  // a bit a device
   int dev = 0;
@@ -743,10 +988,8 @@ static cudaError_t allow_smem() {
   if (dev >= 64) return cudaErrorInvalidDevice;
   const unsigned long long bit = 1ULL << dev;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(matmul_tc<T, TMA, CENTER, BN, STREAM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             STREAM ? smem_bytes<T, BN, true>(Cfg<T, BN>::KC)
-                                    : smem_bytes<T, BN>(kmax<T, BN>()));
+  err = cudaFuncSetAttribute(matmul_tc<T, LOAD, CENTER, BN, STREAM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
@@ -760,17 +1003,40 @@ inline dim3 grid_of(long long m, int n, int ctas, int bn) {
   return dim3((unsigned)(row_tiles < per_col ? row_tiles : per_col), (unsigned)col_tiles);
 }
 
-// With STREAM, w is split_w's chunks.
-template <typename T, bool TMA, bool CENTER, int BN, bool STREAM = false>
+// x's base and row stride allow its chunks by TMA.
+template <typename T>
+bool tma_ok(const void* x, int k) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
+}
+
+// out (m x n, f32 or bf16) = x (m x k) @ w (k x n) of type T, both row-major
+// (with STREAM, w is split_w's chunks), on at most `ctas` CTAs, with K1's
+// epilogue where CENTER, on `stream`.  The block (the copy path LOAD, BN
+// columns a CTA, kw rows of K of w held, `stages` ring slots) is
+// ops/matmul.py::matmul_block's, checked here against what the kernel takes.
+template <typename T, int LOAD, bool CENTER, int BN, bool STREAM = false>
 cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, int n, int out_bf16,
-                   int ctas, const CenterArgs& ca, cudaStream_t stream) {
+                   int kw, int stages, int ctas, const CenterArgs& ca, cudaStream_t stream) {
+  using C = Cfg<T>;
+  if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL || stages < 2 ||
+      stages > MAX_STAGES || (n + BN - 1) / BN > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const bool kw_ok = STREAM         ? kw == C::KC
+                     : LOAD == BULK ? kw == (k + 31) / 32 * 32  // whole groups, no panels
+                                    : kw % C::KSTEP == 0 && (kw >= k || kw % C::KC == 0);
+  const bool x_ok = LOAD == TMA    ? tma_ok<T>(x, k)
+                    : LOAD == BULK ? reinterpret_cast<uintptr_t>(x) % 16 == 0
+                                   : true;
+  const long long smem = smem_bytes<T, BN, STREAM>(LOAD, k, kw, stages);
+  if (!kw_ok || !x_ok || smem > SMEM_CAP) return cudaErrorInvalidValue;
   CUtensorMap map{};
-  if constexpr (TMA) {
+  if constexpr (LOAD == TMA) {
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
     const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(T)};
-    const cuuint32_t box[2] = {(cuuint32_t)Cfg<T, BN>::KC, (cuuint32_t)BM};
+    const cuuint32_t box[2] = {(cuuint32_t)C::KC, (cuuint32_t)BM};
     const cuuint32_t unit[2] = {1, 1};
     const CUresult r = encode(
         &map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
@@ -779,93 +1045,92 @@ cudaError_t launch(const void* x, const void* w, void* out, long long m, int k, 
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem<T, TMA, CENTER, BN, STREAM>();
+  const cudaError_t err = allow_smem<T, LOAD, CENTER, BN, STREAM>();
   if (err != cudaSuccess) return err;
-  if ((n + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
-  const int kw = STREAM ? Cfg<T, BN>::KC : panel_rows<T, BN>(k);
-  matmul_tc<T, TMA, CENTER, BN, STREAM>
-      <<<grid_of(m, n, ctas, BN), THREADS, smem_bytes<T, BN, STREAM>(kw), stream>>>(
-          map, static_cast<const T*>(x), static_cast<const T*>(w), out, out_bf16, m, k, n, kw, ca);
+  matmul_tc<T, LOAD, CENTER, BN, STREAM>
+      <<<grid_of(m, n, ctas, BN), THREADS, (size_t)smem, stream>>>(
+          map, static_cast<const T*>(x), static_cast<const T*>(w), out, out_bf16, m, k, n, kw,
+          stages, (int)slot_bytes(LOAD, k), ca);
   return cudaGetLastError();
 }
 
-// w (k x n, f32, row-major) into the chunks the streamed kernel copies
-// (w_stream_bytes): for CTA column ct and chunk c of KC rows of K, at chunk
-// ct cpt + c, the tf32 hi plane and then the lo plane, each in stage_w's
-// K-major core-matrix layout at kw = KC and split as stage_w splits (so the
-// streamed product is the held one, bit for bit); zero past k and n.  One
-// thread a (chunk, 4 rows of K, column).
-template <int BN>
-__global__ void __launch_bounds__(256) split_w(const float* __restrict__ w,
-                                               uint32_t* __restrict__ out, int k, int n, int cpt) {
-  constexpr int KC = Cfg<float, BN>::KC;
-  constexpr int NKB = KC / 4;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)((n + BN - 1) / BN) * cpt * NKB * BN;
-  if (q >= total) return;
-  const int nn = (int)(q % BN);
-  const int kb = (int)(q / BN % NKB);
-  const long long chunk = q / BN / NKB;  // ct cpt + c
-  const int gc = (int)(chunk / cpt) * BN + nn;
-  const int k0 = (int)(chunk % cpt) * KC + 4 * kb;
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float v = (k0 + i < k && gc < n) ? w[(long long)(k0 + i) * n + gc] : 0.f;
-    atb_tc::split_tf32(v, h[i], l[i]);
-  }
-  uint32_t* hi = out + chunk * 2 * KC * BN;
-  const int word = ((nn >> 3) * NKB + kb) * 32 + (nn & 7) * 4;
-  *reinterpret_cast<uint4*>(hi + word) = make_uint4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<uint4*>(hi + KC * BN + word) = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
-// x's base and row stride allow its chunks by TMA.
-template <typename T>
-bool tma_ok(const void* x, int k) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
-}
-
-// out (m x n, f32 or bf16) = x (m x k, f32, TMA-aligned) @ w (k x n, f32) with
-// w streamed: split_w into w_split (w_stream_bytes<BN>(k, n) bytes), then the
-// streamed kernel, on `stream`.
-template <bool CENTER, int BN>
-cudaError_t dispatch_streamed(const void* x, const void* w, void* w_split, void* out, long long m,
-                              int k, int n, int out_bf16, int ctas, const CenterArgs& ca,
-                              cudaStream_t s) {
-  if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL || w_split == nullptr ||
-      !tma_ok<float>(x, k)) {
-    return cudaErrorInvalidValue;
-  }
-  constexpr int KC = Cfg<float, BN>::KC;
+// out (m x n, f32 or bf16) = x (m x k, f32, TMA-aligned) @ w (k x n, f32)
+// with w streamed, 128 columns a CTA: split_w into w_split ((n / 128) cpt
+// KC 128 8 bytes), then the streamed kernel on `stages` slots, on `s`.
+template <bool CENTER>
+cudaError_t launch_streamed(const void* x, const void* w, void* w_split, void* out, long long m,
+                            int k, int n, int out_bf16, int stages, int ctas, const CenterArgs& ca,
+                            cudaStream_t s) {
+  if (m < 1 || k < 1 || n < 1 || w_split == nullptr) return cudaErrorInvalidValue;
+  constexpr int KC = Cfg<float>::KC;
   const int cpt = (k + KC - 1) / KC;
-  const long long threads = (long long)((n + BN - 1) / BN) * cpt * (KC / 4) * BN;
-  split_w<BN><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+  const long long threads = (long long)((n + 127) / 128) * cpt * (KC / 4) * 128;
+  split_w<128><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(w), static_cast<uint32_t*>(w_split), k, n, cpt);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch<float, true, CENTER, BN, true>(x, w_split, out, m, k, n, out_bf16, ctas, ca, s);
+  return launch<float, TMA, CENTER, 128, true>(x, w_split, out, m, k, n, out_bf16, KC, stages,
+                                                ctas, ca, s);
 }
 
-// out (m x n, f32 or bf16) = x (m x k) @ w (k x n) of type T, both row-major,
-// BN columns of out a CTA, with K1's epilogue where CENTER, on at most `ctas`
-// CTAs; by TMA where x's base and row stride are 16-byte aligned.
-template <typename T, bool CENTER, int BN>
-cudaError_t dispatch(const void* x, const void* w, void* out, long long m, int k, int n,
-                     int out_bf16, int ctas, const CenterArgs& ca, cudaStream_t s) {
-  if (m < 1 || k < 1 || n < 1 || ctas < 1 || m > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return tma_ok<T>(x, k) ? launch<T, true, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s)
-             : launch<T, false, CENTER, BN>(x, w, out, m, k, n, out_bf16, ctas, ca, s);
-}
-
-// CTAs of the kernel that fit one SM at once at depth k, into *out.
-template <typename T, bool CENTER, int BN, bool STREAM = false>
-cudaError_t ctas_per_sm(int k, int* out) {
-  const cudaError_t err = allow_smem<T, true, CENTER, BN, STREAM>();
+// CTAs of the instantiation that fit one SM at once with `smem` bytes of
+// dynamic shared memory, into *out.
+template <typename T, int LOAD, bool CENTER, int BN, bool STREAM = false>
+cudaError_t ctas_per_sm(int smem, int* out) {
+  const cudaError_t err = allow_smem<T, LOAD, CENTER, BN, STREAM>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, matmul_tc<T, true, CENTER, BN, STREAM>, THREADS,
-      STREAM ? smem_bytes<T, BN, true>(Cfg<T, BN>::KC) : smem_bytes<T, BN>(panel_rows<T, BN>(k)));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, matmul_tc<T, LOAD, CENTER, BN, STREAM>,
+                                                       THREADS, smem);
+}
+
+// An instantiation's operand type, copy path and width, as a value.
+template <typename T, int LOAD, int BN>
+struct Kind {
+  using type = T;
+  static constexpr int load = LOAD;
+  static constexpr int bn = BN;
+};
+
+// f(Kind<T, LOAD, BN>{}) for the instantiation of this operand type (bf16
+// where x_bf16, else f32), copy path and width -- TMA at every width of
+// the table, BULK (f32) at 24, 40 and 80, ELEM at 112 and 128 -- or
+// cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t with_kind(int x_bf16, int load, int bn, F&& f) {
+  if (x_bf16 && load == TMA) {
+    switch (bn) {
+      case 24: return f(Kind<bf16, TMA, 24>{});
+      case 40: return f(Kind<bf16, TMA, 40>{});
+      case 80: return f(Kind<bf16, TMA, 80>{});
+      case 112: return f(Kind<bf16, TMA, 112>{});
+      case 128: return f(Kind<bf16, TMA, 128>{});
+    }
+  } else if (x_bf16 && load == ELEM) {
+    switch (bn) {
+      case 112: return f(Kind<bf16, ELEM, 112>{});
+      case 128: return f(Kind<bf16, ELEM, 128>{});
+    }
+  } else if (!x_bf16 && load == TMA) {
+    switch (bn) {
+      case 24: return f(Kind<float, TMA, 24>{});
+      case 40: return f(Kind<float, TMA, 40>{});
+      case 80: return f(Kind<float, TMA, 80>{});
+      case 112: return f(Kind<float, TMA, 112>{});
+      case 128: return f(Kind<float, TMA, 128>{});
+    }
+  } else if (!x_bf16 && load == BULK) {
+    switch (bn) {
+      case 24: return f(Kind<float, BULK, 24>{});
+      case 40: return f(Kind<float, BULK, 40>{});
+      case 80: return f(Kind<float, BULK, 80>{});
+    }
+  } else if (!x_bf16 && load == ELEM) {
+    switch (bn) {
+      case 112: return f(Kind<float, ELEM, 112>{});
+      case 128: return f(Kind<float, ELEM, 128>{});
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mm_tc

@@ -152,100 +152,21 @@ struct Cfg {
 
 // ------------------------------------------- warpgroup MMAs at width 8 C
 //
-// d (+)= a b, 64 x 8C: a a warp's 16 rows in registers (the m16n8k8 tf32 or
-// m16n8k16 bf16 fragment), b from a descriptor (bf16: MN-major, through the
-// transpose bit); d as C n8 tiles of the m16n8 accumulator layout.
-// scale_d 0 ignores d's old value.
+// matmul_tc.cuh's TC_WGMMA (d (+)= a b, 64 x 8C, a in registers, b from a
+// descriptor), at the widths of this kernel's table.
 
-#define K3_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define K3_OPS1 K3_D4(0)
-#define K3_OPS2 K3_OPS1, K3_D4(4)
-#define K3_OPS3 K3_OPS2, K3_D4(8)
-#define K3_OPS4 K3_OPS3, K3_D4(12)
-#define K3_OPS5 K3_OPS4, K3_D4(16)
-#define K3_OPS6 K3_OPS5, K3_D4(20)
-#define K3_OPS7 K3_OPS6, K3_D4(24)
-#define K3_OPS8 K3_OPS7, K3_D4(28)
-#define K3_OPS9 K3_OPS8, K3_D4(32)
-#define K3_OPS10 K3_OPS9, K3_D4(36)
-#define K3_OPS11 K3_OPS10, K3_D4(40)
-#define K3_OPS12 K3_OPS11, K3_D4(44)
-#define K3_OPS13 K3_OPS12, K3_D4(48)
-#define K3_OPS14 K3_OPS13, K3_D4(52)
-#define K3_OPS15 K3_OPS14, K3_D4(56)
-#define K3_OPS16 K3_OPS15, K3_D4(60)
-#define K3_REG1 "%0, %1, %2, %3"
-#define K3_REG2 K3_REG1 ", %4, %5, %6, %7"
-#define K3_REG3 K3_REG2 ", %8, %9, %10, %11"
-#define K3_REG4 K3_REG3 ", %12, %13, %14, %15"
-#define K3_REG5 K3_REG4 ", %16, %17, %18, %19"
-#define K3_REG6 K3_REG5 ", %20, %21, %22, %23"
-#define K3_REG7 K3_REG6 ", %24, %25, %26, %27"
-#define K3_REG8 K3_REG7 ", %28, %29, %30, %31"
-#define K3_REG9 K3_REG8 ", %32, %33, %34, %35"
-#define K3_REG10 K3_REG9 ", %36, %37, %38, %39"
-#define K3_REG11 K3_REG10 ", %40, %41, %42, %43"
-#define K3_REG12 K3_REG11 ", %44, %45, %46, %47"
-#define K3_REG13 K3_REG12 ", %48, %49, %50, %51"
-#define K3_REG14 K3_REG13 ", %52, %53, %54, %55"
-#define K3_REG15 K3_REG14 ", %56, %57, %58, %59"
-#define K3_REG16 K3_REG15 ", %60, %61, %62, %63"
-// the A registers and the descriptor, then scale_d, after the 4 C outputs
-#define K3_IN1 "{%4, %5, %6, %7}, %8"
-#define K3_SC1 "%9"
-#define K3_IN2 "{%8, %9, %10, %11}, %12"
-#define K3_SC2 "%13"
-#define K3_IN3 "{%12, %13, %14, %15}, %16"
-#define K3_SC3 "%17"
-#define K3_IN4 "{%16, %17, %18, %19}, %20"
-#define K3_SC4 "%21"
-#define K3_IN5 "{%20, %21, %22, %23}, %24"
-#define K3_SC5 "%25"
-#define K3_IN6 "{%24, %25, %26, %27}, %28"
-#define K3_SC6 "%29"
-#define K3_IN7 "{%28, %29, %30, %31}, %32"
-#define K3_SC7 "%33"
-#define K3_IN8 "{%32, %33, %34, %35}, %36"
-#define K3_SC8 "%37"
-#define K3_IN9 "{%36, %37, %38, %39}, %40"
-#define K3_SC9 "%41"
-#define K3_IN10 "{%40, %41, %42, %43}, %44"
-#define K3_SC10 "%45"
-#define K3_IN11 "{%44, %45, %46, %47}, %48"
-#define K3_SC11 "%49"
-#define K3_IN16 "{%64, %65, %66, %67}, %68"
-#define K3_SC16 "%69"
-
-#define K3_WGMMA(C, N)                                                                       \
-  __device__ __forceinline__ void wgmma_tf32(float(&d)[4 * C], const uint32_t(&a)[4],       \
-                                             uint64_t desc, int scale_d) {                   \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " K3_SC##C ", 0;\n"                       \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" K3_REG##C "}, "  \
-                 K3_IN##C ", p, 1, 1;\n}\n"                                                   \
-                 : K3_OPS##C                                                                 \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));    \
-  }                                                                                          \
-  __device__ __forceinline__ void wgmma_bf16(float(&d)[4 * C], const uint32_t(&a)[4],       \
-                                             uint64_t desc, int scale_d) {                   \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " K3_SC##C ", 0;\n"                       \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" K3_REG##C "}, " \
-                 K3_IN##C ", p, 1, 1, 1;\n}\n"                                                \
-                 : K3_OPS##C                                                                 \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));    \
-  }
-
-K3_WGMMA(1, 8)
-K3_WGMMA(2, 16)
-K3_WGMMA(3, 24)
-K3_WGMMA(4, 32)
-K3_WGMMA(5, 40)
-K3_WGMMA(6, 48)
-K3_WGMMA(7, 56)
-K3_WGMMA(8, 64)
-K3_WGMMA(9, 72)
-K3_WGMMA(10, 80)
-K3_WGMMA(11, 88)
-K3_WGMMA(16, 128)
+TC_WGMMA(1, 8)
+TC_WGMMA(2, 16)
+TC_WGMMA(3, 24)
+TC_WGMMA(4, 32)
+TC_WGMMA(5, 40)
+TC_WGMMA(6, 48)
+TC_WGMMA(7, 56)
+TC_WGMMA(8, 64)
+TC_WGMMA(9, 72)
+TC_WGMMA(10, 80)
+TC_WGMMA(11, 88)
+TC_WGMMA(16, 128)
 
 // One slab's 3xTF32 MMAs (f32 A): CH chains from zero, d[h] over rows
 // 16 h .. 16 h + 15, each over its two k8 steps the small terms A_lo B_hi

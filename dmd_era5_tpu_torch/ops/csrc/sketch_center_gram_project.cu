@@ -26,15 +26,16 @@
 // chip:
 //
 //   1. sketch  matmul_tc.cuh (K6's mainloop) with its CENTER epilogue:
-//              persistent CTAs, W's 112- or 128-wide column resident in
-//              shared memory (tf32 hi/lo planes or bf16, in panels past T
-//              168 / 176 f32 and 672 / 704 bf16),
-//              X by TMA (element by element where its rows are not 16-byte
-//              aligned), 3xTF32 or bf16 wgmma restarted every chunk; the
-//              row sums from the X chunks in shared memory, Yc centred with
-//              __fmul_rn(mu, colw), rounded to the out dtype and stored;
-//              the (M, 2) statistics from CTA column 0, or its CTAs' f64
-//              sums of rs^2 and ss, summed here in CTA order.
+//              persistent CTAs, W's column (24 to 128 wide) resident in
+//              shared memory (tf32 hi/lo planes or bf16, in panels where it
+//              does not fit), X by TMA (whole tiles by one bulk copy where
+//              its f32 rows are not 16-byte aligned, element by element
+//              otherwise), 3xTF32 or bf16 wgmma restarted every chunk (bf16:
+//              every k16 step, two in flight); the row sums from the X
+//              chunks in shared memory, Yc centred with __fmul_rn(mu,
+//              colw), rounded to the out dtype and stored; the (M, 2)
+//              statistics from CTA column 0, or its CTAs' f64 sums of rs^2
+//              and ss, summed here in CTA order.
 //   2. G       row_share_atb_tc.cuh's wgmma kernels with `upper` (K4's
 //              path, its block table): Yc^T Yc on the upper blocks,
 //              diagonal blocks reading Yc once, mirrored by the reduction.
@@ -48,11 +49,13 @@
 // exact in f32 and take one bf16 pass; Yc of one dtype against X of the
 // other takes the mixed 3xTF32 kernel (two products).
 //
-// The sketch's columns a CTA (the table that replaces the TPU tile sweeps of
-// scripts/fused_tune2.py and pass1_tune.py): device ms of the sketch stage
-// alone at the week's X (M 15,573,600, T 168) on an H100 80GB HBM3 at 700 W
-// (scripts/torch_tc_tables.py, which builds this source at each width;
-// PERF.md):
+// The sketch's block (ops/matmul.py::matmul_block, center=True; the table
+// that replaces the TPU tile sweeps of scripts/fused_tune2.py and
+// pass1_tune.py): its columns a CTA the narrowest of matmul_tc.cuh's widths
+// that holds N (config 2's N 76: 80), and 128 past it (two or more CTA
+// columns).  Why 128 and not 112 there: device ms of the sketch stage alone
+// at the week's X (M 15,573,600, T 168) on an H100 80GB HBM3 at 700 W (the
+// parent mainloop of PR 9, scripts/torch_tc_tables.py; PERF.md):
 //
 //   N, dtype    112 columns   128 columns   columns
 //   100 f32     14.03         14.85         112  one column either way
@@ -61,18 +64,13 @@
 //   224 f32     28.68         26.32         128  two columns either way
 //   256 f32     42.75         24.85         128  two columns against three
 //
-//   so 112 where one 112-wide column holds N, else 128.  A 128-wide pass
-//   reads ~12% under a 112-wide one though its MMAs are 14% wider and its
-//   ring 2 chunks deep (its f32 planes take 168 KB at T 168): the pass is
-//   not bound by its MMAs (matmul_tc.cuh's note).  At the bench's shape
-//   (M 2^19, T 512, N 128, where the TPU sweeps ran; --parts bench, the
-//   same card): f32 1.165 / 1.163 ms at 112 / 128 columns (W held: 1.801;
-//   the table streams it, 1.160), bf16 1.020 / 0.480: the table stands.
+//   A 128-wide pass read ~12% under a 112-wide one though its MMAs are 14%
+//   wider and its ring 2 chunks deep (its f32 planes take 168 KB at T 168).
 //
-// The table's T axis, streams_w: an f32 sketch holds W (resident up to 176
-// rows of K, past that restaged in 160-row panels every tile and panel) or
-// streams it (split once a call into tf32 chunks that ride the ring beside
-// X's, always 128 columns a CTA).  Device ms of the sketch stage alone, held
+// The block's T axis (matmul_block's stream): an f32 sketch holds W
+// (resident up to 176 rows of K, past that restaged in 160-row panels every
+// tile and panel) or streams it (split once a call into tf32 chunks that
+// ride the ring beside X's, always 128 columns a CTA).  Device ms of the sketch stage alone, held
 // against streamed, f32, at about the week's elements (M T ~2.6e9) and at
 // the hourly year (M 977,400; scripts/torch_tc_tables.py --parts long_t,
 // same card):
@@ -116,38 +114,32 @@
 
 namespace {
 
-// The sketch's columns a CTA at width n where W is held (the table in the
-// note above).
-int sketch_columns(int n) { return n <= 112 ? 112 : 128; }
-
-// Whether the sketch streams W at depth t (the T axis of the table in the
-// note above): f32 X only; bf16 W stays held.
-bool streams_w(int x_bf16, int t) { return !x_bf16 && t > 176; }
-
-// Whether this call's sketch streams W: the table, and x's chunks by TMA.
-template <typename TX>
-bool streamed(const void* x, int t) {
-  return sizeof(TX) == 4 && streams_w(0, t) && mm_tc::tma_ok<TX>(x, t);
-}
-
-// The sketch's columns a CTA: 128 where W streams, else the table's.
-int sketch_bn(bool streamed, int n) { return streamed ? 128 : sketch_columns(n); }
-
-// The sketch stage, W streamed (split into w_split first) or held at the
-// columns a CTA of its table.
+// The sketch stage in the block ops/matmul.py::matmul_block chose (bn
+// columns a CTA, copy path `load`, kw rows of K of W held, `stages` ring
+// slots): W streamed (split into w_split first; f32 X by TMA at 128
+// columns) where stream_w, else held.
 template <typename TX>
 cudaError_t sketch(const void* x, const void* w, void* w_split, void* yc, long long m, int t,
-                   int n, int out_bf16, int ctas, const mm_tc::CenterArgs& ca,
-                   cudaStream_t stream) {
-  if constexpr (sizeof(TX) == 4) {
-    if (streamed<TX>(x, t)) {
-      return mm_tc::dispatch_streamed<true, 128>(x, w, w_split, yc, m, t, n, out_bf16, ctas, ca,
-                                                 stream);
+                   int n, int out_bf16, int bn, int load, int kw, int stages, int stream_w,
+                   int ctas, const mm_tc::CenterArgs& ca, cudaStream_t stream) {
+  if (stream_w) {
+    if constexpr (sizeof(TX) == 4) {
+      if (bn == 128 && load == mm_tc::TMA) {
+        return mm_tc::launch_streamed<true>(x, w, w_split, yc, m, t, n, out_bf16, stages, ctas, ca,
+                                            stream);
+      }
     }
+    return cudaErrorInvalidValue;
   }
-  return sketch_columns(n) == 112
-             ? mm_tc::dispatch<TX, true, 112>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream)
-             : mm_tc::dispatch<TX, true, 128>(x, w, yc, m, t, n, out_bf16, ctas, ca, stream);
+  return mm_tc::with_kind(sizeof(TX) == 2, load, bn, [&](auto kind) -> cudaError_t {
+    using K = decltype(kind);
+    if constexpr (std::is_same_v<typename K::type, TX>) {
+      return mm_tc::launch<TX, K::load, true, K::bn>(x, w, yc, m, t, n, out_bf16, kw, stages, ctas,
+                                                     ca, stream);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  });
 }
 
 // The scalar statistics: the sketch CTAs' f64 sums, in CTA order.
@@ -174,6 +166,11 @@ struct Launch {
   int t;
   int n;
   int out_bf16;
+  int bn;  // the sketch's block
+  int load;
+  int kw;
+  int ring;
+  int stream_w;
   int sketch_ctas;
   int g_shares;
   int c_shares;
@@ -184,11 +181,11 @@ struct Launch {
   cudaError_t run() const {
     cudaError_t err = cudaSuccess;
     if (stages & 1) {
-      err = sketch<TX>(x, w, w_split, yc, m, t, n, out_bf16, sketch_ctas, ca, stream);
+      err = sketch<TX>(x, w, w_split, yc, m, t, n, out_bf16, bn, load, kw, ring, stream_w,
+                       sketch_ctas, ca, stream);
       if (err != cudaSuccess) return err;
       if (ca.st_part != nullptr) {
-        const int n_cta =
-            mm_tc::grid_of(m, n, sketch_ctas, sketch_bn(streamed<TX>(x, t), n)).x;
+        const int n_cta = mm_tc::grid_of(m, n, sketch_ctas, bn).x;
         scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, n_cta, st);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
@@ -213,21 +210,12 @@ struct Launch {
 
 struct Occupancy {
   int stage;
-  int t;
   int n;
   int* out;
   template <typename TX, typename TY>
   cudaError_t run() const {
     // the aligned kernels'; the others take the same shared memory and
-    // registers within the same launch bound (and one CTA an SM, as the
-    // streamed kernel, where x's rows keep W held)
-    if (stage == 0) {
-      if constexpr (sizeof(TX) == 4) {
-        if (streams_w(0, t)) return mm_tc::ctas_per_sm<float, true, 128, true>(t, out);
-      }
-      return sketch_columns(n) == 112 ? mm_tc::ctas_per_sm<TX, true, 112>(t, out)
-                                      : mm_tc::ctas_per_sm<TX, true, 128>(t, out);
-    }
+    // registers within the same launch bound
     if (stage == 1) {
       return atb_tc::with_gram_main<TY>(
           true, n, [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
@@ -244,38 +232,54 @@ extern "C" int scgp_gram_blocks(int out_bf16, int n) {
   return atb_tc::upper_blocks(n, atb_tc::gram_edge(out_bf16, n));
 }
 
-// Bytes of scratch the sketch takes for W's split chunks at depth t and width
-// n: 0 where it holds W.
-extern "C" long long scgp_w_stream_bytes(int x_bf16, int t, int n) {
-  return streams_w(x_bf16, t) ? mm_tc::w_stream_bytes<128>(t, n) : 0;
+// CTAs of the sketch stage's instantiation (X bf16 where x_bf16, else f32;
+// bn columns a CTA, copy path `load`, W streamed where stream_w) that fit
+// one SM at once with `smem` bytes of shared memory, into *out.  Returns a
+// cudaError_t code.
+extern "C" int scgp_sketch_ctas_per_sm(int x_bf16, int bn, int load, int stream_w, int smem,
+                                       int* out) {
+  if (stream_w) {
+    return x_bf16 || bn != 128 || load != mm_tc::TMA
+               ? (int)cudaErrorInvalidValue
+               : (int)mm_tc::ctas_per_sm<float, mm_tc::TMA, true, 128, true>(smem, out);
+  }
+  return (int)mm_tc::with_kind(x_bf16, load, bn, [&](auto kind) {
+    using K = decltype(kind);
+    return mm_tc::ctas_per_sm<typename K::type, K::load, true, K::bn>(smem, out);
+  });
 }
 
-// CTAs of one stage's kernel that fit one SM at once, for these dtypes and
-// width n, into *out: 0 the sketch at depth t (at its table's columns a CTA),
-// 1 G (at K4's block edge), 2 C.  Returns a cudaError_t code.
-extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int t, int n, int* out) {
-  if (stage < 0 || stage > 2 || t < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  return (int)atb_tc::dispatch(Occupancy{stage, t, n, out}, x_bf16, out_bf16);
+// CTAs of the G stage's (1, at K4's block edge) or the C stage's (2) kernel
+// that fit one SM at once, for these dtypes and width n, into *out.
+// Returns a cudaError_t code.
+extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int n, int* out) {
+  if (stage < 1 || stage > 2 || n < 1) return (int)cudaErrorInvalidValue;
+  return (int)atb_tc::dispatch(Occupancy{stage, n, out}, x_bf16, out_bf16);
 }
 
 // The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for K1, 3 for K2, whose
-// c_part and c may be null) on `stream`.  w_split: scgp_w_stream_bytes of
-// scratch, or null where that is 0.  yc: M x N of the out dtype, written by
-// the sketch.  stats: M x 2, or null for the scalar statistics, which take
-// st_part (sketch_ctas x 2 doubles) and st (2).  The sketch at its table's
-// columns a CTA, G at K4's block edge; g_part: g_shares N^2 doubles; c_part:
-// c_shares N T.  Returns a cudaError_t code: 0 when every kernel was launched.
+// c_part and c may be null) on `stream`.  The sketch in the block
+// ops/matmul.py::matmul_block chose (bn columns a CTA, copy path `load`,
+// kw rows of W held, `ring` slots, W streamed where stream_w; w_split then
+// holds its split chunks), on sketch_ctas CTAs.  yc: M x N of the out
+// dtype, written by the sketch.  stats: M x 2, or null for the scalar
+// statistics, which take st_part (sketch_ctas x 2 doubles) and st (2).  G
+// at K4's block edge; g_part: g_shares N^2 doubles; c_part: c_shares N T.
+// Returns a cudaError_t code: 0 when every kernel was launched.
 extern "C" int scgp_launch(const void* x, const void* w, void* w_split, const float* colw,
                            void* yc, float* stats, double* st_part, float* st, double* g_part,
                            float* g, double* c_part, float* c, long long m, int t, int n,
-                           int x_bf16, int out_bf16, int stats_col, float inv_t, int sketch_ctas,
-                           int g_shares, int c_shares, int stages, void* stream) {
+                           int x_bf16, int out_bf16, int stats_col, float inv_t, int bn, int load,
+                           int kw, int ring, int stream_w, int sketch_ctas, int g_shares,
+                           int c_shares, int stages, void* stream) {
   if (m < 1 || t < 1 || n < 1 || sketch_ctas < 1 || (stats == nullptr) == (st_part == nullptr) ||
       (st_part != nullptr && st == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
-  const Launch op{x, w, w_split, yc, ca, st, g_part, g, c_part, c, m, t, n, out_bf16, sketch_ctas,
-                  g_shares, c_shares, stages, static_cast<cudaStream_t>(stream)};
+  const Launch op{x,     w,     w_split, yc,   ca,       st,          g_part,   g,
+                  c_part, c,    m,       t,    n,        out_bf16,    bn,       load,
+                  kw,    ring,  stream_w, sketch_ctas, g_shares, c_shares, stages,
+                  static_cast<cudaStream_t>(stream)};
   return (int)atb_tc::dispatch(op, x_bf16, out_bf16);
 }

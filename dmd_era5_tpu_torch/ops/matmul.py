@@ -42,6 +42,8 @@ __all__ = [
     "ProjectBlock",
     "takes_two_pass",
     "matmul",
+    "matmul_block",
+    "MatmulBlock",
     "N_MAX",
     "SKETCH_N_MAX",
 ]
@@ -190,30 +192,39 @@ def _kernel_library():
             ptr, ptr, ptr, ptr,  # G: per-share f64 scratch, reduced; C: the same
             ctypes.c_longlong, flag, flag,  # m, t, n
             flag, flag, flag, ctypes.c_float,  # x_bf16, out_bf16, stats_col, inv_t
+            flag, flag, flag, flag, flag,  # the sketch's block: width, copy path, kw, ring, stream
             flag, flag, flag,  # the sketch's CTAs, G and C row shares
             flag, ptr,  # stages, stream
         ]
         lib.scgp_launch.restype = ctypes.c_int
-        # stage, x_bf16, out_bf16, t, n, &out
-        lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, flag, flag, ptr]
+        # stage (1 G, 2 C), x_bf16, out_bf16, n, &out
+        lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, flag, ptr]
         lib.scgp_ctas_per_sm.restype = ctypes.c_int
+        # x_bf16, the sketch's block (width, copy path, W streamed, shared memory), &out
+        lib.scgp_sketch_ctas_per_sm.argtypes = [flag, flag, flag, flag, flag, ptr]
+        lib.scgp_sketch_ctas_per_sm.restype = ctypes.c_int
         lib.scgp_gram_blocks.argtypes = [flag, flag]  # out_bf16, n
         lib.scgp_gram_blocks.restype = ctypes.c_int
-        lib.scgp_w_stream_bytes.argtypes = [flag, flag, flag]  # x_bf16, t, n
-        lib.scgp_w_stream_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
 
-def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, t_cols: int, n: int) -> int:
-    """CTAs of one of K1's stages (0 sketch, 1 G, 2 C) resident on the card
-    at once: the sketch's depend on its columns a CTA (by n) and how much of
-    W its CTAs hold (by T), G's on its block edge (by n)."""
-    t_key = t_cols if stage == 0 else 1
-    n_key = n if stage < 2 else 1
+def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, n: int) -> int:
+    """CTAs of K1's G (stage 1) or C (2) stage resident on the card at once:
+    G's depend on its block edge (by n)."""
+    n_key = n if stage == 1 else 1
     return resident_ctas(
-        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, t_key, n_key),
-        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, t_key, n_key, out),
+        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, n_key),
+        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, n_key, out),
+    )
+
+
+def _sketch_wave(dev, x_bf16: int, block: MatmulBlock) -> int:
+    """CTAs of K1's sketch stage in ``block`` resident on the card at once."""
+    return resident_ctas(
+        dev, ("sketch_center_gram_project", 0, x_bf16, block),
+        lambda out: _kernel_library().scgp_sketch_ctas_per_sm(
+            x_bf16, block.n, _MM_LOADS.index(block.load), int(block.stream), block.smem, out),
     )
 
 
@@ -229,10 +240,10 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     where ``emit_yc`` is off: G and C are read from it.  The sketch runs on
     the card's resident CTAs; G and C on the row shares that fill whole
     waves over their blocks (G's upper ones, ``scgp_gram_blocks``; C's
-    128 x 128), their f64 scratch within 1 GiB.  The library picks the
-    sketch's columns a CTA, whether it streams W (W's split chunks then take
-    ``scgp_w_stream_bytes`` of scratch) and G's block edge from its own
-    tables."""
+    128 x 128), their f64 scratch within 1 GiB.  The sketch's block (its
+    columns a CTA, copy path, ring and whether it streams W: W's split
+    chunks then take scratch) is :func:`matmul_block`'s; G's block edge is
+    the library's own table."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
@@ -240,9 +251,11 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
     lib = _kernel_library()
     nb, nt = -(-n // 128), -(-t_cols // 128)  # blocks of C
+    block = matmul_block(m, t_cols, n, x.dtype, center=True, base_aligned=x.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        waves = [_stage_wave(dev, st, x_bf16, out_bf16, t_cols, n) if stages >> st & 1 else 0
-                 for st in range(3)]
+        waves = [_sketch_wave(dev, x_bf16, block) if stages & 1 else 0,
+                 *(_stage_wave(dev, st, x_bf16, out_bf16, n) if stages >> st & 1 else 0
+                   for st in (1, 2))]
     g_shares = wave_row_shares(waves[1], lib.scgp_gram_blocks(out_bf16, n), m, 8 * n * n)
     c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols) if stages & 4 else 0
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
@@ -255,12 +268,12 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     )
     st_part = torch.empty((waves[0], 2), **f64) if scalar_stats else None
     # where the sketch streams W (long f32 time axes), W split into tf32 chunks
-    w_bytes = lib.scgp_w_stream_bytes(x_bf16, t_cols, n)
-    w_split = torch.empty(w_bytes, dtype=torch.uint8, device=dev) if w_bytes else None
+    w_split = (torch.empty(_mm_w_stream_bytes(t_cols, n), dtype=torch.uint8, device=dev)
+               if block.stream else None)
     g_part = torch.empty((g_shares, n, n), **f64)
     c_part = torch.empty((c_shares, n, t_cols), **f64) if stages & 4 else None
-    logger.debug("sketch_center_gram_project: %d sketch CTAs, %d / %d row shares of G / C",
-                 waves[0], g_shares, c_shares)
+    logger.debug("sketch_center_gram_project: sketch %s on %d CTAs, %d / %d row shares of "
+                 "G / C", block, waves[0], g_shares, c_shares)
 
     def run(stages: int) -> None:
         with torch.cuda.device(dev):
@@ -268,7 +281,8 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
                 _ptr(x), _ptr(w), _ptr(w_split), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
                 _ptr(st_part), _ptr(out["st"]), _ptr(g_part), _ptr(out["g"]), _ptr(c_part),
                 _ptr(out["c"]), m, t_cols, n, x_bf16, out_bf16, int(stats_col), inv_t,
-                waves[0], g_shares, c_shares, stages,
+                block.n, _MM_LOADS.index(block.load), block.panel, block.stages,
+                int(block.stream), waves[0], g_shares, c_shares, stages,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
@@ -616,6 +630,106 @@ project.launches = 0
 # ------------------------------------------------------------ tiled matmul
 
 
+# K6's and K1's sketch blocks (csrc/matmul_tc.cuh's tile table): out's
+# columns a CTA, the narrowest wgmma width of the kernel's table that holds
+# N, wider N in CTA columns of 112 (K6) or 128 (the sketch); x's copy path
+# (TMA where its rows and base are 16-byte aligned, BULK for f32 rows that
+# are not, a tile a slot, at the narrow widths, ELEM for the rest at 112 or
+# 128 columns); w's rows held, all of K where it fits beside two ring slots
+# (BULK: K padded to 32), else panels; and as many ring slots as the shared
+# memory left holds, up to _MM_RING.  K1's f32 sketch streams W past
+# _MM_STREAM_T rows of K (its split chunks ride the ring, 4 slots, 128
+# columns).
+_MM_WIDTHS = (24, 40, 80, 112, 128)
+_MM_BULK_WIDTHS = (24, 40, 80)
+_MM_LOADS = ("tma", "bulk", "elem")  # the kernel's numbers for them (mm_tc::Load)
+_MM_SMEM_CAP = 232_448  # shared memory of one CTA
+_MM_MAX_STAGES = 8  # ring slots the kernel takes (its barriers' room)
+_MM_RING = 4  # ring slots the rule gives, at most: 8 read within 3% at 15c, the lift chunk and
+#               K1's bf16 sketch, 5% slower at the bf16 week block (torch_k6_phases.py's ring_8)
+_MM_STREAM_T = 176
+
+
+class MatmulBlock(NamedTuple):
+    """K6's (or, with ``center``, K1's sketch stage's) block for one call:
+    ``n`` columns of out a CTA in ``columns`` CTA columns, x's copy path
+    ``load``, ``panel`` rows of K of w held (all of K, padded, where it
+    fits), ``stages`` ring slots, ``stream``: W's split chunks ride the ring
+    (K1's f32 sketch past ``_MM_STREAM_T``), ``smem`` the CTA's bytes of
+    shared memory."""
+
+    n: int
+    columns: int
+    load: str  # "tma", "bulk" or "elem"
+    panel: int
+    stages: int
+    stream: bool
+    smem: int
+
+
+def _mm_smem(load: str, itemsize: int, k: int, bn: int, kw: int, stages: int,
+             stream: bool = False) -> int:
+    """Shared memory of a CTA (csrc/matmul_tc.cuh::smem_bytes): the ring
+    (16 KB chunk slots, or BULK's tile of 128 rows of K f32, rounded to 128
+    bytes), w (kw rows of K x bn, 8 bytes an entry in f32, 2 in bf16; or a
+    32-row chunk a slot where W streams), 64 bytes of barriers, the staged
+    rows of out (all 128 of a tile where bn <= 80, else 32) and 512 bytes of
+    row means."""
+    slot = -(-128 * k * 4 // 128) * 128 if load == "bulk" else 16_384
+    w_area = stages * 32 * 8 * bn if stream else kw * (8 if itemsize == 4 else 2) * bn
+    staged = (128 if bn <= 80 else 32) * bn * 4
+    return 1024 + stages * slot + w_area + 8 * _MM_MAX_STAGES + staged + 512
+
+
+def _mm_w_stream_bytes(k: int, n: int) -> int:
+    """Bytes of W's split chunks where the sketch streams W: per CTA column
+    of 128 and chunk of 32 rows of K, a tf32 hi and a lo plane."""
+    return -(-n // 128) * -(-k // 32) * 32 * 8 * 128
+
+
+def matmul_block(m: int, k: int, n: int, dtype: torch.dtype, center: bool = False,
+                 base_aligned: bool = True, width: int | None = None,
+                 stream: bool | None = None, load: str | None = None) -> MatmulBlock:
+    """The block of K6 (``center`` False) or of K1's sketch stage for
+    x (m, k) @ w (k, n) of ``dtype`` (float32 or bfloat16); ``base_aligned``:
+    x's first element is 16-byte aligned.  The rule is the tile table of
+    ``csrc/matmul_tc.cuh``; the kernel's launch checks what it is given.
+    ``width``, ``stream`` and ``load`` replace the rule's columns a CTA,
+    its choice to stream W and its copy path (``scripts/torch_tc_tables.py``
+    and ``scripts/torch_k6_phases.py`` time the table's choices against
+    each other)."""
+    f32 = dtype == torch.float32
+    itemsize = 4 if f32 else 2
+    kstep, panel = (8, 160) if f32 else (16, 640)
+    tma = base_aligned and k * itemsize % 16 == 0
+    if stream is None:
+        stream = center and f32 and tma and k > _MM_STREAM_T
+    if stream:
+        if not (center and f32 and tma):
+            raise ValueError("W streams for K1's f32 sketch on x whose rows allow TMA only")
+        return MatmulBlock(128, -(-n // 128), "tma", 32, 4, True,
+                           _mm_smem("tma", 4, k, 128, 32, 4, stream=True))
+    bn = width or next((w for w in _MM_WIDTHS if n <= w), 128 if center else 112)
+    kw = -(-k // 32) * 32  # BULK's: whole 32-column groups
+    bulk = (f32 and base_aligned and bn in _MM_BULK_WIDTHS
+            and _mm_smem("bulk", 4, k, bn, kw, 2) <= _MM_SMEM_CAP)
+    if load is None:
+        load = "tma" if tma else "bulk" if bulk else "elem"
+    elif not {"tma": tma, "bulk": bulk, "elem": True}[load]:
+        raise ValueError(f"no {load} copy path for x ({m}, {k}) {dtype} at {bn} columns")
+    if load == "elem" and width is None:  # the element-wise path's widths
+        bn = 112 if n <= 112 or (n > 128 and not center) else 128
+    if load != "bulk":
+        kw = -(-k // kstep) * kstep
+        if _mm_smem(load, itemsize, k, bn, kw, 2) > _MM_SMEM_CAP:
+            kw = panel
+    slot = _mm_smem(load, itemsize, k, bn, kw, 1) - _mm_smem(load, itemsize, k, bn, kw, 0)
+    stages = 2 if load == "elem" else min(
+        _MM_RING, (_MM_SMEM_CAP - _mm_smem(load, itemsize, k, bn, kw, 0)) // slot)
+    return MatmulBlock(bn, -(-n // bn), load, kw, stages, False,
+                       _mm_smem(load, itemsize, k, bn, kw, stages))
+
+
 def _matmul_plain(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 operands are upcast
     BEFORE the product (a bf16 ``torch.mm`` would return bf16), so both
@@ -633,32 +747,40 @@ def _matmul_library():
 
         lib = load_kernel_library("matmul")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # x, w, out, m, k, n, x_bf16, out_bf16, ctas, stream
+        # x, w, out, m, k, n, x_bf16, out_bf16, the block (width, copy path,
+        # rows of w held, ring slots), ctas, stream
         lib.matmul_launch.argtypes = [
-            ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, ptr,
+            ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, flag, flag, flag, flag,
+            flag, ptr,
         ]
         lib.matmul_launch.restype = ctypes.c_int
-        lib.matmul_ctas_per_sm.argtypes = [flag, flag, ptr]
+        # x_bf16, width, copy path, shared memory, &out
+        lib.matmul_ctas_per_sm.argtypes = [flag, flag, flag, flag, ptr]
         lib.matmul_ctas_per_sm.restype = ctypes.c_int
         _MM_LIB = lib
     return _MM_LIB
 
 
-def _matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+def _matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+                 block: MatmulBlock | None = None) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x K)")
     w = w.contiguous()  # (K, N): small
     (m, k), n = x.shape, w.shape[1]
     dev, x_bf16 = x.device, int(x.dtype == torch.bfloat16)
+    block = block or matmul_block(m, k, n, x.dtype, base_aligned=x.data_ptr() % 16 == 0)
+    load = _MM_LOADS.index(block.load)
     lib = _matmul_library()
     with torch.cuda.device(dev):
         # persistent CTAs, as many as run at once on the card
-        ctas = resident_ctas(dev, ("matmul", x_bf16, k),
-                             lambda res: lib.matmul_ctas_per_sm(x_bf16, k, res))
+        ctas = resident_ctas(dev, ("matmul", x_bf16, block),
+                             lambda res: lib.matmul_ctas_per_sm(x_bf16, block.n, load, block.smem,
+                                                                res))
         out = torch.empty((m, n), dtype=out_dtype, device=dev)
         rc = lib.matmul_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, x_bf16,
-            int(out_dtype == torch.bfloat16), ctas, torch.cuda.current_stream(dev).cuda_stream,
+            int(out_dtype == torch.bfloat16), block.n, load, block.panel, block.stages, ctas,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"matmul kernel: CUDA error {rc}")
@@ -679,7 +801,8 @@ def matmul(
     kernel masks ragged edges.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    the Hopper kernel and counts it in ``matmul.launches``.
+    the Hopper kernel (``csrc/matmul.cu`` on ``csrc/matmul_tc.cuh``, its
+    block from :func:`matmul_block`) and counts it in ``matmul.launches``.
     """
     _check_operands(x, w, out_dtype)
     if x.device.type == "cpu":

@@ -3,14 +3,15 @@
     python scripts/torch_tc_tables.py [--parts gram,split,sketch,long_t,bench]
 
 Each table lives in its library (``atb_tc::gram_edge`` in
-``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, ``sketch_columns``
-in ``csrc/sketch_center_gram_project.cu`` for K1's sketch), which picks
-its own block edge or columns a CTA.  This script builds variants of the
-two sources, each with the table replaced by one fixed choice (the edited
-header inlined, the flags of ``ops/_build.py``, into
-``build/tc_tables/``), and runs each through the package's own wrapper
-(the variant put in place of the library the wrapper loads), beside the
-library as it is (``table``).
+``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, which picks its
+own block edge; ``ops/matmul.py::matmul_block`` for K1's sketch, whose
+columns a CTA and streaming of W the launcher passes in).  This script
+builds variants of the sources, each with a table replaced by one fixed
+choice (the edited header inlined, the flags of ``ops/_build.py``, into
+``build/tc_tables/``), or fixes the sketch's block in ``matmul_block``'s
+place, and runs each through the package's own wrapper (the variant put
+in place of the library the wrapper loads), beside the library and the
+rule as they are (``table``).
 
 K4's block edge: ``gram(a, "highest")`` (3xTF32 wgmma with ``upper``) on
 f32 panels of the ERA5 week's row count at the widths the main path gives
@@ -34,8 +35,8 @@ f32 and N 128 in bf16, at 112 and 128 columns a CTA; Yc must be the same
 bit for bit.  Then the bf16 sketch's Y (its MMA sums restarted every k16
 step) against the f64 product, beside the f32 library product's.
 
-The sketch's time axis (``long_t``), the table ``streams_w`` in
-``sketch_center_gram_project.cu``: an f32 sketch either holds W in shared
+The sketch's time axis (``long_t``), ``matmul_block``'s choice to stream
+W: an f32 sketch either holds W in shared
 memory (resident, or past its depth restaged in panels every tile and
 panel) or streams it (split once a call into tf32 chunks that ride the
 ring beside X's).  On the hourly year's X (977,400 x 8,760 f32, 34 GB)
@@ -73,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -91,9 +93,6 @@ M = 721 * 1440 * 15  # the ERA5 week's rows
 OUT = ROOT / "build" / "tc_tables"
 GRAM_TABLE = ("inline int gram_edge(bool bf16, int k) "
               "{ return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }")
-SKETCH_TABLE = "int sketch_columns(int n) { return n <= 112 ? 112 : 128; }"
-W_TABLE = "bool streams_w(int x_bf16, int t) { return !x_bf16 && t > 176; }"
-W_HELD = "bool streams_w(int x_bf16, int t) { return false; }"
 RESTAGE = "    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {"
 SPLIT_TABLE = "int split_edge(int k) { return k <= 96 || (k > 128 && k <= 192) ? 64 : 128; }"
 YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
@@ -110,19 +109,17 @@ VARIANTS = {
         f"int split_edge(int k) {{ return {e}; }}"))])
     for e in (128, 64)
 } | {
-    f"sketch_columns{c}": (*SCG, None, [(SKETCH_TABLE,
-                                         f"int sketch_columns(int n) {{ return {c}; }}")])
-    for c in (112, 128)
-} | {
     f"scg_gram_edge{e}": (*SCG, ("matmul_tc.cuh", "row_share_atb_tc.cuh"), [(GRAM_TABLE, (
         f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
     for e in (128, 64)
 } | {
-    "w_held": (*SCG, None, [(W_TABLE, W_HELD)]),
-    "w_streamed": (*SCG, None, [(W_TABLE, W_TABLE.replace("&& t > 176", ""))]),
-    "restage_skipped": (*SCG, "matmul_tc.cuh", [(W_TABLE, W_HELD),
-                                                (RESTAGE, "    if (!STREAM && j == 0) {")]),
+    "restage_skipped": (*SCG, "matmul_tc.cuh", [(RESTAGE, "    if (!STREAM && j == 0) {")]),
 }
+# the sketch's block fixed in matmul_block's place (restage_skipped: W held)
+BLOCKS = {"sketch_columns112": dict(width=112), "sketch_columns128": dict(width=128),
+          "w_held": dict(stream=False), "w_streamed": dict(stream=True),
+          "restage_skipped": dict(stream=False)}
+RULE = matmul.matmul_block
 
 
 def build(name: str):
@@ -146,8 +143,11 @@ def build(name: str):
     return ctypes.CDLL(str(so))
 
 
-def use(library: str, lib) -> None:
-    """The wrappers load ``lib`` as ``library`` from here on."""
+def use(library: str, lib, block: str | None = None) -> None:
+    """The wrappers load ``lib`` as ``library`` from here on, and the
+    sketch takes the block that ``BLOCKS[block]`` fixes (the rule's where
+    None)."""
+    matmul.matmul_block = functools.partial(RULE, **BLOCKS.get(block, {}))
     _build._LOADED[library] = lib
     qr_panel._LIB = None
     matmul._LIB = None
@@ -202,9 +202,9 @@ def sketch_part(libs, tables, gen, dev) -> None:
         w = torch.randn((168, n), generator=gen, device=dev).to(dtype)
         row = {"m": M, "t": 168, "n": n, "dtype": str(dtype)[6:]}
         ycs = {}
-        for name, lib in (("112", libs["sketch_columns112"]), ("128", libs["sketch_columns128"]),
-                          ("table", tables["sketch_center_gram_project"])):
-            use("sketch_center_gram_project", lib)
+        for name, block in (("112", "sketch_columns112"), ("128", "sketch_columns128"),
+                            ("table", None)):
+            use("sketch_center_gram_project", tables["sketch_center_gram_project"], block)
             out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
             run(7)
             ycs[name] = out["yc"]
@@ -231,8 +231,8 @@ def sketch_times(x, w, variants, libs, tables) -> dict:
     but ``restage_skipped`` is the table's bit for bit."""
     row, ref, equal = {}, None, True
     for name in variants:  # the table first
-        use("sketch_center_gram_project",
-            tables["sketch_center_gram_project"] if name == "table" else libs[name])
+        use("sketch_center_gram_project", libs.get(name, tables["sketch_center_gram_project"]),
+            name)
         out, run = matmul._scgp_plan(x, w, torch.float32, False, False, False, None, True,
                                      stages=3)
         run(3)
@@ -287,7 +287,7 @@ def bench_part(libs, tables, gen, dev) -> None:
             variants += [("w_held", "w_held"), ("w_streamed", "w_streamed")]
         ycs = {}
         for name, key in variants:
-            use(scg, libs[key] if key else tables[scg])
+            use(scg, tables[scg], key)
             out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
             run(7)
             ycs[name] = out["yc"].clone()

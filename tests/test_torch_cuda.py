@@ -17,8 +17,12 @@ through registers (K % 4, an unaligned base), and past the JAX kernel's
 1024, K4 against one TF32 pass, K5 against one bf16 pass, two calls bit
 for bit at both precisions; ``matmul`` (K6) over operand
 and output dtypes, ragged M, N and K on both sides of its tile, column
-and MMA-depth edges and past its resident depth of w, and against one
-TF32 pass; ``householder_panel`` (K7) at
+and MMA-depth edges and past its resident depth of w, at the narrow
+columns (24, 40, 80) on rows 16-byte aligned and not (whole tiles by bulk
+copies, a last tile whose span is no multiple of 16 bytes), on an x whose
+base is not 16-byte aligned, and against one TF32 pass at the streamed
+block and at a narrow width; K1 at those widths and at the bench's bf16
+shape; ``householder_panel`` (K7) at
 the streamed SVD's panel, the edges of its envelope and an
 ill-conditioned panel, on its own choice of CTAs and on forced ones
 (shares shorter than n, row j's holder at share edges, a zero column in
@@ -106,11 +110,35 @@ def test_kernel_past_the_resident_panel_on_card(
               emit_yc)
 
 
-def _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc):
-    """K1 against its plain version at M rows (no multiple of 128), T = t."""
+# K1's sketch at the narrow widths and unaligned rows of its tile table
+# (config 2's T 97 at N 76: 80 columns a CTA, whole tiles by bulk copies;
+# T 98 = 2 mod 4 at N 40; T 100 at N 24, aligned; bf16 at T 97, element by
+# element) and at the bench's T 512, N 128 in bf16 (its k-steps two in
+# flight), at a row count whose last tile's span is no multiple of 16 bytes
+NARROW_CASES = [
+    pytest.param(dtype, t, n, center, stats_col, scalar_stats, emit_yc,
+                 id=f"{dtype}-t{t}-n{n}-c{center:d}-sc{stats_col:d}-ss{scalar_stats:d}"
+                    f"-e{emit_yc:d}")
+    for dtype, t, n in [("float32", 97, 76), ("float32", 98, 40), ("float32", 100, 24),
+                        ("bfloat16", 97, 76), ("bfloat16", 512, 128)]
+    for center, stats_col, scalar_stats, emit_yc in [(True, False, True, True),
+                                                     (False, False, False, True),
+                                                     (True, True, False, False)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t,n,center,stats_col,scalar_stats,emit_yc", NARROW_CASES)
+def test_kernel_at_narrow_widths_on_card(cuda, dtype, t, n, center, stats_col, scalar_stats,
+                                         emit_yc):
+    _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, None, emit_yc, m=1001)
+
+
+def _check_k1(cuda, dtype, t, n, center, stats_col, scalar_stats, t_valid, emit_yc, m=M):
+    """K1 against its plain version at m rows (no multiple of 128), T = t."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     tdt = getattr(torch, dtype)
-    x = torch.randn((M, t), generator=gen, device=cuda) + 2.0
+    x = torch.randn((m, t), generator=gen, device=cuda) + 2.0
     if t_valid is not None:
         x[:, t_valid:] = 0.0
     x = x.to(tdt)
@@ -269,7 +297,14 @@ MATMUL_CASES = [
                     (300, 1030, 110), (65, 1024, 257),
                     # several row tiles a persistent CTA, in one and in
                     # three CTA columns
-                    (40_000, 168, 110), (20_000, 168, 257)]
+                    (40_000, 168, 110), (20_000, 168, 257),
+                    # the narrow columns (24, 40, 80) on rows 16-byte aligned
+                    # (K 100) and not (K 97 odd, K 98 = 2 mod 4: whole tiles
+                    # by bulk copies in f32), a last tile whose span is no
+                    # multiple of 16 bytes (105 x 97 x 4), less than a tile,
+                    # and several tiles a CTA
+                    (1001, 97, 20), (4099, 97, 40), (1000, 98, 24), (4099, 100, 24),
+                    (1001, 97, 76), (65, 99, 20), (40_000, 97, 40)]
 ]
 
 
@@ -291,6 +326,26 @@ def test_matmul_kernel_matches_plain_on_card(cuda, dtype, out_dtype, m, k, n):
     # a bf16 output may then round the other way, by one ulp
     rel = float((got.double() - ref.double()).norm() / ref.double().norm())
     assert rel <= (2.0**-8 if out_dtype == "bfloat16" else 1e-5), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(97, 40), (100, 24), (168, 110)])
+def test_matmul_unaligned_base_on_card(cuda, dtype, k, n):
+    """x whose first element is one element past a 16-byte boundary: the
+    element-wise copy path at any row width."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    tdt = getattr(torch, dtype)
+    m = 1001
+    x = torch.randn(m * k + 1, generator=gen, device=cuda).to(tdt)[1:].view(m, k)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(tdt)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert matmul.matmul_block(m, k, n, tdt, base_aligned=False).load == "elem"
+    got = matmul.matmul(x, w)
+    ref = matmul._matmul_plain(x, w, torch.float32)
+    torch.cuda.synchronize()
+    rel = float((got.double() - ref.double()).norm() / ref.double().norm())
+    assert rel <= 1e-5, rel
 
 
 def _panel(kind: str, gen, dev):
@@ -619,13 +674,25 @@ def test_matmul_is_not_one_tf32_pass_on_card(cuda):
     (the streamed block's K and N): out within 1e-6 max|out| of the f64
     product, a limit that one TF32 pass (the library product with TF32
     allowed, ~2^-11 a product) misses."""
+    _matmul_against_one_tf32_pass(cuda, 168, 110)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(97, 40), (100, 24)])
+def test_matmul_is_not_one_tf32_pass_at_a_narrow_width_on_card(cuda, k, n):
+    """The same at 16e's and 15c's narrow widths: K 97 by bulk copies at 40
+    columns a CTA, K 100 by TMA at 24."""
+    _matmul_against_one_tf32_pass(cuda, k, n)
+
+
+def _matmul_against_one_tf32_pass(cuda, k, n):
     gen = torch.Generator(device=cuda).manual_seed(41)
 
     def wide(shape):
         mag = 10.0 ** (6 * torch.rand(shape, generator=gen, device=cuda) - 3)
         return torch.randn(shape, generator=gen, device=cuda) * mag
 
-    x, w = wide((20_000, 168)), wide((168, 110))
+    x, w = wide((20_000, k)), wide((k, n))
     exact = x.double() @ w.double()
     scale = float(exact.abs().max())
     out = matmul.matmul(x, w)

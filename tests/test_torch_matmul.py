@@ -151,6 +151,27 @@ def test_matmul_bf16_parity(rng):
     np.testing.assert_allclose(out, out_j, rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("k,n", [(97, 20), (97, 40), (100, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_narrow_unaligned_parity(rng, k, n, dtype):
+    """The narrow, unaligned shapes of the card's tile table (16d's and
+    16e's K 97 at N 20 and 40, 15c's K 100 at N 24) at M 1,024, which the
+    JAX entry's blocks divide: against the JAX kernel and the f64 product
+    of the stored operands at the tolerances of the f32 and bf16 parity
+    tests above."""
+    tdt = getattr(torch, dtype)
+    x = rng.standard_normal((1024, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    out = matmul_torch(xt, wt).numpy()
+    assert out.dtype == np.float32 and out.shape == (1024, n)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    out_j = np.asarray(matmul_jax(jnp.asarray(x, jdt), jnp.asarray(w, jdt)))
+    exact = xt.double().numpy() @ wt.double().numpy()
+    np.testing.assert_allclose(out, exact, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(out, out_j, rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (333, 40, 110), (1000, 168, 130), (7, 300, 3)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
