@@ -23,7 +23,9 @@ of which raises on failure so the script exits non-zero:
    widths and flags the main path gave it;
 6. the Gram kernels K4 (full f32) and K5 (bf16 split) against their
    plain versions and the f64 sums, on that matrix and on a 110-column
-   sketch of it;
+   sketch of it; K4's routes on its mainloop (``csrc/atb_wgmma.cuh``) held
+   by name: the matrix's rows by TMA, 82 of its columns by one bulk copy a
+   slab, one launch without scratch at 34 x 166 and 6 x 95;
 7. the ``svd_type = standard`` path on that matrix: exact Hankel SVD
    (d = 2, k = 100) -> optDMD -> forecast, with phase 3's randomized
    singular values held below the exact ones;
@@ -371,7 +373,7 @@ KERNELS = {
     "K2": ("sketch_center_gram", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:142, dmd_era5_tpu/ops/matmul.py:442"),
     "K3": ("project", f"{CSRC}/project.cu", "dmd_era5_tpu/ops/matmul.py:593"),
-    "K4": ("gram_highest", f"{CSRC}/gram.cu", "dmd_era5_tpu/ops/qr_panel.py:40"),
+    "K4": ("gram_highest", f"{CSRC}/atb.cu", "dmd_era5_tpu/ops/qr_panel.py:40"),
     "K5": ("gram_bf16_split", f"{CSRC}/gram.cu", "dmd_era5_tpu/ops/qr_panel.py:62"),
     "K6": ("matmul", f"{CSRC}/matmul.cu", "dmd_era5_tpu/ops/matmul.py:79"),
     "K7": ("householder_panel", f"{CSRC}/householder.cu", "dmd_era5_tpu/ops/qr_panel.py:212"),
@@ -507,11 +509,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from dmd_era5_tpu_torch.ops import _build, matmul, qr_panel
+    from dmd_era5_tpu_torch.ops import _build, atb, matmul, qr_panel
 
     names = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
     loaders = (matmul._kernel_library, matmul._project_library, matmul._matmul_library,
-               qr_panel._kernel_library, qr_panel._householder_library)
+               qr_panel._kernel_library, qr_panel._householder_library, atb._library)
     t0 = time.perf_counter()
     # each loader runs its own nvcc at first use; threads start them together
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
@@ -1111,9 +1113,31 @@ def compare_gram(label: str, a: torch.Tensor, precision: str, exact: torch.Tenso
     return res
 
 
+def k4_route(a: torch.Tensor) -> dict:
+    """How K4 (``csrc/atb.cu``) takes a: its mainloop and block
+    (``ops/atb.py::gram_block``), A's copy path as the library picks it
+    (``atb.copy_modes``: the blocks' rows by one bulk copy a slab, TMA
+    boxes or element by element; "registers" for the row-share mainloop,
+    whose loads are staged through them) and its row shares (one: one
+    launch, no scratch)."""
+    from dmd_era5_tpu_torch.ops import atb
+
+    m, k = a.shape
+    block = atb.gram_block(k, a.dtype, m)
+    copy = "registers" if block.mainloop == "row_share" else atb.copy_modes(a, block)[0]
+    return dict(mainloop=block.mainloop, n=block.n, sums=block.sums, blocks=block.blocks,
+                copy=copy, row_shares=atb.row_shares(a, block))
+
+
 def phase_gram_vs_plain(x: torch.Tensor, seed: int) -> dict:
     """Phase 6: K4 and K5 on the centred ERA5-week X and on an f32 sketch
-    Y = X Omega (S x 110, the randomized route's panel)."""
+    Y = X Omega (S x 110, the randomized route's panel); then K4's three
+    routes on its mainloop held by name: X's rows by TMA, the rows of X's
+    first 82 columns (328 bytes, not 16-byte aligned: 14c's window) by a
+    bulk copy a slab on 2^20 rows, and the one-launch route of one row
+    share at 19c's and 19d's DMDc shapes (X's first 34 x 166, its
+    664-byte rows by one bulk copy of a slab's whole rows, and 6 x 95).
+    Y goes to the row-share mainloop by the table."""
     log(f"[6] K4 and K5 against their plain versions and the f64 sums, on X {tuple(x.shape)} "
         "and its sketch Y (S x 110)")
     torch.cuda.reset_peak_memory_stats()
@@ -1121,7 +1145,21 @@ def phase_gram_vs_plain(x: torch.Tensor, seed: int) -> dict:
     y = x @ torch.randn((x.shape[1], 110), generator=gen, device=x.device)
     out = {(name, p): compare_gram(name, a, p)
            for name, a in (("X", x), ("Y", y)) for p in ("highest", "bf16_split")}
-    del y
+    small = {"34x166": x[:34, :166].contiguous(), "6x95": x[:6, :95].contiguous()}
+    panels = {"82": x[: 1 << 20, :82].contiguous(), **small}
+    for name, a in panels.items():
+        out[(name, "highest")] = compare_gram(f"X {name}", a, "highest", reps=20)
+    routes = {"X": k4_route(x), "Y": k4_route(y), **{name: k4_route(a) for name, a in panels.items()}}
+    new = [routes[name] for name in ("X", "82", *small)]
+    check(all(r["mainloop"] == "atb_wgmma" for r in new) and routes["X"]["copy"] == "tma"
+          and routes["82"]["copy"] == "bulk" and routes["82"]["row_shares"] > 1
+          and routes["34x166"]["copy"] == "bulk"
+          and all(routes[name]["row_shares"] == 1 for name in small),
+          f"[6] K4's routes are not TMA (X), bulk (82 columns; 34 x 166's whole rows) and one "
+          f"launch (34 x 166, 6 x 95) on its mainloop: {routes}")
+    log(f"    K4 routes (mainloop, block n, f64 sums, blocks a share, copy path, row shares): "
+        f"{json.dumps(routes)}")
+    del y, small, panels
     log(f"    peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return out
 

@@ -1,13 +1,15 @@
 """Grid sizes of the row-share kernels: how many CTAs run at once on the
 card, and into how many row shares a reduction over the rows is split.
 
-Shared by the wrappers of ``ops/matmul.py`` (K1, K2, K3) and
-``ops/qr_panel.py`` (K4, K5).
+Shared by the wrappers of ``ops/matmul.py`` (K1's and K2's sketch, K3),
+``ops/atb.py`` (K4, K1's and K2's G and C stages) and ``ops/qr_panel.py``
+(K5).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,11 +23,15 @@ _RESIDENT: dict[tuple, int] = {}
 def resident_ctas(dev, key: tuple, query) -> int:
     """CTAs of one kernel that run at once on the card: SMs x resident
     CTAs per SM, the latter from ``query(address of an int)`` (a C
-    occupancy function of the kernel's library), cached under ``key``."""
+    occupancy function of the kernel's library, asked on ``dev``), cached
+    under ``key``.  A cached count is read without entering the device's
+    context: a small call's wrapper would otherwise spend longer here than
+    its kernel on the card."""
     key = (dev.index, *key)
     if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
-        rc = query(ctypes.addressof(per_sm))
+        with torch.cuda.device(dev):
+            rc = query(ctypes.addressof(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(
                 f"{key[1]} occupancy: CUDA error {rc}, {per_sm.value} CTAs per SM"
@@ -35,6 +41,7 @@ def resident_ctas(dev, key: tuple, query) -> int:
     return _RESIDENT[key]
 
 
+@functools.lru_cache(maxsize=4096)
 def wave_row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
     """Row shares of the tensor-core row-share reduction
     (``csrc/row_share_atb_tc.cuh``), whose CTAs (n_blocks a share) run
@@ -42,7 +49,8 @@ def wave_row_shares(wave: int, n_blocks: int, m: int, share_bytes: int) -> int:
     within 3% of the best filled, at most one share per 128-row tile, and
     f64 scratch (``share_bytes`` a share) within 1 GiB.  The time of a
     split into s shares goes as ceil(n_blocks s / wave) / s, and
-    s = wave reaches its least, n_blocks / wave."""
+    s = wave reaches its least, n_blocks / wave.  Memoized: a small call's
+    wrapper would otherwise spend longer here than its kernel on the card."""
     cap = max(1, min(-(-m // 128), SCRATCH_CAP // share_bytes, 65535, wave))
 
     def waves_per_share(s: int) -> float:

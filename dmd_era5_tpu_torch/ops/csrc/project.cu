@@ -76,10 +76,11 @@ struct Occupancy {
 
 // block_n 0: the row-share mainloop (row_share_atb_tc.cuh: 128 x 128 blocks
 // of C, f64 sums in shared memory, loads staged through registers), which
-// the table keeps where project_wgmma is measured slower (the f32 year).
+// the table keeps for f32 x f32 where project_wgmma is measured slower (the
+// f32 year).
 struct RowShareLaunch {
-  const void* y;
-  const void* x;
+  const float* y;
+  const float* x;
   double* part;
   float* c;
   long long m;
@@ -87,21 +88,10 @@ struct RowShareLaunch {
   int t;
   int n_share;
   cudaStream_t stream;
-  template <typename TY, typename TX>
   cudaError_t run() const {
-    const TY* yt = static_cast<const TY*>(y);
-    const TX* xt = static_cast<const TX*>(x);
-    const bool aligned = atb_tc::wgmma_rows_aligned(yt, n, xt, t);
-    return atb_tc::launch(atb_tc::wgmma_main<TY, TX>(aligned), yt, xt, part, c, m, n, t, 0, n_share,
-                          stream);
-  }
-};
-
-struct RowShareOccupancy {
-  int* out;
-  template <typename TY, typename TX>
-  cudaError_t run() const {
-    return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
+    const bool aligned = atb_tc::wgmma_rows_aligned(y, n, x, t);
+    return atb_tc::launch(atb_tc::wgmma_main<float, float>(aligned), y, x, part, c, m, n, t, 0,
+                          n_share, stream);
   }
 };
 
@@ -111,22 +101,27 @@ struct RowShareOccupancy {
 // once, into *out.
 extern "C" int project_ctas_per_sm(int y_bf16, int x_bf16, int trans, int block_n, int smem_sums,
                                    int* out) {
-  if (block_n == 0) return (int)atb_tc::dispatch(RowShareOccupancy{out}, y_bf16, x_bf16);
+  if (block_n == 0) {
+    return y_bf16 || x_bf16 ? (int)cudaErrorInvalidValue
+                            : (int)atb_tc::ctas_per_sm(atb_tc::wgmma_main<float, float>(true), out);
+  }
   return (int)dispatch(Occupancy{out}, trans ? x_bf16 : y_bf16, trans ? y_bf16 : x_bf16, block_n,
                        smem_sums);
 }
 
 // C (n x t, f32) = Y^T X; part holds n_share * n * t doubles.  trans: X on
 // the m side (C's blocks computed as blocks of C^T); block_n: the blocks'
-// width on the n side, or 0 for the row-share mainloop; smem_sums: their
-// f64 sums in shared memory.
+// width on the n side, or 0 for the row-share mainloop (f32 x f32);
+// smem_sums: their f64 sums in shared memory.
 // Returns a cudaError_t code: 0 when both kernels were launched.
 extern "C" int project_launch(const void* y, const void* x, double* part, float* c, long long m,
                               int n, int t, int y_bf16, int x_bf16, int trans, int block_n,
                               int smem_sums, int n_share, void* stream) {
   if (block_n == 0) {
-    const RowShareLaunch op{y, x, part, c, m, n, t, n_share, static_cast<cudaStream_t>(stream)};
-    return (int)atb_tc::dispatch(op, y_bf16, x_bf16);
+    if (y_bf16 || x_bf16) return (int)cudaErrorInvalidValue;  // f32 x f32 only
+    const RowShareLaunch op{static_cast<const float*>(y), static_cast<const float*>(x), part, c,
+                            m, n, t, n_share, static_cast<cudaStream_t>(stream)};
+    return (int)op.run();
   }
   k3::Params p{};
   p.a = trans ? x : y;

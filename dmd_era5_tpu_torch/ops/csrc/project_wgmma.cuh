@@ -39,13 +39,17 @@
 // barrier; each placement measured faster for its type).  How an
 // operand's slab comes, by the host's choice (project_modes):
 //   BULK  the block spans all of the operand's columns (B's narrow side
-//         when it fits one block; A when it has <= 128 columns) and its
+//         when it fits one block; an f32 A when it has <= 128 columns) and its
 //         base is 16-byte aligned: the slab is one contiguous span, one 1D
 //         bulk copy (cp.async.bulk, R cols size bytes, always a multiple of
 //         16), rows as they lie in memory.
-//   TMA   the block spans part of the columns: 2D boxes, zero-filled past
-//         M and the columns; A in boxes of 128-byte rows with the 128-byte
-//         swizzle (its fragments' reads free of bank conflicts), an f32 B in
+//   TMA   the block spans part of the columns, or A is bf16: 2D boxes,
+//         zero-filled past M and the columns; A in boxes of 128-byte rows
+//         with the 128-byte swizzle (its fragments' reads free of bank
+//         conflicts: a bf16 A's ldmatrix.trans of raw rows 256 bytes apart
+//         hits one bank group; at K1's bf16 fit-step C, whose Yc has 128
+//         columns, 5.63 ms raw against 3.79 swizzled,
+//         scripts/torch_k4_times.py --c-blocks), an f32 B in
 //         one unswizzled box of N columns; a bf16 x bf16 B always so, in
 //         boxes of 64 columns with the 128-byte swizzle.
 //   ELEM  a base that is not 16-byte aligned (a view), rows the TMA cannot
@@ -580,9 +584,9 @@ void project_modes(Params& p) {
   auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   const int round8_a = (p.cols_a + 7) / 8 * 8;
   const int round8_b = (p.cols_b + 7) / 8 * 8;
-  if (p.cols_a <= BM) {  // one block spans A: slabs are contiguous spans
+  if (p.cols_a <= BM && !C::BF16) {  // one block spans f32 A: slabs are contiguous spans
     p.a_swz = 0;
-    p.mode_a = aligned(p.a) && (!C::BF16 || p.cols_a % 8 == 0) ? BULK : ELEM;
+    p.mode_a = aligned(p.a) ? BULK : ELEM;
     p.lda = p.mode_a == BULK ? p.cols_a : round8_a;
   } else {
     p.a_swz = 1;

@@ -1,8 +1,11 @@
 // C = A^T B over the rows of two tall matrices on the tensor cores,
-// f64-grade: the mainloop of K3 (C = Y^T X, project.cu), K4 (G = A^T A at
-// "highest", gram.cu) and the G and C stages of K1 and K2
-// (sketch_center_gram_project.cu); K5's Gram (gram_split_wgmma.cuh) shares
-// its work split, block order, reduction and helpers.
+// f64-grade: the first tensor-core row-share mainloop (atb_wgmma_tf32x3), which K3
+// (project.cu) keeps for f32 products with a side of 512 or more (the
+// hourly year, K1's C stage at the bench's T 512) and atb.cu for the f32
+// Grams its table sends there, and the work split, block order, reduction
+// and PTX helpers that the Hopper mainloops share (K5's
+// gram_split_wgmma.cuh, K3's project_wgmma.cuh, atb_wgmma.cuh of K4 and of
+// K1's and K2's G and C stages).
 //
 // A is M x NA and B is M x NB, both row-major.  The reduction runs over the
 // rows, the slow axis of both: each operand is MN-major for the MMA.
@@ -20,13 +23,10 @@
 // slice of the scratch; atb_reduce sums the shares in a fixed order.  No
 // atomics: C is identical from run to run.  With `upper` only the blocks
 // bi <= bj of a symmetric product (A = B) are computed and the reduction
-// mirrors the upper triangle, so G comes out exactly symmetric.  Block
-// indices run fastest within a share and, for `upper`, row-major over the
-// upper pairs, so CTAs next to one another in launch order share a row share
-// and an A slice: the operand slabs that several CTAs read at about the same
-// time come from L2.  A diagonal block of `upper` (bi = bj: A's slice is B's)
-// in the wgmma kernels reads its slab once: its A fragments come from B's
-// shared-memory copy, so it loads half the bytes and skips A's split.
+// mirrors the upper triangle, so a Gram matrix comes out exactly symmetric.
+// Block indices run fastest within a share, so CTAs next to one another in
+// launch order share a row share: the operand slabs that several CTAs read
+// at about the same time come from L2.
 //
 // Accumulation.  The tensor core rounds its own sums toward zero: MMAs
 // chained over a whole 128-row tile left a bias far above f32 rounding in a
@@ -34,18 +34,9 @@
 // terms first, and their sum is added into the tile's f32 accumulators with
 // round-to-nearest.
 //
-// Two kernels:
-//   atb_wgmma_tf32x3  K3, K4 and K1's G and C on f32 operands, or one f32
-//                     and one bf16: 3xTF32 on warpgroup MMAs, 128 x 128
-//                     blocks.  A bf16 operand is widened to f32 as it is
-//                     loaded; it is exact in tf32, so its lo term is
-//                     dropped (two products).
-//   atb_wgmma_bf16    the same on bf16 operands: one bf16 warpgroup MMA,
-//                     128 x 128 blocks; the products are exact in f32.
-// The wgmma kernels read each slab into registers a slab ahead and store it
-// into shared memory at the end of a slab: one instantiation in 16-byte (8
-// for a bf16 operand of the 3xTF32 kernel) loads for rows aligned to them,
-// one element by element for rows that are not.
+// atb_wgmma_tf32x3: 3xTF32 on warpgroup MMAs, 128 x 128 (or 64 x 64)
+// blocks, loads staged through registers a slab ahead: one instantiation
+// in 16-byte loads for rows aligned to them, one element by element.
 // 3xTF32: hi = tf32(a) rounded to nearest, lo = a - hi (exact in f32, from
 // the ROUNDED hi: the tensor core drops the 13 low bits it is handed),
 // acc += lo.hi + hi.lo + hi.hi -- the counterpart of Precision.HIGHEST; one
@@ -86,15 +77,6 @@ __global__ void atb_reduce(const double* __restrict__ part, float* __restrict__ 
   double s = 0.0;
   for (int sh = 0; sh < n_share; ++sh) s += part[sh * total + src];
   out[i] = (float)s;
-}
-
-// op.run<A, B>() with A and B each float or bf16, chosen by the two flags.
-template <typename Op>
-cudaError_t dispatch(const Op& op, int a_bf16, int b_bf16) {
-  if (a_bf16 && b_bf16) return op.template run<bf16, bf16>();
-  if (a_bf16) return op.template run<bf16, float>();
-  if (b_bf16) return op.template run<float, bf16>();
-  return op.template run<float, float>();
 }
 
 // ---------------------------------------------------------------- PTX
@@ -164,7 +146,7 @@ __device__ __forceinline__ void block_of(int idx, int nbb, int upper, int& bi, i
 
 // ------------------------------------- 3xTF32 on wgmma (atb_wgmma_tf32x3)
 //
-// K3's, K4's and K1's f32 products: 3xTF32 on warpgroup MMAs, which run
+// K3's f32 product at the hourly year: 3xTF32 on warpgroup MMAs, which run
 // asynchronously beside the splitting and at twice the tf32 rate of the
 // synchronous warp-level MMAs.  Each warpgroup holds its A operand in registers (a warp's 16
 // rows, loaded from the MN-major raw slab and split there, lo left to the
@@ -187,7 +169,7 @@ __device__ __forceinline__ void block_of(int idx, int nbb, int upper, int& bi, i
 // widened to f32, and stored into two shared slots each at the end of a
 // slab.
 namespace wg {
-constexpr int BT = 128;  // the block edge of the bf16 kernel and of 3xTF32's default
+constexpr int BT = 128;  // 3xTF32's default block edge
 constexpr int BK = 16;   // rows per slab: two k8 steps
 constexpr int SPT = MT / BK;
 constexpr int RING = 2;  // raw slabs of A, and of B, in shared memory
@@ -309,7 +291,7 @@ __device__ __forceinline__ void load_slab(const T* __restrict__ src, long long r
   }
 }
 
-// TA, TB: float, or one of them bf16 (bf16 x bf16 takes atb_wgmma_bf16).
+// TA, TB: float, or one of them bf16 (widened as loaded: exact in tf32).
 // VEC: every row of A and B is aligned to a run of four elements, loaded
 // at once (a runtime choice in the loads cost this kernel ~4% on an H100).
 // BT: the block edge, 128 or 64 (the note above).
@@ -323,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   constexpr bool A_EXACT = sizeof(TA) == 2;  // bf16: its own hi, no lo
   constexpr bool B_EXACT = sizeof(TB) == 2;
   constexpr int KCS = BT == 128 ? 2 : 1;  // k8 steps of a slab a warpgroup takes
-  static_assert(!(A_EXACT && B_EXACT), "bf16 x bf16 is atb_wgmma_bf16");
+  static_assert(!(A_EXACT && B_EXACT), "bf16 x bf16 takes one bf16 pass: atb_wgmma.cuh");
   extern __shared__ __align__(16) unsigned char smem[];
   double* sums = reinterpret_cast<double*>(smem);  // [NACC][THREADS]
   float* ring_a = reinterpret_cast<float*>(smem + C::SUM_BYTES);
@@ -508,33 +490,8 @@ __global__ void __launch_bounds__(THREADS, BT == 64 ? 2 : 1)
   }
 }
 
-// -------------------------------------- bf16 x bf16 on wgmma (atb_wgmma_bf16)
-//
-// K3 at the d = 3 pass: the same two warpgroups and 128 x 128 block as
-// atb_wgmma_tf32x3, no split.  A (a warp's 16 rows) comes from the MN-major
-// raw slab by ldmatrix.trans; B stays MN-major and wgmma transposes it
-// (imm-trans-b): the register-staged loads store each 16-byte run of 8
-// columns straight into 8 x 8 core matrices, a slab's 32 rows as 4 x 16 of
-// them.  Per slab, from zero: D = A B over its two k16 steps, then acc += D.
-namespace wgb {
-constexpr int BK = 32;  // rows per slab: two k16 steps
-constexpr int SPT = MT / BK;
-constexpr int S = wg::BT + 8;               // raw A row stride, bf16: 272 bytes
-constexpr int A_SLAB = BK * S;              // bf16 elements
-constexpr int B_SLAB = BK * wg::BT;         // bf16 elements: 64 core matrices
-constexpr int K_STRIDE = wg::BT / 8 * 128;  // bytes between core matrices along K
-constexpr int SMEM = wg::SUM_BYTES + 2 * (A_SLAB + B_SLAB) * 2;
-static_assert(SMEM <= 232448, "shared memory of one CTA");
-}  // namespace wgb
-
-// MN-major B without swizzle: core matrices of 8 k-rows x 16 bytes, the next
-// along K K_STRIDE bytes on (leading byte offset), the next along N 128
-// bytes on (stride byte offset).
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(wgb::K_STRIDE >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
+// d (+)= a b at m64n128k16 in bf16 (K5's MMA, gram_split_wgmma.cuh): a a
+// warp's 16 rows in registers, b MN-major from a descriptor (transposed).
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
                                            int scale_d) {
   asm volatile(
@@ -544,158 +501,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// VEC: every row of A and B is 16-byte aligned, 8 columns loaded at once.
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-    atb_wgmma_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                   double* __restrict__ part, long long m, int na, int nb, int upper,
-                   int n_share, int width_a, int width_b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* sums = reinterpret_cast<double*>(smem);  // [64][THREADS]
-  bf16* ring_a = reinterpret_cast<bf16*>(smem + wg::SUM_BYTES);  // raw slabs s % 2
-  bf16* ring_b = ring_a + 2 * wgb::A_SLAB;                        // core matrices, s % 2
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = (warp >> 2) * 64 + (warp & 3) * 16;
-  const int nbb = (nb + wg::BT - 1) / wg::BT;
-  int bi, bj;
-  block_of(blockIdx.x, nbb, upper, bi, bj);
-  const int a0 = bi * wg::BT;
-  const int b0 = bj * wg::BT;
-  const bool diag = upper && bi == bj;  // A's slab is B's: read once, A from B's core matrices
-  const int share = blockIdx.y;
-  const long long n_tiles = (m + MT - 1) / MT;
-  const long long my_tiles = share < n_tiles ? (n_tiles - share + n_share - 1) / n_share : 0;
-  const long long n_slabs = my_tiles * wgb::SPT;
-
-#pragma unroll
-  for (int i = 0; i < 64; ++i) sums[i * THREADS + tid] = 0.0;
-  float acc[64], d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
-
-  auto rows = [&](long long s) {
-    return (share + (s / wgb::SPT) * n_share) * MT + (s % wgb::SPT) * wgb::BK;
-  };
-  // 16-byte runs of a slab, two a thread.  A: run q is row q / 16, columns
-  // 8 (q % 16).  B: run q is row 8 (q / 128) + q % 8, columns 8 ((q / 8) %
-  // 16), so 8 neighbouring lanes fill one core matrix (128 contiguous bytes)
-  // and a warp reads 64 contiguous bytes of each of 8 rows.
-  // Where the rows are not 16-byte aligned, element by element.
-  auto ldg = [&](const bf16* src, int ncols, int c0, long long s, bool is_b, uint4 (&v)[2]) {
-    if constexpr (VEC) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = i * THREADS + tid;
-        const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
-        const int c = is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8;
-        const long long gr = rows(s) + k;
-        v[i] = (s < n_slabs && gr < m && c0 + c < ncols)
-                   ? __ldg(reinterpret_cast<const uint4*>(src + gr * ncols + c0 + c))
-                   : make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {
-      const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = i * THREADS + tid;
-        const int k = is_b ? (q >> 7) * 8 + (q & 7) : q >> 4;
-        const int c = c0 + (is_b ? ((q >> 3) & 15) * 8 : (q & 15) * 8);
-        const long long gr = rows(s) + k;
-        const bool ok = s < n_slabs && gr < m;
-        uint32_t w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t lo = ok && c + 2 * j < ncols ? h[gr * ncols + c + 2 * j] : 0u;
-          const uint32_t hi = ok && c + 2 * j + 1 < ncols ? h[gr * ncols + c + 2 * j + 1] : 0u;
-          w[j] = lo | (hi << 16);
-        }
-        v[i] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-  };
-  auto sts_a = [&](long long s, const uint4 (&v)[2]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;
-      *reinterpret_cast<uint4*>(ring_a + (s & 1) * wgb::A_SLAB + (q >> 4) * wgb::S + (q & 15) * 8) =
-          v[i];
-    }
-  };
-  auto sts_b = [&](long long s, const uint4 (&v)[2]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = i * THREADS + tid;  // core matrix (k / 8, n / 8), row k % 8
-      const int off = ((q >> 7) * 16 + ((q >> 3) & 15)) * 64 + (q & 7) * 8;
-      *reinterpret_cast<uint4*>(ring_b + (s & 1) * wgb::B_SLAB + off) = v[i];
-    }
-  };
-  uint4 va[2], vb[2];
-  if (!diag) {
-    ldg(a, na, a0, 0, false, va);
-    sts_a(0, va);
-  }
-  ldg(b, nb, b0, 0, true, vb);
-  sts_b(0, vb);
-  if (!diag) ldg(a, na, a0, 1, false, va);
-  ldg(b, nb, b0, 1, true, vb);
-
-  const int j = lane >> 3;  // ldmatrix: lane addresses row lane % 8 of matrix lane / 8
-  const int r = lane & 7;
-  int in_tile = 0;
-  for (long long s = 0; s < n_slabs; ++s) {
-    fence_proxy_async();  // this thread's stores of slab s, to wgmma's reads
-    __syncthreads();      // slab s in place; slab s - 1 done with
-    uint32_t af0[4], af1[4];
-    if (diag) {  // row r of k block kb of core matrix (kb, n / 8) of B's slab
-      const bf16* bs = ring_b + (s & 1) * wgb::B_SLAB + ((j >> 1) * 16 + (row0 >> 3) + (j & 1)) * 64 + r * 8;
-      ldsm_x4_trans(smem_u32(bs), af0[0], af0[1], af0[2], af0[3]);
-      ldsm_x4_trans(smem_u32(bs + 2 * 16 * 64), af1[0], af1[1], af1[2], af1[3]);
-    } else {
-      const bf16* as = ring_a + (s & 1) * wgb::A_SLAB + row0 + (j & 1) * 8;
-      ldsm_x4_trans(smem_u32(as + ((j >> 1) * 8 + r) * wgb::S), af0[0], af0[1], af0[2], af0[3]);
-      ldsm_x4_trans(smem_u32(as + (16 + (j >> 1) * 8 + r) * wgb::S), af1[0], af1[1], af1[2],
-                    af1[3]);
-    }
-    const uint32_t pb = smem_u32(ring_b + (s & 1) * wgb::B_SLAB);
-    hold(d);
-    wgmma_fence();
-    wgmma_bf16(d, af0, mnmajor_desc(pb), 0);                      // rows 0-15 of the slab
-    wgmma_bf16(d, af1, mnmajor_desc(pb + 2 * wgb::K_STRIDE), 1);  // rows 16-31
-    wgmma_commit();
-    if (!diag) sts_a(s + 1, va);  // the other slots, free since the barrier
-    sts_b(s + 1, vb);
-    if (!diag) ldg(a, na, a0, s + 2, false, va);
-    ldg(b, nb, b0, s + 2, true, vb);
-    wgmma_wait<0>();
-    hold(d);
-    hold(af0);
-    hold(af1);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += d[i];
-    if (++in_tile == wgb::SPT) {  // end of a 128-row tile: into the f64 sums
-      in_tile = 0;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        sums[i * THREADS + tid] += (double)acc[i];
-        acc[i] = 0.f;
-      }
-    }
-  }
-
-  double* dst = part + (size_t)share * na * nb;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int rr = a0 + row0 + g + ((i & 3) >> 1) * 8;
-    const int c = b0 + (i >> 2) * 8 + 2 * t + (i & 1);
-    if (rr < na && c < nb) dst[(size_t)rr * nb + c] = sums[i * THREADS + tid];
-  }
 }
 
 // Widest copy, in bytes, that every row of p (ncols wide) is aligned to:
@@ -728,44 +533,19 @@ bool wgmma_rows_aligned(const TA* a, int na, const TB* b, int nb) {
          row_copy_bytes(b, nb) >= (BF16 ? 16 : 4 * (int)sizeof(TB));
 }
 
-// The wgmma product for its operand types (K3, K4 at "highest", K1's G and
-// C): one bf16 pass for bf16 x bf16 (128 x 128 blocks), else 3xTF32 (two
-// products where one operand is bf16) at block edge EDGE, 128 or 64;
-// `aligned` from wgmma_rows_aligned.  One operand type takes `upper` (A = B,
-// a Gram matrix).
+// The wgmma product (K3 at the hourly year): 3xTF32 at block edge EDGE,
+// 128 or 64; `aligned` from wgmma_rows_aligned.  One operand type takes
+// `upper` (A = B, a Gram matrix).
 template <typename TA, typename TB, int EDGE = wg::BT>
 Main<TA, TB> wgmma_main(bool aligned) {
-  if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
-    static_assert(EDGE == wg::BT, "the bf16 kernel's blocks are 128 wide");
-    return {aligned ? &atb_wgmma_bf16<true> : &atb_wgmma_bf16<false>, wgb::SMEM, wg::BT, true};
-  } else {
-    return {aligned ? &atb_wgmma_tf32x3<TA, TB, true, EDGE> : &atb_wgmma_tf32x3<TA, TB, false, EDGE>,
-            Tf32Cfg<EDGE>::SMEM, EDGE, std::is_same<TA, TB>::value};
-  }
+  return {aligned ? &atb_wgmma_tf32x3<TA, TB, true, EDGE> : &atb_wgmma_tf32x3<TA, TB, false, EDGE>,
+          Tf32Cfg<EDGE>::SMEM, EDGE, std::is_same<TA, TB>::value};
 }
-
-// The block edge of the wgmma Gram (K4 at "highest", K1's G stage) at width
-// k: the table in gram.cu (64-wide blocks pay where 128-wide ones would be
-// mostly padding).
-inline int gram_edge(bool bf16, int k) { return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }
 
 // Blocks bi <= bj of a k x k Gram matrix in blocks of edge x edge.
 inline int upper_blocks(int k, int edge) {
   const int nb = (k + edge - 1) / edge;
   return nb * (nb + 1) / 2;
-}
-
-// op(the wgmma Gram's kernel for T at width k): 3xTF32 for f32 at the block
-// edge of gram_edge, one bf16 pass for bf16 (128-wide blocks); `aligned`
-// from wgmma_rows_aligned.
-template <typename T, typename Op>
-cudaError_t with_gram_main(bool aligned, int k, const Op& op) {
-  if constexpr (sizeof(T) == 2) {
-    return op(wgmma_main<T, T>(aligned));
-  } else {
-    return gram_edge(false, k) == 64 ? op(wgmma_main<T, T, 64>(aligned))
-                                     : op(wgmma_main<T, T, 128>(aligned));
-  }
 }
 
 // Launches k's kernel and atb_reduce on `stream`; returns a

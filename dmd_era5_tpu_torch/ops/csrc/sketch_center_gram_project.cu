@@ -36,10 +36,16 @@
 //              colw), rounded to the out dtype and stored; the (M, 2)
 //              statistics from CTA column 0, or its CTAs' f64 sums of rs^2
 //              and ss, summed here in CTA order.
-//   2. G       row_share_atb_tc.cuh's wgmma kernels with `upper` (K4's
-//              path, its block table): Yc^T Yc on the upper blocks,
-//              diagonal blocks reading Yc once, mirrored by the reduction.
-//   3. C       the same kernels without it (K3's path): Yc^T X.
+//   2. G       atb.cu (atb_wgmma.cuh's mainloop, K4's path and block
+//              table, ops/atb.py::gram_block): Yc^T Yc on the upper blocks,
+//              one block reading Yc once where N <= 128, mirrored.
+//   3. C       K3's project.cu in ops/matmul.py::project_block's block,
+//              Yc^T X (at the hourly year's f32 X its row-share route, as
+//              the two passes take it).
+//
+// This library builds stage 1; the wrapper (ops/matmul.py::_scgp_plan)
+// launches stage 2 from atb.cu's library and stage 3 from project.cu's on
+// the stored Yc.
 //
 // Every stage sums in f32 from zero over at most a 128-row tile (the MMAs
 // restart every 8-32 rows: the tensor core rounds toward zero) and adds
@@ -91,17 +97,17 @@
 //   from L2 (32 KB beside each 16 KB chunk of X).
 //
 // Yc is written to device memory between the stages: with emit_yc off the
-// wrapper allocates it as scratch.  The old CUDA-core kernel's per-CTA f64
-// partials of G and C (about 80 bytes of traffic per element of X at T 168)
-// are gone: the row-share scratch is n_share N^2 + n_share N T doubles,
-// written once per CTA.
+// wrapper allocates it as scratch.  The G and C stages' row-share scratch is
+// n_share N^2 + n_share N T doubles, written once per CTA (none where one
+// share holds all the rows).
 //
 // K2 is stages 1 and 2 (the wrapper's mask 3) with stats_col 0: the (M, 2)
 // statistics from the f32 values of X, the square taken in f32, and no C.
-// So K2 builds into this library and no second one of the same templates.
+// So K2's sketch builds into this library and no second one of the same
+// templates.
 // Its shapes on the main path: bf16 X (15,573,600 x 168) with N 384 and a
-// bf16 Yc (the d = 3 Hankel pass: three 128-wide CTA columns, 6 upper
-// 128-blocks of G), and f32 X of the hourly year (977,400 x 8,760) at N 256
+// bf16 Yc (the d = 3 Hankel pass: three 128-wide CTA columns; G in the
+// 128 x 64 upper blocks of atb.cu's table), and f32 X of the hourly year (977,400 x 8,760) at N 256
 // and 128, where W streams.  What bounds it there: at the d = 3 pass the
 // bytes (X read once, Yc written: 5.17 ms; 4.4 ms of bf16 operations), at
 // the year the operations, 3 M N (2T + N + 1) in TF32 (27.0 and 13.4 ms).
@@ -151,6 +157,8 @@ __global__ void scgp_stats_reduce(const double* __restrict__ st_part, int n_cta,
   st[j] = (float)s;
 }
 
+// The sketch stage for X's (and W's) dtype TX: Yc, the statistics and, for
+// scalar statistics, their reduction.
 struct Launch {
   const void* x;
   const void* w;
@@ -158,10 +166,6 @@ struct Launch {
   void* yc;
   mm_tc::CenterArgs ca;
   float* st;
-  double* g_part;
-  float* g;
-  double* c_part;
-  float* c;
   long long m;
   int t;
   int n;
@@ -172,65 +176,19 @@ struct Launch {
   int ring;
   int stream_w;
   int sketch_ctas;
-  int g_shares;
-  int c_shares;
-  int stages;  // bit 0 sketch, bit 1 G, bit 2 C
   cudaStream_t stream;
-  // TX: X's and W's dtype; TY: Yc's
-  template <typename TX, typename TY>
+  template <typename TX>
   cudaError_t run() const {
-    cudaError_t err = cudaSuccess;
-    if (stages & 1) {
-      err = sketch<TX>(x, w, w_split, yc, m, t, n, out_bf16, bn, load, kw, ring, stream_w,
-                       sketch_ctas, ca, stream);
-      if (err != cudaSuccess) return err;
-      if (ca.st_part != nullptr) {
-        const int n_cta = mm_tc::grid_of(m, n, sketch_ctas, bn).x;
-        scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, n_cta, st);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-      }
-    }
-    const TY* y = static_cast<const TY*>(yc);
-    const TX* xt = static_cast<const TX*>(x);
-    if (stages & 2) {
-      err = atb_tc::with_gram_main<TY>(
-          atb_tc::wgmma_rows_aligned(y, n, y, n), n, [&](const auto& main) {
-            return atb_tc::launch(main, y, y, g_part, g, m, n, n, 1, g_shares, stream);
-          });
-      if (err != cudaSuccess) return err;
-    }
-    if (stages & 4) {
-      err = atb_tc::launch(atb_tc::wgmma_main<TY, TX>(atb_tc::wgmma_rows_aligned(y, n, xt, t)), y,
-                           xt, c_part, c, m, n, t, 0, c_shares, stream);
-    }
-    return err;
-  }
-};
-
-struct Occupancy {
-  int stage;
-  int n;
-  int* out;
-  template <typename TX, typename TY>
-  cudaError_t run() const {
-    // the aligned kernels'; the others take the same shared memory and
-    // registers within the same launch bound
-    if (stage == 1) {
-      return atb_tc::with_gram_main<TY>(
-          true, n, [&](const auto& main) { return atb_tc::ctas_per_sm(main, out); });
-    }
-    return atb_tc::ctas_per_sm(atb_tc::wgmma_main<TY, TX>(true), out);
+    cudaError_t err = sketch<TX>(x, w, w_split, yc, m, t, n, out_bf16, bn, load, kw, ring, stream_w,
+                                 sketch_ctas, ca, stream);
+    if (err != cudaSuccess || ca.st_part == nullptr) return err;
+    const int n_cta = mm_tc::grid_of(m, n, sketch_ctas, bn).x;
+    scgp_stats_reduce<<<1, 32, 0, stream>>>(ca.st_part, n_cta, st);
+    return cudaGetLastError();
   }
 };
 
 }  // namespace
-
-// Upper blocks of G (the G stage's CTAs a row share) for this Yc dtype and
-// width n, at the block edge of K4's table (atb_tc::gram_edge).
-extern "C" int scgp_gram_blocks(int out_bf16, int n) {
-  return atb_tc::upper_blocks(n, atb_tc::gram_edge(out_bf16, n));
-}
 
 // CTAs of the sketch stage's instantiation (X bf16 where x_bf16, else f32;
 // bn columns a CTA, copy path `load`, W streamed where stream_w) that fit
@@ -249,37 +207,25 @@ extern "C" int scgp_sketch_ctas_per_sm(int x_bf16, int bn, int load, int stream_
   });
 }
 
-// CTAs of the G stage's (1, at K4's block edge) or the C stage's (2) kernel
-// that fit one SM at once, for these dtypes and width n, into *out.
-// Returns a cudaError_t code.
-extern "C" int scgp_ctas_per_sm(int stage, int x_bf16, int out_bf16, int n, int* out) {
-  if (stage < 1 || stage > 2 || n < 1) return (int)cudaErrorInvalidValue;
-  return (int)atb_tc::dispatch(Occupancy{stage, n, out}, x_bf16, out_bf16);
-}
-
-// The stages in `stages` (bit 0 sketch, 1 G, 2 C; 7 for K1, 3 for K2, whose
-// c_part and c may be null) on `stream`.  The sketch in the block
-// ops/matmul.py::matmul_block chose (bn columns a CTA, copy path `load`,
-// kw rows of W held, `ring` slots, W streamed where stream_w; w_split then
+// The sketch stage (K1's and K2's stage 1) on `stream`, in the block
+// ops/matmul.py::matmul_block chose (bn columns a CTA, copy path `load`, kw
+// rows of W held, `ring` slots, W streamed where stream_w; w_split then
 // holds its split chunks), on sketch_ctas CTAs.  yc: M x N of the out
-// dtype, written by the sketch.  stats: M x 2, or null for the scalar
-// statistics, which take st_part (sketch_ctas x 2 doubles) and st (2).  G
-// at K4's block edge; g_part: g_shares N^2 doubles; c_part: c_shares N T.
-// Returns a cudaError_t code: 0 when every kernel was launched.
+// dtype.  stats: M x 2, or null for the scalar statistics, which take
+// st_part (sketch_ctas x 2 doubles) and st (2).  Returns a cudaError_t code:
+// 0 when every kernel was launched.
 extern "C" int scgp_launch(const void* x, const void* w, void* w_split, const float* colw,
-                           void* yc, float* stats, double* st_part, float* st, double* g_part,
-                           float* g, double* c_part, float* c, long long m, int t, int n,
-                           int x_bf16, int out_bf16, int stats_col, float inv_t, int bn, int load,
-                           int kw, int ring, int stream_w, int sketch_ctas, int g_shares,
-                           int c_shares, int stages, void* stream) {
+                           void* yc, float* stats, double* st_part, float* st, long long m, int t,
+                           int n, int x_bf16, int out_bf16, int stats_col, float inv_t, int bn,
+                           int load, int kw, int ring, int stream_w, int sketch_ctas,
+                           void* stream) {
   if (m < 1 || t < 1 || n < 1 || sketch_ctas < 1 || (stats == nullptr) == (st_part == nullptr) ||
       (st_part != nullptr && st == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const mm_tc::CenterArgs ca{colw, stats, st_part, inv_t, stats_col};
-  const Launch op{x,     w,     w_split, yc,   ca,       st,          g_part,   g,
-                  c_part, c,    m,       t,    n,        out_bf16,    bn,       load,
-                  kw,    ring,  stream_w, sketch_ctas, g_shares, c_shares, stages,
+  const Launch op{x,  w,    w_split, yc, ca,   st,       m,           t,
+                  n,  out_bf16, bn,   load, kw, ring, stream_w, sketch_ctas,
                   static_cast<cudaStream_t>(stream)};
-  return (int)atb_tc::dispatch(op, x_bf16, out_bf16);
+  return (int)(x_bf16 ? op.run<atb_tc::bf16>() : op.run<float>());
 }

@@ -16,9 +16,11 @@ where the port's fused kernel cannot take the sketch's width
 Also ``dmd_era5_tpu/ops/matmul.py::matmul``: (M, K) @ (K, N) summed in
 f32, the per-block sketch of the out-of-core SVD.
 
-On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/sketch_center_gram_project.cu`` K1, and K2 as K1's sketch and G
-stages, ``csrc/project.cu`` K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
+On a CUDA tensor each wrapper launches its hand-written Hopper kernels
+(K1: ``csrc/sketch_center_gram_project.cu``'s sketch stage, then its G
+stage on ``csrc/atb.cu`` through ``ops/atb.py`` and its C stage on K3's
+``csrc/project.cu``; K2 as K1's sketch and G stages; ``csrc/project.cu``
+K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
 takes the plain PyTorch version beside it, which does the same
 arithmetic with ``torch.matmul``.  There is no fallback between the two:
 which pass runs is decided by the shapes alone, the same on both.
@@ -32,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from dmd_era5_tpu_torch.ops import atb
 from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 
 __all__ = [
@@ -175,8 +178,8 @@ def _sketch_center_gram_project_plain(
 
 
 _LIB = None
-_STAGES = 7  # K1's sketch, G and C stages (bits 0-2 of scgp_launch's mask)
-_K2_STAGES = 3  # K2: the sketch and G stages of the same library
+_STAGES = 7  # K1's sketch, G and C stages (bits 0-2 of _scgp_plan's run mask)
+_K2_STAGES = 3  # K2: the sketch and G stages
 
 
 def _kernel_library():
@@ -189,34 +192,17 @@ def _kernel_library():
         lib.scgp_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # x, w, W's split chunks, colw, yc, stats
             ptr, ptr,  # scalar stats: per-CTA f64 sums, reduced
-            ptr, ptr, ptr, ptr,  # G: per-share f64 scratch, reduced; C: the same
             ctypes.c_longlong, flag, flag,  # m, t, n
             flag, flag, flag, ctypes.c_float,  # x_bf16, out_bf16, stats_col, inv_t
             flag, flag, flag, flag, flag,  # the sketch's block: width, copy path, kw, ring, stream
-            flag, flag, flag,  # the sketch's CTAs, G and C row shares
-            flag, ptr,  # stages, stream
+            flag, ptr,  # the sketch's CTAs, stream
         ]
         lib.scgp_launch.restype = ctypes.c_int
-        # stage (1 G, 2 C), x_bf16, out_bf16, n, &out
-        lib.scgp_ctas_per_sm.argtypes = [flag, flag, flag, flag, ptr]
-        lib.scgp_ctas_per_sm.restype = ctypes.c_int
         # x_bf16, the sketch's block (width, copy path, W streamed, shared memory), &out
         lib.scgp_sketch_ctas_per_sm.argtypes = [flag, flag, flag, flag, flag, ptr]
         lib.scgp_sketch_ctas_per_sm.restype = ctypes.c_int
-        lib.scgp_gram_blocks.argtypes = [flag, flag]  # out_bf16, n
-        lib.scgp_gram_blocks.restype = ctypes.c_int
         _LIB = lib
     return _LIB
-
-
-def _stage_wave(dev, stage: int, x_bf16: int, out_bf16: int, n: int) -> int:
-    """CTAs of K1's G (stage 1) or C (2) stage resident on the card at once:
-    G's depend on its block edge (by n)."""
-    n_key = n if stage == 1 else 1
-    return resident_ctas(
-        dev, ("sketch_center_gram_project", stage, x_bf16, out_bf16, n_key),
-        lambda out: _kernel_library().scgp_ctas_per_sm(stage, x_bf16, out_bf16, n_key, out),
-    )
 
 
 def _sketch_wave(dev, x_bf16: int, block: MatmulBlock) -> int:
@@ -238,55 +224,53 @@ def _scgp_plan(x, w, out_dtype, center, stats_col, scalar_stats, t_valid, emit_y
     4 C = Yc^T X: 7 for K1, 3 for K2), allocated, and ``run(mask)``, which
     launches the stages in the mask into them.  Yc is allocated as scratch
     where ``emit_yc`` is off: G and C are read from it.  The sketch runs on
-    the card's resident CTAs; G and C on the row shares that fill whole
-    waves over their blocks (G's upper ones, ``scgp_gram_blocks``; C's
-    128 x 128), their f64 scratch within 1 GiB.  The sketch's block (its
-    columns a CTA, copy path, ring and whether it streams W: W's split
-    chunks then take scratch) is :func:`matmul_block`'s; G's block edge is
-    the library's own table."""
+    the card's resident CTAs in :func:`matmul_block`'s block (its columns
+    a CTA, copy path, ring and whether it streams W: W's split chunks then
+    take scratch); G on ``csrc/atb.cu`` in ``ops/atb.py``'s block, C on
+    K3's kernel in :func:`project_block`'s (the hourly year's as the two
+    passes take it), each on the row shares that fill whole waves over its
+    blocks, its f64 scratch within 1 GiB."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major M x T)")
     w, colw, inv_t = _prepare(w, x.shape[1], center, stats_col, t_valid)
     (m, t_cols), n, dev = x.shape, w.shape[1], x.device
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
-    lib = _kernel_library()
-    nb, nt = -(-n // 128), -(-t_cols // 128)  # blocks of C
     block = matmul_block(m, t_cols, n, x.dtype, center=True, base_aligned=x.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        waves = [_sketch_wave(dev, x_bf16, block) if stages & 1 else 0,
-                 *(_stage_wave(dev, st, x_bf16, out_bf16, n) if stages >> st & 1 else 0
-                   for st in (1, 2))]
-    g_shares = wave_row_shares(waves[1], lib.scgp_gram_blocks(out_bf16, n), m, 8 * n * n)
-    c_shares = wave_row_shares(waves[2], nb * nt, m, 8 * n * t_cols) if stages & 4 else 0
+        wave = _sketch_wave(dev, x_bf16, block) if stages & 1 else 0
     f32, f64 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.float64, device=dev)
     out = dict(
         yc=torch.empty((m, n), dtype=out_dtype, device=dev),
         stats=None if scalar_stats else torch.empty((m, 2), **f32),
         st=torch.empty(2, **f32) if scalar_stats else None,
-        g=torch.empty((n, n), **f32),
-        c=torch.empty((n, t_cols), **f32) if stages & 4 else None,
+        g=None,
+        c=None,
     )
-    st_part = torch.empty((waves[0], 2), **f64) if scalar_stats else None
+    st_part = torch.empty((wave, 2), **f64) if scalar_stats else None
     # where the sketch streams W (long f32 time axes), W split into tf32 chunks
     w_split = (torch.empty(_mm_w_stream_bytes(t_cols, n), dtype=torch.uint8, device=dev)
                if block.stream else None)
-    g_part = torch.empty((g_shares, n, n), **f64)
-    c_part = torch.empty((c_shares, n, t_cols), **f64) if stages & 4 else None
-    logger.debug("sketch_center_gram_project: sketch %s on %d CTAs, %d / %d row shares of "
-                 "G / C", block, waves[0], g_shares, c_shares)
+    g_block = atb.gram_block(n, out_dtype, m)
+    c_block = project_block(m, n, t_cols, out_dtype, x.dtype)
+    logger.debug("sketch_center_gram_project: sketch %s on %d CTAs; G %s; C %s", block, wave,
+                 g_block, c_block)
 
     def run(stages: int) -> None:
-        with torch.cuda.device(dev):
-            rc = _kernel_library().scgp_launch(
-                _ptr(x), _ptr(w), _ptr(w_split), _ptr(colw), _ptr(out["yc"]), _ptr(out["stats"]),
-                _ptr(st_part), _ptr(out["st"]), _ptr(g_part), _ptr(out["g"]), _ptr(c_part),
-                _ptr(out["c"]), m, t_cols, n, x_bf16, out_bf16, int(stats_col), inv_t,
-                block.n, _MM_LOADS.index(block.load), block.panel, block.stages,
-                int(block.stream), waves[0], g_shares, c_shares, stages,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"sketch_center_gram_project kernel: CUDA error {rc}")
+        if stages & 1:
+            with torch.cuda.device(dev):
+                rc = _kernel_library().scgp_launch(
+                    _ptr(x), _ptr(w), _ptr(w_split), _ptr(colw), _ptr(out["yc"]),
+                    _ptr(out["stats"]), _ptr(st_part), _ptr(out["st"]), m, t_cols, n, x_bf16,
+                    out_bf16, int(stats_col), inv_t, block.n, _MM_LOADS.index(block.load),
+                    block.panel, block.stages, int(block.stream), wave,
+                    torch.cuda.current_stream(dev).cuda_stream,
+                )
+            if rc != 0:
+                raise RuntimeError(f"sketch_center_gram_project kernel: CUDA error {rc}")
+        if stages & 2:
+            out["g"] = atb.gram_cuda(out["yc"], g_block)
+        if stages & 4:
+            out["c"] = _project_launch(x, out["yc"], c_block)
 
     return out, run
 
@@ -482,18 +466,21 @@ def _project_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return c
 
 
-# K3's blocks (csrc/project.cu's table): 128 columns of the m side's
-# operand (two m64 warpgroups) by n columns of the other, n a multiple of 8
-# up to _PROJECT_N_MAX; the f64 sums in registers up to _PROJECT_REG_N,
-# past it in shared memory (_PROJECT_SMEM_WIDTHS).  f32 x f32 with a side
-# of C wider than _PROJECT_ROW_SHARE_WIDE (the hourly year's 8,760) stays
-# on the row-share mainloop, 128 x 128 blocks, where project_wgmma was
-# measured slower (csrc/project_wgmma.cuh's tile table).
+# K3's blocks (csrc/project.cu's table), which K1's C stage takes too: 128
+# columns of the m side's operand (two m64 warpgroups) by n columns of the
+# other, n a multiple of 8 up to _PROJECT_N_MAX; the f64 sums in registers
+# up to _PROJECT_REG_N, past it in shared memory (_PROJECT_SMEM_WIDTHS).
+# f32 x f32 with a side of C wider than _PROJECT_ROW_SHARE_WIDE stays on
+# the row-share mainloop, 128 x 128 blocks, where project_wgmma was
+# measured slower: the hourly year's 8,760 (csrc/project_wgmma.cuh's tile
+# table) and the bench's 128 x 512 C stage (1.074 ms against 1.241 on an
+# H100 80GB HBM3 at 700 W, scripts/torch_k4_times.py --c-blocks); at the
+# week's 256 x 168 project_wgmma reads faster (21.99 against 31.08).
 _PROJECT_BM = 128
 _PROJECT_N_MAX = 88
 _PROJECT_REG_N = 64
 _PROJECT_SMEM_WIDTHS = (72, 80, 88)
-_PROJECT_ROW_SHARE_WIDE = 2048
+_PROJECT_ROW_SHARE_WIDE = 384
 
 
 class ProjectBlock(NamedTuple):
@@ -514,23 +501,37 @@ class ProjectBlock(NamedTuple):
 
 def project_block(m: int, n: int, t: int, y_dtype: torch.dtype, x_dtype: torch.dtype
                   ) -> ProjectBlock:
-    """K3's block for C = Y^T X with X (m, t) and Y (m, n): C's narrow side
-    on the MMA's n, rounded up to 8, or cut into the fewest equal pieces
-    of at most ``_PROJECT_N_MAX``; the f64 sums in registers up to
-    ``_PROJECT_REG_N``, past it in shared memory; the wide side in blocks
-    of 128.  An f32 x bf16 pair puts its f32 operand on the m side whatever
-    the shape (the kernel's one mixed instantiation).  f32 x f32 with a
-    side past ``_PROJECT_ROW_SHARE_WIDE`` takes the row-share mainloop."""
+    """K3's (and K1's C stage's) block for C = Y^T X with X (m, t) and Y
+    (m, n): one operand on the MMA's m side in blocks of 128 columns, the
+    other on its n side, rounded up to 8 or cut into the fewest equal
+    pieces of at most ``_PROJECT_N_MAX``; of the two orientations the one
+    with the fewest MMA entries (padding included), C's narrow side on n
+    on a tie; the f64 sums in registers up to ``_PROJECT_REG_N``, past it
+    in shared memory.  An f32 x bf16 pair puts its f32 operand on the m
+    side whatever the shape (the kernel's one mixed instantiation).  f32 x
+    f32 with a side past ``_PROJECT_ROW_SHARE_WIDE`` takes the row-share
+    mainloop.  The fewest entries put Y on m at K1's 128 x 168 C (the fit
+    step, 17b: one 128-row block, 12.24 ms against 18.02 with X on m at the
+    week's f32 fit step, scripts/torch_k4_times.py --c-blocks); at every
+    K3 shape of the main path they agree with the narrow side on n."""
     y_bf16, x_bf16 = y_dtype == torch.bfloat16, x_dtype == torch.bfloat16
     if not (y_bf16 or x_bf16) and max(n, t) > _PROJECT_ROW_SHARE_WIDE:
         return ProjectBlock(False, _PROJECT_BM, 128, -(-n // _PROJECT_BM), -(-t // 128), "shared",
                             "row_share")
-    transposed = y_bf16 if y_bf16 != x_bf16 else n < t
-    wide, narrow = (t, n) if transposed else (n, t)
-    pieces = -(-narrow // _PROJECT_N_MAX)
-    bn = 8 * -(-(-(-narrow // pieces)) // 8)
-    return ProjectBlock(transposed, _PROJECT_BM, bn, -(-wide // _PROJECT_BM), -(-narrow // bn),
-                        "registers" if bn <= _PROJECT_REG_N else "shared")
+
+    def oriented(transposed: bool) -> tuple[int, ProjectBlock]:
+        wide, narrow = (t, n) if transposed else (n, t)
+        pieces = -(-narrow // _PROJECT_N_MAX)
+        bn = 8 * -(-(-(-narrow // pieces)) // 8)
+        m_blocks, n_blocks = -(-wide // _PROJECT_BM), -(-narrow // bn)
+        return m_blocks * _PROJECT_BM * n_blocks * bn, ProjectBlock(
+            transposed, _PROJECT_BM, bn, m_blocks, n_blocks,
+            "registers" if bn <= _PROJECT_REG_N else "shared")
+
+    if y_bf16 != x_bf16:
+        return oriented(y_bf16)[1]
+    (area_0, block_0), (area_1, block_1) = oriented(n < t), oriented(n >= t)
+    return block_1 if area_1 < area_0 else block_0
 
 
 _PROJECT_LIB = None
@@ -566,10 +567,8 @@ def _project_args(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock) -> tupl
 
 def _project_wave(dev, flags: tuple) -> int:
     """CTAs of K3's kernel for these flags that run at once on the card."""
-    lib = _project_library()
-    with torch.cuda.device(dev):
-        return resident_ctas(dev, ("project", *flags),
-                             lambda out: lib.project_ctas_per_sm(*flags, out))
+    return resident_ctas(dev, ("project", *flags),
+                         lambda out: _project_library().project_ctas_per_sm(*flags, out))
 
 
 def _project_row_shares(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None) -> int:
@@ -583,8 +582,11 @@ def _project_row_shares(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | 
     return wave_row_shares(wave, block.m_blocks * block.n_blocks, m, 8 * n * t_cols)
 
 
-def _project_cuda(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None
-                  ) -> torch.Tensor:
+def _project_launch(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None
+                    ) -> torch.Tensor:
+    """C = Y^T X on K3's kernel in ``block`` (by default
+    :func:`project_block`'s), uncounted: :func:`project` counts its own
+    launches, K1's C stage at the hourly year takes this route too."""
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x and y must be contiguous (row-major)")
     (m, t_cols), n, dev = x.shape, y.shape[1], x.device
@@ -601,6 +603,12 @@ def _project_cuda(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None =
         )
     if rc != 0:
         raise RuntimeError(f"project kernel: CUDA error {rc}")
+    return c
+
+
+def _project_cuda(x: torch.Tensor, y: torch.Tensor, block: ProjectBlock | None = None
+                  ) -> torch.Tensor:
+    c = _project_launch(x, y, block)
     project.launches += 1
     return c
 

@@ -6,8 +6,9 @@ PyTorch counterpart of ``dmd_era5_tpu/ops/qr_panel.py:100-324``:
 on it, :func:`cholqr`, :func:`cholqr2` and :func:`cholqr2_split`, and
 :func:`householder_panel`.
 
-On a CUDA tensor :func:`gram` launches the hand-written Hopper kernel
-``csrc/gram.cu`` (K4 at ``"highest"``, K5 at ``"bf16_split"``) and
+On a CUDA tensor :func:`gram` launches a hand-written Hopper kernel (K4
+at ``"highest"``: ``csrc/atb.cu`` through ``ops/atb.py``; K5 at
+``"bf16_split"``: ``csrc/gram.cu``) and
 :func:`householder_panel` ``csrc/householder.cu`` (K7); on a CPU tensor
 each takes the plain PyTorch version beside it.  There is no fallback
 between the two.  ``lax.Precision`` has no torch counterpart,
@@ -25,6 +26,7 @@ import ctypes
 
 import torch
 
+from dmd_era5_tpu_torch.ops import atb
 from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 from dmd_era5_tpu_torch.utils.linalg import safe_cholesky
 
@@ -82,48 +84,48 @@ def _kernel_library():
 
         lib = load_kernel_library("gram")
         ptr, flag = ctypes.c_void_p, ctypes.c_int
-        # a, per-share f64 partials, G, m, k, a_bf16, split, n_share, stream
-        lib.gram_launch.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, flag, flag, flag, flag, ptr]
+        # a, per-share f64 partials, G, m, k, n_share, stream
+        lib.gram_launch.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, flag, flag, ptr]
         lib.gram_launch.restype = ctypes.c_int
-        lib.gram_ctas_per_sm.argtypes = [flag, flag, flag, ptr]  # a_bf16, split, k, &out
+        lib.gram_ctas_per_sm.argtypes = [flag, ptr]  # k, &out
         lib.gram_ctas_per_sm.restype = ctypes.c_int
-        lib.gram_upper_blocks.argtypes = [flag, flag, flag]  # a_bf16, split, k
+        lib.gram_upper_blocks.argtypes = [flag]  # k
         lib.gram_upper_blocks.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _n_share(dev, a_bf16: int, split: int, m: int, k: int) -> int:
-    """Row shares of K4 and K5 (the tensor-core mainloop): whole waves of
-    the card's resident CTAs over the upper blocks of G (at the block edge
-    that the library's table gives width k), the f64 scratch (n_share K^2
-    doubles) within 1 GiB."""
+def _split_n_share(dev, m: int, k: int) -> int:
+    """Row shares of K5: whole waves of the card's resident CTAs over the
+    upper blocks of G (at the block edge that the library's table gives
+    width k), the f64 scratch (n_share K^2 doubles) within 1 GiB."""
     lib = _kernel_library()
-    wave = resident_ctas(dev, ("gram", a_bf16, split, k),
-                          lambda out: lib.gram_ctas_per_sm(a_bf16, split, k, out))
-    return wave_row_shares(wave, lib.gram_upper_blocks(a_bf16, split, k), m, 8 * k * k)
+    wave = resident_ctas(dev, ("gram", k), lambda out: lib.gram_ctas_per_sm(k, out))
+    return wave_row_shares(wave, lib.gram_upper_blocks(k), m, 8 * k * k)
 
 
-def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
+def _split_gram_cuda(a: torch.Tensor) -> torch.Tensor:
     if not a.is_contiguous():
         raise ValueError("a must be contiguous (row-major M x K)")
     m, k = a.shape
     dev = a.device
-    a_bf16, split = int(a.dtype == torch.bfloat16), int(precision == "bf16_split")
     lib = _kernel_library()
     with torch.cuda.device(dev):
-        n_share = _n_share(dev, a_bf16, split, m, k)
+        n_share = _split_n_share(dev, m, k)
         # per-share K x K, of which the upper blocks are written
         part = torch.empty((n_share, k, k), dtype=torch.float64, device=dev)
         g = torch.empty((k, k), dtype=torch.float32, device=dev)
-        rc = lib.gram_launch(
-            a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, a_bf16, split, n_share,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        rc = lib.gram_launch(a.data_ptr(), part.data_ptr(), g.data_ptr(), m, k, n_share,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gram kernel: CUDA error {rc}")
     # part is released on return while the kernels may still run: the
     # caching allocator hands its memory only to later work on this stream
+    return g
+
+
+def _gram_cuda(a: torch.Tensor, precision: str) -> torch.Tensor:
+    g = atb.gram_cuda(a) if precision == "highest" else _split_gram_cuda(a)
     gram.launches[precision] += 1
     return g
 
@@ -141,8 +143,9 @@ def gram(a: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     and grows with K^2.  The result is exactly symmetric on the card.
     On the card both run on the tensor cores with f64 tile sums: K4 in
     3xTF32 for f32 A (the counterpart of ``HIGHEST``) and one bf16 pass
-    for bf16 A (its products are exact in f32), K5 in bf16 MMAs on the
-    split.
+    for bf16 A (its products are exact in f32), in the blocks of
+    ``ops/atb.py::gram_block`` (one launch where one row share holds all
+    of M), K5 in bf16 MMAs on the split.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
     the Hopper kernel and counts it in ``gram.launches[precision]``.

@@ -10,7 +10,9 @@ shared host read apart by more than the kernels differ; one process, in
 turns (PATH, this tree, this tree, PATH, PATH, this tree), does not.
 ``PATH`` is another checkout (say the parent commit, unpacked by ``git
 archive``); both are built by ``scripts/torch_k5_phases.py``'s ``build``
-and driven through this tree's ``qr_panel.gram``.  Each reading: CUDA-event
+and driven through this tree's ``qr_panel.gram``, so both must share
+``gram.cu``'s C entry (``gram_launch(a, part, g, m, k, n_share, stream)``;
+older trees' took ``a_bf16`` and ``split`` too).  Each reading: CUDA-event
 ms over 50 calls and the host's microseconds to issue one (no sync inside).
 Prints one JSON line a shape.  Needs one CUDA card and nvcc.
 """

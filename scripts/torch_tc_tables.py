@@ -2,23 +2,30 @@
 
     python scripts/torch_tc_tables.py [--parts gram,split,sketch,long_t,bench]
 
-Each table lives in its library (``atb_tc::gram_edge`` in
-``csrc/row_share_atb_tc.cuh`` for K4 and K1's G stage, which picks its
-own block edge; ``ops/matmul.py::matmul_block`` for K1's sketch, whose
-columns a CTA and streaming of W the launcher passes in).  This script
-builds variants of the sources, each with a table replaced by one fixed
-choice (the edited header inlined, the flags of ``ops/_build.py``, into
-``build/tc_tables/``), or fixes the sketch's block in ``matmul_block``'s
-place, and runs each through the package's own wrapper (the variant put
-in place of the library the wrapper loads), beside the library and the
-rule as they are (``table``).
+K4's and K1's G stage's table is ``ops/atb.py::gram_block`` (Python,
+handed to ``csrc/atb.cu``); ``ops/matmul.py::matmul_block`` is K1's
+sketch's, whose columns a CTA and streaming of W the launcher passes in.
+For those two parts (``gram``, ``bench``) a candidate block is handed to
+the launcher as it is (``atb.gram_cuda(a, block)``), no rebuild.  The
+other tables live in their libraries (``split_edge`` in ``gram.cu``):
+this script builds variants of the sources, each with a table replaced
+by one fixed choice (the edited header inlined, the flags of
+``ops/_build.py``, into ``build/tc_tables/``), or fixes the sketch's block
+in ``matmul_block``'s place, and runs each through the package's own
+wrapper (the variant put in place of the library the wrapper loads),
+beside the library and the rule as they are (``table``).
 
-K4's block edge: ``gram(a, "highest")`` (3xTF32 wgmma with ``upper``) on
-f32 panels of the ERA5 week's row count at the widths the main path gives
-it and K1's G stage: K 110 (the 110-column sketch), 128 and 256 (the fit
-step's and the Hankel pass's Yc) and 168 (the week's X), at block edge
-128 and 64, beside one ``a.T @ a`` (f32, TF32 off); G of each edge
-against the f64 sums.
+K4's blocks (``gram``): ``gram(a, "highest")``'s kernel on panels of the
+ERA5 week's row count at the widths the main path gives it and K1's G
+stage: f32 K 82 (14c's window), 110 (the 110-column sketch), 128 and 256
+(the fit step's and the Hankel pass's Yc) and 168 (the week's X); bf16 K
+128 and 384 (the fit step's and K2's d = 3 Yc); each candidate of
+``gram_candidates`` (this mainloop at one block, at 56 or 64 columns with
+the f64 sums in registers or, f32, in shared memory with two CTAs an SM,
+with and without a slot refilled beside the next slab's MMAs; the
+row-share mainloop's 128 x 128 blocks for f32) and the table's, beside one
+``a.T @ a`` (f32, TF32 off; bf16 with ``out_dtype=torch.float32``); G of
+each against the f64 sums and its symmetry.
 
 K5's block edge (``split``): ``gram(a, "bf16_split")`` (the wgmma kernel
 of ``csrc/gram_split_wgmma.cuh``, table ``split_edge`` in ``gram.cu``) at
@@ -58,11 +65,11 @@ The bench's shape (``bench``), where the TPU tile sweeps ran
 ``pass1_variants.py``: S = 2^19, T = 512, r = 128), in f32 and bf16: K1
 as the fit step launches it (centred, scalar statistics) with its sketch
 at 112 and 128 columns a CTA and, in f32, W held and streamed (the table
-streams it past T 176), Yc the same bit for bit; K1's G stage alone and
-K4 (``gram(yc, "highest")``) on its Yc at block edge 128 and 64 (f32; the
-bf16 kernels have 128 only), G against the f64 sums, beside one library
-product (``yc.T @ yc``); the sketch stage beside one ``torch.mm(x, w)``,
-and both stages' bounds (``chip_smoke.bound``'s formulas).
+streams it past T 176), Yc the same bit for bit; K1's G stage alone (the
+table's block) and K4 on its Yc at each of ``gram_candidates``' blocks, G
+against the f64 sums, beside one library product (``yc.T @ yc``); the
+sketch stage beside one ``torch.mm(x, w)``, and both stages' bounds
+(``chip_smoke.bound``'s formulas).
 
 Device ms by ``chip_smoke.device_ms`` (launches queued behind a sleep of
 the card).  Prints one JSON line a shape and the card's name and power
@@ -87,12 +94,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import PEAK_BF16, PEAK_TF32, bound, device_ms, gram_f64, rel_err  # noqa: E402
-from dmd_era5_tpu_torch.ops import _build, _occupancy, matmul, qr_panel  # noqa: E402
+from dmd_era5_tpu_torch.ops import _build, _occupancy, atb, matmul, qr_panel  # noqa: E402
 
 M = 721 * 1440 * 15  # the ERA5 week's rows
 OUT = ROOT / "build" / "tc_tables"
-GRAM_TABLE = ("inline int gram_edge(bool bf16, int k) "
-              "{ return !bf16 && k > 128 && k <= 192 ? 64 : wg::BT; }")
 RESTAGE = "    if (!STREAM && (j == 0 || (paneled && col0 == kp0))) {"
 SPLIT_TABLE = "int split_edge(int k) { return k <= 96 || (k > 128 && k <= 192) ? 64 : 128; }"
 YEAR = (181 * 360 * 15, 8760)  # the hourly 1-degree year's rows and hours
@@ -100,17 +105,8 @@ BENCH = (1 << 19, 512, 128)  # S, T, r of the TPU sweeps and of the fit-step ben
 SCG = ("sketch_center_gram_project", "sketch_center_gram_project.cu")
 # variant name: (library, source, header(s) inlined, [(table, fixed choice), ...])
 VARIANTS = {
-    f"gram_edge{e}": ("gram", "gram.cu", ("gram_split_wgmma.cuh", "matmul_tc.cuh",
-                                          "row_share_atb_tc.cuh"), [(GRAM_TABLE, (
-        f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
-    for e in (128, 64)
-} | {
     f"split_edge{e}": ("gram", "gram.cu", None, [(SPLIT_TABLE, (
         f"int split_edge(int k) {{ return {e}; }}"))])
-    for e in (128, 64)
-} | {
-    f"scg_gram_edge{e}": (*SCG, ("matmul_tc.cuh", "row_share_atb_tc.cuh"), [(GRAM_TABLE, (
-        f"inline int gram_edge(bool bf16, int k) {{ return bf16 ? wg::BT : {e}; }}"))])
     for e in (128, 64)
 } | {
     "restage_skipped": (*SCG, "matmul_tc.cuh", [(RESTAGE, "    if (!STREAM && j == 0) {")]),
@@ -155,21 +151,47 @@ def use(library: str, lib, block: str | None = None) -> None:
     _occupancy._RESIDENT.clear()
 
 
+def gram_candidates(k: int, dtype: torch.dtype) -> dict:
+    """K4's candidate blocks at width k (``ops/atb.py``): the table's, this
+    mainloop's one block (K <= 88) and its 56- and 64-wide blocks with the
+    f64 sums in registers (and for f32 in shared memory with two CTAs an
+    SM), each with and without the early refill, and for f32 the row-share
+    mainloop's 128 x 128 blocks."""
+    f32 = dtype == torch.float32
+    out = {"table": atb.gram_block(k, dtype)}
+    if k <= atb.N_MAX:
+        n = 8 * -(-k // 8)
+        out[f"one_block_{n}"] = atb.AtbBlock(n, 1, 1, 1, "registers" if n <= 64 else "shared",
+                                             early=True)
+    for n in (56, 64):
+        for sums in ("registers", "shared2") if f32 else ("registers",):
+            for early in (False, True):
+                out[f"{n}_{sums}{'_early' if early else ''}"] = atb.AtbBlock(
+                    n, -(-k // 128), -(-k // n), atb.upper_blocks(k, n), sums, early=early)
+    if f32:
+        out["row_share_128"] = atb.AtbBlock(128, -(-k // 128), -(-k // 128),
+                                            atb.upper_blocks(k, 128, 128), "shared", "row_share")
+    return out
+
+
 def gram_part(libs, tables, gen, dev) -> None:
-    for k in (110, 128, 168, 256):
-        a = torch.randn((M, k), generator=gen, device=dev)
+    for k, dtype in ((82, torch.float32), (110, torch.float32), (128, torch.float32),
+                     (168, torch.float32), (256, torch.float32), (128, torch.bfloat16),
+                     (384, torch.bfloat16)):
+        a = torch.randn((M, k), generator=gen, device=dev).to(dtype)
         exact = gram_f64(a)
-        row = {"m": M, "k": k}
-        for name, lib in (("edge128", libs["gram_edge128"]), ("edge64", libs["gram_edge64"]),
-                          ("table", tables["gram"])):
-            use("gram", lib)
-            g = qr_panel.gram(a, "highest")
+        row = {"m": M, "k": k, "dtype": str(dtype)[6:]}
+        for name, block in gram_candidates(k, dtype).items():
+            g = atb.gram_cuda(a, block)
             row[f"rel_vs_f64_{name}"] = rel_err(g, exact)[0]
             row[f"symmetric_{name}"] = bool(torch.equal(g, g.T))
-            row[f"device_ms_{name}"] = device_ms(lambda: qr_panel.gram(a, "highest"), reps=5)
-        row["library_device_ms"] = device_ms(lambda: a.T @ a, reps=5)
+            row[f"device_ms_{name}"] = device_ms(lambda block=block: atb.gram_cuda(a, block), reps=5)
+        mm = torch.mm if dtype == torch.float32 else functools.partial(torch.mm,
+                                                                       out_dtype=torch.float32)
+        row["library_device_ms"] = device_ms(lambda: mm(a.T, a), reps=5)
         print(json.dumps(row), flush=True)
         del a, exact
+        torch.cuda.empty_cache()
 
 
 def split_part(libs, tables, gen, dev) -> None:
@@ -305,20 +327,17 @@ def bench_part(libs, tables, gen, dev) -> None:
         yc = ycs["table"]
         del ycs
         exact = gram_f64(yc)
-        edges = [("edge128", 128), ("table", None)] + ([] if bf16 else [("edge64", 64)])
-        for name, e in edges:  # K1's G stage alone: mask 2 of one plan's buffers
-            use(scg, libs[f"scg_gram_edge{e}"] if e else tables[scg])
-            out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
-            run(7)
-            row[f"k1_G_rel_vs_f64_{name}"] = rel_err(out["g"], gram_f64(out["yc"]))[0]
-            row[f"k1_G_device_ms_{name}"] = device_ms(lambda run=run: run(2), reps=5)
-            del out, run
-            use("gram", libs[f"gram_edge{e}"] if e else tables["gram"])
-            g = qr_panel.gram(yc, "highest")
+        use(scg, tables[scg])  # K1's G stage alone (the table's block): mask 2 of one plan
+        out, run = matmul._scgp_plan(xt, w, dtype, True, False, True, None, True)
+        run(7)
+        row["k1_G_rel_vs_f64"] = rel_err(out["g"], gram_f64(out["yc"]))[0]
+        row["k1_G_device_ms"] = device_ms(lambda run=run: run(2), reps=5)
+        del out, run
+        for name, block in gram_candidates(n, dtype).items():  # K4 on its Yc at each block
+            g = atb.gram_cuda(yc, block)
             row[f"k4_rel_vs_f64_{name}"] = rel_err(g, exact)[0]
-            row[f"k4_device_ms_{name}"] = device_ms(lambda: qr_panel.gram(yc, "highest"), reps=5)
-        use("gram", tables["gram"])
-        use(scg, tables[scg])
+            row[f"k4_device_ms_{name}"] = device_ms(lambda block=block: atb.gram_cuda(yc, block),
+                                                    reps=5)
         yf = yc.float()
         row["library_device_ms"] = device_ms(lambda: yf.T @ yf, reps=5)
         # the G stage's and K4's bound (chip_smoke's K4 formula on Yc)

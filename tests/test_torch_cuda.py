@@ -1205,3 +1205,87 @@ def test_lstsq_implicit_jvp_and_vjp_on_card(cuda):
     g_d = func.vjp(direct, theta)[1](c)[0]
     torch.testing.assert_close(g_i, g_d, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(g_i, c @ j_d, rtol=1e-3, atol=1e-4)
+
+
+# K4 on the row-share A^T B mainloop (csrc/atb_wgmma.cuh): rows that are not
+# 16-byte aligned (one bulk copy a slab where one block spans A or where a
+# slab's whole rows fit a slot, as at K 166; element by element past it), a
+# block of B split from A's slab, and the one-launch route of a single row
+# share (no scratch, no reduction)
+ATB_GRAM_CASES = [
+    pytest.param(dtype, m, k, id=f"{dtype}-m{m}-k{k}")
+    for dtype in ["float32", "bfloat16"]
+    for m, k in [(20_000, 82), (20_000, 95), (20_000, 97), (20_000, 110), (20_000, 166),
+                 (34, 166), (6, 95), (5, 95), (1, 128), (128, 110), (129, 110)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,k", ATB_GRAM_CASES)
+def test_gram_on_unaligned_rows_and_small_m_on_card(cuda, dtype, m, k):
+    """K4 against the plain version and the f64 sums of A^T A: exactly
+    symmetric, the same bit for bit from run to run, within 1e-6 max|G| of
+    the f64 sums and within f32 roundoff of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(59)
+    a = (torch.randn((m, k), generator=gen, device=cuda) + 0.5).to(getattr(torch, dtype))
+    before = qr_panel.gram.launches["highest"]
+    g = qr_panel.gram(a)
+    again = qr_panel.gram(a)
+    torch.cuda.synchronize()
+    assert qr_panel.gram.launches["highest"] == before + 2
+    assert torch.equal(g, g.T) and torch.equal(g, again)
+    exact = a.double().T @ a.double()
+    _f64_close(g, exact, "G", 1e-6)
+    ref = qr_panel._gram_plain(a, "highest").double()
+    assert float((g.double() - ref).norm() / ref.norm()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(34, 166), (6, 95), (1, 128)])
+def test_gram_one_launch_route_equals_the_reduced_one_on_card(cuda, m, k):
+    """A single row share writes G straight from its f64 sums; the same
+    call through the f64 scratch and the reduction over two shares (the
+    second empty) gives G bit for bit."""
+    from dmd_era5_tpu_torch.ops import atb
+
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    one = atb.gram_cuda(a, n_share=1)
+    two = atb.gram_cuda(a, n_share=2)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two) and torch.equal(one, one.T)
+
+
+@pytest.mark.cuda
+def test_k2_gram_at_the_d3_width_on_card(cuda):
+    """K2's G stage at the d = 3 pass's width (N 384, bf16 X and Yc) against
+    the plain product of K2's own stored Yc (f32 sums of exact products)
+    within 1e-5, and the f64 sums of it within 1e-6; exactly symmetric."""
+    gen = torch.Generator(device=cuda).manual_seed(67)
+    x = torch.randn((20_000, 168), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((168, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    yc, _, _, g = matmul.sketch_center_gram(x, w, out_dtype=torch.bfloat16)
+    assert torch.equal(g, g.T)
+    ycf = yc.float()
+    plain = ycf.T @ ycf
+    assert float((g - plain).norm() / plain.norm()) <= 1e-5
+    ycd = yc.double()
+    _f64_close(g, ycd.T @ ycd, "G", 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,t", [("float32", 128, 168), ("float32", 76, 97),
+                                       ("bfloat16", 128, 168), ("float32", 128, 512)])
+def test_k1_c_stage_against_its_stored_yc_on_card(cuda, dtype, n, t):
+    """K1's C stage in a C-shaped block (the fit step's 128 x 168, config
+    2's Cᵀ at 76 x 97, the bench's 128 x 512) against the plain product of
+    K1's own stored Yc and X within 1e-5, and their f64 sums within 1e-6."""
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    tdt = getattr(torch, dtype)
+    x = torch.randn((20_000, t), generator=gen, device=cuda).to(tdt)
+    w = torch.randn((t, n), generator=gen, device=cuda).to(tdt)
+    yc, _, _, g, c = matmul.sketch_center_gram_project(x, w, out_dtype=tdt, center=False)
+    plain = yc.float().T @ x.float()
+    assert float((c - plain).norm() / plain.norm()) <= 1e-5
+    _f64_close(c, yc.double().T @ x.double(), "C", 1e-6)
+    assert torch.equal(g, g.T)

@@ -86,13 +86,20 @@ def test_sums_in_registers_only_within_their_budget():
 
 
 def test_blocks_cover_c_on_the_narrow_side():
-    """The narrow side on n (the f32 operand on the m side for a mixed
-    pair), cut into the fewest pieces of a width no more than needed."""
+    """The narrow side on n unless the other orientation has fewer MMA
+    entries (the f32 operand on the m side for a mixed pair), cut into the
+    fewest pieces of a width no more than needed."""
     for n, t, y_dtype, x_dtype, block in _new_blocks():
         if y_dtype != x_dtype:
             assert block.transposed == (y_dtype == BF16)
-        else:
-            assert block.transposed == (n < t)
+        elif block.transposed != (n < t):
+            other = block._replace(transposed=not block.transposed)
+            wide, narrow = (n, t) if block.transposed else (t, n)
+            pieces = -(-narrow // matmul._PROJECT_N_MAX)
+            o_n = 8 * -(-(-(-narrow // pieces)) // 8)
+            other = other._replace(n=o_n, m_blocks=-(-wide // 128), n_blocks=-(-narrow // o_n))
+            assert (block.m_blocks * block.n_blocks * block.n
+                    < other.m_blocks * other.n_blocks * other.n), (n, t, block)
         wide, narrow = (t, n) if block.transposed else (n, t)
         assert block.m_blocks == -(-wide // 128)
         assert block.n_blocks * block.n >= narrow > (block.n_blocks - 1) * block.n
