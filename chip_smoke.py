@@ -48,8 +48,8 @@ of which raises on failure so the script exits non-zero:
    their plain versions at the shapes and types of the pass below, with
    times; then the randomized Hankel SVD at d = 3, k = 100 in bf16: a
    384-wide sketch, past the fused kernel K1, so each of its five passes
-   takes the two-pass route (K2 ``sketch_center_gram`` then K3
-   ``project``), then optDMD and the forecast;
+   takes the two-pass route (K2 ``sketch_center_gram``, on its clusters,
+   then K3 ``project``), then optDMD and the forecast;
 12. (run next, on the week still on the card) the SVD stage's entry
    points, with ``DMD_ERA5_TPU_ROOT`` and ``DMD_ERA5_TPU_REMOTE`` in a
    temporary directory (``TMPDIR``), removed at the end; every file goes
@@ -338,8 +338,10 @@ factors and its witness too) and 18c's halo-dropped control are not counted.  Th
 it the card's name and power limit; before that one JSON line with every
 kernel, and before that one line a K1 comparison with the device ms of
 each of K1's three stages (sketch, G, C) and one line a K2 comparison
-with the device ms of each of its two (sketch, G: K2 runs K1's first two
-stages).  Without CUDA the script exits non-zero before printing any
+with the device ms of each of its two (sketch, G) and its route (the
+cluster kernels of ``sketch_center_gram.cu`` or K1's first two stages, by
+``ops/k2.py``'s table); the kernel line has one K2 entry a route, each
+with its main-path launches.  Without CUDA the script exits non-zero before printing any
 result.
 """
 
@@ -369,7 +371,9 @@ CSRC = "dmd_era5_tpu_torch/ops/csrc"
 KERNELS = {
     "K1": ("sketch_center_gram_project", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:183"),
-    # the TPU's whole-T (K2a) and T-tiled (K2b) variants: K1's sketch and G stages
+    # the TPU's whole-T (K2a) and T-tiled (K2b) variants; this entry is K2's
+    # route on K1's sketch and G stages (the year's f32), K2_CLUSTERS its
+    # route on thread-block clusters (ops/k2.py's table: bf16 at N 257-512)
     "K2": ("sketch_center_gram", f"{CSRC}/sketch_center_gram_project.cu",
            "dmd_era5_tpu/ops/matmul.py:142, dmd_era5_tpu/ops/matmul.py:442"),
     "K3": ("project", f"{CSRC}/project.cu", "dmd_era5_tpu/ops/matmul.py:593"),
@@ -378,6 +382,12 @@ KERNELS = {
     "K6": ("matmul", f"{CSRC}/matmul.cu", "dmd_era5_tpu/ops/matmul.py:79"),
     "K7": ("householder_panel", f"{CSRC}/householder.cu", "dmd_era5_tpu/ops/qr_panel.py:212"),
 }
+K2_CLUSTERS = ("sketch_center_gram", f"{CSRC}/sketch_center_gram.cu", KERNELS["K2"][2])
+# K2's main-path launches by route (``ops.launches.route_counts``), summed
+# over the phases that run it (10 on K1's stages, 11 on the clusters)
+K2_ROUTES = {"clusters": 0, "stages": 0}
+# phase 11a's K2 reading at the d = 3 pass: the clusters' line
+K2_D3: dict = {}
 # H100 SXM published peaks (NVIDIA data sheet, dense): f32 on CUDA cores,
 # bf16 and TF32 on tensor cores, HBM3
 PEAK_F32, PEAK_BF16, HBM_BYTES_S = 67e12, 989e12, 3.35e12
@@ -509,11 +519,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from dmd_era5_tpu_torch.ops import _build, atb, matmul, qr_panel
+    from dmd_era5_tpu_torch.ops import _build, atb, k2, matmul, qr_panel
 
-    names = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
+    names = sorted({Path(src).stem for _, src, _ in (*KERNELS.values(), K2_CLUSTERS)})
     loaders = (matmul._kernel_library, matmul._project_library, matmul._matmul_library,
-               qr_panel._kernel_library, qr_panel._householder_library, atb._library)
+               qr_panel._kernel_library, qr_panel._householder_library, atb._library,
+               k2._library)
     t0 = time.perf_counter()
     # each loader runs its own nvcc at first use; threads start them together
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
@@ -522,7 +533,9 @@ def phase_build() -> None:
     log(f"[1] built {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
         "(nvcc, sm_90a, one process per source)")
     for name in names:
-        for path in sorted(_build.BUILD_DIR.glob(f"{name}_*.log")):
+        # the log of this source's build (named by its hash), not another's
+        # whose name extends it (sketch_center_gram_project)
+        for path in sorted(_build.BUILD_DIR.glob(f"{name}_[0-9a-f]*.log")):
             for line in path.read_text().splitlines():
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     log(f"    ptxas {name}: {line.strip()}")
@@ -538,6 +551,18 @@ def launch_counts() -> dict:
 def counts(**nonzero: int) -> dict:
     """Expected launch counts: the given ones, 0 for every other kernel."""
     return {key: nonzero.get(key, 0) for key in KERNELS}
+
+
+def record_k2_routes() -> dict:
+    """Add K2's launches by route since the counters were last reset (a
+    main-path run's) into ``K2_ROUTES``, and return them
+    (``ops.launches.route_counts``)."""
+    from dmd_era5_tpu_torch.ops.launches import route_counts
+
+    routes = route_counts()
+    for key, n in routes.items():
+        K2_ROUTES[key.split("/")[1]] += n
+    return routes
 
 
 def reset_counts() -> None:
@@ -777,13 +802,17 @@ def k1_stage_ms(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, flags: dic
     """Device ms of each of K1's stages alone (``chip_smoke.device_ms``),
     each launched through the wrapper's plan on one set of buffers after
     one whole call has filled them; not counted as launches.  K2's two
-    (sketch and G) with ``stages=3``."""
-    from dmd_era5_tpu_torch.ops.matmul import _scgp_plan
+    (sketch and G, on the route of ``ops/k2.py``'s table) with
+    ``stages=3``."""
+    from dmd_era5_tpu_torch.ops.matmul import _k2_plan, _scgp_plan
 
     args = {key: flags.get(key, default) for key, default in (
         ("center", True), ("stats_col", False), ("scalar_stats", False), ("t_valid", None),
         ("emit_yc", True))}
-    out, run = _scgp_plan(x, w, dtype, **args, stages=stages)
+    if stages == 3:
+        out, run, _ = _k2_plan(x, w, dtype, args["center"], args["t_valid"])
+    else:
+        out, run = _scgp_plan(x, w, dtype, **args, stages=stages)
     run(stages)
     times = {name: device_ms(lambda mask=mask: run(mask), reps)
              for name, mask in (("sketch", 1), ("G", 2), ("C", 4)) if stages & mask}
@@ -3471,8 +3500,10 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
     centred as the plain version centres, and Yc^T Yc of the kernel's Yc,
     with TF32 allowed, the flag restored), must miss both 1e-5 limits.
     No single library call computes this function.  The device ms of its
-    two stages alone (sketch, G) go into ``K2_STAGES``.  Returns the
-    readings and the kernel's Yc."""
+    two stages alone (sketch, G) go into ``K2_STAGES``, with the route
+    ``ops/k2.py``'s table gives (the clusters or K1's stages); the limits
+    are the same on either.  Returns the readings and the kernel's Yc."""
+    from dmd_era5_tpu_torch.ops.k2 import k2_block
     from dmd_era5_tpu_torch.ops.matmul import _sketch_center_gram_plain, sketch_center_gram
 
     def kernel():
@@ -3486,7 +3517,9 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
     check(torch.equal(got[3], got[3].T), f"{label} K2: G not exactly symmetric")
     res = dict(label=label, m=x.shape[0], t=x.shape[1], n=w.shape[1], center=center,
                dtype=str(x.dtype).replace("torch.", ""),
-               out_dtype=str(out_dtype).replace("torch.", ""))
+               out_dtype=str(out_dtype).replace("torch.", ""),
+               route=k2_block(x.shape[0], x.shape[1], w.shape[1], x.dtype, out_dtype,
+                              base_aligned=x.data_ptr() % 16 == 0).route)
     res["yc_rel"], res["max_abs_err"] = rel_err(got[0], ref[0])
     res["rowsum_rel"] = rel_err(got[1], ref[1], row_abs_sums(x))[0]
     res["rowsumsq_rel"] = rel_err(got[2], ref[2])[0]
@@ -3535,8 +3568,8 @@ def compare_sketch_center_gram(label: str, x: torch.Tensor, w: torch.Tensor, cen
                                              PEAK_BF16 if bf16 else PEAK_TF32, nbytes)
     res["stage_device_ms"] = k1_stage_ms(x, w, out_dtype, dict(center=center), stages=3)
     K2_STAGES.append(dict(label=label, m=m, t=t, n=n, dtype=res["dtype"],
-                          out_dtype=res["out_dtype"], **res["stage_device_ms"]))
-    log(f"    K2 {label}: ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, bound "
+                          out_dtype=res["out_dtype"], route=res["route"], **res["stage_device_ms"]))
+    log(f"    K2 {label} ({res['route']}): ms {res['ms']:.3f} (plain {res['plain_ms']:.3f}, bound "
         f"{res['bound_ms']:.3f} by {res['bound_by']}), device ms alone {res['stage_device_ms']}")
     return res, yc
 
@@ -3726,7 +3759,10 @@ def phase_wide_sketch(week: dict, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     omega = torch.randn((t - d + 1, 128), generator=gen, device=x.device)
     w = stacked_sketch_matrix(omega, d, t).to(torch.bfloat16)
-    _, yc = compare_sketch_center_gram("d3_pass", xb, w, center=False, out_dtype=torch.bfloat16)
+    k2_res, yc = compare_sketch_center_gram("d3_pass", xb, w, center=False,
+                                            out_dtype=torch.bfloat16)
+    check(k2_res["route"] == "clusters", f"d = 3 pass: K2 took {k2_res['route']}, not the clusters")
+    K2_D3.update(k2_res)
     compare_project("d3_pass", xb, yc)
     del xb, w, yc
     log(f"    peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -3739,11 +3775,14 @@ def phase_wide_sketch(week: dict, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     svd, times["hankel_svd_d3"] = synced(hankel_randomized_svd_fused, x, d, k, generator=gen)
     launches = launch_counts()
+    routes = record_k2_routes()
     u, s, v = svd
     orth = orthonormality(u)
     log(f"[11] d = 3 randomized Hankel SVD (bf16, N = 384): U {tuple(u.shape)}, max|U^T U - I| "
         f"{orth:.2e}, s[:8] {[round(float(a), 2) for a in s[:8]]}, launches {launches}")
     check(launches == counts(K2=5, K3=5), f"d = 3 Hankel SVD launched {launches}, expected K2 5, K3 5")
+    check(routes == {"K2/clusters": 5, "K2/stages": 0},
+          f"d = 3 Hankel SVD: K2 by route {routes}, expected all 5 on the clusters")
     # bf16 Yc: the whitening describes the stored values (tests/test_07:212's bound)
     check(orth <= 1e-2, f"d = 3 Hankel SVD: U^T U - I max {orth:.3e} > 1e-2")
     check(bool((s > 0).all()) and bool((s[1:] <= s[:-1]).all()), "d = 3: s not positive descending")
@@ -4771,6 +4810,7 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     reset_counts()
     (u, s, v), times["svd_on_era5"] = synced(svd_on_era5, None, parsed, da_flat=field)
     launches = launch_counts()
+    record_k2_routes()
     u, s, v = (torch.from_numpy(a).cuda() for a in (u, s, v))
     orth = orthonormality(u)
     log(f"    metrics {json.dumps(parsed['metrics'])}; U {tuple(u.shape)}, max|U^T U - I| "
@@ -4793,6 +4833,7 @@ def phase_year(seed: int) -> tuple[dict, dict]:
     with stage_clock(hankel, "raw_gram") as gram_clock, stage_clock(torch.linalg, "eigh") as eigh_clock:
         (u, s, v), times["svd_on_era5_standard"] = synced(svd_on_era5, None, parsed, da_flat=field)
     launches = launch_counts()
+    record_k2_routes()
     times["raw_gram_k5"], times["eigh"] = gram_clock["raw_gram"], eigh_clock["eigh"]
     s = torch.from_numpy(s)
     # the exact route's V_k comes from an f32 eigh of a bf16-split Gram,
@@ -4819,6 +4860,7 @@ def phase_year(seed: int) -> tuple[dict, dict]:
         reset_counts()
         states[name], times[f"fit_step_{name}"] = synced(step, x, omega, 100)
         launches = launch_counts()
+        record_k2_routes()
         log(f"    {name}: {times[f'fit_step_{name}']:.3f} s, loss {float(states[name].loss):.6e}, "
             f"launches {launches}, device memory over its start "
             f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
@@ -6277,8 +6319,10 @@ def phase_tools(seed: int) -> dict:
     return launched
 
 
-def kernel_line(key: str, launches: int, res: dict) -> dict:
-    name, source, replaces = KERNELS[key]
+def kernel_line(key: str, launches: int, res: dict, kernel: tuple | None = None,
+                route_name: str | None = None) -> dict:
+    name, source, replaces = kernel or KERNELS[key]
+    name = f"{name} ({route_name})" if route_name else name
     max_abs = res["max_abs_err"]
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max_abs["yc"] if key == "K1" else max_abs,  # K1: y_wide of the SVD
@@ -6350,11 +6394,15 @@ def main() -> None:
         log(f"K1 stages, {row['label']} {row['dtype']} m {row['m']} t {row['t']} n {row['n']}: "
             f"device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}, C {row['C']:.3f}")
     for row in K2_STAGES:
-        log(f"K2 stages, {row['label']} {row['dtype']} (Yc {row['out_dtype']}) m {row['m']} "
-            f"t {row['t']} n {row['n']}: device ms sketch {row['sketch']:.3f}, G {row['G']:.3f}")
+        log(f"K2 stages ({row['route']}), {row['label']} {row['dtype']} (Yc {row['out_dtype']}) "
+            f"m {row['m']} t {row['t']} n {row['n']}: device ms sketch {row['sketch']:.3f}, "
+            f"G {row['G']:.3f}")
+    check(sum(K2_ROUTES.values()) == launches["K2"] and all(K2_ROUTES.values()),
+          f"K2's main-path launches by route {K2_ROUTES} against {launches['K2']}")
     print(json.dumps({"kernels": [
         kernel_line("K1", launches["K1"], hankel_cmp),
-        kernel_line("K2", launches["K2"], two_pass_cmp["K2"]),
+        kernel_line("K2", K2_ROUTES["clusters"], K2_D3, K2_CLUSTERS, "clusters"),
+        kernel_line("K2", K2_ROUTES["stages"], two_pass_cmp["K2"], route_name="K1's stages"),
         kernel_line("K3", launches["K3"], two_pass_cmp["K3"]),
         kernel_line("K4", launches["K4"], gram_cmp[("X", "highest")]),
         kernel_line("K5", launches["K5"], gram_cmp[("X", "bf16_split")]),

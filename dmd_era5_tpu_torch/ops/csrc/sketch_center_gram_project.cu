@@ -102,15 +102,13 @@
 // share holds all the rows).
 //
 // K2 is stages 1 and 2 (the wrapper's mask 3) with stats_col 0: the (M, 2)
-// statistics from the f32 values of X, the square taken in f32, and no C.
-// So K2's sketch builds into this library and no second one of the same
-// templates.
-// Its shapes on the main path: bf16 X (15,573,600 x 168) with N 384 and a
-// bf16 Yc (the d = 3 Hankel pass: three 128-wide CTA columns; G in the
-// 128 x 64 upper blocks of atb.cu's table), and f32 X of the hourly year (977,400 x 8,760) at N 256
-// and 128, where W streams.  What bounds it there: at the d = 3 pass the
-// bytes (X read once, Yc written: 5.17 ms; 4.4 ms of bf16 operations), at
-// the year the operations, 3 M N (2T + N + 1) in TF32 (27.0 and 13.4 ms).
+// statistics from the f32 values of X, the square taken in f32, and no C,
+// wherever ops/k2.py's table does not send it to sketch_center_gram.cu's
+// clusters (bf16 X, W and Yc at N 257-512: the d = 3 Hankel pass).  So
+// K2's sketch builds into this library and no second one of the same
+// templates.  Its shapes on the main path here: f32 X of the hourly year
+// (977,400 x 8,760) at N 256 and 128, where W streams, bound by the
+// operations, 3 M N (2T + N + 1) in TF32 (27.0 and 13.4 ms).
 //
 // Ranges: any M, T and N (the wrapper routes N > 256 to K2 and K3, as the
 // JAX package's entry does past its fused range; K2 takes N up to 2048);

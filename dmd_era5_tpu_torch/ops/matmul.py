@@ -19,8 +19,9 @@ f32, the per-block sketch of the out-of-core SVD.
 On a CUDA tensor each wrapper launches its hand-written Hopper kernels
 (K1: ``csrc/sketch_center_gram_project.cu``'s sketch stage, then its G
 stage on ``csrc/atb.cu`` through ``ops/atb.py`` and its C stage on K3's
-``csrc/project.cu``; K2 as K1's sketch and G stages; ``csrc/project.cu``
-K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
+``csrc/project.cu``; K2 on the cluster kernels of
+``csrc/sketch_center_gram.cu`` or K1's sketch and G stages, by
+``ops/k2.py``'s table; ``csrc/project.cu`` K3, ``csrc/matmul.cu`` K6); on a CPU tensor it
 takes the plain PyTorch version beside it, which does the same
 arithmetic with ``torch.matmul``.  There is no fallback between the two:
 which pass runs is decided by the shapes alone, the same on both.
@@ -34,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from dmd_era5_tpu_torch.ops import atb
+from dmd_era5_tpu_torch.ops import atb, k2
 from dmd_era5_tpu_torch.ops._occupancy import resident_ctas, wave_row_shares
 
 __all__ = [
@@ -403,10 +404,28 @@ def _sketch_center_gram_plain(
     return yc, rs, ss, g
 
 
+def _k2_plan(x, w, out_dtype, center, t_valid):
+    """K2's outputs on its route (``ops/k2.py::k2_block``'s table: the
+    cluster kernels or K1's sketch and G stages), allocated, ``run(mask)``
+    (1 the sketch, 2 G), which launches them into the outputs, and the
+    route's block."""
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (row-major M x T)")
+    (m, t_cols), n = x.shape, w.shape[1]
+    block = k2.k2_block(m, t_cols, n, x.dtype, out_dtype, base_aligned=x.data_ptr() % 16 == 0)
+    if block.route == "stages":
+        out, run = _scgp_plan(x, w, out_dtype, center, False, False, t_valid, True, _K2_STAGES)
+        return out, run, block
+    w, colw, inv_t = _prepare(w, t_cols, center, False, t_valid)
+    out, run = k2.plan(x, w, colw, inv_t, block)
+    return out, run, block
+
+
 def _sketch_center_gram_cuda(x, w, out_dtype, center, t_valid):
-    out, run = _scgp_plan(x, w, out_dtype, center, False, False, t_valid, True, _K2_STAGES)
+    out, run, block = _k2_plan(x, w, out_dtype, center, t_valid)
     run(_K2_STAGES)
     sketch_center_gram.launches += 1
+    sketch_center_gram.launches_by_route[block.route] += 1
     return out["yc"], out["stats"][:, 0], out["stats"][:, 1], out["g"]
 
 
@@ -429,9 +448,12 @@ def sketch_center_gram(
     ``SKETCH_N_MAX``.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    K1's sketch and G stages (``csrc/sketch_center_gram_project.cu``:
-    with the statistics from X, no C) and counts them in
-    ``sketch_center_gram.launches``, apart from K1's count.
+    the route of ``ops/k2.py::k2_block``'s table: bf16 X, W and Yc at N
+    257-512 on the cluster kernels of ``csrc/sketch_center_gram.cu``, the
+    rest on K1's sketch and G stages (``csrc/sketch_center_gram_project.cu``
+    with the statistics from X, and ``csrc/atb.cu``).  It counts one launch
+    a call in ``sketch_center_gram.launches``, apart from K1's count, and
+    in ``sketch_center_gram.launches_by_route`` under the route's name.
     """
     _check_sketch(x, w, out_dtype, t_valid)
     if x.device.type == "cpu":
@@ -442,6 +464,10 @@ def sketch_center_gram(
 
 
 sketch_center_gram.launches = 0
+# the same launches split by route, for the smoke's kernels line: ``launches``
+# stays the one count a call that every wrapper keeps and ``launch_counts``
+# and the tests read, so both are added to in one place
+sketch_center_gram.launches_by_route = {"clusters": 0, "stages": 0}
 
 
 def _check_project(x, y):

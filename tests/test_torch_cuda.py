@@ -4,8 +4,10 @@ Every flag combination of ``sketch_center_gram_project`` (K1) in float32
 and bfloat16, at a ragged row count, at the week's T and past W's resident
 depth, on both sides of the sketch stage's 112-wide CTA columns, and
 against one TF32 pass; the
-two-pass fallback, ``sketch_center_gram`` (K2: K1's sketch and G stages)
-and ``project`` (K3), over operand and output dtypes at ragged M, T and N
+two-pass fallback, ``sketch_center_gram`` (K2: on thread-block clusters,
+bf16 at N 257-512, or K1's sketch and G stages) on both routes and at the
+edges of its table, its Gram at every cluster size, and ``project`` (K3),
+over operand and output dtypes at ragged M, T and N
 up to 2048 (at the edges of K3's block rule in both orientations, of W's
 resident depth in K2's sketch, on rows not 16-byte aligned and on views
 whose base is not), K3 twice bit for bit, K2 and K3 against one TF32
@@ -1271,6 +1273,108 @@ def test_k2_gram_at_the_d3_width_on_card(cuda):
     assert float((g - plain).norm() / plain.norm()) <= 1e-5
     ycd = yc.double()
     _f64_close(g, ycd.T @ ycd, "G", 1e-6)
+
+
+def _within_one_bf16_ulp(a, b) -> bool:
+    """Every entry of a within one bf16 ulp of b's, 2^(exponent of b - 8)
+    taken exactly (frexp), plus f32 roundoff slack of max|b| where
+    centring cancels (``chip_smoke.within_bf16_ulp``'s rule)."""
+    bd = b.double()
+    ulp = torch.exp2(torch.frexp(bd.abs().clamp_min(1e-30)).exponent.double() - 8)
+    return bool(((a.double() - bd).abs() <= ulp + 2.0**-20 * float(bd.abs().max())).all())
+
+
+# K2 on its routes (ops/k2.py's table): the clusters (bf16 X, W and Yc at N
+# 257-512, N and T multiples of 8, W held to T 1,280) and K1's stages beside
+# them.  dtype, M, T, N, centre, t_valid: one row and 100 rows (under one
+# tile: most sketch clusters idle), M no multiple of 128, the route's widest
+# and narrowest N, N 392 (a last box of 8 columns, Gram clusters of 8), W's
+# deepest held T and the next, N 257 (no multiple of 8) and 520 (past the
+# clusters) on K1's stages, and f32 at the d = 3 width (K1's stages)
+K2_ROUTE_CASES = [
+    pytest.param(dtype, m, t, n, center, t_valid,
+                 id=f"{dtype}-m{m}-t{t}-n{n}-c{center:d}-tv{t_valid or 0}")
+    for dtype, m, t, n, center, t_valid in [
+        ("bfloat16", 1, 168, 384, True, None), ("bfloat16", 100, 168, 384, False, None),
+        ("bfloat16", 1000, 168, 384, True, 160), ("bfloat16", 1000, 168, 384, False, None),
+        ("bfloat16", 4099, 40, 512, True, None), ("bfloat16", 777, 48, 264, False, 41),
+        ("bfloat16", 20_000, 168, 392, False, None), ("bfloat16", 3000, 1280, 384, True, None),
+        ("bfloat16", 3000, 1288, 384, True, None), ("bfloat16", 300, 168, 257, True, None),
+        ("bfloat16", 300, 168, 504, True, None), ("bfloat16", 300, 168, 520, False, None),
+        ("float32", 1000, 168, 384, True, 160), ("float32", 1000, 168, 384, False, None),
+    ]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,t,n,center,t_valid", K2_ROUTE_CASES)
+def test_k2_route_matches_plain_on_card(cuda, dtype, m, t, n, center, t_valid):
+    """K2 on the route its table gives, counted there: G exactly symmetric
+    and within 1e-5 max|G| of the f64 sums of its own stored Yc; a bf16 Yc
+    within one ulp of the plain version's (f32: 1e-5); the row statistics
+    within 1e-5; and on the clusters the statistics equal, bit for bit, to
+    K1's sketch stage's (the same sums of the same chunks) and Yc within
+    one ulp of its Yc (the MMA chains restart every 32 columns of T there,
+    every 16 in K1's bf16 sketch)."""
+    from dmd_era5_tpu_torch.ops import k2
+
+    gen = torch.Generator(device=cuda).manual_seed(83)
+    tdt = getattr(torch, dtype)
+    x = (torch.randn((m, t), generator=gen, device=cuda) + 1.0).to(tdt)
+    w = torch.randn((t, n), generator=gen, device=cuda).to(tdt)
+    route = k2.k2_block(m, t, n, tdt, tdt).route
+    assert route == ("clusters" if dtype == "bfloat16" and n % 8 == 0 and 257 <= n <= 512
+                     and t <= 1280 else "stages")
+    before = dict(matmul.sketch_center_gram.launches_by_route)
+    got = matmul.sketch_center_gram(x, w, out_dtype=tdt, center=center, t_valid=t_valid)
+    ref = matmul._sketch_center_gram_plain(x, w, tdt, center, t_valid)
+    torch.cuda.synchronize()
+    after = dict(matmul.sketch_center_gram.launches_by_route)
+    assert after == {r: before[r] + (r == route) for r in before}
+    yc, rs, ss, g = got
+    assert yc.dtype == tdt and yc.shape == (m, n) and g.shape == (n, n)
+    assert torch.equal(g, g.T)
+    ycd = yc.double()
+    _f64_close(g, ycd.T @ ycd, "G")
+    if dtype == "bfloat16":
+        assert _within_one_bf16_ulp(yc, ref[0])
+    else:
+        assert float((yc.double() - ref[0].double()).norm() / ref[0].double().norm()) <= 1e-5
+    for name, a, b in (("rowsum", rs, ref[1]), ("rowsumsq", ss, ref[2])):
+        rel = float((a.double() - b.double()).norm() / b.double().norm())
+        assert rel <= 1e-5, (name, rel)
+    if route == "clusters":
+        out, run = matmul._scgp_plan(x, w, tdt, center, False, False, t_valid, True, stages=3)
+        run(1)
+        torch.cuda.synchronize()
+        assert _within_one_bf16_ulp(yc, out["yc"])
+        assert torch.equal(rs, out["stats"][:, 0]) and torch.equal(ss, out["stats"][:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gram_cluster", [2, 3, 4, 5, 7, 8])
+def test_k2_gram_clusters_agree_on_card(cuda, gram_cluster):
+    """The clusters' G at each Gram cluster the kernel takes (5, 7 and 8 at
+    N 384 leave CTAs of the last cluster idle, with no block) against the
+    f64 sums of the stored Yc within 1e-5 max|G|, exactly symmetric, and Yc
+    the table's route's bit for bit."""
+    from dmd_era5_tpu_torch.ops import k2
+
+    gen = torch.Generator(device=cuda).manual_seed(89)
+    m, t, n = 20_000, 168, 384
+    x = torch.randn((m, t), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((t, n), generator=gen, device=cuda).to(torch.bfloat16)
+    yc, _, _, _ = matmul.sketch_center_gram(x, w, out_dtype=torch.bfloat16)
+    block = k2.k2_block(m, t, n, torch.bfloat16, torch.bfloat16)
+    block = block._replace(gram_cluster=gram_cluster, gram_plan=k2.gram_plan(n, gram_cluster))
+    assert block.route == "clusters" and block.gram_cluster == gram_cluster
+    out, run = k2.plan(x, w, w.float().sum(dim=0), 1.0 / t, block)
+    run(3)
+    torch.cuda.synchronize()
+    assert torch.equal(out["yc"], yc)
+    assert torch.equal(out["g"], out["g"].T)
+    ycd = yc.double()
+    _f64_close(out["g"], ycd.T @ ycd, "G")
 
 
 @pytest.mark.cuda
